@@ -1,0 +1,73 @@
+"""Eval throughput of the port on one CUDA card.
+
+    python -m lwdetr_tpu_torch.bench --preset small --batch 32
+
+Prints one JSON line: the metric of the JAX package's `bench.py`
+(`lwdetr_{preset}_640_bf16_infer_throughput_exact`, img/s/chip): batched
+640x640 inference, forward + NMS-free exact top-k `post_process`, bf16
+compute, images already on the device. The weights are drawn from a seed
+(`weights.init_state_dict`): no step of the forward branches on them. The
+line carries the card's name and power limit. Timing is `utils.timing`
+(CUDA events) over 5 windows of 10 steps: the value is batch x 50 steps /
+the summed time of the windows, so a stall in any step counts; the slowest
+and fastest window stand beside it as the spread.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from lwdetr_tpu_torch.config import get_config
+from lwdetr_tpu_torch.models.lwdetr import build_model, post_process, resolve_device
+from lwdetr_tpu_torch.utils.device import card_line
+from lwdetr_tpu_torch.utils.timing import measure_ms
+from lwdetr_tpu_torch.weights import init_state_dict
+
+
+def make_step(preset: str, batch: int, dtype: torch.dtype, seed: int = 0):
+    """The timed step: forward + `post_process` of `batch` 640x640 images
+    already on the card, with weights drawn from `seed`."""
+    device = resolve_device(None)
+    cfg = get_config(preset)
+    model = build_model(cfg, device, dtype, state_dict=init_state_dict(cfg, seed))
+    g = torch.Generator(device=device).manual_seed(seed)
+    images = torch.randn((batch, 640, 640, 3), generator=g, device=device).to(dtype)
+    sizes = torch.full((batch, 2), 640.0, device=device)
+
+    def step():
+        out = model(images)
+        return post_process(out["pred_logits"], out["pred_boxes"], sizes, cfg.num_select)
+
+    return step
+
+
+def run(preset: str = "small", batch: int = 32) -> dict:
+    step = make_step(preset, batch, torch.bfloat16)
+    with torch.no_grad():
+        t = measure_ms(step, iters=10, warmup=3, repeats=5)
+    per_s = lambda ms: batch / (ms / 1000.0)  # noqa: E731
+    return {
+        "metric": f"lwdetr_{preset}_640_bf16_infer_throughput_exact",
+        "value": per_s(t["ms_mean"]),
+        "unit": "img/s/chip",
+        "value_spread": [per_s(t["ms_max"]), per_s(t["ms_min"])],
+        "ms_per_batch": t["ms_mean"],
+        "timed_steps": 10 * 5,
+        "batch": batch,
+        "device": torch.cuda.get_device_name(),
+        "card": card_line(),
+    }
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", default="small", choices=("tiny", "small", "medium"))
+    ap.add_argument("--batch", type=int, default=32)
+    args = ap.parse_args()
+    print(json.dumps(run(args.preset, args.batch)))
+
+
+if __name__ == "__main__":
+    main()

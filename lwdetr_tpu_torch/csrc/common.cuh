@@ -1,0 +1,29 @@
+// Shared helpers for the port's kernels: dtype conversion through the
+// intrinsics, and the error-string export every library carries.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>  // INFINITY
+
+namespace lw {
+
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+}  // namespace lw
+
+extern "C" const char* lw_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

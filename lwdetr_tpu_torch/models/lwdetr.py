@@ -1,0 +1,124 @@
+"""LW-DETR top-level model: backbone -> projector -> decoder -> heads.
+
+Counterpart of `lwdetr_tpu/models/lwdetr.py`, eval only: inference uses the
+first query group, images are square and unpadded (the release
+`square_resize_div_64` recipe), so no padding masks are built. The decoder
+never reads per-level position embeddings, so none are computed.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from lwdetr_tpu_torch.config import ModelConfig
+from lwdetr_tpu_torch.models.projector import LEVEL2SCALE, MultiScaleProjector
+from lwdetr_tpu_torch.models.transformer import MLPHead, Transformer, box_reparam_combine
+from lwdetr_tpu_torch.models.vit import ViT
+from lwdetr_tpu_torch.ops import box_ops
+
+
+class Backbone(nn.Module):
+    """ViT encoder + projector (the reference's `backbone.0`)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if "vit" not in cfg.encoder:
+            raise NotImplementedError(f"encoder {cfg.encoder}: only the ViT encoders are ported")
+        self.encoder = ViT(cfg.embed_dim, cfg.vit_encoder_num_layers, cfg.num_heads,
+                           window_block_indexes=cfg.window_block_indexes,
+                           out_feature_indexes=cfg.out_feature_indexes)
+        self.projector = MultiScaleProjector(
+            [cfg.embed_dim] * len(cfg.out_feature_indexes), cfg.hidden_dim,
+            [LEVEL2SCALE[lvl] for lvl in cfg.projector_scale])
+
+    def forward(self, images: torch.Tensor):
+        return self.projector(self.encoder(images))
+
+
+class LWDETR(nn.Module):
+    """Group-DETR detector, eval forward."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        # what every release preset uses; the JAX package's other variants are not ported
+        off = [name for name in ("two_stage", "bbox_reparam", "lite_refpoint_refine")
+               if not getattr(cfg, name)]
+        if cfg.position_embedding != "sine":
+            off.append(f"position_embedding={cfg.position_embedding!r}")
+        if off:
+            raise NotImplementedError(f"not ported: {off} (the port runs two-stage, "
+                                      "bbox_reparam, lite-refine configs with the sine embedding)")
+        self.cfg = cfg
+        self.backbone = nn.ModuleList([Backbone(cfg)])
+        self.transformer = Transformer(
+            d_model=cfg.hidden_dim, sa_nheads=cfg.sa_nheads, ca_nheads=cfg.ca_nheads,
+            num_queries=cfg.num_queries, dec_layers=cfg.dec_layers,
+            dim_feedforward=cfg.dim_feedforward, group_detr=cfg.group_detr,
+            num_feature_levels=cfg.num_feature_levels, dec_n_points=cfg.dec_n_points,
+            decoder_norm=cfg.decoder_norm, num_classes=cfg.num_classes)
+        self.class_embed = nn.Linear(cfg.hidden_dim, cfg.num_classes)
+        self.bbox_embed = MLPHead(cfg.hidden_dim, cfg.hidden_dim, 4, 3)
+        nq = cfg.num_queries * cfg.group_detr
+        self.refpoint_embed = nn.Embedding(nq, 4)
+        self.query_feat = nn.Embedding(nq, cfg.hidden_dim)
+
+    def forward(self, images: torch.Tensor) -> dict:
+        """images (B, H, W, 3) normalized -> dict(pred_logits (B, Q, K),
+        pred_boxes (B, Q, 4) cxcywh in [0, 1], aux_outputs, enc_outputs)."""
+        cfg = self.cfg
+        feats = self.backbone[0](images)
+        hs, ref, hs_enc, ref_enc = self.transformer(
+            feats, self.refpoint_embed.weight, self.query_feat.weight)
+        outputs_coord = box_reparam_combine(ref, self.bbox_embed(hs).float())
+        outputs_class = self.class_embed(hs)
+        out = {"pred_logits": outputs_class[-1], "pred_boxes": outputs_coord[-1]}
+        if cfg.aux_loss:
+            out["aux_outputs"] = [
+                {"pred_logits": outputs_class[i], "pred_boxes": outputs_coord[i]}
+                for i in range(cfg.dec_layers - 1)]
+        out["enc_outputs"] = {"pred_logits": self.transformer.enc_out_class_embed[0](hs_enc),
+                              "pred_boxes": ref_enc}
+        return out
+
+
+def post_process(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
+                 target_sizes: torch.Tensor, num_select: int = 300):
+    """NMS-free top-k decode.
+
+    pred_logits (B, Q, K); pred_boxes (B, Q, 4) cxcywh normalized;
+    target_sizes (B, 2) as (h, w). Returns (scores (B, S), labels (B, S),
+    boxes (B, S, 4) xyxy absolute). Selection runs on raw logits: the sigmoid
+    is monotonic and is applied to the selected k only."""
+    B, Q, K = pred_logits.shape
+    top_logits, topk_idx = torch.topk(pred_logits.reshape(B, Q * K), num_select, dim=1)
+    scores = top_logits.float().sigmoid()
+    topk_boxes = topk_idx // K
+    labels = topk_idx % K
+    boxes = box_ops.box_cxcywh_to_xyxy(pred_boxes.float())
+    boxes = torch.gather(boxes, 1, topk_boxes[..., None].expand(-1, -1, 4))
+    img_h, img_w = target_sizes[:, 0], target_sizes[:, 1]
+    scale = torch.stack([img_w, img_h, img_w, img_h], dim=1).to(boxes.dtype)
+    return scores, labels, boxes * scale[:, None, :]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The given device, else CUDA; raises rather than fall back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
+def build_model(cfg: ModelConfig, device=None, dtype: torch.dtype = torch.float32,
+                state_dict: Optional[dict] = None) -> LWDETR:
+    """Eval-mode LW-DETR on `device` (CUDA unless given) in `dtype`, with its
+    parameters frozen; `state_dict` (reference keys) is loaded strictly."""
+    device = resolve_device(device)
+    model = LWDETR(cfg)
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    model.requires_grad_(False)
+    return model.to(device=device, dtype=dtype).eval()

@@ -1,0 +1,218 @@
+"""DETR decoder with two-stage proposal selection and deformable cross-attention.
+
+Counterpart of `lwdetr_tpu/models/transformer.py`, eval only (one query
+group). Self-attention runs channel-major through
+`ops/flash_attention.attention_cm` (K2), cross-attention through the
+channel-major deformable sampler `ops/deform_attn.ms_deform_attn_cm` (K3).
+Module and parameter names follow the reference's state_dict
+(`transformer.decoder.layers.{i}...`, `transformer.enc_output.{g}`, ...).
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lwdetr_tpu_torch.models.vit import DenseCM, dense_to_cm
+from lwdetr_tpu_torch.ops import deform_attn as da
+from lwdetr_tpu_torch.ops import flash_attention as fa
+from lwdetr_tpu_torch.ops.embeddings import query_sine_embed
+
+
+class MLPHead(nn.Module):
+    """num_layers-deep ReLU MLP."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, output_dim: int, num_layers: int):
+        super().__init__()
+        dims = [input_dim] + [hidden_dim] * (num_layers - 1) + [output_dim]
+        self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = F.relu(x)
+        return x
+
+
+class MultiheadSelfAttention(nn.Module):
+    """Multi-head attention with a fused in-projection, channel-major inside."""
+
+    def __init__(self, d_model: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.zeros(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.out_proj = DenseCM(d_model, d_model)
+
+    def forward(self, qk: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """qk (B, N, C) feeds queries and keys, v (B, N, C) values -> (B, N, C)."""
+        C = qk.shape[-1]
+        w, b = self.in_proj_weight, self.in_proj_bias
+        qkv_t = torch.cat([dense_to_cm(qk, w[:2 * C], b[:2 * C]),
+                           dense_to_cm(v, w[2 * C:], b[2 * C:])], dim=1)  # (B, 3C, N)
+        out_t = fa.attention_cm(qkv_t, self.num_heads, scale=(C // self.num_heads) ** -0.5)
+        return self.out_proj(out_t)
+
+
+class MSDeformAttnModule(nn.Module):
+    """Projections around the deformable sampler, channel-major value path."""
+
+    def __init__(self, d_model: int, n_levels: int, n_heads: int, n_points: int):
+        super().__init__()
+        self.n_levels, self.n_heads, self.n_points = n_levels, n_heads, n_points
+        self.sampling_offsets = nn.Linear(d_model, n_heads * n_levels * n_points * 2)
+        self.attention_weights = nn.Linear(d_model, n_heads * n_levels * n_points)
+        self.value_proj = nn.Linear(d_model, d_model)
+        self.output_proj = DenseCM(d_model, d_model)
+
+    def forward(self, query: torch.Tensor, reference_points: torch.Tensor,
+                memory: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """query (B, Q, C); reference_points (B, Q, L, 2|4) in [0, 1];
+        memory (B, Len_in, C); spatial_shapes [(H, W)] * L -> (B, Q, C)."""
+        B, Q, C = query.shape
+        H, L, P = self.n_heads, self.n_levels, self.n_points
+        value_t = dense_to_cm(memory, self.value_proj.weight, self.value_proj.bias)
+        offsets = self.sampling_offsets(query).reshape(B, Q, H, L, P, 2)
+        weights = self.attention_weights(query).reshape(B, Q, H, L * P)
+        weights = weights.softmax(dim=-1).reshape(B, Q, H, L, P)
+        if reference_points.shape[-1] == 2:
+            normalizer = torch.tensor([[w, h] for h, w in spatial_shapes],
+                                      dtype=offsets.dtype, device=offsets.device)
+            loc = (reference_points[:, :, None, :, None, :]
+                   + offsets / normalizer[None, None, None, :, None, :])
+        elif reference_points.shape[-1] == 4:
+            loc = (reference_points[:, :, None, :, None, :2]
+                   + offsets / P * reference_points[:, :, None, :, None, 2:] * 0.5)
+        else:
+            raise ValueError("reference_points last dim must be 2 or 4")
+        out_t = da.ms_deform_attn_cm(value_t, spatial_shapes, loc, weights, H)  # (B, C, Q)
+        return self.output_proj(out_t)
+
+
+class DecoderLayer(nn.Module):
+    """Self-attention -> deformable cross-attention -> FFN, post-norm."""
+
+    def __init__(self, d_model: int, sa_nheads: int, ca_nheads: int, dim_feedforward: int,
+                 n_levels: int, n_points: int):
+        super().__init__()
+        self.self_attn = MultiheadSelfAttention(d_model, sa_nheads)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.cross_attn = MSDeformAttnModule(d_model, n_levels, ca_nheads, n_points)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+
+    def forward(self, tgt, memory, query_pos, reference_points, spatial_shapes):
+        tgt = self.norm1(tgt + self.self_attn(tgt + query_pos, tgt))
+        tgt2 = self.cross_attn(tgt + query_pos, reference_points, memory, spatial_shapes)
+        tgt = self.norm2(tgt + tgt2)
+        return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
+
+
+def box_reparam_combine(base: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """cxcy = d_xy * base_wh + base_xy, wh = exp(d_wh) * base_wh."""
+    cxcy = delta[..., :2] * base[..., 2:] + base[..., :2]
+    wh = torch.exp(delta[..., 2:]) * base[..., 2:]
+    return torch.cat([cxcy, wh], dim=-1)
+
+
+def select_proposals(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices (B, k) of the k best proposal scores (B, S), best first."""
+    return torch.topk(scores, k, dim=1).indices
+
+
+def gen_encoder_output_proposals(memory: torch.Tensor,
+                                 spatial_shapes: Sequence[Tuple[int, int]]):
+    """Anchor-grid proposals per memory position, for unpadded maps and the
+    reparameterized boxes (cxcywh kept in [0, 1], not inverse-sigmoided).
+
+    memory (B, S, C) -> (output_memory (B, S, C), output_proposals (B, S, 4) f32);
+    positions whose proposal leaves (0.01, 0.99) are zeroed in both."""
+    dev = memory.device
+    proposals = []
+    for lvl, (H, W) in enumerate(spatial_shapes):
+        gy, gx = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
+                                torch.arange(W, dtype=torch.float32, device=dev), indexing="ij")
+        grid = (torch.stack([gx, gy], dim=-1) + 0.5) / torch.tensor([W, H], device=dev)
+        wh = torch.full_like(grid, 0.05 * (2.0 ** lvl))
+        proposals.append(torch.cat([grid, wh], dim=-1).reshape(-1, 4))
+    output_proposals = torch.cat(proposals)[None].expand(memory.shape[0], -1, -1)
+    valid = ((output_proposals > 0.01) & (output_proposals < 0.99)).all(dim=-1, keepdim=True)
+    return memory.masked_fill(~valid, 0.0), output_proposals.masked_fill(~valid, 0.0)
+
+
+class Decoder(nn.Module):
+    """Holds the decoder layers, the query-position head and the final norm
+    (the reference's `transformer.decoder` namespace)."""
+
+    def __init__(self, d_model: int, sa_nheads: int, ca_nheads: int, dim_feedforward: int,
+                 dec_layers: int, n_levels: int, n_points: int, decoder_norm: str):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            DecoderLayer(d_model, sa_nheads, ca_nheads, dim_feedforward, n_levels, n_points)
+            for _ in range(dec_layers))
+        self.ref_point_head = MLPHead(2 * d_model, d_model, d_model, 2)
+        self.norm = nn.LayerNorm(d_model, eps=1e-5) if decoder_norm == "LN" else nn.Identity()
+
+
+class Transformer(nn.Module):
+    """Decoder-only transformer, eval (query group 0), in the configuration of
+    every release preset: two-stage proposals, reparameterized boxes and the
+    lite reference-point refinement (query positions computed once, from the
+    initial reference boxes)."""
+
+    def __init__(self, d_model: int, sa_nheads: int, ca_nheads: int, num_queries: int,
+                 dec_layers: int, dim_feedforward: int, group_detr: int,
+                 num_feature_levels: int, dec_n_points: int, decoder_norm: str = "LN",
+                 num_classes: int = 91):
+        super().__init__()
+        self.d_model = d_model
+        self.num_queries = num_queries
+        self.num_feature_levels = num_feature_levels
+        self.decoder = Decoder(d_model, sa_nheads, ca_nheads, dim_feedforward, dec_layers,
+                               num_feature_levels, dec_n_points, decoder_norm)
+        # one set of two-stage heads per query group, as in the reference's
+        # checkpoint; eval uses group 0
+        self.enc_output = nn.ModuleList(nn.Linear(d_model, d_model) for _ in range(group_detr))
+        self.enc_output_norm = nn.ModuleList(
+            nn.LayerNorm(d_model, eps=1e-5) for _ in range(group_detr))
+        self.enc_out_class_embed = nn.ModuleList(
+            nn.Linear(d_model, num_classes) for _ in range(group_detr))
+        self.enc_out_bbox_embed = nn.ModuleList(
+            MLPHead(d_model, d_model, 4, 3) for _ in range(group_detr))
+
+    def forward(self, srcs, refpoint_embed: torch.Tensor, query_feat: torch.Tensor):
+        """srcs: list[(B, H, W, C)] projector outputs; refpoint_embed (nq, 4);
+        query_feat (nq, C). Returns hs (L, B, Q, C), references (1, B, Q, 4),
+        memory_ts (B, Q, C) and boxes_ts (B, Q, 4): the picked proposals."""
+        spatial_shapes = [(s.shape[1], s.shape[2]) for s in srcs]
+        B = srcs[0].shape[0]
+        dtype = srcs[0].dtype
+        memory = torch.cat([s.reshape(B, -1, s.shape[-1]) for s in srcs], dim=1)
+        nq = self.num_queries
+
+        output_memory, output_proposals = gen_encoder_output_proposals(memory, spatial_shapes)
+        mem_g = self.enc_output_norm[0](self.enc_output[0](output_memory))
+        cls_g = self.enc_out_class_embed[0](mem_g)  # (B, S, K)
+        coords_g = box_reparam_combine(output_proposals,
+                                       self.enc_out_bbox_embed[0](mem_g).float())
+        topk_idx = select_proposals(cls_g.max(dim=-1).values, nq)  # (B, nq)
+        boxes_ts = torch.gather(coords_g, 1, topk_idx[..., None].expand(-1, -1, 4))
+        memory_ts = torch.gather(mem_g, 1, topk_idx[..., None].expand(-1, -1, mem_g.shape[-1]))
+        refpoints = box_reparam_combine(boxes_ts, refpoint_embed[None, :nq].float())
+
+        # lite refinement: one query position for all layers, from the initial boxes
+        refpoints_input = refpoints[:, :, None].expand(-1, -1, self.num_feature_levels, -1)
+        head = self.decoder.ref_point_head
+        qse = query_sine_embed(refpoints, dim=self.d_model // 2)
+        query_pos = head(qse.to(head.layers[0].weight.dtype))
+        output = query_feat[None, :nq].expand(B, -1, -1).to(dtype)
+        intermediates = []
+        for layer in self.decoder.layers:
+            output = layer(output, memory, query_pos, refpoints_input.to(dtype), spatial_shapes)
+            intermediates.append(self.decoder.norm(output))
+        return torch.stack(intermediates), refpoints[None], memory_ts, boxes_ts

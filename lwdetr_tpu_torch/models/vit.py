@@ -1,0 +1,184 @@
+"""ViTDet-style plain ViT encoder with interleaved window/global attention.
+
+Counterpart of `lwdetr_tpu/models/vit.py`, eval only:
+
+* channel-last (B, H, W, C) maps; the token buffer is reorganized once into
+  16 windows (B*16, hw, C); window blocks attend within a window and global
+  blocks view the same buffer as (B, 16*hw, C);
+* the pretraining position embedding is resized with the exact
+  torch-bicubic matrices (ops/resize.py);
+* CAE mode: fused qkv with bias concat(q_bias, 0, v_bias); the softmax scale
+  is folded into the q projection and the layer scales gamma_1 / gamma_2
+  into proj / fc2, all at forward time so the parameters keep the
+  reference's values and names;
+* attention runs channel-major: the qkv product writes (B, 3C, N), the
+  attention (ops/flash_attention.attention_cm: K1 for windows, K2 for global
+  blocks) returns (B, C, N), and the projection reads it back.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lwdetr_tpu_torch.ops import flash_attention as fa
+from lwdetr_tpu_torch.ops.resize import bicubic_resize_2d
+
+NUM_WINDOWS_SIDE = 4  # fixed 4x4 = 16 windows
+
+
+def get_abs_pos(pos_embed: torch.Tensor, has_cls_token: bool, hw: Tuple[int, int]) -> torch.Tensor:
+    """Resize (1, num_pos, C) pretraining pos-embed to (1, H, W, C)."""
+    if has_cls_token:
+        pos_embed = pos_embed[:, 1:]
+    xy_num = pos_embed.shape[1]
+    size = int(math.sqrt(xy_num))
+    if size * size != xy_num:
+        raise ValueError("pos_embed grid must be square")
+    return bicubic_resize_2d(pos_embed.reshape(1, size, size, -1), hw)
+
+
+def dense_cm(x_t: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Linear layer reading channel-major (B, C_in, N), writing (B, N, C_out)."""
+    return torch.matmul(x_t.transpose(1, 2), weight.t()) + bias
+
+
+def dense_to_cm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Linear layer reading (B, N, C_in), writing channel-major (B, C_out, N)."""
+    return torch.matmul(weight, x.transpose(1, 2)) + bias[:, None]
+
+
+class DenseCM(nn.Linear):
+    """`nn.Linear` (same parameters) applied to channel-major input, with an
+    optional (out,) scale folded into weight and bias."""
+
+    def forward(self, x_t: torch.Tensor, out_scale: Optional[torch.Tensor] = None):
+        w, b = self.weight, self.bias
+        if out_scale is not None:
+            w = w * out_scale[:, None]
+            b = b * out_scale
+        return dense_cm(x_t, w, b)
+
+
+class Attention(nn.Module):
+    """Fused-qkv multi-head self-attention with the CAE bias (q_bias, 0, v_bias)."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.scale = (dim // num_heads) ** -0.5
+        self.qkv = nn.Linear(dim, 3 * dim, bias=False)
+        self.q_bias = nn.Parameter(torch.zeros(dim))
+        self.v_bias = nn.Parameter(torch.zeros(dim))
+        self.proj = DenseCM(dim, dim)
+
+    def forward(self, x: torch.Tensor, out_scale: Optional[torch.Tensor] = None):
+        C = x.shape[-1]
+        bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
+        fold = torch.ones(3 * C, device=x.device, dtype=bias.dtype)
+        fold[:C] = self.scale
+        qkv_t = torch.matmul(self.qkv.weight * fold[:, None], x.transpose(1, 2))  # (B, 3C, N)
+        out_t = fa.attention_cm(qkv_t, self.num_heads, scale=1.0, bias=bias * fold)
+        return self.proj(out_t, out_scale)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor, out_scale: Optional[torch.Tensor] = None):
+        x = self.fc1(x)
+        # exact erf GELU in f32 (the parity dtype); tanh in bf16, where it is
+        # within one bf16 ulp of erf, as in the JAX package
+        x = F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
+        w, b = self.fc2.weight, self.fc2.bias
+        if out_scale is not None:
+            w = w * out_scale[:, None]
+            b = b * out_scale
+        return F.linear(x, w, b)
+
+
+class Block(nn.Module):
+    def __init__(self, dim: int, num_heads: int, window: bool, mlp_ratio: float = 4.0):
+        super().__init__()
+        self.window = window
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn = Attention(dim, num_heads)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.gamma_1 = nn.Parameter(torch.full((dim,), 0.1))
+        self.gamma_2 = nn.Parameter(torch.full((dim,), 0.1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # x: (B*16, hw, C) window-major token buffer
+        Bw, HW, C = x.shape
+        h = self.norm1(x)
+        if not self.window:
+            h = h.reshape(Bw // 16, 16 * HW, C)
+        h = self.attn(h, out_scale=self.gamma_1)
+        x = x + h.reshape(Bw, HW, C)
+        return x + self.mlp(self.norm2(x), out_scale=self.gamma_2)
+
+
+class PatchEmbedGEMM(nn.Module):
+    """stride == kernel patch-embed conv as a patch regroup + GEMM. The
+    parameter is the reference's conv weight (C, Cin, P, P) at `proj`."""
+
+    def __init__(self, in_chans: int, embed_dim: int, patch_size: int):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, H_img, W_img, Cin) -> (B, H, W, C)."""
+        B, Hi, Wi, Cin = x.shape
+        P = self.patch_size
+        x5 = x.reshape(B, Hi // P, P, Wi // P, P * Cin)
+        k = self.proj.weight.permute(2, 3, 1, 0).reshape(P, P * Cin, -1)
+        return torch.einsum("bhpwq,pqc->bhwc", x5, k) + self.proj.bias
+
+
+class ViT(nn.Module):
+    """Plain ViT with multi-level feature taps; returns (B, H, W, C) maps at
+    `out_feature_indexes`."""
+
+    def __init__(self, embed_dim: int, depth: int, num_heads: int = 12,
+                 patch_size: int = 16, mlp_ratio: float = 4.0,
+                 window_block_indexes: Sequence[int] = (),
+                 out_feature_indexes: Sequence[int] = (-1,),
+                 pretrain_img_size: int = 224, pretrain_use_cls_token: bool = True):
+        super().__init__()
+        num_positions = (pretrain_img_size // patch_size) ** 2 + int(pretrain_use_cls_token)
+        self.pretrain_use_cls_token = pretrain_use_cls_token
+        self.pos_embed = nn.Parameter(torch.zeros(1, num_positions, embed_dim))
+        self.patch_embed = PatchEmbedGEMM(3, embed_dim, patch_size)
+        out_idx = {i if i >= 0 else i + depth for i in out_feature_indexes}
+        self.out_flags = tuple(i in out_idx for i in range(depth))
+        if not self.out_flags[-1]:
+            raise ValueError("last block must be an output feature")
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, num_heads, window=i in window_block_indexes, mlp_ratio=mlp_ratio)
+            for i in range(depth))
+
+    def forward(self, x: torch.Tensor):
+        """x (B, H_img, W_img, 3) -> list[(B, H, W, C)], H = H_img // patch."""
+        x = self.patch_embed(x)
+        B, H, W, C = x.shape
+        x = x + get_abs_pos(self.pos_embed, self.pretrain_use_cls_token, (H, W)).to(x.dtype)
+        if H % NUM_WINDOWS_SIDE or W % NUM_WINDOWS_SIDE:
+            raise ValueError(f"token grid {H}x{W} must divide into 4x4 windows")
+        h, w = H // NUM_WINDOWS_SIDE, W // NUM_WINDOWS_SIDE
+        x = x.reshape(B, NUM_WINDOWS_SIDE, h, NUM_WINDOWS_SIDE, w, C)
+        x = x.transpose(2, 3).reshape(B * 16, h * w, C)
+        outs = []
+        for blk, tap in zip(self.blocks, self.out_flags):
+            x = blk(x)
+            if tap:
+                o = x.reshape(B, NUM_WINDOWS_SIDE, NUM_WINDOWS_SIDE, h, w, C)
+                outs.append(o.transpose(2, 3).reshape(B, H, W, C))
+        return outs

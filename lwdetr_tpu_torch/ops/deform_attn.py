@@ -1,0 +1,129 @@
+"""Multi-scale deformable attention sampling, channel-major.
+
+Counterpart of `lwdetr_tpu/ops/deform_attn.py::ms_deform_attn_cm`:
+value_t (B, C, Len_in) -> (B, C, Len_q), bilinear sampling with
+``F.grid_sample(mode='bilinear', padding_mode='zeros', align_corners=False)``
+semantics. On a CUDA tensor it launches K3 (`csrc/deform_attn.cu`), a direct
+bilinear gather, or raises; a tensor on the CPU takes the plain version,
+`ms_deform_attn_cm_plain`, the counterpart of the JAX gather formulation
+`ms_deform_attn`. Forward only: the backward (K8) belongs to the training
+slice.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from lwdetr_tpu_torch.ops._build import CudaKernel
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_LEVELS = 4
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# K3 replaces lwdetr_tpu/ops/deform_attn.py:444 _deform_cm_kernel
+deform_attn_cm_kernel = CudaKernel(
+    "K3", "deform_attn.cu", "lw_deform_attn_cm",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int), _I])
+
+
+def sampling_offsets_init_bias(n_heads: int, n_levels: int, n_points: int) -> torch.Tensor:
+    """Initial bias of the sampling-offset projection: head h points along
+    angle 2 pi h / n_heads, normalized to the unit Chebyshev ball, scaled by
+    point index (i + 1). Returns (n_heads * n_levels * n_points * 2,) f32."""
+    thetas = np.arange(n_heads, dtype=np.float32) * (2.0 * np.pi / n_heads)
+    grid = np.stack([np.cos(thetas), np.sin(thetas)], axis=-1)
+    grid = grid / np.abs(grid).max(axis=-1, keepdims=True)
+    grid = np.tile(grid[:, None, None, :], (1, n_levels, n_points, 1))
+    for i in range(n_points):
+        grid[:, :, i, :] *= i + 1
+    return torch.from_numpy(grid.reshape(-1).astype(np.float32))
+
+
+def ms_deform_attn_cm_plain(value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                            loc: torch.Tensor, weights: torch.Tensor,
+                            n_heads: int) -> torch.Tensor:
+    """Plain PyTorch version: four corner gathers per level, f32 sums,
+    result in value_t's dtype."""
+    B, C, _ = value_t.shape
+    _, Q, H, L, P, _ = loc.shape
+    D = C // n_heads
+    val = value_t.float().reshape(B, n_heads, D, -1)
+    loc = loc.float()
+    weights = weights.float()
+    out = torch.zeros((B, n_heads, D, Q), device=value_t.device, dtype=torch.float32)
+    start = 0
+    for lvl, (Hl, Wl) in enumerate(spatial_shapes):
+        v_l = val[..., start:start + Hl * Wl]  # (B, H, D, HW)
+        start += Hl * Wl
+        px = loc[:, :, :, lvl, :, 0] * Wl - 0.5  # (B, Q, H, P)
+        py = loc[:, :, :, lvl, :, 1] * Hl - 0.5
+        x0 = torch.floor(px)
+        y0 = torch.floor(py)
+        fx = px - x0
+        fy = py - y0
+        x0 = x0.long()
+        y0 = y0.long()
+        aw = weights[:, :, :, lvl]  # (B, Q, H, P)
+        for dy, dx, cw in ((0, 0, (1 - fy) * (1 - fx)), (0, 1, (1 - fy) * fx),
+                           (1, 0, fy * (1 - fx)), (1, 1, fy * fx)):
+            xi = x0 + dx
+            yi = y0 + dy
+            valid = (xi >= 0) & (xi < Wl) & (yi >= 0) & (yi < Hl)
+            idx = yi.clamp(0, Hl - 1) * Wl + xi.clamp(0, Wl - 1)  # (B, Q, H, P)
+            idx = idx.permute(0, 2, 1, 3).reshape(B, n_heads, 1, Q * P).expand(-1, -1, D, -1)
+            g = torch.gather(v_l, 3, idx).reshape(B, n_heads, D, Q, P)
+            coef = (cw * valid * aw).permute(0, 2, 1, 3)  # (B, H, Q, P)
+            out = out + torch.einsum("bhqp,bhdqp->bhdq", coef, g)
+    return out.reshape(B, C, Q).to(value_t.dtype)
+
+
+def _check_cuda(value_t, spatial_shapes, loc, weights, n_heads):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (value_t, loc, weights)):
+        raise NotImplementedError(
+            "ms_deform_attn_cm on CUDA is forward only: its backward kernels "
+            "(K8 _dvalue_cm_kernel / _dweight_cm_kernel) are not ported yet")
+    if value_t.dtype not in _DTYPES:
+        raise TypeError(f"K3 takes float32 or bfloat16 values, got {value_t.dtype}")
+    B, C, len_in = value_t.shape
+    if loc.dim() != 6 or loc.shape[0] != B or loc.shape[2] != n_heads or loc.shape[-1] != 2:
+        raise ValueError(f"loc must be (B, Q, {n_heads}, L, P, 2), got {tuple(loc.shape)}")
+    if weights.shape != loc.shape[:-1]:
+        raise ValueError(f"weights must be {tuple(loc.shape[:-1])}, got {tuple(weights.shape)}")
+    if not 1 <= len(spatial_shapes) <= _MAX_LEVELS or loc.shape[3] != len(spatial_shapes):
+        raise ValueError(f"K3 takes 1..{_MAX_LEVELS} levels matching loc, "
+                         f"got {len(spatial_shapes)}")
+    if C % n_heads or sum(h * w for h, w in spatial_shapes) != len_in:
+        raise ValueError("value_t channels or length do not match heads / spatial_shapes")
+    if not (value_t.device == loc.device == weights.device):
+        raise ValueError("value_t, loc and weights must be on one device")
+
+
+def ms_deform_attn_cm(value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                      loc: torch.Tensor, weights: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """value_t (B, C, Len_in) channel-major (padded positions already zeroed),
+    loc (B, Q, H, L, P, 2) normalized (x, y), weights (B, Q, H, L, P)
+    -> (B, C, Q) in value_t's dtype."""
+    spatial_shapes = [(int(h), int(w)) for h, w in spatial_shapes]
+    if not value_t.is_cuda:
+        return ms_deform_attn_cm_plain(value_t, spatial_shapes, loc, weights, n_heads)
+    _check_cuda(value_t, spatial_shapes, loc, weights, n_heads)
+    B, C, len_in = value_t.shape
+    _, Q, _, L, P, _ = loc.shape
+    value_t = value_t.contiguous()
+    loc = loc.to(torch.float32).contiguous()
+    weights = weights.to(torch.float32).contiguous()
+    levels = (ctypes.c_int * (3 * L))()
+    start = 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        levels[3 * lvl:3 * lvl + 3] = [h, w, start]
+        start += h * w
+    out = torch.empty((B, C, Q), device=value_t.device, dtype=value_t.dtype)
+    deform_attn_cm_kernel(value_t.data_ptr(), loc.data_ptr(), weights.data_ptr(),
+                          out.data_ptr(), B, C, len_in, Q, n_heads, L, P, levels,
+                          _DTYPES[value_t.dtype])
+    return out

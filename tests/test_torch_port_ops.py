@@ -1,0 +1,149 @@
+"""Parity of the PyTorch port's operators with the JAX package, on the CPU, in f32.
+
+The same inputs, drawn from a numpy seed, go through the JAX function and
+its counterpart in `lwdetr_tpu_torch`. Where the JAX function reaches a
+Pallas kernel it runs in interpret mode, as the JAX package's own tests run
+it; the port runs its plain versions, which its CUDA kernels are held
+against on the card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from lwdetr_tpu.ops import box_ops as jbox
+from lwdetr_tpu.ops import deform_attn as jda
+from lwdetr_tpu.ops import embeddings as jemb
+from lwdetr_tpu.ops import flash_attention as jfa
+from lwdetr_tpu.ops import resize as jresize
+from lwdetr_tpu_torch.ops import box_ops as tbox
+from lwdetr_tpu_torch.ops import deform_attn as tda
+from lwdetr_tpu_torch.ops import embeddings as temb
+from lwdetr_tpu_torch.ops import flash_attention as tfa
+from lwdetr_tpu_torch.ops import resize as tresize
+
+# f32 on both sides; sums run in another order, so agreement is to a few ulp
+# of the output's magnitude
+ATOL = 2e-5
+
+
+def _boxes(rng, n):
+    cxcy = rng.uniform(0.2, 0.8, (n, 2))
+    wh = rng.uniform(0.05, 0.4, (n, 2))
+    return np.concatenate([cxcy, wh], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["box_cxcywh_to_xyxy", "box_xyxy_to_cxcywh", "box_area",
+                                  "elementwise_box_iou", "elementwise_generalized_box_iou",
+                                  "box_iou", "generalized_box_iou"])
+def test_box_ops_match_jax(name):
+    rng = np.random.default_rng(0)
+    a = np.array(jbox.box_cxcywh_to_xyxy(jnp.asarray(_boxes(rng, 7))))
+    b = np.array(jbox.box_cxcywh_to_xyxy(jnp.asarray(_boxes(rng, 7 if "element" in name else 5))))
+    args = (a,) if name in ("box_cxcywh_to_xyxy", "box_xyxy_to_cxcywh", "box_area") else (a, b)
+    ref = getattr(jbox, name)(*map(jnp.asarray, args))
+    out = getattr(tbox, name)(*map(torch.from_numpy, args))
+    if name == "box_iou":  # (iou, union)
+        for r, o in zip(ref, out):
+            np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=1e-6)
+    else:
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
+
+
+@pytest.mark.parametrize("src,dst", [(14, 40), (14, 8), (14, 14), (7, 20)])
+def test_bicubic_matrix_matches_jax_and_torch(src, dst):
+    np.testing.assert_array_equal(tresize.bicubic_resize_matrix(src, dst),
+                                  jresize.bicubic_resize_matrix(src, dst))
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((1, src, src, 5)).astype(np.float32)
+    out = tresize.bicubic_resize_2d(torch.from_numpy(x), (dst, dst)).numpy()
+    ref = F.interpolate(torch.from_numpy(x).permute(0, 3, 1, 2), size=(dst, dst),
+                        mode="bicubic", align_corners=False).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-5)
+    np.testing.assert_allclose(out, np.asarray(jresize.bicubic_resize_2d(jnp.asarray(x), (dst, dst))),
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("src,dst", [(640, 40), (100, 33), (8, 8)])
+def test_nearest_index_matches_jax(src, dst):
+    np.testing.assert_array_equal(tresize.nearest_resize_index(src, dst),
+                                  jresize.nearest_resize_index(src, dst))
+
+
+def test_sine_position_embedding_matches_jax():
+    mask = np.zeros((2, 6, 9), bool)
+    mask[1, 4:, :] = True
+    mask[1, :, 7:] = True
+    ref = jemb.sine_position_embedding(jnp.asarray(mask), num_pos_feats=16)
+    out = temb.sine_position_embedding(torch.from_numpy(mask), num_pos_feats=16)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("coords", [2, 4])
+def test_query_sine_embed_matches_jax(coords):
+    pos = np.random.default_rng(2).uniform(0, 1, (2, 5, coords)).astype(np.float32)
+    ref = jemb.query_sine_embed(jnp.asarray(pos), dim=32)
+    out = temb.query_sine_embed(torch.from_numpy(pos), dim=32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("N,heads,D,with_bias,scale", [
+    (100, 3, 16, True, 1.0),        # window blocks: K1's dispatch
+    (200, 3, 16, False, 1.0),       # global blocks: K2's dispatch
+    (200, 2, 32, False, 32 ** -0.5),  # decoder self-attention shape class
+    (200, 3, 16, True, 0.25),       # bias added inline, then K2
+])
+def test_attention_cm_matches_jax_interpret(N, heads, D, with_bias, scale):
+    rng = np.random.default_rng(3)
+    B, C = 2, heads * D
+    qkv = rng.standard_normal((B, 3 * C, N)).astype(np.float32)
+    bias = rng.standard_normal((3 * C,)).astype(np.float32) * 0.5 if with_bias else None
+    ref = jfa.attention_cm(jnp.asarray(qkv), heads, scale, interpret=True,
+                           bias=None if bias is None else jnp.asarray(bias))
+    out = tfa.attention_cm(torch.from_numpy(qkv), heads, scale,
+                           bias=None if bias is None else torch.from_numpy(bias))
+    assert out.shape == (B, C, N)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+SHAPES = ((8, 10), (4, 5))
+
+
+def _deform_inputs(seed, B=2, Q=7, heads=2, D=8, P=2):
+    rng = np.random.default_rng(seed)
+    L = len(SHAPES)
+    len_in = sum(h * w for h, w in SHAPES)
+    value_t = rng.standard_normal((B, heads * D, len_in)).astype(np.float32)
+    # a fifth of the points land outside [0, 1]: their corners must drop out
+    loc = rng.uniform(-0.25, 1.25, (B, Q, heads, L, P, 2)).astype(np.float32)
+    logits = rng.standard_normal((B, Q, heads, L * P))
+    w = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    return value_t, loc, w.reshape(B, Q, heads, L, P).astype(np.float32), heads
+
+
+def test_ms_deform_attn_cm_matches_jax_interpret():
+    value_t, loc, w, heads = _deform_inputs(4)
+    ref = jda.ms_deform_attn_cm(jnp.asarray(value_t), SHAPES, jnp.asarray(loc), jnp.asarray(w),
+                                heads, interpret=True)
+    out = tda.ms_deform_attn_cm(torch.from_numpy(value_t), SHAPES, torch.from_numpy(loc),
+                                torch.from_numpy(w), heads)
+    assert out.shape == (2, value_t.shape[1], loc.shape[1])
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_ms_deform_attn_cm_matches_gather_reference():
+    # the JAX gather formulation (grid_sample semantics), row-major layout
+    value_t, loc, w, heads = _deform_inputs(5)
+    B, C, len_in = value_t.shape
+    value = value_t.reshape(B, heads, C // heads, len_in).transpose(0, 3, 1, 2)
+    ref = jda.ms_deform_attn(jnp.asarray(value), SHAPES, jnp.asarray(loc), jnp.asarray(w))
+    out = tda.ms_deform_attn_cm(torch.from_numpy(value_t), SHAPES, torch.from_numpy(loc),
+                                torch.from_numpy(w), heads)
+    np.testing.assert_allclose(out.numpy().transpose(0, 2, 1), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("heads,levels,points", [(16, 1, 2), (8, 2, 4)])
+def test_sampling_offsets_init_bias_matches_jax(heads, levels, points):
+    np.testing.assert_array_equal(tda.sampling_offsets_init_bias(heads, levels, points).numpy(),
+                                  np.asarray(jda.sampling_offsets_init_bias(heads, levels, points)))

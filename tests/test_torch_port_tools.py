@@ -1,0 +1,32 @@
+"""The port's measurement tools: how `breakdown.py` files device kernels
+into groups, on kernel names the H100 profiler reports for the small@640
+step."""
+import pytest
+
+from lwdetr_tpu_torch.breakdown import _group
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void (anonymous namespace)::flash_attention_cm_kernel<__nv_bfloat16, 16>"
+     "(__nv_bfloat16 const*, __nv_bfloat16*, int, int,", "K2 flash_attention_cm"),
+    ("void (anonymous namespace)::window_attention_bias_kernel<float, 16>"
+     "(float const*, float const*, float*, int, int, float)", "K1 window_attention_bias"),
+    ("void (anonymous namespace)::deform_attn_cm_kernel<__nv_bfloat16>"
+     "(__nv_bfloat16 const*, float const*, float const*, __nv_", "K3 deform_attn_cm"),
+    ("void cutlass::Kernel2<cutlass_80_tensorop_bf16_s16816gemm_bf16_128x128_64x3_tn_align2>",
+     "gemm"),
+    ("nvjet_tst_128x160_64x5_2x1_v_bz_coopA_bias_TNT", "gemm"),
+    ("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize64x128x8_stage3_warpsize1x4x1_ffma",
+     "gemm"),
+    ("void implicit_convolve_sgemm<float, float, 128, 5, 5, 3, 3, 3, 1, false, false, true>",
+     "conv"),
+    ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel"
+     "<c10::BFloat16, float, false>(int, float, c10::BFloa", "norm"),
+    ("void at::native::sbtopk::gatherTopK<float, unsigned int, 2, false>", "topk/sort"),
+    ("void at::native::vectorized_elementwise_kernel<8, at::native::GeluCUDAKernelImpl"
+     "(at::TensorIteratorBase&, at::native::Ge", "other elementwise/copy"),
+    ("void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_impl_nocast"
+     "<at::native::direct_copy_kernel_cuda(at::T", "other elementwise/copy"),
+])
+def test_breakdown_groups_kernel_names(name, group):
+    assert _group(name) == group
