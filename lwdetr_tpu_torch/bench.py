@@ -19,7 +19,7 @@ import json
 
 import torch
 
-from lwdetr_tpu_torch.config import get_config
+from lwdetr_tpu_torch.config import PRESETS, get_config
 from lwdetr_tpu_torch.models.lwdetr import build_model, post_process, resolve_device
 from lwdetr_tpu_torch.utils.device import card_line
 from lwdetr_tpu_torch.utils.timing import measure_ms
@@ -61,11 +61,15 @@ def run(preset: str = "small", batch: int = 32) -> dict:
     }
 
 
-def main() -> None:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", default="small", choices=("tiny", "small", "medium"))
+    ap.add_argument("--preset", default="small", choices=tuple(PRESETS))
     ap.add_argument("--batch", type=int, default=32)
-    args = ap.parse_args()
+    return ap
+
+
+def main() -> None:
+    args = parser().parse_args()
     print(json.dumps(run(args.preset, args.batch)))
 
 

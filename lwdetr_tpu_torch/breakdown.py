@@ -5,7 +5,7 @@
 Runs the step of `lwdetr_tpu_torch.bench` (forward + `post_process`,
 seeded weights, images on the card) under `torch.profiler` for a few steps after warm-up, and prints
 one JSON line: device time per step by kernel group (the port's kernels
-K1-K3, GEMMs, convolutions, the rest), the top kernels by device time, and
+K1-K4, GEMMs, convolutions, the rest), the top kernels by device time, and
 the device's idle share of a step (1 - busy / step time, where busy is the
 sum of kernel times under the profiler, kernels on one stream do not
 overlap, and the step time is the mean over 15 steps timed without the
@@ -23,6 +23,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from lwdetr_tpu_torch.bench import make_step
+from lwdetr_tpu_torch.config import PRESETS
 from lwdetr_tpu_torch.utils.device import card_line
 from lwdetr_tpu_torch.utils.timing import measure_ms
 
@@ -30,9 +31,11 @@ GROUPS = (
     ("K1 window_attention_bias", ("window_attention_bias_kernel",)),
     ("K2 flash_attention_cm", ("flash_attention_cm_kernel",)),
     ("K3 deform_attn_cm", ("deform_attn_cm_kernel",)),
+    ("K4 deform_attn_sep", ("deform_attn_sep_kernel",)),
+    # norms before convolutions: cuDNN's batch norm (`cudnn::bn_fw_inf_...`) is no convolution
+    ("norm", ("layer_norm", "batch_norm", "bn_", "norm")),
     ("conv", ("conv", "cudnn", "implicit", "winograd", "fprop", "dgrad")),
     ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
-    ("norm", ("layer_norm", "batch_norm", "bn_", "norm")),
     ("topk/sort", ("topk", "sort", "radix", "gather")),
 )
 
@@ -79,12 +82,16 @@ def run(preset: str = "small", batch: int = 32, dtype: torch.dtype = torch.bfloa
     }
 
 
-def main() -> None:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", default="small", choices=("tiny", "small", "medium"))
+    ap.add_argument("--preset", default="small", choices=tuple(PRESETS))
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--dtype", default="bf16", choices=("bf16", "f32"))
-    args = ap.parse_args()
+    return ap
+
+
+def main() -> None:
+    args = parser().parse_args()
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     print(json.dumps(run(args.preset, args.batch, dtype)))
 

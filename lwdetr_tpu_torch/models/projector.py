@@ -1,12 +1,14 @@
-"""Multi-scale projector: C2f (CSP bottleneck) fusion of the ViT taps.
+"""Multi-scale projector: per-scale resampling + C2f (CSP bottleneck) fusion.
 
-Counterpart of `lwdetr_tpu/models/projector.py`, eval only, on the
-scale-1.0 (P4) path: the taps are concatenated along channels, fused by a
-YOLOv8-style C2f block and normalized by a channel LayerNorm. Maps stay
-channel-last (B, H, W, C) at the module boundary, as in the JAX package; the
-convolutions run on NCHW inside (`F.conv2d`, as the JAX package leaves them
-to XLA). The up/down-sampling paths of P3/P5/P6 arrive with the large and
-xlarge slice.
+Counterpart of `lwdetr_tpu/models/projector.py`, eval only. For each output
+scale every ViT tap is resampled (transposed convolutions up for P3 / 4x,
+a stride-2 convolution down for P5, nothing for P4), the taps are
+concatenated along channels, fused by a YOLOv8-style C2f block and
+normalized by a channel LayerNorm; P6 is a stride-2 subsample of the last
+map. Maps stay channel-last (B, H, W, C) at the module boundary, as in the
+JAX package; the convolutions run on NCHW inside (`F.conv2d`, as the JAX
+package leaves them to XLA). Module names follow the reference's state_dict
+(`stages_sampling.{scale}.{tap}.{i}`, `stages.{scale}.0|1`).
 """
 from __future__ import annotations
 
@@ -82,19 +84,58 @@ class ChannelLayerNorm(nn.Module):
         return out.to(x.dtype)
 
 
+class GELU(nn.Module):
+    """erf GELU in f32 (the parity dtype), tanh GELU in bf16, as in the JAX package."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
+
+
+def sampling_layers(scale: float, in_dim: int):
+    """(layers resampling one (B, in_dim, H, W) tap to `scale`, their output channels)."""
+    if scale == 4.0:  # ConvT(2, 2) -> channel LN -> GELU -> ConvT(2, 2); C -> C / 4
+        return [nn.ConvTranspose2d(in_dim, in_dim // 2, 2, stride=2),
+                ChannelLayerNorm(in_dim // 2), GELU(),
+                nn.ConvTranspose2d(in_dim // 2, in_dim // 4, 2, stride=2)], in_dim // 4
+    if scale == 2.0:  # [1x1 reduce if C > 512] -> ConvT(2, 2)
+        if in_dim > 512:
+            return [ConvX(in_dim, in_dim // 2, 1),
+                    nn.ConvTranspose2d(in_dim // 2, in_dim // 4, 2, stride=2)], in_dim // 4
+        return [nn.ConvTranspose2d(in_dim, in_dim // 2, 2, stride=2)], in_dim // 2
+    if scale == 1.0:
+        return [], in_dim
+    if scale == 0.5:  # stride-2 3x3 ConvX, channels preserved
+        return [ConvX(in_dim, in_dim, 3, stride=2)], in_dim
+    raise NotImplementedError(f"unsupported scale {scale}")
+
+
 class MultiScaleProjector(nn.Module):
-    """list of (B, H, W, C_in) taps -> list with one (B, H, W, out_channels) map."""
+    """list of (B, H, W, C_in) taps -> list of (B, H * s, W * s, out_channels)
+    maps, one per scale factor s; a scale of 0.25 (last) adds a stride-2
+    subsample of the map before it."""
 
     def __init__(self, in_channels: Sequence[int], out_channels: int,
                  scale_factors: Sequence[float], num_blocks: int = 3):
         super().__init__()
-        if list(scale_factors) != [1.0]:
-            raise NotImplementedError(
-                f"projector scales {list(scale_factors)}: only P4 (1.0) is ported so far")
-        self.stages = nn.ModuleList([nn.Sequential(
-            C2f(sum(in_channels), out_channels, num_blocks),
-            ChannelLayerNorm(out_channels))])
+        self.extra_pool = 0.25 in scale_factors
+        self.stages_sampling = nn.ModuleList()
+        self.stages = nn.ModuleList()
+        for scale in scale_factors:
+            if scale == 0.25:
+                continue
+            taps = [sampling_layers(scale, in_dim) for in_dim in in_channels]
+            self.stages_sampling.append(
+                nn.ModuleList(nn.Sequential(*layers) for layers, _ in taps))
+            self.stages.append(nn.Sequential(
+                C2f(sum(c for _, c in taps), out_channels, num_blocks),
+                ChannelLayerNorm(out_channels)))
 
     def forward(self, feats):
-        x = torch.cat(feats, dim=-1).permute(0, 3, 1, 2)
-        return [self.stages[0](x).permute(0, 2, 3, 1)]
+        feats = [f.permute(0, 3, 1, 2) for f in feats]
+        results = []
+        for sampling, stage in zip(self.stages_sampling, self.stages):
+            x = torch.cat([m(f) for m, f in zip(sampling, feats)], dim=1)
+            results.append(stage(x).permute(0, 2, 3, 1))
+        if self.extra_pool:
+            results.append(results[-1][:, ::2, ::2, :])
+        return results

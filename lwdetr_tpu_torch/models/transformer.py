@@ -2,9 +2,11 @@
 
 Counterpart of `lwdetr_tpu/models/transformer.py`, eval only (one query
 group). Self-attention runs channel-major through
-`ops/flash_attention.attention_cm` (K2), cross-attention through the
-channel-major deformable sampler `ops/deform_attn.ms_deform_attn_cm` (K3).
-Module and parameter names follow the reference's state_dict
+`ops/flash_attention.attention_cm` (K2). Cross-attention samples the memory
+through `ops/deform_attn`: channel-major values and `ms_deform_attn_cm` (K3)
+for a short memory (the P4 presets), per-level head-major value panels and
+`ms_deform_attn_sep_panels` (K4) from `SEP_MIN_LEN_IN` positions up (the
+P3+P5 presets). Module and parameter names follow the reference's state_dict
 (`transformer.decoder.layers.{i}...`, `transformer.enc_output.{g}`, ...).
 """
 from __future__ import annotations
@@ -19,6 +21,14 @@ from lwdetr_tpu_torch.models.vit import DenseCM, dense_to_cm
 from lwdetr_tpu_torch.ops import deform_attn as da
 from lwdetr_tpu_torch.ops import flash_attention as fa
 from lwdetr_tpu_torch.ops.embeddings import query_sine_embed
+
+
+# Memories at least this long are sampled from head-major panels (K4), shorter
+# ones from channel-major values (K3): the JAX package's eval dispatch. Its
+# further gate on the panels fitting VMEM is a TPU resource check with no
+# counterpart on this card. The device plays no part: on the CPU each branch
+# runs with its sampler's plain version.
+SEP_MIN_LEN_IN = 4096
 
 
 class MLPHead(nn.Module):
@@ -58,7 +68,9 @@ class MultiheadSelfAttention(nn.Module):
 
 
 class MSDeformAttnModule(nn.Module):
-    """Projections around the deformable sampler, channel-major value path."""
+    """Projections around the deformable sampler. One set of parameters, two
+    value layouts: channel-major (B, C, Len_in) below `SEP_MIN_LEN_IN`
+    positions, per-level head-major panels (B, H, H_l, W_l * D) from there up."""
 
     def __init__(self, d_model: int, n_levels: int, n_heads: int, n_points: int):
         super().__init__()
@@ -68,13 +80,29 @@ class MSDeformAttnModule(nn.Module):
         self.value_proj = nn.Linear(d_model, d_model)
         self.output_proj = DenseCM(d_model, d_model)
 
+    def value_panels(self, memory_levels: Sequence[torch.Tensor],
+                     spatial_shapes: Sequence[Tuple[int, int]]):
+        """One value projection per level with the shared weights, laid out
+        head-major: (B, H_l * W_l, C) -> (B, H, H_l * W_l, D), whose regroup to
+        (B, H, H_l, W_l * D) is a view. The GEMM writes (B, N, H, D); the move
+        to head-major is one copy of the values per level."""
+        H = self.n_heads
+        panels = []
+        for (hl, wl), mem_l in zip(spatial_shapes, memory_levels):
+            B, n, C = mem_l.shape
+            v = self.value_proj(mem_l).reshape(B, n, H, C // H).permute(0, 2, 1, 3)
+            panels.append(v.contiguous().reshape(B, H, hl, wl * (C // H)))
+        return panels
+
     def forward(self, query: torch.Tensor, reference_points: torch.Tensor,
-                memory: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]]) -> torch.Tensor:
+                memory: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                memory_levels: Sequence[torch.Tensor]) -> torch.Tensor:
         """query (B, Q, C); reference_points (B, Q, L, 2|4) in [0, 1];
-        memory (B, Len_in, C); spatial_shapes [(H, W)] * L -> (B, Q, C)."""
+        memory (B, Len_in, C); spatial_shapes [(H, W)] * L; memory_levels:
+        the per-level (B, H_l * W_l, C) maps `memory` was concatenated from
+        -> (B, Q, C)."""
         B, Q, C = query.shape
         H, L, P = self.n_heads, self.n_levels, self.n_points
-        value_t = dense_to_cm(memory, self.value_proj.weight, self.value_proj.bias)
         offsets = self.sampling_offsets(query).reshape(B, Q, H, L, P, 2)
         weights = self.attention_weights(query).reshape(B, Q, H, L * P)
         weights = weights.softmax(dim=-1).reshape(B, Q, H, L, P)
@@ -88,8 +116,13 @@ class MSDeformAttnModule(nn.Module):
                    + offsets / P * reference_points[:, :, None, :, None, 2:] * 0.5)
         else:
             raise ValueError("reference_points last dim must be 2 or 4")
-        out_t = da.ms_deform_attn_cm(value_t, spatial_shapes, loc, weights, H)  # (B, C, Q)
-        return self.output_proj(out_t)
+        if memory.shape[1] < SEP_MIN_LEN_IN:
+            value_t = dense_to_cm(memory, self.value_proj.weight, self.value_proj.bias)
+            out_t = da.ms_deform_attn_cm(value_t, spatial_shapes, loc, weights, H)  # (B, C, Q)
+            return self.output_proj(out_t)
+        panels = self.value_panels(memory_levels, spatial_shapes)
+        out = da.ms_deform_attn_sep_panels(panels, spatial_shapes, loc, weights)  # (B, Q, C)
+        return F.linear(out, self.output_proj.weight, self.output_proj.bias)
 
 
 class DecoderLayer(nn.Module):
@@ -106,9 +139,10 @@ class DecoderLayer(nn.Module):
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, tgt, memory, query_pos, reference_points, spatial_shapes):
+    def forward(self, tgt, memory, query_pos, reference_points, spatial_shapes, memory_levels):
         tgt = self.norm1(tgt + self.self_attn(tgt + query_pos, tgt))
-        tgt2 = self.cross_attn(tgt + query_pos, reference_points, memory, spatial_shapes)
+        tgt2 = self.cross_attn(tgt + query_pos, reference_points, memory, spatial_shapes,
+                               memory_levels)
         tgt = self.norm2(tgt + tgt2)
         return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
 
@@ -192,7 +226,8 @@ class Transformer(nn.Module):
         spatial_shapes = [(s.shape[1], s.shape[2]) for s in srcs]
         B = srcs[0].shape[0]
         dtype = srcs[0].dtype
-        memory = torch.cat([s.reshape(B, -1, s.shape[-1]) for s in srcs], dim=1)
+        memory_levels = [s.reshape(B, -1, s.shape[-1]) for s in srcs]
+        memory = torch.cat(memory_levels, dim=1)
         nq = self.num_queries
 
         output_memory, output_proposals = gen_encoder_output_proposals(memory, spatial_shapes)
@@ -213,6 +248,7 @@ class Transformer(nn.Module):
         output = query_feat[None, :nq].expand(B, -1, -1).to(dtype)
         intermediates = []
         for layer in self.decoder.layers:
-            output = layer(output, memory, query_pos, refpoints_input.to(dtype), spatial_shapes)
+            output = layer(output, memory, query_pos, refpoints_input.to(dtype), spatial_shapes,
+                           memory_levels)
             intermediates.append(self.decoder.norm(output))
         return torch.stack(intermediates), refpoints[None], memory_ts, boxes_ts

@@ -1,13 +1,22 @@
-"""Multi-scale deformable attention sampling, channel-major.
+"""Multi-scale deformable attention sampling, in two value layouts.
 
-Counterpart of `lwdetr_tpu/ops/deform_attn.py::ms_deform_attn_cm`:
-value_t (B, C, Len_in) -> (B, C, Len_q), bilinear sampling with
-``F.grid_sample(mode='bilinear', padding_mode='zeros', align_corners=False)``
-semantics. On a CUDA tensor it launches K3 (`csrc/deform_attn.cu`), a direct
-bilinear gather, or raises; a tensor on the CPU takes the plain version,
-`ms_deform_attn_cm_plain`, the counterpart of the JAX gather formulation
-`ms_deform_attn`. Forward only: the backward (K8) belongs to the training
-slice.
+Bilinear sampling with ``F.grid_sample(mode='bilinear', padding_mode='zeros',
+align_corners=False)`` semantics, weighted and summed over levels and points:
+
+* `ms_deform_attn_cm`, counterpart of
+  `lwdetr_tpu/ops/deform_attn.py::ms_deform_attn_cm`: channel-major value_t
+  (B, C, Len_in) -> (B, C, Len_q). On a CUDA tensor it launches K3
+  (`csrc/deform_attn.cu`).
+* `ms_deform_attn_sep_panels`, counterpart of
+  `lwdetr_tpu/ops/deform_attn.py::ms_deform_attn_sep_panels`: one head-major
+  panel (B, H, H_l, W_l * D) per level -> row-major (B, Len_q, C). On CUDA
+  tensors it launches K4 (`csrc/deform_attn_sep.cu`).
+
+Both kernels are direct bilinear gathers. On CUDA tensors they launch or the
+call raises; tensors on the CPU take the plain versions
+(`ms_deform_attn_cm_plain`, `ms_deform_attn_sep_panels_plain`), the
+counterparts of the JAX gather formulation `ms_deform_attn`. Forward only: the
+backward kernels (K8 for K3, K5 for K4) belong to the training slice.
 """
 from __future__ import annotations
 
@@ -29,6 +38,12 @@ _I = ctypes.c_int
 deform_attn_cm_kernel = CudaKernel(
     "K3", "deform_attn.cu", "lw_deform_attn_cm",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int), _I])
+# K4 replaces lwdetr_tpu/ops/deform_attn.py:853 _sep_kernel
+deform_attn_sep_kernel = CudaKernel(
+    "K4", "deform_attn_sep.cu", "lw_deform_attn_sep",
+    [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), _P, _P, _P,
+     _I, _I, _I, _I, _I, _I, _I])
+_SEP_HEAD_DIMS = (16, 32)
 
 
 def sampling_offsets_init_bias(n_heads: int, n_levels: int, n_points: int) -> torch.Tensor:
@@ -126,4 +141,91 @@ def ms_deform_attn_cm(value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[int,
     deform_attn_cm_kernel(value_t.data_ptr(), loc.data_ptr(), weights.data_ptr(),
                           out.data_ptr(), B, C, len_in, Q, n_heads, L, P, levels,
                           _DTYPES[value_t.dtype])
+    return out
+
+
+def ms_deform_attn_sep_panels_plain(vals: Sequence[torch.Tensor],
+                                    spatial_shapes: Sequence[Tuple[int, int]],
+                                    loc: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: four corner gathers per level straight from the
+    head-major panels, f32 sums, result in the panels' dtype."""
+    B, H = vals[0].shape[:2]
+    Q, P = loc.shape[1], loc.shape[4]
+    D = vals[0].shape[3] // spatial_shapes[0][1]
+    loc = loc.float()
+    weights = weights.float()
+    out = torch.zeros((B, H, Q, D), device=vals[0].device, dtype=torch.float32)
+    for lvl, ((Hl, Wl), panel) in enumerate(zip(spatial_shapes, vals)):
+        v_l = panel.float().reshape(B, H, Hl * Wl, D)
+        px = loc[:, :, :, lvl, :, 0] * Wl - 0.5  # (B, Q, H, P)
+        py = loc[:, :, :, lvl, :, 1] * Hl - 0.5
+        x0 = torch.floor(px)
+        y0 = torch.floor(py)
+        fx = px - x0
+        fy = py - y0
+        x0 = x0.long()
+        y0 = y0.long()
+        aw = weights[:, :, :, lvl]  # (B, Q, H, P)
+        for dy, dx, cw in ((0, 0, (1 - fy) * (1 - fx)), (0, 1, (1 - fy) * fx),
+                           (1, 0, fy * (1 - fx)), (1, 1, fy * fx)):
+            xi = x0 + dx
+            yi = y0 + dy
+            valid = (xi >= 0) & (xi < Wl) & (yi >= 0) & (yi < Hl)
+            idx = yi.clamp(0, Hl - 1) * Wl + xi.clamp(0, Wl - 1)  # (B, Q, H, P)
+            idx = idx.permute(0, 2, 1, 3).reshape(B, H, Q * P, 1).expand(-1, -1, -1, D)
+            g = torch.gather(v_l, 2, idx).reshape(B, H, Q, P, D)
+            coef = (cw * valid * aw).permute(0, 2, 1, 3)  # (B, H, Q, P)
+            out = out + torch.einsum("bhqp,bhqpd->bhqd", coef, g)
+    return out.permute(0, 2, 1, 3).reshape(B, Q, H * D).to(vals[0].dtype)
+
+
+def _check_sep_cuda(vals, spatial_shapes, loc, weights):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (*vals, loc, weights)):
+        raise NotImplementedError(
+            "ms_deform_attn_sep_panels on CUDA is forward only: its backward kernel "
+            "(K5 _sep_bwd_kernel) is not ported yet")
+    dtype = vals[0].dtype
+    if dtype not in _DTYPES:
+        raise TypeError(f"K4 takes float32 or bfloat16 panels, got {dtype}")
+    if loc.dim() != 6 or loc.shape[-1] != 2:
+        raise ValueError(f"loc must be (B, Q, H, L, P, 2), got {tuple(loc.shape)}")
+    B, _, H, L, _, _ = loc.shape
+    if weights.shape != loc.shape[:-1]:
+        raise ValueError(f"weights must be {tuple(loc.shape[:-1])}, got {tuple(weights.shape)}")
+    if not 1 <= L <= _MAX_LEVELS or len(vals) != L or len(spatial_shapes) != L:
+        raise ValueError(f"K4 takes 1..{_MAX_LEVELS} levels matching loc, got {len(vals)} panels "
+                         f"and {len(spatial_shapes)} shapes for L = {L}")
+    D, rem = divmod(vals[0].shape[-1], spatial_shapes[0][1])
+    if rem or D not in _SEP_HEAD_DIMS:
+        raise ValueError(f"K4 takes head_dim in {_SEP_HEAD_DIMS}, got panel width "
+                         f"{vals[0].shape[-1]} for W = {spatial_shapes[0][1]}")
+    for panel, (h, w) in zip(vals, spatial_shapes):
+        if panel.shape != (B, H, h, w * D) or panel.dtype != dtype:
+            raise ValueError(f"panel must be {(B, H, h, w * D)} in {dtype}, "
+                             f"got {tuple(panel.shape)} in {panel.dtype}")
+    if any(t.device != loc.device for t in (*vals, weights)):
+        raise ValueError("panels, loc and weights must be on one device")
+
+
+def ms_deform_attn_sep_panels(vals: Sequence[torch.Tensor],
+                              spatial_shapes: Sequence[Tuple[int, int]],
+                              loc: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """vals[l] (B, H, H_l, W_l * D) head-major value panels (padded positions
+    already zeroed), loc (B, Q, H, L, P, 2) normalized (x, y), weights
+    (B, Q, H, L, P) -> (B, Q, H * D) row-major in the panels' dtype."""
+    spatial_shapes = [(int(h), int(w)) for h, w in spatial_shapes]
+    vals = list(vals)
+    if not vals[0].is_cuda:
+        return ms_deform_attn_sep_panels_plain(vals, spatial_shapes, loc, weights)
+    _check_sep_cuda(vals, spatial_shapes, loc, weights)
+    B, Q, H, L, P, _ = loc.shape
+    D = vals[0].shape[-1] // spatial_shapes[0][1]
+    vals = [v.contiguous() for v in vals]
+    loc = loc.to(torch.float32).contiguous()
+    weights = weights.to(torch.float32).contiguous()
+    panels = (ctypes.c_void_p * L)(*(v.data_ptr() for v in vals))
+    level_hw = (ctypes.c_int * (2 * L))(*(x for hw in spatial_shapes for x in hw))
+    out = torch.empty((B, Q, H * D), device=loc.device, dtype=vals[0].dtype)
+    deform_attn_sep_kernel(panels, level_hw, loc.data_ptr(), weights.data_ptr(),
+                           out.data_ptr(), B, Q, H, D, L, P, _DTYPES[vals[0].dtype])
     return out

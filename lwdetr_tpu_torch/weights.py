@@ -18,12 +18,14 @@ dicts of arrays. `init_state_dict` draws every weight from a seed with a
 from __future__ import annotations
 
 import math
+import re
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from lwdetr_tpu_torch.config import ModelConfig
+from lwdetr_tpu_torch.models.projector import LEVEL2SCALE
 from lwdetr_tpu_torch.ops.deform_attn import sampling_offsets_init_bias
 
 # one mapping entry: (torch_key, collection, flax_path, kind)
@@ -70,6 +72,40 @@ def _c2f(tk: str, fp: Tuple[str, ...], n: int = 3) -> List[Entry]:
         out += _convx(f"{tk}.m.{i}.cv1", fp + (f"m_{i}", "cv1"))
         out += _convx(f"{tk}.m.{i}.cv2", fp + (f"m_{i}", "cv2"))
     return out
+
+
+def projector_mapping(proj_t: str, proj_f: Tuple[str, ...], scales, in_dims) -> List[Entry]:
+    """The projector's entries: per scale, each tap's resampling layers, then
+    the C2f stage and its channel LayerNorm. A scale of 0.25 is a subsample
+    without parameters and takes no module index."""
+    m: List[Entry] = []
+    si = 0
+    for scale in scales:
+        if scale == 0.25:
+            continue
+        for j, in_dim in enumerate(in_dims):
+            t = f"{proj_t}.stages_sampling.{si}.{j}"
+            f = proj_f + (f"sampling_{si}_{j}",)
+            if scale == 4.0:
+                m.append((t + ".0.weight", "params", f + ("up1", "kernel"), "convT_w"))
+                m.append((t + ".0.bias", "params", f + ("up1", "bias"), "raw"))
+                m += _chan_ln(t + ".1", f + ("ln",))
+                m.append((t + ".3.weight", "params", f + ("up2", "kernel"), "convT_w"))
+                m.append((t + ".3.bias", "params", f + ("up2", "bias"), "raw"))
+            elif scale == 2.0:
+                if in_dim > 512:
+                    m += _convx(t + ".0", f + ("reduce",))
+                    m.append((t + ".1.weight", "params", f + ("up", "kernel"), "convT_w"))
+                    m.append((t + ".1.bias", "params", f + ("up", "bias"), "raw"))
+                else:
+                    m.append((t + ".0.weight", "params", f + ("up", "kernel"), "convT_w"))
+                    m.append((t + ".0.bias", "params", f + ("up", "bias"), "raw"))
+            elif scale == 0.5:
+                m += _convx(t + ".0", f + ("down",))
+        m += _c2f(f"{proj_t}.stages.{si}.0", proj_f + (f"stage_{si}",))
+        m += _chan_ln(f"{proj_t}.stages.{si}.1", proj_f + (f"stage_ln_{si}",))
+        si += 1
+    return m
 
 
 def build_mapping(cfg: ModelConfig) -> List[Entry]:
@@ -129,36 +165,10 @@ def build_mapping(cfg: ModelConfig) -> List[Entry]:
             m += _dense(t + ".mlp.fc1", f + ("mlp", "fc1"))
             m += _dense(t + ".mlp.fc2", f + ("mlp", "fc2"))
 
-    proj_t = "backbone.0.projector"
-    proj_f = ("backbone", "projector")
-    level2scale = {"P3": 2.0, "P4": 1.0, "P5": 0.5, "P6": 0.25}
     in_dim = cfg.embed_dim if "vit" in cfg.encoder else 0
-    si = 0  # module index skips 0.25 (pool-only)
-    for scale in (level2scale[s] for s in cfg.projector_scale):
-        if scale == 0.25:
-            continue
-        for j in range(len(cfg.out_feature_indexes)):
-            t = f"{proj_t}.stages_sampling.{si}.{j}"
-            f = proj_f + (f"sampling_{si}_{j}",)
-            if scale == 4.0:
-                m.append((t + ".0.weight", "params", f + ("up1", "kernel"), "convT_w"))
-                m.append((t + ".0.bias", "params", f + ("up1", "bias"), "raw"))
-                m += _chan_ln(t + ".1", f + ("ln",))
-                m.append((t + ".3.weight", "params", f + ("up2", "kernel"), "convT_w"))
-                m.append((t + ".3.bias", "params", f + ("up2", "bias"), "raw"))
-            elif scale == 2.0:
-                if in_dim > 512:
-                    m += _convx(t + ".0", f + ("reduce",))
-                    m.append((t + ".1.weight", "params", f + ("up", "kernel"), "convT_w"))
-                    m.append((t + ".1.bias", "params", f + ("up", "bias"), "raw"))
-                else:
-                    m.append((t + ".0.weight", "params", f + ("up", "kernel"), "convT_w"))
-                    m.append((t + ".0.bias", "params", f + ("up", "bias"), "raw"))
-            elif scale == 0.5:
-                m += _convx(t + ".0", f + ("down",))
-        m += _c2f(f"{proj_t}.stages.{si}.0", proj_f + (f"stage_{si}",))
-        m += _chan_ln(f"{proj_t}.stages.{si}.1", proj_f + (f"stage_ln_{si}",))
-        si += 1
+    m += projector_mapping("backbone.0.projector", ("backbone", "projector"),
+                           [LEVEL2SCALE[s] for s in cfg.projector_scale],
+                           [in_dim] * len(cfg.out_feature_indexes))
     return m
 
 
@@ -184,15 +194,22 @@ def _bn_counters(keys) -> Dict[str, torch.Tensor]:
             for k in keys if k.endswith(".bn.running_mean")}
 
 
-def state_dict_from_jax(params: dict, batch_stats: dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """JAX `params` / `batch_stats` trees (nested dicts of arrays) -> a
-    state_dict with the reference's keys that the port loads strictly."""
+def tensors_from_jax(mapping: List[Entry], params: dict,
+                     batch_stats: dict) -> Dict[str, torch.Tensor]:
+    """The torch tensors of `mapping`'s entries, read from JAX `params` /
+    `batch_stats` trees (nested dicts of arrays), plus the BatchNorm counters."""
     trees = {"params": params, "batch_stats": batch_stats or {}}
     sd = {tk: torch.from_numpy(np.ascontiguousarray(_f2t(np.asarray(_get_path(trees[coll], fp)),
                                                          kind)).astype(np.float32))
-          for tk, coll, fp, kind in build_mapping(cfg)}
+          for tk, coll, fp, kind in mapping}
     sd.update(_bn_counters(sd))
     return sd
+
+
+def state_dict_from_jax(params: dict, batch_stats: dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """JAX `params` / `batch_stats` trees of `cfg`'s model -> a state_dict
+    with the reference's keys that the port loads strictly."""
+    return tensors_from_jax(build_mapping(cfg), params, batch_stats)
 
 
 def init_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
@@ -222,7 +239,8 @@ def init_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
             sd[k] = normal(shape, 0.1)
         elif k.endswith("running_var"):
             sd[k] = uniform(shape, 0.5, 1.5)
-        elif ".bn." in k or "norm" in k or k.endswith("projector.stages.0.1.weight"):
+        elif (".bn." in k or "norm" in k or len(shape) == 1 and
+              re.search(r"projector\.stages(_sampling\.\d+)?\.\d+\.1\.weight$", k)):
             sd[k] = uniform(shape, 0.8, 1.2) if k.endswith("weight") else normal(shape, 0.05)
         elif k.endswith(("gamma_1", "gamma_2")):
             sd[k] = uniform(shape, 0.05, 0.15)
@@ -239,6 +257,9 @@ def init_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
             sd[k] = normal(shape, 0.02)
         elif k.endswith("pos_embed"):
             sd[k] = normal(shape, 0.02)
+        elif len(shape) == 4 and "stages_sampling" in k and ".conv." not in k:
+            # transposed conv (in, out, 2, 2), stride 2: one tap per output pixel
+            sd[k] = normal(shape, 1.0 / math.sqrt(shape[0]))
         elif len(shape) == 4:  # conv (out, in, kh, kw): fan-in scaled
             sd[k] = normal(shape, 1.0 / math.sqrt(shape[1] * shape[2] * shape[3]))
         else:  # linear (out, in): fan-in scaled

@@ -50,7 +50,7 @@ def test_build_model_without_device_raises_when_cuda_is_absent(monkeypatch):
 
 def test_cpu_tensors_take_the_plain_versions_without_building_kernels():
     kernels = (tfa.window_attention_bias_kernel, tfa.flash_attention_cm_kernel,
-               tda.deform_attn_cm_kernel)
+               tda.deform_attn_cm_kernel, tda.deform_attn_sep_kernel)
     before = [k.launches for k in kernels]
     g = torch.Generator().manual_seed(0)
     qkv = torch.randn(1, 3 * 32, 20, generator=g)
@@ -59,8 +59,18 @@ def test_cpu_tensors_take_the_plain_versions_without_building_kernels():
     tda.ms_deform_attn_cm(torch.randn(1, 32, 12, generator=g), [(3, 4)],
                           torch.rand(1, 5, 2, 1, 2, 2, generator=g),
                           torch.rand(1, 5, 2, 1, 2, generator=g), 2)
+    tda.ms_deform_attn_sep_panels([torch.randn(1, 2, 3, 4 * 16, generator=g)], [(3, 4)],
+                                  torch.rand(1, 5, 2, 1, 2, 2, generator=g),
+                                  torch.rand(1, 5, 2, 1, 2, generator=g))
     assert [k.launches for k in kernels] == before
     assert all(k._fn is None for k in kernels)
+
+
+def test_every_kernel_source_is_registered_for_the_parallel_build():
+    assert set(_build.SOURCES) == {p.name for p in _build.CSRC.glob("*.cu")}
+    bound = {k.source for k in (tfa.window_attention_bias_kernel, tfa.flash_attention_cm_kernel,
+                                tda.deform_attn_cm_kernel, tda.deform_attn_sep_kernel)}
+    assert bound == set(_build.SOURCES)
 
 
 def test_kernel_build_targets_hopper_from_the_checkout():

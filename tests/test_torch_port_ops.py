@@ -147,3 +147,72 @@ def test_ms_deform_attn_cm_matches_gather_reference():
 def test_sampling_offsets_init_bias_matches_jax(heads, levels, points):
     np.testing.assert_array_equal(tda.sampling_offsets_init_bias(heads, levels, points).numpy(),
                                   np.asarray(jda.sampling_offsets_init_bias(heads, levels, points)))
+
+
+# two levels of unequal size (16 x 12 and 5 x 7), head_dim 16, 4 points
+PANEL_SHAPES = ((16, 12), (5, 7))
+
+
+def _panel_inputs(seed, B=2, Q=11, heads=2, D=16, P=4, shapes=PANEL_SHAPES):
+    """Per-level head-major panels (B, H, H_l, W_l * D), locations of which a
+    fifth fall outside [0, 1] (some far outside) and some exactly on the
+    borders, softmax weights."""
+    rng = np.random.default_rng(seed)
+    L = len(shapes)
+    vals = [rng.standard_normal((B, heads, h, w * D)).astype(np.float32) for h, w in shapes]
+    loc = rng.uniform(-0.25, 1.25, (B, Q, heads, L, P, 2)).astype(np.float32)
+    loc[0, 0] = 0.0
+    loc[0, 1] = 1.0
+    loc[0, 2, 0] = -7.5
+    loc[0, 2, 1] = 1e9
+    logits = rng.standard_normal((B, Q, heads, L * P))
+    w = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    return vals, loc, w.reshape(B, Q, heads, L, P).astype(np.float32)
+
+
+def test_ms_deform_attn_sep_panels_matches_jax_interpret():
+    vals, loc, w = _panel_inputs(6)
+    ref = jda.ms_deform_attn_sep_panels(tuple(jnp.asarray(v) for v in vals), PANEL_SHAPES,
+                                        jnp.asarray(loc), jnp.asarray(w), interpret=True)
+    out = tda.ms_deform_attn_sep_panels([torch.from_numpy(v) for v in vals], PANEL_SHAPES,
+                                        torch.from_numpy(loc), torch.from_numpy(w))
+    assert out.shape == (2, loc.shape[1], 2 * 16)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_ms_deform_attn_sep_panels_matches_gather_reference():
+    # the JAX gather formulation (grid_sample semantics) on the same values, row-major
+    vals, loc, w = _panel_inputs(7)
+    B, H, D = 2, 2, 16
+    value = np.concatenate([v.reshape(B, H, -1, D) for v in vals], axis=2).transpose(0, 2, 1, 3)
+    ref = jda.ms_deform_attn(jnp.asarray(value), PANEL_SHAPES, jnp.asarray(loc), jnp.asarray(w))
+    out = tda.ms_deform_attn_sep_panels([torch.from_numpy(v) for v in vals], PANEL_SHAPES,
+                                        torch.from_numpy(loc), torch.from_numpy(w))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("D", [16, 32])
+def test_the_two_plain_samplers_agree(D):
+    # the same values laid out head-major per level and channel-major: one
+    # function, to f32 rounding (the same products, summed in another order)
+    vals, loc, w = _panel_inputs(8, D=D)
+    B, H = 2, 2
+    value_t = np.concatenate([v.reshape(B, H, -1, D) for v in vals], axis=2)  # (B, H, Len, D)
+    value_t = np.ascontiguousarray(value_t.transpose(0, 1, 3, 2)).reshape(B, H * D, -1)
+    panels = tda.ms_deform_attn_sep_panels_plain([torch.from_numpy(v) for v in vals],
+                                                 PANEL_SHAPES, torch.from_numpy(loc),
+                                                 torch.from_numpy(w))
+    cm = tda.ms_deform_attn_cm_plain(torch.from_numpy(value_t), PANEL_SHAPES,
+                                     torch.from_numpy(loc), torch.from_numpy(w), H)
+    np.testing.assert_allclose(panels.numpy(), cm.numpy().transpose(0, 2, 1), atol=2e-6)
+
+
+def test_ms_deform_attn_sep_panels_keeps_the_panels_dtype():
+    vals, loc, w = _panel_inputs(9)
+    out = tda.ms_deform_attn_sep_panels([torch.from_numpy(v).bfloat16() for v in vals],
+                                        PANEL_SHAPES, torch.from_numpy(loc), torch.from_numpy(w))
+    ref = tda.ms_deform_attn_sep_panels([torch.from_numpy(v).bfloat16().float() for v in vals],
+                                        PANEL_SHAPES, torch.from_numpy(loc), torch.from_numpy(w))
+    assert out.dtype == torch.bfloat16
+    # f32 sums rounded once to bf16: half a bf16 ulp of the value
+    torch.testing.assert_close(out.float(), ref, atol=1e-6, rtol=2.0 ** -8)

@@ -1,8 +1,9 @@
 """The port's measurement tools: how `breakdown.py` files device kernels
 into groups, on kernel names the H100 profiler reports for the small@640
-step."""
+and large@640 steps, and which presets the tools take."""
 import pytest
 
+from lwdetr_tpu_torch import bench, breakdown
 from lwdetr_tpu_torch.breakdown import _group
 
 
@@ -13,6 +14,16 @@ from lwdetr_tpu_torch.breakdown import _group
      "(float const*, float const*, float*, int, int, float)", "K1 window_attention_bias"),
     ("void (anonymous namespace)::deform_attn_cm_kernel<__nv_bfloat16>"
      "(__nv_bfloat16 const*, float const*, float const*, __nv_", "K3 deform_attn_cm"),
+    ("void (anonymous namespace)::deform_attn_sep_kernel<__nv_bfloat16>"
+     "(float const*, float const*, __nv_bfloat16*, int, int, int, int, (anonymous",
+     "K4 deform_attn_sep"),
+    ("void (anonymous namespace)::deform_attn_sep_kernel<float>"
+     "(float const*, float const*, float*, int, int, int, int, (anonymous", "K4 deform_attn_sep"),
+    ("void (anonymous namespace)::flash_attention_cm_kernel<__nv_bfloat16, 64>"
+     "(__nv_bfloat16 const*, __nv_bfloat16*, int, int,", "K2 flash_attention_cm"),
+    ("void (anonymous namespace)::window_attention_bias_kernel<__nv_bfloat16, 32>"
+     "(__nv_bfloat16 const*, float const*, __nv_bfloat16*, int, int, float)",
+     "K1 window_attention_bias"),
     ("void cutlass::Kernel2<cutlass_80_tensorop_bf16_s16816gemm_bf16_128x128_64x3_tn_align2>",
      "gemm"),
     ("nvjet_tst_128x160_64x5_2x1_v_bz_coopA_bias_TNT", "gemm"),
@@ -22,6 +33,14 @@ from lwdetr_tpu_torch.breakdown import _group
      "conv"),
     ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel"
      "<c10::BFloat16, float, false>(int, float, c10::BFloa", "norm"),
+    ("void cudnn::bn_fw_inf_1C11_kernel_NHWC<float, float, true, true>(float, float, "
+     "cudnnTensorStruct, fl", "norm"),
+    ("void at::native::batch_norm_transform_input_channels_last_kernel<c10::BFloat16, float, "
+     "c10::BFloat16", "norm"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize128x128x32_"
+     "warpgroupsize1x1", "conv"),
+    ("sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc_nhwc_tilesize64x192x32_"
+     "warpgroupsize1x1x1_", "conv"),
     ("void at::native::sbtopk::gatherTopK<float, unsigned int, 2, false>", "topk/sort"),
     ("void at::native::vectorized_elementwise_kernel<8, at::native::GeluCUDAKernelImpl"
      "(at::TensorIteratorBase&, at::native::Ge", "other elementwise/copy"),
@@ -30,3 +49,15 @@ from lwdetr_tpu_torch.breakdown import _group
 ])
 def test_breakdown_groups_kernel_names(name, group):
     assert _group(name) == group
+
+
+@pytest.mark.parametrize("tool", [bench, breakdown], ids=["bench", "breakdown"])
+@pytest.mark.parametrize("preset", ["tiny", "small", "medium", "large", "xlarge"])
+def test_tools_take_every_vit_preset(tool, preset):
+    assert tool.parser().parse_args(["--preset", preset]).preset == preset
+
+
+@pytest.mark.parametrize("tool", [bench, breakdown], ids=["bench", "breakdown"])
+def test_tools_refuse_an_unknown_preset(tool):
+    with pytest.raises(SystemExit):
+        tool.parser().parse_args(["--preset", "huge"])
