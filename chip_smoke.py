@@ -4,17 +4,21 @@ Run from the root of a checkout, with one card:
 
     python3 chip_smoke.py
 
-1. Builds the four kernels of the eval paths (K1-K4, `lwdetr_tpu_torch/csrc/`)
-   with nvcc, one process per source, all at once, and prints the
-   `-Xptxas -v` register, shared-memory and spill report of every template
-   case.
+1. Builds the seven kernels of the eval and train paths (K1-K7,
+   `lwdetr_tpu_torch/csrc/`) with nvcc, one process per source, all at once,
+   and prints the `-Xptxas -v` register, shared-memory and spill report of
+   every template case.
 2. Holds each kernel against its plain PyTorch version, in f32 and bf16, at
    the shapes the 640x640 forwards give it with batch 8: K1, K2 and K3 at
    LW-DETR-small's, K1 and K2 also at large's and xlarge's (head_dim 32 and
    64), K4 at large's and xlarge's (two levels of head-major panels, 24 heads,
    4 points). It times the kernel, the plain version and, for K1/K2, one
    `F.scaled_dot_product_attention` call on the same inputs (a yardstick the
-   port never calls).
+   port never calls). The backward kernels K5, K6 and K7 are held against
+   their plain versions at the shapes of one LW-DETR-small train step at batch
+   4 (3900 queries), K6 also at head_dim 64 and K5 also at large's two-level,
+   4-point shape, with SDPA's backward as the yardstick of K6 and K7; K4 also
+   at the train step's shape.
 3. Drives three eval forwards + `post_process` at 640x640 from
    `init_state_dict(seed=0)`, batch 8, f32: small, then xlarge, then large.
    Every launch counter is set to 0 just before a forward and read just after:
@@ -24,6 +28,14 @@ Run from the root of a checkout, with one card:
    rounding; the picks are compared on their own), gives the reference
    outputs. The bf16 model must give finite outputs. Then the bf16 throughput
    of each preset at batch 32 (`lwdetr_tpu_torch.bench`).
+4. Drives the train step of LW-DETR-small at 640x640, f32, batch 4, on one
+   synthetic batch with 7 boxes an image: one step's gradients through the
+   kernels against the same forward with the plain backward versions, per
+   parameter tensor, and against the whole step on the plain versions
+   (proposal picks and matching replayed); the launch counts of that step
+   (K1 6, K2 7, K3 0, K4 3, K5 3, K6 7, K7 6); 12 steps with the release
+   optimizer settings (finite losses that fall, an EMA that moves); then the
+   step time, img/s, the matcher's host time per step and peak device memory.
 
 Any failure exits non-zero. Without a CUDA card, or outside a checkout, it
 exits non-zero and prints no result. The line before the last holds one JSON
@@ -69,19 +81,42 @@ BATCH = 8
 # launches per forward: 6 window blocks; 4 global blocks + 3 decoder
 # self-attentions; 3 decoder cross-attentions, from channel-major values below
 # 4096 memory positions (small: 1600) and from panels above (P3 + P5: 6800)
-EXPECTED_LAUNCHES = {"small": {"K1": 6, "K2": 7, "K3": 3, "K4": 0},
-                     "xlarge": {"K1": 6, "K2": 7, "K3": 0, "K4": 3},
-                     "large": {"K1": 6, "K2": 7, "K3": 0, "K4": 3}}
+# (no eval forward launches a backward kernel)
+_NO_BWD = {"K5": 0, "K6": 0, "K7": 0}
+EXPECTED_LAUNCHES = {"small": {"K1": 6, "K2": 7, "K3": 3, "K4": 0, **_NO_BWD},
+                     "xlarge": {"K1": 6, "K2": 7, "K3": 0, "K4": 3, **_NO_BWD},
+                     "large": {"K1": 6, "K2": 7, "K3": 0, "K4": 3, **_NO_BWD}}
+# one train step of small: the forward's launches (the decoder samples from
+# panels in train mode: K4, not K3) and one backward launch for each
+TRAIN_LAUNCHES = {"K1": 6, "K2": 7, "K3": 0, "K4": 3, "K5": 3, "K6": 7, "K7": 6}
+TRAIN_BATCH = 4
+TRAIN_STEPS = 12
+# how the backward kernels' absolute bound scales (see `grad_scale`)
+BWD_TOL = {"K5": " x max(1, max |plain|), x 4 on d(panel) for the order of its atomic adds",
+           "K6": " x max(1, max |plain|)", "K7": " x max(1, max |plain|)"}
+# one train step, f32: backward kernels vs plain backwards on the same forward,
+# per parameter tensor, max |difference| over that tensor's max |gradient|
+# (floored at GRAD_FLOOR x the largest gradient of all); and kernels vs the
+# whole step on the plain versions, relative L2 error over all gradients
+TRAIN_GRAD_RTOL = 1e-3
+GRAD_FLOOR = 1e-5
+TRAIN_GRAD_L2 = 5e-2
 REPLACES = {
     "K1": "lwdetr_tpu/ops/flash_attention.py:95 _attn_cm_allheads_bias_kernel",
     "K2": "lwdetr_tpu/ops/flash_attention.py:43 _attn_cm_kernel",
     "K3": "lwdetr_tpu/ops/deform_attn.py:444 _deform_cm_kernel",
     "K4": "lwdetr_tpu/ops/deform_attn.py:853 _sep_kernel",
+    "K5": "lwdetr_tpu/ops/deform_attn.py:1105 _sep_bwd_kernel",
+    "K6": "lwdetr_tpu/ops/flash_attention.py:287 _attn_cm_bwd_kernel",
+    "K7": "lwdetr_tpu/ops/flash_attention.py:347 _attn_cm_bwd_allheads_kernel",
 }
 SOURCES = {"K1": "lwdetr_tpu_torch/csrc/window_attention.cu",
            "K2": "lwdetr_tpu_torch/csrc/flash_attention.cu",
            "K3": "lwdetr_tpu_torch/csrc/deform_attn.cu",
-           "K4": "lwdetr_tpu_torch/csrc/deform_attn_sep.cu"}
+           "K4": "lwdetr_tpu_torch/csrc/deform_attn_sep.cu",
+           "K5": "lwdetr_tpu_torch/csrc/deform_attn_sep_bwd.cu",
+           "K6": "lwdetr_tpu_torch/csrc/flash_attention_bwd.cu",
+           "K7": "lwdetr_tpu_torch/csrc/window_attention_bwd.cu"}
 
 
 def log(msg: str) -> None:
@@ -109,15 +144,22 @@ def build_kernels():
                 print(f"[{src}] {line.strip()}")
 
 
-def check_close(torch, name, dtype, out, ref):
-    """max |out - ref|; raises unless every element is within ATOL + RTOL|ref|."""
+def check_close(torch, name, dtype, out, ref, atol_scale=1.0):
+    """max |out - ref|; raises unless every element is within ATOL x atol_scale + RTOL|ref|."""
     diff = (out.float() - ref).abs()
-    excess = (diff - (ATOL + RTOL[dtype] * ref.abs())).max().item()
+    atol = ATOL * atol_scale
+    excess = (diff - (atol + RTOL[dtype] * ref.abs())).max().item()
     err = diff.max().item()
     if not torch.isfinite(out).all() or excess > 0:
-        raise AssertionError(f"{name} {dtype}: max abs err {err}, over ATOL {ATOL} + RTOL "
+        raise AssertionError(f"{name} {dtype}: max abs err {err}, over ATOL {atol} + RTOL "
                              f"{RTOL[dtype]} x |plain| by {excess}")
     return err
+
+
+def grad_scale(ref):
+    """A gradient sums many terms of either sign, so its f32 bound scales with
+    its magnitude: ATOL x max(1, max |plain|)."""
+    return max(1.0, ref.abs().max().item())
 
 
 def attention_inputs(torch, B, C, N, heads, dtype, bias, seed):
@@ -215,13 +257,16 @@ def touched_positions(torch, loc_l, hw):
     return torch.unique(torch.cat(keys)).numel()
 
 
-def compare_deform_sep(torch, da, measure_ms, dtype):
-    """K4 at the shapes of the large and xlarge 640x640 forwards."""
-    dt = getattr(torch, dtype)
-    B, H, D, P, Q = BATCH, 24, 16, 4, 300
-    shapes = [(80, 80), (20, 20)]
+# K4 / K5 shapes: (B, heads, head_dim, points, queries, levels)
+SEP_LARGE = (BATCH, 24, 16, 4, 300, [(80, 80), (20, 20)])       # large / xlarge eval
+SEP_SMALL_TRAIN = (4, 16, 16, 2, 3900, [(40, 40)])              # small's train step, batch 4
+SEP_LARGE_TRAIN = (BATCH, 24, 16, 4, 3900, [(80, 80), (20, 20)])  # large with 13 query groups
+
+
+def sep_inputs(torch, dt, shape, seed=4):
+    B, H, D, P, Q, shapes = shape
     L = len(shapes)
-    g = torch.Generator(device="cuda").manual_seed(4)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     vals = [torch.randn((B, H, h, w * D), generator=g, device="cuda").to(dt) for h, w in shapes]
     # about a sixth of the points fall outside [0, 1] in x or y, so some or all
     # of their corners drop out; query 0 sits on the borders, query 1 far outside
@@ -231,6 +276,23 @@ def compare_deform_sep(torch, da, measure_ms, dtype):
     loc[:, 1] = loc[:, 1] * 1e6 - 3e5
     outside = ((loc < 0) | (loc > 1)).any(-1).float().mean().item()
     w = torch.randn((B, Q, H, L * P), generator=g, device="cuda").softmax(-1).reshape(B, Q, H, L, P)
+    dout = torch.randn((B, Q, H * D), generator=g, device="cuda").to(dt)
+    return vals, loc, w, dout, outside
+
+
+def sep_panel_bytes(torch, vals, loc, shapes, D):
+    """Bytes of each panel that the run's points name: the distinct in-map
+    corners (each D channels wide), once each, never more than the panel."""
+    touched = [touched_positions(torch, loc[:, :, :, lvl], hw) for lvl, hw in enumerate(shapes)]
+    return [min(v.numel(), n * D) * v.element_size() for v, n in zip(vals, touched)]
+
+
+def compare_deform_sep(torch, da, measure_ms, dtype, shape=SEP_LARGE):
+    """K4 at the shapes of the large and xlarge 640x640 forwards, or at `shape`."""
+    dt = getattr(torch, dtype)
+    B, H, D, P, Q, shapes = shape
+    L = len(shapes)
+    vals, loc, w, _, outside = sep_inputs(torch, dt, shape)
     kernel = lambda: da.ms_deform_attn_sep_panels(vals, shapes, loc, w)  # noqa: E731
     plain = lambda: da.ms_deform_attn_sep_panels_plain(vals, shapes, loc, w)  # noqa: E731
     with torch.no_grad():
@@ -244,12 +306,11 @@ def compare_deform_sep(torch, da, measure_ms, dtype):
         timed = measure_ms(kernel, iters=200, repeats=7)
         ms = timed["ms"]
         plain_ms = measure_ms(plain, iters=5)["ms"]
-        touched = [touched_positions(torch, loc[:, :, :, lvl], hw) for lvl, hw in enumerate(shapes)]
+        panel_bytes = sep_panel_bytes(torch, vals, loc, shapes, D)
     # bytes the function must move for these locations: of each panel only the
     # distinct in-map corners the points name (each D channels wide), once
     # each, and never more than the panel; loc and weights in, (B, Q, C) out
     isz = vals[0].element_size()
-    panel_bytes = [min(v.numel(), n * D) * isz for v, n in zip(vals, touched)]
     nbytes = sum(panel_bytes) + out.numel() * isz + (loc.numel() + w.numel()) * 4
     flops = 2 * 4 * B * Q * H * D * L * P  # 4 corners x (multiply + add) per output channel
     bms, by, _ = bound_ms(nbytes, flops, 0, dtype)
@@ -263,6 +324,105 @@ def compare_deform_sep(torch, da, measure_ms, dtype):
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
             "bound_bytes": nbytes, "panel_bytes_needed": panel_bytes,
             "panel_bytes": [v.numel() * isz for v in vals], "points_outside_share": outside}
+
+
+def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape):
+    """K5 against its plain version: d(panels), d(loc), d(weights) from d(out)."""
+    dt = getattr(torch, dtype)
+    B, H, D, P, Q, shapes = shape
+    L = len(shapes)
+    vals, loc, w, dout, outside = sep_inputs(torch, dt, shape)
+    kernel = lambda: da.ms_deform_attn_sep_panels_bwd(vals, shapes, loc, w, dout)  # noqa: E731
+    plain = lambda: da.ms_deform_attn_sep_panels_bwd_plain(vals, shapes, loc, w, dout)  # noqa: E731
+    with torch.no_grad():
+        dvals, dloc, dw = kernel()
+        rvals, rloc, rw = da.ms_deform_attn_sep_panels_bwd_plain(
+            [v.float() for v in vals], shapes, loc, w, dout.float())
+        torch.cuda.synchronize()
+        # d(panel): up to hundreds of f32 atomic adds per position, in an order
+        # that changes from run to run: 4 x the f32 bound of the other outputs
+        err = max(check_close(torch, f"K5 d(panel {i})", dtype, dv, rv, 4.0 * grad_scale(rv))
+                  for i, (dv, rv) in enumerate(zip(dvals, rvals)))
+        err_loc = check_close(torch, "K5 d(loc)", "float32", dloc, rloc, grad_scale(rloc))
+        err_w = check_close(torch, "K5 d(weights)", "float32", dw, rw, grad_scale(rw))
+        untouched = sum(int(((rv == 0) & (dv.float() != 0)).sum()) for dv, rv in zip(dvals, rvals))
+        if untouched:
+            raise AssertionError(f"K5: {untouched} positions no point touches got a gradient")
+        timed = measure_ms(kernel, iters=200, repeats=5)
+        ms = timed["ms"]
+        plain_ms = measure_ms(plain, iters=3, repeats=3)["ms"]
+        panel_bytes = sep_panel_bytes(torch, vals, loc, shapes, D)
+    # bytes: the corners the points name and d(out), loc, weights in; every
+    # d(panel) position (touched or zero), d(loc) and d(weights) out
+    isz = vals[0].element_size()
+    nbytes = (sum(panel_bytes) + dout.numel() * isz + (loc.numel() + w.numel()) * 4
+              + sum(v.numel() for v in vals) * isz + (loc.numel() + w.numel()) * 4)
+    flops = 2 * 2 * 4 * B * Q * H * D * L * P  # per corner and channel: a dot term and an add
+    bms, by, _ = bound_ms(nbytes, flops, 0, dtype)
+    adds = B * Q * H * L * P * 4 * D
+    log(f"K5 {dtype} panels {[tuple(v.shape) for v in vals]} Q {Q} P {P}: {outside:.3f} of the "
+        f"points outside [0, 1]; err d(panel) {err:.3g} (max |plain| "
+        f"{max(rv.abs().max().item() for rv in rvals):.3g}) d(loc) {err_loc:.3g} d(w) {err_w:.3g} "
+        f"ms {ms:.4f} (samples {timed['ms_min']:.4f}-{timed['ms_max']:.4f}) plain {plain_ms:.4f} "
+        f"bound {bms:.4f} ({by}, {nbytes / 1e6:.1f} MB; at most {adds / 1e6:.1f} M atomic adds)")
+    return {"shape": [list(v.shape) for v in vals] + [Q], "max_abs_err": err,
+            "max_abs_err_dloc": err_loc, "max_abs_err_dweights": err_w, "ms": ms,
+            "ms_min": timed["ms_min"], "ms_max": timed["ms_max"], "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None, "bound_bytes": nbytes,
+            "atomic_adds_at_most": adds, "points_outside_share": outside}
+
+
+def compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N, heads, scale, bias, dtype,
+                          iters):
+    """K6 or K7 (with `bias`) vs the plain backward, and SDPA's backward, on one shape."""
+    dt = getattr(torch, dtype)
+    qkv, b = attention_inputs(torch, B, C, N, heads, dt, bias, seed=N + C + 1)
+    g = torch.Generator(device="cuda").manual_seed(N)
+    dout = torch.randn((B, C, N), generator=g, device="cuda").to(dt)
+    D = C // heads
+    with torch.no_grad():
+        if bias:
+            kernel = lambda: fa.window_attention_bias_bwd(qkv, b, dout, heads, scale)  # noqa: E731
+            plain = lambda: fa.attention_cm_bwd_plain(qkv, dout, heads, scale, bias=b)  # noqa: E731
+            ref = fa.attention_cm_bwd_plain(qkv.float(), dout.float(), heads, scale, bias=b)
+            qkv_lib = qkv.float() + b[:, None]
+        else:
+            # K6 reads what K2 saved: its output and the rows' log-sum-exp; the
+            # plain version takes its row term from the same output
+            out, lse = fa.flash_attention_cm_fwd(qkv, heads, scale, with_lse=True)
+            kernel = lambda: fa.flash_attention_cm_bwd(qkv, out, lse, dout, heads, scale)  # noqa: E731
+            plain = lambda: fa.attention_cm_bwd_plain(qkv, dout, heads, scale, out=out)  # noqa: E731
+            ref = fa.attention_cm_bwd_plain(qkv.float(), dout.float(), heads, scale,
+                                            out=out.float())
+            qkv_lib = qkv.float()
+        dqkv = kernel()
+        torch.cuda.synchronize()
+        err = check_close(torch, f"{name} {tuple(qkv.shape)}", dtype, dqkv, ref, grad_scale(ref))
+        ms = measure_ms(kernel, iters=iters)["ms"]
+        plain_ms = measure_ms(plain, iters=3, repeats=3)["ms"]
+    # the library's backward of the same attention: the forward (and its
+    # graph) is made here, outside the timing
+    q, k, v = (qkv_lib.to(dt).reshape(B, 3, heads, D, N)[:, i].transpose(-1, -2).contiguous()
+               .requires_grad_() for i in range(3))
+    do_lib = dout.reshape(B, heads, D, N).transpose(-1, -2).contiguous()
+    o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+    library = lambda: torch.autograd.grad(o, (q, k, v), do_lib, retain_graph=True)  # noqa: E731
+    lib = torch.stack([t.transpose(-1, -2) for t in library()], dim=1).reshape(B, 3 * C, N)
+    lib_err = (lib.float() - ref).abs().max().item()
+    library_ms = measure_ms(library, iters=iters)["ms"]
+    isz = qkv.element_size()
+    # qkv, d(out) and (K6) out and the log-sum-exp in; d(qkv) out
+    nbytes = B * (7 * C) * N * isz + (3 * C * 4 if bias else B * C * N * isz + B * heads * N * 4)
+    flops = 10 * B * heads * N * N * D  # five (N, N, D) products: s, dp, dq, dk, dv
+    exps = B * heads * N * N
+    bms, by, parts = bound_ms(nbytes, flops, exps, dtype)
+    log(f"{name} {dtype} qkv {tuple(qkv.shape)}: err {err:.3g} of max |plain| "
+        f"{ref.abs().max().item():.3g} (sdpa bwd vs plain {lib_err:.3g}) ms {ms:.4f} plain "
+        f"{plain_ms:.4f} sdpa bwd {library_ms:.4f} bound {bms:.4f} ({by}; "
+        + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in parts.items()) + ")")
+    return {"shape": list(qkv.shape), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+            "bound_parts_ms": {k: v * 1e3 for k, v in parts.items()}}
 
 
 # the attention shapes of the three forwards at batch 8: (key, kernel, B, C, N,
@@ -279,8 +439,21 @@ ATTENTION_SHAPES = (
 )
 
 
+# the backward shapes of one small train step at batch 4 (3900 queries in 13
+# groups of 300, folded into the batch for the decoder's self-attention), and
+# K6 at head_dim 64: (key, kernel, B, C, N, heads, scale, bias, calls a sample).
+# K7 takes 200 calls a sample, so that host enqueue time is not in it; a K6
+# launch takes milliseconds, where 20 (5 at head_dim 64) do.
+ATTENTION_BWD_SHAPES = (
+    ("K7", "K7", TRAIN_BATCH * 16, 192, 100, 12, 1.0, True, 200),
+    ("K6", "K6", TRAIN_BATCH, 192, 1600, 12, 1.0, False, 20),
+    ("K6dec", "K6", TRAIN_BATCH * 13, 256, 300, 8, 32 ** -0.5, False, 20),
+    ("K6@xlarge", "K6", BATCH, 768, 1600, 12, 1.0, False, 5),
+)
+
+
 def kernel_phase(torch, F, fa, da, measure_ms):
-    """Every kernel against its plain version at the eval paths' shapes."""
+    """Every kernel against its plain version at the eval and train paths' shapes."""
     res = {}
     for dtype in ("float32", "bfloat16"):
         for key, name, B, C, N, heads, scale, bias in ATTENTION_SHAPES:
@@ -288,7 +461,26 @@ def kernel_phase(torch, F, fa, da, measure_ms):
                                                   scale, bias, dtype)
         res[("K3", dtype)] = compare_deform(torch, da, measure_ms, dtype)
         res[("K4", dtype)] = compare_deform_sep(torch, da, measure_ms, dtype)
+        res[("K4@train", dtype)] = compare_deform_sep(torch, da, measure_ms, dtype,
+                                                      SEP_SMALL_TRAIN)
+        for key, name, B, C, N, heads, scale, bias, iters in ATTENTION_BWD_SHAPES:
+            res[(key, dtype)] = compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N,
+                                                      heads, scale, bias, dtype, iters)
+        res[("K5", dtype)] = compare_deform_sep_bwd(torch, da, measure_ms, dtype, SEP_SMALL_TRAIN)
+        res[("K5@large", dtype)] = compare_deform_sep_bwd(torch, da, measure_ms, dtype,
+                                                          SEP_LARGE_TRAIN)
     return res
+
+
+def plain_attention(fa):
+    """`attention_cm` on the plain version (autograd through it gives the reference gradients)."""
+
+    def attention(qkv_t, num_heads, scale=None, bias=None):
+        if bias is not None:
+            qkv_t = qkv_t + bias.to(qkv_t.dtype)[:, None]
+        return fa.attention_cm_plain(qkv_t, num_heads, scale)
+
+    return attention
 
 
 def forward_phase(torch, fa, da, kernels, preset):
@@ -342,12 +534,7 @@ def forward_phase(torch, fa, da, kernels, preset):
     if launches != EXPECTED_LAUNCHES[preset]:
         raise AssertionError(f"{preset}: launches {launches} != {EXPECTED_LAUNCHES[preset]}")
 
-    def plain_attention(qkv_t, num_heads, scale=None, bias=None):
-        if bias is not None:
-            qkv_t = qkv_t + bias.to(qkv_t.dtype)[:, None]
-        return fa.attention_cm_plain(qkv_t, num_heads, scale)
-
-    with mock.patch.object(fa, "attention_cm", plain_attention), \
+    with mock.patch.object(fa, "attention_cm", plain_attention(fa)), \
             mock.patch.object(da, "ms_deform_attn_cm", da.ms_deform_attn_cm_plain), \
             mock.patch.object(da, "ms_deform_attn_sep_panels",
                               da.ms_deform_attn_sep_panels_plain), \
@@ -411,6 +598,158 @@ def forward_phase(torch, fa, da, kernels, preset):
                       "proposal_picks_same_set_min": same_set}
 
 
+def train_phase(torch, fa, da, kernels, measure_ms, card):
+    """The small@640 f32 train step at batch 4: gradients through the kernels vs
+    the plain versions, launch counts, 12 optimizer steps, step time."""
+    from lwdetr_tpu_torch import bench_train
+    from lwdetr_tpu_torch.models import criterion as cm
+    from lwdetr_tpu_torch.models import transformer as tr
+
+    state, step = bench_train.make_train_step("small", TRAIN_BATCH, seed=0)
+    model = state.model
+    mcfg = model.cfg
+    criterion = cm.SetCriterion(mcfg, bench_train.get_train_config("small"))
+    data = bench_train.synthetic_batch(mcfg.num_classes, TRAIN_BATCH, 640, 100, 7, "cuda", seed=0)
+    targets = cm.Targets(data["labels"], data["boxes"], data["valid"])
+
+    # (a) one forward + backward through the kernels, then (a1) the same forward
+    # with each backward kernel swapped for its plain version, and (a2) the whole
+    # step on the plain versions with torch.autograd. Near-tied proposal scores
+    # and matching costs can flip under f32 rounding and would reseed whole
+    # queries, so the other runs replay the kernel run's picks (13 groups) and
+    # its matching. The step has more kinks than those: a plain forward differs
+    # from the kernels' by ~1e-6, which flips ReLU units of the decoder's FFN and
+    # moves sampling points across grid lines, and each flip moves a gradient
+    # tensor by up to 1e-2 of its maximum. So the per-tensor bound holds (a1),
+    # where both runs share one forward bit for bit, and (a2) is held to the
+    # loss and to the relative L2 error over all gradients.
+    select, match = tr.select_proposals, cm.hungarian_match
+    picks, matchings, replayed = [], [], []
+
+    def record_pick(scores, k):
+        picks.append(select(scores, k))
+        return picks[-1]
+
+    def replay_pick(scores, k):
+        replayed.append(select(scores, k))
+        return picks[(len(replayed) - 1) % len(picks)]
+
+    def record_match(*args, **kwargs):
+        matchings.append(match(*args, **kwargs))
+        return matchings[-1]
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        out = model(data["images"])
+        total, losses = criterion(out, targets, train=True)
+        total.backward()
+        torch.cuda.synchronize()
+        return total.item(), {n: p.grad.clone() for n, p in model.named_parameters()
+                              if p.grad is not None}
+
+    def compare(grads_ref, label):
+        """Per tensor: max |difference| over max |reference|, with a floor of
+        GRAD_FLOOR x the largest gradient of all, since some gradients are zero
+        in exact arithmetic (a bias in front of a train-mode BatchNorm)."""
+        top = max(g.abs().max().item() for g in grads_ref.values())
+        rel = {n: ((grads_k[n] - g).abs().max() / g.abs().max().clamp(min=GRAD_FLOOR * top)).item()
+               for n, g in grads_ref.items()}
+        worst = max(rel, key=rel.get)
+        num = sum((grads_k[n] - g).double().square().sum() for n, g in grads_ref.items())
+        l2 = (num / sum(g.double().square().sum() for g in grads_ref.values())).sqrt().item()
+        log(f"small@640 train step, kernels vs {label}, f32, batch {TRAIN_BATCH}: gradient max "
+            f"rel err over {len(rel)} parameter tensors {rel[worst]:.3g} ({worst}), median "
+            f"{sorted(rel.values())[len(rel) // 2]:.3g}; relative L2 error of all gradients {l2:.3g}")
+        return rel[worst], worst, l2
+
+    for k in kernels:
+        k.launches = 0
+    with mock.patch.object(tr, "select_proposals", record_pick), \
+            mock.patch.object(cm, "hungarian_match", record_match):
+        loss_k, grads_k = grads()
+    launches = {k.name: k.launches for k in kernels}
+    log(f"small@640 train step launches: {launches}")
+    if launches != TRAIN_LAUNCHES:
+        raise AssertionError(f"train step: launches {launches} != {TRAIN_LAUNCHES}")
+    if not all(torch.isfinite(g).all() for g in grads_k.values()):
+        raise AssertionError("non-finite gradients")
+    replay = (mock.patch.object(tr, "select_proposals", replay_pick),
+              mock.patch.object(cm, "hungarian_match", lambda *a, **kw: matchings[0]))
+
+    with replay[0], replay[1], \
+            mock.patch.object(fa, "window_attention_bias_bwd",
+                              lambda qkv, bias, dout, heads, scale:
+                              fa.attention_cm_bwd_plain(qkv, dout, heads, scale, bias=bias)), \
+            mock.patch.object(fa, "flash_attention_cm_bwd",
+                              lambda qkv, out, lse, dout, heads, scale:
+                              fa.attention_cm_bwd_plain(qkv, dout, heads, scale, out=out)), \
+            mock.patch.object(da, "ms_deform_attn_sep_panels_bwd",
+                              da.ms_deform_attn_sep_panels_bwd_plain):
+        loss_b, grads_b = grads()
+    if [k.launches for k in kernels[4:]] != [launches[k.name] for k in kernels[4:]]:
+        raise AssertionError("the step on the plain backwards launched a backward kernel")
+    bwd_err, bwd_worst, bwd_l2 = compare(grads_b, "the plain backwards on the same forward")
+    if abs(loss_b - loss_k) > 1e-6 * abs(loss_k) or bwd_err > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"backward kernels disagree with their plain versions: {bwd_worst} "
+                             f"{bwd_err}, loss {loss_k} vs {loss_b}")
+    del grads_b
+
+    before = [k.launches for k in kernels]
+    with replay[0], replay[1], mock.patch.object(fa, "attention_cm", plain_attention(fa)), \
+            mock.patch.object(da, "ms_deform_attn_sep_panels",
+                              da.ms_deform_attn_sep_panels_plain):
+        loss_p, grads_p = grads()
+    if [k.launches for k in kernels] != before:
+        raise AssertionError("the plain train step launched a kernel")
+    if len(picks) != mcfg.group_detr or len(replayed) != 2 * len(picks) or len(matchings) != 1:
+        raise AssertionError(f"{len(picks)} picks recorded, {len(replayed)} replayed, "
+                             f"{len(matchings)} matchings")
+    same_pick = min((a == b).float().mean().item() for a, b in zip(picks, replayed[len(picks):]))
+    log(f"small@640 train step loss, kernels {loss_k:.7f} vs all plain {loss_p:.7f}; the plain "
+        f"forward's own picks at the same position {same_pick:.4f}")
+    all_err, all_worst, all_l2 = compare(grads_p, "the whole step on the plain versions")
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or all_l2 > TRAIN_GRAD_L2:
+        raise AssertionError(f"train step disagrees with the plain versions: loss {loss_k} vs "
+                             f"{loss_p}, relative L2 error of the gradients {all_l2}")
+    del grads_k, grads_p
+    model.zero_grad(set_to_none=True)
+
+    # (c) 12 steps on that batch with the release optimizer settings
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step()["loss"] for _ in range(TRAIN_STEPS)]
+    losses = [float(x) for x in losses]
+    log(f"small@640 {TRAIN_STEPS} train steps, loss: " + " ".join(f"{x:.4f}" for x in losses))
+    moved = max((state.ema[k] - v.detach()).abs().max().item()
+                for k, v in model.named_parameters())
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if losses[-1] >= losses[0] or state.step != TRAIN_STEPS or moved <= 0:
+        raise AssertionError(f"training made no progress: loss {losses[0]} -> {losses[-1]}, "
+                             f"step {state.step}, max |ema - parameters| {moved}")
+
+    # (d) step time after those warm-up steps, and the matcher's host time
+    timer = bench_train.HostTimer(cm.hungarian_match)
+    with mock.patch.object(cm, "hungarian_match", timer):
+        t = measure_ms(step, iters=5, warmup=0, repeats=3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    res = {"batch": TRAIN_BATCH, "launches": launches, "loss_kernels": loss_k,
+           "loss_plain": loss_p, "grad_max_rel_err_plain_backwards": bwd_err,
+           "grad_worst_tensor_plain_backwards": bwd_worst, "grad_rel_l2_plain_backwards": bwd_l2,
+           "grad_max_rel_err_all_plain": all_err, "grad_worst_tensor_all_plain": all_worst,
+           "grad_rel_l2_all_plain": all_l2,
+           "picks_same_position_min": same_pick, "losses": losses,
+           "ema_max_abs_distance": moved, "step_ms": t["ms"], "step_ms_samples": t["samples"],
+           "img_per_s": TRAIN_BATCH / (t["ms"] / 1e3),
+           "matcher_host_ms_per_step": timer.seconds * 1e3 / timer.calls,
+           "peak_memory_mb": peak, "card": card}
+    print(f"small@640 f32 train step, batch {TRAIN_BATCH}: {t['ms']:.3f} ms "
+          f"({card}), samples {[round(x, 3) for x in t['samples']]}")
+    print(f"lwdetr_small_640_f32_train_throughput: {res['img_per_s']:.3f} img/s ({card})")
+    print(f"matcher host time: {res['matcher_host_ms_per_step']:.3f} ms per step ({card})")
+    print(f"peak device memory over the train steps: {peak:.1f} MiB ({card})")
+    return launches, res
+
+
 def main() -> int:
     import torch
 
@@ -428,13 +767,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 stays f32, so that the
     torch.backends.cudnn.allow_tf32 = False  # projector convs hide no kernel error
     kernels = {"K1": fa.window_attention_bias_kernel, "K2": fa.flash_attention_cm_kernel,
-               "K3": da.deform_attn_cm_kernel, "K4": da.deform_attn_sep_kernel}
+               "K3": da.deform_attn_cm_kernel, "K4": da.deform_attn_sep_kernel,
+               "K5": da.deform_attn_sep_bwd_kernel, "K6": fa.flash_attention_cm_bwd_kernel,
+               "K7": fa.window_attention_bias_bwd_kernel}
 
     build_kernels()
     res = kernel_phase(torch, F, fa, da, measure_ms)
     launches, fwd, thr = {}, {}, {}
     for preset in EXPECTED_LAUNCHES:
         launches[preset], fwd[preset] = forward_phase(torch, fa, da, list(kernels.values()), preset)
+    launches["small_train"], train = train_phase(torch, fa, da, list(kernels.values()),
+                                                 measure_ms, card_line())
     for preset in EXPECTED_LAUNCHES:
         thr[preset] = bench.run(preset, batch=32)
         log(f"{preset}@640 bf16 throughput: {thr[preset]['value']} img/s at batch 32 "
@@ -444,24 +787,31 @@ def main() -> int:
         return {"bfloat16": res[(key, "bfloat16")], "float32": res[(key, "float32")]}
 
     # each kernel's headline numbers are bf16 at the first path that runs it
-    # (small for K1-K3, large for K4); its other shapes and f32 stand beside them
+    # (small's eval for K1-K3, large's for K4, small's train step for K5-K7);
+    # its other shapes and f32 stand beside them
     entries = []
     for name in kernels:
-        path = "large" if name == "K4" else "small"
+        path = {"K4": "large", "K5": "small_train", "K6": "small_train",
+                "K7": "small_train"}.get(name, "small")
         entry = {"name": name, "route": "cuda", "source": SOURCES[name],
                  "replaces": REPLACES[name], "launches": launches[path][name], "path": path,
                  "launches_by_path": {p: launches[p][name] for p in launches},
                  "dtype": "bfloat16", **res[(name, "bfloat16")], "f32": res[(name, "float32")],
-                 "tolerance": f"|kernel - plain f32| <= {ATOL} + {RTOL['bfloat16']} x |plain| "
-                              f"(f32: {ATOL})"}
-        if name == "K2":
-            entry["decoder_shape"] = both("K2dec")
+                 "tolerance": f"|kernel - plain f32| <= {ATOL}{BWD_TOL.get(name, '')} + "
+                              f"{RTOL['bfloat16']} x |plain| (f32: {ATOL}{BWD_TOL.get(name, '')})"}
+        if name in ("K2", "K6"):
+            entry["decoder_shape"] = both(name + "dec")
         others = {key.split("@")[1] + ("_decoder" if "dec" in key else ""): both(key)
-                  for key, kname, *_ in ATTENTION_SHAPES if kname == name and "@" in key}
+                  for key, kname, *_ in ATTENTION_SHAPES + ATTENTION_BWD_SHAPES
+                  if kname == name and "@" in key}
+        if name == "K4":
+            others["small_train"] = both("K4@train")
+        if name == "K5":
+            others["large_train"] = both("K5@large")
         if others:
             entry["other_shapes"] = others
         entries.append(entry)
-    print(json.dumps({"forward_f32": fwd, "throughput": thr}))
+    print(json.dumps({"forward_f32": fwd, "throughput": thr, "train_f32": train}))
     print(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

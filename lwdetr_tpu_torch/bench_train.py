@@ -1,0 +1,122 @@
+"""Train-step throughput of the port on one CUDA card.
+
+    python -m lwdetr_tpu_torch.bench_train --preset small --batch 4
+
+Measures the whole train step of `train.engine` (forward in train mode,
+Hungarian matching, IA-BCE + L1 + GIoU over the last, auxiliary and encoder
+output sets, backward, gradient clipping, AdamW, EMA) in f32 on one synthetic
+batch: 640x640 images and `--gt_per_img` boxes an image padded to
+`--max_gt`, weights drawn from a seed. Prints one JSON line with the metric
+`lwdetr_{preset}_640_f32_train_throughput` in img/s, `step_ms`, the host time
+the matcher takes per step, peak device memory, and the card's name and power
+limit. Timing: CUDA events around windows of `--steps` steps after 3 warm-up
+steps; the value is the median window, the spread its fastest and slowest.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from unittest import mock
+
+import torch
+
+from lwdetr_tpu_torch.config import PRESETS, TRAIN_PRESETS, get_config, get_train_config
+from lwdetr_tpu_torch.models import criterion as criterion_mod
+from lwdetr_tpu_torch.models.criterion import SetCriterion
+from lwdetr_tpu_torch.models.lwdetr import resolve_device
+from lwdetr_tpu_torch.train.engine import build_train_step, create_train_state
+from lwdetr_tpu_torch.utils.device import card_line
+from lwdetr_tpu_torch.utils.timing import measure_ms
+from lwdetr_tpu_torch.weights import init_state_dict
+
+
+def synthetic_batch(num_classes: int, batch: int, size: int, max_gt: int, gt_per_img: int,
+                    device, seed: int = 0) -> dict:
+    """One batch of random images and boxes, made on `device` from `seed`."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return {
+        "images": torch.randn((batch, size, size, 3), generator=g, device=device),
+        "labels": torch.randint(0, num_classes, (batch, max_gt), generator=g, device=device),
+        "boxes": torch.rand((batch, max_gt, 4), generator=g, device=device) * 0.4 + 0.2,
+        "valid": (torch.arange(max_gt, device=device) < gt_per_img).expand(batch, -1).contiguous(),
+    }
+
+
+def make_train_step(preset: str, batch: int, device=None, seed: int = 0, max_gt: int = 100,
+                    gt_per_img: int = 7):
+    """(state, step()) of `preset`'s release recipe on one synthetic 640x640
+    batch (1000 steps an epoch, so the StepLR never drops in a benchmark)."""
+    device = resolve_device(device)
+    mcfg, tcfg = get_config(preset), get_train_config(preset, max_gt=max_gt)
+    state = create_train_state(mcfg, tcfg, niter_per_ep=1000, device=device,
+                               state_dict=init_state_dict(mcfg, seed))
+    train_step = build_train_step(state, SetCriterion(mcfg, tcfg), tcfg)
+    data = synthetic_batch(mcfg.num_classes, batch, 640, max_gt, gt_per_img, device, seed)
+    return state, lambda: train_step(data)
+
+
+class HostTimer:
+    """Wraps a function and sums the host time spent inside it."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds, self.calls = fn, 0.0, 0
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+
+
+def run(preset: str = "small", batch: int = 4, steps: int = 10, repeats: int = 5,
+        max_gt: int = 100, gt_per_img: int = 7) -> dict:
+    state, step = make_train_step(preset, batch, max_gt=max_gt, gt_per_img=gt_per_img)
+    torch.cuda.reset_peak_memory_stats()
+    # the matcher's host time holds its wait for the forward and the scipy solves
+    timer = HostTimer(criterion_mod.hungarian_match)
+    with mock.patch.object(criterion_mod, "hungarian_match", timer):
+        t = measure_ms(step, iters=steps, warmup=3, repeats=repeats)
+    loss = float(step()["loss"])
+    per_s = lambda ms: batch / (ms / 1000.0)  # noqa: E731
+    return {
+        "metric": f"lwdetr_{preset}_640_f32_train_throughput",
+        "value": per_s(t["ms"]),
+        "unit": "img/s",
+        "value_spread": [per_s(t["ms_max"]), per_s(t["ms_min"])],
+        "step_ms": t["ms"],
+        "step_ms_samples": t["samples"],
+        "matcher_host_ms_per_step": timer.seconds * 1e3 / timer.calls,
+        "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+        "steps_taken": state.step,
+        "last_loss": loss,
+        "batch": batch,
+        "gt_per_img": gt_per_img,
+        "device": torch.cuda.get_device_name(),
+        "card": card_line(),
+    }
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", default="small", choices=tuple(PRESETS))
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default: the release per-device batch of --preset")
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--max_gt", type=int, default=100)
+    ap.add_argument("--gt_per_img", type=int, default=7, help="valid boxes per image")
+    return ap
+
+
+def main() -> None:
+    args = parser().parse_args()
+    batch = args.batch or TRAIN_PRESETS[args.preset].batch_size
+    print(json.dumps(run(args.preset, batch, args.steps, args.repeats, args.max_gt,
+                         args.gt_per_img)))
+
+
+if __name__ == "__main__":
+    main()

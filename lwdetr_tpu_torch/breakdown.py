@@ -1,11 +1,16 @@
-"""Where the device time of one eval step goes, on one CUDA card.
+"""Where the device time of one eval or train step goes, on one CUDA card.
 
     python -m lwdetr_tpu_torch.breakdown --preset small --batch 32
+    python -m lwdetr_tpu_torch.breakdown --preset small --train
 
 Runs the step of `lwdetr_tpu_torch.bench` (forward + `post_process`,
-seeded weights, images on the card) under `torch.profiler` for a few steps after warm-up, and prints
+seeded weights, images on the card) or, with `--train`, the f32 train step of
+`lwdetr_tpu_torch.bench_train` (batch: the release per-device batch unless
+given) under `torch.profiler` for a few steps after warm-up, and prints
 one JSON line: device time per step by kernel group (the port's kernels
-K1-K4, GEMMs, convolutions, the rest), the top kernels by device time, and
+K1-K7, GEMMs, convolutions, the optimizer's and EMA's fused passes, the
+rest), the top kernels by device time, the host time the matcher takes per
+train step (its wait for the forward and its scipy solves), and
 the device's idle share of a step (1 - busy / step time, where busy is the
 sum of kernel times under the profiler, kernels on one stream do not
 overlap, and the step time is the mean over 15 steps timed without the
@@ -18,12 +23,14 @@ import argparse
 import json
 import time
 from collections import defaultdict
+from unittest import mock
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from lwdetr_tpu_torch import bench_train
 from lwdetr_tpu_torch.bench import make_step
-from lwdetr_tpu_torch.config import PRESETS
+from lwdetr_tpu_torch.config import PRESETS, TRAIN_PRESETS
 from lwdetr_tpu_torch.utils.device import card_line
 from lwdetr_tpu_torch.utils.timing import measure_ms
 
@@ -32,12 +39,20 @@ GROUPS = (
     ("K2 flash_attention_cm", ("flash_attention_cm_kernel",)),
     ("K3 deform_attn_cm", ("deform_attn_cm_kernel",)),
     ("K4 deform_attn_sep", ("deform_attn_sep_kernel",)),
+    ("K5 deform_attn_sep_bwd", ("deform_attn_sep_bwd_kernel",)),
+    ("K6 flash_attention_cm_bwd", ("attention_bwd_dq_kernel", "attention_bwd_dkdv_kernel")),
+    ("K7 window_attention_bias_bwd", ("window_attention_bias_bwd_kernel",)),
+    # AdamW, gradient clipping and the EMA run as fused passes over tensor lists
+    ("optimizer/EMA (foreach)", ("multi_tensor_apply", "lpnorm")),
     # norms before convolutions: cuDNN's batch norm (`cudnn::bn_fw_inf_...`) is no convolution
     ("norm", ("layer_norm", "batch_norm", "bn_", "norm")),
-    ("conv", ("conv", "cudnn", "implicit", "winograd", "fprop", "dgrad")),
+    ("conv", ("conv", "cudnn", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
     ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
     ("topk/sort", ("topk", "sort", "radix", "gather")),
 )
+
+
+ANNOTATIONS = ("Optimizer.", "ProfilerStep", "## ")
 
 
 def _group(name: str) -> str:
@@ -49,10 +64,18 @@ def _group(name: str) -> str:
 
 
 def run(preset: str = "small", batch: int = 32, dtype: torch.dtype = torch.bfloat16,
-        steps: int = 5) -> dict:
-    step = make_step(preset, batch, dtype)
-    with torch.no_grad():
+        steps: int = 5, train: bool = False) -> dict:
+    if train:
+        if dtype != torch.float32:
+            raise NotImplementedError("the train step is ported in float32 only")
+        _, step = bench_train.make_train_step(preset, batch)
+    else:
+        step = make_step(preset, batch, dtype)
+    matcher = bench_train.HostTimer(bench_train.criterion_mod.hungarian_match)
+    with torch.set_grad_enabled(train), \
+            mock.patch.object(bench_train.criterion_mod, "hungarian_match", matcher):
         step_ms = measure_ms(step, iters=steps, warmup=3, repeats=3)["ms_mean"]
+        matcher_ms = matcher.seconds * 1e3 / max(matcher.calls, 1)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
@@ -61,7 +84,11 @@ def run(preset: str = "small", batch: int = 32, dtype: torch.dtype = torch.bfloa
             wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = defaultdict(float)
     for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        # device events only, and no annotation mirrored onto the device's
+        # timeline (`Optimizer.step#AdamW.step` spans the kernels it encloses)
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)
+                and not evt.key.startswith(ANNOTATIONS)):
             kernels[evt.key] += evt.self_device_time_total / 1e3  # us -> ms
     busy = sum(kernels.values())
     groups = defaultdict(float)
@@ -70,7 +97,9 @@ def run(preset: str = "small", batch: int = 32, dtype: torch.dtype = torch.bfloa
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {
         "preset": preset, "batch": batch, "dtype": str(dtype).replace("torch.", ""),
+        "mode": "train" if train else "eval",
         "steps": steps,
+        "matcher_host_ms_per_step": matcher_ms if train else None,
         "step_ms": step_ms,
         "profiled_wall_ms_per_step": wall_ms / steps,
         "device_busy_ms_per_step": busy / steps,
@@ -85,15 +114,23 @@ def run(preset: str = "small", batch: int = 32, dtype: torch.dtype = torch.bfloa
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", default="small", choices=tuple(PRESETS))
-    ap.add_argument("--batch", type=int, default=32)
-    ap.add_argument("--dtype", default="bf16", choices=("bf16", "f32"))
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default: 32 for eval, the release per-device batch for --train")
+    ap.add_argument("--dtype", default=None, choices=("bf16", "f32"),
+                    help="default: bf16 for eval; --train runs in f32")
+    ap.add_argument("--train", action="store_true", help="profile the train step")
     return ap
 
 
 def main() -> None:
     args = parser().parse_args()
-    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    print(json.dumps(run(args.preset, args.batch, dtype)))
+    if args.train:
+        dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+        batch = args.batch or TRAIN_PRESETS[args.preset].batch_size
+    else:
+        dtype = torch.float32 if args.dtype == "f32" else torch.bfloat16
+        batch = args.batch or 32
+    print(json.dumps(run(args.preset, batch, dtype, train=args.train)))
 
 
 if __name__ == "__main__":

@@ -1,9 +1,8 @@
-"""Model configuration and the five release presets.
+"""Model and train configuration and the five release presets.
 
-The port keeps its own copy of the JAX package's `ModelConfig` and presets
-(`lwdetr_tpu/config.py`): the flag sets of the reference's
-`scripts/lwdetr_*_coco_train.sh`. Train and data configs arrive with the
-training slice.
+The port keeps its own copy of the JAX package's `ModelConfig`, `TrainConfig`
+and presets (`lwdetr_tpu/config.py`): the flag sets of the reference's
+`scripts/lwdetr_*_coco_train.sh`. The data config arrives with the data slice.
 """
 from __future__ import annotations
 
@@ -62,6 +61,68 @@ class ModelConfig:
         return 12
 
 
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimization hyper-parameters (reference main.py argparse)."""
+
+    lr: float = 1e-4
+    lr_encoder: float = 1.5e-4
+    batch_size: int = 2  # per device
+    weight_decay: float = 1e-4
+    epochs: int = 12
+    lr_drop: int = 11
+    clip_max_norm: float = 0.1
+    lr_vit_layer_decay: float = 0.8
+    lr_component_decay: float = 1.0
+
+    # drop scheduler
+    drop_mode: str = "standard"  # standard | early | late
+    drop_schedule: str = "constant"  # constant | linear
+    cutoff_epoch: int = 0
+
+    # matcher costs
+    set_cost_class: float = 2.0
+    set_cost_bbox: float = 5.0
+    set_cost_giou: float = 2.0
+
+    # loss coefficients
+    cls_loss_coef: float = 2.0
+    bbox_loss_coef: float = 5.0
+    giou_loss_coef: float = 2.0
+    focal_alpha: float = 0.25
+    sum_group_losses: bool = False
+    use_varifocal_loss: bool = False
+    use_position_supervised_loss: bool = False
+    ia_bce_loss: bool = False
+
+    # EMA
+    use_ema: bool = False
+    ema_decay: float = 0.9997
+
+    seed: int = 42
+    # targets are padded to this many boxes per image
+    max_gt: int = 100
+
+
+def _release_train_defaults(**kw) -> TrainConfig:
+    """Flag set shared by all scripts/lwdetr_*_coco_train.sh."""
+    base = dict(
+        lr=1e-4,
+        lr_encoder=1.5e-4,
+        weight_decay=1e-4,
+        epochs=60,
+        lr_drop=60,
+        lr_vit_layer_decay=0.8,
+        lr_component_decay=0.7,
+        ia_bce_loss=True,
+        cls_loss_coef=1.0,
+        use_ema=True,
+        batch_size=4,
+    )
+    base.update(kw)
+    return TrainConfig(**base)
+
+
 def _release_model_defaults(**kw) -> ModelConfig:
     base = dict(
         dec_layers=3,
@@ -107,6 +168,22 @@ PRESETS = {
         ca_nheads=24, dec_n_points=4, num_queries=300, num_select=300,
         drop_path=0.1),
 }
+
+
+TRAIN_PRESETS = {
+    "tiny": _release_train_defaults(),
+    "small": _release_train_defaults(),
+    "medium": _release_train_defaults(lr_vit_layer_decay=0.7),
+    "large": _release_train_defaults(lr_vit_layer_decay=0.7, lr_component_decay=0.5,
+                                     batch_size=2),
+    "xlarge": _release_train_defaults(lr_vit_layer_decay=0.75, lr_component_decay=0.5,
+                                      weight_decay=1e-3, batch_size=2),
+}
+
+
+def get_train_config(name: str, **overrides) -> TrainConfig:
+    cfg = TRAIN_PRESETS[name]
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
 def get_config(name: str, **overrides) -> ModelConfig:

@@ -24,6 +24,12 @@
 // float4 along the keys, so one shared load feeds four multiply-adds. Scores
 // are kept in log2 units (scale * log2 e is folded into q) so the
 // exponential is one exp2. The ragged last key tile is masked to -inf.
+//
+// For training the kernel can also write each row's log-sum-exp of the
+// scaled scores, in log2 units (row max + log2 row sum), to `lse` (B, H, N):
+// the backward kernel (flash_attention_bwd.cu) rebuilds the softmax weights
+// from it instead of taking the row max and sum again. `lse` is null in eval,
+// which then pays nothing for it.
 #include "common.cuh"
 
 namespace {
@@ -33,8 +39,8 @@ constexpr int BK = 32;  // keys per shared-memory tile
 
 template <typename T, int D>
 __global__ void __launch_bounds__(BQ)
-flash_attention_cm_kernel(const T* __restrict__ qkv, T* __restrict__ out, int C, int N,
-                          float scale_log2) {
+flash_attention_cm_kernel(const T* __restrict__ qkv, T* __restrict__ out,
+                          float* __restrict__ lse, int C, int N, float scale_log2) {
   __shared__ __align__(16) float ks[D][BK];
   __shared__ __align__(16) float vs[D][BK];
   const int h = blockIdx.y;
@@ -111,41 +117,45 @@ flash_attention_cm_kernel(const T* __restrict__ qkv, T* __restrict__ out, int C,
     m = m_new;
   }
   if (!live) return;
+  if (lse != nullptr)
+    lse[(static_cast<size_t>(b) * gridDim.y + h) * N + i] = m + log2f(l);
   T* o = out + (static_cast<size_t>(b) * C + h * D) * N + i;
 #pragma unroll
   for (int d = 0; d < D; ++d) o[static_cast<size_t>(d) * N] = lw::from_f32<T>(acc[d] / l);
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* qkv, void* out, int B, int C, int N, float scale,
+cudaError_t launch(const void* qkv, void* out, float* lse, int B, int C, int N, float scale,
                    cudaStream_t stream) {
   const dim3 grid((N + BQ - 1) / BQ, C / D, B);
   flash_attention_cm_kernel<T, D><<<grid, BQ, 0, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), C, N, scale * lw::kLog2e);
+      static_cast<const T*>(qkv), static_cast<T*>(out), lse, C, N, scale * lw::kLog2e);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(int D, const void* qkv, void* out, int B, int C, int N, float scale,
-                       cudaStream_t stream) {
+cudaError_t dispatch_d(int D, const void* qkv, void* out, float* lse, int B, int C, int N,
+                       float scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(qkv, out, B, C, N, scale, stream);
-    case 32: return launch<T, 32>(qkv, out, B, C, N, scale, stream);
-    case 64: return launch<T, 64>(qkv, out, B, C, N, scale, stream);
+    case 16: return launch<T, 16>(qkv, out, lse, B, C, N, scale, stream);
+    case 32: return launch<T, 32>(qkv, out, lse, B, C, N, scale, stream);
+    case 64: return launch<T, 64>(qkv, out, lse, B, C, N, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// qkv (B, 3C, N) and out (B, C, N) in `dtype`, contiguous.
-extern "C" int lw_flash_attention_cm(const void* qkv, void* out, int B, int C, int N,
+// qkv (B, 3C, N) and out (B, C, N) in `dtype`, contiguous; lse (B, H, N) f32 or null.
+extern "C" int lw_flash_attention_cm(const void* qkv, void* out, void* lse, int B, int C, int N,
                                      int num_heads, float scale, int dtype, void* stream) {
   if (B < 1 || B > 65535 || N < 1 || num_heads < 1 || C % num_heads != 0)
     return cudaErrorInvalidValue;
   const int D = C / num_heads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == lw::kFloat32) return dispatch_d<float>(D, qkv, out, B, C, N, scale, st);
-  if (dtype == lw::kBFloat16) return dispatch_d<__nv_bfloat16>(D, qkv, out, B, C, N, scale, st);
+  float* lp = static_cast<float*>(lse);
+  if (dtype == lw::kFloat32) return dispatch_d<float>(D, qkv, out, lp, B, C, N, scale, st);
+  if (dtype == lw::kBFloat16)
+    return dispatch_d<__nv_bfloat16>(D, qkv, out, lp, B, C, N, scale, st);
   return cudaErrorInvalidValue;
 }

@@ -1,1 +1,1 @@
-"""Model modules of the PyTorch/CUDA port (eval forward of the ViT presets)."""
+"""Model modules of the PyTorch/CUDA port: the detector, its matcher and its criterion."""

@@ -1,9 +1,12 @@
 """LW-DETR top-level model: backbone -> projector -> decoder -> heads.
 
-Counterpart of `lwdetr_tpu/models/lwdetr.py`, eval only: inference uses the
-first query group, images are square and unpadded (the release
-`square_resize_div_64` recipe), so no padding masks are built. The decoder
-never reads per-level position embeddings, so none are computed.
+Counterpart of `lwdetr_tpu/models/lwdetr.py`. Inference uses the first query
+group; in train mode (`model.training`) every group of `group_detr` runs and
+the outputs hold `num_queries x group_detr` queries. Images are square and
+unpadded (the release `square_resize_div_64` recipe), so no padding masks are
+built. The decoder never reads per-level position embeddings, so none are
+computed. Stochastic depth and dropout are not ported: a config that sets
+either is refused in train mode (the large and xlarge recipes).
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ class Backbone(nn.Module):
 
 
 class LWDETR(nn.Module):
-    """Group-DETR detector, eval forward."""
+    """Group-DETR detector."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -68,9 +71,15 @@ class LWDETR(nn.Module):
         """images (B, H, W, 3) normalized -> dict(pred_logits (B, Q, K),
         pred_boxes (B, Q, 4) cxcywh in [0, 1], aux_outputs, enc_outputs)."""
         cfg = self.cfg
+        if self.training and (cfg.drop_path or cfg.dropout):
+            raise NotImplementedError(
+                f"train mode with drop_path={cfg.drop_path}, dropout={cfg.dropout}: stochastic "
+                "depth and dropout belong to the large / xlarge training slice, not ported yet")
+        groups = cfg.group_detr if self.training else 1
+        nq = cfg.num_queries * groups
         feats = self.backbone[0](images)
         hs, ref, hs_enc, ref_enc = self.transformer(
-            feats, self.refpoint_embed.weight, self.query_feat.weight)
+            feats, self.refpoint_embed.weight[:nq], self.query_feat.weight[:nq])
         outputs_coord = box_reparam_combine(ref, self.bbox_embed(hs).float())
         outputs_class = self.class_embed(hs)
         out = {"pred_logits": outputs_class[-1], "pred_boxes": outputs_coord[-1]}
@@ -78,8 +87,11 @@ class LWDETR(nn.Module):
             out["aux_outputs"] = [
                 {"pred_logits": outputs_class[i], "pred_boxes": outputs_coord[i]}
                 for i in range(cfg.dec_layers - 1)]
-        out["enc_outputs"] = {"pred_logits": self.transformer.enc_out_class_embed[0](hs_enc),
-                              "pred_boxes": ref_enc}
+        # each group's own class head on its slice of the picked proposals
+        heads = self.transformer.enc_out_class_embed
+        cls_enc = [heads[g](hs_enc[:, g * cfg.num_queries:(g + 1) * cfg.num_queries])
+                   for g in range(groups)]
+        out["enc_outputs"] = {"pred_logits": torch.cat(cls_enc, dim=1), "pred_boxes": ref_enc}
         return out
 
 
@@ -113,12 +125,16 @@ def resolve_device(device=None) -> torch.device:
 
 
 def build_model(cfg: ModelConfig, device=None, dtype: torch.dtype = torch.float32,
-                state_dict: Optional[dict] = None) -> LWDETR:
-    """Eval-mode LW-DETR on `device` (CUDA unless given) in `dtype`, with its
-    parameters frozen; `state_dict` (reference keys) is loaded strictly."""
+                state_dict: Optional[dict] = None, train: bool = False) -> LWDETR:
+    """LW-DETR on `device` (CUDA unless given) in `dtype`; `state_dict`
+    (reference keys) is loaded strictly. By default an eval-mode model with
+    its parameters frozen; `train=True` gives a train-mode model whose
+    parameters require grad (f32 only: the train step keeps no master copy)."""
     device = resolve_device(device)
+    if train and dtype != torch.float32:
+        raise NotImplementedError(f"training in {dtype}: only float32 training is ported")
     model = LWDETR(cfg)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
-    model.requires_grad_(False)
-    return model.to(device=device, dtype=dtype).eval()
+    model.requires_grad_(train)
+    return model.to(device=device, dtype=dtype).train(train)

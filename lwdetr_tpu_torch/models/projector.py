@@ -1,6 +1,6 @@
 """Multi-scale projector: per-scale resampling + C2f (CSP bottleneck) fusion.
 
-Counterpart of `lwdetr_tpu/models/projector.py`, eval only. For each output
+Counterpart of `lwdetr_tpu/models/projector.py`. For each output
 scale every ViT tap is resampled (transposed convolutions up for P3 / 4x,
 a stride-2 convolution down for P5, nothing for P4), the taps are
 concatenated along channels, fused by a YOLOv8-style C2f block and
@@ -21,14 +21,33 @@ from torch import nn
 LEVEL2SCALE = {"P3": 2.0, "P4": 1.0, "P5": 0.5, "P6": 0.25}
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` whose train mode keeps the JAX package's running
+    statistics: it normalizes with the batch mean and the biased batch
+    variance, as stock PyTorch does, but also stores the *biased* variance in
+    `running_var` (flax's `nn.BatchNorm`), where stock PyTorch stores the
+    unbiased one (x N / (N - 1)). momentum 0.1 here is flax's 0.9."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            xf = x.detach().float()
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 class ConvX(nn.Module):
-    """Conv(bias=False) + BatchNorm (eval) + activation, NCHW."""
+    """Conv(bias=False) + BatchNorm + activation, NCHW."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  act: str = "relu"):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, padding=kernel // 2, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn = BatchNorm2d(cout, eps=1e-5, momentum=0.1)
         self.act = {"silu": F.silu, "relu": F.relu}[act]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

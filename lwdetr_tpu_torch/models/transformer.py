@@ -1,13 +1,18 @@
 """DETR decoder with two-stage proposal selection and deformable cross-attention.
 
-Counterpart of `lwdetr_tpu/models/transformer.py`, eval only (one query
-group). Self-attention runs channel-major through
-`ops/flash_attention.attention_cm` (K2). Cross-attention samples the memory
-through `ops/deform_attn`: channel-major values and `ms_deform_attn_cm` (K3)
-for a short memory (the P4 presets), per-level head-major value panels and
-`ms_deform_attn_sep_panels` (K4) from `SEP_MIN_LEN_IN` positions up (the
-P3+P5 presets). Module and parameter names follow the reference's state_dict
-(`transformer.decoder.layers.{i}...`, `transformer.enc_output.{g}`, ...).
+Counterpart of `lwdetr_tpu/models/transformer.py`. In eval one query group
+runs; in train mode (`module.training`) all `group_detr` groups run, each
+with its own two-stage heads, folded into the batch for self-attention so
+that groups do not attend across. Self-attention runs channel-major through
+`ops/flash_attention.attention_cm` (K2, backward K6). Cross-attention samples
+the memory through `ops/deform_attn`: in eval channel-major values and
+`ms_deform_attn_cm` (K3) for a short memory (the P4 presets), per-level
+head-major value panels and `ms_deform_attn_sep_panels` (K4) from
+`SEP_MIN_LEN_IN` positions up (the P3+P5 presets); in train mode the panels
+at every memory length (K4, backward K5). Dropout is not ported: the release
+recipes train with dropout 0. Module and parameter names follow the
+reference's state_dict (`transformer.decoder.layers.{i}...`,
+`transformer.enc_output.{g}`, ...).
 """
 from __future__ import annotations
 
@@ -23,11 +28,12 @@ from lwdetr_tpu_torch.ops import flash_attention as fa
 from lwdetr_tpu_torch.ops.embeddings import query_sine_embed
 
 
-# Memories at least this long are sampled from head-major panels (K4), shorter
-# ones from channel-major values (K3): the JAX package's eval dispatch. Its
-# further gate on the panels fitting VMEM is a TPU resource check with no
-# counterpart on this card. The device plays no part: on the CPU each branch
-# runs with its sampler's plain version.
+# In eval, memories at least this long are sampled from head-major panels (K4),
+# shorter ones from channel-major values (K3); in train mode every memory is
+# sampled from panels (K4 / K5): the JAX package's dispatch, `train or Len_in
+# >= 4096`. Its further gate on the panels fitting VMEM is a TPU resource
+# check with no counterpart on this card. The device plays no part: on the
+# CPU each branch runs with its sampler's plain version.
 SEP_MIN_LEN_IN = 4096
 
 
@@ -69,8 +75,9 @@ class MultiheadSelfAttention(nn.Module):
 
 class MSDeformAttnModule(nn.Module):
     """Projections around the deformable sampler. One set of parameters, two
-    value layouts: channel-major (B, C, Len_in) below `SEP_MIN_LEN_IN`
-    positions, per-level head-major panels (B, H, H_l, W_l * D) from there up."""
+    value layouts: channel-major (B, C, Len_in) in eval below `SEP_MIN_LEN_IN`
+    positions, per-level head-major panels (B, H, H_l, W_l * D) from there up
+    and always in train mode."""
 
     def __init__(self, d_model: int, n_levels: int, n_heads: int, n_points: int):
         super().__init__()
@@ -116,7 +123,7 @@ class MSDeformAttnModule(nn.Module):
                    + offsets / P * reference_points[:, :, None, :, None, 2:] * 0.5)
         else:
             raise ValueError("reference_points last dim must be 2 or 4")
-        if memory.shape[1] < SEP_MIN_LEN_IN:
+        if not self.training and memory.shape[1] < SEP_MIN_LEN_IN:
             value_t = dense_to_cm(memory, self.value_proj.weight, self.value_proj.bias)
             out_t = da.ms_deform_attn_cm(value_t, spatial_shapes, loc, weights, H)  # (B, C, Q)
             return self.output_proj(out_t)
@@ -129,8 +136,9 @@ class DecoderLayer(nn.Module):
     """Self-attention -> deformable cross-attention -> FFN, post-norm."""
 
     def __init__(self, d_model: int, sa_nheads: int, ca_nheads: int, dim_feedforward: int,
-                 n_levels: int, n_points: int):
+                 n_levels: int, n_points: int, group_detr: int = 1):
         super().__init__()
+        self.group_detr = group_detr
         self.self_attn = MultiheadSelfAttention(d_model, sa_nheads)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.cross_attn = MSDeformAttnModule(d_model, n_levels, ca_nheads, n_points)
@@ -140,7 +148,15 @@ class DecoderLayer(nn.Module):
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
 
     def forward(self, tgt, memory, query_pos, reference_points, spatial_shapes, memory_levels):
-        tgt = self.norm1(tgt + self.self_attn(tgt + query_pos, tgt))
+        B, Q, C = tgt.shape
+        qk, v = tgt + query_pos, tgt
+        if self.training and self.group_detr > 1:
+            # fold the groups into the batch, so that they do not attend across:
+            # batch-major (B * g, Q / g, C), a pure reshape, as the queries are
+            # already ordered groups-within-image
+            qk = qk.reshape(B * self.group_detr, Q // self.group_detr, C)
+            v = v.reshape(B * self.group_detr, Q // self.group_detr, C)
+        tgt = self.norm1(tgt + self.self_attn(qk, v).reshape(B, Q, C))
         tgt2 = self.cross_attn(tgt + query_pos, reference_points, memory, spatial_shapes,
                                memory_levels)
         tgt = self.norm2(tgt + tgt2)
@@ -184,20 +200,22 @@ class Decoder(nn.Module):
     (the reference's `transformer.decoder` namespace)."""
 
     def __init__(self, d_model: int, sa_nheads: int, ca_nheads: int, dim_feedforward: int,
-                 dec_layers: int, n_levels: int, n_points: int, decoder_norm: str):
+                 dec_layers: int, n_levels: int, n_points: int, decoder_norm: str,
+                 group_detr: int = 1):
         super().__init__()
         self.layers = nn.ModuleList(
-            DecoderLayer(d_model, sa_nheads, ca_nheads, dim_feedforward, n_levels, n_points)
+            DecoderLayer(d_model, sa_nheads, ca_nheads, dim_feedforward, n_levels, n_points,
+                         group_detr)
             for _ in range(dec_layers))
         self.ref_point_head = MLPHead(2 * d_model, d_model, d_model, 2)
         self.norm = nn.LayerNorm(d_model, eps=1e-5) if decoder_norm == "LN" else nn.Identity()
 
 
 class Transformer(nn.Module):
-    """Decoder-only transformer, eval (query group 0), in the configuration of
-    every release preset: two-stage proposals, reparameterized boxes and the
-    lite reference-point refinement (query positions computed once, from the
-    initial reference boxes)."""
+    """Decoder-only transformer (query group 0 in eval, every group in train
+    mode), in the configuration of every release preset: two-stage proposals,
+    reparameterized boxes and the lite reference-point refinement (query
+    positions computed once, from the initial reference boxes)."""
 
     def __init__(self, d_model: int, sa_nheads: int, ca_nheads: int, num_queries: int,
                  dec_layers: int, dim_feedforward: int, group_detr: int,
@@ -206,11 +224,12 @@ class Transformer(nn.Module):
         super().__init__()
         self.d_model = d_model
         self.num_queries = num_queries
+        self.group_detr = group_detr
         self.num_feature_levels = num_feature_levels
         self.decoder = Decoder(d_model, sa_nheads, ca_nheads, dim_feedforward, dec_layers,
-                               num_feature_levels, dec_n_points, decoder_norm)
+                               num_feature_levels, dec_n_points, decoder_norm, group_detr)
         # one set of two-stage heads per query group, as in the reference's
-        # checkpoint; eval uses group 0
+        # checkpoint; eval uses group 0, training all of them
         self.enc_output = nn.ModuleList(nn.Linear(d_model, d_model) for _ in range(group_detr))
         self.enc_output_norm = nn.ModuleList(
             nn.LayerNorm(d_model, eps=1e-5) for _ in range(group_detr))
@@ -221,24 +240,33 @@ class Transformer(nn.Module):
 
     def forward(self, srcs, refpoint_embed: torch.Tensor, query_feat: torch.Tensor):
         """srcs: list[(B, H, W, C)] projector outputs; refpoint_embed (nq, 4);
-        query_feat (nq, C). Returns hs (L, B, Q, C), references (1, B, Q, 4),
-        memory_ts (B, Q, C) and boxes_ts (B, Q, 4): the picked proposals."""
+        query_feat (nq, C), nq = num_queries x groups. Returns hs (L, B, nq, C),
+        references (1, B, nq, 4), memory_ts (B, nq, C) and boxes_ts (B, nq, 4):
+        each group's picked proposals, groups concatenated."""
         spatial_shapes = [(s.shape[1], s.shape[2]) for s in srcs]
         B = srcs[0].shape[0]
         dtype = srcs[0].dtype
         memory_levels = [s.reshape(B, -1, s.shape[-1]) for s in srcs]
         memory = torch.cat(memory_levels, dim=1)
-        nq = self.num_queries
+        groups = self.group_detr if self.training else 1
+        nq = self.num_queries * groups
 
         output_memory, output_proposals = gen_encoder_output_proposals(memory, spatial_shapes)
-        mem_g = self.enc_output_norm[0](self.enc_output[0](output_memory))
-        cls_g = self.enc_out_class_embed[0](mem_g)  # (B, S, K)
-        coords_g = box_reparam_combine(output_proposals,
-                                       self.enc_out_bbox_embed[0](mem_g).float())
-        topk_idx = select_proposals(cls_g.max(dim=-1).values, nq)  # (B, nq)
-        boxes_ts = torch.gather(coords_g, 1, topk_idx[..., None].expand(-1, -1, 4))
-        memory_ts = torch.gather(mem_g, 1, topk_idx[..., None].expand(-1, -1, mem_g.shape[-1]))
-        refpoints = box_reparam_combine(boxes_ts, refpoint_embed[None, :nq].float())
+        mem_ts, box_ts = [], []
+        for g in range(groups):
+            mem_g = self.enc_output_norm[g](self.enc_output[g](output_memory))
+            cls_g = self.enc_out_class_embed[g](mem_g)  # (B, S, K)
+            coords_g = box_reparam_combine(output_proposals,
+                                           self.enc_out_bbox_embed[g](mem_g).float())
+            topk_idx = select_proposals(cls_g.max(dim=-1).values, self.num_queries)  # (B, Qg)
+            box_ts.append(torch.gather(coords_g, 1, topk_idx[..., None].expand(-1, -1, 4)))
+            mem_ts.append(torch.gather(mem_g, 1,
+                                       topk_idx[..., None].expand(-1, -1, mem_g.shape[-1])))
+        boxes_ts = torch.cat(box_ts, dim=1)
+        memory_ts = torch.cat(mem_ts, dim=1)
+        # the decoder's reference points carry no gradient into the proposal
+        # boxes; the encoder outputs (memory_ts, boxes_ts) do
+        refpoints = box_reparam_combine(boxes_ts.detach(), refpoint_embed[None, :nq].float())
 
         # lite refinement: one query position for all layers, from the initial boxes
         refpoints_input = refpoints[:, :, None].expand(-1, -1, self.num_feature_levels, -1)

@@ -1,6 +1,8 @@
 """ViTDet-style plain ViT encoder with interleaved window/global attention.
 
-Counterpart of `lwdetr_tpu/models/vit.py`, eval only:
+Counterpart of `lwdetr_tpu/models/vit.py`, eval and train without stochastic
+depth (the tiny, small and medium recipes; `LWDETR` refuses a nonzero
+`drop_path` in train mode):
 
 * channel-last (B, H, W, C) maps; the token buffer is reorganized once into
   16 windows (B*16, hw, C); window blocks attend within a window and global
@@ -13,7 +15,8 @@ Counterpart of `lwdetr_tpu/models/vit.py`, eval only:
   reference's values and names;
 * attention runs channel-major: the qkv product writes (B, 3C, N), the
   attention (ops/flash_attention.attention_cm: K1 for windows, K2 for global
-  blocks) returns (B, C, N), and the projection reads it back.
+  blocks; K7 and K6 in the backward) returns (B, C, N), and the projection
+  reads it back.
 """
 from __future__ import annotations
 

@@ -10,23 +10,28 @@ align_corners=False)`` semantics, weighted and summed over levels and points:
 * `ms_deform_attn_sep_panels`, counterpart of
   `lwdetr_tpu/ops/deform_attn.py::ms_deform_attn_sep_panels`: one head-major
   panel (B, H, H_l, W_l * D) per level -> row-major (B, Len_q, C). On CUDA
-  tensors it launches K4 (`csrc/deform_attn_sep.cu`).
+  tensors it launches K4 (`csrc/deform_attn_sep.cu`), and its backward K5
+  (`csrc/deform_attn_sep_bwd.cu`), which gives the gradients of the panels,
+  the sampling locations and the attention weights: the pair is a
+  `torch.autograd.Function`.
 
-Both kernels are direct bilinear gathers. On CUDA tensors they launch or the
-call raises; tensors on the CPU take the plain versions
-(`ms_deform_attn_cm_plain`, `ms_deform_attn_sep_panels_plain`), the
-counterparts of the JAX gather formulation `ms_deform_attn`. Forward only: the
-backward kernels (K8 for K3, K5 for K4) belong to the training slice.
+The kernels are direct bilinear gathers (K5 a scatter with atomic adds). On
+CUDA tensors they launch or the call raises; tensors on the CPU take the plain
+versions (`ms_deform_attn_cm_plain`, `ms_deform_attn_sep_panels_plain`,
+`ms_deform_attn_sep_panels_bwd_plain`), the counterparts of the JAX gather
+formulation `ms_deform_attn`. `ms_deform_attn_cm` is forward only: its
+backward kernel (K8) is not ported, and training samples from the panels.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from lwdetr_tpu_torch.ops._build import CudaKernel
+from lwdetr_tpu_torch.ops.flash_attention import needs_grad, plain_dtype
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_LEVELS = 4
@@ -43,6 +48,11 @@ deform_attn_sep_kernel = CudaKernel(
     "K4", "deform_attn_sep.cu", "lw_deform_attn_sep",
     [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), _P, _P, _P,
      _I, _I, _I, _I, _I, _I, _I])
+# K5 replaces lwdetr_tpu/ops/deform_attn.py:1105 _sep_bwd_kernel (and the VJP of _prep_separable)
+deform_attn_sep_bwd_kernel = CudaKernel(
+    "K5", "deform_attn_sep_bwd.cu", "lw_deform_attn_sep_bwd",
+    [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+     ctypes.POINTER(ctypes.c_int), _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I])
 _SEP_HEAD_DIMS = (16, 32)
 
 
@@ -152,11 +162,12 @@ def ms_deform_attn_sep_panels_plain(vals: Sequence[torch.Tensor],
     B, H = vals[0].shape[:2]
     Q, P = loc.shape[1], loc.shape[4]
     D = vals[0].shape[3] // spatial_shapes[0][1]
-    loc = loc.float()
-    weights = weights.float()
-    out = torch.zeros((B, H, Q, D), device=vals[0].device, dtype=torch.float32)
+    ct = plain_dtype(vals[0])
+    loc = loc.to(ct)
+    weights = weights.to(ct)
+    out = torch.zeros((B, H, Q, D), device=vals[0].device, dtype=ct)
     for lvl, ((Hl, Wl), panel) in enumerate(zip(spatial_shapes, vals)):
-        v_l = panel.float().reshape(B, H, Hl * Wl, D)
+        v_l = panel.to(ct).reshape(B, H, Hl * Wl, D)
         px = loc[:, :, :, lvl, :, 0] * Wl - 0.5  # (B, Q, H, P)
         py = loc[:, :, :, lvl, :, 1] * Hl - 0.5
         x0 = torch.floor(px)
@@ -180,24 +191,20 @@ def ms_deform_attn_sep_panels_plain(vals: Sequence[torch.Tensor],
 
 
 def _check_sep_cuda(vals, spatial_shapes, loc, weights):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (*vals, loc, weights)):
-        raise NotImplementedError(
-            "ms_deform_attn_sep_panels on CUDA is forward only: its backward kernel "
-            "(K5 _sep_bwd_kernel) is not ported yet")
     dtype = vals[0].dtype
     if dtype not in _DTYPES:
-        raise TypeError(f"K4 takes float32 or bfloat16 panels, got {dtype}")
+        raise TypeError(f"K4 / K5 take float32 or bfloat16 panels, got {dtype}")
     if loc.dim() != 6 or loc.shape[-1] != 2:
         raise ValueError(f"loc must be (B, Q, H, L, P, 2), got {tuple(loc.shape)}")
     B, _, H, L, _, _ = loc.shape
     if weights.shape != loc.shape[:-1]:
         raise ValueError(f"weights must be {tuple(loc.shape[:-1])}, got {tuple(weights.shape)}")
     if not 1 <= L <= _MAX_LEVELS or len(vals) != L or len(spatial_shapes) != L:
-        raise ValueError(f"K4 takes 1..{_MAX_LEVELS} levels matching loc, got {len(vals)} panels "
+        raise ValueError(f"K4 / K5 take 1..{_MAX_LEVELS} levels matching loc, got {len(vals)} panels "
                          f"and {len(spatial_shapes)} shapes for L = {L}")
     D, rem = divmod(vals[0].shape[-1], spatial_shapes[0][1])
     if rem or D not in _SEP_HEAD_DIMS:
-        raise ValueError(f"K4 takes head_dim in {_SEP_HEAD_DIMS}, got panel width "
+        raise ValueError(f"K4 / K5 take head_dim in {_SEP_HEAD_DIMS}, got panel width "
                          f"{vals[0].shape[-1]} for W = {spatial_shapes[0][1]}")
     for panel, (h, w) in zip(vals, spatial_shapes):
         if panel.shape != (B, H, h, w * D) or panel.dtype != dtype:
@@ -207,14 +214,106 @@ def _check_sep_cuda(vals, spatial_shapes, loc, weights):
         raise ValueError("panels, loc and weights must be on one device")
 
 
-def ms_deform_attn_sep_panels(vals: Sequence[torch.Tensor],
-                              spatial_shapes: Sequence[Tuple[int, int]],
-                              loc: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """vals[l] (B, H, H_l, W_l * D) head-major value panels (padded positions
-    already zeroed), loc (B, Q, H, L, P, 2) normalized (x, y), weights
-    (B, Q, H, L, P) -> (B, Q, H * D) row-major in the panels' dtype."""
+def ms_deform_attn_sep_panels_bwd_plain(vals: Sequence[torch.Tensor],
+                                        spatial_shapes: Sequence[Tuple[int, int]],
+                                        loc: torch.Tensor, weights: torch.Tensor,
+                                        dout: torch.Tensor):
+    """Plain PyTorch version of K5: the gradients of `ms_deform_attn_sep_panels`
+    from d(out) (B, Q, H * D), by the explicit formulas, in f32. With g the
+    head's slice of d(out) and v00, v01, v10, v11 a point's corner values (0
+    outside the map): d(weights) = <g, bilinear value>, d(loc_x) = W_l w
+    <g, (1-fy)(v01-v00) + fy (v11-v10)>, d(loc_y) = H_l w <g, (1-fx)(v10-v00)
+    + fx (v11-v01)>, and d(panel) is the scatter-add of w x corner weight x g.
+    Returns ([d(panel_l)] in the panels' dtype, d(loc), d(weights))."""
+    B, H = vals[0].shape[:2]
+    Q, P = loc.shape[1], loc.shape[4]
+    D = vals[0].shape[3] // spatial_shapes[0][1]
+    ct = plain_dtype(vals[0])
+    locf = loc.to(ct)
+    wf = weights.to(ct)
+    g = dout.to(ct).reshape(B, Q, H, D).permute(0, 2, 1, 3)  # (B, H, Q, D)
+    dloc = torch.zeros_like(locf)
+    dw = torch.zeros_like(wf)
+    dvals: List[torch.Tensor] = []
+    for lvl, ((Hl, Wl), panel) in enumerate(zip(spatial_shapes, vals)):
+        v_l = panel.to(ct).reshape(B, H, Hl * Wl, D)
+        px = locf[:, :, :, lvl, :, 0] * Wl - 0.5  # (B, Q, H, P)
+        py = locf[:, :, :, lvl, :, 1] * Hl - 0.5
+        x0 = torch.floor(px)
+        y0 = torch.floor(py)
+        fx = px - x0
+        fy = py - y0
+        x0 = x0.long()
+        y0 = y0.long()
+        aw = wf[:, :, :, lvl]  # (B, Q, H, P)
+        dv = torch.zeros_like(v_l)
+        dots = {}
+        for dy, dx, cw in ((0, 0, (1 - fy) * (1 - fx)), (0, 1, (1 - fy) * fx),
+                           (1, 0, fy * (1 - fx)), (1, 1, fy * fx)):
+            xi = x0 + dx
+            yi = y0 + dy
+            valid = (xi >= 0) & (xi < Wl) & (yi >= 0) & (yi < Hl)
+            idx = yi.clamp(0, Hl - 1) * Wl + xi.clamp(0, Wl - 1)  # (B, Q, H, P)
+            idx = idx.permute(0, 2, 1, 3).reshape(B, H, Q * P, 1).expand(-1, -1, -1, D)
+            corner = torch.gather(v_l, 2, idx).reshape(B, H, Q, P, D)
+            dot = torch.einsum("bhqd,bhqpd->bhqp", g, corner).permute(0, 2, 1, 3)
+            dots[dy, dx] = dot * valid  # (B, Q, H, P): <g, corner value>, 0 outside
+            coef = (cw * valid * aw).permute(0, 2, 1, 3)  # (B, H, Q, P)
+            add = coef[..., None] * g[:, :, :, None, :]  # (B, H, Q, P, D)
+            dv.scatter_add_(2, idx, add.reshape(B, H, Q * P, D))
+        d00, d01, d10, d11 = dots[0, 0], dots[0, 1], dots[1, 0], dots[1, 1]
+        dw[:, :, :, lvl] = ((1 - fy) * ((1 - fx) * d00 + fx * d01)
+                            + fy * ((1 - fx) * d10 + fx * d11))
+        dloc[:, :, :, lvl, :, 0] = Wl * aw * ((1 - fy) * (d01 - d00) + fy * (d11 - d10))
+        dloc[:, :, :, lvl, :, 1] = Hl * aw * ((1 - fx) * (d10 - d00) + fx * (d11 - d01))
+        dvals.append(dv.reshape(panel.shape).to(panel.dtype))
+    return dvals, dloc.to(loc.dtype), dw.to(weights.dtype)
+
+
+def _level_args(vals, spatial_shapes):
+    """The host arrays a panel kernel takes: a pointer and (h, w) per level."""
+    panels = (ctypes.c_void_p * len(vals))(*(v.data_ptr() for v in vals))
+    level_hw = (ctypes.c_int * (2 * len(vals)))(*(x for hw in spatial_shapes for x in hw))
+    return panels, level_hw
+
+
+def ms_deform_attn_sep_panels_bwd(vals: Sequence[torch.Tensor],
+                                  spatial_shapes: Sequence[Tuple[int, int]],
+                                  loc: torch.Tensor, weights: torch.Tensor, dout: torch.Tensor):
+    """K5: ([d(panel_l)], d(loc), d(weights)) of `ms_deform_attn_sep_panels`
+    from d(out) (B, Q, H * D). d(panel) is summed with f32 atomic adds, in no
+    fixed order, and for bf16 panels rounded once from the f32 sums."""
     spatial_shapes = [(int(h), int(w)) for h, w in spatial_shapes]
     vals = list(vals)
+    if not vals[0].is_cuda:
+        return ms_deform_attn_sep_panels_bwd_plain(vals, spatial_shapes, loc, weights, dout)
+    _check_sep_cuda(vals, spatial_shapes, loc, weights)
+    B, Q, H, L, P, _ = loc.shape
+    D = vals[0].shape[-1] // spatial_shapes[0][1]
+    if dout.shape != (B, Q, H * D) or dout.device != loc.device:
+        raise ValueError(f"d(out) must be {(B, Q, H * D)} on {loc.device}, "
+                         f"got {tuple(dout.shape)} on {dout.device}")
+    vals = [v.contiguous() for v in vals]
+    locf = loc.to(torch.float32).contiguous()
+    wf = weights.to(torch.float32).contiguous()
+    dout = dout.to(vals[0].dtype).contiguous()
+    # the kernel adds into these: zeroed each call, so untouched positions get 0
+    dvals = [torch.zeros(v.shape, device=v.device, dtype=torch.float32) for v in vals]
+    dloc = torch.empty_like(locf)
+    dw = torch.empty_like(wf)
+    panels, level_hw = _level_args(vals, spatial_shapes)
+    dpanels, _ = _level_args(dvals, spatial_shapes)
+    deform_attn_sep_bwd_kernel(panels, dpanels, level_hw, locf.data_ptr(), wf.data_ptr(),
+                               dout.data_ptr(), dloc.data_ptr(), dw.data_ptr(), B, Q, H, D, L, P,
+                               _DTYPES[vals[0].dtype])
+    return ([dv.to(v.dtype) for dv, v in zip(dvals, vals)], dloc.to(loc.dtype),
+            dw.to(weights.dtype))
+
+
+def ms_deform_attn_sep_panels_fwd(vals: Sequence[torch.Tensor],
+                                  spatial_shapes: Sequence[Tuple[int, int]],
+                                  loc: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """K4 launch on CUDA tensors (the plain version on the CPU), outside autograd."""
     if not vals[0].is_cuda:
         return ms_deform_attn_sep_panels_plain(vals, spatial_shapes, loc, weights)
     _check_sep_cuda(vals, spatial_shapes, loc, weights)
@@ -223,9 +322,39 @@ def ms_deform_attn_sep_panels(vals: Sequence[torch.Tensor],
     vals = [v.contiguous() for v in vals]
     loc = loc.to(torch.float32).contiguous()
     weights = weights.to(torch.float32).contiguous()
-    panels = (ctypes.c_void_p * L)(*(v.data_ptr() for v in vals))
-    level_hw = (ctypes.c_int * (2 * L))(*(x for hw in spatial_shapes for x in hw))
+    panels, level_hw = _level_args(vals, spatial_shapes)
     out = torch.empty((B, Q, H * D), device=loc.device, dtype=vals[0].dtype)
     deform_attn_sep_kernel(panels, level_hw, loc.data_ptr(), weights.data_ptr(),
                            out.data_ptr(), B, Q, H, D, L, P, _DTYPES[vals[0].dtype])
     return out
+
+
+class _DeformAttnSepPanels(torch.autograd.Function):
+    """K4 forward, K5 backward; the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, spatial_shapes, loc, weights, *vals):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(loc, weights, *vals)
+        return ms_deform_attn_sep_panels_fwd(vals, spatial_shapes, loc, weights)
+
+    @staticmethod
+    def backward(ctx, dout):
+        loc, weights, *vals = ctx.saved_tensors
+        dvals, dloc, dw = ms_deform_attn_sep_panels_bwd(vals, ctx.spatial_shapes, loc, weights,
+                                                        dout)
+        return (None, dloc, dw, *dvals)
+
+
+def ms_deform_attn_sep_panels(vals: Sequence[torch.Tensor],
+                              spatial_shapes: Sequence[Tuple[int, int]],
+                              loc: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """vals[l] (B, H, H_l, W_l * D) head-major value panels (padded positions
+    already zeroed), loc (B, Q, H, L, P, 2) normalized (x, y), weights
+    (B, Q, H, L, P) -> (B, Q, H * D) row-major in the panels' dtype.
+    Differentiable in the panels, loc and weights."""
+    spatial_shapes = [(int(h), int(w)) for h, w in spatial_shapes]
+    vals = list(vals)
+    if not needs_grad(loc, weights, *vals):
+        return ms_deform_attn_sep_panels_fwd(vals, spatial_shapes, loc, weights)
+    return _DeformAttnSepPanels.apply(spatial_shapes, loc, weights, *vals)

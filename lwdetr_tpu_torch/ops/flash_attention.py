@@ -4,15 +4,17 @@ Counterpart of `lwdetr_tpu/ops/flash_attention.py::attention_cm`, with the
 same dispatch:
 
 * a (3C,) qkv bias and N <= 128 (the ViT window blocks): K1,
-  `csrc/window_attention.cu`, which adds the bias on the loaded panel;
+  `csrc/window_attention.cu`, which adds the bias on the loaded panel; its
+  backward is K7, `csrc/window_attention_bwd.cu`;
 * otherwise the bias, if any, is added inline and K2,
   `csrc/flash_attention.cu`, runs (the ViT global blocks and the decoder
-  self-attention).
+  self-attention); its backward is K6, `csrc/flash_attention_bwd.cu`, which
+  reads the per-row log-sum-exp that K2 writes when a gradient is needed.
 
-On a CUDA tensor the kernels run, or the call raises; a tensor on the CPU
-takes the plain version, `attention_cm_plain`, which is also what the kernels
-are held against on the card. Forward only: the backward kernels (K6, K7)
-belong to the training slice.
+Each forward / backward pair is a `torch.autograd.Function`. On a CUDA tensor
+the kernels run, or the call raises; a tensor on the CPU takes the plain
+versions, `attention_cm_plain` and `attention_cm_bwd_plain`, which are also
+what the kernels are held against on the card.
 """
 from __future__ import annotations
 
@@ -39,7 +41,20 @@ window_attention_bias_kernel = CudaKernel(
 # K2 replaces lwdetr_tpu/ops/flash_attention.py:43 _attn_cm_kernel
 flash_attention_cm_kernel = CudaKernel(
     "K2", "flash_attention.cu", "lw_flash_attention_cm",
-    [_P, _P, _I, _I, _I, _I, _F, _I])
+    [_P, _P, _P, _I, _I, _I, _I, _F, _I])
+# K6 replaces lwdetr_tpu/ops/flash_attention.py:287 _attn_cm_bwd_kernel
+flash_attention_cm_bwd_kernel = CudaKernel(
+    "K6", "flash_attention_bwd.cu", "lw_flash_attention_cm_bwd",
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I])
+# K7 replaces lwdetr_tpu/ops/flash_attention.py:347 _attn_cm_bwd_allheads_kernel
+window_attention_bias_bwd_kernel = CudaKernel(
+    "K7", "window_attention_bwd.cu", "lw_window_attention_bias_bwd",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I])
+
+
+def plain_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain versions work in f32, or in f64 on f64 inputs (gradient checks)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
 def attention_cm_plain(qkv_t: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
@@ -48,19 +63,47 @@ def attention_cm_plain(qkv_t: torch.Tensor, num_heads: int, scale: float) -> tor
     B, ZC, N = qkv_t.shape
     C = ZC // 3
     D = C // num_heads
-    x = qkv_t.float().reshape(B, 3, num_heads, D, N)
+    x = qkv_t.to(plain_dtype(qkv_t)).reshape(B, 3, num_heads, D, N)
     q, k, v = x[:, 0], x[:, 1], x[:, 2]  # (B, H, D, N)
     s = torch.einsum("bhdn,bhdm->bhnm", q * scale, k)
     o = torch.einsum("bhnm,bhdm->bhdn", s.softmax(dim=-1), v)
     return o.reshape(B, C, N).to(qkv_t.dtype)
 
 
-def _check_cuda(qkv_t: torch.Tensor, num_heads: int, *extra: Optional[torch.Tensor]) -> None:
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in (qkv_t,) + extra):
-        raise NotImplementedError(
-            "attention_cm on CUDA is forward only: its backward kernels "
-            "(K6 _attn_cm_bwd_kernel, K7 _attn_cm_bwd_allheads_kernel) are not ported yet")
+def attention_cm_bwd_plain(qkv_t: torch.Tensor, dout: torch.Tensor, num_heads: int,
+                           scale: float, bias: Optional[torch.Tensor] = None,
+                           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of both attention backwards (K6, and K7 with
+    `bias`): d(qkv_t) (B, 3C, N) in qkv_t's dtype from d(out) (B, C, N), by
+    the explicit formulas, in f32. With p = softmax(scale q^T k):
+    dp = d(out)^T v, ds = p (dp - row) scale, dq = k ds^T, dk = q ds,
+    dv = d(out) p. `row` is sum_j p dp, or, given the forward's `out`,
+    sum_d d(out) out as K6 forms it. The gradient of `bias` is the sum of
+    the result over (0, 2)."""
+    B, ZC, N = qkv_t.shape
+    C = ZC // 3
+    D = C // num_heads
+    ct = plain_dtype(qkv_t)
+    x = qkv_t.to(ct)
+    if bias is not None:
+        x = x + bias.to(ct)[:, None]
+    x = x.reshape(B, 3, num_heads, D, N)
+    q, k, v = x[:, 0], x[:, 1], x[:, 2]  # (B, H, D, N)
+    g = dout.to(ct).reshape(B, num_heads, D, N)
+    p = torch.einsum("bhdn,bhdm->bhnm", q * scale, k).softmax(dim=-1)
+    dp = torch.einsum("bhdn,bhdm->bhnm", g, v)
+    if out is None:
+        row = (dp * p).sum(dim=-1, keepdim=True)
+    else:
+        row = (g * out.to(ct).reshape(B, num_heads, D, N)).sum(dim=2)[..., None]
+    ds = p * (dp - row) * scale
+    dq = torch.einsum("bhnm,bhdm->bhdn", ds, k)
+    dk = torch.einsum("bhnm,bhdn->bhdm", ds, q)
+    dv = torch.einsum("bhnm,bhdn->bhdm", p, g)
+    return torch.stack([dq, dk, dv], dim=1).reshape(B, ZC, N).to(qkv_t.dtype)
+
+
+def _check_cuda(qkv_t: torch.Tensor, num_heads: int) -> None:
     if qkv_t.dtype not in _DTYPES:
         raise TypeError(f"attention_cm kernels take float32 or bfloat16, got {qkv_t.dtype}")
     if qkv_t.dim() != 3 or qkv_t.shape[1] % (3 * num_heads):
@@ -71,47 +114,173 @@ def _check_cuda(qkv_t: torch.Tensor, num_heads: int, *extra: Optional[torch.Tens
         raise ValueError(f"attention_cm kernels take head_dim in {_HEAD_DIMS}, got {D}")
 
 
-def window_attention_bias(qkv_t: torch.Tensor, bias: torch.Tensor, num_heads: int,
-                          scale: float) -> torch.Tensor:
-    """K1: (B, 3C, N <= 128) qkv plus (3C,) bias -> (B, C, N)."""
-    _check_cuda(qkv_t, num_heads, bias)
+def _check_window(qkv_t: torch.Tensor, bias: torch.Tensor) -> None:
+    if qkv_t.shape[2] > _WINDOW_MAX_N:
+        raise ValueError(f"K1 / K7 take N <= {_WINDOW_MAX_N}, got {qkv_t.shape[2]}")
+    if bias.shape != (qkv_t.shape[1],):
+        raise ValueError(f"bias must be ({qkv_t.shape[1]},), got {tuple(bias.shape)}")
+
+
+def _f32_bias(bias: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return bias.detach().to(device=like.device, dtype=torch.float32).contiguous()
+
+
+def needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether autograd will want a gradient of any of `tensors`."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def window_attention_bias_fwd(qkv_t: torch.Tensor, bias: torch.Tensor, num_heads: int,
+                              scale: float) -> torch.Tensor:
+    """K1 launch on a CUDA tensor (the plain version on the CPU), outside autograd."""
+    if not qkv_t.is_cuda:
+        ct = plain_dtype(qkv_t)
+        x = qkv_t.to(ct) + bias.to(ct)[:, None]
+        return attention_cm_plain(x, num_heads, scale).to(qkv_t.dtype)
+    _check_cuda(qkv_t, num_heads)
+    _check_window(qkv_t, bias)
     B, ZC, N = qkv_t.shape
-    if N > _WINDOW_MAX_N:
-        raise ValueError(f"K1 takes N <= {_WINDOW_MAX_N}, got {N}")
-    if bias.shape != (ZC,):
-        raise ValueError(f"bias must be ({ZC},), got {tuple(bias.shape)}")
     qkv_t = qkv_t.contiguous()
-    bias = bias.to(device=qkv_t.device, dtype=torch.float32).contiguous()
+    bias = _f32_bias(bias, qkv_t)
     out = torch.empty((B, ZC // 3, N), device=qkv_t.device, dtype=qkv_t.dtype)
-    window_attention_bias_kernel(qkv_t.data_ptr(), bias.data_ptr(), out.data_ptr(), B,
-                                 ZC // 3, N, num_heads, float(scale), _DTYPES[qkv_t.dtype])
+    window_attention_bias_kernel(qkv_t.data_ptr(), bias.data_ptr(), out.data_ptr(), B, ZC // 3,
+                                 N, num_heads, float(scale), _DTYPES[qkv_t.dtype])
     return out
 
 
-def flash_attention_cm(qkv_t: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
-    """K2: (B, 3C, N) qkv -> (B, C, N)."""
+def flash_attention_cm_fwd(qkv_t: torch.Tensor, num_heads: int, scale: float,
+                           with_lse: bool = False):
+    """K2 launch on a CUDA tensor (the plain version on the CPU), outside
+    autograd: (out (B, C, N), lse). `lse` (B, H, N) f32, each row's
+    log-sum-exp of the scaled scores in log2 units, is what K6 reads; it is
+    None, and not written, unless `with_lse` on a CUDA tensor."""
+    if not qkv_t.is_cuda:
+        return attention_cm_plain(qkv_t, num_heads, scale), None
     _check_cuda(qkv_t, num_heads)
     B, ZC, N = qkv_t.shape
     qkv_t = qkv_t.contiguous()
     out = torch.empty((B, ZC // 3, N), device=qkv_t.device, dtype=qkv_t.dtype)
-    flash_attention_cm_kernel(qkv_t.data_ptr(), out.data_ptr(), B, ZC // 3, N, num_heads,
-                              float(scale), _DTYPES[qkv_t.dtype])
-    return out
+    lse = (torch.empty((B, num_heads, N), device=qkv_t.device, dtype=torch.float32)
+           if with_lse else None)
+    flash_attention_cm_kernel(qkv_t.data_ptr(), out.data_ptr(),
+                              None if lse is None else lse.data_ptr(), B, ZC // 3, N,
+                              num_heads, float(scale), _DTYPES[qkv_t.dtype])
+    return out, lse
+
+
+class _WindowAttentionBias(torch.autograd.Function):
+    """K1 forward, K7 backward; the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, qkv_t, bias, num_heads, scale):
+        ctx.save_for_backward(qkv_t, bias)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return window_attention_bias_fwd(qkv_t, bias, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv_t, bias = ctx.saved_tensors
+        dqkv = window_attention_bias_bwd(qkv_t, bias, dout, ctx.num_heads, ctx.scale)
+        dbias = None
+        if ctx.needs_input_grad[1]:
+            # summed in f32 outside the kernel, as the JAX VJP does
+            dbias = dqkv.to(plain_dtype(dqkv)).sum(dim=(0, 2)).to(bias.dtype)
+        return dqkv, dbias, None, None
+
+
+class _FlashAttentionCM(torch.autograd.Function):
+    """K2 forward (writing the row log-sum-exp), K6 backward; the plain
+    versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, qkv_t, num_heads, scale):
+        ctx.num_heads, ctx.scale = num_heads, scale
+        out, lse = flash_attention_cm_fwd(qkv_t, num_heads, scale, with_lse=True)
+        ctx.save_for_backward(qkv_t, out, *(() if lse is None else (lse,)))
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv_t, out, *lse = ctx.saved_tensors
+        return flash_attention_cm_bwd(qkv_t, out, lse[0] if lse else None, dout,
+                                      ctx.num_heads, ctx.scale), None, None
+
+
+def window_attention_bias(qkv_t: torch.Tensor, bias: torch.Tensor, num_heads: int,
+                          scale: float) -> torch.Tensor:
+    """K1 (backward K7): (B, 3C, N <= 128) qkv plus (3C,) bias -> (B, C, N)."""
+    if not needs_grad(qkv_t, bias):
+        return window_attention_bias_fwd(qkv_t, bias, num_heads, scale)
+    return _WindowAttentionBias.apply(qkv_t, bias, num_heads, scale)
+
+
+def flash_attention_cm(qkv_t: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """K2 (backward K6): (B, 3C, N) qkv -> (B, C, N). The row log-sum-exp is
+    written only when a backward will read it."""
+    if not needs_grad(qkv_t):
+        return flash_attention_cm_fwd(qkv_t, num_heads, scale)[0]
+    return _FlashAttentionCM.apply(qkv_t, num_heads, scale)
+
+
+def window_attention_bias_bwd(qkv_t: torch.Tensor, bias: torch.Tensor, dout: torch.Tensor,
+                              num_heads: int, scale: float) -> torch.Tensor:
+    """K7: d(qkv_t) (B, 3C, N <= 128) of `window_attention_bias` from d(out) (B, C, N)."""
+    if not qkv_t.is_cuda:
+        return attention_cm_bwd_plain(qkv_t, dout, num_heads, scale, bias=bias)
+    _check_cuda(qkv_t, num_heads)
+    _check_window(qkv_t, bias)
+    B, ZC, N = qkv_t.shape
+    if dout.shape != (B, ZC // 3, N) or dout.device != qkv_t.device:
+        raise ValueError(f"d(out) must be {(B, ZC // 3, N)} on {qkv_t.device}, "
+                         f"got {tuple(dout.shape)} on {dout.device}")
+    qkv_t = qkv_t.contiguous()
+    dout = dout.to(qkv_t.dtype).contiguous()
+    bias = _f32_bias(bias, qkv_t)
+    dqkv = torch.empty_like(qkv_t)
+    window_attention_bias_bwd_kernel(qkv_t.data_ptr(), bias.data_ptr(), dout.data_ptr(),
+                                     dqkv.data_ptr(), B, ZC // 3, N, num_heads, float(scale),
+                                     _DTYPES[qkv_t.dtype])
+    return dqkv
+
+
+def flash_attention_cm_bwd(qkv_t: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                           dout: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """K6: d(qkv_t) (B, 3C, N) of `flash_attention_cm` from d(out) (B, C, N), the
+    forward's `out` and the row log-sum-exp `lse` (B, H, N) that K2 wrote."""
+    if not qkv_t.is_cuda:
+        return attention_cm_bwd_plain(qkv_t, dout, num_heads, scale, out=out)
+    _check_cuda(qkv_t, num_heads)
+    B, ZC, N = qkv_t.shape
+    for name, t, shape in (("out", out, (B, ZC // 3, N)), ("d(out)", dout, (B, ZC // 3, N)),
+                           ("lse", lse, (B, num_heads, N))):
+        if t.shape != shape or t.device != qkv_t.device:
+            raise ValueError(f"{name} must be {shape} on {qkv_t.device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    if lse.dtype != torch.float32:
+        raise TypeError(f"lse must be float32, got {lse.dtype}")
+    qkv_t = qkv_t.contiguous()
+    out = out.to(qkv_t.dtype).contiguous()
+    dout = dout.to(qkv_t.dtype).contiguous()
+    lse = lse.contiguous()
+    dqkv = torch.empty_like(qkv_t)
+    delta = torch.empty_like(lse)  # sum_d d(out) out per row: pass 1 writes it, pass 2 reads it
+    flash_attention_cm_bwd_kernel(qkv_t.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                                  dout.data_ptr(), dqkv.data_ptr(), delta.data_ptr(), B,
+                                  ZC // 3, N, num_heads, float(scale), _DTYPES[qkv_t.dtype])
+    return dqkv
 
 
 def attention_cm(qkv_t: torch.Tensor, num_heads: int, scale: Optional[float] = None,
                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention over channel-major packed qkv (B, 3C, N) -> (B, C, N), with
-    an optional (3C,) qkv bias."""
+    an optional (3C,) qkv bias. Differentiable in qkv_t and bias."""
     B, ZC, N = qkv_t.shape
     if ZC % (3 * num_heads):
         raise ValueError(f"3C = {ZC} is not divisible by 3 x {num_heads} heads")
     if scale is None:
         scale = 1.0 / math.sqrt(ZC // 3 // num_heads)
-    if qkv_t.is_cuda and bias is not None and N <= _WINDOW_MAX_N:
+    if bias is not None and N <= _WINDOW_MAX_N:
         return window_attention_bias(qkv_t, bias, num_heads, scale)
     if bias is not None:
         qkv_t = qkv_t + bias.to(qkv_t.dtype)[:, None]
-    if qkv_t.is_cuda:
-        return flash_attention_cm(qkv_t, num_heads, scale)
-    return attention_cm_plain(qkv_t, num_heads, scale)
+    return flash_attention_cm(qkv_t, num_heads, scale)

@@ -12,7 +12,8 @@ layout transform between them:
   BN running_mean/var             <- batch_stats mean/var
 
 `state_dict_from_jax` needs numpy only: it takes the JAX variables as nested
-dicts of arrays. `init_state_dict` draws every weight from a seed with a
+dicts of arrays. The map is linear, so `grads_from_jax` carries a JAX gradient
+tree into the port's names and layouts the same way. `init_state_dict` draws every weight from a seed with a
 `torch.Generator`, for runs that have no JAX.
 """
 from __future__ import annotations
@@ -210,6 +211,16 @@ def state_dict_from_jax(params: dict, batch_stats: dict, cfg: ModelConfig) -> Di
     """JAX `params` / `batch_stats` trees of `cfg`'s model -> a state_dict
     with the reference's keys that the port loads strictly."""
     return tensors_from_jax(build_mapping(cfg), params, batch_stats)
+
+
+def grads_from_jax(grads: dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree over `params` -> {parameter name: gradient} in the
+    port's layouts (the transposes and the ConvTranspose flip of the weights),
+    to hold `p.grad` against, key by key."""
+    mapping = [e for e in build_mapping(cfg) if e[1] == "params"]
+    return {tk: torch.from_numpy(np.ascontiguousarray(_f2t(np.asarray(_get_path(grads, fp)),
+                                                           kind)).astype(np.float32))
+            for tk, _, fp, kind in mapping}
 
 
 def init_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:

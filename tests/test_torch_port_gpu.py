@@ -130,18 +130,100 @@ def test_dispatch_counts_launches(cuda):
 
 
 def test_autograd_on_cuda_is_refused(cuda):
-    qkv = _qkv(cuda, 1, 64, 50, torch.float32).requires_grad_()
-    with pytest.raises(NotImplementedError, match="K6"):
-        fa.attention_cm(qkv, 4)
+    # only the channel-major sampler (K3) has no backward kernel yet (K8)
     value_t = torch.zeros((1, 16, 12), device="cuda", requires_grad=True)
     with pytest.raises(NotImplementedError, match="K8"):
         da.ms_deform_attn_cm(value_t, [(3, 4)], torch.rand((1, 5, 2, 1, 2, 2), device="cuda"),
                              torch.rand((1, 5, 2, 1, 2), device="cuda"), 2)
+
+
+# Backward kernels against their plain versions in f32 on the same inputs. The
+# gradients are sums of many terms of either sign, so the f32 bound scales with
+# the result's magnitude: ATOL x max(1, max|plain|); bf16 as above.
+def _close_bwd(out, ref, dtype, name, atol_scale=1.0):
+    atol = ATOL * atol_scale * max(1.0, ref.abs().max().item())
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=RTOL[dtype], msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,N,heads", [(64, 192, 100, 12), (3, 64, 49, 2), (2, 128, 128, 4),
+                                         (2, 128, 1, 2), (16, 384, 100, 12), (16, 768, 100, 12)])
+def test_window_attention_bias_bwd_matches_plain(cuda, dtype, B, C, N, heads):
+    qkv = _qkv(cuda, B, C, N, dtype)
+    bias = 0.1 * torch.randn((3 * C,), generator=cuda, device="cuda")
+    dout = torch.randn((B, C, N), generator=cuda, device="cuda").to(dtype)
+    before = fa.window_attention_bias_bwd_kernel.launches
+    dqkv = fa.window_attention_bias_bwd(qkv, bias, dout, heads, 0.7)
+    assert fa.window_attention_bias_bwd_kernel.launches == before + 1
+    ref = fa.attention_cm_bwd_plain(qkv.float(), dout.float(), heads, 0.7, bias=bias)
+    assert dqkv.shape == qkv.shape and dqkv.dtype == dtype
+    _close_bwd(dqkv, ref, dtype, "K7")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,N,heads,scale", [(4, 192, 1600, 12, 1.0), (52, 256, 300, 8, 32 ** -0.5),
+                                               (1, 128, 33, 2, 0.125), (1, 128, 1, 2, 0.125),
+                                               (2, 384, 1600, 12, 1.0),  # head_dim 32
+                                               (2, 768, 1600, 12, 1.0)])  # head_dim 64
+def test_flash_attention_cm_bwd_matches_plain(cuda, dtype, B, C, N, heads, scale):
+    qkv = _qkv(cuda, B, C, N, dtype).requires_grad_()
+    dout = torch.randn((B, C, N), generator=cuda, device="cuda").to(dtype)
+    before = fa.flash_attention_cm_bwd_kernel.launches
+    out = fa.flash_attention_cm(qkv, heads, scale)
+    out.backward(dout)
+    assert fa.flash_attention_cm_bwd_kernel.launches == before + 1
+    # the plain version takes the row term from the same saved output as K6
+    ref = fa.attention_cm_bwd_plain(qkv.detach().float(), dout.float(), heads, scale,
+                                    out=out.detach().float())
+    assert qkv.grad.shape == qkv.shape and qkv.grad.dtype == dtype
+    _close_bwd(qkv.grad, ref, dtype, "K6")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shapes,Q,heads,D,P", [([(40, 40)], 3900, 16, 16, 2),
+                                                ([(80, 80), (20, 20)], 3900, 24, 16, 4),
+                                                ([(16, 20), (8, 10)], 37, 3, 32, 2),
+                                                ([(5, 7)], 1, 2, 16, 1)])
+def test_deform_attn_sep_panels_bwd_matches_plain(cuda, dtype, shapes, Q, heads, D, P):
+    B, L = 2, len(shapes)
+    vals = [v.requires_grad_() for v in _panels(cuda, B, heads, D, shapes, dtype)]
+    loc = torch.rand((B, Q, heads, L, P, 2), generator=cuda, device="cuda") * 1.4 - 0.2
+    loc[0, 0, 0, 0, 0] = torch.tensor([0.0, 1.0])
+    loc[1, 0, 0, 0, 0] = torch.tensor([-1e9, 0.5])
+    loc.requires_grad_()
+    w = torch.rand((B, Q, heads, L, P), generator=cuda, device="cuda").requires_grad_()
+    dout = torch.randn((B, Q, heads * D), generator=cuda, device="cuda").to(dtype)
+    before = da.deform_attn_sep_bwd_kernel.launches
+    da.ms_deform_attn_sep_panels(vals, shapes, loc, w).backward(dout)
+    assert da.deform_attn_sep_bwd_kernel.launches == before + 1
+    dvals, dloc, dw = da.ms_deform_attn_sep_panels_bwd_plain(
+        [v.detach().float() for v in vals], shapes, loc.detach(), w.detach(), dout.float())
+    for v, ref in zip(vals, dvals):
+        assert v.grad.dtype == dtype
+        # d(panel) sums up to hundreds of atomic adds per position in an order
+        # that changes from run to run: 4 x the f32 bound
+        _close_bwd(v.grad, ref, dtype, "K5 d(panel)", atol_scale=4.0)
+    _close_bwd(loc.grad, dloc, torch.float32, "K5 d(loc)")
+    _close_bwd(w.grad, dw, torch.float32, "K5 d(weights)")
+    # positions that no point touches get an exact zero
+    assert all(((ref == 0) <= (v.grad == 0)).all() for v, ref in zip(vals, dvals))
+
+
+def test_backward_dispatch_counts_launches(cuda):
+    kernels = (da.deform_attn_sep_bwd_kernel, fa.flash_attention_cm_bwd_kernel,
+               fa.window_attention_bias_bwd_kernel)
+    before = [k.launches for k in kernels]
+    qkv = _qkv(cuda, 2, 64, 100, torch.float32).requires_grad_()
+    bias = torch.zeros(192, device="cuda", requires_grad=True)
+    (fa.attention_cm(qkv, 4, bias=bias).sum() + fa.attention_cm(qkv, 4).sum()).backward()
+    assert bias.grad.shape == (192,)
     panel = torch.zeros((1, 2, 3, 4 * 16), device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K5"):
-        da.ms_deform_attn_sep_panels([panel], [(3, 4)],
-                                     torch.rand((1, 5, 2, 1, 2, 2), device="cuda"),
-                                     torch.rand((1, 5, 2, 1, 2), device="cuda"))
+    da.ms_deform_attn_sep_panels([panel], [(3, 4)], torch.rand((1, 5, 2, 1, 2, 2), device="cuda"),
+                                 torch.rand((1, 5, 2, 1, 2), device="cuda")).sum().backward()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1]
+    with torch.no_grad():  # no gradient wanted: K2 writes no log-sum-exp
+        fa.attention_cm(qkv, 4)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1]
 
 
 def test_sep_panels_refuses_what_the_kernel_does_not_take(cuda):
@@ -171,3 +253,58 @@ def test_unsupported_shapes_raise(cuda):
         fa.flash_attention_cm(_qkv(cuda, 1, 48, 10, torch.float32), 4, 1.0)  # head_dim 12
     with pytest.raises(TypeError):
         fa.flash_attention_cm(_qkv(cuda, 1, 64, 10, torch.float16), 4, 1.0)
+
+
+def test_one_train_step_through_the_kernels_matches_the_plain_backwards(cuda):
+    """A reduced model's train step (forward, matching, losses, backward) on the
+    card: the gradients through K5, K6 and K7 against the same forward with
+    each backward swapped for its plain version, per parameter tensor."""
+    from unittest import mock
+
+    from lwdetr_tpu_torch.config import ModelConfig, TrainConfig
+    from lwdetr_tpu_torch.models.criterion import SetCriterion, Targets
+    from lwdetr_tpu_torch.models.lwdetr import build_model
+    from lwdetr_tpu_torch.weights import init_state_dict
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ModelConfig(encoder="vit_tiny", vit_encoder_num_layers=3, window_block_indexes=(0, 2),
+                      out_feature_indexes=(1, 2), projector_scale=("P4",), hidden_dim=64,
+                      dim_feedforward=128, sa_nheads=4, ca_nheads=4, dec_n_points=2,
+                      dec_layers=2, group_detr=3, num_queries=16, num_classes=7, two_stage=True,
+                      bbox_reparam=True, lite_refpoint_refine=True)
+    tcfg = TrainConfig(ia_bce_loss=True, cls_loss_coef=1.0, max_gt=8)
+    model = build_model(cfg, state_dict=init_state_dict(cfg, 0), train=True)
+    criterion = SetCriterion(cfg, tcfg)
+    images = torch.randn((2, 256, 256, 3), generator=cuda, device="cuda")
+    targets = Targets(torch.randint(0, 7, (2, 8), generator=cuda, device="cuda"),
+                      torch.rand((2, 8, 4), generator=cuda, device="cuda") * 0.4 + 0.2,
+                      (torch.arange(8, device="cuda") < 3).expand(2, -1).contiguous())
+    kernels = (fa.window_attention_bias_kernel, fa.flash_attention_cm_kernel,
+               da.deform_attn_cm_kernel, da.deform_attn_sep_kernel,
+               da.deform_attn_sep_bwd_kernel, fa.flash_attention_cm_bwd_kernel,
+               fa.window_attention_bias_bwd_kernel)
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        total, _ = criterion(model(images), targets, train=True)
+        total.backward()
+        return total.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    before = [k.launches for k in kernels]
+    loss_k, grads_k = grads()
+    # 2 window + 1 global block, 2 decoder layers; panels in train mode (K4, not K3)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 3, 0, 2, 2, 3, 2]
+    with mock.patch.object(fa, "window_attention_bias_bwd",
+                           lambda qkv, bias, dout, heads, scale:
+                           fa.attention_cm_bwd_plain(qkv, dout, heads, scale, bias=bias)), \
+            mock.patch.object(fa, "flash_attention_cm_bwd",
+                              lambda qkv, out, lse, dout, heads, scale:
+                              fa.attention_cm_bwd_plain(qkv, dout, heads, scale, out=out)), \
+            mock.patch.object(da, "ms_deform_attn_sep_panels_bwd",
+                              da.ms_deform_attn_sep_panels_bwd_plain):
+        loss_p, grads_p = grads()
+    assert loss_p == pytest.approx(loss_k, rel=1e-6)
+    top = max(g.abs().max().item() for g in grads_p.values())
+    for name, g in grads_p.items():
+        err = (grads_k[name] - g).abs().max().item()
+        assert err <= 1e-3 * max(g.abs().max().item(), 1e-5 * top), name

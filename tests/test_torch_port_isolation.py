@@ -14,6 +14,14 @@ from lwdetr_tpu_torch.ops import _build
 from lwdetr_tpu_torch.ops import deform_attn as tda
 from lwdetr_tpu_torch.ops import flash_attention as tfa
 
+KERNELS = (tfa.window_attention_bias_kernel, tfa.flash_attention_cm_kernel,
+           tda.deform_attn_cm_kernel, tda.deform_attn_sep_kernel,
+           tda.deform_attn_sep_bwd_kernel, tfa.flash_attention_cm_bwd_kernel,
+           tfa.window_attention_bias_bwd_kernel)
+TINY = ModelConfig(vit_encoder_num_layers=1, out_feature_indexes=(0,), hidden_dim=32,
+                   dim_feedforward=32, sa_nheads=2, ca_nheads=2, dec_layers=1,
+                   num_queries=4, group_detr=1, num_classes=3, two_stage=True,
+                   bbox_reparam=True, lite_refpoint_refine=True)
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "lwdetr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "lwdetr_tpu")
@@ -37,20 +45,48 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+@pytest.mark.parametrize("path", [p for p in PORT_FILES if p.name != "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_catches_no_exception(path):
+    """No `except` anywhere in the package: a kernel that fails to build or to
+    launch raises, and nothing falls back to another path."""
+    handlers = [n.lineno for n in ast.walk(ast.parse(path.read_text(), filename=str(path)))
+                if isinstance(n, ast.ExceptHandler)]
+    assert not handlers, f"{path.name} catches exceptions at lines {handlers}"
+
+
+def test_the_train_modules_are_in_the_walk():
+    names = {str(p.relative_to(ROOT / "lwdetr_tpu_torch")) for p in PORT_FILES[:-1]}
+    assert {"models/matcher.py", "models/criterion.py", "train/optim.py", "train/engine.py",
+            "bench_train.py", "config.py"} <= names
+
+
+def test_train_entry_points_raise_without_a_card(monkeypatch):
+    from lwdetr_tpu_torch import bench_train
+    from lwdetr_tpu_torch.config import TrainConfig
+    from lwdetr_tpu_torch.train import engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.create_train_state(TINY, TrainConfig(), niter_per_ep=10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_train.make_train_step("small", 1)
+    state = engine.create_train_state(TINY, TrainConfig(use_ema=True), niter_per_ep=10,
+                                      device="cpu")
+    assert state.model.training and state.ema is not None and state.step == 0
+    assert next(state.model.parameters()).device.type == "cpu"
+
+
 def test_build_model_without_device_raises_when_cuda_is_absent(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = ModelConfig(vit_encoder_num_layers=1, out_feature_indexes=(0,), hidden_dim=32,
-                      dim_feedforward=32, sa_nheads=2, ca_nheads=2, dec_layers=1,
-                      num_queries=4, group_detr=1, num_classes=3, two_stage=True,
-                      bbox_reparam=True, lite_refpoint_refine=True)
+    cfg = TINY
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_model.build_model(cfg)
     assert port_model.build_model(cfg, device="cpu").class_embed.weight.device.type == "cpu"
 
 
 def test_cpu_tensors_take_the_plain_versions_without_building_kernels():
-    kernels = (tfa.window_attention_bias_kernel, tfa.flash_attention_cm_kernel,
-               tda.deform_attn_cm_kernel, tda.deform_attn_sep_kernel)
+    kernels = KERNELS
     before = [k.launches for k in kernels]
     g = torch.Generator().manual_seed(0)
     qkv = torch.randn(1, 3 * 32, 20, generator=g)
@@ -62,15 +98,22 @@ def test_cpu_tensors_take_the_plain_versions_without_building_kernels():
     tda.ms_deform_attn_sep_panels([torch.randn(1, 2, 3, 4 * 16, generator=g)], [(3, 4)],
                                   torch.rand(1, 5, 2, 1, 2, 2, generator=g),
                                   torch.rand(1, 5, 2, 1, 2, generator=g))
+    # and the backwards: autograd through each Function on CPU tensors
+    qkv.requires_grad_()
+    bias = torch.randn(96, generator=g, requires_grad=True)
+    (tfa.attention_cm(qkv, 2, bias=bias).sum() + tfa.attention_cm(qkv, 2).sum()).backward()
+    panel = torch.randn(1, 2, 3, 4 * 16, generator=g, requires_grad=True)
+    tda.ms_deform_attn_sep_panels([panel], [(3, 4)], torch.rand(1, 5, 2, 1, 2, 2, generator=g),
+                                  torch.rand(1, 5, 2, 1, 2, generator=g)).sum().backward()
+    assert qkv.grad is not None and bias.grad is not None and panel.grad is not None
     assert [k.launches for k in kernels] == before
     assert all(k._fn is None for k in kernels)
 
 
 def test_every_kernel_source_is_registered_for_the_parallel_build():
     assert set(_build.SOURCES) == {p.name for p in _build.CSRC.glob("*.cu")}
-    bound = {k.source for k in (tfa.window_attention_bias_kernel, tfa.flash_attention_cm_kernel,
-                                tda.deform_attn_cm_kernel, tda.deform_attn_sep_kernel)}
-    assert bound == set(_build.SOURCES)
+    assert {k.source for k in KERNELS} == set(_build.SOURCES)
+    assert [k.name for k in KERNELS] == ["K1", "K2", "K3", "K4", "K5", "K6", "K7"]
 
 
 def test_kernel_build_targets_hopper_from_the_checkout():

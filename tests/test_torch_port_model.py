@@ -196,7 +196,7 @@ def _module_against_jax(shapes, B, Q, C, H, P, branch):
     ref = jax.jit(lambda v, q, r, m: jmod.apply(v, q, r, m, shapes))(
         {"params": params}, jnp.asarray(query), jnp.asarray(refs), jnp.asarray(memory))
 
-    tmod = MSDeformAttnModule(C, len(shapes), H, P)
+    tmod = MSDeformAttnModule(C, len(shapes), H, P).eval()
     tmod.load_state_dict({f"{name}.{'weight' if k == 'kernel' else k}":
                           torch.from_numpy(np.ascontiguousarray(v.T if k == "kernel" else v))
                           for name, p in params.items() for k, v in p.items()}, strict=True)
@@ -225,17 +225,22 @@ def test_ms_deform_attn_module_matches_jax_panel_branch():
 
 
 def test_dispatch_threshold_is_the_jax_packages():
-    # one constant: a memory of exactly 4096 positions takes the panels, 4095 does not
+    # one constant: in eval a memory of exactly 4096 positions takes the panels,
+    # 4095 does not; in train mode every memory does (`train or Len_in >= 4096`)
     assert ttr.SEP_MIN_LEN_IN == 4096
     mod = MSDeformAttnModule(32, 1, 2, 2)
     g = torch.Generator().manual_seed(0)
     query = torch.randn(1, 3, 32, generator=g)
     refs = torch.rand(1, 3, 1, 2, generator=g)
-    for shape, name in (((64, 64), "ms_deform_attn_sep_panels"), ((63, 65), "ms_deform_attn_cm")):
+    for train, shape, name in ((False, (64, 64), "ms_deform_attn_sep_panels"),
+                               (False, (63, 65), "ms_deform_attn_cm"),
+                               (True, (63, 65), "ms_deform_attn_sep_panels"),
+                               (True, (4, 5), "ms_deform_attn_sep_panels")):
+        mod.train(train)
         memory = torch.randn(1, shape[0] * shape[1], 32, generator=g)
         with torch.no_grad(), mock.patch.object(tda, name, wraps=getattr(tda, name)) as spy:
             mod(query, refs, memory, [shape], [memory])
-        assert spy.call_count == 1, shape
+        assert spy.call_count == 1, (train, shape)
 
 
 def test_init_state_dict_is_seeded_and_loads_strictly():

@@ -3,7 +3,7 @@ into groups, on kernel names the H100 profiler reports for the small@640
 and large@640 steps, and which presets the tools take."""
 import pytest
 
-from lwdetr_tpu_torch import bench, breakdown
+from lwdetr_tpu_torch import bench, bench_train, breakdown
 from lwdetr_tpu_torch.breakdown import _group
 
 
@@ -24,6 +24,18 @@ from lwdetr_tpu_torch.breakdown import _group
     ("void (anonymous namespace)::window_attention_bias_kernel<__nv_bfloat16, 32>"
      "(__nv_bfloat16 const*, float const*, __nv_bfloat16*, int, int, float)",
      "K1 window_attention_bias"),
+    ("void (anonymous namespace)::deform_attn_sep_bwd_kernel<float>(float const*, float const*, "
+     "float const*, float*, float*, int, int, int, int, (anonymous", "K5 deform_attn_sep_bwd"),
+    ("void (anonymous namespace)::attention_bwd_dq_kernel<float, 16>(float const*, float const*, "
+     "float const*, float const*, float*, float*, int, int, float)", "K6 flash_attention_cm_bwd"),
+    ("void (anonymous namespace)::attention_bwd_dkdv_kernel<float, 32>(float const*, "
+     "float const*, float const*, float const*, float*, int, int, float)",
+     "K6 flash_attention_cm_bwd"),
+    ("void (anonymous namespace)::window_attention_bias_bwd_kernel<float, 16>(float const*, "
+     "float const*, float const*, float*, int, int, float)", "K7 window_attention_bias_bwd"),
+    ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<at::native::"
+     "(anonymous namespace)::TensorListMetadata<4>, at::native::(anonymous namespace)::"
+     "FusedAdamMathFunctor", "optimizer/EMA (foreach)"),
     ("void cutlass::Kernel2<cutlass_80_tensorop_bf16_s16816gemm_bf16_128x128_64x3_tn_align2>",
      "gemm"),
     ("nvjet_tst_128x160_64x5_2x1_v_bz_coopA_bias_TNT", "gemm"),
@@ -51,13 +63,35 @@ def test_breakdown_groups_kernel_names(name, group):
     assert _group(name) == group
 
 
-@pytest.mark.parametrize("tool", [bench, breakdown], ids=["bench", "breakdown"])
+@pytest.mark.parametrize("tool", [bench, breakdown, bench_train],
+                         ids=["bench", "breakdown", "bench_train"])
 @pytest.mark.parametrize("preset", ["tiny", "small", "medium", "large", "xlarge"])
 def test_tools_take_every_vit_preset(tool, preset):
     assert tool.parser().parse_args(["--preset", preset]).preset == preset
 
 
-@pytest.mark.parametrize("tool", [bench, breakdown], ids=["bench", "breakdown"])
+@pytest.mark.parametrize("tool", [bench, breakdown, bench_train],
+                         ids=["bench", "breakdown", "bench_train"])
 def test_tools_refuse_an_unknown_preset(tool):
     with pytest.raises(SystemExit):
         tool.parser().parse_args(["--preset", "huge"])
+
+
+def test_bench_train_makes_the_synthetic_batch_from_a_seed():
+    import torch
+
+    a = bench_train.synthetic_batch(91, 2, 64, 10, 7, "cpu", seed=0)
+    b = bench_train.synthetic_batch(91, 2, 64, 10, 7, "cpu", seed=0)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert a["images"].shape == (2, 64, 64, 3) and a["boxes"].shape == (2, 10, 4)
+    assert a["valid"].sum(1).tolist() == [7, 7] and a["valid"][:, :7].all()
+    assert a["labels"].max() < 91 and a["boxes"].min() >= 0.2 and a["boxes"].max() <= 0.6
+    args = bench_train.parser().parse_args([])
+    assert (args.preset, args.batch, args.gt_per_img, args.max_gt) == ("small", None, 7, 100)
+
+
+def test_breakdown_train_mode_defaults():
+    args = breakdown.parser().parse_args(["--train"])
+    assert args.train and args.batch is None and args.dtype is None
+    with pytest.raises(NotImplementedError, match="float32"):
+        breakdown.run("small", 4, __import__("torch").bfloat16, train=True)
