@@ -4,26 +4,30 @@ Run from the root of a checkout, with one card:
 
     python3 chip_smoke.py
 
-1. Builds the seven kernels of the eval and train paths (K1-K7,
-   `lwdetr_tpu_torch/csrc/`) with nvcc, one process per source, all at once,
-   and prints the `-Xptxas -v` register, shared-memory and spill report of
-   every template case.
+1. Builds the kernels of the eval and train paths (K1-K10, twelve entry
+   symbols in eight sources of `lwdetr_tpu_torch/csrc/`) with nvcc, one
+   process per source, all at once, and prints the `-Xptxas -v` register,
+   shared-memory and spill report of every template case.
 2. Holds each kernel against its plain PyTorch version, in f32 and bf16, at
-   the shapes the 640x640 forwards give it with batch 8: K1, K2 and K3 at
-   LW-DETR-small's, K1 and K2 also at large's and xlarge's (head_dim 32 and
-   64), K4 at large's and xlarge's (two levels of head-major panels, 24 heads,
-   4 points). It times the kernel, the plain version and, for K1/K2, one
-   `F.scaled_dot_product_attention` call on the same inputs (a yardstick the
-   port never calls). The backward kernels K5, K6 and K7 are held against
-   their plain versions at the shapes of one LW-DETR-small train step at batch
-   4 (3900 queries), K6 also at head_dim 64 and K5 also at large's two-level,
-   4-point shape, with SDPA's backward as the yardstick of K6 and K7; K4 also
-   at the train step's shape.
-3. Drives three eval forwards + `post_process` at 640x640 from
-   `init_state_dict(seed=0)`, batch 8, f32: small, then xlarge, then large.
+   every shape a 640x640 path gives it (eval batch 8, train batch 4): K1 and
+   K2 at small's, large's and xlarge's (head_dim 16, 32, 64), with one
+   `F.scaled_dot_product_attention` call timed on the same inputs (a yardstick
+   the port never calls); the samplers on one set of inputs (border and
+   far-outside queries included) in their three layouts: K3 (channel-major) at
+   small's and tiny's eval forward and tiny's "cm" train step, K4 (panels) at
+   large's two levels and at small's and tiny's train step, K5 at small's,
+   tiny's and large's train shape, K8 at tiny's 1300 and small's 3900 train
+   queries and at large's two levels, K10 (row-major) forward and backward at
+   tiny's eval and train shapes; K6 and K7 at small's train step (K6 also at
+   head_dim 64) with SDPA's backward beside them; K9 (the short attention
+   without a bias) at tiny's decoder, batch 8 and 13 groups x 4, with K2 and
+   SDPA on the same inputs, and its backward with SDPA's beside it.
+3. Drives four eval forwards + `post_process` at 640x640 from
+   `init_state_dict(seed=0)`, batch 8, f32: small, then xlarge, then large
+   and tiny (100 queries).
    Every launch counter is set to 0 just before a forward and read just after:
    small must launch K1 6 times, K2 7, K3 3 and K4 0; xlarge and large K1 6,
-   K2 7, K3 0 and K4 3. The same model forced onto the plain versions, and
+   K2 7, K3 0 and K4 3; tiny K1 3, K2 3, K9 3 and K3 3; no other kernel. The same model forced onto the plain versions, and
    given the same two-stage proposal picks (near-tied scores may swap under
    rounding; the picks are compared on their own), gives the reference
    outputs. The bf16 model must give finite outputs. Then the bf16 throughput
@@ -33,9 +37,15 @@ Run from the root of a checkout, with one card:
    kernels against the same forward with the plain backward versions, per
    parameter tensor, and against the whole step on the plain versions
    (proposal picks and matching replayed); the launch counts of that step
-   (K1 6, K2 7, K3 0, K4 3, K5 3, K6 7, K7 6); 12 steps with the release
+   (K1 6, K2 7, K3 0, K4 3, K5 3, K6 7, K7 6); 8 steps with the release
    optimizer settings (finite losses that fall, an EMA that moves); then the
    step time, img/s, the matcher's host time per step and peak device memory.
+5. Drives the train step of LW-DETR-tiny the same way in each branch of the
+   decoder's cross-attention: the default (panels: K1 3, K2 3, K9 3, K4 3,
+   K5 3, K6 3, K7 3 with a bias and 3 without), `force_branch="cm"` (K3 3,
+   K8 3 in place of K4, K5) and `"gather"` (K10 3 forward, 3 backward). The
+   three losses must agree within 1e-4; the default branch takes the
+   optimizer steps, and every branch's step is timed.
 
 Any failure exits non-zero. Without a CUDA card, or outside a checkout, it
 exits non-zero and prints no result. The line before the last holds one JSON
@@ -46,6 +56,7 @@ from __future__ import annotations
 
 import json
 import sys
+from types import SimpleNamespace
 from unittest import mock
 
 # peak rates of one H100 SXM (NVIDIA data sheet, dense): the least time the
@@ -75,25 +86,48 @@ RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
 # logits by 1e-1 or more
 FWD_ATOL_LOGITS = 2e-3
 FWD_ATOL_BOXES = 5e-4
-MIN_TOPK_OVERLAP = 0.98  # of the 300 picks / (query, label) pairs per image
+MIN_TOPK_OVERLAP = 0.98  # of the 300 (tiny: 100) picks / (query, label) pairs per image
 
 BATCH = 8
+KERNEL_NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K7nb", "K8", "K9", "K10", "K10b")
+BACKWARD_KERNELS = ("K5", "K6", "K7", "K7nb", "K8", "K10b")
+
+
+def launch_counts(**counts):
+    """Expected launches of every kernel: those given, 0 for the others."""
+    return {name: counts.get(name, 0) for name in KERNEL_NAMES}
+
+
 # launches per forward: 6 window blocks; 4 global blocks + 3 decoder
 # self-attentions; 3 decoder cross-attentions, from channel-major values below
-# 4096 memory positions (small: 1600) and from panels above (P3 + P5: 6800)
-# (no eval forward launches a backward kernel)
-_NO_BWD = {"K5": 0, "K6": 0, "K7": 0}
-EXPECTED_LAUNCHES = {"small": {"K1": 6, "K2": 7, "K3": 3, "K4": 0, **_NO_BWD},
-                     "xlarge": {"K1": 6, "K2": 7, "K3": 0, "K4": 3, **_NO_BWD},
-                     "large": {"K1": 6, "K2": 7, "K3": 0, "K4": 3, **_NO_BWD}}
-# one train step of small: the forward's launches (the decoder samples from
-# panels in train mode: K4, not K3) and one backward launch for each
-TRAIN_LAUNCHES = {"K1": 6, "K2": 7, "K3": 0, "K4": 3, "K5": 3, "K6": 7, "K7": 6}
+# 4096 memory positions (small: 1600) and from panels above (P3 + P5: 6800).
+# tiny has 3 window and 3 global blocks, and its decoder's self-attention over
+# 100 queries takes the short kernel without a bias (K9). No eval forward
+# launches a backward kernel.
+EXPECTED_LAUNCHES = {"small": launch_counts(K1=6, K2=7, K3=3),
+                     "xlarge": launch_counts(K1=6, K2=7, K4=3),
+                     "large": launch_counts(K1=6, K2=7, K4=3),
+                     "tiny": launch_counts(K1=3, K2=3, K9=3, K3=3)}
+# one train step: the forward's launches (the decoder samples from panels in
+# train mode: K4, not K3) and one backward launch for each; tiny's decoder
+# folds its 13 groups of 100 queries into the batch, so K9 and the short
+# backward without a bias (K7nb) take its self-attention; "cm" and "gather"
+# are `force_branch` on the decoder's cross-attention
+_TINY_TRAIN = dict(K1=3, K2=3, K9=3, K6=3, K7=3, K7nb=3)
+TRAIN_LAUNCHES = {
+    "small": launch_counts(K1=6, K2=7, K4=3, K5=3, K6=7, K7=6),
+    "tiny": launch_counts(K4=3, K5=3, **_TINY_TRAIN),
+    "tiny/cm": launch_counts(K3=3, K8=3, **_TINY_TRAIN),
+    "tiny/gather": launch_counts(K10=3, K10b=3, **_TINY_TRAIN)}
+TRAIN_BRANCHES = {"small": (None,), "tiny": (None, "cm", "gather")}
 TRAIN_BATCH = 4
-TRAIN_STEPS = 12
+TRAIN_STEPS = {"small": 8, "tiny": 6}
+BRANCH_LOSS_ATOL = 1e-4  # one function from three value layouts
 # how the backward kernels' absolute bound scales (see `grad_scale`)
-BWD_TOL = {"K5": " x max(1, max |plain|), x 4 on d(panel) for the order of its atomic adds",
-           "K6": " x max(1, max |plain|)", "K7": " x max(1, max |plain|)"}
+_SCATTER_TOL = " x max(1, max |plain|), x 4 on d(value) for the order of its atomic adds"
+BWD_TOL = {"K5": _SCATTER_TOL, "K8": _SCATTER_TOL, "K10b": _SCATTER_TOL,
+           "K6": " x max(1, max |plain|)", "K7": " x max(1, max |plain|)",
+           "K7nb": " x max(1, max |plain|)"}
 # one train step, f32: backward kernels vs plain backwards on the same forward,
 # per parameter tensor, max |difference| over that tensor's max |gradient|
 # (floored at GRAD_FLOOR x the largest gradient of all); and kernels vs the
@@ -109,14 +143,26 @@ REPLACES = {
     "K5": "lwdetr_tpu/ops/deform_attn.py:1105 _sep_bwd_kernel",
     "K6": "lwdetr_tpu/ops/flash_attention.py:287 _attn_cm_bwd_kernel",
     "K7": "lwdetr_tpu/ops/flash_attention.py:347 _attn_cm_bwd_allheads_kernel",
+    "K7nb": "lwdetr_tpu/ops/flash_attention.py:347 _attn_cm_bwd_allheads_kernel",
+    "K8": "lwdetr_tpu/ops/deform_attn.py:480 _dvalue_cm_kernel",
+    "K9": "lwdetr_tpu/ops/flash_attention.py:88 _attn_cm_allheads_kernel",
+    "K10": "lwdetr_tpu/ops/deform_attn.py:149 _deform_kernel",
+    "K10b": "lwdetr_tpu/ops/deform_attn.py:213 _dvalue_kernel",
 }
+ALSO_REPLACES = {"K8": "lwdetr_tpu/ops/deform_attn.py:509 _dweight_cm_kernel",
+                 "K10b": "lwdetr_tpu/ops/deform_attn.py:243 _dweight_kernel"}
 SOURCES = {"K1": "lwdetr_tpu_torch/csrc/window_attention.cu",
            "K2": "lwdetr_tpu_torch/csrc/flash_attention.cu",
            "K3": "lwdetr_tpu_torch/csrc/deform_attn.cu",
            "K4": "lwdetr_tpu_torch/csrc/deform_attn_sep.cu",
            "K5": "lwdetr_tpu_torch/csrc/deform_attn_sep_bwd.cu",
            "K6": "lwdetr_tpu_torch/csrc/flash_attention_bwd.cu",
-           "K7": "lwdetr_tpu_torch/csrc/window_attention_bwd.cu"}
+           "K7": "lwdetr_tpu_torch/csrc/window_attention_bwd.cu",
+           "K7nb": "lwdetr_tpu_torch/csrc/window_attention_bwd.cu",
+           "K8": "lwdetr_tpu_torch/csrc/deform_attn_bwd.cu",
+           "K9": "lwdetr_tpu_torch/csrc/window_attention.cu",
+           "K10": "lwdetr_tpu_torch/csrc/deform_attn_sep.cu",
+           "K10b": "lwdetr_tpu_torch/csrc/deform_attn_sep_bwd.cu"}
 
 
 def log(msg: str) -> None:
@@ -181,7 +227,8 @@ def compare_attention(torch, F, fa, measure_ms, name, B, C, N, heads, scale, bia
         qkv_lib = qkv.float() + b[:, None]
         plain = lambda: fa.attention_cm_plain(qkv + b.to(dt)[:, None], heads, scale)  # noqa: E731
     else:
-        kernel = lambda: fa.flash_attention_cm(qkv, heads, scale)  # noqa: E731
+        wrapper = fa.window_attention if name == "K9" else fa.flash_attention_cm
+        kernel = lambda: wrapper(qkv, heads, scale)  # noqa: E731
         qkv_lib = qkv.float()
         plain = lambda: fa.attention_cm_plain(qkv, heads, scale)  # noqa: E731
     q, k, v = (qkv_lib.to(dt).reshape(B, 3, heads, D, N)[:, i].transpose(-1, -2).contiguous()
@@ -197,44 +244,24 @@ def compare_attention(torch, F, fa, measure_ms, name, B, C, N, heads, scale, bia
         ms = measure_ms(kernel)["ms"]
         plain_ms = measure_ms(plain, iters=5)["ms"]
         library_ms = measure_ms(library)["ms"]
+        # the long-sequence kernel on the short kernel's inputs: what the decoder ran before K9
+        k2_ms = (measure_ms(lambda: fa.flash_attention_cm(qkv, heads, scale))["ms"]
+                 if name == "K9" else None)
     isz = qkv.element_size()
     nbytes = B * 4 * C * N * isz + (3 * C * 4 if bias else 0)
     flops = 4 * B * heads * N * N * D
     exps = B * heads * N * N
     bms, by, parts = bound_ms(nbytes, flops, exps, dtype)
     log(f"{name} {dtype} qkv {tuple(qkv.shape)}: err {err:.3g} (sdpa vs plain {lib_err:.3g}) "
-        f"ms {ms:.4f} plain {plain_ms:.4f} sdpa {library_ms:.4f} bound {bms:.4f} ({by}; "
+        f"ms {ms:.4f} plain {plain_ms:.4f} sdpa {library_ms:.4f} "
+        + (f"K2 {k2_ms:.4f} " if k2_ms is not None else "") + f"bound {bms:.4f} ({by}; "
         + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in parts.items()) + ")")
-    return {"shape": list(qkv.shape), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
-            "bound_parts_ms": {k: v * 1e3 for k, v in parts.items()}}
-
-
-def compare_deform(torch, da, measure_ms, dtype):
-    dt = getattr(torch, dtype)
-    B, C, H, L, P, Q = BATCH, 256, 16, 1, 2, 300
-    shapes = [(40, 40)]
-    g = torch.Generator(device="cuda").manual_seed(3)
-    value_t = torch.randn((B, C, 1600), generator=g, device="cuda").to(dt)
-    # a tenth of the points fall outside the map: their corners drop out
-    loc = torch.rand((B, Q, H, L, P, 2), generator=g, device="cuda") * 1.2 - 0.1
-    w = torch.randn((B, Q, H, L * P), generator=g, device="cuda").softmax(-1).reshape(B, Q, H, L, P)
-    kernel = lambda: da.ms_deform_attn_cm(value_t, shapes, loc, w, H)  # noqa: E731
-    plain = lambda: da.ms_deform_attn_cm_plain(value_t, shapes, loc, w, H)  # noqa: E731
-    with torch.no_grad():
-        out = kernel()
-        ref = da.ms_deform_attn_cm_plain(value_t.float(), shapes, loc, w, H)
-        torch.cuda.synchronize()
-        err = check_close(torch, "K3", dtype, out, ref)
-        ms = measure_ms(kernel)["ms"]
-        plain_ms = measure_ms(plain, iters=5)["ms"]
-    nbytes = (value_t.numel() + B * C * Q) * value_t.element_size() + (loc.numel() + w.numel()) * 4
-    flops = 2 * 4 * B * Q * C * L * P  # 4 corners x (multiply + add) per output channel
-    bms, by, parts = bound_ms(nbytes, flops, 0, dtype)
-    log(f"K3 {dtype} value {tuple(value_t.shape)} Q {Q}: err {err:.3g} ms {ms:.4f} "
-        f"plain {plain_ms:.4f} bound {bms:.4f} ({by})")
-    return {"shape": list(value_t.shape) + [Q], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None}
+    res = {"shape": list(qkv.shape), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+           "bound_parts_ms": {k: v * 1e3 for k, v in parts.items()}}
+    if k2_ms is not None:
+        res["k2_ms_same_inputs"] = k2_ms
+    return res
 
 
 def touched_positions(torch, loc_l, hw):
@@ -257,10 +284,13 @@ def touched_positions(torch, loc_l, hw):
     return torch.unique(torch.cat(keys)).numel()
 
 
-# K4 / K5 shapes: (B, heads, head_dim, points, queries, levels)
+# sampler shapes: (B, heads, head_dim, points, queries, levels)
+SEP_SMALL = (BATCH, 16, 16, 2, 300, [(40, 40)])                 # small's eval forward
 SEP_LARGE = (BATCH, 24, 16, 4, 300, [(80, 80), (20, 20)])       # large / xlarge eval
 SEP_SMALL_TRAIN = (4, 16, 16, 2, 3900, [(40, 40)])              # small's train step, batch 4
 SEP_LARGE_TRAIN = (BATCH, 24, 16, 4, 3900, [(80, 80), (20, 20)])  # large with 13 query groups
+SEP_TINY_TRAIN = (4, 16, 16, 2, 1300, [(40, 40)])               # tiny's train step, batch 4
+SEP_TINY = (BATCH, 16, 16, 2, 100, [(40, 40)])                  # tiny's eval forward
 
 
 def sep_inputs(torch, dt, shape, seed=4):
@@ -287,85 +317,132 @@ def sep_panel_bytes(torch, vals, loc, shapes, D):
     return [min(v.numel(), n * D) * v.element_size() for v, n in zip(vals, touched)]
 
 
-def compare_deform_sep(torch, da, measure_ms, dtype, shape=SEP_LARGE):
-    """K4 at the shapes of the large and xlarge 640x640 forwards, or at `shape`."""
+def as_layout(torch, da, layout, vals, shapes, dout):
+    """The same values in one of the samplers' three layouts, with that
+    layout's wrappers: `value` is the list of panels ("panels": K4 / K5), one
+    row-major tensor (B, Len_in, H, D) ("rowmajor": K10) or one channel-major
+    tensor (B, C, Len_in), whose output and d(out) are (B, C, Q) ("cm": K3 / K8)."""
+    B, H = vals[0].shape[:2]
+    D = vals[0].shape[3] // shapes[0][1]
+    if layout == "panels":
+        return SimpleNamespace(
+            value=vals, dout=dout,
+            fwd=lambda v, l, a: da.ms_deform_attn_sep_panels(v, shapes, l, a),
+            fwd_plain=lambda v, l, a: da.ms_deform_attn_sep_panels_plain(v, shapes, l, a),
+            bwd=lambda v, l, a, g: da.ms_deform_attn_sep_panels_bwd(v, shapes, l, a, g),
+            bwd_plain=lambda v, l, a, g: da.ms_deform_attn_sep_panels_bwd_plain(v, shapes, l, a, g))
+    rows = torch.cat([v.reshape(B, H, -1, D) for v in vals], dim=2)  # (B, H, Len_in, D)
+    if layout == "rowmajor":
+        return SimpleNamespace(
+            value=rows.transpose(1, 2).contiguous(), dout=dout,
+            fwd=lambda v, l, a: da.ms_deform_attn(v, shapes, l, a),
+            fwd_plain=lambda v, l, a: da.ms_deform_attn_plain(v, shapes, l, a),
+            bwd=lambda v, l, a, g: da.ms_deform_attn_bwd(v, shapes, l, a, g),
+            bwd_plain=lambda v, l, a, g: da.ms_deform_attn_bwd_plain(v, shapes, l, a, g))
+    return SimpleNamespace(
+        value=rows.transpose(2, 3).reshape(B, H * D, -1).contiguous(),
+        dout=dout.transpose(1, 2).contiguous(),
+        fwd=lambda v, l, a: da.ms_deform_attn_cm(v, shapes, l, a, H),
+        fwd_plain=lambda v, l, a: da.ms_deform_attn_cm_plain(v, shapes, l, a, H),
+        bwd=lambda v, l, a, g: da.ms_deform_attn_cm_bwd(v, shapes, l, a, g, H),
+        bwd_plain=lambda v, l, a, g: da.ms_deform_attn_cm_bwd_plain(v, shapes, l, a, g, H))
+
+
+def tensors(x):
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def to_f32(x):
+    return [t.float() for t in x] if isinstance(x, (list, tuple)) else x.float()
+
+
+def compare_deform_sep(torch, da, measure_ms, dtype, shape, name="K4",
+                       layout="panels"):
+    """A sampler's forward against its plain version at `shape`: K4 on panels,
+    K10 on the row-major and K3 on the channel-major layout of the same values."""
     dt = getattr(torch, dtype)
     B, H, D, P, Q, shapes = shape
     L = len(shapes)
-    vals, loc, w, _, outside = sep_inputs(torch, dt, shape)
-    kernel = lambda: da.ms_deform_attn_sep_panels(vals, shapes, loc, w)  # noqa: E731
-    plain = lambda: da.ms_deform_attn_sep_panels_plain(vals, shapes, loc, w)  # noqa: E731
+    vals, loc, w, dout, outside = sep_inputs(torch, dt, shape)
+    lay = as_layout(torch, da, layout, vals, shapes, dout)
+    value = lay.value
+    kernel = lambda: lay.fwd(value, loc, w)  # noqa: E731
+    plain = lambda: lay.fwd_plain(value, loc, w)  # noqa: E731
     with torch.no_grad():
         out = kernel()
-        ref = da.ms_deform_attn_sep_panels_plain([v.float() for v in vals], shapes, loc, w)
+        ref = lay.fwd_plain(to_f32(value), loc, w)
         torch.cuda.synchronize()
-        if out.shape != (B, Q, H * D) or out.dtype != dt:
-            raise AssertionError(f"K4 output {tuple(out.shape)} {out.dtype}")
-        err = check_close(torch, "K4", dtype, out, ref)
+        if out.shape != lay.dout.shape or out.dtype != dt:
+            raise AssertionError(f"{name} output {tuple(out.shape)} {out.dtype}")
+        err = check_close(torch, name, dtype, out, ref)
         # ~0.05 ms a call: 200 calls a sample, so that launch jitter averages out
         timed = measure_ms(kernel, iters=200, repeats=7)
         ms = timed["ms"]
         plain_ms = measure_ms(plain, iters=5)["ms"]
         panel_bytes = sep_panel_bytes(torch, vals, loc, shapes, D)
-    # bytes the function must move for these locations: of each panel only the
+    # bytes the function must move for these locations: of each level only the
     # distinct in-map corners the points name (each D channels wide), once
-    # each, and never more than the panel; loc and weights in, (B, Q, C) out
+    # each, and never more than the level; loc and weights in, (B, Q, C) out
     isz = vals[0].element_size()
     nbytes = sum(panel_bytes) + out.numel() * isz + (loc.numel() + w.numel()) * 4
     flops = 2 * 4 * B * Q * H * D * L * P  # 4 corners x (multiply + add) per output channel
     bms, by, _ = bound_ms(nbytes, flops, 0, dtype)
-    log(f"K4 {dtype} panels {[tuple(v.shape) for v in vals]} Q {Q}: {outside:.3f} of the points "
-        f"outside [0, 1]; err {err:.3g} ms {ms:.4f} (samples {timed['ms_min']:.4f}-"
+    log(f"{name} {dtype} {layout} {[tuple(v.shape) for v in tensors(value)]} Q {Q}: {outside:.3f} "
+        f"of the points outside [0, 1]; err {err:.3g} ms {ms:.4f} (samples {timed['ms_min']:.4f}-"
         f"{timed['ms_max']:.4f}) plain {plain_ms:.4f} bound {bms:.4f} ({by}, {nbytes / 1e6:.1f} MB: "
-        f"panels {[round(b / 1e6, 1) for b in panel_bytes]} of "
+        f"levels {[round(b / 1e6, 1) for b in panel_bytes]} of "
         f"{[round(v.numel() * isz / 1e6, 1) for v in vals]} MB)")
-    return {"shape": [list(v.shape) for v in vals] + [Q], "max_abs_err": err, "ms": ms,
+    return {"shape": [list(v.shape) for v in tensors(value)] + [Q], "max_abs_err": err, "ms": ms,
             "ms_min": timed["ms_min"], "ms_max": timed["ms_max"],
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
             "bound_bytes": nbytes, "panel_bytes_needed": panel_bytes,
             "panel_bytes": [v.numel() * isz for v in vals], "points_outside_share": outside}
 
 
-def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape):
-    """K5 against its plain version: d(panels), d(loc), d(weights) from d(out)."""
+def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape, name="K5", layout="panels"):
+    """A sampler's backward against its plain version: d(value), d(loc) and
+    d(weights) from d(out). K5 on panels, K10's backward on the row-major and
+    K8 on the channel-major layout of the same values."""
     dt = getattr(torch, dtype)
     B, H, D, P, Q, shapes = shape
     L = len(shapes)
     vals, loc, w, dout, outside = sep_inputs(torch, dt, shape)
-    kernel = lambda: da.ms_deform_attn_sep_panels_bwd(vals, shapes, loc, w, dout)  # noqa: E731
-    plain = lambda: da.ms_deform_attn_sep_panels_bwd_plain(vals, shapes, loc, w, dout)  # noqa: E731
+    lay = as_layout(torch, da, layout, vals, shapes, dout)
+    value, dout = lay.value, lay.dout
+    kernel = lambda: lay.bwd(value, loc, w, dout)  # noqa: E731
+    plain = lambda: lay.bwd_plain(value, loc, w, dout)  # noqa: E731
     with torch.no_grad():
         dvals, dloc, dw = kernel()
-        rvals, rloc, rw = da.ms_deform_attn_sep_panels_bwd_plain(
-            [v.float() for v in vals], shapes, loc, w, dout.float())
+        rvals, rloc, rw = lay.bwd_plain(to_f32(value), loc, w, dout.float())
+        dvals, rvals = tensors(dvals), tensors(rvals)
         torch.cuda.synchronize()
-        # d(panel): up to hundreds of f32 atomic adds per position, in an order
+        # d(value): up to hundreds of f32 atomic adds per position, in an order
         # that changes from run to run: 4 x the f32 bound of the other outputs
-        err = max(check_close(torch, f"K5 d(panel {i})", dtype, dv, rv, 4.0 * grad_scale(rv))
+        err = max(check_close(torch, f"{name} d(value {i})", dtype, dv, rv, 4.0 * grad_scale(rv))
                   for i, (dv, rv) in enumerate(zip(dvals, rvals)))
-        err_loc = check_close(torch, "K5 d(loc)", "float32", dloc, rloc, grad_scale(rloc))
-        err_w = check_close(torch, "K5 d(weights)", "float32", dw, rw, grad_scale(rw))
+        err_loc = check_close(torch, f"{name} d(loc)", "float32", dloc, rloc, grad_scale(rloc))
+        err_w = check_close(torch, f"{name} d(weights)", "float32", dw, rw, grad_scale(rw))
         untouched = sum(int(((rv == 0) & (dv.float() != 0)).sum()) for dv, rv in zip(dvals, rvals))
         if untouched:
-            raise AssertionError(f"K5: {untouched} positions no point touches got a gradient")
-        timed = measure_ms(kernel, iters=200, repeats=5)
+            raise AssertionError(f"{name}: {untouched} positions no point touches got a gradient")
+        timed = measure_ms(kernel, iters=200 if Q * L * P * B < 1e5 else 50, repeats=5)
         ms = timed["ms"]
         plain_ms = measure_ms(plain, iters=3, repeats=3)["ms"]
         panel_bytes = sep_panel_bytes(torch, vals, loc, shapes, D)
     # bytes: the corners the points name and d(out), loc, weights in; every
-    # d(panel) position (touched or zero), d(loc) and d(weights) out
+    # d(value) position (touched or zero), d(loc) and d(weights) out
     isz = vals[0].element_size()
     nbytes = (sum(panel_bytes) + dout.numel() * isz + (loc.numel() + w.numel()) * 4
               + sum(v.numel() for v in vals) * isz + (loc.numel() + w.numel()) * 4)
     flops = 2 * 2 * 4 * B * Q * H * D * L * P  # per corner and channel: a dot term and an add
     bms, by, _ = bound_ms(nbytes, flops, 0, dtype)
     adds = B * Q * H * L * P * 4 * D
-    log(f"K5 {dtype} panels {[tuple(v.shape) for v in vals]} Q {Q} P {P}: {outside:.3f} of the "
-        f"points outside [0, 1]; err d(panel) {err:.3g} (max |plain| "
+    log(f"{name} {dtype} {layout} {[tuple(v.shape) for v in tensors(value)]} Q {Q} P {P}: "
+        f"{outside:.3f} of the points outside [0, 1]; err d(value) {err:.3g} (max |plain| "
         f"{max(rv.abs().max().item() for rv in rvals):.3g}) d(loc) {err_loc:.3g} d(w) {err_w:.3g} "
         f"ms {ms:.4f} (samples {timed['ms_min']:.4f}-{timed['ms_max']:.4f}) plain {plain_ms:.4f} "
         f"bound {bms:.4f} ({by}, {nbytes / 1e6:.1f} MB; at most {adds / 1e6:.1f} M atomic adds)")
-    return {"shape": [list(v.shape) for v in vals] + [Q], "max_abs_err": err,
+    return {"shape": [list(v.shape) for v in tensors(value)] + [Q], "max_abs_err": err,
             "max_abs_err_dloc": err_loc, "max_abs_err_dweights": err_w, "ms": ms,
             "ms_min": timed["ms_min"], "ms_max": timed["ms_max"], "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None, "bound_bytes": nbytes,
@@ -374,7 +451,8 @@ def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape):
 
 def compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N, heads, scale, bias, dtype,
                           iters):
-    """K6 or K7 (with `bias`) vs the plain backward, and SDPA's backward, on one shape."""
+    """K6, K7 (with `bias`) or K7nb (the short backward without one) vs the plain
+    backward, and SDPA's backward, on one shape."""
     dt = getattr(torch, dtype)
     qkv, b = attention_inputs(torch, B, C, N, heads, dt, bias, seed=N + C + 1)
     g = torch.Generator(device="cuda").manual_seed(N)
@@ -386,6 +464,11 @@ def compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N, heads, scale,
             plain = lambda: fa.attention_cm_bwd_plain(qkv, dout, heads, scale, bias=b)  # noqa: E731
             ref = fa.attention_cm_bwd_plain(qkv.float(), dout.float(), heads, scale, bias=b)
             qkv_lib = qkv.float() + b[:, None]
+        elif name == "K7nb":
+            kernel = lambda: fa.window_attention_bias_bwd(qkv, None, dout, heads, scale)  # noqa: E731
+            plain = lambda: fa.attention_cm_bwd_plain(qkv, dout, heads, scale)  # noqa: E731
+            ref = fa.attention_cm_bwd_plain(qkv.float(), dout.float(), heads, scale)
+            qkv_lib = qkv.float()
         else:
             # K6 reads what K2 saved: its output and the rows' log-sum-exp; the
             # plain version takes its row term from the same output
@@ -411,8 +494,12 @@ def compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N, heads, scale,
     lib_err = (lib.float() - ref).abs().max().item()
     library_ms = measure_ms(library, iters=iters)["ms"]
     isz = qkv.element_size()
-    # qkv, d(out) and (K6) out and the log-sum-exp in; d(qkv) out
-    nbytes = B * (7 * C) * N * isz + (3 * C * 4 if bias else B * C * N * isz + B * heads * N * 4)
+    # qkv, d(out), (K7) the bias and (K6) out and the log-sum-exp in; d(qkv) out
+    nbytes = B * (7 * C) * N * isz
+    if bias:
+        nbytes += 3 * C * 4
+    elif name == "K6":
+        nbytes += B * C * N * isz + B * heads * N * 4
     flops = 10 * B * heads * N * N * D  # five (N, N, D) products: s, dp, dq, dk, dv
     exps = B * heads * N * N
     bms, by, parts = bound_ms(nbytes, flops, exps, dtype)
@@ -436,6 +523,8 @@ ATTENTION_SHAPES = (
     ("K1@xlarge", "K1", BATCH * 16, 768, 100, 12, 1.0, True),     # ViT-base: head_dim 64
     ("K2@xlarge", "K2", BATCH, 768, 1600, 12, 1.0, False),
     ("K2dec@large", "K2", BATCH, 384, 300, 12, 32 ** -0.5, False),  # large and xlarge decoder
+    ("K9", "K9", BATCH, 256, 100, 8, 32 ** -0.5, False),            # tiny's decoder: 100 queries
+    ("K9@train", "K9", TRAIN_BATCH * 13, 256, 100, 8, 32 ** -0.5, False),  # 13 groups in the batch
 )
 
 
@@ -449,6 +538,7 @@ ATTENTION_BWD_SHAPES = (
     ("K6", "K6", TRAIN_BATCH, 192, 1600, 12, 1.0, False, 20),
     ("K6dec", "K6", TRAIN_BATCH * 13, 256, 300, 8, 32 ** -0.5, False, 20),
     ("K6@xlarge", "K6", BATCH, 768, 1600, 12, 1.0, False, 5),
+    ("K7nb", "K7nb", TRAIN_BATCH * 13, 256, 100, 8, 32 ** -0.5, False, 200),  # tiny's decoder
 )
 
 
@@ -459,16 +549,27 @@ def kernel_phase(torch, F, fa, da, measure_ms):
         for key, name, B, C, N, heads, scale, bias in ATTENTION_SHAPES:
             res[(key, dtype)] = compare_attention(torch, F, fa, measure_ms, name, B, C, N, heads,
                                                   scale, bias, dtype)
-        res[("K3", dtype)] = compare_deform(torch, da, measure_ms, dtype)
-        res[("K4", dtype)] = compare_deform_sep(torch, da, measure_ms, dtype)
-        res[("K4@train", dtype)] = compare_deform_sep(torch, da, measure_ms, dtype,
-                                                      SEP_SMALL_TRAIN)
+        for key, shape in (("K3", SEP_SMALL), ("K3@tiny", SEP_TINY),
+                           ("K3@tiny_train", SEP_TINY_TRAIN)):
+            res[(key, dtype)] = compare_deform_sep(torch, da, measure_ms, dtype, shape, "K3", "cm")
+        for key, shape in (("K4", SEP_LARGE), ("K4@train", SEP_SMALL_TRAIN),
+                           ("K4@tiny_train", SEP_TINY_TRAIN)):
+            res[(key, dtype)] = compare_deform_sep(torch, da, measure_ms, dtype, shape)
         for key, name, B, C, N, heads, scale, bias, iters in ATTENTION_BWD_SHAPES:
             res[(key, dtype)] = compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N,
                                                       heads, scale, bias, dtype, iters)
-        res[("K5", dtype)] = compare_deform_sep_bwd(torch, da, measure_ms, dtype, SEP_SMALL_TRAIN)
-        res[("K5@large", dtype)] = compare_deform_sep_bwd(torch, da, measure_ms, dtype,
-                                                          SEP_LARGE_TRAIN)
+        for key, shape in (("K5", SEP_SMALL_TRAIN), ("K5@large", SEP_LARGE_TRAIN),
+                           ("K5@tiny_train", SEP_TINY_TRAIN)):
+            res[(key, dtype)] = compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape)
+        for key, shape in (("K8", SEP_TINY_TRAIN), ("K8@small", SEP_SMALL_TRAIN),
+                           ("K8@large", SEP_LARGE_TRAIN)):
+            res[(key, dtype)] = compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape,
+                                                       "K8", "cm")
+        for key, shape in (("K10", SEP_TINY_TRAIN), ("K10@eval", SEP_TINY)):
+            res[(key, dtype)] = compare_deform_sep(torch, da, measure_ms, dtype, shape,
+                                                   "K10", "rowmajor")
+        res[("K10b", dtype)] = compare_deform_sep_bwd(torch, da, measure_ms, dtype,
+                                                      SEP_TINY_TRAIN, "K10b", "rowmajor")
     return res
 
 
@@ -504,7 +605,7 @@ def forward_phase(torch, fa, da, kernels, preset):
         torch.cuda.synchronize()
         return out, dets
 
-    # the two-stage head picks 300 of the 1600 (P4) or 6800 (P3 + P5) proposals by score; near-tied
+    # the two-stage head picks 300 (tiny: 100) of the 1600 (P4) or 6800 (P3 + P5) proposals by score; near-tied
     # scores can swap under f32 rounding, and a swap reseeds whole queries.
     # The plain run below reuses the kernel run's picks (compared on their own)
     # so that the outputs compare query for query. The patches below replace
@@ -553,7 +654,7 @@ def forward_phase(torch, fa, da, kernels, preset):
         raise AssertionError(f"two-stage picks differ: set overlap {same_set}")
 
     logits, boxes = out["pred_logits"], out["pred_boxes"]
-    if logits.shape != (BATCH, 300, 91) or boxes.shape != (BATCH, 300, 4):
+    if logits.shape != (BATCH, cfg.num_queries, 91) or boxes.shape != (BATCH, cfg.num_queries, 4):
         raise AssertionError(f"shapes {tuple(logits.shape)} {tuple(boxes.shape)}")
     if not (torch.isfinite(logits).all() and torch.isfinite(boxes).all()):
         raise AssertionError("non-finite outputs")
@@ -598,31 +699,35 @@ def forward_phase(torch, fa, da, kernels, preset):
                       "proposal_picks_same_set_min": same_set}
 
 
-def train_phase(torch, fa, da, kernels, measure_ms, card):
-    """The small@640 f32 train step at batch 4: gradients through the kernels vs
-    the plain versions, launch counts, 12 optimizer steps, step time."""
+def train_phase(torch, fa, da, kernels, measure_ms, card, preset):
+    """`preset`'s f32 train step at 640x640, batch 4, in each cross-attention
+    branch of TRAIN_BRANCHES: launch counts, gradients through the kernels vs the
+    plain versions, the branches' losses against one another, a few optimizer
+    steps in the default branch, every branch's step time. Returns
+    ({path: launches}, numbers)."""
     from lwdetr_tpu_torch import bench_train
     from lwdetr_tpu_torch.models import criterion as cm
     from lwdetr_tpu_torch.models import transformer as tr
 
-    state, step = bench_train.make_train_step("small", TRAIN_BATCH, seed=0)
+    state, step = bench_train.make_train_step(preset, TRAIN_BATCH, seed=0)
     model = state.model
     mcfg = model.cfg
-    criterion = cm.SetCriterion(mcfg, bench_train.get_train_config("small"))
+    criterion = cm.SetCriterion(mcfg, bench_train.get_train_config(preset))
     data = bench_train.synthetic_batch(mcfg.num_classes, TRAIN_BATCH, 640, 100, 7, "cuda", seed=0)
     targets = cm.Targets(data["labels"], data["boxes"], data["valid"])
+    tag = f"{preset}@640 train step"
 
     # (a) one forward + backward through the kernels, then (a1) the same forward
-    # with each backward kernel swapped for its plain version, and (a2) the whole
-    # step on the plain versions with torch.autograd. Near-tied proposal scores
-    # and matching costs can flip under f32 rounding and would reseed whole
-    # queries, so the other runs replay the kernel run's picks (13 groups) and
-    # its matching. The step has more kinks than those: a plain forward differs
-    # from the kernels' by ~1e-6, which flips ReLU units of the decoder's FFN and
-    # moves sampling points across grid lines, and each flip moves a gradient
-    # tensor by up to 1e-2 of its maximum. So the per-tensor bound holds (a1),
-    # where both runs share one forward bit for bit, and (a2) is held to the
-    # loss and to the relative L2 error over all gradients.
+    # with each backward kernel swapped for its plain version, in every branch,
+    # and (a2) the whole step on the plain versions with torch.autograd. Near-tied
+    # proposal scores and matching costs can flip under f32 rounding and would
+    # reseed whole queries, so every run after the first replays the first run's
+    # picks (13 groups) and its matching. The step has more kinks than those: a
+    # plain forward differs from the kernels' by ~1e-6, which flips ReLU units of
+    # the decoder's FFN and moves sampling points across grid lines, and each
+    # flip moves a gradient tensor by up to 1e-2 of its maximum. So the
+    # per-tensor bound holds (a1), where both runs share one forward bit for bit,
+    # and (a2) is held to the loss and to the relative L2 error over all gradients.
     select, match = tr.select_proposals, cm.hungarian_match
     picks, matchings, replayed = [], [], []
 
@@ -647,7 +752,7 @@ def train_phase(torch, fa, da, kernels, measure_ms, card):
         return total.item(), {n: p.grad.clone() for n, p in model.named_parameters()
                               if p.grad is not None}
 
-    def compare(grads_ref, label):
+    def compare(grads_k, grads_ref, label):
         """Per tensor: max |difference| over max |reference|, with a floor of
         GRAD_FLOOR x the largest gradient of all, since some gradients are zero
         in exact arithmetic (a bias in front of a train-mode BatchNorm)."""
@@ -657,94 +762,133 @@ def train_phase(torch, fa, da, kernels, measure_ms, card):
         worst = max(rel, key=rel.get)
         num = sum((grads_k[n] - g).double().square().sum() for n, g in grads_ref.items())
         l2 = (num / sum(g.double().square().sum() for g in grads_ref.values())).sqrt().item()
-        log(f"small@640 train step, kernels vs {label}, f32, batch {TRAIN_BATCH}: gradient max "
+        log(f"{tag}, kernels vs {label}, f32, batch {TRAIN_BATCH}: gradient max "
             f"rel err over {len(rel)} parameter tensors {rel[worst]:.3g} ({worst}), median "
             f"{sorted(rel.values())[len(rel) // 2]:.3g}; relative L2 error of all gradients {l2:.3g}")
         return rel[worst], worst, l2
 
-    for k in kernels:
-        k.launches = 0
-    with mock.patch.object(tr, "select_proposals", record_pick), \
-            mock.patch.object(cm, "hungarian_match", record_match):
-        loss_k, grads_k = grads()
-    launches = {k.name: k.launches for k in kernels}
-    log(f"small@640 train step launches: {launches}")
-    if launches != TRAIN_LAUNCHES:
-        raise AssertionError(f"train step: launches {launches} != {TRAIN_LAUNCHES}")
-    if not all(torch.isfinite(g).all() for g in grads_k.values()):
-        raise AssertionError("non-finite gradients")
-    replay = (mock.patch.object(tr, "select_proposals", replay_pick),
-              mock.patch.object(cm, "hungarian_match", lambda *a, **kw: matchings[0]))
+    def replay():
+        return (mock.patch.object(tr, "select_proposals", replay_pick),
+                mock.patch.object(cm, "hungarian_match", lambda *a, **kw: matchings[0]))
 
-    with replay[0], replay[1], \
-            mock.patch.object(fa, "window_attention_bias_bwd",
-                              lambda qkv, bias, dout, heads, scale:
-                              fa.attention_cm_bwd_plain(qkv, dout, heads, scale, bias=bias)), \
-            mock.patch.object(fa, "flash_attention_cm_bwd",
-                              lambda qkv, out, lse, dout, heads, scale:
-                              fa.attention_cm_bwd_plain(qkv, dout, heads, scale, out=out)), \
-            mock.patch.object(da, "ms_deform_attn_sep_panels_bwd",
-                              da.ms_deform_attn_sep_panels_bwd_plain):
-        loss_b, grads_b = grads()
-    if [k.launches for k in kernels[4:]] != [launches[k.name] for k in kernels[4:]]:
-        raise AssertionError("the step on the plain backwards launched a backward kernel")
-    bwd_err, bwd_worst, bwd_l2 = compare(grads_b, "the plain backwards on the same forward")
-    if abs(loss_b - loss_k) > 1e-6 * abs(loss_k) or bwd_err > TRAIN_GRAD_RTOL:
-        raise AssertionError(f"backward kernels disagree with their plain versions: {bwd_worst} "
-                             f"{bwd_err}, loss {loss_k} vs {loss_b}")
-    del grads_b
+    launches, branch_res, default_grads = {}, {}, None
+    for branch in TRAIN_BRANCHES[preset]:
+        path = preset if branch is None else f"{preset}/{branch}"
+        tr.set_force_branch(model, branch)
+        first = not picks
+        patches = ((mock.patch.object(tr, "select_proposals", record_pick),
+                    mock.patch.object(cm, "hungarian_match", record_match)) if first else replay())
+        for k in kernels:
+            k.launches = 0
+        with patches[0], patches[1]:
+            loss_k, grads_k = grads()
+        launches[path] = {k.name: k.launches for k in kernels}
+        log(f"{path}@640 train step launches: {launches[path]}")
+        if launches[path] != TRAIN_LAUNCHES[path]:
+            raise AssertionError(f"{path} train step: launches {launches[path]} != "
+                                 f"{TRAIN_LAUNCHES[path]}")
+        if not all(torch.isfinite(g).all() for g in grads_k.values()):
+            raise AssertionError(f"{path}: non-finite gradients")
+
+        patches = replay()
+        with patches[0], patches[1], \
+                mock.patch.object(fa, "window_attention_bias_bwd",
+                                  lambda qkv, bias, dout, heads, scale:
+                                  fa.attention_cm_bwd_plain(qkv, dout, heads, scale, bias=bias)), \
+                mock.patch.object(fa, "flash_attention_cm_bwd",
+                                  lambda qkv, out, lse, dout, heads, scale:
+                                  fa.attention_cm_bwd_plain(qkv, dout, heads, scale, out=out)), \
+                mock.patch.object(da, "ms_deform_attn_sep_panels_bwd",
+                                  da.ms_deform_attn_sep_panels_bwd_plain), \
+                mock.patch.object(da, "ms_deform_attn_cm_bwd", da.ms_deform_attn_cm_bwd_plain), \
+                mock.patch.object(da, "ms_deform_attn_bwd", da.ms_deform_attn_bwd_plain):
+            loss_b, grads_b = grads()
+        if any(k.launches != launches[path][k.name] for k in kernels
+               if k.name in BACKWARD_KERNELS):
+            raise AssertionError(f"{path}: the step on the plain backwards launched a backward "
+                                 "kernel")
+        bwd_err, bwd_worst, bwd_l2 = compare(grads_k, grads_b,
+                                             f"the plain backwards on the same forward ({path})")
+        if abs(loss_b - loss_k) > 1e-6 * abs(loss_k) or bwd_err > TRAIN_GRAD_RTOL:
+            raise AssertionError(f"{path}: backward kernels disagree with their plain versions: "
+                                 f"{bwd_worst} {bwd_err}, loss {loss_k} vs {loss_b}")
+        branch_res[path] = {"loss_kernels": loss_k, "grad_max_rel_err_plain_backwards": bwd_err,
+                            "grad_worst_tensor_plain_backwards": bwd_worst,
+                            "grad_rel_l2_plain_backwards": bwd_l2}
+        if branch is None:
+            default_grads = grads_k
+        del grads_b
+    tr.set_force_branch(model, None)
+    branch_losses = [r["loss_kernels"] for r in branch_res.values()]
+    log(f"{tag} loss by branch: " + ", ".join(f"{p} {r['loss_kernels']:.7f}"
+                                               for p, r in branch_res.items()))
+    if max(branch_losses) - min(branch_losses) > BRANCH_LOSS_ATOL:
+        raise AssertionError(f"{preset}: the branches' losses differ: {branch_losses}")
+    loss_k, grads_k = branch_res[preset]["loss_kernels"], default_grads
 
     before = [k.launches for k in kernels]
-    with replay[0], replay[1], mock.patch.object(fa, "attention_cm", plain_attention(fa)), \
+    n_replayed = len(replayed)
+    patches = replay()
+    with patches[0], patches[1], mock.patch.object(fa, "attention_cm", plain_attention(fa)), \
             mock.patch.object(da, "ms_deform_attn_sep_panels",
                               da.ms_deform_attn_sep_panels_plain):
         loss_p, grads_p = grads()
     if [k.launches for k in kernels] != before:
         raise AssertionError("the plain train step launched a kernel")
-    if len(picks) != mcfg.group_detr or len(replayed) != 2 * len(picks) or len(matchings) != 1:
+    runs = 2 * len(TRAIN_BRANCHES[preset])  # every run after the first replays
+    if (len(picks) != mcfg.group_detr or len(replayed) != runs * len(picks)
+            or len(matchings) != 1):
         raise AssertionError(f"{len(picks)} picks recorded, {len(replayed)} replayed, "
                              f"{len(matchings)} matchings")
-    same_pick = min((a == b).float().mean().item() for a, b in zip(picks, replayed[len(picks):]))
-    log(f"small@640 train step loss, kernels {loss_k:.7f} vs all plain {loss_p:.7f}; the plain "
+    same_pick = min((a == b).float().mean().item() for a, b in zip(picks, replayed[n_replayed:]))
+    log(f"{tag} loss, kernels {loss_k:.7f} vs all plain {loss_p:.7f}; the plain "
         f"forward's own picks at the same position {same_pick:.4f}")
-    all_err, all_worst, all_l2 = compare(grads_p, "the whole step on the plain versions")
+    all_err, all_worst, all_l2 = compare(grads_k, grads_p, "the whole step on the plain versions")
     if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or all_l2 > TRAIN_GRAD_L2:
         raise AssertionError(f"train step disagrees with the plain versions: loss {loss_k} vs "
                              f"{loss_p}, relative L2 error of the gradients {all_l2}")
-    del grads_k, grads_p
+    del grads_k, grads_p, default_grads
     model.zero_grad(set_to_none=True)
 
-    # (c) 12 steps on that batch with the release optimizer settings
+    # (c) a few steps on that batch with the release optimizer settings
+    n_steps = TRAIN_STEPS[preset]
     torch.cuda.reset_peak_memory_stats()
-    losses = [step()["loss"] for _ in range(TRAIN_STEPS)]
-    losses = [float(x) for x in losses]
-    log(f"small@640 {TRAIN_STEPS} train steps, loss: " + " ".join(f"{x:.4f}" for x in losses))
+    losses = [float(step()["loss"]) for _ in range(n_steps)]
+    log(f"{preset}@640 {n_steps} train steps, loss: " + " ".join(f"{x:.4f}" for x in losses))
     moved = max((state.ema[k] - v.detach()).abs().max().item()
                 for k, v in model.named_parameters())
     if not all(x == x and abs(x) != float("inf") for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
-    if losses[-1] >= losses[0] or state.step != TRAIN_STEPS or moved <= 0:
+    if losses[-1] >= losses[0] or state.step != n_steps or moved <= 0:
         raise AssertionError(f"training made no progress: loss {losses[0]} -> {losses[-1]}, "
                              f"step {state.step}, max |ema - parameters| {moved}")
 
-    # (d) step time after those warm-up steps, and the matcher's host time
+    # (d) step time after those warm-up steps, in every branch, and the matcher's host time
     timer = bench_train.HostTimer(cm.hungarian_match)
+    step_ms = {}
     with mock.patch.object(cm, "hungarian_match", timer):
-        t = measure_ms(step, iters=5, warmup=0, repeats=3)
+        for branch in TRAIN_BRANCHES[preset]:
+            tr.set_force_branch(model, branch)
+            path = preset if branch is None else f"{preset}/{branch}"
+            step_ms[path] = measure_ms(step, iters=5, warmup=0 if branch is None else 1, repeats=3)
+    tr.set_force_branch(model, None)
+    t = step_ms[preset]
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    res = {"batch": TRAIN_BATCH, "launches": launches, "loss_kernels": loss_k,
-           "loss_plain": loss_p, "grad_max_rel_err_plain_backwards": bwd_err,
-           "grad_worst_tensor_plain_backwards": bwd_worst, "grad_rel_l2_plain_backwards": bwd_l2,
+    res = {"batch": TRAIN_BATCH, "launches": launches[preset], "loss_kernels": loss_k,
+           "loss_plain": loss_p, **{k: v for k, v in branch_res[preset].items() if k.startswith("grad")},
+           "branches": branch_res,
            "grad_max_rel_err_all_plain": all_err, "grad_worst_tensor_all_plain": all_worst,
            "grad_rel_l2_all_plain": all_l2,
            "picks_same_position_min": same_pick, "losses": losses,
            "ema_max_abs_distance": moved, "step_ms": t["ms"], "step_ms_samples": t["samples"],
+           "step_ms_by_branch": {p: v["ms"] for p, v in step_ms.items()},
            "img_per_s": TRAIN_BATCH / (t["ms"] / 1e3),
            "matcher_host_ms_per_step": timer.seconds * 1e3 / timer.calls,
            "peak_memory_mb": peak, "card": card}
-    print(f"small@640 f32 train step, batch {TRAIN_BATCH}: {t['ms']:.3f} ms "
-          f"({card}), samples {[round(x, 3) for x in t['samples']]}")
-    print(f"lwdetr_small_640_f32_train_throughput: {res['img_per_s']:.3f} img/s ({card})")
+    print(f"{preset}@640 f32 train step, batch {TRAIN_BATCH}: {t['ms']:.3f} ms "
+          f"({card}), samples {[round(x, 3) for x in t['samples']]}"
+          + "".join(f"; {p} {v['ms']:.3f} ms" for p, v in step_ms.items() if p != preset))
+    print(f"lwdetr_{preset}_640_f32_train_throughput: {res['img_per_s']:.3f} img/s ({card})")
     print(f"matcher host time: {res['matcher_host_ms_per_step']:.3f} ms per step ({card})")
     print(f"peak device memory over the train steps: {peak:.1f} MiB ({card})")
     return launches, res
@@ -766,18 +910,24 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 stays f32, so that the
     torch.backends.cudnn.allow_tf32 = False  # projector convs hide no kernel error
-    kernels = {"K1": fa.window_attention_bias_kernel, "K2": fa.flash_attention_cm_kernel,
-               "K3": da.deform_attn_cm_kernel, "K4": da.deform_attn_sep_kernel,
-               "K5": da.deform_attn_sep_bwd_kernel, "K6": fa.flash_attention_cm_bwd_kernel,
-               "K7": fa.window_attention_bias_bwd_kernel}
+    kernels = {k.name: k for k in (
+        fa.window_attention_bias_kernel, fa.flash_attention_cm_kernel, da.deform_attn_cm_kernel,
+        da.deform_attn_sep_kernel, da.deform_attn_sep_bwd_kernel,
+        fa.flash_attention_cm_bwd_kernel, fa.window_attention_bias_bwd_kernel,
+        fa.window_attention_bwd_kernel, da.deform_attn_cm_bwd_kernel, fa.window_attention_kernel,
+        da.deform_attn_rowmajor_kernel, da.deform_attn_rowmajor_bwd_kernel)}
+    if tuple(kernels) != KERNEL_NAMES:
+        raise AssertionError(f"kernels {tuple(kernels)} != {KERNEL_NAMES}")
 
     build_kernels()
     res = kernel_phase(torch, F, fa, da, measure_ms)
-    launches, fwd, thr = {}, {}, {}
+    launches, fwd, thr, train = {}, {}, {}, {}
     for preset in EXPECTED_LAUNCHES:
         launches[preset], fwd[preset] = forward_phase(torch, fa, da, list(kernels.values()), preset)
-    launches["small_train"], train = train_phase(torch, fa, da, list(kernels.values()),
-                                                 measure_ms, card_line())
+    for preset in TRAIN_BRANCHES:
+        by_path, train[preset] = train_phase(torch, fa, da, list(kernels.values()), measure_ms,
+                                             card_line(), preset)
+        launches.update({f"{path}_train": n for path, n in by_path.items()})
     for preset in EXPECTED_LAUNCHES:
         thr[preset] = bench.run(preset, batch=32)
         log(f"{preset}@640 bf16 throughput: {thr[preset]['value']} img/s at batch 32 "
@@ -787,27 +937,41 @@ def main() -> int:
         return {"bfloat16": res[(key, "bfloat16")], "float32": res[(key, "float32")]}
 
     # each kernel's headline numbers are bf16 at the first path that runs it
-    # (small's eval for K1-K3, large's for K4, small's train step for K5-K7);
-    # its other shapes and f32 stand beside them
+    # (small's eval for K1-K3, large's for K4, small's train step for K5-K7,
+    # tiny's eval for K9, tiny's train step for K7nb and, in the "cm" and
+    # "gather" branches, for K8 and K10 / K10b); its other shapes and f32 stand
+    # beside them
+    headline_path = {"K4": "large", "K5": "small_train", "K6": "small_train", "K7": "small_train",
+                     "K7nb": "tiny_train", "K8": "tiny/cm_train", "K9": "tiny",
+                     "K10": "tiny/gather_train", "K10b": "tiny/gather_train"}
     entries = []
     for name in kernels:
-        path = {"K4": "large", "K5": "small_train", "K6": "small_train",
-                "K7": "small_train"}.get(name, "small")
+        path = headline_path.get(name, "small")
+        if launches[path][name] < 1:
+            raise AssertionError(f"{name} was not launched on its path {path}")
         entry = {"name": name, "route": "cuda", "source": SOURCES[name],
                  "replaces": REPLACES[name], "launches": launches[path][name], "path": path,
                  "launches_by_path": {p: launches[p][name] for p in launches},
                  "dtype": "bfloat16", **res[(name, "bfloat16")], "f32": res[(name, "float32")],
                  "tolerance": f"|kernel - plain f32| <= {ATOL}{BWD_TOL.get(name, '')} + "
                               f"{RTOL['bfloat16']} x |plain| (f32: {ATOL}{BWD_TOL.get(name, '')})"}
+        if name in ALSO_REPLACES:
+            entry["also_replaces"] = ALSO_REPLACES[name]
         if name in ("K2", "K6"):
             entry["decoder_shape"] = both(name + "dec")
         others = {key.split("@")[1] + ("_decoder" if "dec" in key else ""): both(key)
                   for key, kname, *_ in ATTENTION_SHAPES + ATTENTION_BWD_SHAPES
                   if kname == name and "@" in key}
+        if name == "K3":
+            others.update(tiny=both("K3@tiny"), tiny_cm_train=both("K3@tiny_train"))
         if name == "K4":
-            others["small_train"] = both("K4@train")
+            others.update(small_train=both("K4@train"), tiny_train=both("K4@tiny_train"))
         if name == "K5":
-            others["large_train"] = both("K5@large")
+            others.update(large_train=both("K5@large"), tiny_train=both("K5@tiny_train"))
+        if name == "K8":
+            others.update(small_train=both("K8@small"), large_train=both("K8@large"))
+        if name == "K10":
+            others["tiny_eval"] = both("K10@eval")
         if others:
             entry["other_shapes"] = others
         entries.append(entry)

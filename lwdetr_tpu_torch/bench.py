@@ -16,22 +16,27 @@ from __future__ import annotations
 
 import argparse
 import json
+from typing import Optional
 
 import torch
 
 from lwdetr_tpu_torch.config import PRESETS, get_config
 from lwdetr_tpu_torch.models.lwdetr import build_model, post_process, resolve_device
+from lwdetr_tpu_torch.models.transformer import BRANCHES, set_force_branch
 from lwdetr_tpu_torch.utils.device import card_line
 from lwdetr_tpu_torch.utils.timing import measure_ms
 from lwdetr_tpu_torch.weights import init_state_dict
 
 
-def make_step(preset: str, batch: int, dtype: torch.dtype, seed: int = 0):
+def make_step(preset: str, batch: int, dtype: torch.dtype, seed: int = 0,
+              force_branch: Optional[str] = None):
     """The timed step: forward + `post_process` of `batch` 640x640 images
-    already on the card, with weights drawn from `seed`."""
+    already on the card, with weights drawn from `seed`; `force_branch` sets
+    the cross-attention's value layout (None: the default rule)."""
     device = resolve_device(None)
     cfg = get_config(preset)
     model = build_model(cfg, device, dtype, state_dict=init_state_dict(cfg, seed))
+    set_force_branch(model, force_branch)
     g = torch.Generator(device=device).manual_seed(seed)
     images = torch.randn((batch, 640, 640, 3), generator=g, device=device).to(dtype)
     sizes = torch.full((batch, 2), 640.0, device=device)
@@ -43,8 +48,8 @@ def make_step(preset: str, batch: int, dtype: torch.dtype, seed: int = 0):
     return step
 
 
-def run(preset: str = "small", batch: int = 32) -> dict:
-    step = make_step(preset, batch, torch.bfloat16)
+def run(preset: str = "small", batch: int = 32, force_branch: Optional[str] = None) -> dict:
+    step = make_step(preset, batch, torch.bfloat16, force_branch=force_branch)
     with torch.no_grad():
         t = measure_ms(step, iters=10, warmup=3, repeats=5)
     per_s = lambda ms: batch / (ms / 1000.0)  # noqa: E731
@@ -56,6 +61,7 @@ def run(preset: str = "small", batch: int = 32) -> dict:
         "ms_per_batch": t["ms_mean"],
         "timed_steps": 10 * 5,
         "batch": batch,
+        "force_branch": force_branch,
         "device": torch.cuda.get_device_name(),
         "card": card_line(),
     }
@@ -65,12 +71,15 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", default="small", choices=tuple(PRESETS))
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--force_branch", default=None, choices=BRANCHES,
+                    help="the cross-attention's value layout (default: cm under 4096 memory "
+                         "positions, else sep)")
     return ap
 
 
 def main() -> None:
     args = parser().parse_args()
-    print(json.dumps(run(args.preset, args.batch)))
+    print(json.dumps(run(args.preset, args.batch, args.force_branch)))
 
 
 if __name__ == "__main__":

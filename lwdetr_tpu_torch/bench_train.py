@@ -17,6 +17,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from typing import Optional
 from unittest import mock
 
 import torch
@@ -25,6 +26,7 @@ from lwdetr_tpu_torch.config import PRESETS, TRAIN_PRESETS, get_config, get_trai
 from lwdetr_tpu_torch.models import criterion as criterion_mod
 from lwdetr_tpu_torch.models.criterion import SetCriterion
 from lwdetr_tpu_torch.models.lwdetr import resolve_device
+from lwdetr_tpu_torch.models.transformer import BRANCHES, set_force_branch
 from lwdetr_tpu_torch.train.engine import build_train_step, create_train_state
 from lwdetr_tpu_torch.utils.device import card_line
 from lwdetr_tpu_torch.utils.timing import measure_ms
@@ -44,13 +46,15 @@ def synthetic_batch(num_classes: int, batch: int, size: int, max_gt: int, gt_per
 
 
 def make_train_step(preset: str, batch: int, device=None, seed: int = 0, max_gt: int = 100,
-                    gt_per_img: int = 7):
+                    gt_per_img: int = 7, force_branch: Optional[str] = None):
     """(state, step()) of `preset`'s release recipe on one synthetic 640x640
-    batch (1000 steps an epoch, so the StepLR never drops in a benchmark)."""
+    batch (1000 steps an epoch, so the StepLR never drops in a benchmark);
+    `force_branch` sets the cross-attention's value layout (None: panels)."""
     device = resolve_device(device)
     mcfg, tcfg = get_config(preset), get_train_config(preset, max_gt=max_gt)
     state = create_train_state(mcfg, tcfg, niter_per_ep=1000, device=device,
                                state_dict=init_state_dict(mcfg, seed))
+    set_force_branch(state.model, force_branch)
     train_step = build_train_step(state, SetCriterion(mcfg, tcfg), tcfg)
     data = synthetic_batch(mcfg.num_classes, batch, 640, max_gt, gt_per_img, device, seed)
     return state, lambda: train_step(data)
@@ -72,8 +76,9 @@ class HostTimer:
 
 
 def run(preset: str = "small", batch: int = 4, steps: int = 10, repeats: int = 5,
-        max_gt: int = 100, gt_per_img: int = 7) -> dict:
-    state, step = make_train_step(preset, batch, max_gt=max_gt, gt_per_img=gt_per_img)
+        max_gt: int = 100, gt_per_img: int = 7, force_branch: Optional[str] = None) -> dict:
+    state, step = make_train_step(preset, batch, max_gt=max_gt, gt_per_img=gt_per_img,
+                                  force_branch=force_branch)
     torch.cuda.reset_peak_memory_stats()
     # the matcher's host time holds its wait for the forward and the scipy solves
     timer = HostTimer(criterion_mod.hungarian_match)
@@ -94,6 +99,7 @@ def run(preset: str = "small", batch: int = 4, steps: int = 10, repeats: int = 5
         "last_loss": loss,
         "batch": batch,
         "gt_per_img": gt_per_img,
+        "force_branch": force_branch,
         "device": torch.cuda.get_device_name(),
         "card": card_line(),
     }
@@ -108,6 +114,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--max_gt", type=int, default=100)
     ap.add_argument("--gt_per_img", type=int, default=7, help="valid boxes per image")
+    ap.add_argument("--force_branch", default=None, choices=BRANCHES,
+                    help="the cross-attention's value layout (default: sep, the panels)")
     return ap
 
 
@@ -115,7 +123,7 @@ def main() -> None:
     args = parser().parse_args()
     batch = args.batch or TRAIN_PRESETS[args.preset].batch_size
     print(json.dumps(run(args.preset, batch, args.steps, args.repeats, args.max_gt,
-                         args.gt_per_img)))
+                         args.gt_per_img, args.force_branch)))
 
 
 if __name__ == "__main__":

@@ -2,13 +2,14 @@
 
     python -m lwdetr_tpu_torch.breakdown --preset small --batch 32
     python -m lwdetr_tpu_torch.breakdown --preset small --train
+    python -m lwdetr_tpu_torch.breakdown --preset tiny --train --force_branch cm
 
 Runs the step of `lwdetr_tpu_torch.bench` (forward + `post_process`,
 seeded weights, images on the card) or, with `--train`, the f32 train step of
 `lwdetr_tpu_torch.bench_train` (batch: the release per-device batch unless
 given) under `torch.profiler` for a few steps after warm-up, and prints
 one JSON line: device time per step by kernel group (the port's kernels
-K1-K7, GEMMs, convolutions, the optimizer's and EMA's fused passes, the
+K1-K10, GEMMs, convolutions, the optimizer's and EMA's fused passes, the
 rest), the top kernels by device time, the host time the matcher takes per
 train step (its wait for the forward and its scipy solves), and
 the device's idle share of a step (1 - busy / step time, where busy is the
@@ -21,8 +22,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 from collections import defaultdict
+from typing import Optional
 from unittest import mock
 
 import torch
@@ -31,16 +34,26 @@ from torch.profiler import ProfilerActivity, profile
 from lwdetr_tpu_torch import bench_train
 from lwdetr_tpu_torch.bench import make_step
 from lwdetr_tpu_torch.config import PRESETS, TRAIN_PRESETS
+from lwdetr_tpu_torch.models.transformer import BRANCHES
 from lwdetr_tpu_torch.utils.device import card_line
 from lwdetr_tpu_torch.utils.timing import measure_ms
 
+# (group, patterns): a kernel goes to the first group of which a pattern is
+# found in its lower-cased name (`re.search`). The cases of one source that
+# are kernels of their own differ in a template argument: `false` for no bias
+# (K9, and K7 without a bias), the row-major layout (K10), so they come first.
 GROUPS = (
+    ("K9 window_attention (no bias)", (r"window_attention_bias_kernel<[^(]*false>",)),
     ("K1 window_attention_bias", ("window_attention_bias_kernel",)),
     ("K2 flash_attention_cm", ("flash_attention_cm_kernel",)),
+    ("K8 deform_attn_cm_bwd", ("deform_attn_cm_bwd_kernel",)),
     ("K3 deform_attn_cm", ("deform_attn_cm_kernel",)),
+    ("K10 deform_attn_rowmajor", (r"deform_attn_sep_kernel<[^(]*rowmajorlayout",)),
+    ("K10 deform_attn_rowmajor_bwd", (r"deform_attn_sep_bwd_kernel<[^(]*rowmajorlayout",)),
     ("K4 deform_attn_sep", ("deform_attn_sep_kernel",)),
     ("K5 deform_attn_sep_bwd", ("deform_attn_sep_bwd_kernel",)),
     ("K6 flash_attention_cm_bwd", ("attention_bwd_dq_kernel", "attention_bwd_dkdv_kernel")),
+    ("K7 window_attention_bwd (no bias)", (r"window_attention_bias_bwd_kernel<[^(]*false>",)),
     ("K7 window_attention_bias_bwd", ("window_attention_bias_bwd_kernel",)),
     # AdamW, gradient clipping and the EMA run as fused passes over tensor lists
     ("optimizer/EMA (foreach)", ("multi_tensor_apply", "lpnorm")),
@@ -58,19 +71,19 @@ ANNOTATIONS = ("Optimizer.", "ProfilerStep", "## ")
 def _group(name: str) -> str:
     low = name.lower()
     for label, keys in GROUPS:
-        if any(k in low for k in keys):
+        if any(re.search(k, low) for k in keys):
             return label
     return "other elementwise/copy"
 
 
 def run(preset: str = "small", batch: int = 32, dtype: torch.dtype = torch.bfloat16,
-        steps: int = 5, train: bool = False) -> dict:
+        steps: int = 5, train: bool = False, force_branch: Optional[str] = None) -> dict:
     if train:
         if dtype != torch.float32:
             raise NotImplementedError("the train step is ported in float32 only")
-        _, step = bench_train.make_train_step(preset, batch)
+        _, step = bench_train.make_train_step(preset, batch, force_branch=force_branch)
     else:
-        step = make_step(preset, batch, dtype)
+        step = make_step(preset, batch, dtype, force_branch=force_branch)
     matcher = bench_train.HostTimer(bench_train.criterion_mod.hungarian_match)
     with torch.set_grad_enabled(train), \
             mock.patch.object(bench_train.criterion_mod, "hungarian_match", matcher):
@@ -97,7 +110,7 @@ def run(preset: str = "small", batch: int = 32, dtype: torch.dtype = torch.bfloa
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {
         "preset": preset, "batch": batch, "dtype": str(dtype).replace("torch.", ""),
-        "mode": "train" if train else "eval",
+        "mode": "train" if train else "eval", "force_branch": force_branch,
         "steps": steps,
         "matcher_host_ms_per_step": matcher_ms if train else None,
         "step_ms": step_ms,
@@ -119,6 +132,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", default=None, choices=("bf16", "f32"),
                     help="default: bf16 for eval; --train runs in f32")
     ap.add_argument("--train", action="store_true", help="profile the train step")
+    ap.add_argument("--force_branch", default=None, choices=BRANCHES,
+                    help="the cross-attention's value layout (default: cm in eval under 4096 "
+                         "memory positions, else sep)")
     return ap
 
 
@@ -130,7 +146,8 @@ def main() -> None:
     else:
         dtype = torch.float32 if args.dtype == "f32" else torch.bfloat16
         batch = args.batch or 32
-    print(json.dumps(run(args.preset, batch, dtype, train=args.train)))
+    print(json.dumps(run(args.preset, batch, dtype, train=args.train,
+                         force_branch=args.force_branch)))
 
 
 if __name__ == "__main__":

@@ -1,9 +1,14 @@
-// K5: backward of the deformable sampling over per-level head-major panels.
+// K5 and K10 (backward): backward of the deformable sampling over per-level
+// head-major panels (K5) or over the row-major value (B, Len_in, H, D) (K10).
 //
-// Replaces lwdetr_tpu/ops/deform_attn.py::_sep_bwd_kernel (launched from
+// K5 replaces lwdetr_tpu/ops/deform_attn.py::_sep_bwd_kernel (launched from
 // _sep_bwd) together with the VJP of _prep_separable, which turns that
 // kernel's d(y-weights) and d(x-weights) into gradients of the sampling
-// locations and attention weights. For the forward (deform_attn_sep.cu)
+// locations and attention weights. K10's backward replaces ::_dvalue_kernel
+// and ::_dweight_kernel (launched from _sample_bwd) together with the VJP of
+// _prep_indices_weights. One device body serves both layouts over the layout
+// policy of the forward (deform_attn_sep.cu); each kernel has its own entry
+// symbol. For the forward
 //   out[b, q, hD + d] = sum_{l, p} w[b, q, h, l, p]
 //                       * bilinear(panel_l[b, h, :, :, d], loc[b, q, h, l, p])
 // and g = d(out)[b, q, hD:(h+1)D], with the four corner values v00, v01, v10,
@@ -36,31 +41,26 @@
 // fixed, so two runs differ in the last f32 bits. All lanes of a warp run the
 // same L x P loop with no early exit, so the shuffles are convergent; a thread
 // past the end carries zeros.
-#include "common.cuh"
+#include "deform_layout.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 4;
+using lw::kMaxLevels;
+using lw::kVec;
+using lw::load4;
+using lw::PanelLayout;
+using lw::RowMajorLayout;
+
 constexpr int kThreads = 256;
-constexpr int kVec = 4;  // channels per thread
 
 struct Levels {
   int n;
+  int len_in;  // positions of all levels together (the row-major layout's batch stride)
   int h[kMaxLevels];
   int w[kMaxLevels];
-  const void* panel[kMaxLevels];
-  float* dpanel[kMaxLevels];
+  const void* panel[kMaxLevels];  // level l's first element
+  float* dpanel[kMaxLevels];      // and its gradient's
 };
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  // a bf16 is the high half of an f32
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
-                     __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
-}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
@@ -73,7 +73,7 @@ __device__ __forceinline__ void scatter4(float* p, float c, float4 g) {
   atomicAdd(p + 3, c * g.w);
 }
 
-template <typename T>
+template <typename T, typename Layout>
 __global__ void __launch_bounds__(kThreads)
 deform_attn_sep_bwd_kernel(const float* __restrict__ loc, const float* __restrict__ attw,
                            const T* __restrict__ dout, float* __restrict__ dloc,
@@ -101,8 +101,9 @@ deform_attn_sep_bwd_kernel(const float* __restrict__ loc, const float* __restric
   for (int l = 0; l < lv.n; ++l) {
     const int Wl = lv.w[l];
     const int Hl = lv.h[l];
-    const size_t row = static_cast<size_t>(Wl) * D;  // elements per map row
-    const size_t off = (static_cast<size_t>(b) * H + h) * Hl * row + d;
+    const int xs = Layout::x_stride(H, D);           // elements between neighbouring positions
+    const size_t row = static_cast<size_t>(Wl) * xs;  // elements per map row
+    const size_t off = Layout::origin(b, h, H, D, Hl, Wl, lv.len_in) + d;
     const T* map = static_cast<const T*>(lv.panel[l]) + off;
     float* dmap = lv.dpanel[l] + off;
     for (int p = 0; p < P; ++p) {
@@ -125,22 +126,22 @@ deform_attn_sep_bwd_kernel(const float* __restrict__ loc, const float* __restric
         const bool x0ok = x0 >= 0, x1ok = x0 + 1 < Wl;
         const bool y0ok = y0 >= 0, y1ok = y0 + 1 < Hl;
         // x0 >= -1 and y0 >= -1 here; a pointer is used only for a corner in bounds
-        const ptrdiff_t at = y0 * static_cast<ptrdiff_t>(row) + x0 * D;
+        const ptrdiff_t at = y0 * static_cast<ptrdiff_t>(row) + x0 * xs;
         if (y0ok && x0ok) {
           d00 = dot4(g, load4(map + at));
           if (active) scatter4(dmap + at, aw * (1.f - fy) * (1.f - fx), g);
         }
         if (y0ok && x1ok) {
-          d01 = dot4(g, load4(map + at + D));
-          if (active) scatter4(dmap + at + D, aw * (1.f - fy) * fx, g);
+          d01 = dot4(g, load4(map + at + xs));
+          if (active) scatter4(dmap + at + xs, aw * (1.f - fy) * fx, g);
         }
         if (y1ok && x0ok) {
           d10 = dot4(g, load4(map + at + row));
           if (active) scatter4(dmap + at + row, aw * fy * (1.f - fx), g);
         }
         if (y1ok && x1ok) {
-          d11 = dot4(g, load4(map + at + row + D));
-          if (active) scatter4(dmap + at + row + D, aw * fy * fx, g);
+          d11 = dot4(g, load4(map + at + row + xs));
+          if (active) scatter4(dmap + at + row + xs, aw * fy * fx, g);
         }
       }
       // sum the four dot products over the lanes of this head
@@ -159,9 +160,40 @@ deform_attn_sep_bwd_kernel(const float* __restrict__ loc, const float* __restric
   }
 }
 
+template <typename Layout>
+int launch(const Levels& lv, const void* loc, const void* attw, const void* dout, void* dloc,
+           void* dattw, int B, int Q, int num_heads, int head_dim, int n_points, int dtype,
+           void* stream) {
+  const size_t total = static_cast<size_t>(B) * Q * num_heads * head_dim / kVec;
+  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* lp = static_cast<const float*>(loc);
+  const float* wp = static_cast<const float*>(attw);
+  float* dlp = static_cast<float*>(dloc);
+  float* dwp = static_cast<float*>(dattw);
+  if (dtype == lw::kFloat32) {
+    deform_attn_sep_bwd_kernel<float, Layout><<<blocks, kThreads, 0, st>>>(
+        lp, wp, static_cast<const float*>(dout), dlp, dwp, Q, num_heads, head_dim, n_points, lv,
+        total);
+  } else if (dtype == lw::kBFloat16) {
+    deform_attn_sep_bwd_kernel<__nv_bfloat16, Layout><<<blocks, kThreads, 0, st>>>(
+        lp, wp, static_cast<const __nv_bfloat16*>(dout), dlp, dwp, Q, num_heads, head_dim,
+        n_points, lv, total);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// the lanes of a head must be a power of two that divides a warp
+bool sizes_ok(int B, int Q, int num_heads, int head_dim, int n_levels, int n_points) {
+  return B >= 1 && Q >= 1 && num_heads >= 1 && (head_dim == 16 || head_dim == 32) &&
+         n_points >= 1 && n_levels >= 1 && n_levels <= kMaxLevels;
+}
+
 }  // namespace
 
-// panels[l]: level l's values (B, H, h[l], w[l] * D) in `dtype`, contiguous,
+// K5. panels[l]: level l's values (B, H, h[l], w[l] * D) in `dtype`, contiguous,
 // 16-byte aligned; dpanels[l]: its gradient, f32, same shape, zeroed by the
 // caller; level_hw: (h, w) per level; loc (B, Q, H, L, P, 2) and attw
 // (B, Q, H, L, P) f32 with gradients dloc, dattw of the same shapes; dout
@@ -171,12 +203,10 @@ extern "C" int lw_deform_attn_sep_bwd(const void* const* panels, void* const* dp
                                       const void* dout, void* dloc, void* dattw, int B, int Q,
                                       int num_heads, int head_dim, int n_levels, int n_points,
                                       int dtype, void* stream) {
-  // the lanes of a head must be a power of two that divides a warp
-  if (B < 1 || Q < 1 || num_heads < 1 || (head_dim != 16 && head_dim != 32) ||
-      n_points < 1 || n_levels < 1 || n_levels > kMaxLevels)
-    return cudaErrorInvalidValue;
+  if (!sizes_ok(B, Q, num_heads, head_dim, n_levels, n_points)) return cudaErrorInvalidValue;
   Levels lv;
   lv.n = n_levels;
+  lv.len_in = 0;
   for (int l = 0; l < n_levels; ++l) {
     lv.h[l] = level_hw[2 * l];
     lv.w[l] = level_hw[2 * l + 1];
@@ -186,23 +216,38 @@ extern "C" int lw_deform_attn_sep_bwd(const void* const* panels, void* const* dp
         reinterpret_cast<size_t>(lv.panel[l]) % 16 != 0)
       return cudaErrorInvalidValue;
   }
-  const size_t total = static_cast<size_t>(B) * Q * num_heads * head_dim / kVec;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* lp = static_cast<const float*>(loc);
-  const float* wp = static_cast<const float*>(attw);
-  float* dlp = static_cast<float*>(dloc);
-  float* dwp = static_cast<float*>(dattw);
-  if (dtype == lw::kFloat32) {
-    deform_attn_sep_bwd_kernel<float><<<blocks, kThreads, 0, st>>>(
-        lp, wp, static_cast<const float*>(dout), dlp, dwp, Q, num_heads, head_dim, n_points, lv,
-        total);
-  } else if (dtype == lw::kBFloat16) {
-    deform_attn_sep_bwd_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
-        lp, wp, static_cast<const __nv_bfloat16*>(dout), dlp, dwp, Q, num_heads, head_dim,
-        n_points, lv, total);
-  } else {
+  return launch<PanelLayout>(lv, loc, attw, dout, dloc, dattw, B, Q, num_heads, head_dim,
+                             n_points, dtype, stream);
+}
+
+// K10, backward. value (B, len_in, H, D) in `dtype`, contiguous, 16-byte
+// aligned, the levels one after another along len_in; dvalue: its gradient,
+// f32, same shape, zeroed by the caller; the rest as for K5. `level_hw` is a
+// host array.
+extern "C" int lw_deform_attn_rowmajor_bwd(const void* value, void* dvalue, const int* level_hw,
+                                           const void* loc, const void* attw, const void* dout,
+                                           void* dloc, void* dattw, int B, int len_in, int Q,
+                                           int num_heads, int head_dim, int n_levels,
+                                           int n_points, int dtype, void* stream) {
+  if (!sizes_ok(B, Q, num_heads, head_dim, n_levels, n_points) || value == nullptr ||
+      dvalue == nullptr || reinterpret_cast<size_t>(value) % 16 != 0 ||
+      (dtype != lw::kFloat32 && dtype != lw::kBFloat16))
     return cudaErrorInvalidValue;
+  const size_t position = static_cast<size_t>(num_heads) * head_dim;  // elements
+  const size_t isz = dtype == lw::kFloat32 ? sizeof(float) : sizeof(__nv_bfloat16);
+  Levels lv;
+  lv.n = n_levels;
+  lv.len_in = len_in;
+  long long start = 0;
+  for (int l = 0; l < n_levels; ++l) {
+    lv.h[l] = level_hw[2 * l];
+    lv.w[l] = level_hw[2 * l + 1];
+    if (lv.h[l] < 1 || lv.w[l] < 1) return cudaErrorInvalidValue;
+    lv.panel[l] = static_cast<const char*>(value) + start * position * isz;
+    lv.dpanel[l] = static_cast<float*>(dvalue) + start * position;
+    start += static_cast<long long>(lv.h[l]) * lv.w[l];
   }
-  return cudaGetLastError();
+  if (start != len_in) return cudaErrorInvalidValue;
+  return launch<RowMajorLayout>(lv, loc, attw, dout, dloc, dattw, B, Q, num_heads, head_dim,
+                                n_points, dtype, stream);
 }

@@ -1,13 +1,18 @@
-// K1: window attention with the fused qkv bias, channel-major.
+// K1 and K9: short-sequence (window) attention, channel-major, with the
+// fused qkv bias (K1) or without a bias (K9).
 //
-// Replaces lwdetr_tpu/ops/flash_attention.py::_attn_cm_allheads_bias_kernel
-// (launched from _attn_cm_allheads_bias_call). It computes, per window b and
-// head h,
+// K1 replaces lwdetr_tpu/ops/flash_attention.py::_attn_cm_allheads_bias_kernel
+// (launched from _attn_cm_allheads_bias_call), K9 replaces
+// ::_attn_cm_allheads_kernel (launched from _attn_cm_impl, the N <= 128
+// branch: the decoder's self-attention over 100 queries). They compute, per
+// window b and head h,
 //   out[b, hD:(h+1)D, :] = softmax((q + bq)^T (k + bk)) (v + bv)
 // over the channel-major packed qkv (B, 3C, N), N <= 128, with the (3C,)
-// bias added on the panel as it is loaded, f32 accumulation, an exact
-// softmax, and the normalisation applied after PV. The softmax scale is
-// folded into q by the caller (scale = 1) or passed in.
+// bias added on the panel as it is loaded (K1; K9 has none: the template
+// case kBias = false never reads a bias, and no zeros tensor stands in for
+// one), f32 accumulation, an exact softmax, and the normalisation applied
+// after PV. The softmax scale is folded into q by the caller (scale = 1) or
+// passed in.
 //
 // What bounds it on an H100: at the ViT window shape (N = 100, D = 16) each
 // (window, head) panel is 3 x 16 x 100 values, read once from device memory,
@@ -27,7 +32,7 @@ namespace {
 
 constexpr int kThreads = 128;  // one thread per query; N <= 128
 
-template <typename T, int D>
+template <typename T, int D, bool kBias>
 __global__ void __launch_bounds__(kThreads)
 window_attention_bias_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
                              T* __restrict__ out, int C, int N, float scale_log2) {
@@ -41,7 +46,8 @@ window_attention_bias_kernel(const T* __restrict__ qkv, const float* __restrict_
     const int d = rem / N;
     const int n = rem - d * N;
     const int ch = part * C + h * D + d;
-    panel[idx] = lw::to_f32(qkv[img + static_cast<size_t>(ch) * N + n]) + bias[ch];
+    const float x = lw::to_f32(qkv[img + static_cast<size_t>(ch) * N + n]);
+    panel[idx] = kBias ? x + bias[ch] : x;
   }
   __syncthreads();
   const int i = threadIdx.x;
@@ -78,11 +84,11 @@ window_attention_bias_kernel(const T* __restrict__ qkv, const float* __restrict_
   for (int d = 0; d < D; ++d) o[static_cast<size_t>(d) * N] = lw::from_f32<T>(acc[d] / l);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kBias>
 cudaError_t launch(const void* qkv, const void* bias, void* out, int B, int C, int N,
                    float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * 3 * D * N;
-  auto kernel = window_attention_bias_kernel<T, D>;
+  auto kernel = window_attention_bias_kernel<T, D, kBias>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -94,29 +100,43 @@ cudaError_t launch(const void* qkv, const void* bias, void* out, int B, int C, i
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kBias>
 cudaError_t dispatch_d(int D, const void* qkv, const void* bias, void* out, int B, int C,
                        int N, float scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(qkv, bias, out, B, C, N, scale, stream);
-    case 32: return launch<T, 32>(qkv, bias, out, B, C, N, scale, stream);
-    case 64: return launch<T, 64>(qkv, bias, out, B, C, N, scale, stream);
+    case 16: return launch<T, 16, kBias>(qkv, bias, out, B, C, N, scale, stream);
+    case 32: return launch<T, 32, kBias>(qkv, bias, out, B, C, N, scale, stream);
+    case 64: return launch<T, 64, kBias>(qkv, bias, out, B, C, N, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-// qkv (B, 3C, N) and out (B, C, N) in `dtype`, bias (3C,) f32, all contiguous.
-extern "C" int lw_window_attention_bias(const void* qkv, const void* bias, void* out, int B,
-                                        int C, int N, int num_heads, float scale, int dtype,
-                                        void* stream) {
+template <bool kBias>
+int dispatch(const void* qkv, const void* bias, void* out, int B, int C, int N, int num_heads,
+             float scale, int dtype, void* stream) {
   if (B < 1 || N < 1 || N > kThreads || num_heads < 1 || C % num_heads != 0)
     return cudaErrorInvalidValue;
   const int D = C / num_heads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == lw::kFloat32) return dispatch_d<float>(D, qkv, bias, out, B, C, N, scale, st);
+  if (dtype == lw::kFloat32)
+    return dispatch_d<float, kBias>(D, qkv, bias, out, B, C, N, scale, st);
   if (dtype == lw::kBFloat16)
-    return dispatch_d<__nv_bfloat16>(D, qkv, bias, out, B, C, N, scale, st);
+    return dispatch_d<__nv_bfloat16, kBias>(D, qkv, bias, out, B, C, N, scale, st);
   return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// K1. qkv (B, 3C, N) and out (B, C, N) in `dtype`, bias (3C,) f32, all contiguous.
+extern "C" int lw_window_attention_bias(const void* qkv, const void* bias, void* out, int B,
+                                        int C, int N, int num_heads, float scale, int dtype,
+                                        void* stream) {
+  if (bias == nullptr) return cudaErrorInvalidValue;
+  return dispatch<true>(qkv, bias, out, B, C, N, num_heads, scale, dtype, stream);
+}
+
+// K9. qkv (B, 3C, N) and out (B, C, N) in `dtype`, contiguous; no bias.
+extern "C" int lw_window_attention(const void* qkv, void* out, int B, int C, int N,
+                                   int num_heads, float scale, int dtype, void* stream) {
+  return dispatch<false>(qkv, nullptr, out, B, C, N, num_heads, scale, dtype, stream);
 }

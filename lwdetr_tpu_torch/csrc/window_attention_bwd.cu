@@ -1,10 +1,12 @@
-// K7: backward of the window attention with the fused qkv bias.
+// K7: backward of the short-sequence (window) attention, with the fused qkv
+// bias (the backward of K1) or without a bias (the backward of K9).
 //
 // Replaces lwdetr_tpu/ops/flash_attention.py::_attn_cm_bwd_allheads_kernel
-// (launched from _attn_cm_bwd_pallas, the N <= 128 branch). Given qkv
-// (B, 3C, N <= 128), the (3C,) f32 bias and d(out) (B, C, N), it computes per
-// window b and head h, on q, k, v = the head's rows of qkv + bias and
-// p = softmax(scale q^T k):
+// (launched from _attn_cm_bwd_pallas, the N <= 128 branch, which serves both
+// forwards). Given qkv (B, 3C, N <= 128), the (3C,) f32 bias (or none: the
+// template case kBias = false never reads one) and d(out) (B, C, N), it
+// computes per window b and head h, on q, k, v = the head's rows of
+// qkv + bias and p = softmax(scale q^T k):
 //   dp_ij  = sum_d d(out)[d, i] v[d, j]
 //   row_i  = sum_j p_ij dp_ij
 //   ds_ij  = p_ij (dp_ij - row_i) scale
@@ -40,7 +42,7 @@ namespace {
 
 constexpr int kThreads = 128;  // one thread per query, then per key; N <= 128
 
-template <typename T, int D>
+template <typename T, int D, bool kBias>
 __global__ void __launch_bounds__(kThreads)
 window_attention_bias_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
                                  const T* __restrict__ dout, T* __restrict__ dqkv, int C, int N,
@@ -62,7 +64,8 @@ window_attention_bias_bwd_kernel(const T* __restrict__ qkv, const float* __restr
     const int d = rem / N;
     const int n = rem - d * N;
     const int ch = part * C + h * D + d;
-    smem[idx] = lw::to_f32(qkv[img + static_cast<size_t>(ch) * N + n]) + bias[ch];
+    const float x = lw::to_f32(qkv[img + static_cast<size_t>(ch) * N + n]);
+    smem[idx] = kBias ? x + bias[ch] : x;
   }
   const T* gp = dout + (static_cast<size_t>(b) * C + h * D) * N;
   for (int idx = threadIdx.x; idx < D * N; idx += kThreads) gs[idx] = lw::to_f32(gp[idx]);
@@ -156,11 +159,11 @@ window_attention_bias_bwd_kernel(const T* __restrict__ qkv, const float* __restr
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kBias>
 cudaError_t launch(const void* qkv, const void* bias, const void* dout, void* dqkv, int B,
                    int C, int N, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (4 * D * N + 3 * N);
-  auto kernel = window_attention_bias_bwd_kernel<T, D>;
+  auto kernel = window_attention_bias_bwd_kernel<T, D, kBias>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -172,30 +175,45 @@ cudaError_t launch(const void* qkv, const void* bias, const void* dout, void* dq
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kBias>
 cudaError_t dispatch_d(int D, const void* qkv, const void* bias, const void* dout, void* dqkv,
                        int B, int C, int N, float scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(qkv, bias, dout, dqkv, B, C, N, scale, stream);
-    case 32: return launch<T, 32>(qkv, bias, dout, dqkv, B, C, N, scale, stream);
-    case 64: return launch<T, 64>(qkv, bias, dout, dqkv, B, C, N, scale, stream);
+    case 16: return launch<T, 16, kBias>(qkv, bias, dout, dqkv, B, C, N, scale, stream);
+    case 32: return launch<T, 32, kBias>(qkv, bias, dout, dqkv, B, C, N, scale, stream);
+    case 64: return launch<T, 64, kBias>(qkv, bias, dout, dqkv, B, C, N, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-// qkv and dqkv (B, 3C, N), dout (B, C, N) in `dtype`, bias (3C,) f32, all contiguous.
-extern "C" int lw_window_attention_bias_bwd(const void* qkv, const void* bias, const void* dout,
-                                            void* dqkv, int B, int C, int N, int num_heads,
-                                            float scale, int dtype, void* stream) {
+template <bool kBias>
+int dispatch(const void* qkv, const void* bias, const void* dout, void* dqkv, int B, int C,
+             int N, int num_heads, float scale, int dtype, void* stream) {
   if (B < 1 || N < 1 || N > kThreads || num_heads < 1 || C % num_heads != 0)
     return cudaErrorInvalidValue;
   const int D = C / num_heads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == lw::kFloat32)
-    return dispatch_d<float>(D, qkv, bias, dout, dqkv, B, C, N, scale, st);
+    return dispatch_d<float, kBias>(D, qkv, bias, dout, dqkv, B, C, N, scale, st);
   if (dtype == lw::kBFloat16)
-    return dispatch_d<__nv_bfloat16>(D, qkv, bias, dout, dqkv, B, C, N, scale, st);
+    return dispatch_d<__nv_bfloat16, kBias>(D, qkv, bias, dout, dqkv, B, C, N, scale, st);
   return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The backward of K1. qkv and dqkv (B, 3C, N), dout (B, C, N) in `dtype`, bias
+// (3C,) f32, all contiguous.
+extern "C" int lw_window_attention_bias_bwd(const void* qkv, const void* bias, const void* dout,
+                                            void* dqkv, int B, int C, int N, int num_heads,
+                                            float scale, int dtype, void* stream) {
+  if (bias == nullptr) return cudaErrorInvalidValue;
+  return dispatch<true>(qkv, bias, dout, dqkv, B, C, N, num_heads, scale, dtype, stream);
+}
+
+// The backward of K9: the same, without a bias.
+extern "C" int lw_window_attention_bwd(const void* qkv, const void* dout, void* dqkv, int B,
+                                       int C, int N, int num_heads, float scale, int dtype,
+                                       void* stream) {
+  return dispatch<false>(qkv, nullptr, dout, dqkv, B, C, N, num_heads, scale, dtype, stream);
 }

@@ -4,19 +4,22 @@ Counterpart of `lwdetr_tpu/models/transformer.py`. In eval one query group
 runs; in train mode (`module.training`) all `group_detr` groups run, each
 with its own two-stage heads, folded into the batch for self-attention so
 that groups do not attend across. Self-attention runs channel-major through
-`ops/flash_attention.attention_cm` (K2, backward K6). Cross-attention samples
+`ops/flash_attention.attention_cm` (K2, backward K6; K9 and the no-bias case
+of K7 for the 100 queries of the tiny preset). Cross-attention samples
 the memory through `ops/deform_attn`: in eval channel-major values and
 `ms_deform_attn_cm` (K3) for a short memory (the P4 presets), per-level
 head-major value panels and `ms_deform_attn_sep_panels` (K4) from
 `SEP_MIN_LEN_IN` positions up (the P3+P5 presets); in train mode the panels
-at every memory length (K4, backward K5). Dropout is not ported: the release
-recipes train with dropout 0. Module and parameter names follow the
+at every memory length (K4, backward K5). `MSDeformAttnModule.force_branch`
+takes one of the three value layouts whatever the mode: "cm" (K3, backward
+K8), "sep" (K4 / K5) or "gather" (row-major values, K10). Dropout is not
+ported: the release recipes train with dropout 0. Module and parameter names follow the
 reference's state_dict (`transformer.decoder.layers.{i}...`,
 `transformer.enc_output.{g}`, ...).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +38,7 @@ from lwdetr_tpu_torch.ops.embeddings import query_sine_embed
 # check with no counterpart on this card. The device plays no part: on the
 # CPU each branch runs with its sampler's plain version.
 SEP_MIN_LEN_IN = 4096
+BRANCHES = ("sep", "cm", "gather")
 
 
 class MLPHead(nn.Module):
@@ -74,14 +78,21 @@ class MultiheadSelfAttention(nn.Module):
 
 
 class MSDeformAttnModule(nn.Module):
-    """Projections around the deformable sampler. One set of parameters, two
-    value layouts: channel-major (B, C, Len_in) in eval below `SEP_MIN_LEN_IN`
-    positions, per-level head-major panels (B, H, H_l, W_l * D) from there up
-    and always in train mode."""
+    """Projections around the deformable sampler. One set of parameters, three
+    value layouts. By default (`force_branch` None): channel-major
+    (B, C, Len_in) in eval below `SEP_MIN_LEN_IN` positions ("cm"), per-level
+    head-major panels (B, H, H_l, W_l * D) from there up and always in train
+    mode ("sep"). `force_branch` (the JAX module's field of the same name)
+    takes "cm", "sep" or "gather" (row-major (B, Len_in, H, D), the reference
+    CUDA op's layout) whatever the mode and the memory's length."""
 
-    def __init__(self, d_model: int, n_levels: int, n_heads: int, n_points: int):
+    def __init__(self, d_model: int, n_levels: int, n_heads: int, n_points: int,
+                 force_branch: Optional[str] = None):
         super().__init__()
+        if force_branch is not None and force_branch not in BRANCHES:
+            raise ValueError(f"force_branch must be None or one of {BRANCHES}, got {force_branch!r}")
         self.n_levels, self.n_heads, self.n_points = n_levels, n_heads, n_points
+        self.force_branch = force_branch
         self.sampling_offsets = nn.Linear(d_model, n_heads * n_levels * n_points * 2)
         self.attention_weights = nn.Linear(d_model, n_heads * n_levels * n_points)
         self.value_proj = nn.Linear(d_model, d_model)
@@ -123,12 +134,19 @@ class MSDeformAttnModule(nn.Module):
                    + offsets / P * reference_points[:, :, None, :, None, 2:] * 0.5)
         else:
             raise ValueError("reference_points last dim must be 2 or 4")
-        if not self.training and memory.shape[1] < SEP_MIN_LEN_IN:
+        branch = self.force_branch
+        if branch is None:
+            branch = "sep" if self.training or memory.shape[1] >= SEP_MIN_LEN_IN else "cm"
+        if branch == "cm":
             value_t = dense_to_cm(memory, self.value_proj.weight, self.value_proj.bias)
             out_t = da.ms_deform_attn_cm(value_t, spatial_shapes, loc, weights, H)  # (B, C, Q)
             return self.output_proj(out_t)
-        panels = self.value_panels(memory_levels, spatial_shapes)
-        out = da.ms_deform_attn_sep_panels(panels, spatial_shapes, loc, weights)  # (B, Q, C)
+        if branch == "sep":
+            panels = self.value_panels(memory_levels, spatial_shapes)
+            out = da.ms_deform_attn_sep_panels(panels, spatial_shapes, loc, weights)  # (B, Q, C)
+        else:
+            value = self.value_proj(memory).reshape(B, -1, H, C // H)
+            out = da.ms_deform_attn(value, spatial_shapes, loc, weights)  # (B, Q, C)
         return F.linear(out, self.output_proj.weight, self.output_proj.bias)
 
 
@@ -161,6 +179,17 @@ class DecoderLayer(nn.Module):
                                memory_levels)
         tgt = self.norm2(tgt + tgt2)
         return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
+
+
+def set_force_branch(model: nn.Module, branch: Optional[str]) -> nn.Module:
+    """Set `force_branch` on every `MSDeformAttnModule` of `model` (None: the
+    default rule). The parameters are the same in every branch."""
+    if branch is not None and branch not in BRANCHES:
+        raise ValueError(f"force_branch must be None or one of {BRANCHES}, got {branch!r}")
+    for module in model.modules():
+        if isinstance(module, MSDeformAttnModule):
+            module.force_branch = branch
+    return model
 
 
 def box_reparam_combine(base: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:

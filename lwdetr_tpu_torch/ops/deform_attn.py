@@ -1,26 +1,29 @@
-"""Multi-scale deformable attention sampling, in two value layouts.
+"""Multi-scale deformable attention sampling, in three value layouts.
 
 Bilinear sampling with ``F.grid_sample(mode='bilinear', padding_mode='zeros',
 align_corners=False)`` semantics, weighted and summed over levels and points:
 
 * `ms_deform_attn_cm`, counterpart of
   `lwdetr_tpu/ops/deform_attn.py::ms_deform_attn_cm`: channel-major value_t
-  (B, C, Len_in) -> (B, C, Len_q). On a CUDA tensor it launches K3
-  (`csrc/deform_attn.cu`).
+  (B, C, Len_in) -> (B, C, Len_q). On CUDA tensors K3 (`csrc/deform_attn.cu`),
+  backward K8 (`csrc/deform_attn_bwd.cu`).
 * `ms_deform_attn_sep_panels`, counterpart of
   `lwdetr_tpu/ops/deform_attn.py::ms_deform_attn_sep_panels`: one head-major
   panel (B, H, H_l, W_l * D) per level -> row-major (B, Len_q, C). On CUDA
-  tensors it launches K4 (`csrc/deform_attn_sep.cu`), and its backward K5
-  (`csrc/deform_attn_sep_bwd.cu`), which gives the gradients of the panels,
-  the sampling locations and the attention weights: the pair is a
-  `torch.autograd.Function`.
+  tensors K4 (`csrc/deform_attn_sep.cu`), backward K5
+  (`csrc/deform_attn_sep_bwd.cu`).
+* `ms_deform_attn`, counterpart of
+  `lwdetr_tpu/ops/deform_attn.py::ms_deform_attn_pallas`: row-major value
+  (B, Len_in, H, D) -> (B, Len_q, C), the contract of the reference's CUDA
+  op. On CUDA tensors K10, forward and backward: the row-major cases of K4's
+  and K5's sources, each with its own entry symbol and launch count.
 
-The kernels are direct bilinear gathers (K5 a scatter with atomic adds). On
-CUDA tensors they launch or the call raises; tensors on the CPU take the plain
-versions (`ms_deform_attn_cm_plain`, `ms_deform_attn_sep_panels_plain`,
-`ms_deform_attn_sep_panels_bwd_plain`), the counterparts of the JAX gather
-formulation `ms_deform_attn`. `ms_deform_attn_cm` is forward only: its
-backward kernel (K8) is not ported, and training samples from the panels.
+Each forward / backward pair is a `torch.autograd.Function`; every backward
+gives the gradients of the values, the sampling locations and the attention
+weights. The kernels are direct bilinear gathers (the backwards scatter with
+atomic adds). On CUDA tensors they launch or the call raises; tensors on the
+CPU take the plain versions (`*_plain`, `*_bwd_plain`), the counterparts of
+the JAX gather formulation `ms_deform_attn`.
 """
 from __future__ import annotations
 
@@ -53,6 +56,20 @@ deform_attn_sep_bwd_kernel = CudaKernel(
     "K5", "deform_attn_sep_bwd.cu", "lw_deform_attn_sep_bwd",
     [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
      ctypes.POINTER(ctypes.c_int), _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I])
+# K8 replaces lwdetr_tpu/ops/deform_attn.py:480 _dvalue_cm_kernel and :509 _dweight_cm_kernel
+# (and the VJP of _prep_indices_weights_lanes)
+deform_attn_cm_bwd_kernel = CudaKernel(
+    "K8", "deform_attn_bwd.cu", "lw_deform_attn_cm_bwd",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int), _I])
+# K10 replaces lwdetr_tpu/ops/deform_attn.py:149 _deform_kernel
+deform_attn_rowmajor_kernel = CudaKernel(
+    "K10", "deform_attn_sep.cu", "lw_deform_attn_rowmajor",
+    [_P, ctypes.POINTER(ctypes.c_int), _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I])
+# K10's backward replaces lwdetr_tpu/ops/deform_attn.py:213 _dvalue_kernel and :243
+# _dweight_kernel (and the VJP of _prep_indices_weights)
+deform_attn_rowmajor_bwd_kernel = CudaKernel(
+    "K10b", "deform_attn_sep_bwd.cu", "lw_deform_attn_rowmajor_bwd",
+    [_P, _P, ctypes.POINTER(ctypes.c_int), _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I])
 _SEP_HEAD_DIMS = (16, 32)
 
 
@@ -77,10 +94,11 @@ def ms_deform_attn_cm_plain(value_t: torch.Tensor, spatial_shapes: Sequence[Tupl
     B, C, _ = value_t.shape
     _, Q, H, L, P, _ = loc.shape
     D = C // n_heads
-    val = value_t.float().reshape(B, n_heads, D, -1)
-    loc = loc.float()
-    weights = weights.float()
-    out = torch.zeros((B, n_heads, D, Q), device=value_t.device, dtype=torch.float32)
+    ct = plain_dtype(value_t)
+    val = value_t.to(ct).reshape(B, n_heads, D, -1)
+    loc = loc.to(ct)
+    weights = weights.to(ct)
+    out = torch.zeros((B, n_heads, D, Q), device=value_t.device, dtype=ct)
     start = 0
     for lvl, (Hl, Wl) in enumerate(spatial_shapes):
         v_l = val[..., start:start + Hl * Wl]  # (B, H, D, HW)
@@ -108,19 +126,15 @@ def ms_deform_attn_cm_plain(value_t: torch.Tensor, spatial_shapes: Sequence[Tupl
 
 
 def _check_cuda(value_t, spatial_shapes, loc, weights, n_heads):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (value_t, loc, weights)):
-        raise NotImplementedError(
-            "ms_deform_attn_cm on CUDA is forward only: its backward kernels "
-            "(K8 _dvalue_cm_kernel / _dweight_cm_kernel) are not ported yet")
     if value_t.dtype not in _DTYPES:
-        raise TypeError(f"K3 takes float32 or bfloat16 values, got {value_t.dtype}")
+        raise TypeError(f"K3 / K8 take float32 or bfloat16 values, got {value_t.dtype}")
     B, C, len_in = value_t.shape
     if loc.dim() != 6 or loc.shape[0] != B or loc.shape[2] != n_heads or loc.shape[-1] != 2:
         raise ValueError(f"loc must be (B, Q, {n_heads}, L, P, 2), got {tuple(loc.shape)}")
     if weights.shape != loc.shape[:-1]:
         raise ValueError(f"weights must be {tuple(loc.shape[:-1])}, got {tuple(weights.shape)}")
     if not 1 <= len(spatial_shapes) <= _MAX_LEVELS or loc.shape[3] != len(spatial_shapes):
-        raise ValueError(f"K3 takes 1..{_MAX_LEVELS} levels matching loc, "
+        raise ValueError(f"K3 / K8 take 1..{_MAX_LEVELS} levels matching loc, "
                          f"got {len(spatial_shapes)}")
     if C % n_heads or sum(h * w for h, w in spatial_shapes) != len_in:
         raise ValueError("value_t channels or length do not match heads / spatial_shapes")
@@ -128,12 +142,23 @@ def _check_cuda(value_t, spatial_shapes, loc, weights, n_heads):
         raise ValueError("value_t, loc and weights must be on one device")
 
 
-def ms_deform_attn_cm(value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
-                      loc: torch.Tensor, weights: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """value_t (B, C, Len_in) channel-major (padded positions already zeroed),
-    loc (B, Q, H, L, P, 2) normalized (x, y), weights (B, Q, H, L, P)
-    -> (B, C, Q) in value_t's dtype."""
-    spatial_shapes = [(int(h), int(w)) for h, w in spatial_shapes]
+def _level_starts(spatial_shapes):
+    """The host array the channel-major kernels take: (h, w, start) per level."""
+    levels = (ctypes.c_int * (3 * len(spatial_shapes)))()
+    start = 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        levels[3 * lvl:3 * lvl + 3] = [h, w, start]
+        start += h * w
+    return levels
+
+
+def _int_shapes(spatial_shapes):
+    return [(int(h), int(w)) for h, w in spatial_shapes]
+
+
+def ms_deform_attn_cm_fwd(value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                          loc: torch.Tensor, weights: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """K3 launch on CUDA tensors (the plain version on the CPU), outside autograd."""
     if not value_t.is_cuda:
         return ms_deform_attn_cm_plain(value_t, spatial_shapes, loc, weights, n_heads)
     _check_cuda(value_t, spatial_shapes, loc, weights, n_heads)
@@ -142,16 +167,217 @@ def ms_deform_attn_cm(value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[int,
     value_t = value_t.contiguous()
     loc = loc.to(torch.float32).contiguous()
     weights = weights.to(torch.float32).contiguous()
-    levels = (ctypes.c_int * (3 * L))()
-    start = 0
-    for lvl, (h, w) in enumerate(spatial_shapes):
-        levels[3 * lvl:3 * lvl + 3] = [h, w, start]
-        start += h * w
     out = torch.empty((B, C, Q), device=value_t.device, dtype=value_t.dtype)
     deform_attn_cm_kernel(value_t.data_ptr(), loc.data_ptr(), weights.data_ptr(),
-                          out.data_ptr(), B, C, len_in, Q, n_heads, L, P, levels,
-                          _DTYPES[value_t.dtype])
+                          out.data_ptr(), B, C, len_in, Q, n_heads, L, P,
+                          _level_starts(spatial_shapes), _DTYPES[value_t.dtype])
     return out
+
+
+def _cm_panels(value_t: torch.Tensor, spatial_shapes, n_heads: int):
+    """Channel-major (B, C, Len_in) as per-level panels (B, H, H_l, W_l * D)."""
+    B, C, _ = value_t.shape
+    v = value_t.reshape(B, n_heads, C // n_heads, -1)
+    panels, start = [], 0
+    for h, w in spatial_shapes:
+        panels.append(v[..., start:start + h * w].transpose(2, 3).reshape(B, n_heads, h, -1))
+        start += h * w
+    return panels
+
+
+def ms_deform_attn_cm_bwd_plain(value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                                loc: torch.Tensor, weights: torch.Tensor, dout: torch.Tensor,
+                                n_heads: int):
+    """Plain PyTorch version of K8: (d(value_t), d(loc), d(weights)) of
+    `ms_deform_attn_cm` from d(out) (B, C, Q), by the explicit formulas of
+    `ms_deform_attn_sep_panels_bwd_plain` on the same values regrouped."""
+    B, C, len_in = value_t.shape
+    dvals, dloc, dw = ms_deform_attn_sep_panels_bwd_plain(
+        _cm_panels(value_t, spatial_shapes, n_heads), spatial_shapes, loc, weights,
+        dout.transpose(1, 2))
+    D = C // n_heads
+    dvalue_t = torch.cat([dv.reshape(B, n_heads, -1, D).transpose(2, 3) for dv in dvals], dim=3)
+    return dvalue_t.reshape(B, C, len_in), dloc, dw
+
+
+def ms_deform_attn_cm_bwd(value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                          loc: torch.Tensor, weights: torch.Tensor, dout: torch.Tensor,
+                          n_heads: int):
+    """K8: (d(value_t), d(loc), d(weights)) of `ms_deform_attn_cm` from d(out)
+    (B, C, Q). d(value_t) is summed with f32 atomic adds, in no fixed order,
+    and for bf16 values rounded once from the f32 sums."""
+    if not value_t.is_cuda:
+        return ms_deform_attn_cm_bwd_plain(value_t, spatial_shapes, loc, weights, dout, n_heads)
+    _check_cuda(value_t, spatial_shapes, loc, weights, n_heads)
+    B, C, len_in = value_t.shape
+    _, Q, _, L, P, _ = loc.shape
+    if dout.shape != (B, C, Q) or dout.device != value_t.device:
+        raise ValueError(f"d(out) must be {(B, C, Q)} on {value_t.device}, "
+                         f"got {tuple(dout.shape)} on {dout.device}")
+    value_t = value_t.contiguous()
+    locf = loc.to(torch.float32).contiguous()
+    wf = weights.to(torch.float32).contiguous()
+    dout = dout.to(value_t.dtype).contiguous()
+    # the kernel adds into this: zeroed each call, so untouched positions get 0
+    dvalue_t = torch.zeros(value_t.shape, device=value_t.device, dtype=torch.float32)
+    dloc = torch.empty_like(locf)
+    dw = torch.empty_like(wf)
+    deform_attn_cm_bwd_kernel(value_t.data_ptr(), locf.data_ptr(), wf.data_ptr(),
+                              dout.data_ptr(), dvalue_t.data_ptr(), dloc.data_ptr(),
+                              dw.data_ptr(), B, C, len_in, Q, n_heads, L, P,
+                              _level_starts(spatial_shapes), _DTYPES[value_t.dtype])
+    return dvalue_t.to(value_t.dtype), dloc.to(loc.dtype), dw.to(weights.dtype)
+
+
+class _DeformAttnCM(torch.autograd.Function):
+    """K3 forward, K8 backward; the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, value_t, spatial_shapes, loc, weights, n_heads):
+        ctx.spatial_shapes, ctx.n_heads = spatial_shapes, n_heads
+        ctx.save_for_backward(value_t, loc, weights)
+        return ms_deform_attn_cm_fwd(value_t, spatial_shapes, loc, weights, n_heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        value_t, loc, weights = ctx.saved_tensors
+        dvalue_t, dloc, dw = ms_deform_attn_cm_bwd(value_t, ctx.spatial_shapes, loc, weights,
+                                                   dout, ctx.n_heads)
+        return dvalue_t, None, dloc, dw, None
+
+
+def ms_deform_attn_cm(value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                      loc: torch.Tensor, weights: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """value_t (B, C, Len_in) channel-major (padded positions already zeroed),
+    loc (B, Q, H, L, P, 2) normalized (x, y), weights (B, Q, H, L, P)
+    -> (B, C, Q) in value_t's dtype. Differentiable in value_t, loc and weights."""
+    spatial_shapes = _int_shapes(spatial_shapes)
+    if not needs_grad(value_t, loc, weights):
+        return ms_deform_attn_cm_fwd(value_t, spatial_shapes, loc, weights, n_heads)
+    return _DeformAttnCM.apply(value_t, spatial_shapes, loc, weights, n_heads)
+
+
+def _rowmajor_panels(value: torch.Tensor, spatial_shapes):
+    """Row-major (B, Len_in, H, D) as per-level panels (B, H, H_l, W_l * D)."""
+    B, _, H, _ = value.shape
+    panels, start = [], 0
+    for h, w in spatial_shapes:
+        panels.append(value[:, start:start + h * w].transpose(1, 2).reshape(B, H, h, -1))
+        start += h * w
+    return panels
+
+
+def ms_deform_attn_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                         loc: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `ms_deform_attn` (counterpart of the JAX gather
+    formulation of the same name): the corner gathers of
+    `ms_deform_attn_sep_panels_plain` on the same values regrouped."""
+    return ms_deform_attn_sep_panels_plain(_rowmajor_panels(value, spatial_shapes),
+                                           spatial_shapes, loc, weights)
+
+
+def ms_deform_attn_bwd_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                             loc: torch.Tensor, weights: torch.Tensor, dout: torch.Tensor):
+    """Plain PyTorch version of K10's backward: (d(value), d(loc), d(weights))
+    of `ms_deform_attn` from d(out) (B, Q, H * D)."""
+    B, _, H, D = value.shape
+    dvals, dloc, dw = ms_deform_attn_sep_panels_bwd_plain(
+        _rowmajor_panels(value, spatial_shapes), spatial_shapes, loc, weights, dout)
+    dvalue = torch.cat([dv.reshape(B, H, -1, D).transpose(1, 2) for dv in dvals], dim=1)
+    return dvalue, dloc, dw
+
+
+def _check_rowmajor_cuda(value, spatial_shapes, loc, weights):
+    if value.dtype not in _DTYPES:
+        raise TypeError(f"K10 takes float32 or bfloat16 values, got {value.dtype}")
+    if value.dim() != 4 or value.shape[3] not in _SEP_HEAD_DIMS:
+        raise ValueError(f"value must be (B, Len_in, H, D) with D in {_SEP_HEAD_DIMS}, "
+                         f"got {tuple(value.shape)}")
+    B, len_in, H, _ = value.shape
+    L = len(spatial_shapes)
+    if loc.dim() != 6 or loc.shape[0] != B or loc.shape[2:4] != (H, L) or loc.shape[-1] != 2:
+        raise ValueError(f"loc must be ({B}, Q, {H}, {L}, P, 2), got {tuple(loc.shape)}")
+    if weights.shape != loc.shape[:-1]:
+        raise ValueError(f"weights must be {tuple(loc.shape[:-1])}, got {tuple(weights.shape)}")
+    if not 1 <= L <= _MAX_LEVELS or sum(h * w for h, w in spatial_shapes) != len_in:
+        raise ValueError(f"K10 takes 1..{_MAX_LEVELS} levels that add up to Len_in = {len_in}, "
+                         f"got {spatial_shapes}")
+    if not (value.device == loc.device == weights.device):
+        raise ValueError("value, loc and weights must be on one device")
+
+
+def ms_deform_attn_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                       loc: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """K10 forward launch on CUDA tensors (the plain version on the CPU), outside autograd."""
+    if not value.is_cuda:
+        return ms_deform_attn_plain(value, spatial_shapes, loc, weights)
+    _check_rowmajor_cuda(value, spatial_shapes, loc, weights)
+    B, len_in, H, D = value.shape
+    _, Q, _, L, P, _ = loc.shape
+    value = value.contiguous()
+    loc = loc.to(torch.float32).contiguous()
+    weights = weights.to(torch.float32).contiguous()
+    _, level_hw = _level_args((), spatial_shapes)
+    out = torch.empty((B, Q, H * D), device=value.device, dtype=value.dtype)
+    deform_attn_rowmajor_kernel(value.data_ptr(), level_hw, loc.data_ptr(), weights.data_ptr(),
+                                out.data_ptr(), B, len_in, Q, H, D, L, P, _DTYPES[value.dtype])
+    return out
+
+
+def ms_deform_attn_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                       loc: torch.Tensor, weights: torch.Tensor, dout: torch.Tensor):
+    """K10 backward: (d(value), d(loc), d(weights)) of `ms_deform_attn` from
+    d(out) (B, Q, H * D). d(value) is summed with f32 atomic adds, in no fixed
+    order, and for bf16 values rounded once from the f32 sums."""
+    if not value.is_cuda:
+        return ms_deform_attn_bwd_plain(value, spatial_shapes, loc, weights, dout)
+    _check_rowmajor_cuda(value, spatial_shapes, loc, weights)
+    B, len_in, H, D = value.shape
+    _, Q, _, L, P, _ = loc.shape
+    if dout.shape != (B, Q, H * D) or dout.device != value.device:
+        raise ValueError(f"d(out) must be {(B, Q, H * D)} on {value.device}, "
+                         f"got {tuple(dout.shape)} on {dout.device}")
+    value = value.contiguous()
+    locf = loc.to(torch.float32).contiguous()
+    wf = weights.to(torch.float32).contiguous()
+    dout = dout.to(value.dtype).contiguous()
+    # the kernel adds into this: zeroed each call, so untouched positions get 0
+    dvalue = torch.zeros(value.shape, device=value.device, dtype=torch.float32)
+    dloc = torch.empty_like(locf)
+    dw = torch.empty_like(wf)
+    _, level_hw = _level_args((), spatial_shapes)
+    deform_attn_rowmajor_bwd_kernel(value.data_ptr(), dvalue.data_ptr(), level_hw,
+                                    locf.data_ptr(), wf.data_ptr(), dout.data_ptr(),
+                                    dloc.data_ptr(), dw.data_ptr(), B, len_in, Q, H, D, L, P,
+                                    _DTYPES[value.dtype])
+    return dvalue.to(value.dtype), dloc.to(loc.dtype), dw.to(weights.dtype)
+
+
+class _DeformAttn(torch.autograd.Function):
+    """K10 forward and backward; the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, loc, weights):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, loc, weights)
+        return ms_deform_attn_fwd(value, spatial_shapes, loc, weights)
+
+    @staticmethod
+    def backward(ctx, dout):
+        value, loc, weights = ctx.saved_tensors
+        dvalue, dloc, dw = ms_deform_attn_bwd(value, ctx.spatial_shapes, loc, weights, dout)
+        return dvalue, None, dloc, dw
+
+
+def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                   loc: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """value (B, Len_in, H, D) row-major (padded positions already zeroed), loc
+    (B, Q, H, L, P, 2) normalized (x, y), weights (B, Q, H, L, P) ->
+    (B, Q, H * D) in value's dtype. Differentiable in value, loc and weights."""
+    spatial_shapes = _int_shapes(spatial_shapes)
+    if not needs_grad(value, loc, weights):
+        return ms_deform_attn_fwd(value, spatial_shapes, loc, weights)
+    return _DeformAttn.apply(value, spatial_shapes, loc, weights)
 
 
 def ms_deform_attn_sep_panels_plain(vals: Sequence[torch.Tensor],
@@ -271,9 +497,11 @@ def ms_deform_attn_sep_panels_bwd_plain(vals: Sequence[torch.Tensor],
 
 
 def _level_args(vals, spatial_shapes):
-    """The host arrays a panel kernel takes: a pointer and (h, w) per level."""
+    """The host arrays a panel kernel takes: a pointer and (h, w) per level
+    (the row-major kernels take the second alone)."""
     panels = (ctypes.c_void_p * len(vals))(*(v.data_ptr() for v in vals))
-    level_hw = (ctypes.c_int * (2 * len(vals)))(*(x for hw in spatial_shapes for x in hw))
+    level_hw = (ctypes.c_int * (2 * len(spatial_shapes)))(*(x for hw in spatial_shapes
+                                                            for x in hw))
     return panels, level_hw
 
 
@@ -283,7 +511,7 @@ def ms_deform_attn_sep_panels_bwd(vals: Sequence[torch.Tensor],
     """K5: ([d(panel_l)], d(loc), d(weights)) of `ms_deform_attn_sep_panels`
     from d(out) (B, Q, H * D). d(panel) is summed with f32 atomic adds, in no
     fixed order, and for bf16 panels rounded once from the f32 sums."""
-    spatial_shapes = [(int(h), int(w)) for h, w in spatial_shapes]
+    spatial_shapes = _int_shapes(spatial_shapes)
     vals = list(vals)
     if not vals[0].is_cuda:
         return ms_deform_attn_sep_panels_bwd_plain(vals, spatial_shapes, loc, weights, dout)
@@ -353,7 +581,7 @@ def ms_deform_attn_sep_panels(vals: Sequence[torch.Tensor],
     already zeroed), loc (B, Q, H, L, P, 2) normalized (x, y), weights
     (B, Q, H, L, P) -> (B, Q, H * D) row-major in the panels' dtype.
     Differentiable in the panels, loc and weights."""
-    spatial_shapes = [(int(h), int(w)) for h, w in spatial_shapes]
+    spatial_shapes = _int_shapes(spatial_shapes)
     vals = list(vals)
     if not needs_grad(loc, weights, *vals):
         return ms_deform_attn_sep_panels_fwd(vals, spatial_shapes, loc, weights)

@@ -6,10 +6,15 @@ same dispatch:
 * a (3C,) qkv bias and N <= 128 (the ViT window blocks): K1,
   `csrc/window_attention.cu`, which adds the bias on the loaded panel; its
   backward is K7, `csrc/window_attention_bwd.cu`;
+* no bias and N <= 128 (the decoder's self-attention of the 100-query
+  preset, eval and train): K9, the case of K1's source that reads no bias;
+  its backward is the case of K7's source that reads none, with a launch
+  count of its own (`window_attention_bwd_kernel`, "K7nb");
 * otherwise the bias, if any, is added inline and K2,
-  `csrc/flash_attention.cu`, runs (the ViT global blocks and the decoder
-  self-attention); its backward is K6, `csrc/flash_attention_bwd.cu`, which
-  reads the per-row log-sum-exp that K2 writes when a gradient is needed.
+  `csrc/flash_attention.cu`, runs (the ViT global blocks and the decoder's
+  self-attention over 300 queries); its backward is K6,
+  `csrc/flash_attention_bwd.cu`, which reads the per-row log-sum-exp that K2
+  writes when a gradient is needed.
 
 Each forward / backward pair is a `torch.autograd.Function`. On a CUDA tensor
 the kernels run, or the call raises; a tensor on the CPU takes the plain
@@ -38,6 +43,9 @@ _F = ctypes.c_float
 window_attention_bias_kernel = CudaKernel(
     "K1", "window_attention.cu", "lw_window_attention_bias",
     [_P, _P, _P, _I, _I, _I, _I, _F, _I])
+# K9 replaces lwdetr_tpu/ops/flash_attention.py:88 _attn_cm_allheads_kernel
+window_attention_kernel = CudaKernel(
+    "K9", "window_attention.cu", "lw_window_attention", [_P, _P, _I, _I, _I, _I, _F, _I])
 # K2 replaces lwdetr_tpu/ops/flash_attention.py:43 _attn_cm_kernel
 flash_attention_cm_kernel = CudaKernel(
     "K2", "flash_attention.cu", "lw_flash_attention_cm",
@@ -50,6 +58,11 @@ flash_attention_cm_bwd_kernel = CudaKernel(
 window_attention_bias_bwd_kernel = CudaKernel(
     "K7", "window_attention_bwd.cu", "lw_window_attention_bias_bwd",
     [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I])
+# the same TPU kernel serves the forward without a bias (K9); here that is the
+# no-bias case of K7's source, counted apart from K7's launches
+window_attention_bwd_kernel = CudaKernel(
+    "K7nb", "window_attention_bwd.cu", "lw_window_attention_bwd",
+    [_P, _P, _P, _I, _I, _I, _I, _F, _I])
 
 
 def plain_dtype(t: torch.Tensor) -> torch.dtype:
@@ -73,8 +86,8 @@ def attention_cm_plain(qkv_t: torch.Tensor, num_heads: int, scale: float) -> tor
 def attention_cm_bwd_plain(qkv_t: torch.Tensor, dout: torch.Tensor, num_heads: int,
                            scale: float, bias: Optional[torch.Tensor] = None,
                            out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch version of both attention backwards (K6, and K7 with
-    `bias`): d(qkv_t) (B, 3C, N) in qkv_t's dtype from d(out) (B, C, N), by
+    """Plain PyTorch version of the attention backwards (K6, and K7 with or
+    without `bias`): d(qkv_t) (B, 3C, N) in qkv_t's dtype from d(out) (B, C, N), by
     the explicit formulas, in f32. With p = softmax(scale q^T k):
     dp = d(out)^T v, ds = p (dp - row) scale, dq = k ds^T, dk = q ds,
     dv = d(out) p. `row` is sum_j p dp, or, given the forward's `out`,
@@ -114,10 +127,10 @@ def _check_cuda(qkv_t: torch.Tensor, num_heads: int) -> None:
         raise ValueError(f"attention_cm kernels take head_dim in {_HEAD_DIMS}, got {D}")
 
 
-def _check_window(qkv_t: torch.Tensor, bias: torch.Tensor) -> None:
+def _check_window(qkv_t: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
     if qkv_t.shape[2] > _WINDOW_MAX_N:
-        raise ValueError(f"K1 / K7 take N <= {_WINDOW_MAX_N}, got {qkv_t.shape[2]}")
-    if bias.shape != (qkv_t.shape[1],):
+        raise ValueError(f"K1 / K9 / K7 take N <= {_WINDOW_MAX_N}, got {qkv_t.shape[2]}")
+    if bias is not None and bias.shape != (qkv_t.shape[1],):
         raise ValueError(f"bias must be ({qkv_t.shape[1]},), got {tuple(bias.shape)}")
 
 
@@ -130,10 +143,13 @@ def needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
-def window_attention_bias_fwd(qkv_t: torch.Tensor, bias: torch.Tensor, num_heads: int,
+def window_attention_bias_fwd(qkv_t: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int,
                               scale: float) -> torch.Tensor:
-    """K1 launch on a CUDA tensor (the plain version on the CPU), outside autograd."""
+    """K1 launch (K9 when `bias` is None) on a CUDA tensor (the plain version
+    on the CPU), outside autograd."""
     if not qkv_t.is_cuda:
+        if bias is None:
+            return attention_cm_plain(qkv_t, num_heads, scale)
         ct = plain_dtype(qkv_t)
         x = qkv_t.to(ct) + bias.to(ct)[:, None]
         return attention_cm_plain(x, num_heads, scale).to(qkv_t.dtype)
@@ -141,10 +157,13 @@ def window_attention_bias_fwd(qkv_t: torch.Tensor, bias: torch.Tensor, num_heads
     _check_window(qkv_t, bias)
     B, ZC, N = qkv_t.shape
     qkv_t = qkv_t.contiguous()
-    bias = _f32_bias(bias, qkv_t)
     out = torch.empty((B, ZC // 3, N), device=qkv_t.device, dtype=qkv_t.dtype)
-    window_attention_bias_kernel(qkv_t.data_ptr(), bias.data_ptr(), out.data_ptr(), B, ZC // 3,
-                                 N, num_heads, float(scale), _DTYPES[qkv_t.dtype])
+    tail = (B, ZC // 3, N, num_heads, float(scale), _DTYPES[qkv_t.dtype])
+    if bias is None:
+        window_attention_kernel(qkv_t.data_ptr(), out.data_ptr(), *tail)
+    else:
+        bias = _f32_bias(bias, qkv_t)
+        window_attention_bias_kernel(qkv_t.data_ptr(), bias.data_ptr(), out.data_ptr(), *tail)
     return out
 
 
@@ -188,6 +207,21 @@ class _WindowAttentionBias(torch.autograd.Function):
         return dqkv, dbias, None, None
 
 
+class _WindowAttention(torch.autograd.Function):
+    """K9 forward, the no-bias case of K7 backward; the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, qkv_t, num_heads, scale):
+        ctx.save_for_backward(qkv_t)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return window_attention_bias_fwd(qkv_t, None, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (qkv_t,) = ctx.saved_tensors
+        return window_attention_bias_bwd(qkv_t, None, dout, ctx.num_heads, ctx.scale), None, None
+
+
 class _FlashAttentionCM(torch.autograd.Function):
     """K2 forward (writing the row log-sum-exp), K6 backward; the plain
     versions on CPU tensors."""
@@ -214,6 +248,13 @@ def window_attention_bias(qkv_t: torch.Tensor, bias: torch.Tensor, num_heads: in
     return _WindowAttentionBias.apply(qkv_t, bias, num_heads, scale)
 
 
+def window_attention(qkv_t: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """K9 (backward: the no-bias case of K7): (B, 3C, N <= 128) qkv -> (B, C, N)."""
+    if not needs_grad(qkv_t):
+        return window_attention_bias_fwd(qkv_t, None, num_heads, scale)
+    return _WindowAttention.apply(qkv_t, num_heads, scale)
+
+
 def flash_attention_cm(qkv_t: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     """K2 (backward K6): (B, 3C, N) qkv -> (B, C, N). The row log-sum-exp is
     written only when a backward will read it."""
@@ -222,9 +263,10 @@ def flash_attention_cm(qkv_t: torch.Tensor, num_heads: int, scale: float) -> tor
     return _FlashAttentionCM.apply(qkv_t, num_heads, scale)
 
 
-def window_attention_bias_bwd(qkv_t: torch.Tensor, bias: torch.Tensor, dout: torch.Tensor,
-                              num_heads: int, scale: float) -> torch.Tensor:
-    """K7: d(qkv_t) (B, 3C, N <= 128) of `window_attention_bias` from d(out) (B, C, N)."""
+def window_attention_bias_bwd(qkv_t: torch.Tensor, bias: Optional[torch.Tensor],
+                              dout: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """K7: d(qkv_t) (B, 3C, N <= 128) of `window_attention_bias`, or with `bias`
+    None of `window_attention`, from d(out) (B, C, N)."""
     if not qkv_t.is_cuda:
         return attention_cm_bwd_plain(qkv_t, dout, num_heads, scale, bias=bias)
     _check_cuda(qkv_t, num_heads)
@@ -235,11 +277,14 @@ def window_attention_bias_bwd(qkv_t: torch.Tensor, bias: torch.Tensor, dout: tor
                          f"got {tuple(dout.shape)} on {dout.device}")
     qkv_t = qkv_t.contiguous()
     dout = dout.to(qkv_t.dtype).contiguous()
-    bias = _f32_bias(bias, qkv_t)
     dqkv = torch.empty_like(qkv_t)
-    window_attention_bias_bwd_kernel(qkv_t.data_ptr(), bias.data_ptr(), dout.data_ptr(),
-                                     dqkv.data_ptr(), B, ZC // 3, N, num_heads, float(scale),
-                                     _DTYPES[qkv_t.dtype])
+    tail = (dout.data_ptr(), dqkv.data_ptr(), B, ZC // 3, N, num_heads, float(scale),
+            _DTYPES[qkv_t.dtype])
+    if bias is None:
+        window_attention_bwd_kernel(qkv_t.data_ptr(), *tail)
+    else:
+        bias = _f32_bias(bias, qkv_t)
+        window_attention_bias_bwd_kernel(qkv_t.data_ptr(), bias.data_ptr(), *tail)
     return dqkv
 
 
@@ -279,8 +324,10 @@ def attention_cm(qkv_t: torch.Tensor, num_heads: int, scale: Optional[float] = N
         raise ValueError(f"3C = {ZC} is not divisible by 3 x {num_heads} heads")
     if scale is None:
         scale = 1.0 / math.sqrt(ZC // 3 // num_heads)
-    if bias is not None and N <= _WINDOW_MAX_N:
-        return window_attention_bias(qkv_t, bias, num_heads, scale)
+    if N <= _WINDOW_MAX_N:
+        if bias is not None:
+            return window_attention_bias(qkv_t, bias, num_heads, scale)
+        return window_attention(qkv_t, num_heads, scale)
     if bias is not None:
         qkv_t = qkv_t + bias.to(qkv_t.dtype)[:, None]
     return flash_attention_cm(qkv_t, num_heads, scale)

@@ -5,9 +5,12 @@ present, so every worker collects the same tests. On the card:
 
     python -m pytest tests/test_torch_port_gpu.py -m gpu -q
 """
+from unittest import mock
+
 import pytest
 import torch
 
+from lwdetr_tpu_torch.models import transformer as tr
 from lwdetr_tpu_torch.ops import deform_attn as da
 from lwdetr_tpu_torch.ops import flash_attention as fa
 
@@ -113,28 +116,139 @@ def test_deform_attn_sep_panels_agrees_with_the_channel_major_kernel(cuda):
 
 def test_dispatch_counts_launches(cuda):
     kernels = (fa.window_attention_bias_kernel, fa.flash_attention_cm_kernel,
-               da.deform_attn_cm_kernel, da.deform_attn_sep_kernel)
+               da.deform_attn_cm_kernel, da.deform_attn_sep_kernel, fa.window_attention_kernel,
+               da.deform_attn_rowmajor_kernel)
     before = [k.launches for k in kernels]
     qkv = _qkv(cuda, 2, 64, 100, torch.float32)
     fa.attention_cm(qkv, 4, bias=torch.zeros(192, device="cuda"))  # N <= 128 with bias: K1
-    fa.attention_cm(qkv, 4)  # no bias: K2
+    fa.attention_cm(qkv, 4)  # N <= 128, no bias: K9
+    fa.attention_cm(_qkv(cuda, 2, 64, 128, torch.float32), 4)  # N = 128: still K9
+    fa.attention_cm(_qkv(cuda, 2, 64, 129, torch.float32), 4)  # N = 129: K2
     fa.attention_cm(_qkv(cuda, 2, 64, 200, torch.float32), 4,
                     bias=torch.zeros(192, device="cuda"))  # N > 128: bias inline, K2
+    da.ms_deform_attn(torch.zeros((1, 12, 2, 16), device="cuda"), [(3, 4)],
+                      torch.rand((1, 5, 2, 1, 2, 2), device="cuda"),
+                      torch.rand((1, 5, 2, 1, 2), device="cuda"))
     da.ms_deform_attn_cm(torch.zeros((1, 16, 12), device="cuda"), [(3, 4)],
                          torch.rand((1, 5, 2, 1, 2, 2), device="cuda"),
                          torch.rand((1, 5, 2, 1, 2), device="cuda"), 2)
     da.ms_deform_attn_sep_panels([torch.zeros((1, 2, 3, 4 * 16), device="cuda")], [(3, 4)],
                                  torch.rand((1, 5, 2, 1, 2, 2), device="cuda"),
                                  torch.rand((1, 5, 2, 1, 2), device="cuda"))
-    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 2, 1, 1]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 2, 1, 1, 2, 1]
 
 
-def test_autograd_on_cuda_is_refused(cuda):
-    # only the channel-major sampler (K3) has no backward kernel yet (K8)
-    value_t = torch.zeros((1, 16, 12), device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K8"):
-        da.ms_deform_attn_cm(value_t, [(3, 4)], torch.rand((1, 5, 2, 1, 2, 2), device="cuda"),
-                             torch.rand((1, 5, 2, 1, 2), device="cuda"), 2)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,N,heads", [(8, 256, 100, 8), (52, 256, 100, 8), (3, 64, 49, 2),
+                                         (2, 128, 128, 4), (2, 128, 1, 2), (3, 192, 100, 12),
+                                         (2, 768, 100, 12)])  # head_dim 32, 16, 64
+def test_window_attention_without_bias_matches_plain(cuda, dtype, B, C, N, heads):
+    qkv = _qkv(cuda, B, C, N, dtype).requires_grad_()
+    dout = torch.randn((B, C, N), generator=cuda, device="cuda").to(dtype)
+    kernels = (fa.window_attention_kernel, fa.window_attention_bwd_kernel,
+               fa.window_attention_bias_kernel, fa.window_attention_bias_bwd_kernel,
+               fa.flash_attention_cm_kernel, fa.flash_attention_cm_bwd_kernel)
+    before = [k.launches for k in kernels]
+    with mock.patch.object(fa, "attention_cm_plain", side_effect=AssertionError("plain")), \
+            mock.patch.object(fa, "attention_cm_bwd_plain", side_effect=AssertionError("plain")):
+        out = fa.attention_cm(qkv, heads, 0.7)
+        out.backward(dout)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 0, 0, 0, 0]
+    ref = fa.attention_cm_plain(qkv.detach().float(), heads, 0.7)
+    assert out.dtype == dtype and qkv.grad.dtype == dtype
+    torch.testing.assert_close(out.detach().float(), ref, atol=ATOL, rtol=RTOL[dtype])
+    _close_bwd(qkv.grad, fa.attention_cm_bwd_plain(qkv.detach().float(), dout.float(), heads, 0.7),
+               dtype, "K7 without a bias")
+
+
+def _sampler_points(g, B, Q, heads, L, P):
+    """A quarter of the points outside [0, 1]; some on the borders, far out, or NaN."""
+    loc = torch.rand((B, Q, heads, L, P, 2), generator=g, device="cuda") * 1.4 - 0.2
+    loc[0, 0, 0, 0, 0] = torch.tensor([0.0, 1.0])
+    loc[1, 0, 0, 0, 0] = torch.tensor([-1e9, 0.5])
+    loc[1, 0, 1, 0, 0] = torch.tensor([0.5, float("nan")])
+    w = torch.rand((B, Q, heads, L, P), generator=g, device="cuda")
+    return loc, w
+
+
+SAMPLER_CASES = [([(40, 40)], 1300, 16, 16, 2), ([(80, 80), (20, 20)], 301, 24, 16, 4),
+                 ([(16, 20), (8, 10)], 37, 3, 32, 2), ([(5, 7)], 1, 2, 16, 1)]
+
+
+def _check_sampler_grads(name, dtype, grads, refs):
+    (dv, dl, dw), (rv, rl, rw) = grads, refs
+    assert dv.dtype == dtype and dl.dtype == dw.dtype == torch.float32
+    # d(value) sums up to hundreds of atomic adds per position in an order that
+    # changes from run to run: 4 x the f32 bound
+    _close_bwd(dv, rv, dtype, f"{name} d(value)", atol_scale=4.0)
+    _close_bwd(dl, rl, torch.float32, f"{name} d(loc)")
+    _close_bwd(dw, rw, torch.float32, f"{name} d(weights)")
+    assert ((rv == 0) <= (dv == 0)).all()  # untouched positions get an exact zero
+    assert not dl[1, 0, 0, 0, 0].any() and not dl[1, 0, 1, 0, 0].any()  # far out, NaN
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shapes,Q,heads,D,P", SAMPLER_CASES)
+def test_deform_attn_cm_bwd_matches_plain(cuda, dtype, shapes, Q, heads, D, P):
+    B, L, len_in = 2, len(shapes), sum(h * w for h, w in shapes)
+    value_t = torch.randn((B, heads * D, len_in), generator=cuda, device="cuda").to(dtype)
+    value_t.requires_grad_()
+    loc, w = (t.requires_grad_() for t in _sampler_points(cuda, B, Q, heads, L, P))
+    dout = torch.randn((B, heads * D, Q), generator=cuda, device="cuda").to(dtype)
+    before = (da.deform_attn_cm_kernel.launches, da.deform_attn_cm_bwd_kernel.launches)
+    with mock.patch.object(da, "ms_deform_attn_cm_plain", side_effect=AssertionError("plain")), \
+            mock.patch.object(da, "ms_deform_attn_cm_bwd_plain",
+                              side_effect=AssertionError("plain")):
+        da.ms_deform_attn_cm(value_t, shapes, loc, w, heads).backward(dout)
+    assert (da.deform_attn_cm_kernel.launches, da.deform_attn_cm_bwd_kernel.launches) == \
+        (before[0] + 1, before[1] + 1)
+    refs = da.ms_deform_attn_cm_bwd_plain(value_t.detach().float(), shapes,
+                                          torch.nan_to_num(loc.detach(), nan=-5.0), w.detach(),
+                                          dout.float(), heads)
+    _check_sampler_grads("K8", dtype, (value_t.grad, loc.grad, w.grad), refs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shapes,Q,heads,D,P", SAMPLER_CASES)
+def test_deform_attn_row_major_matches_plain(cuda, dtype, shapes, Q, heads, D, P):
+    B, L, len_in = 2, len(shapes), sum(h * w for h, w in shapes)
+    value = torch.randn((B, len_in, heads, D), generator=cuda, device="cuda").to(dtype)
+    value.requires_grad_()
+    loc, w = (t.requires_grad_() for t in _sampler_points(cuda, B, Q, heads, L, P))
+    dout = torch.randn((B, Q, heads * D), generator=cuda, device="cuda").to(dtype)
+    kernels = (da.deform_attn_rowmajor_kernel, da.deform_attn_rowmajor_bwd_kernel,
+               da.deform_attn_sep_kernel, da.deform_attn_sep_bwd_kernel)
+    before = [k.launches for k in kernels]
+    with mock.patch.object(da, "ms_deform_attn_sep_panels_plain",
+                           side_effect=AssertionError("plain")), \
+            mock.patch.object(da, "ms_deform_attn_sep_panels_bwd_plain",
+                              side_effect=AssertionError("plain")):
+        out = da.ms_deform_attn(value, shapes, loc, w)
+        out.backward(dout)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 0, 0]
+    clean = torch.nan_to_num(loc.detach(), nan=-5.0)
+    ref = da.ms_deform_attn_plain(value.detach().float(), shapes, clean, w.detach())
+    assert out.shape == (B, Q, heads * D) and out.dtype == dtype
+    torch.testing.assert_close(out.detach().float(), ref, atol=ATOL, rtol=RTOL[dtype])
+    refs = da.ms_deform_attn_bwd_plain(value.detach().float(), shapes, clean, w.detach(),
+                                       dout.float())
+    _check_sampler_grads("K10", dtype, (value.grad, loc.grad, w.grad), refs)
+
+
+def test_row_major_sampler_refuses_what_the_kernel_does_not_take(cuda):
+    loc = torch.rand((1, 5, 2, 1, 2, 2), device="cuda")
+    w = torch.rand((1, 5, 2, 1, 2), device="cuda")
+    launches = da.deform_attn_rowmajor_kernel.launches
+    with pytest.raises(ValueError, match="D in"):
+        da.ms_deform_attn(torch.zeros((1, 12, 2, 8), device="cuda"), [(3, 4)], loc, w)
+    with pytest.raises(TypeError):
+        da.ms_deform_attn(torch.zeros((1, 12, 2, 16), device="cuda", dtype=torch.float16),
+                          [(3, 4)], loc, w)
+    with pytest.raises(ValueError, match="add up"):
+        da.ms_deform_attn(torch.zeros((1, 13, 2, 16), device="cuda"), [(3, 4)], loc, w)
+    with pytest.raises(ValueError, match="one device"):
+        da.ms_deform_attn(torch.zeros((1, 12, 2, 16), device="cuda"), [(3, 4)], loc, w.cpu())
+    assert da.deform_attn_rowmajor_kernel.launches == launches
 
 
 # Backward kernels against their plain versions in f32 on the same inputs. The
@@ -214,15 +328,16 @@ def test_backward_dispatch_counts_launches(cuda):
                fa.window_attention_bias_bwd_kernel)
     before = [k.launches for k in kernels]
     qkv = _qkv(cuda, 2, 64, 100, torch.float32).requires_grad_()
+    long_qkv = _qkv(cuda, 2, 64, 200, torch.float32).requires_grad_()
     bias = torch.zeros(192, device="cuda", requires_grad=True)
-    (fa.attention_cm(qkv, 4, bias=bias).sum() + fa.attention_cm(qkv, 4).sum()).backward()
+    (fa.attention_cm(qkv, 4, bias=bias).sum() + fa.attention_cm(long_qkv, 4).sum()).backward()
     assert bias.grad.shape == (192,)
     panel = torch.zeros((1, 2, 3, 4 * 16), device="cuda", requires_grad=True)
     da.ms_deform_attn_sep_panels([panel], [(3, 4)], torch.rand((1, 5, 2, 1, 2, 2), device="cuda"),
                                  torch.rand((1, 5, 2, 1, 2), device="cuda")).sum().backward()
     assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1]
     with torch.no_grad():  # no gradient wanted: K2 writes no log-sum-exp
-        fa.attention_cm(qkv, 4)
+        fa.attention_cm(long_qkv, 4)
     assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1]
 
 
@@ -257,10 +372,9 @@ def test_unsupported_shapes_raise(cuda):
 
 def test_one_train_step_through_the_kernels_matches_the_plain_backwards(cuda):
     """A reduced model's train step (forward, matching, losses, backward) on the
-    card: the gradients through K5, K6 and K7 against the same forward with
-    each backward swapped for its plain version, per parameter tensor."""
-    from unittest import mock
-
+    card, in each cross-attention branch: the gradients through the backward
+    kernels against the same forward with each backward swapped for its plain
+    version, per parameter tensor."""
     from lwdetr_tpu_torch.config import ModelConfig, TrainConfig
     from lwdetr_tpu_torch.models.criterion import SetCriterion, Targets
     from lwdetr_tpu_torch.models.lwdetr import build_model
@@ -279,10 +393,12 @@ def test_one_train_step_through_the_kernels_matches_the_plain_backwards(cuda):
     targets = Targets(torch.randint(0, 7, (2, 8), generator=cuda, device="cuda"),
                       torch.rand((2, 8, 4), generator=cuda, device="cuda") * 0.4 + 0.2,
                       (torch.arange(8, device="cuda") < 3).expand(2, -1).contiguous())
-    kernels = (fa.window_attention_bias_kernel, fa.flash_attention_cm_kernel,
-               da.deform_attn_cm_kernel, da.deform_attn_sep_kernel,
-               da.deform_attn_sep_bwd_kernel, fa.flash_attention_cm_bwd_kernel,
-               fa.window_attention_bias_bwd_kernel)
+    kernels = {k.name: k for k in (
+        fa.window_attention_bias_kernel, fa.flash_attention_cm_kernel, da.deform_attn_cm_kernel,
+        da.deform_attn_sep_kernel, da.deform_attn_sep_bwd_kernel,
+        fa.flash_attention_cm_bwd_kernel, fa.window_attention_bias_bwd_kernel,
+        da.deform_attn_cm_bwd_kernel, fa.window_attention_kernel, fa.window_attention_bwd_kernel,
+        da.deform_attn_rowmajor_kernel, da.deform_attn_rowmajor_bwd_kernel)}
 
     def grads():
         model.zero_grad(set_to_none=True)
@@ -290,21 +406,36 @@ def test_one_train_step_through_the_kernels_matches_the_plain_backwards(cuda):
         total.backward()
         return total.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
 
-    before = [k.launches for k in kernels]
-    loss_k, grads_k = grads()
-    # 2 window + 1 global block, 2 decoder layers; panels in train mode (K4, not K3)
-    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 3, 0, 2, 2, 3, 2]
-    with mock.patch.object(fa, "window_attention_bias_bwd",
-                           lambda qkv, bias, dout, heads, scale:
-                           fa.attention_cm_bwd_plain(qkv, dout, heads, scale, bias=bias)), \
-            mock.patch.object(fa, "flash_attention_cm_bwd",
-                              lambda qkv, out, lse, dout, heads, scale:
-                              fa.attention_cm_bwd_plain(qkv, dout, heads, scale, out=out)), \
-            mock.patch.object(da, "ms_deform_attn_sep_panels_bwd",
-                              da.ms_deform_attn_sep_panels_bwd_plain):
-        loss_p, grads_p = grads()
-    assert loss_p == pytest.approx(loss_k, rel=1e-6)
-    top = max(g.abs().max().item() for g in grads_p.values())
-    for name, g in grads_p.items():
-        err = (grads_k[name] - g).abs().max().item()
-        assert err <= 1e-3 * max(g.abs().max().item(), 1e-5 * top), name
+    # 2 window blocks (K1 / K7), 1 global block of 256 tokens (K2 / K6), 2 decoder
+    # layers: self-attention over 16 queries a group without a bias (K9 / K7nb)
+    # and the sampler of the branch
+    common = {"K1": 2, "K2": 1, "K6": 1, "K7": 2, "K9": 2, "K7nb": 2}
+    samplers = {None: {"K4": 2, "K5": 2}, "sep": {"K4": 2, "K5": 2}, "cm": {"K3": 2, "K8": 2},
+                "gather": {"K10": 2, "K10b": 2}}
+    losses = {}
+    for branch, expected in samplers.items():
+        tr.set_force_branch(model, branch)
+        before = {n: k.launches for n, k in kernels.items()}
+        loss_k, grads_k = grads()
+        assert {n: k.launches - before[n] for n, k in kernels.items()} == \
+            {n: {**common, **expected}.get(n, 0) for n in kernels}, branch
+        with mock.patch.object(fa, "window_attention_bias_bwd",
+                               lambda qkv, bias, dout, heads, scale:
+                               fa.attention_cm_bwd_plain(qkv, dout, heads, scale, bias=bias)), \
+                mock.patch.object(fa, "flash_attention_cm_bwd",
+                                  lambda qkv, out, lse, dout, heads, scale:
+                                  fa.attention_cm_bwd_plain(qkv, dout, heads, scale, out=out)), \
+                mock.patch.object(da, "ms_deform_attn_sep_panels_bwd",
+                                  da.ms_deform_attn_sep_panels_bwd_plain), \
+                mock.patch.object(da, "ms_deform_attn_cm_bwd",
+                                  da.ms_deform_attn_cm_bwd_plain), \
+                mock.patch.object(da, "ms_deform_attn_bwd", da.ms_deform_attn_bwd_plain):
+            loss_p, grads_p = grads()
+        assert loss_p == pytest.approx(loss_k, rel=1e-6)
+        top = max(g.abs().max().item() for g in grads_p.values())
+        for name, g in grads_p.items():
+            err = (grads_k[name] - g).abs().max().item()
+            assert err <= 1e-3 * max(g.abs().max().item(), 1e-5 * top), (branch, name)
+        losses[branch] = loss_k
+    # the three layouts compute one function
+    assert max(losses.values()) - min(losses.values()) <= 1e-4

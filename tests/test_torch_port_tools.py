@@ -33,6 +33,30 @@ from lwdetr_tpu_torch.breakdown import _group
      "K6 flash_attention_cm_bwd"),
     ("void (anonymous namespace)::window_attention_bias_bwd_kernel<float, 16>(float const*, "
      "float const*, float const*, float*, int, int, float)", "K7 window_attention_bias_bwd"),
+    ("void (anonymous namespace)::window_attention_bias_kernel<float, 16, true>(float const*, "
+     "float const*, float*, int, int, float)", "K1 window_attention_bias"),
+    ("void (anonymous namespace)::window_attention_bias_kernel<__nv_bfloat16, 32, false>"
+     "(__nv_bfloat16 const*, float const*, __nv_bfloat16*, int, int, float)",
+     "K9 window_attention (no bias)"),
+    ("void (anonymous namespace)::window_attention_bias_bwd_kernel<float, 16, true>(float const*, "
+     "float const*, float const*, float*, int, int, float)", "K7 window_attention_bias_bwd"),
+    ("void (anonymous namespace)::window_attention_bias_bwd_kernel<float, 32, false>(float const*, "
+     "float const*, float const*, float*, int, int, float)", "K7 window_attention_bwd (no bias)"),
+    ("void (anonymous namespace)::deform_attn_cm_bwd_kernel<float>(float const*, float const*, "
+     "float const*, float const*, float*, float*, float*, int, int, int, int, int, (anonymous",
+     "K8 deform_attn_cm_bwd"),
+    ("void (anonymous namespace)::deform_attn_sep_kernel<float, lw::PanelLayout>(float const*, "
+     "float const*, float*, int, int, int, int, (anonymous namespace)::Levels, unsigned long)",
+     "K4 deform_attn_sep"),
+    ("void (anonymous namespace)::deform_attn_sep_kernel<float, lw::RowMajorLayout>(float const*, "
+     "float const*, float*, int, int, int, int, (anonymous namespace)::Levels, unsigned long)",
+     "K10 deform_attn_rowmajor"),
+    ("void (anonymous namespace)::deform_attn_sep_bwd_kernel<float, lw::PanelLayout>(float "
+     "const*, float const*, float const*, float*, float*, int, int, int, int, (anonymous",
+     "K5 deform_attn_sep_bwd"),
+    ("void (anonymous namespace)::deform_attn_sep_bwd_kernel<float, lw::RowMajorLayout>(float "
+     "const*, float const*, float const*, float*, float*, int, int, int, int, (anonymous",
+     "K10 deform_attn_rowmajor_bwd"),
     ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<at::native::"
      "(anonymous namespace)::TensorListMetadata<4>, at::native::(anonymous namespace)::"
      "FusedAdamMathFunctor", "optimizer/EMA (foreach)"),
@@ -75,6 +99,17 @@ def test_tools_take_every_vit_preset(tool, preset):
 def test_tools_refuse_an_unknown_preset(tool):
     with pytest.raises(SystemExit):
         tool.parser().parse_args(["--preset", "huge"])
+
+
+@pytest.mark.parametrize("tool", [bench, breakdown, bench_train],
+                         ids=["bench", "breakdown", "bench_train"])
+def test_tools_take_a_force_branch(tool):
+    args = tool.parser().parse_args(["--preset", "tiny"])
+    assert args.force_branch is None
+    for branch in ("sep", "cm", "gather"):
+        assert tool.parser().parse_args(["--force_branch", branch]).force_branch == branch
+    with pytest.raises(SystemExit):
+        tool.parser().parse_args(["--force_branch", "dense"])
 
 
 def test_bench_train_makes_the_synthetic_batch_from_a_seed():
