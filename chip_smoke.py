@@ -10,9 +10,11 @@ Run from the root of a checkout, with one card:
    shared-memory and spill report of every template case.
 2. Holds each kernel against its plain PyTorch version, in f32 and bf16, at
    every shape a 640x640 path gives it (eval batch 8, train batch 4): K1 and
-   K2 at small's, large's and xlarge's (head_dim 16, 32, 64), with one
-   `F.scaled_dot_product_attention` call timed on the same inputs (a yardstick
-   the port never calls); the samplers on one set of inputs (border and
+   K2 at small's, large's and xlarge's (head_dim 16, 32, 64; medium's are
+   large's and small's), with one `F.scaled_dot_product_attention` call timed
+   on the same inputs (a yardstick the port never calls; `sdpa_ratio`), the
+   registers and spilled bytes of the case that ran, and K2's log-sum-exp
+   against the plain one; the samplers on one set of inputs (border and
    far-outside queries included) in their three layouts: K3 (channel-major) at
    small's and tiny's eval forward and tiny's "cm" train step, K4 (panels) at
    large's two levels and at small's and tiny's train step, K5 at small's,
@@ -22,16 +24,20 @@ Run from the root of a checkout, with one card:
    head_dim 64) with SDPA's backward beside them; K9 (the short attention
    without a bias) at tiny's decoder, batch 8 and 13 groups x 4, with K2 and
    SDPA on the same inputs, and its backward with SDPA's beside it.
-3. Drives four eval forwards + `post_process` at 640x640 from
-   `init_state_dict(seed=0)`, batch 8, f32: small, then xlarge, then large
-   and tiny (100 queries).
+3. Drives five eval forwards + `post_process` at 640x640 from
+   `init_state_dict(seed=0)`, batch 8, f32: small, then xlarge, large, tiny
+   (100 queries) and medium (ViT-small on P4).
    Every launch counter is set to 0 just before a forward and read just after:
-   small must launch K1 6 times, K2 7, K3 3 and K4 0; xlarge and large K1 6,
-   K2 7, K3 0 and K4 3; tiny K1 3, K2 3, K9 3 and K3 3; no other kernel. The same model forced onto the plain versions, and
-   given the same two-stage proposal picks (near-tied scores may swap under
-   rounding; the picks are compared on their own), gives the reference
-   outputs. The bf16 model must give finite outputs. Then the bf16 throughput
-   of each preset at batch 32 (`lwdetr_tpu_torch.bench`).
+   small and medium must launch K1 6 times, K2 7, K3 3 and K4 0; xlarge and
+   large K1 6, K2 7, K3 0 and K4 3; tiny K1 3, K2 3, K9 3 and K3 3; no other
+   kernel. The same model forced onto the plain versions, and given the same
+   two-stage proposal picks (near-tied scores may swap under rounding; the
+   picks are compared on their own), gives the reference outputs. The same
+   weights in bf16 (float32 parameters, bf16 compute) launch the same
+   kernels and, with the same picks, agree with their forward on the plain
+   versions over all queries within the bf16 drift ceiling, with float32
+   boxes. Then the bf16 throughput of each preset at batch 32
+   (`lwdetr_tpu_torch.bench`).
 4. Drives the train step of LW-DETR-small at 640x640, f32, batch 4, on one
    synthetic batch with 7 boxes an image: one step's gradients through the
    kernels against the same forward with the plain backward versions, per
@@ -76,8 +82,21 @@ EXP_PER_S = 16 * 132 * 1.98e9
 # even, so it lies within half a bf16 ulp of the f32 result, which is at most
 # 2^-8 of the value. A dropped or mis-scaled key tile, or a truncating
 # conversion, breaks that bound.
+# The bf16 attention kernels (K1, K2, K9) also round the softmax weights p to
+# bf16 before PV, as the JAX kernels do: they are held to
+# `flash_attention.bf16_error_bound`, ATOL + 2^-8 |plain| + 2^-8
+# plain(q, k, |v|), against the plain version that rounds alike (and, beside
+# it, against the f32 plain version on the same bf16 values).
 ATOL = 2e-5
 RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
+ATTENTION_BF16_TOL = ("|kernel - plain| <= 2e-5 + 2^-8 |plain| + 2^-8 plain(q, k, |v|), plain "
+                      "rounding p to bf16 before PV (and f32 plain on the same values); f32: 2e-5")
+# K2's row log-sum-exp (log2 units) against the plain one from the f32 scores
+LSE_ATOL, LSE_RTOL = 2e-5, 2.0 ** -8
+# bf16 eval forward, kernels vs plain versions with the same picks, over all
+# queries: the JAX package's own bf16-vs-f32 drift ceiling
+# (tests/test_micro_map_golden.py::test_bf16_forward_drift_vs_f32)
+BF16_DRIFT = {"prob_mean": 0.01, "prob_max": 0.2, "box_mean": 0.03}
 # whole 640x640 forward, kernels vs plain versions, f32: ~20 layers of
 # f32 sums in another order. On an H100 the three presets read 1.6e-5 to
 # 3.1e-5 on the logits and 1.5e-6 to 4.7e-6 on the boxes (the largest on
@@ -107,7 +126,8 @@ def launch_counts(**counts):
 EXPECTED_LAUNCHES = {"small": launch_counts(K1=6, K2=7, K3=3),
                      "xlarge": launch_counts(K1=6, K2=7, K4=3),
                      "large": launch_counts(K1=6, K2=7, K4=3),
-                     "tiny": launch_counts(K1=3, K2=3, K9=3, K3=3)}
+                     "tiny": launch_counts(K1=3, K2=3, K9=3, K3=3),
+                     "medium": launch_counts(K1=6, K2=7, K3=3)}
 # one train step: the forward's launches (the decoder samples from panels in
 # train mode: K4, not K3) and one backward launch for each; tiny's decoder
 # folds its 13 groups of 100 queries into the batch, so K9 and the short
@@ -215,52 +235,105 @@ def attention_inputs(torch, B, C, N, heads, dtype, bias, seed):
     return qkv, b
 
 
+def check_bound(torch, name, out, ref, bound):
+    """max |out - ref|; raises unless every element is within `bound`."""
+    diff = (out.float() - ref).abs()
+    excess = (diff - bound).max().item()
+    if not torch.isfinite(out).all() or excess > 0:
+        raise AssertionError(f"{name}: max abs err {diff.max().item()}, over its bound by {excess}")
+    return diff.max().item()
+
+
 def compare_attention(torch, F, fa, measure_ms, name, B, C, N, heads, scale, bias, dtype):
-    """Kernel vs plain (and SDPA) on one attention shape; returns the numbers."""
+    """Kernel vs plain (and SDPA) on one attention shape; returns the numbers.
+    `ms` is the time of back-to-back calls, host work included; `device_ms`
+    the time of the same calls replayed from a CUDA graph, the device's alone
+    (the two part where the wrapper's host time exceeds the kernel's)."""
+    import math
+
+    from lwdetr_tpu_torch.utils.timing import measure_graph_ms
+
     dt = getattr(torch, dtype)
     qkv, b = attention_inputs(torch, B, C, N, heads, dt, bias, seed=N + C)
     D = C // heads
+    kernel_obj = {"K1": fa.window_attention_bias_kernel, "K2": fa.flash_attention_cm_kernel,
+                  "K9": fa.window_attention_kernel}[name]
     if bias:
         kernel = lambda: fa.window_attention_bias(qkv, b, heads, scale)  # noqa: E731
-        # the kernel adds the f32 bias to the loaded panel: the reference gets
-        # the same f32 sum; the timed plain version is `attention_cm`'s own
-        qkv_lib = qkv.float() + b[:, None]
+        # the panel the kernel attends over: in bf16 one rounding of x + bf16(b)
+        # (`attention_cm`'s CPU path and the JAX kernel), in f32 the f32 sum
+        panel = qkv + b.to(dt)[:, None]
+        # the plain version as `attention_cm`'s CPU path runs it, here on the card
         plain = lambda: fa.attention_cm_plain(qkv + b.to(dt)[:, None], heads, scale)  # noqa: E731
     else:
         wrapper = fa.window_attention if name == "K9" else fa.flash_attention_cm
         kernel = lambda: wrapper(qkv, heads, scale)  # noqa: E731
-        qkv_lib = qkv.float()
+        panel = qkv
         plain = lambda: fa.attention_cm_plain(qkv, heads, scale)  # noqa: E731
-    q, k, v = (qkv_lib.to(dt).reshape(B, 3, heads, D, N)[:, i].transpose(-1, -2).contiguous()
+    q, k, v = (panel.reshape(B, 3, heads, D, N)[:, i].transpose(-1, -2).contiguous()
                for i in range(3))
     library = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)  # noqa: E731
     with torch.no_grad():
         out = kernel()
-        ref = fa.attention_cm_plain(qkv_lib, heads, scale)  # f32: the reference
+        ref32 = fa.attention_cm_plain(panel.float(), heads, scale)  # f32 on the same values
         lib = library().transpose(-1, -2).reshape(B, C, N)
         torch.cuda.synchronize()
-        err = check_close(torch, f"{name} {tuple(qkv.shape)}", dtype, out, ref)
-        lib_err = (lib.float() - ref).abs().max().item()
+        tag = f"{name} {dtype} {tuple(qkv.shape)}"
+        if dtype == "bfloat16":
+            ref = fa.attention_cm_plain(panel, heads, scale).float()  # p rounded to bf16
+            err = check_bound(torch, tag, out, ref, fa.bf16_error_bound(panel, heads, scale, ref))
+            err32 = check_bound(torch, tag + " vs f32 plain", out, ref32,
+                                fa.bf16_error_bound(panel, heads, scale, ref32))
+        else:
+            ref = ref32
+            err = err32 = check_close(torch, tag, dtype, out, ref)
+        lib_err = (lib.float() - ref32).abs().max().item()
+        lse_err = None
+        if name == "K2":  # the row log-sum-exp K6 reads, log2 units, vs the f32 scores'
+            out2, lse = fa.flash_attention_cm_fwd(qkv, heads, scale, with_lse=True)
+            x = panel.float().reshape(B, 3, heads, D, N)
+            s = torch.einsum("bhdn,bhdm->bhnm", x[:, 0] * scale, x[:, 1])
+            lse_ref = torch.logsumexp(s, dim=-1) / math.log(2.0)
+            del s
+            lse_err = check_bound(torch, tag + " lse", lse, lse_ref,
+                                  LSE_ATOL + LSE_RTOL * lse_ref.abs())
+            if not torch.equal(out2, out):
+                raise AssertionError(f"{tag}: writing the log-sum-exp changed the output")
+        attrs = fa.kernel_attributes(kernel_obj, qkv, heads)
         ms = measure_ms(kernel)["ms"]
+        device_ms = measure_graph_ms(kernel)["ms"]
         plain_ms = measure_ms(plain, iters=5)["ms"]
         library_ms = measure_ms(library)["ms"]
+        library_device_ms = measure_graph_ms(library)["ms"]
         # the long-sequence kernel on the short kernel's inputs: what the decoder ran before K9
-        k2_ms = (measure_ms(lambda: fa.flash_attention_cm(qkv, heads, scale))["ms"]
-                 if name == "K9" else None)
+        k2 = lambda: fa.flash_attention_cm(qkv, heads, scale)  # noqa: E731
+        k2_ms = measure_ms(k2)["ms"] if name == "K9" else None
+        k2_device_ms = measure_graph_ms(k2)["ms"] if name == "K9" else None
     isz = qkv.element_size()
     nbytes = B * 4 * C * N * isz + (3 * C * 4 if bias else 0)
     flops = 4 * B * heads * N * N * D
     exps = B * heads * N * N
     bms, by, parts = bound_ms(nbytes, flops, exps, dtype)
-    log(f"{name} {dtype} qkv {tuple(qkv.shape)}: err {err:.3g} (sdpa vs plain {lib_err:.3g}) "
-        f"ms {ms:.4f} plain {plain_ms:.4f} sdpa {library_ms:.4f} "
-        + (f"K2 {k2_ms:.4f} " if k2_ms is not None else "") + f"bound {bms:.4f} ({by}; "
-        + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in parts.items()) + ")")
-    res = {"shape": list(qkv.shape), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+    log(f"{tag}: err {err:.3g} (vs f32 plain {err32:.3g}; sdpa vs f32 plain {lib_err:.3g}"
+        + (f"; lse {lse_err:.3g}" if lse_err is not None else "") + f") ms {ms:.4f} plain "
+        f"{plain_ms:.4f} sdpa {library_ms:.4f} (x{ms / library_ms:.2f}); device (graph) {device_ms:.4f}"
+        f" sdpa {library_device_ms:.4f} "
+        + (f"K2 {k2_ms:.4f} / {k2_device_ms:.4f} " if k2_ms is not None else "")
+        + f"bound {bms:.4f} ({by}; "
+        + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in parts.items())
+        + f"); {attrs['registers']} registers, {attrs['spill_bytes']} spilled bytes")
+    res = {"shape": list(qkv.shape), "max_abs_err": err, "max_abs_err_vs_f32_plain": err32,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           "library_ms": library_ms, "sdpa_ratio": ms / library_ms, "device_ms": device_ms,
+           "library_device_ms": library_device_ms,
+           "sdpa_ratio_device": device_ms / library_device_ms,
+           "registers": attrs["registers"], "spill_bytes": attrs["spill_bytes"],
            "bound_parts_ms": {k: v * 1e3 for k, v in parts.items()}}
+    if lse_err is not None:
+        res["lse_max_abs_err"] = lse_err
     if k2_ms is not None:
         res["k2_ms_same_inputs"] = k2_ms
+        res["k2_device_ms_same_inputs"] = k2_device_ms
     return res
 
 
@@ -674,27 +747,58 @@ def forward_phase(torch, fa, da, kernels, preset):
     if not torch.isfinite(scores).all() or scores.shape != (BATCH, cfg.num_select):
         raise AssertionError("post_process scores are not finite or of the wrong shape")
 
-    # the same weights in bf16 (the deployed precision), with the f32 run's
-    # proposal picks (bf16 scores tie often): finite, and how far from f32
-    # (reported, not bounded: bf16 rounds at every layer)
+    # the same weights in bf16 (the deployed precision: float32 parameters,
+    # bf16 compute), with the f32 run's proposal picks (bf16 scores tie often):
+    # the same launches; how far from f32 (reported: bf16 rounds at every
+    # layer); and, on the same picks, the bf16 forward on the plain versions
+    # (which round p as the kernels do) over all queries, within the JAX
+    # package's bf16 drift ceiling, with float32 boxes
     model16 = build_model(cfg, device="cuda", dtype=torch.bfloat16,
                           state_dict=init_state_dict(cfg, seed=0))
+    images16 = images.to(torch.bfloat16)
     own_picks.clear()
+    for k in kernels:
+        k.launches = 0
     with torch.no_grad(), mock.patch.object(tr, "select_proposals", replay):
-        out16 = model16(images.to(torch.bfloat16))
+        out16 = model16(images16)
+    launches16 = {k.name: k.launches for k in kernels}
+    if launches16 != EXPECTED_LAUNCHES[preset]:
+        raise AssertionError(f"{preset} bf16: launches {launches16} != {EXPECTED_LAUNCHES[preset]}")
     if len(own_picks) != len(picks):
         raise AssertionError(f"bf16 forward replayed {len(own_picks)} of {len(picks)} picks")
     if not (torch.isfinite(out16["pred_logits"]).all() and torch.isfinite(out16["pred_boxes"]).all()):
         raise AssertionError("non-finite bf16 outputs")
+    if out16["pred_boxes"].dtype != torch.float32 or out16["pred_logits"].dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 forward: boxes {out16['pred_boxes'].dtype}, logits "
+                             f"{out16['pred_logits'].dtype}")
     bf16_set = min(len(set(a.tolist()) & set(b.tolist())) / a.numel()
                    for a, b in zip(picks[0], own_picks[0]))
     bf16_l = (out16["pred_logits"].float() - logits).abs().max().item()
     bf16_b = (out16["pred_boxes"].float() - boxes).abs().max().item()
     log(f"{preset}@640 bf16 forward vs f32 (f32 picks): logits max diff {bf16_l:.3g}, "
         f"boxes {bf16_b:.3g}; bf16's own picks share {bf16_set:.4f} of the f32 set")
+    own_picks.clear()
+    with torch.no_grad(), mock.patch.object(fa, "attention_cm", plain_attention(fa)), \
+            mock.patch.object(da, "ms_deform_attn_cm", da.ms_deform_attn_cm_plain), \
+            mock.patch.object(da, "ms_deform_attn_sep_panels",
+                              da.ms_deform_attn_sep_panels_plain), \
+            mock.patch.object(tr, "select_proposals", replay):
+        ref16 = model16(images16)
+    if [k.launches for k in kernels] != list(launches16.values()):
+        raise AssertionError(f"{preset}: the plain bf16 forward launched a kernel")
+    dp = (out16["pred_logits"].float().sigmoid() - ref16["pred_logits"].float().sigmoid()).abs()
+    db = (out16["pred_boxes"] - ref16["pred_boxes"]).abs()
+    drift = {"prob_mean": dp.mean().item(), "prob_max": dp.max().item(),
+             "box_mean": db.mean().item()}
+    log(f"{preset}@640 bf16 forward, kernels vs plain, all {cfg.num_queries} queries: " +
+        ", ".join(f"{k} {v:.3g} (ceiling {BF16_DRIFT[k]})" for k, v in drift.items()) +
+        f"; boxes max {db.max().item():.3g}")
+    if any(v >= BF16_DRIFT[k] for k, v in drift.items()):
+        raise AssertionError(f"{preset}: bf16 forward drifts from its plain versions: {drift}")
     return launches, {"logits_max_abs_err": err_l, "boxes_max_abs_err": err_b,
                       "bf16_vs_f32_logits_max_diff": bf16_l, "bf16_vs_f32_boxes_max_diff": bf16_b,
                       "bf16_own_picks_same_set_min": bf16_set,
+                      "bf16_kernels_vs_plain": {**drift, "box_max": db.max().item()},
                       "topk_overlap_min": min(overlap), "proposal_picks_same_position": same_pos,
                       "proposal_picks_same_set_min": same_set}
 
@@ -953,8 +1057,9 @@ def main() -> int:
                  "replaces": REPLACES[name], "launches": launches[path][name], "path": path,
                  "launches_by_path": {p: launches[p][name] for p in launches},
                  "dtype": "bfloat16", **res[(name, "bfloat16")], "f32": res[(name, "float32")],
-                 "tolerance": f"|kernel - plain f32| <= {ATOL}{BWD_TOL.get(name, '')} + "
-                              f"{RTOL['bfloat16']} x |plain| (f32: {ATOL}{BWD_TOL.get(name, '')})"}
+                 "tolerance": (ATTENTION_BF16_TOL if name in ("K1", "K2", "K9") else
+                               f"|kernel - plain f32| <= {ATOL}{BWD_TOL.get(name, '')} + "
+                               f"{RTOL['bfloat16']} x |plain| (f32: {ATOL}{BWD_TOL.get(name, '')})")}
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
         if name in ("K2", "K6"):

@@ -43,9 +43,10 @@ from lwdetr_tpu_torch.utils.timing import measure_ms
 # are kernels of their own differ in a template argument: `false` for no bias
 # (K9, and K7 without a bias), the row-major layout (K10), so they come first.
 GROUPS = (
-    ("K9 window_attention (no bias)", (r"window_attention_bias_kernel<[^(]*false>",)),
-    ("K1 window_attention_bias", ("window_attention_bias_kernel",)),
-    ("K2 flash_attention_cm", ("flash_attention_cm_kernel",)),
+    ("K9 window_attention (no bias)", (r"window_attention_bias_kernel<[^(]*false>",
+                                       r"window_attention_mma_kernel<[^(]*false>")),
+    ("K1 window_attention_bias", ("window_attention_bias_kernel", "window_attention_mma_kernel")),
+    ("K2 flash_attention_cm", ("flash_attention_cm_kernel", "flash_attention_cm_mma_kernel")),
     ("K8 deform_attn_cm_bwd", ("deform_attn_cm_bwd_kernel",)),
     ("K3 deform_attn_cm", ("deform_attn_cm_kernel",)),
     ("K10 deform_attn_rowmajor", (r"deform_attn_sep_kernel<[^(]*rowmajorlayout",)),

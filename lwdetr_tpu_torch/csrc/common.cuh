@@ -1,5 +1,6 @@
 // Shared helpers for the port's kernels: dtype conversion through the
-// intrinsics, and the error-string export every library carries.
+// intrinsics, a kernel's attributes, and the error-string export every
+// library carries.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,6 +22,18 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
+
+// attrs[0..2]: registers a thread, local (spilled) bytes a thread, static
+// shared bytes a block of the kernel `fn`
+inline int kernel_attributes(const void* fn, int* attrs) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return err;
+  attrs[0] = a.numRegs;
+  attrs[1] = static_cast<int>(a.localSizeBytes);
+  attrs[2] = static_cast<int>(a.sharedSizeBytes);
+  return cudaSuccess;
+}
 
 }  // namespace lw
 

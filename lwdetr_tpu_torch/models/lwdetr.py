@@ -7,6 +7,12 @@ unpadded (the release `square_resize_div_64` recipe), so no padding masks are
 built. The decoder never reads per-level position embeddings, so none are
 computed. Stochastic depth and dropout are not ported: a config that sets
 either is refused in train mode (the large and xlarge recipes).
+
+Parameters and buffers are float32 in every compute dtype, as in the JAX
+package; `compute_dtype` (float32 or bfloat16, set by `build_model`) is the
+dtype of the activations, and each layer casts its weights to it where it
+uses them (`models/cast.py`). The reference points and so `pred_boxes` stay
+float32.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch
 from torch import nn
 
 from lwdetr_tpu_torch.config import ModelConfig
+from lwdetr_tpu_torch.models.cast import Linear, cast_params
 from lwdetr_tpu_torch.models.projector import LEVEL2SCALE, MultiScaleProjector
 from lwdetr_tpu_torch.models.transformer import MLPHead, Transformer, box_reparam_combine
 from lwdetr_tpu_torch.models.vit import ViT
@@ -61,15 +68,17 @@ class LWDETR(nn.Module):
             dim_feedforward=cfg.dim_feedforward, group_detr=cfg.group_detr,
             num_feature_levels=cfg.num_feature_levels, dec_n_points=cfg.dec_n_points,
             decoder_norm=cfg.decoder_norm, num_classes=cfg.num_classes)
-        self.class_embed = nn.Linear(cfg.hidden_dim, cfg.num_classes)
+        self.class_embed = Linear(cfg.hidden_dim, cfg.num_classes)
         self.bbox_embed = MLPHead(cfg.hidden_dim, cfg.hidden_dim, 4, 3)
         nq = cfg.num_queries * cfg.group_detr
         self.refpoint_embed = nn.Embedding(nq, 4)
         self.query_feat = nn.Embedding(nq, cfg.hidden_dim)
+        self.compute_dtype = torch.float32
 
     def forward(self, images: torch.Tensor) -> dict:
-        """images (B, H, W, 3) normalized -> dict(pred_logits (B, Q, K),
-        pred_boxes (B, Q, 4) cxcywh in [0, 1], aux_outputs, enc_outputs)."""
+        """images (B, H, W, 3) normalized, cast to `compute_dtype` ->
+        dict(pred_logits (B, Q, K) in `compute_dtype`, pred_boxes (B, Q, 4)
+        float32 cxcywh in [0, 1], aux_outputs, enc_outputs)."""
         cfg = self.cfg
         if self.training and (cfg.drop_path or cfg.dropout):
             raise NotImplementedError(
@@ -77,9 +86,12 @@ class LWDETR(nn.Module):
                 "depth and dropout belong to the large / xlarge training slice, not ported yet")
         groups = cfg.group_detr if self.training else 1
         nq = cfg.num_queries * groups
-        feats = self.backbone[0](images)
+        feats = self.backbone[0](images.to(self.compute_dtype))
+        query_feat = self.query_feat.weight
+        (query_feat,) = cast_params(self, ("query_feat", nq), self.compute_dtype, (query_feat,),
+                                    lambda: (query_feat[:nq],))
         hs, ref, hs_enc, ref_enc = self.transformer(
-            feats, self.refpoint_embed.weight[:nq], self.query_feat.weight[:nq])
+            feats, self.refpoint_embed.weight[:nq], query_feat)
         outputs_coord = box_reparam_combine(ref, self.bbox_embed(hs).float())
         outputs_class = self.class_embed(hs)
         out = {"pred_logits": outputs_class[-1], "pred_boxes": outputs_coord[-1]}
@@ -126,15 +138,19 @@ def resolve_device(device=None) -> torch.device:
 
 def build_model(cfg: ModelConfig, device=None, dtype: torch.dtype = torch.float32,
                 state_dict: Optional[dict] = None, train: bool = False) -> LWDETR:
-    """LW-DETR on `device` (CUDA unless given) in `dtype`; `state_dict`
+    """LW-DETR on `device` (CUDA unless given) computing in `dtype`, with
+    float32 parameters and buffers (the JAX package's rule); `state_dict`
     (reference keys) is loaded strictly. By default an eval-mode model with
     its parameters frozen; `train=True` gives a train-mode model whose
-    parameters require grad (f32 only: the train step keeps no master copy)."""
+    parameters require grad (f32 only: bf16 training is not ported)."""
     device = resolve_device(device)
     if train and dtype != torch.float32:
         raise NotImplementedError(f"training in {dtype}: only float32 training is ported")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
     model = LWDETR(cfg)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     model.requires_grad_(train)
-    return model.to(device=device, dtype=dtype).train(train)
+    model.compute_dtype = dtype
+    return model.to(device=device).train(train)

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lwdetr_tpu_torch.models.cast import Conv2d, ConvTranspose2d
+
 LEVEL2SCALE = {"P3": 2.0, "P4": 1.0, "P5": 0.5, "P6": 0.25}
 
 
@@ -46,7 +48,7 @@ class ConvX(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  act: str = "relu"):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride, padding=kernel // 2, bias=False)
+        self.conv = Conv2d(cin, cout, kernel, stride, padding=kernel // 2, bias=False)
         self.bn = BatchNorm2d(cout, eps=1e-5, momentum=0.1)
         self.act = {"silu": F.silu, "relu": F.relu}[act]
 
@@ -113,14 +115,14 @@ class GELU(nn.Module):
 def sampling_layers(scale: float, in_dim: int):
     """(layers resampling one (B, in_dim, H, W) tap to `scale`, their output channels)."""
     if scale == 4.0:  # ConvT(2, 2) -> channel LN -> GELU -> ConvT(2, 2); C -> C / 4
-        return [nn.ConvTranspose2d(in_dim, in_dim // 2, 2, stride=2),
+        return [ConvTranspose2d(in_dim, in_dim // 2, 2, stride=2),
                 ChannelLayerNorm(in_dim // 2), GELU(),
-                nn.ConvTranspose2d(in_dim // 2, in_dim // 4, 2, stride=2)], in_dim // 4
+                ConvTranspose2d(in_dim // 2, in_dim // 4, 2, stride=2)], in_dim // 4
     if scale == 2.0:  # [1x1 reduce if C > 512] -> ConvT(2, 2)
         if in_dim > 512:
             return [ConvX(in_dim, in_dim // 2, 1),
-                    nn.ConvTranspose2d(in_dim // 2, in_dim // 4, 2, stride=2)], in_dim // 4
-        return [nn.ConvTranspose2d(in_dim, in_dim // 2, 2, stride=2)], in_dim // 2
+                    ConvTranspose2d(in_dim // 2, in_dim // 4, 2, stride=2)], in_dim // 4
+        return [ConvTranspose2d(in_dim, in_dim // 2, 2, stride=2)], in_dim // 2
     if scale == 1.0:
         return [], in_dim
     if scale == 0.5:  # stride-2 3x3 ConvX, channels preserved

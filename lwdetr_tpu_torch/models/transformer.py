@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lwdetr_tpu_torch.models.cast import LayerNorm, Linear, cast_params, weight_and_bias
 from lwdetr_tpu_torch.models.vit import DenseCM, dense_to_cm
 from lwdetr_tpu_torch.ops import deform_attn as da
 from lwdetr_tpu_torch.ops import flash_attention as fa
@@ -47,7 +48,7 @@ class MLPHead(nn.Module):
     def __init__(self, input_dim: int, hidden_dim: int, output_dim: int, num_layers: int):
         super().__init__()
         dims = [input_dim] + [hidden_dim] * (num_layers - 1) + [output_dim]
-        self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+        self.layers = nn.ModuleList(Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, layer in enumerate(self.layers):
@@ -70,7 +71,7 @@ class MultiheadSelfAttention(nn.Module):
     def forward(self, qk: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         """qk (B, N, C) feeds queries and keys, v (B, N, C) values -> (B, N, C)."""
         C = qk.shape[-1]
-        w, b = self.in_proj_weight, self.in_proj_bias
+        w, b = cast_params(self, "in_proj", qk.dtype, (self.in_proj_weight, self.in_proj_bias))
         qkv_t = torch.cat([dense_to_cm(qk, w[:2 * C], b[:2 * C]),
                            dense_to_cm(v, w[2 * C:], b[2 * C:])], dim=1)  # (B, 3C, N)
         out_t = fa.attention_cm(qkv_t, self.num_heads, scale=(C // self.num_heads) ** -0.5)
@@ -93,9 +94,9 @@ class MSDeformAttnModule(nn.Module):
             raise ValueError(f"force_branch must be None or one of {BRANCHES}, got {force_branch!r}")
         self.n_levels, self.n_heads, self.n_points = n_levels, n_heads, n_points
         self.force_branch = force_branch
-        self.sampling_offsets = nn.Linear(d_model, n_heads * n_levels * n_points * 2)
-        self.attention_weights = nn.Linear(d_model, n_heads * n_levels * n_points)
-        self.value_proj = nn.Linear(d_model, d_model)
+        self.sampling_offsets = Linear(d_model, n_heads * n_levels * n_points * 2)
+        self.attention_weights = Linear(d_model, n_heads * n_levels * n_points)
+        self.value_proj = Linear(d_model, d_model)
         self.output_proj = DenseCM(d_model, d_model)
 
     def value_panels(self, memory_levels: Sequence[torch.Tensor],
@@ -138,7 +139,7 @@ class MSDeformAttnModule(nn.Module):
         if branch is None:
             branch = "sep" if self.training or memory.shape[1] >= SEP_MIN_LEN_IN else "cm"
         if branch == "cm":
-            value_t = dense_to_cm(memory, self.value_proj.weight, self.value_proj.bias)
+            value_t = dense_to_cm(memory, *weight_and_bias(self.value_proj, memory.dtype))
             out_t = da.ms_deform_attn_cm(value_t, spatial_shapes, loc, weights, H)  # (B, C, Q)
             return self.output_proj(out_t)
         if branch == "sep":
@@ -147,7 +148,7 @@ class MSDeformAttnModule(nn.Module):
         else:
             value = self.value_proj(memory).reshape(B, -1, H, C // H)
             out = da.ms_deform_attn(value, spatial_shapes, loc, weights)  # (B, Q, C)
-        return F.linear(out, self.output_proj.weight, self.output_proj.bias)
+        return F.linear(out, *weight_and_bias(self.output_proj, out.dtype))
 
 
 class DecoderLayer(nn.Module):
@@ -158,12 +159,12 @@ class DecoderLayer(nn.Module):
         super().__init__()
         self.group_detr = group_detr
         self.self_attn = MultiheadSelfAttention(d_model, sa_nheads)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.cross_attn = MSDeformAttnModule(d_model, n_levels, ca_nheads, n_points)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
-        self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
+        self.norm3 = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, tgt, memory, query_pos, reference_points, spatial_shapes, memory_levels):
         B, Q, C = tgt.shape
@@ -237,7 +238,7 @@ class Decoder(nn.Module):
                          group_detr)
             for _ in range(dec_layers))
         self.ref_point_head = MLPHead(2 * d_model, d_model, d_model, 2)
-        self.norm = nn.LayerNorm(d_model, eps=1e-5) if decoder_norm == "LN" else nn.Identity()
+        self.norm = LayerNorm(d_model, eps=1e-5) if decoder_norm == "LN" else nn.Identity()
 
 
 class Transformer(nn.Module):
@@ -259,17 +260,18 @@ class Transformer(nn.Module):
                                num_feature_levels, dec_n_points, decoder_norm, group_detr)
         # one set of two-stage heads per query group, as in the reference's
         # checkpoint; eval uses group 0, training all of them
-        self.enc_output = nn.ModuleList(nn.Linear(d_model, d_model) for _ in range(group_detr))
+        self.enc_output = nn.ModuleList(Linear(d_model, d_model) for _ in range(group_detr))
         self.enc_output_norm = nn.ModuleList(
-            nn.LayerNorm(d_model, eps=1e-5) for _ in range(group_detr))
+            LayerNorm(d_model, eps=1e-5) for _ in range(group_detr))
         self.enc_out_class_embed = nn.ModuleList(
-            nn.Linear(d_model, num_classes) for _ in range(group_detr))
+            Linear(d_model, num_classes) for _ in range(group_detr))
         self.enc_out_bbox_embed = nn.ModuleList(
             MLPHead(d_model, d_model, 4, 3) for _ in range(group_detr))
 
     def forward(self, srcs, refpoint_embed: torch.Tensor, query_feat: torch.Tensor):
         """srcs: list[(B, H, W, C)] projector outputs; refpoint_embed (nq, 4);
-        query_feat (nq, C), nq = num_queries x groups. Returns hs (L, B, nq, C),
+        query_feat (nq, C) in the compute dtype, nq = num_queries x groups;
+        the reference points stay in float32, as in the JAX package. Returns hs (L, B, nq, C),
         references (1, B, nq, 4), memory_ts (B, nq, C) and boxes_ts (B, nq, 4):
         each group's picked proposals, groups concatenated."""
         spatial_shapes = [(s.shape[1], s.shape[2]) for s in srcs]
@@ -301,8 +303,8 @@ class Transformer(nn.Module):
         refpoints_input = refpoints[:, :, None].expand(-1, -1, self.num_feature_levels, -1)
         head = self.decoder.ref_point_head
         qse = query_sine_embed(refpoints, dim=self.d_model // 2)
-        query_pos = head(qse.to(head.layers[0].weight.dtype))
-        output = query_feat[None, :nq].expand(B, -1, -1).to(dtype)
+        query_pos = head(qse.to(dtype))
+        output = query_feat[None, :nq].expand(B, -1, -1)
         intermediates = []
         for layer in self.decoder.layers:
             output = layer(output, memory, query_pos, refpoints_input.to(dtype), spatial_shapes,

@@ -11,8 +11,9 @@ depth (the tiny, small and medium recipes; `LWDETR` refuses a nonzero
   torch-bicubic matrices (ops/resize.py);
 * CAE mode: fused qkv with bias concat(q_bias, 0, v_bias); the softmax scale
   is folded into the q projection and the layer scales gamma_1 / gamma_2
-  into proj / fc2, all at forward time so the parameters keep the
-  reference's values and names;
+  into proj / fc2, in float32 at forward time (built once in eval,
+  `models/cast.py`), so the parameters keep the reference's values and names;
+  each weight is cast to the activations' dtype where it is used;
 * attention runs channel-major: the qkv product writes (B, 3C, N), the
   attention (ops/flash_attention.attention_cm: K1 for windows, K2 for global
   blocks; K7 and K6 in the backward) returns (B, C, N), and the projection
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lwdetr_tpu_torch.models.cast import LayerNorm, Linear, cast_params, weight_and_bias
 from lwdetr_tpu_torch.ops import flash_attention as fa
 from lwdetr_tpu_torch.ops.resize import bicubic_resize_2d
 
@@ -54,16 +56,21 @@ def dense_to_cm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> to
     return torch.matmul(weight, x.transpose(1, 2)) + bias[:, None]
 
 
+def folded(layer: nn.Linear, out_scale: Optional[torch.Tensor], dtype: torch.dtype):
+    """(weight, bias) of `layer` in `dtype`, with an optional (out,) scale
+    folded into both in float32 before the one cast."""
+    if out_scale is None:
+        return weight_and_bias(layer, dtype)
+    return cast_params(layer, "folded", dtype, (layer.weight, layer.bias, out_scale),
+                       lambda: (layer.weight * out_scale[:, None], layer.bias * out_scale))
+
+
 class DenseCM(nn.Linear):
     """`nn.Linear` (same parameters) applied to channel-major input, with an
     optional (out,) scale folded into weight and bias."""
 
     def forward(self, x_t: torch.Tensor, out_scale: Optional[torch.Tensor] = None):
-        w, b = self.weight, self.bias
-        if out_scale is not None:
-            w = w * out_scale[:, None]
-            b = b * out_scale
-        return dense_cm(x_t, w, b)
+        return dense_cm(x_t, *folded(self, out_scale, x_t.dtype))
 
 
 class Attention(nn.Module):
@@ -73,25 +80,35 @@ class Attention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
-        self.qkv = nn.Linear(dim, 3 * dim, bias=False)
+        self.qkv = Linear(dim, 3 * dim, bias=False)
         self.q_bias = nn.Parameter(torch.zeros(dim))
         self.v_bias = nn.Parameter(torch.zeros(dim))
         self.proj = DenseCM(dim, dim)
 
+    def qkv_weight_bias(self, dtype: torch.dtype):
+        """The fused projection with the softmax scale folded into its q rows,
+        in float32: the (3C, C) weight cast once to `dtype`, the (3C,) bias
+        concat(q_bias, 0, v_bias) left in float32 (the attention adds it in
+        the activations' dtype), as `lwdetr_tpu/models/vit.py:99-110`."""
+        w, qb, vb = self.qkv.weight, self.q_bias, self.v_bias
+        C = qb.shape[0]
+        (w,) = cast_params(self, "qkv", dtype, (w,),
+                           lambda: (torch.cat([w[:C] * self.scale, w[C:]]),))
+        (bias,) = cast_params(self, "qkv_bias", qb.dtype, (qb, vb), lambda: (
+            torch.cat([qb * self.scale, torch.zeros_like(qb), vb]),))
+        return w, bias
+
     def forward(self, x: torch.Tensor, out_scale: Optional[torch.Tensor] = None):
-        C = x.shape[-1]
-        bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
-        fold = torch.ones(3 * C, device=x.device, dtype=bias.dtype)
-        fold[:C] = self.scale
-        qkv_t = torch.matmul(self.qkv.weight * fold[:, None], x.transpose(1, 2))  # (B, 3C, N)
-        out_t = fa.attention_cm(qkv_t, self.num_heads, scale=1.0, bias=bias * fold)
+        w, bias = self.qkv_weight_bias(x.dtype)
+        qkv_t = torch.matmul(w, x.transpose(1, 2))  # (B, 3C, N)
+        out_t = fa.attention_cm(qkv_t, self.num_heads, scale=1.0, bias=bias)
         return self.proj(out_t, out_scale)
 
 
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
+        self.fc1 = Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor, out_scale: Optional[torch.Tensor] = None):
@@ -99,20 +116,16 @@ class Mlp(nn.Module):
         # exact erf GELU in f32 (the parity dtype); tanh in bf16, where it is
         # within one bf16 ulp of erf, as in the JAX package
         x = F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
-        w, b = self.fc2.weight, self.fc2.bias
-        if out_scale is not None:
-            w = w * out_scale[:, None]
-            b = b * out_scale
-        return F.linear(x, w, b)
+        return F.linear(x, *folded(self.fc2, out_scale, x.dtype))
 
 
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: bool, mlp_ratio: float = 4.0):
         super().__init__()
         self.window = window
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.gamma_1 = nn.Parameter(torch.full((dim,), 0.1))
         self.gamma_2 = nn.Parameter(torch.full((dim,), 0.1))
@@ -142,8 +155,10 @@ class PatchEmbedGEMM(nn.Module):
         B, Hi, Wi, Cin = x.shape
         P = self.patch_size
         x5 = x.reshape(B, Hi // P, P, Wi // P, P * Cin)
-        k = self.proj.weight.permute(2, 3, 1, 0).reshape(P, P * Cin, -1)
-        return torch.einsum("bhpwq,pqc->bhwc", x5, k) + self.proj.bias
+        w = self.proj.weight
+        k, b = cast_params(self, "kernel", x.dtype, (w, self.proj.bias),
+                           lambda: (w.permute(2, 3, 1, 0).reshape(P, P * Cin, -1), self.proj.bias))
+        return torch.einsum("bhpwq,pqc->bhwc", x5, k) + b
 
 
 class ViT(nn.Module):
@@ -172,7 +187,10 @@ class ViT(nn.Module):
         """x (B, H_img, W_img, 3) -> list[(B, H, W, C)], H = H_img // patch."""
         x = self.patch_embed(x)
         B, H, W, C = x.shape
-        x = x + get_abs_pos(self.pos_embed, self.pretrain_use_cls_token, (H, W)).to(x.dtype)
+        # resized in float32, cast once
+        (pos,) = cast_params(self, ("pos_embed", H, W), x.dtype, (self.pos_embed,), lambda: (
+            get_abs_pos(self.pos_embed, self.pretrain_use_cls_token, (H, W)),))
+        x = x + pos
         if H % NUM_WINDOWS_SIDE or W % NUM_WINDOWS_SIDE:
             raise ValueError(f"token grid {H}x{W} must divide into 4x4 windows")
         h, w = H // NUM_WINDOWS_SIDE, W // NUM_WINDOWS_SIDE

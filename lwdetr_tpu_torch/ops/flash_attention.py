@@ -20,6 +20,12 @@ Each forward / backward pair is a `torch.autograd.Function`. On a CUDA tensor
 the kernels run, or the call raises; a tensor on the CPU takes the plain
 versions, `attention_cm_plain` and `attention_cm_bwd_plain`, which are also
 what the kernels are held against on the card.
+
+In bf16 the forward kernels (K1, K2, K9) run on the tensor cores and round
+what the JAX kernels round: the softmax weights p = exp(s - max) to bf16
+before PV, normalised by the f32 row sum after it, and (K1) the biased panel
+once, bf16(x + bf16(bias)). `attention_cm_plain` makes the same roundings on
+bf16 inputs, and `bf16_error_bound` is the bound the kernels are held to.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from lwdetr_tpu_torch.ops._build import CudaKernel
+from lwdetr_tpu_torch.ops._build import CudaKernel, load
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
@@ -65,6 +71,28 @@ window_attention_bwd_kernel = CudaKernel(
     [_P, _P, _P, _I, _I, _I, _I, _F, _I])
 
 
+def kernel_attributes(kernel: CudaKernel, qkv_t: torch.Tensor, num_heads: int) -> dict:
+    """{registers, spill_bytes, shared_bytes} (a thread, a thread, static a
+    block; `cudaFuncGetAttributes`) of the kernel that K1, K2 or K9 would
+    launch on this CUDA `qkv_t`: the case of its dtype, head_dim and copy width."""
+    if kernel.name not in ("K1", "K2", "K9"):
+        raise ValueError(f"attributes are exported for K1, K2 and K9, not {kernel.name}")
+    B, ZC, N = qkv_t.shape
+    args = [qkv_t.data_ptr(), B, ZC // 3, N, num_heads, _DTYPES[qkv_t.dtype]]
+    if kernel.name == "K2":
+        fn = load(kernel.source).lw_flash_attention_cm_attributes
+    else:
+        fn = load(kernel.source).lw_window_attention_attributes
+        args.append(int(kernel.name == "K1"))
+    fn.argtypes = [_P] + [_I] * (len(args) - 1) + [ctypes.POINTER(_I)]
+    fn.restype = _I
+    out = (_I * 3)()
+    err = fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{kernel.name} attributes: CUDA error {err}")
+    return {"registers": out[0], "spill_bytes": out[1], "shared_bytes": out[2]}
+
+
 def plain_dtype(t: torch.Tensor) -> torch.dtype:
     """The plain versions work in f32, or in f64 on f64 inputs (gradient checks)."""
     return torch.float64 if t.dtype == torch.float64 else torch.float32
@@ -72,15 +100,44 @@ def plain_dtype(t: torch.Tensor) -> torch.dtype:
 
 def attention_cm_plain(qkv_t: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     """Plain PyTorch version (counterpart of `_xla_sdpa_cm`): f32 scores,
-    exact softmax, result in the input's dtype."""
+    exact softmax, result in the input's dtype. On bf16 inputs it rounds as
+    the JAX kernel does (`_attn_cm_kernel`, lwdetr_tpu/ops/flash_attention.py:
+    52-60): p = exp(s - max) is rounded to bf16 before PV, which sums in f32,
+    and the f32 row sum of the unrounded p divides after PV."""
     B, ZC, N = qkv_t.shape
     C = ZC // 3
     D = C // num_heads
     x = qkv_t.to(plain_dtype(qkv_t)).reshape(B, 3, num_heads, D, N)
     q, k, v = x[:, 0], x[:, 1], x[:, 2]  # (B, H, D, N)
     s = torch.einsum("bhdn,bhdm->bhnm", q * scale, k)
-    o = torch.einsum("bhnm,bhdm->bhdn", s.softmax(dim=-1), v)
+    if qkv_t.dtype != torch.bfloat16:
+        o = torch.einsum("bhnm,bhdm->bhdn", s.softmax(dim=-1), v)
+    else:
+        p = (s - s.amax(dim=-1, keepdim=True)).exp()
+        o = torch.einsum("bhnm,bhdm->bhdn", p.to(torch.bfloat16).to(p.dtype), v)
+        o = o / p.sum(dim=-1)[:, :, None, :]
     return o.reshape(B, C, N).to(qkv_t.dtype)
+
+
+def bf16_error_bound(qkv_t: torch.Tensor, num_heads: int, scale: float,
+                     plain: torch.Tensor) -> torch.Tensor:
+    """Element-wise bound on |kernel - plain| for the bf16 forward kernels,
+    with `plain` the plain version's output (f32) on the same bf16 `qkv_t`
+    (K1: the panel with the bias already added in bf16):
+
+        2e-5 + 2^-8 |plain| + 2^-8 attention(q, k, |v|).
+
+    out = sum_j bf16(p_j) v_j / l: rounding p_j to bf16 moves each term by at
+    most 2^-9 p_j |v_j|, so an output by at most 2^-9 sum_j p_j |v_j| / l, the
+    attention of |v|. The kernel rounds p at its running row max and rescales
+    it in f32 (online softmax), the plain version at the exact max: two
+    roundings that differ, a factor 2. The result's own rounding to bf16 is
+    half an ulp, at most 2^-9 |out|; 2e-5 covers f32 sums in another order."""
+    B, ZC, N = qkv_t.shape
+    x = qkv_t.float().reshape(B, 3, ZC // 3, N).clone()
+    x[:, 2] = x[:, 2].abs()
+    abs_v = attention_cm_plain(x.reshape(B, ZC, N), num_heads, scale)
+    return 2e-5 + 2.0 ** -8 * (plain.float().abs() + abs_v)
 
 
 def attention_cm_bwd_plain(qkv_t: torch.Tensor, dout: torch.Tensor, num_heads: int,
@@ -148,11 +205,9 @@ def window_attention_bias_fwd(qkv_t: torch.Tensor, bias: Optional[torch.Tensor],
     """K1 launch (K9 when `bias` is None) on a CUDA tensor (the plain version
     on the CPU), outside autograd."""
     if not qkv_t.is_cuda:
-        if bias is None:
-            return attention_cm_plain(qkv_t, num_heads, scale)
-        ct = plain_dtype(qkv_t)
-        x = qkv_t.to(ct) + bias.to(ct)[:, None]
-        return attention_cm_plain(x, num_heads, scale).to(qkv_t.dtype)
+        if bias is not None:  # in bf16 one rounding of the sum, as the JAX kernel adds it
+            qkv_t = qkv_t + bias.to(qkv_t.dtype)[:, None]
+        return attention_cm_plain(qkv_t, num_heads, scale)
     _check_cuda(qkv_t, num_heads)
     _check_window(qkv_t, bias)
     B, ZC, N = qkv_t.shape

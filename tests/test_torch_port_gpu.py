@@ -23,6 +23,11 @@ pytestmark = pytest.mark.gpu
 # at most 2^-8 of the value, of the f32 result.
 ATOL = 2e-5
 RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8}
+# The bf16 attention kernels (K1, K2, K9, on the tensor cores) also round the
+# softmax weights to bf16 before PV, as the JAX kernels do: they are held to
+# `fa.bf16_error_bound` (ATOL + 2^-8 |plain| + 2^-8 plain(q, k, |v|), derived
+# there) against the plain version that rounds alike, and against the f32
+# plain version on the same bf16 values.
 
 
 @pytest.fixture
@@ -37,16 +42,41 @@ def _qkv(g, B, C, N, dtype):
     return (0.5 * torch.randn((B, 3 * C, N), generator=g, device="cuda")).to(dtype)
 
 
+def _close_attention(out, panel, heads, scale):
+    """An attention kernel's output against the plain version on `panel`
+    (the bf16 or f32 values it attended over): f32 within ATOL, bf16 within
+    `bf16_error_bound` of the plain version that rounds p and of the f32 one."""
+    ref32 = fa.attention_cm_plain(panel.float(), heads, scale)
+    if panel.dtype == torch.float32:
+        torch.testing.assert_close(out.float(), ref32, atol=ATOL, rtol=0.0)
+        return
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    for ref in (fa.attention_cm_plain(panel, heads, scale).float(), ref32):
+        bound = fa.bf16_error_bound(panel, heads, scale, ref)
+        excess = ((out.float() - ref).abs() - bound).max().item()
+        assert excess <= 0, f"over the bf16 bound by {excess}"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,C,N,heads", [(16, 192, 100, 12), (3, 64, 49, 2), (2, 128, 128, 4),
                                          (2, 128, 1, 2),
-                                         (16, 384, 100, 12), (16, 768, 100, 12)])  # head_dim 32, 64
+                                         (16, 384, 100, 12), (16, 768, 100, 12),  # head_dim 32, 64
+                                         # N = 33: rows neither 8- nor 16-byte aligned (plain
+                                         # loads), at head_dim 16, 32, 64
+                                         (2, 64, 33, 4), (2, 128, 33, 4), (2, 256, 33, 4)])
 def test_window_attention_bias_matches_plain(cuda, dtype, B, C, N, heads):
     qkv = _qkv(cuda, B, C, N, dtype)
     bias = 0.1 * torch.randn((3 * C,), generator=cuda, device="cuda")
     out = fa.window_attention_bias(qkv, bias, heads, 0.7)
-    ref = fa.attention_cm_plain(qkv.float() + bias[:, None], heads, 0.7)
-    torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=RTOL[dtype])
+    # the panel the kernel attends over: bf16(x + bf16(bias)) in bf16 (the JAX
+    # kernel's rounding), the f32 sum in f32
+    _close_attention(out, qkv + bias.to(dtype)[:, None], heads, 0.7)
+
+
+# the copy widths of K2's bf16 loads: N % 8 == 0 takes 16-byte copies (1600),
+# N % 4 == 0 8-byte ones (100, 300), any other N plain loads (33, 129)
+# head_dim 16, 32 and 64 (4 heads) at each of them
+UNALIGNED = [(1, 64 * m, n, 4, 0.25) for n in (100, 300, 33, 129) for m in (1, 2, 4)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -54,12 +84,28 @@ def test_window_attention_bias_matches_plain(cuda, dtype, B, C, N, heads):
                                                (1, 128, 33, 2, 0.125), (1, 128, 1, 2, 0.125),
                                                (2, 384, 1600, 12, 1.0),  # head_dim 32
                                                (2, 768, 1600, 12, 1.0),  # head_dim 64
-                                               (2, 384, 300, 12, 32 ** -0.5)])
+                                               (2, 384, 300, 12, 32 ** -0.5)] + UNALIGNED)
 def test_flash_attention_cm_matches_plain(cuda, dtype, B, C, N, heads, scale):
     qkv = _qkv(cuda, B, C, N, dtype)
     out = fa.flash_attention_cm(qkv, heads, scale)
-    ref = fa.attention_cm_plain(qkv.float(), heads, scale)
-    torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=RTOL[dtype])
+    _close_attention(out, qkv, heads, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,N,heads,scale", [(2, 192, 1600, 12, 1.0), (2, 256, 300, 8, 32 ** -0.5),
+                                               (2, 768, 1600, 12, 1.0), (1, 128, 129, 4, 0.125)])
+def test_flash_attention_cm_log_sum_exp_matches_plain(cuda, dtype, B, C, N, heads, scale):
+    """The row log-sum-exp K2 writes for K6 (log2 units), in f32 and bf16,
+    against the plain one from the f32 scores of the same values, within
+    2e-5 + 2^-8 |lse|; writing it changes no output."""
+    qkv = _qkv(cuda, B, C, N, dtype)
+    out, lse = fa.flash_attention_cm_fwd(qkv, heads, scale, with_lse=True)
+    assert lse.shape == (B, heads, N) and lse.dtype == torch.float32
+    assert torch.equal(out, fa.flash_attention_cm_fwd(qkv, heads, scale)[0])
+    x = qkv.float().reshape(B, 3, heads, C // heads, N)
+    s = torch.einsum("bhdn,bhdm->bhnm", x[:, 0] * scale, x[:, 1])
+    ref = torch.logsumexp(s, dim=-1) / torch.log(torch.tensor(2.0))
+    torch.testing.assert_close(lse, ref, atol=2e-5, rtol=2.0 ** -8)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -114,6 +160,20 @@ def test_deform_attn_sep_panels_agrees_with_the_channel_major_kernel(cuda):
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=0.0)
 
 
+def test_bench_attention_times_each_attention_of_a_forward(cuda):
+    """`bench_attention` keeps the inputs of every attention of tiny's eval
+    forward, each under the kernel that launched for it."""
+    from lwdetr_tpu_torch import bench_attention
+
+    out = bench_attention.run("tiny", 1)
+    launches = {}
+    for row in out["kernels"]:
+        launches[row["kernel"]] = launches.get(row["kernel"], 0) + row["launches"]
+        assert row["device_ms"] > 0 and row["ms"] > 0
+    assert launches == {"K1": 3, "K2": 3, "K9": 3}
+    assert "k2_device_ms" in next(r for r in out["kernels"] if r["kernel"] == "K9")
+
+
 def test_dispatch_counts_launches(cuda):
     kernels = (fa.window_attention_bias_kernel, fa.flash_attention_cm_kernel,
                da.deform_attn_cm_kernel, da.deform_attn_sep_kernel, fa.window_attention_kernel,
@@ -141,7 +201,8 @@ def test_dispatch_counts_launches(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,C,N,heads", [(8, 256, 100, 8), (52, 256, 100, 8), (3, 64, 49, 2),
                                          (2, 128, 128, 4), (2, 128, 1, 2), (3, 192, 100, 12),
-                                         (2, 768, 100, 12)])  # head_dim 32, 16, 64
+                                         (2, 768, 100, 12),  # head_dim 32, 16, 64
+                                         (2, 64, 33, 4), (2, 256, 33, 4)])  # plain loads
 def test_window_attention_without_bias_matches_plain(cuda, dtype, B, C, N, heads):
     qkv = _qkv(cuda, B, C, N, dtype).requires_grad_()
     dout = torch.randn((B, C, N), generator=cuda, device="cuda").to(dtype)
@@ -154,9 +215,8 @@ def test_window_attention_without_bias_matches_plain(cuda, dtype, B, C, N, heads
         out = fa.attention_cm(qkv, heads, 0.7)
         out.backward(dout)
     assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 0, 0, 0, 0]
-    ref = fa.attention_cm_plain(qkv.detach().float(), heads, 0.7)
     assert out.dtype == dtype and qkv.grad.dtype == dtype
-    torch.testing.assert_close(out.detach().float(), ref, atol=ATOL, rtol=RTOL[dtype])
+    _close_attention(out.detach(), qkv.detach(), heads, 0.7)
     _close_bwd(qkv.grad, fa.attention_cm_bwd_plain(qkv.detach().float(), dout.float(), heads, 0.7),
                dtype, "K7 without a bias")
 

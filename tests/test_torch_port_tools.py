@@ -3,7 +3,7 @@ into groups, on kernel names the H100 profiler reports for the small@640
 and large@640 steps, and which presets the tools take."""
 import pytest
 
-from lwdetr_tpu_torch import bench, bench_train, breakdown
+from lwdetr_tpu_torch import bench, bench_attention, bench_train, breakdown
 from lwdetr_tpu_torch.breakdown import _group
 
 
@@ -57,6 +57,13 @@ from lwdetr_tpu_torch.breakdown import _group
     ("void (anonymous namespace)::deform_attn_sep_bwd_kernel<float, lw::RowMajorLayout>(float "
      "const*, float const*, float const*, float*, float*, int, int, int, int, (anonymous",
      "K10 deform_attn_rowmajor_bwd"),
+    # the bf16 tensor-core cases: <head_dim, copy width> and, for K1 / K9, the bias flag
+    ("void (anonymous namespace)::flash_attention_cm_mma_kernel<16, 8>(__nv_bfloat16 const*, "
+     "__nv_bfloat16*, float*, int, int, float)", "K2 flash_attention_cm"),
+    ("void (anonymous namespace)::window_attention_mma_kernel<16, 4, true>(__nv_bfloat16 "
+     "const*, float const*, __nv_bfloat16*, int, int, float)", "K1 window_attention_bias"),
+    ("void (anonymous namespace)::window_attention_mma_kernel<32, 4, false>(__nv_bfloat16 "
+     "const*, float const*, __nv_bfloat16*, int, int, float)", "K9 window_attention (no bias)"),
     ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<at::native::"
      "(anonymous namespace)::TensorListMetadata<4>, at::native::(anonymous namespace)::"
      "FusedAdamMathFunctor", "optimizer/EMA (foreach)"),
@@ -87,15 +94,17 @@ def test_breakdown_groups_kernel_names(name, group):
     assert _group(name) == group
 
 
-@pytest.mark.parametrize("tool", [bench, breakdown, bench_train],
-                         ids=["bench", "breakdown", "bench_train"])
+TOOLS = [bench, breakdown, bench_train, bench_attention]
+TOOL_IDS = ["bench", "breakdown", "bench_train", "bench_attention"]
+
+
+@pytest.mark.parametrize("tool", TOOLS, ids=TOOL_IDS)
 @pytest.mark.parametrize("preset", ["tiny", "small", "medium", "large", "xlarge"])
 def test_tools_take_every_vit_preset(tool, preset):
     assert tool.parser().parse_args(["--preset", preset]).preset == preset
 
 
-@pytest.mark.parametrize("tool", [bench, breakdown, bench_train],
-                         ids=["bench", "breakdown", "bench_train"])
+@pytest.mark.parametrize("tool", TOOLS, ids=TOOL_IDS)
 def test_tools_refuse_an_unknown_preset(tool):
     with pytest.raises(SystemExit):
         tool.parser().parse_args(["--preset", "huge"])
