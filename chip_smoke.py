@@ -20,8 +20,10 @@ Run from the root of a checkout, with one card:
    large's two levels and at small's and tiny's train step, K5 at small's,
    tiny's and large's train shape, K8 at tiny's 1300 and small's 3900 train
    queries and at large's two levels, K10 (row-major) forward and backward at
-   tiny's eval and train shapes; K6 and K7 at small's train step (K6 also at
-   head_dim 64) with SDPA's backward beside them; K9 (the short attention
+   tiny's eval and train shapes; K6 and K7 at small's and medium's train step
+   (K6 also at head_dim 64), in bf16 against `bf16_bwd_error_bound`, with
+   SDPA's backward, the CUDA-graph device times and the registers and spills
+   of every pass beside them; K9 (the short attention
    without a bias) at tiny's decoder, batch 8 and 13 groups x 4, with K2 and
    SDPA on the same inputs, and its backward with SDPA's beside it.
 3. Drives five eval forwards + `post_process` at 640x640 from
@@ -52,6 +54,8 @@ Run from the root of a checkout, with one card:
    K8 3 in place of K4, K5) and `"gather"` (K10 3 forward, 3 backward). The
    three losses must agree within 1e-4; the default branch takes the
    optimizer steps, and every branch's step is timed.
+6. Drives the train step of LW-DETR-medium (ViT-small, head_dim 32) as
+   small's: the same launch counts, 4 optimizer steps.
 
 Any failure exits non-zero. Without a CUDA card, or outside a checkout, it
 exits non-zero and prints no result. The line before the last holds one JSON
@@ -91,6 +95,12 @@ ATOL = 2e-5
 RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
 ATTENTION_BF16_TOL = ("|kernel - plain| <= 2e-5 + 2^-8 |plain| + 2^-8 plain(q, k, |v|), plain "
                       "rounding p to bf16 before PV (and f32 plain on the same values); f32: 2e-5")
+# the bf16 attention backwards (K6, K7, K7nb) round ds and p to bf16 before
+# their products, as the JAX kernels do: `flash_attention.bf16_bwd_error_bound`
+ATTENTION_BWD_BF16_TOL = ("|kernel - plain| <= 2e-5 max(1, max |plain|) + 2^-8 |plain| + 2^-8 "
+                          "[sum |ds| |k|, sum |ds| |q|, sum p |d(out)|], plain rounding ds and p "
+                          "to bf16 before the products (and f32 plain on the same values); "
+                          "f32: 2e-5 x max(1, max |plain|)")
 # K2's row log-sum-exp (log2 units) against the plain one from the f32 scores
 LSE_ATOL, LSE_RTOL = 2e-5, 2.0 ** -8
 # bf16 eval forward, kernels vs plain versions with the same picks, over all
@@ -136,12 +146,13 @@ EXPECTED_LAUNCHES = {"small": launch_counts(K1=6, K2=7, K3=3),
 _TINY_TRAIN = dict(K1=3, K2=3, K9=3, K6=3, K7=3, K7nb=3)
 TRAIN_LAUNCHES = {
     "small": launch_counts(K1=6, K2=7, K4=3, K5=3, K6=7, K7=6),
+    "medium": launch_counts(K1=6, K2=7, K4=3, K5=3, K6=7, K7=6),
     "tiny": launch_counts(K4=3, K5=3, **_TINY_TRAIN),
     "tiny/cm": launch_counts(K3=3, K8=3, **_TINY_TRAIN),
     "tiny/gather": launch_counts(K10=3, K10b=3, **_TINY_TRAIN)}
-TRAIN_BRANCHES = {"small": (None,), "tiny": (None, "cm", "gather")}
+TRAIN_BRANCHES = {"small": (None,), "tiny": (None, "cm", "gather"), "medium": (None,)}
 TRAIN_BATCH = 4
-TRAIN_STEPS = {"small": 8, "tiny": 6}
+TRAIN_STEPS = {"small": 8, "tiny": 6, "medium": 4}
 BRANCH_LOSS_ATOL = 1e-4  # one function from three value layouts
 # how the backward kernels' absolute bound scales (see `grad_scale`)
 _SCATTER_TOL = " x max(1, max |plain|), x 4 on d(value) for the order of its atomic adds"
@@ -525,64 +536,97 @@ def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape, name="K5", layou
 def compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N, heads, scale, bias, dtype,
                           iters):
     """K6, K7 (with `bias`) or K7nb (the short backward without one) vs the plain
-    backward, and SDPA's backward, on one shape."""
+    backward, and SDPA's backward, on one shape: call and device (CUDA-graph)
+    times, registers and spills. bf16 is held to `bf16_bwd_error_bound` against
+    the plain version that rounds ds and p as the kernels do, and against the
+    f32 plain version on the same values; f32 to ATOL x max(1, max |plain|)."""
+    from lwdetr_tpu_torch.utils.timing import measure_graph_ms
+
     dt = getattr(torch, dtype)
     qkv, b = attention_inputs(torch, B, C, N, heads, dt, bias, seed=N + C + 1)
     g = torch.Generator(device="cuda").manual_seed(N)
     dout = torch.randn((B, C, N), generator=g, device="cuda").to(dt)
     D = C // heads
+    kernel_obj = {"K6": fa.flash_attention_cm_bwd_kernel, "K7": fa.window_attention_bias_bwd_kernel,
+                  "K7nb": fa.window_attention_bwd_kernel}[name]
+    tag = f"{name} {dtype} qkv {tuple(qkv.shape)}"
     with torch.no_grad():
-        if bias:
-            kernel = lambda: fa.window_attention_bias_bwd(qkv, b, dout, heads, scale)  # noqa: E731
-            plain = lambda: fa.attention_cm_bwd_plain(qkv, dout, heads, scale, bias=b)  # noqa: E731
-            ref = fa.attention_cm_bwd_plain(qkv.float(), dout.float(), heads, scale, bias=b)
-            qkv_lib = qkv.float() + b[:, None]
-        elif name == "K7nb":
-            kernel = lambda: fa.window_attention_bias_bwd(qkv, None, dout, heads, scale)  # noqa: E731
-            plain = lambda: fa.attention_cm_bwd_plain(qkv, dout, heads, scale)  # noqa: E731
-            ref = fa.attention_cm_bwd_plain(qkv.float(), dout.float(), heads, scale)
-            qkv_lib = qkv.float()
+        if name == "K6":
+            # K6 reads the row log-sum-exp that K2 saved
+            _, lse = fa.flash_attention_cm_fwd(qkv, heads, scale, with_lse=True)
+            kernel = lambda: fa.flash_attention_cm_bwd(qkv, lse, dout, heads, scale)  # noqa: E731
         else:
-            # K6 reads what K2 saved: its output and the rows' log-sum-exp; the
-            # plain version takes its row term from the same output
-            out, lse = fa.flash_attention_cm_fwd(qkv, heads, scale, with_lse=True)
-            kernel = lambda: fa.flash_attention_cm_bwd(qkv, out, lse, dout, heads, scale)  # noqa: E731
-            plain = lambda: fa.attention_cm_bwd_plain(qkv, dout, heads, scale, out=out)  # noqa: E731
-            ref = fa.attention_cm_bwd_plain(qkv.float(), dout.float(), heads, scale,
-                                            out=out.float())
-            qkv_lib = qkv.float()
+            kernel = lambda: fa.window_attention_bias_bwd(qkv, b, dout, heads, scale)  # noqa: E731
+        plain = lambda: fa.attention_cm_bwd_plain(qkv, dout, heads, scale, bias=b)  # noqa: E731
+        # the values the kernel works on: in bf16 the panel with the bias rounded in once
+        panel = qkv if b is None else qkv + b.to(dt)[:, None]
+        ref32 = fa.attention_cm_bwd_plain(panel.float(), dout.float(), heads, scale)
         dqkv = kernel()
         torch.cuda.synchronize()
-        err = check_close(torch, f"{name} {tuple(qkv.shape)}", dtype, dqkv, ref, grad_scale(ref))
+        if dtype == "bfloat16":
+            ref = plain().float()  # ds and p rounded to bf16 before the products
+            err = check_bound(torch, tag, dqkv, ref,
+                              fa.bf16_bwd_error_bound(qkv, dout, heads, scale, ref, bias=b))
+            err32 = check_bound(torch, tag + " vs f32 plain", dqkv, ref32,
+                                fa.bf16_bwd_error_bound(qkv, dout, heads, scale, ref32, bias=b))
+        else:
+            ref = ref32
+            err = err32 = check_close(torch, tag, dtype, dqkv, ref, grad_scale(ref))
+        attrs = fa.kernel_attributes(kernel_obj, qkv, heads)
         ms = measure_ms(kernel, iters=iters)["ms"]
+        device_ms = measure_graph_ms(kernel, iters=iters)["ms"]
         plain_ms = measure_ms(plain, iters=3, repeats=3)["ms"]
     # the library's backward of the same attention: the forward (and its
     # graph) is made here, outside the timing
-    q, k, v = (qkv_lib.to(dt).reshape(B, 3, heads, D, N)[:, i].transpose(-1, -2).contiguous()
+    q, k, v = (panel.reshape(B, 3, heads, D, N)[:, i].transpose(-1, -2).contiguous()
                .requires_grad_() for i in range(3))
     do_lib = dout.reshape(B, heads, D, N).transpose(-1, -2).contiguous()
-    o = F.scaled_dot_product_attention(q, k, v, scale=scale)
-    library = lambda: torch.autograd.grad(o, (q, k, v), do_lib, retain_graph=True)  # noqa: E731
+    fwd = {"o": F.scaled_dot_product_attention(q, k, v, scale=scale), "leaves": (q, k, v)}
+    library = lambda: torch.autograd.grad(fwd["o"], fwd["leaves"], do_lib,  # noqa: E731
+                                          retain_graph=True)
     lib = torch.stack([t.transpose(-1, -2) for t in library()], dim=1).reshape(B, 3 * C, N)
-    lib_err = (lib.float() - ref).abs().max().item()
+    lib_err = (lib.float() - ref32).abs().max().item()
     library_ms = measure_ms(library, iters=iters)["ms"]
+
+    def forward_on_capture_stream():
+        # fresh leaves: a leaf keeps the stream of its first forward for its
+        # gradient's accumulation, and the captured backward must not leave
+        # the capture stream
+        fwd.clear()
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        fwd["o"] = F.scaled_dot_product_attention(*leaves, scale=scale)
+        fwd["leaves"] = leaves
+
+    library_device_ms = measure_graph_ms(library, iters=iters,
+                                         prepare=forward_on_capture_stream)["ms"]
     isz = qkv.element_size()
-    # qkv, d(out), (K7) the bias and (K6) out and the log-sum-exp in; d(qkv) out
+    # qkv, d(out), (K7) the bias and (K6) the log-sum-exp in; d(qkv) out
     nbytes = B * (7 * C) * N * isz
     if bias:
         nbytes += 3 * C * 4
     elif name == "K6":
-        nbytes += B * C * N * isz + B * heads * N * 4
+        nbytes += B * heads * N * 4
     flops = 10 * B * heads * N * N * D  # five (N, N, D) products: s, dp, dq, dk, dv
     exps = B * heads * N * N
     bms, by, parts = bound_ms(nbytes, flops, exps, dtype)
-    log(f"{name} {dtype} qkv {tuple(qkv.shape)}: err {err:.3g} of max |plain| "
-        f"{ref.abs().max().item():.3g} (sdpa bwd vs plain {lib_err:.3g}) ms {ms:.4f} plain "
-        f"{plain_ms:.4f} sdpa bwd {library_ms:.4f} bound {bms:.4f} ({by}; "
-        + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in parts.items()) + ")")
-    return {"shape": list(qkv.shape), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
-            "bound_parts_ms": {k: v * 1e3 for k, v in parts.items()}}
+    log(f"{tag}: err {err:.3g} (vs f32 plain {err32:.3g}) of max |plain| "
+        f"{ref.abs().max().item():.3g} (sdpa bwd vs f32 plain {lib_err:.3g}) ms {ms:.4f} plain "
+        f"{plain_ms:.4f} sdpa bwd {library_ms:.4f}; device (graph) {device_ms:.4f} sdpa "
+        f"{library_device_ms:.4f} (x{device_ms / library_device_ms:.2f}) bound {bms:.4f} ({by}; "
+        + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in parts.items())
+        + f"); {attrs['registers']} registers, {attrs['spill_bytes']} spilled bytes"
+        + (f" (passes {[(p['registers'], p['spill_bytes']) for p in attrs['passes']]})"
+           if "passes" in attrs else ""))
+    res = {"shape": list(qkv.shape), "max_abs_err": err, "max_abs_err_vs_f32_plain": err32,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           "library_ms": library_ms, "device_ms": device_ms,
+           "library_device_ms": library_device_ms,
+           "sdpa_ratio_device": device_ms / library_device_ms,
+           "registers": attrs["registers"], "spill_bytes": attrs["spill_bytes"],
+           "bound_parts_ms": {k: v * 1e3 for k, v in parts.items()}}
+    if "passes" in attrs:
+        res["passes"] = attrs["passes"]
+    return res
 
 
 # the attention shapes of the three forwards at batch 8: (key, kernel, B, C, N,
@@ -602,16 +646,18 @@ ATTENTION_SHAPES = (
 
 
 # the backward shapes of one small train step at batch 4 (3900 queries in 13
-# groups of 300, folded into the batch for the decoder's self-attention), and
-# K6 at head_dim 64: (key, kernel, B, C, N, heads, scale, bias, calls a sample).
-# K7 takes 200 calls a sample, so that host enqueue time is not in it; a K6
-# launch takes milliseconds, where 20 (5 at head_dim 64) do.
+# groups of 300, folded into the batch for the decoder's self-attention),
+# medium's (ViT-small: head_dim 32; its decoder is small's) and K6 at head_dim
+# 64: (key, kernel, B, C, N, heads, scale, bias, calls a sample). K7 takes 200
+# calls a sample, so that host enqueue time is not in it.
 ATTENTION_BWD_SHAPES = (
     ("K7", "K7", TRAIN_BATCH * 16, 192, 100, 12, 1.0, True, 200),
     ("K6", "K6", TRAIN_BATCH, 192, 1600, 12, 1.0, False, 20),
     ("K6dec", "K6", TRAIN_BATCH * 13, 256, 300, 8, 32 ** -0.5, False, 20),
     ("K6@xlarge", "K6", BATCH, 768, 1600, 12, 1.0, False, 5),
     ("K7nb", "K7nb", TRAIN_BATCH * 13, 256, 100, 8, 32 ** -0.5, False, 200),  # tiny's decoder
+    ("K6@medium", "K6", TRAIN_BATCH, 384, 1600, 12, 1.0, False, 20),
+    ("K7@medium", "K7", TRAIN_BATCH * 16, 384, 100, 12, 1.0, True, 200),
 )
 
 
@@ -900,8 +946,8 @@ def train_phase(torch, fa, da, kernels, measure_ms, card, preset):
                                   lambda qkv, bias, dout, heads, scale:
                                   fa.attention_cm_bwd_plain(qkv, dout, heads, scale, bias=bias)), \
                 mock.patch.object(fa, "flash_attention_cm_bwd",
-                                  lambda qkv, out, lse, dout, heads, scale:
-                                  fa.attention_cm_bwd_plain(qkv, dout, heads, scale, out=out)), \
+                                  lambda qkv, lse, dout, heads, scale:
+                                  fa.attention_cm_bwd_plain(qkv, dout, heads, scale)), \
                 mock.patch.object(da, "ms_deform_attn_sep_panels_bwd",
                                   da.ms_deform_attn_sep_panels_bwd_plain), \
                 mock.patch.object(da, "ms_deform_attn_cm_bwd", da.ms_deform_attn_cm_bwd_plain), \
@@ -1058,6 +1104,7 @@ def main() -> int:
                  "launches_by_path": {p: launches[p][name] for p in launches},
                  "dtype": "bfloat16", **res[(name, "bfloat16")], "f32": res[(name, "float32")],
                  "tolerance": (ATTENTION_BF16_TOL if name in ("K1", "K2", "K9") else
+                               ATTENTION_BWD_BF16_TOL if name in ("K6", "K7", "K7nb") else
                                f"|kernel - plain f32| <= {ATOL}{BWD_TOL.get(name, '')} + "
                                f"{RTOL['bfloat16']} x |plain| (f32: {ATOL}{BWD_TOL.get(name, '')})")}
         if name in ALSO_REPLACES:

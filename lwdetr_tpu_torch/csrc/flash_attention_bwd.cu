@@ -1,309 +1,397 @@
-// K6: backward of the global attention over channel-major packed qkv.
+// K6: backward of the global attention over channel-major packed qkv, on the
+// tensor cores.
 //
 // Replaces lwdetr_tpu/ops/flash_attention.py::_attn_cm_bwd_kernel (launched
-// from _attn_cm_bwd_pallas_call). Given qkv (B, 3C, N), the forward's output
-// out (B, C, N), its per-row log-sum-exp lse (B, H, N) and d(out) (B, C, N),
+// from _attn_cm_bwd_pallas_call). Given qkv (B, 3C, N), the forward's per-row
+// log-sum-exp lse (B, H, N) (K2 writes it, in log2 units) and d(out) (B, C, N),
 // it computes per image b and head h, with p = softmax(scale q^T k):
-//   delta_i = sum_d d(out)[d, i] out[d, i]        (= sum_j p_ij dp_ij)
 //   dp_ij   = sum_d d(out)[d, i] v[d, j]
-//   ds_ij   = p_ij (dp_ij - delta_i) scale
+//   row_i   = sum_j p_ij dp_ij
+//   ds_ij   = p_ij (dp_ij - row_i) scale
 //   dq[:, i] = sum_j ds_ij k[:, j]
 //   dk[:, j] = sum_i ds_ij q[:, i]
 //   dv[:, j] = sum_i p_ij d(out)[:, i]
 // and writes dq, dk, dv straight into the three channel thirds of d(qkv)
 // (B, 3C, N).
 //
-// The TPU kernel walks the query blocks in order on one core, keeps dk and dv
-// of the whole key panel in VMEM scratch across grid steps, and takes each
-// row's max and sum again from the whole-N score tile. Blocks on this card run
-// in no order and share nothing, so the sums over queries and over keys are
-// two passes, each a loop inside a block, and neither needs an atomic:
-//   pass 1, one block per (query tile, head, image): loops over key tiles,
-//     gives dq and stores delta (B, H, N);
-//   pass 2, one block per (key tile, head, image): loops over query tiles,
-//     gives dk and dv.
-// The softmax is not taken again: p_ij = exp2(s_ij - lse_i) with the scores
-// in log2 units, from the log-sum-exp the forward kernel saved.
+// The TPU kernel walks the query blocks in order on one core and keeps dk and
+// dv of the whole key panel in VMEM scratch across grid steps. Blocks on this
+// card run in no order and share nothing, so the sums over keys and over
+// queries are two passes, each a loop inside a block, with no atomics
+// (deterministic):
+//   pass 1, a block per (64 queries, head, image), a warp per 16 queries:
+//     walks the key tiles twice. The first sweep forms S = Q^T K and
+//     dP = dO^T V and sums row_i = sum_j p_ij dp_ij from the unrounded f32 p,
+//     as the JAX kernel does, and stores it (`delta`, (B, H, N)) for pass 2;
+//     the second forms S and dP again, dS, and dQ += dS K^T.
+//   pass 2, a block per (64 keys, head, image), a warp per 16 keys: walks the
+//     query tiles once: S^T = K^T Q, dP^T = V^T dO, P^T, dS^T,
+//     dV += P^T dO^T and dK += dS^T Q^T.
+// The softmax is not taken again: p_ij = exp2(s_ij scale log2 e - lse_i), one
+// FFMA and one MUFU.EX2 a score.
 //
-// What bounds it on an H100: per (query, key) pair pass 1 does 3D and pass 2
-// 4D multiply-adds and each one exponential on the CUDA cores in f32, 7D
-// multiply-adds in all against 2D in the forward, so it is bound by
-// arithmetic. Design: registers are what runs out (three D-long vectors a
-// row in pass 1, four in pass 2), so a row (a query in pass 1, a key in pass
-// 2) is shared by S = D / 16 neighbouring lanes of a warp, each owning the 16
-// channels d = lane + S c: every head_dim runs with the register budget of
-// head_dim 16. The lanes of a row add their partial scores and dp with
-// shuffles and then repeat the cheap p and ds. Tiles are staged in shared
-// memory as (D, tile) rows (coalesced global reads over the token index) and
-// read back as float4 along the tile, one shared load feeding four
-// multiply-adds; rows are padded by 4 floats so that the S rows a warp reads
-// at once fall in different banks. Accumulation is f32, rounded once on the
-// store. Ragged tails: a key past N gives p = 0, a query past N has
-// lse = +inf, so p = 0 and it adds nothing to dk or dv.
+// The row term. row_i could also be sum_d d(out)[d, i] out[d, i] from the
+// forward's output, one product fewer. In f32 the two agree to rounding, but
+// the bf16 output is rounded: on the CPU (tests/test_torch_port_bwd_bf16.py)
+// that form moves 15-17% of the bf16 gradient's elements off the JAX
+// package's bits, against 0.01-0.06% for sum_j p dp. So pass 1 sweeps the
+// keys twice: 5 (query, key, D) products in pass 1 and 4 in pass 2, 9 where
+// the forward does 2.
+//
+// What bounds it on an H100: per (query, key) pair 9 D multiply-adds (18 D
+// flops) on the tensor cores and two exponentials (one a pass) on the
+// special-function units, against one read of qkv, d(out) and lse and one
+// write of d(qkv): at D <= 64 the exponentials and the per-score f32 work
+// around them (the FFMA, the mask of the ragged tile, ds) weigh more than
+// the products. Design: everything per score stays in registers. Tiles of q,
+// k, v and d(out) are [d][token] rows of the channel-major arrays, staged
+// through a double-buffered cp.async ring (16-byte, 8-byte or narrower
+// copies, picked on the host from N and the pointers and passed in: one
+// kernel a case, `lw::load_rows_vec`) and read as fragments
+// (attention_bwd.cuh): S and dP come out as f32 C fragments and P and dS go
+// from them to the next product's A operand in registers, never through
+// shared memory. The results leave from the accumulators.
+//
+// bf16: mma.sync.m16n8k16, bf16 operands, f32 accumulators. Packing P and dS
+// to bf16 for the A operand rounds them to nearest even, which is the JAX
+// kernel's `ds.astype(q.dtype)` and `p.astype(do.dtype)` (the plain version
+// rounds alike). f32 (the train step's dtype): 3xTF32 on
+// mma.sync.m16n8k8.tf32, three products for one, which keeps the f32
+// tolerance that one TF32 product would not.
+//
+// Ragged tails: a key past N gets p = 0 (only the last key tile is masked);
+// a query past N has lse = +inf, so p = 0 and it adds nothing to dk or dv.
 #include "common.cuh"
+#include "attention_bwd.cuh"
 
 namespace {
 
-constexpr int DT = 16;   // channels per thread
-constexpr int ROWS = 64; // rows (queries in pass 1, keys in pass 2) per block
-constexpr int BK = 32;   // pass 1: keys per shared-memory tile
-constexpr int BQT = 32;  // pass 2: queries per shared-memory tile
-constexpr int CH = 4;    // columns of a tile handled together (one float4)
-constexpr int PAD = 4;   // floats of padding per shared-memory row
+constexpr int kWarps = 4;
+constexpr int kRows = 16 * kWarps;  // rows of a block: queries (pass 1), keys (pass 2)
+constexpr int kTile = 64;           // columns of a streamed tile: keys (pass 1), queries (pass 2)
+constexpr int kStride = lw::tile_stride(kTile);
+constexpr int kThreads = 32 * kWarps;
+// Blocks an SM that ptxas must leave registers for (`__launch_bounds__`), the
+// most that spills nothing, per case: bf16 4 at D = 16 (<= 128 registers), 3 at
+// D = 32 (<= 170), 2 at D = 64; f32 2: on the H100 the bf16 cases ran 6-7%
+// faster than with 2 for all. Without a minimum ptxas aims lower by itself and
+// spilled 12-16 bytes in five bf16 cases.
+template <typename T, int D>
+constexpr int kMinBlocks = sizeof(T) == 4 || D == 64 ? 2 : D == 32 ? 3 : 4;
 
-// sums x over the S lanes of a row (neighbouring lanes; S is 1, 2 or 4)
-template <int S>
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int m = 1; m < S; m <<= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
-  return x;
+// six (D, tile) tiles (pass 1: q, d(out), two stages of k and v; pass 2: k,
+// v, two stages of q and d(out)) and, in pass 2, two stages of lse and delta
+template <typename T, int D>
+constexpr size_t smem_bytes() {
+  return sizeof(T) * 6 * D * kStride + sizeof(float) * 4 * kTile;
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(ROWS * (D / DT))
-attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ out,
-                        const float* __restrict__ lse, const T* __restrict__ dout,
-                        T* __restrict__ dqkv, float* __restrict__ delta, int C, int N,
-                        float scale) {
-  constexpr int S = D / DT;
-  __shared__ __align__(16) float ks[D][BK + PAD];
-  __shared__ __align__(16) float vs[D][BK + PAD];
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T, D>)
+attention_bwd_dq_kernel(const T* __restrict__ qkv, const float* __restrict__ lse,
+                        const T* __restrict__ dout, T* __restrict__ dqkv,
+                        float* __restrict__ delta, int C, int N, float scale, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const qs = reinterpret_cast<T*>(smem);
+  T* const gs = qs + D * kStride;
+  T* const ks = gs + D * kStride;      // two stages
+  T* const vs = ks + 2 * D * kStride;  // two stages
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const size_t img = static_cast<size_t>(b) * 3 * C;
-  const T* qp = qkv + (img + h * D) * N;
-  const T* kp = qkv + (img + C + h * D) * N;
-  const T* vp = qkv + (img + 2 * C + h * D) * N;
-  const size_t head = (static_cast<size_t>(b) * C + h * D) * N;
-  const size_t row = (static_cast<size_t>(b) * gridDim.y + h) * N;
-  const int part = threadIdx.x % S;  // this thread's channels: part + S c
-  const int i = blockIdx.x * ROWS + threadIdx.x / S;
-  const bool live = i < N;
-  const float scale_log2 = scale * lw::kLog2e;
-
-  // a thread past N carries zeros: its p is 1, its ds 0, and it stores nothing
-  float q[DT], g[DT], dq[DT];
-  float dl = 0.f;
-#pragma unroll
-  for (int c = 0; c < DT; ++c) {
-    const size_t at = static_cast<size_t>(part + S * c) * N + i;
-    q[c] = live ? lw::to_f32(qp[at]) * scale_log2 : 0.f;
-    g[c] = live ? lw::to_f32(dout[head + at]) : 0.f;
-    dl = live ? fmaf(g[c], lw::to_f32(out[head + at]), dl) : 0.f;
-    dq[c] = 0.f;
-  }
-  dl = row_sum<S>(dl);
-  const float l2 = live ? lse[row + i] : 0.f;
-  if (live && part == 0) delta[row + i] = dl;
-
-  for (int j0 = 0; j0 < N; j0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < D * BK; idx += ROWS * S) {
-      const int d = idx / BK;
-      const int j = idx - d * BK;
-      const int n = j0 + j;
-      const bool ok = n < N;
-      ks[d][j] = ok ? lw::to_f32(kp[static_cast<size_t>(d) * N + n]) : 0.f;
-      vs[d][j] = ok ? lw::to_f32(vp[static_cast<size_t>(d) * N + n]) : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int jj = 0; jj < BK; jj += CH) {
-      float s[CH] = {0.f, 0.f, 0.f, 0.f};
-      float dp[CH] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int c = 0; c < DT; ++c) {
-        const float4 k4 = *reinterpret_cast<const float4*>(&ks[part + S * c][jj]);
-        const float4 v4 = *reinterpret_cast<const float4*>(&vs[part + S * c][jj]);
-        s[0] = fmaf(q[c], k4.x, s[0]);
-        s[1] = fmaf(q[c], k4.y, s[1]);
-        s[2] = fmaf(q[c], k4.z, s[2]);
-        s[3] = fmaf(q[c], k4.w, s[3]);
-        dp[0] = fmaf(g[c], v4.x, dp[0]);
-        dp[1] = fmaf(g[c], v4.y, dp[1]);
-        dp[2] = fmaf(g[c], v4.z, dp[2]);
-        dp[3] = fmaf(g[c], v4.w, dp[3]);
-      }
-      float ds[CH];
-#pragma unroll
-      for (int x = 0; x < CH; ++x) {
-        const float sx = row_sum<S>(s[x]);
-        const float dpx = row_sum<S>(dp[x]);
-        const float p = (j0 + jj + x < N) ? exp2f(sx - l2) : 0.f;  // ragged key tail
-        ds[x] = p * (dpx - dl) * scale;
-      }
-#pragma unroll
-      for (int c = 0; c < DT; ++c) {
-        const float4 k4 = *reinterpret_cast<const float4*>(&ks[part + S * c][jj]);
-        float a = dq[c];
-        a = fmaf(ds[0], k4.x, a);
-        a = fmaf(ds[1], k4.y, a);
-        a = fmaf(ds[2], k4.z, a);
-        a = fmaf(ds[3], k4.w, a);
-        dq[c] = a;
-      }
-    }
-  }
-  if (!live) return;
-  T* o = dqkv + (img + h * D + part) * N + i;
-#pragma unroll
-  for (int c = 0; c < DT; ++c) o[static_cast<size_t>(S * c) * N] = lw::from_f32<T>(dq[c]);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(ROWS * (D / DT))
-attention_bwd_dkdv_kernel(const T* __restrict__ qkv, const float* __restrict__ lse,
-                          const float* __restrict__ delta, const T* __restrict__ dout,
-                          T* __restrict__ dqkv, int C, int N, float scale) {
-  constexpr int S = D / DT;
-  __shared__ __align__(16) float qs[D][BQT + PAD];  // one query tile: raw q and d(out)
-  __shared__ __align__(16) float gs[D][BQT + PAD];
-  __shared__ float ls[BQT];
-  __shared__ float dls[BQT];
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int i0 = blockIdx.x * kRows;
   const size_t img = static_cast<size_t>(b) * 3 * C;
   const T* qp = qkv + (img + h * D) * N;
   const T* kp = qkv + (img + C + h * D) * N;
   const T* vp = qkv + (img + 2 * C + h * D) * N;
   const T* gp = dout + (static_cast<size_t>(b) * C + h * D) * N;
   const size_t row = (static_cast<size_t>(b) * gridDim.y + h) * N;
-  const int t = threadIdx.x;
-  const int part = t % S;  // this thread's channels: part + S c
-  const int j = blockIdx.x * ROWS + t / S;
-  const bool live = j < N;
-  const float scale_log2 = scale * lw::kLog2e;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int m0 = 16 * warp;
 
-  float k[DT], v[DT], dk[DT], dv[DT];
-#pragma unroll
-  for (int c = 0; c < DT; ++c) {
-    const size_t at = static_cast<size_t>(part + S * c) * N + j;
-    k[c] = live ? lw::to_f32(kp[at]) : 0.f;
-    v[c] = live ? lw::to_f32(vp[at]) : 0.f;
-    dk[c] = 0.f;
-    dv[c] = 0.f;
-  }
+  lw::load_rows_vec<D>(vec, qs, kStride, qp, N, i0, kRows, tid, kThreads);
+  lw::load_rows_vec<D>(vec, gs, kStride, gp, N, i0, kRows, tid, kThreads);
+  lw::load_rows_vec<D>(vec, ks, kStride, kp, N, 0, kTile, tid, kThreads);
+  lw::load_rows_vec<D>(vec, vs, kStride, vp, N, 0, kTile, tid, kThreads);
+  lw::cp_async_commit();
 
-  for (int i0 = 0; i0 < N; i0 += BQT) {
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = t; idx < D * BQT; idx += ROWS * S) {
-      const int d = idx / BQT;
-      const int ii = idx - d * BQT;
-      const int n = i0 + ii;
-      const bool ok = n < N;
-      qs[d][ii] = ok ? lw::to_f32(qp[static_cast<size_t>(d) * N + n]) : 0.f;
-      gs[d][ii] = ok ? lw::to_f32(gp[static_cast<size_t>(d) * N + n]) : 0.f;
-    }
-    if (t < BQT) {
-      const int n = i0 + t;
-      ls[t] = n < N ? lse[row + n] : INFINITY;  // a query past N: p = exp2(-inf) = 0
-      dls[t] = n < N ? delta[row + n] : 0.f;
+  const float sl2 = scale * lw::kLog2e;
+  const int i_lo = i0 + m0 + g, i_hi = i_lo + 8;
+  const float l_lo = i_lo < N ? lse[row + i_lo] : INFINITY;  // past N: p = 0
+  const float l_hi = i_hi < N ? lse[row + i_hi] : INFINITY;
+  float r_lo = 0.f, r_hi = 0.f;  // row_i, this lane's part, then the whole
+  float dq[D / 8][4];
+  lw::zero(dq);
+
+  const int n_tiles = (N + kTile - 1) / kTile;
+  for (int it = 0; it < 2 * n_tiles; ++it) {  // sweep 1: the row term; sweep 2: dQ
+    const int jt = it < n_tiles ? it : it - n_tiles;
+    const int st = it & 1;
+    if (it + 1 < 2 * n_tiles) {  // the next tile into the other stage, then wait for this one
+      const int next = (jt + 1) % n_tiles;
+      lw::load_rows_vec<D>(vec, ks + (st ^ 1) * D * kStride, kStride, kp, N, next * kTile, kTile,
+                             tid, kThreads);
+      lw::load_rows_vec<D>(vec, vs + (st ^ 1) * D * kStride, kStride, vp, N, next * kTile, kTile,
+                             tid, kThreads);
+      lw::cp_async_commit();
+      lw::cp_async_wait<1>();
+    } else {
+      lw::cp_async_wait<0>();
     }
     __syncthreads();
+    const T* kt = ks + st * D * kStride;
+    const T* vt = vs + st * D * kStride;
 
-#pragma unroll 2
-    for (int ii = 0; ii < BQT; ii += CH) {
-      float s[CH] = {0.f, 0.f, 0.f, 0.f};
-      float dp[CH] = {0.f, 0.f, 0.f, 0.f};
+    float s[kTile / 8][4], dp[kTile / 8][4];
+    lw::zero(s);
+    lw::zero(dp);
+    lw::mma_tn<D, kTile / 8>(s, qs, kStride, kt, kStride, m0, 0, lane);
+    lw::mma_tn<D, kTile / 8>(dp, gs, kStride, vt, kStride, m0, 0, lane);
+    const bool ragged = (jt + 1) * kTile > N;
 #pragma unroll
-      for (int c = 0; c < DT; ++c) {
-        const float4 q4 = *reinterpret_cast<const float4*>(&qs[part + S * c][ii]);
-        const float4 g4 = *reinterpret_cast<const float4*>(&gs[part + S * c][ii]);
-        s[0] = fmaf(k[c], q4.x, s[0]);
-        s[1] = fmaf(k[c], q4.y, s[1]);
-        s[2] = fmaf(k[c], q4.z, s[2]);
-        s[3] = fmaf(k[c], q4.w, s[3]);
-        dp[0] = fmaf(v[c], g4.x, dp[0]);
-        dp[1] = fmaf(v[c], g4.y, dp[1]);
-        dp[2] = fmaf(v[c], g4.z, dp[2]);
-        dp[3] = fmaf(v[c], g4.w, dp[3]);
-      }
-      float p[CH], ds[CH];
+    for (int n = 0; n < kTile / 8; ++n) {
 #pragma unroll
-      for (int x = 0; x < CH; ++x) {
-        const float sx = row_sum<S>(s[x]);
-        const float dpx = row_sum<S>(dp[x]);
-        p[x] = exp2f(sx * scale_log2 - ls[ii + x]);
-        ds[x] = p[x] * (dpx - dls[ii + x]) * scale;
-      }
-#pragma unroll
-      for (int c = 0; c < DT; ++c) {
-        const float4 q4 = *reinterpret_cast<const float4*>(&qs[part + S * c][ii]);
-        const float4 g4 = *reinterpret_cast<const float4*>(&gs[part + S * c][ii]);
-        float a = dk[c];
-        a = fmaf(ds[0], q4.x, a);
-        a = fmaf(ds[1], q4.y, a);
-        a = fmaf(ds[2], q4.z, a);
-        a = fmaf(ds[3], q4.w, a);
-        dk[c] = a;
-        float e = dv[c];
-        e = fmaf(p[0], g4.x, e);
-        e = fmaf(p[1], g4.y, e);
-        e = fmaf(p[2], g4.z, e);
-        e = fmaf(p[3], g4.w, e);
-        dv[c] = e;
+      for (int e = 0; e < 4; ++e) {
+        float p = lw::fast_exp2(fmaf(s[n][e], sl2, e < 2 ? -l_lo : -l_hi));
+        if (ragged && jt * kTile + 8 * n + 2 * t + (e & 1) >= N) p = 0.f;
+        s[n][e] = p;
       }
     }
-  }
-  if (!live) return;
-  T* dkp = dqkv + (img + C + h * D + part) * N + j;
-  T* dvp = dqkv + (img + 2 * C + h * D + part) * N + j;
+    if (it < n_tiles) {
 #pragma unroll
-  for (int c = 0; c < DT; ++c) {
-    dkp[static_cast<size_t>(S * c) * N] = lw::from_f32<T>(dk[c]);
-    dvp[static_cast<size_t>(S * c) * N] = lw::from_f32<T>(dv[c]);
+      for (int n = 0; n < kTile / 8; ++n) {
+        r_lo = fmaf(s[n][0], dp[n][0], fmaf(s[n][1], dp[n][1], r_lo));
+        r_hi = fmaf(s[n][2], dp[n][2], fmaf(s[n][3], dp[n][3], r_hi));
+      }
+      if (it == n_tiles - 1) {
+        r_lo = lw::quad_sum(r_lo);
+        r_hi = lw::quad_sum(r_hi);
+        if (t == 0) {
+          if (i_lo < N) delta[row + i_lo] = r_lo;
+          if (i_hi < N) delta[row + i_hi] = r_hi;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < kTile / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] * (dp[n][e] - (e < 2 ? r_lo : r_hi)) * scale;
+      }
+      lw::mma_rt<kTile / 8, D / 8>(dq, s, kt, kStride, 0, 0, lane);  // dQ += dS K^T
+    }
+    __syncthreads();  // stage st is consumed: the next iteration may refill it
+  }
+
+  T* o = dqkv + (img + h * D) * N;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e < 2 ? i_lo : i_hi;
+      if (i < N) o[static_cast<size_t>(8 * n + 2 * t + (e & 1)) * N + i] = lw::from_f32<T>(dq[n][e]);
+    }
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* qkv, const void* out, const float* lse, const void* dout,
-                   void* dqkv, float* delta, int B, int C, int N, float scale,
-                   cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T, D>)
+attention_bwd_dkdv_kernel(const T* __restrict__ qkv, const float* __restrict__ lse,
+                          const float* __restrict__ delta, const T* __restrict__ dout,
+                          T* __restrict__ dqkv, int C, int N, float scale, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const ks = reinterpret_cast<T*>(smem);
+  T* const vs = ks + D * kStride;
+  T* const qs = vs + D * kStride;      // two stages
+  T* const gs = qs + 2 * D * kStride;  // two stages
+  float* const ls = reinterpret_cast<float*>(gs + 2 * D * kStride);  // two stages of kTile
+  float* const dls = ls + 2 * kTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int j0 = blockIdx.x * kRows;
+  const size_t img = static_cast<size_t>(b) * 3 * C;
+  const T* qp = qkv + (img + h * D) * N;
+  const T* kp = qkv + (img + C + h * D) * N;
+  const T* vp = qkv + (img + 2 * C + h * D) * N;
+  const T* gp = dout + (static_cast<size_t>(b) * C + h * D) * N;
+  const size_t row = (static_cast<size_t>(b) * gridDim.y + h) * N;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int m0 = 16 * warp;
+
+  lw::load_rows_vec<D>(vec, ks, kStride, kp, N, j0, kRows, tid, kThreads);
+  lw::load_rows_vec<D>(vec, vs, kStride, vp, N, j0, kRows, tid, kThreads);
+  lw::load_rows_vec<D>(vec, qs, kStride, qp, N, 0, kTile, tid, kThreads);
+  lw::load_rows_vec<D>(vec, gs, kStride, gp, N, 0, kTile, tid, kThreads);
+  lw::cp_async_commit();
+  if (tid < kTile) {  // a query past N: p = exp2(-inf) = 0, and no row term
+    ls[tid] = tid < N ? lse[row + tid] : INFINITY;
+    dls[tid] = tid < N ? delta[row + tid] : 0.f;
+  }
+
+  const float sl2 = scale * lw::kLog2e;
+  float dk[D / 8][4], dv[D / 8][4];
+  lw::zero(dk);
+  lw::zero(dv);
+  const int n_tiles = (N + kTile - 1) / kTile;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_tiles) {
+      const int c0 = (it + 1) * kTile;
+      lw::load_rows_vec<D>(vec, qs + (st ^ 1) * D * kStride, kStride, qp, N, c0, kTile, tid,
+                             kThreads);
+      lw::load_rows_vec<D>(vec, gs + (st ^ 1) * D * kStride, kStride, gp, N, c0, kTile, tid,
+                             kThreads);
+      lw::cp_async_commit();
+      if (tid < kTile) {
+        const int i = c0 + tid;
+        ls[(st ^ 1) * kTile + tid] = i < N ? lse[row + i] : INFINITY;
+        dls[(st ^ 1) * kTile + tid] = i < N ? delta[row + i] : 0.f;
+      }
+      lw::cp_async_wait<1>();
+    } else {
+      lw::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* qt = qs + st * D * kStride;
+    const T* gt = gs + st * D * kStride;
+    const float* lt = ls + st * kTile;
+    const float* dlt = dls + st * kTile;
+
+    float s[kTile / 8][4], dp[kTile / 8][4];  // (16 keys) x (64 queries)
+    lw::zero(s);
+    lw::zero(dp);
+    lw::mma_tn<D, kTile / 8>(s, ks, kStride, qt, kStride, m0, 0, lane);
+    lw::mma_tn<D, kTile / 8>(dp, vs, kStride, gt, kStride, m0, 0, lane);
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * n + 2 * t + (e & 1);
+        const float p = lw::fast_exp2(fmaf(s[n][e], sl2, -lt[i]));
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - dlt[i]) * scale;
+      }
+    }
+    lw::mma_rt<kTile / 8, D / 8>(dv, s, gt, kStride, 0, 0, lane);   // dV += P^T dO^T
+    lw::mma_rt<kTile / 8, D / 8>(dk, dp, qt, kStride, 0, 0, lane);  // dK += dS^T Q^T
+    __syncthreads();  // stage st is consumed: the next iteration may refill it
+  }
+
+  const int j_lo = j0 + m0 + g, j_hi = j_lo + 8;
+  T* dkp = dqkv + (img + C + h * D) * N;
+  T* dvp = dqkv + (img + 2 * C + h * D) * N;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = e < 2 ? j_lo : j_hi;
+      const size_t at = static_cast<size_t>(8 * n + 2 * t + (e & 1)) * N + j;
+      if (j < N) {
+        dkp[at] = lw::from_f32<T>(dk[n][e]);
+        dvp[at] = lw::from_f32<T>(dv[n][e]);
+      }
+    }
+  }
+}
+
+// ---- host side ------------------------------------------------------------
+
+// the narrower of the copy widths (elements) that qkv and d(out) allow
+template <typename T>
+int vec_of(const void* qkv, const void* dout, int N) {
+  const int a = lw::copy_vec(qkv, N, sizeof(T)), b = lw::copy_vec(dout, N, sizeof(T));
+  return a < b ? a : b;
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* qkv, const float* lse, const void* dout, void* dqkv, float* delta,
+                   int B, int C, int N, float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<T, D>();
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attention_bwd_dkdv_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
   const T* x = static_cast<const T*>(qkv);
   const T* g = static_cast<const T*>(dout);
   T* dx = static_cast<T*>(dqkv);
-  const dim3 grid((N + ROWS - 1) / ROWS, C / D, B);
-  const int threads = ROWS * (D / DT);
-  attention_bwd_dq_kernel<T, D><<<grid, threads, 0, stream>>>(
-      x, static_cast<const T*>(out), lse, g, dx, delta, C, N, scale);
-  cudaError_t err = cudaGetLastError();
+  const int vec = vec_of<T>(qkv, dout, N);
+  const dim3 grid((N + kRows - 1) / kRows, C / D, B);
+  attention_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(x, lse, g, dx, delta, C, N,
+                                                                  scale, vec);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // the second pass reads the delta the first one stored: same stream, in order
-  attention_bwd_dkdv_kernel<T, D><<<grid, threads, 0, stream>>>(x, lse, delta, g, dx, C, N,
-                                                                scale);
+  attention_bwd_dkdv_kernel<T, D><<<grid, kThreads, smem, stream>>>(x, lse, delta, g, dx, C, N,
+                                                                    scale, vec);
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+int attributes(int* attrs) {
+  if (int err = lw::kernel_attributes(reinterpret_cast<const void*>(attention_bwd_dq_kernel<T, D>),
+                                      attrs))
+    return err;
+  return lw::kernel_attributes(reinterpret_cast<const void*>(attention_bwd_dkdv_kernel<T, D>),
+                               attrs + 3);
+}
+
+int check(int B, int C, int N, int num_heads, int dtype) {
+  if (B < 1 || B > 65535 || N < 1 || num_heads < 1 || C % num_heads != 0 ||
+      (dtype != lw::kFloat32 && dtype != lw::kBFloat16))
+    return cudaErrorInvalidValue;
+  const int D = C / num_heads;
+  return D == 16 || D == 32 || D == 64 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <typename T>
-cudaError_t dispatch_d(int D, const void* qkv, const void* out, const float* lse,
-                       const void* dout, void* dqkv, float* delta, int B, int C, int N,
-                       float scale, cudaStream_t stream) {
+int dispatch(int D, const void* qkv, const float* lse, const void* dout, void* dqkv,
+             float* delta, int B, int C, int N, float scale, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16>(qkv, out, lse, dout, dqkv, delta, B, C, N, scale, stream);
-    case 32: return launch<T, 32>(qkv, out, lse, dout, dqkv, delta, B, C, N, scale, stream);
-    case 64: return launch<T, 64>(qkv, out, lse, dout, dqkv, delta, B, C, N, scale, stream);
-    default: return cudaErrorInvalidValue;
+    case 16: return launch<T, 16>(qkv, lse, dout, dqkv, delta, B, C, N, scale, st);
+    case 32: return launch<T, 32>(qkv, lse, dout, dqkv, delta, B, C, N, scale, st);
+    default: return launch<T, 64>(qkv, lse, dout, dqkv, delta, B, C, N, scale, st);
+  }
+}
+
+template <typename T>
+int dispatch_attributes(int D, int* attrs) {
+  switch (D) {
+    case 16: return attributes<T, 16>(attrs);
+    case 32: return attributes<T, 32>(attrs);
+    default: return attributes<T, 64>(attrs);
   }
 }
 
 }  // namespace
 
-// qkv and dqkv (B, 3C, N), out and dout (B, C, N) in `dtype`; lse (B, H, N) f32
-// as the forward kernel wrote it; delta (B, H, N) f32 scratch. All contiguous.
-extern "C" int lw_flash_attention_cm_bwd(const void* qkv, const void* out, const void* lse,
-                                         const void* dout, void* dqkv, void* delta, int B,
-                                         int C, int N, int num_heads, float scale, int dtype,
-                                         void* stream) {
-  if (B < 1 || B > 65535 || N < 1 || num_heads < 1 || C % num_heads != 0)
-    return cudaErrorInvalidValue;
+// qkv and dqkv (B, 3C, N), dout (B, C, N) in `dtype`; lse (B, H, N) f32 as the
+// forward kernel wrote it; delta (B, H, N) f32 scratch. All contiguous.
+extern "C" int lw_flash_attention_cm_bwd(const void* qkv, const void* lse, const void* dout,
+                                         void* dqkv, void* delta, int B, int C, int N,
+                                         int num_heads, float scale, int dtype, void* stream) {
+  if (int err = check(B, C, N, num_heads, dtype)) return err;
   const int D = C / num_heads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lp = static_cast<const float*>(lse);
   float* dp = static_cast<float*>(delta);
   if (dtype == lw::kFloat32)
-    return dispatch_d<float>(D, qkv, out, lp, dout, dqkv, dp, B, C, N, scale, st);
-  if (dtype == lw::kBFloat16)
-    return dispatch_d<__nv_bfloat16>(D, qkv, out, lp, dout, dqkv, dp, B, C, N, scale, st);
-  return cudaErrorInvalidValue;
+    return dispatch<float>(D, qkv, lp, dout, dqkv, dp, B, C, N, scale, st);
+  return dispatch<lw::bf16>(D, qkv, lp, dout, dqkv, dp, B, C, N, scale, st);
+}
+
+// attrs[0..2] and [3..5]: registers, local (spill) bytes and static shared
+// bytes a thread / block of pass 1 and pass 2 that lw_flash_attention_cm_bwd
+// would launch for these arguments.
+extern "C" int lw_flash_attention_cm_bwd_attributes(int B, int C, int N, int num_heads,
+                                                    int dtype, int* attrs) {
+  if (int err = check(B, C, N, num_heads, dtype)) return err;
+  const int D = C / num_heads;
+  if (dtype == lw::kFloat32) return dispatch_attributes<float>(D, attrs);
+  return dispatch_attributes<lw::bf16>(D, attrs);
 }

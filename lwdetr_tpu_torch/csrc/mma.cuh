@@ -51,20 +51,22 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// Copy columns [c0, c0 + cols) of kRows rows of a bf16 array with row
+// Copy columns [c0, c0 + cols) of kRows rows of a bf16 or f32 array with row
 // stride n (elements) into shared memory rows of stride `stride`, with
-// zeros past column n. kVec elements a copy: 8 (16-byte cp.async), 4 (8-byte
-// cp.async) or 1 (plain loads, for rows that are not 8-byte aligned); the
-// caller picks it from n and the base pointer (`bf16_vec`), so that every
-// vector lies wholly inside or wholly past the row. `cols` is a multiple of 8,
-// and nthreads >= cols / kVec. Each thread keeps one column of vectors and
+// zeros past column n. kVec elements a copy: a 16-byte or an 8-byte
+// cp.async (bf16: 8 or 4; f32: 4 or 2), or for kVec = 1 a 4-byte cp.async
+// (f32) or plain loads (bf16 rows that are not 8-byte aligned); the caller
+// picks it from n and the base pointer (`copy_vec`), so that every vector lies
+// wholly inside or wholly past the row. `cols` is a multiple of 8, and
+// nthreads >= cols / kVec. Each thread keeps one column of vectors and
 // walks the rows, nthreads / (cols / kVec) rows apart: where `cols` is not a
 // compile-time constant (K1, K9) that is two integer divisions a thread, not
 // one a copy in front of the first load. Plain loads go in batches of
 // kBatch rows, all loads before the stores, so that their latencies overlap.
-template <int kVec, int kRows>
-__device__ __forceinline__ void load_rows(bf16* dst, int stride, const bf16* src, int n, int c0,
+template <int kVec, int kRows, typename T>
+__device__ __forceinline__ void load_rows(T* dst, int stride, const T* src, int n, int c0,
                                           int cols, int tid, int nthreads) {
+  constexpr int kBytes = kVec * static_cast<int>(sizeof(T));
   const int per_row = cols / kVec;
   const int row_step = nthreads / per_row;
   const int r0 = tid / per_row;
@@ -72,10 +74,10 @@ __device__ __forceinline__ void load_rows(bf16* dst, int stride, const bf16* src
   const int c = (tid - r0 * per_row) * kVec;
   const bool ok = c0 + c < n;
   const int col = ok ? c0 + c : 0;
-  if constexpr (kVec == 1) {
+  if constexpr (kBytes < 4) {
     constexpr int kBatch = 8;
     for (int r = r0; r < kRows; r += kBatch * row_step) {
-      bf16 v[kBatch];
+      T v[kBatch];
 #pragma unroll
       for (int i = 0; i < kBatch; ++i) {
         const int ri = r + i * row_step;
@@ -89,8 +91,23 @@ __device__ __forceinline__ void load_rows(bf16* dst, int stride, const bf16* src
     }
   } else {
     for (int r = r0; r < kRows; r += row_step)
-      cp_async<2 * kVec>(dst + r * stride + c, src + static_cast<size_t>(r) * n + col, ok);
+      cp_async<kBytes>(dst + r * stride + c, src + static_cast<size_t>(r) * n + col, ok);
   }
+}
+
+// load_rows with the copy width `vec` (elements: the 16-byte, the 8-byte or the
+// one-element case) chosen at run time: one kernel takes every row alignment,
+// for kernels that load a few tiles and would otherwise be built three times
+template <int kRows, typename T>
+__device__ __forceinline__ void load_rows_vec(int vec, T* dst, int stride, const T* src, int n,
+                                              int c0, int cols, int tid, int nthreads) {
+  constexpr int v16 = 16 / sizeof(T), v8 = 8 / sizeof(T);
+  if (vec == v16)
+    load_rows<v16, kRows>(dst, stride, src, n, c0, cols, tid, nthreads);
+  else if (vec == v8)
+    load_rows<v8, kRows>(dst, stride, src, n, c0, cols, tid, nthreads);
+  else
+    load_rows<1, kRows>(dst, stride, src, n, c0, cols, tid, nthreads);
 }
 
 // four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
@@ -148,15 +165,18 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// The widest copy, in bf16 elements, that keeps every row of a (rows, n)
-// bf16 array at `base` aligned: 8 (16 bytes) when n % 8 == 0 and `base` is
-// 16-byte aligned, 4 (8 bytes) when n % 4 == 0 and it is 8-byte aligned, else
-// 1. Decided on the host from the shape and the pointer, never by a fault.
-inline int bf16_vec(const void* base, int n) {
+// The widest copy, in elements of `elem_bytes` (2: bf16, 4: f32), that keeps
+// every row of a (rows, n) array at `base` aligned: 16 bytes when n fills whole
+// 16-byte units and `base` is 16-byte aligned, 8 bytes likewise, else one
+// element. Decided on the host from the shape and the pointer, never by a fault.
+inline int copy_vec(const void* base, int n, int elem_bytes) {
   const auto p = reinterpret_cast<uintptr_t>(base);
-  if (n % 8 == 0 && p % 16 == 0) return 8;
-  if (n % 4 == 0 && p % 8 == 0) return 4;
+  const int v16 = 16 / elem_bytes, v8 = 8 / elem_bytes;
+  if (n % v16 == 0 && p % 16 == 0) return v16;
+  if (n % v8 == 0 && p % 8 == 0) return v8;
   return 1;
 }
+
+inline int bf16_vec(const void* base, int n) { return copy_vec(base, n, 2); }
 
 }  // namespace lw

@@ -1,5 +1,6 @@
 // K7: backward of the short-sequence (window) attention, with the fused qkv
-// bias (the backward of K1) or without a bias (the backward of K9).
+// bias (the backward of K1) or without a bias (the backward of K9), on the
+// tensor cores.
 //
 // Replaces lwdetr_tpu/ops/flash_attention.py::_attn_cm_bwd_allheads_kernel
 // (launched from _attn_cm_bwd_pallas, the N <= 128 branch, which serves both
@@ -19,185 +20,281 @@
 //
 // The TPU kernel takes qkv with the bias already added (its caller writes
 // that sum to device memory first) and works on all heads of a few windows
-// per program. Here the bias is added on the panel as it is loaded, as in the
-// forward kernel (window_attention.cu), so no qkv + bias tensor exists, and
-// one block handles one (window, head): the whole (N, N) score tile of that
-// head is within the block's reach, so nothing is saved by the forward.
+// per program. Here one block handles one (window, head), and the bias is
+// added on the loaded panel: bf16(x + bf16(b)) in bf16 (add.rn, one rounding,
+// the JAX package's `qkv_t + bias2d.astype(qkv_t.dtype)`), the f32 sum in f32.
 //
-// What bounds it on an H100: per (query, key) pair 10D multiply-adds (scores
-// three times and dp twice in the query phase, both again in the key phase,
-// and the three products) and three exponentials on the CUDA cores in f32,
-// against one read of the panels: arithmetic. Design: the q, k, v and d(out)
-// panels of the head are staged in shared memory, (D, N) each, reads
-// coalesced over the token index. Phase 1, one thread per query: the row max,
-// then the row sum and row_i, then dq, with q and d(out) in registers and the
-// key / value columns read as broadcasts; it leaves the row max, 1 / row sum
-// and row_i in shared memory. Phase 2, one thread per key: rebuilds p_ij and
-// ds_ij for every query from those and accumulates dk and dv in registers,
-// reading its own key / value column conflict-free. No atomics: each sum is
-// a loop inside one thread. Accumulation is f32, rounded once on the store.
+// What bounds it on an H100: a (window, head) reads 4 (D, N) panels and
+// writes 3; per (query, key) pair 5 D multiply-adds and one exponential. At
+// small's shape (64 windows x 12 heads, N = 100, D = 16) the bytes take
+// 0.005 ms and the tensor-core products far less: as in K1, the per-score
+// work and the latency of one block bound it. Design: the whole panels of the
+// head sit in shared memory ([d][token] rows, N padded to a multiple of 16:
+// 100 -> 112, zero past N), loaded by cp.async with the copy width picked on
+// the host and passed in (a 100-token bf16 row is 8-byte aligned, not 16). One warp per 16
+// queries (7 warps at N = 100; not two heads a block at D = 16: 768 blocks of
+// 7 warps already fill the card at small's train shape).
+// Phase 1, per warp, the whole 16 x 112 score row in registers: S = Q^T K
+// once, the exact row max and sum (a single-pass softmax, no second QK^T),
+// dP = dO^T V, row_i = sum_j p dp from the unrounded f32 p exactly as the JAX
+// kernel forms it, dS, and dQ = dS K^T with dS going from the accumulators to
+// the A operand in registers (attention_bwd.cuh). Phase 2: P and dS are
+// written once into shared memory as [query][key] rows (bf16 rounded to
+// nearest even in bf16, the JAX kernel's `p.astype` / `ds.astype`; f32 in
+// f32) over the K and V panels, which phase 1 no longer needs; each warp then
+// takes 16 keys and all D channels: dV^T = dO P and dK^T = Q dS, whose
+// results are [d][token] and leave straight from the accumulators. Nothing
+// is computed twice.
+// bf16: mma.sync.m16n8k16 with f32 accumulators. f32: 3xTF32 on
+// mma.sync.m16n8k8.tf32 (three products for one: the f32 tolerance holds).
+// Shared memory: (2 D + 2 max(Np, D)) (Np + 8) elements, at D = 64 and
+// N = 100 84 KB in bf16 and 169 KB in f32; N = 128, D = 64, f32 is the
+// largest case, 209 KB.
+// Padded rows: a key past N gets p = 0 (masked before the max); a query past N
+// has d(out) = 0, so its dp, row and ds are 0 and it adds nothing to dK or dV,
+// as the JAX kernel's docstring says.
 #include "common.cuh"
+#include "attention_bwd.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // one thread per query, then per key; N <= 128
+constexpr int kMaxN = 128;          // tokens a panel holds
+constexpr int kMaxThreads = 2 * kMaxN;  // one warp per 16 queries
+
+__host__ __device__ __forceinline__ int padded(int N) { return (N + 15) & ~15; }
+
+template <typename T, int D>
+size_t smem_bytes(int N) {
+  const int np = padded(N);
+  return sizeof(T) * (2 * D + 2 * (np > D ? np : D)) * lw::tile_stride(np);
+}
+
+// x + b as the JAX package forms the biased panel: one rounding in bf16
+__device__ __forceinline__ float add_bias(float x, float b) { return x + b; }
+__device__ __forceinline__ lw::bf16 add_bias(lw::bf16 x, float b) {
+  return __hadd(x, __float2bfloat16(b));
+}
+
+// two adjacent values of one row, stored together
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(lw::bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = lw::pack_bf16(a, b);
+}
 
 template <typename T, int D, bool kBias>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 window_attention_bias_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
                                  const T* __restrict__ dout, T* __restrict__ dqkv, int C, int N,
-                                 float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;             // q, k, v head panels, each (D, N), bias added
-  float* ks = qs + D * N;
-  float* vs = ks + D * N;
-  float* gs = vs + D * N;       // d(out) head panel (D, N)
-  float* ms = gs + D * N;       // per query: row max (log2 units), 1 / row sum, row_i
-  float* ils = ms + N;
-  float* rows = ils + N;
+                                 float scale, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int np = padded(N);
+  const int stride = lw::tile_stride(np);
+  T* const qs = reinterpret_cast<T*>(smem);  // q, d(out), k, v panels, D rows each
+  T* const gs = qs + D * stride;
+  T* const ks = gs + D * stride;
+  T* const vs = ks + D * stride;
+  T* const ps = ks;                  // phase 2: P and dS, np rows each, over k and v
+  T* const dss = ps + np * stride;
   const int b = blockIdx.x;
   const int h = blockIdx.y;
-  const size_t img = static_cast<size_t>(b) * 3 * C * N;
-  for (int idx = threadIdx.x; idx < 3 * D * N; idx += kThreads) {
-    const int part = idx / (D * N);
-    const int rem = idx - part * D * N;
-    const int d = rem / N;
-    const int n = rem - d * N;
-    const int ch = part * C + h * D + d;
-    const float x = lw::to_f32(qkv[img + static_cast<size_t>(ch) * N + n]);
-    smem[idx] = kBias ? x + bias[ch] : x;
-  }
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const size_t img = static_cast<size_t>(b) * 3 * C;
   const T* gp = dout + (static_cast<size_t>(b) * C + h * D) * N;
-  for (int idx = threadIdx.x; idx < D * N; idx += kThreads) gs[idx] = lw::to_f32(gp[idx]);
+  lw::load_rows_vec<D>(vec, qs, stride, qkv + (img + h * D) * N, N, 0, np, tid, nthreads);
+  lw::load_rows_vec<D>(vec, gs, stride, gp, N, 0, np, tid, nthreads);
+  lw::load_rows_vec<D>(vec, ks, stride, qkv + (img + C + h * D) * N, N, 0, np, tid, nthreads);
+  lw::load_rows_vec<D>(vec, vs, stride, qkv + (img + 2 * C + h * D) * N, N, 0, np, tid, nthreads);
+  lw::cp_async_commit();
+  lw::cp_async_wait<0>();
+  __syncthreads();
+  if constexpr (kBias) {  // on the live columns; past N the panels stay zero
+    for (int idx = tid; idx < 3 * D * N; idx += nthreads) {
+      const int r = idx / N;  // row of q, k, v: part * D + d
+      const int n = idx - r * N;
+      const int part = r / D;
+      T* panel = part == 0 ? qs : part == 1 ? ks : vs;
+      T& x = panel[(r - part * D) * stride + n];
+      x = add_bias(x, bias[part * C + h * D + (r - part * D)]);
+    }
+    __syncthreads();
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int m0 = 16 * warp;    // phase 1: this warp's queries; phase 2: its keys
+  const int live = np / 8;     // 8-key tiles
+  const float sl2 = scale * lw::kLog2e;
+
+  // ---- phase 1: S, the softmax, dP, the row term, dS, dQ (this warp's queries)
+  float s[kMaxN / 8][4], dp[kMaxN / 8][4];
+  lw::zero(s);
+  lw::zero(dp);
+  lw::mma_tn<D, kMaxN / 8>(s, qs, stride, ks, stride, m0, 0, lane, live);
+  lw::mma_tn<D, kMaxN / 8>(dp, gs, stride, vs, stride, m0, 0, lane, live);
+  float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < kMaxN / 8; ++n) {
+    if (n < live) {
+      const int key = 8 * n + 2 * t;
+      if (key >= N) s[n][0] = s[n][2] = -INFINITY;  // keys past N get no weight
+      if (key + 1 >= N) s[n][1] = s[n][3] = -INFINITY;
+      mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
+    }
+  }
+  const float m_lo = lw::quad_max(mx_lo) * sl2, m_hi = lw::quad_max(mx_hi) * sl2;  // scale > 0
+  float l_lo = 0.f, l_hi = 0.f;
+#pragma unroll
+  for (int n = 0; n < kMaxN / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = n < live ? lw::fast_exp2(fmaf(s[n][e], sl2, e < 2 ? -m_lo : -m_hi)) : 0.f;
+    }
+    l_lo += s[n][0] + s[n][1];
+    l_hi += s[n][2] + s[n][3];
+  }
+  l_lo = lw::quad_sum(l_lo);
+  l_hi = lw::quad_sum(l_hi);
+  float r_lo = 0.f, r_hi = 0.f;
+#pragma unroll
+  for (int n = 0; n < kMaxN / 8; ++n) {
+    s[n][0] /= l_lo;  // p = e / sum e, as the JAX kernel divides
+    s[n][1] /= l_lo;
+    s[n][2] /= l_hi;
+    s[n][3] /= l_hi;
+    r_lo = fmaf(s[n][0], dp[n][0], fmaf(s[n][1], dp[n][1], r_lo));
+    r_hi = fmaf(s[n][2], dp[n][2], fmaf(s[n][3], dp[n][3], r_hi));
+  }
+  r_lo = lw::quad_sum(r_lo);
+  r_hi = lw::quad_sum(r_hi);
+#pragma unroll
+  for (int n = 0; n < kMaxN / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dp[n][e] = s[n][e] * (dp[n][e] - (e < 2 ? r_lo : r_hi)) * scale;
+  }
+  {
+    float dq[D / 8][4];
+    lw::zero(dq);
+    lw::mma_rt<kMaxN / 8, D / 8>(dq, dp, ks, stride, 0, 0, lane, live);  // dQ = dS K^T
+    T* o = dqkv + (img + h * D) * N;
+    const int i_lo = m0 + g, i_hi = i_lo + 8;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e < 2 ? i_lo : i_hi;
+        if (i < N) o[static_cast<size_t>(8 * n + 2 * t + (e & 1)) * N + i] = lw::from_f32<T>(dq[n][e]);
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with the K and V panels
+#pragma unroll
+  for (int n = 0; n < kMaxN / 8; ++n) {
+    if (n < live) {
+      const int key = 8 * n + 2 * t;
+      store_pair(&ps[(m0 + g) * stride + key], s[n][0], s[n][1]);
+      store_pair(&ps[(m0 + g + 8) * stride + key], s[n][2], s[n][3]);
+      store_pair(&dss[(m0 + g) * stride + key], dp[n][0], dp[n][1]);
+      store_pair(&dss[(m0 + g + 8) * stride + key], dp[n][2], dp[n][3]);
+    }
+  }
   __syncthreads();
 
-  const int t = threadIdx.x;
-  const bool live = t < N;  // threads past N only help load and keep the barriers
-  const float scale_log2 = scale * lw::kLog2e;
-
-  if (live) {  // phase 1: thread t is query t
-    float q[D], g[D];
+  // ---- phase 2: dV^T = dO P and dK^T = Q dS for this warp's 16 keys
+  float dv[D / 16][2][4], dk[D / 16][2][4];
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      q[d] = qs[d * N + t] * scale_log2;
-      g[d] = gs[d * N + t];
-    }
-    float m = -INFINITY;
-    for (int j = 0; j < N; ++j) {
-      float s = 0.f;
+  for (int mt = 0; mt < D / 16; ++mt) {
+    lw::zero(dv[mt]);
+    lw::zero(dk[mt]);
+  }
+  lw::mma_nn<D / 16, kMaxN>(dv, gs, stride, ps, stride, m0, np, lane);
+  lw::mma_nn<D / 16, kMaxN>(dk, qs, stride, dss, stride, m0, np, lane);
+  T* dkp = dqkv + (img + C + h * D) * N;
+  T* dvp = dqkv + (img + 2 * C + h * D) * N;
 #pragma unroll
-      for (int d = 0; d < D; ++d) s = fmaf(q[d], ks[d * N + j], s);
-      m = fmaxf(m, s);
-    }
-    float l = 0.f, r = 0.f;
-    for (int j = 0; j < N; ++j) {
-      float s = 0.f, dp = 0.f;
+  for (int mt = 0; mt < D / 16; ++mt) {
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(q[d], ks[d * N + j], s);
-        dp = fmaf(g[d], vs[d * N + j], dp);
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 16 * mt + g + (e < 2 ? 0 : 8);
+        const int j = m0 + 8 * nt + 2 * t + (e & 1);
+        if (j < N) {
+          const size_t at = static_cast<size_t>(d) * N + j;
+          dkp[at] = lw::from_f32<T>(dk[mt][nt][e]);
+          dvp[at] = lw::from_f32<T>(dv[mt][nt][e]);
+        }
       }
-      const float e = exp2f(s - m);  // scores are in log2 units: exp2 == exp
-      l += e;
-      r = fmaf(e, dp, r);
     }
-    const float il = 1.f / l;
-    r *= il;
-    ms[t] = m;
-    ils[t] = il;
-    rows[t] = r;
-
-    float dq[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) dq[d] = 0.f;
-    for (int j = 0; j < N; ++j) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(q[d], ks[d * N + j], s);
-        dp = fmaf(g[d], vs[d * N + j], dp);
-      }
-      const float ds = exp2f(s - m) * il * (dp - r) * scale;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dq[d] = fmaf(ds, ks[d * N + j], dq[d]);
-    }
-    T* o = dqkv + img + static_cast<size_t>(h * D) * N + t;
-#pragma unroll
-    for (int d = 0; d < D; ++d) o[static_cast<size_t>(d) * N] = lw::from_f32<T>(dq[d]);
-  }
-  __syncthreads();
-  if (!live) return;
-
-  // phase 2: thread t is key t
-  float dk[D], dv[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    dk[d] = 0.f;
-    dv[d] = 0.f;
-  }
-  for (int i = 0; i < N; ++i) {
-    float s = 0.f, dp = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      s = fmaf(qs[d * N + i], ks[d * N + t], s);
-      dp = fmaf(gs[d * N + i], vs[d * N + t], dp);
-    }
-    const float p = exp2f(s * scale_log2 - ms[i]) * ils[i];
-    const float ds = p * (dp - rows[i]) * scale;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      dk[d] = fmaf(ds, qs[d * N + i], dk[d]);
-      dv[d] = fmaf(p, gs[d * N + i], dv[d]);
-    }
-  }
-  T* dkp = dqkv + img + static_cast<size_t>(C + h * D) * N + t;
-  T* dvp = dqkv + img + static_cast<size_t>(2 * C + h * D) * N + t;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    dkp[static_cast<size_t>(d) * N] = lw::from_f32<T>(dk[d]);
-    dvp[static_cast<size_t>(d) * N] = lw::from_f32<T>(dv[d]);
   }
 }
+
+// ---- host side ------------------------------------------------------------
 
 template <typename T, int D, bool kBias>
 cudaError_t launch(const void* qkv, const void* bias, const void* dout, void* dqkv, int B,
                    int C, int N, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (4 * D * N + 3 * N);
-  auto kernel = window_attention_bias_bwd_kernel<T, D, kBias>;
+  const auto kernel = window_attention_bias_bwd_kernel<T, D, kBias>;
+  const size_t smem = smem_bytes<T, D>(N);
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
+    const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<dim3(B, C / D), kThreads, smem, stream>>>(
+  // the narrower of the copy widths (elements) that qkv and d(out) allow
+  const int a = lw::copy_vec(qkv, N, sizeof(T)), b = lw::copy_vec(dout, N, sizeof(T));
+  kernel<<<dim3(B, C / D), 2 * padded(N), smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const float*>(bias), static_cast<const T*>(dout),
-      static_cast<T*>(dqkv), C, N, scale);
+      static_cast<T*>(dqkv), C, N, scale, a < b ? a : b);
   return cudaGetLastError();
 }
 
+int check(int B, int C, int N, int num_heads, int dtype) {
+  if (B < 1 || N < 1 || N > kMaxN || num_heads < 1 || C % num_heads != 0 ||
+      (dtype != lw::kFloat32 && dtype != lw::kBFloat16))
+    return cudaErrorInvalidValue;
+  const int D = C / num_heads;
+  return D == 16 || D == 32 || D == 64 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <typename T, bool kBias>
-cudaError_t dispatch_d(int D, const void* qkv, const void* bias, const void* dout, void* dqkv,
-                       int B, int C, int N, float scale, cudaStream_t stream) {
+int dispatch_d(int D, const void* qkv, const void* bias, const void* dout, void* dqkv, int B,
+               int C, int N, float scale, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16, kBias>(qkv, bias, dout, dqkv, B, C, N, scale, stream);
-    case 32: return launch<T, 32, kBias>(qkv, bias, dout, dqkv, B, C, N, scale, stream);
-    case 64: return launch<T, 64, kBias>(qkv, bias, dout, dqkv, B, C, N, scale, stream);
-    default: return cudaErrorInvalidValue;
+    case 16: return launch<T, 16, kBias>(qkv, bias, dout, dqkv, B, C, N, scale, st);
+    case 32: return launch<T, 32, kBias>(qkv, bias, dout, dqkv, B, C, N, scale, st);
+    default: return launch<T, 64, kBias>(qkv, bias, dout, dqkv, B, C, N, scale, st);
   }
 }
 
 template <bool kBias>
 int dispatch(const void* qkv, const void* bias, const void* dout, void* dqkv, int B, int C,
              int N, int num_heads, float scale, int dtype, void* stream) {
-  if (B < 1 || N < 1 || N > kThreads || num_heads < 1 || C % num_heads != 0)
-    return cudaErrorInvalidValue;
+  if (int err = check(B, C, N, num_heads, dtype)) return err;
   const int D = C / num_heads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == lw::kFloat32)
     return dispatch_d<float, kBias>(D, qkv, bias, dout, dqkv, B, C, N, scale, st);
-  if (dtype == lw::kBFloat16)
-    return dispatch_d<__nv_bfloat16, kBias>(D, qkv, bias, dout, dqkv, B, C, N, scale, st);
-  return cudaErrorInvalidValue;
+  return dispatch_d<lw::bf16, kBias>(D, qkv, bias, dout, dqkv, B, C, N, scale, st);
+}
+
+template <typename T, bool kBias>
+int attributes_t(int D, int* attrs) {
+  const void* fn = reinterpret_cast<const void*>(
+      D == 16   ? window_attention_bias_bwd_kernel<T, 16, kBias>
+      : D == 32 ? window_attention_bias_bwd_kernel<T, 32, kBias>
+                : window_attention_bias_bwd_kernel<T, 64, kBias>);
+  return lw::kernel_attributes(fn, attrs);
+}
+
+template <bool kBias>
+int attributes(int B, int C, int N, int num_heads, int dtype, int* attrs) {
+  if (int err = check(B, C, N, num_heads, dtype)) return err;
+  const int D = C / num_heads;
+  return dtype == lw::kFloat32 ? attributes_t<float, kBias>(D, attrs)
+                               : attributes_t<lw::bf16, kBias>(D, attrs);
 }
 
 }  // namespace
@@ -216,4 +313,13 @@ extern "C" int lw_window_attention_bwd(const void* qkv, const void* dout, void* 
                                        int C, int N, int num_heads, float scale, int dtype,
                                        void* stream) {
   return dispatch<false>(qkv, nullptr, dout, dqkv, B, C, N, num_heads, scale, dtype, stream);
+}
+
+// Registers, local (spill) bytes and static shared bytes a thread / block of
+// the kernel that the backward of K1 (`with_bias` 1) or of K9 (0) would launch
+// for these arguments.
+extern "C" int lw_window_attention_bwd_attributes(int B, int C, int N, int num_heads, int dtype,
+                                                  int with_bias, int* attrs) {
+  return with_bias ? attributes<true>(B, C, N, num_heads, dtype, attrs)
+                   : attributes<false>(B, C, N, num_heads, dtype, attrs);
 }

@@ -14,7 +14,7 @@ same dispatch:
   `csrc/flash_attention.cu`, runs (the ViT global blocks and the decoder's
   self-attention over 300 queries); its backward is K6,
   `csrc/flash_attention_bwd.cu`, which reads the per-row log-sum-exp that K2
-  writes when a gradient is needed.
+  writes when a gradient is needed and forms the row term sum_j p dp itself.
 
 Each forward / backward pair is a `torch.autograd.Function`. On a CUDA tensor
 the kernels run, or the call raises; a tensor on the CPU takes the plain
@@ -26,6 +26,9 @@ what the JAX kernels round: the softmax weights p = exp(s - max) to bf16
 before PV, normalised by the f32 row sum after it, and (K1) the biased panel
 once, bf16(x + bf16(bias)). `attention_cm_plain` makes the same roundings on
 bf16 inputs, and `bf16_error_bound` is the bound the kernels are held to.
+The bf16 backward kernels (K6, K7) round ds and p to bf16 before their
+products, and K7 the biased panel once, as the JAX kernels do;
+`attention_cm_bwd_plain` rounds alike and `bf16_bwd_error_bound` bounds them.
 """
 from __future__ import annotations
 
@@ -59,7 +62,7 @@ flash_attention_cm_kernel = CudaKernel(
 # K6 replaces lwdetr_tpu/ops/flash_attention.py:287 _attn_cm_bwd_kernel
 flash_attention_cm_bwd_kernel = CudaKernel(
     "K6", "flash_attention_bwd.cu", "lw_flash_attention_cm_bwd",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I])
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I])
 # K7 replaces lwdetr_tpu/ops/flash_attention.py:347 _attn_cm_bwd_allheads_kernel
 window_attention_bias_bwd_kernel = CudaKernel(
     "K7", "window_attention_bwd.cu", "lw_window_attention_bias_bwd",
@@ -73,24 +76,37 @@ window_attention_bwd_kernel = CudaKernel(
 
 def kernel_attributes(kernel: CudaKernel, qkv_t: torch.Tensor, num_heads: int) -> dict:
     """{registers, spill_bytes, shared_bytes} (a thread, a thread, static a
-    block; `cudaFuncGetAttributes`) of the kernel that K1, K2 or K9 would
-    launch on this CUDA `qkv_t`: the case of its dtype, head_dim and copy width."""
-    if kernel.name not in ("K1", "K2", "K9"):
-        raise ValueError(f"attributes are exported for K1, K2 and K9, not {kernel.name}")
+    block; `cudaFuncGetAttributes`) of the kernel that K1, K2, K9, K6, K7 or
+    K7nb would launch on this CUDA `qkv_t`: the case of its dtype, head_dim
+    and (K1, K2, K9) copy width. K6 launches two passes: its registers are
+    the larger and its spills the sum of theirs, with both under "passes"."""
     B, ZC, N = qkv_t.shape
-    args = [qkv_t.data_ptr(), B, ZC // 3, N, num_heads, _DTYPES[qkv_t.dtype]]
-    if kernel.name == "K2":
-        fn = load(kernel.source).lw_flash_attention_cm_attributes
-    else:
-        fn = load(kernel.source).lw_window_attention_attributes
-        args.append(int(kernel.name == "K1"))
-    fn.argtypes = [_P] + [_I] * (len(args) - 1) + [ctypes.POINTER(_I)]
+    forward = kernel.name in ("K1", "K2", "K9")
+    head = [qkv_t.data_ptr()] if forward else []
+    args = head + [B, ZC // 3, N, num_heads, _DTYPES[qkv_t.dtype]]
+    symbol = {"K1": "lw_window_attention_attributes", "K9": "lw_window_attention_attributes",
+              "K2": "lw_flash_attention_cm_attributes",
+              "K6": "lw_flash_attention_cm_bwd_attributes",
+              "K7": "lw_window_attention_bwd_attributes",
+              "K7nb": "lw_window_attention_bwd_attributes"}.get(kernel.name)
+    if symbol is None:
+        raise ValueError(f"attributes are exported for K1, K2, K9, K6 and K7, not {kernel.name}")
+    fn = getattr(load(kernel.source), symbol)
+    if kernel.name in ("K1", "K9", "K7", "K7nb"):
+        args.append(int(kernel.name in ("K1", "K7")))
+    fn.argtypes = [_P] * len(head) + [_I] * (len(args) - len(head)) + [ctypes.POINTER(_I)]
     fn.restype = _I
-    out = (_I * 3)()
+    out = (_I * 6)()
     err = fn(*args, out)
     if err != 0:
         raise RuntimeError(f"{kernel.name} attributes: CUDA error {err}")
-    return {"registers": out[0], "spill_bytes": out[1], "shared_bytes": out[2]}
+    if kernel.name != "K6":
+        return {"registers": out[0], "spill_bytes": out[1], "shared_bytes": out[2]}
+    passes = [{"registers": out[3 * i], "spill_bytes": out[3 * i + 1],
+               "shared_bytes": out[3 * i + 2]} for i in range(2)]
+    return {"registers": max(p["registers"] for p in passes),
+            "spill_bytes": sum(p["spill_bytes"] for p in passes),
+            "shared_bytes": max(p["shared_bytes"] for p in passes), "passes": passes}
 
 
 def plain_dtype(t: torch.Tensor) -> torch.dtype:
@@ -140,23 +156,21 @@ def bf16_error_bound(qkv_t: torch.Tensor, num_heads: int, scale: float,
     return 2e-5 + 2.0 ** -8 * (plain.float().abs() + abs_v)
 
 
-def attention_cm_bwd_plain(qkv_t: torch.Tensor, dout: torch.Tensor, num_heads: int,
-                           scale: float, bias: Optional[torch.Tensor] = None,
-                           out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch version of the attention backwards (K6, and K7 with or
-    without `bias`): d(qkv_t) (B, 3C, N) in qkv_t's dtype from d(out) (B, C, N), by
-    the explicit formulas, in f32. With p = softmax(scale q^T k):
-    dp = d(out)^T v, ds = p (dp - row) scale, dq = k ds^T, dk = q ds,
-    dv = d(out) p. `row` is sum_j p dp, or, given the forward's `out`,
-    sum_d d(out) out as K6 forms it. The gradient of `bias` is the sum of
-    the result over (0, 2)."""
+def _bwd_terms(qkv_t: torch.Tensor, dout: torch.Tensor, num_heads: int, scale: float,
+               bias: Optional[torch.Tensor], out: Optional[torch.Tensor]):
+    """q, k, d(out) (B, H, D, N), p and ds (B, H, N, N) of the attention
+    backward, unrounded, in the plain dtype; the biased panel as `attention_cm`
+    forms it (in bf16 one rounding of x + bf16(bias))."""
     B, ZC, N = qkv_t.shape
     C = ZC // 3
     D = C // num_heads
     ct = plain_dtype(qkv_t)
-    x = qkv_t.to(ct)
-    if bias is not None:
-        x = x + bias.to(ct)[:, None]
+    if bias is None:
+        x = qkv_t.to(ct)
+    elif qkv_t.dtype == torch.bfloat16:
+        x = (qkv_t + bias.to(qkv_t.dtype)[:, None]).to(ct)
+    else:
+        x = qkv_t.to(ct) + bias.to(ct)[:, None]
     x = x.reshape(B, 3, num_heads, D, N)
     q, k, v = x[:, 0], x[:, 1], x[:, 2]  # (B, H, D, N)
     g = dout.to(ct).reshape(B, num_heads, D, N)
@@ -166,11 +180,64 @@ def attention_cm_bwd_plain(qkv_t: torch.Tensor, dout: torch.Tensor, num_heads: i
         row = (dp * p).sum(dim=-1, keepdim=True)
     else:
         row = (g * out.to(ct).reshape(B, num_heads, D, N)).sum(dim=2)[..., None]
-    ds = p * (dp - row) * scale
+    return q, k, g, p, p * (dp - row) * scale
+
+
+def attention_cm_bwd_plain(qkv_t: torch.Tensor, dout: torch.Tensor, num_heads: int,
+                           scale: float, bias: Optional[torch.Tensor] = None,
+                           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the attention backwards (K6, and K7 with or
+    without `bias`): d(qkv_t) (B, 3C, N) in qkv_t's dtype from d(out) (B, C, N), by
+    the explicit formulas, in f32. With p = softmax(scale q^T k):
+    dp = d(out)^T v, ds = p (dp - row) scale, dq = k ds^T, dk = q ds,
+    dv = d(out) p. `row` is sum_j p dp, as the JAX kernels and K6 / K7 form
+    it, or, given the forward's `out`, sum_d d(out) out (equal in exact
+    arithmetic; in bf16 the rounded `out` moves it, see K6's header). The
+    gradient of `bias` is the sum of the result over (0, 2).
+
+    On bf16 inputs it rounds as the JAX kernels do (`_attn_cm_bwd_kernel`,
+    `_attn_cm_bwd_allheads_kernel`, lwdetr_tpu/ops/flash_attention.py:320-338,
+    :376-378): ds and p are rounded to bf16 before the three products, which
+    sum in f32, and `row` takes the unrounded p; the biased panel is
+    bf16(x + bf16(bias)), one rounding (`_attn_cm_bias_bwd`, :262). Its f32
+    path makes none of these roundings."""
+    B, ZC, N = qkv_t.shape
+    q, k, g, p, ds = _bwd_terms(qkv_t, dout, num_heads, scale, bias, out)
+    if qkv_t.dtype == torch.bfloat16:
+        ds, p = (t.to(torch.bfloat16).to(p.dtype) for t in (ds, p))
     dq = torch.einsum("bhnm,bhdm->bhdn", ds, k)
     dk = torch.einsum("bhnm,bhdn->bhdm", ds, q)
     dv = torch.einsum("bhnm,bhdn->bhdm", p, g)
     return torch.stack([dq, dk, dv], dim=1).reshape(B, ZC, N).to(qkv_t.dtype)
+
+
+def bf16_bwd_error_bound(qkv_t: torch.Tensor, dout: torch.Tensor, num_heads: int, scale: float,
+                         plain: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Element-wise bound on |kernel - plain| for the bf16 backward kernels (K6,
+    K7), with `plain` (f32) the plain backward on the same bf16 `qkv_t`,
+    `dout` (and `bias`):
+
+        2e-5 max(1, max |plain|) + 2^-8 |plain| + 2^-8 [sum_j |ds| |k|,
+                                                      sum_i |ds| |q|,
+                                                      sum_i p |d(out)|]
+
+    for dq, dk, dv. dq = sum_j bf16(ds_ij) k_j: rounding ds_ij to bf16 moves
+    a term by at most 2^-9 |ds_ij| |k_j|, so dq by at most 2^-9 sum_j |ds| |k|;
+    likewise dk, and dv with p. The kernel rounds its own f32 ds and p (p from
+    K2's log-sum-exp, ds with another sum order) and the plain version its
+    own: two roundings that differ, a factor 2. The result's rounding to bf16
+    is half an ulp on either side, 2^-8 |plain| in all; the first term is the
+    f32 tolerance of the backwards (sums in another order)."""
+    if qkv_t.dtype != torch.bfloat16:
+        raise TypeError(f"the bound is for bf16 inputs, got {qkv_t.dtype}")
+    B, ZC, N = qkv_t.shape
+    q, k, g, p, ds = _bwd_terms(qkv_t, dout, num_heads, scale, bias, None)
+    ads = ds.abs()
+    terms = torch.stack([torch.einsum("bhnm,bhdm->bhdn", ads, k.abs()),
+                         torch.einsum("bhnm,bhdn->bhdm", ads, q.abs()),
+                         torch.einsum("bhnm,bhdn->bhdm", p, g.abs())], dim=1).reshape(B, ZC, N)
+    plain = plain.float()
+    return 2e-5 * max(1.0, plain.abs().max().item()) + 2.0 ** -8 * (plain.abs() + terms)
 
 
 def _check_cuda(qkv_t: torch.Tensor, num_heads: int) -> None:
@@ -285,13 +352,13 @@ class _FlashAttentionCM(torch.autograd.Function):
     def forward(ctx, qkv_t, num_heads, scale):
         ctx.num_heads, ctx.scale = num_heads, scale
         out, lse = flash_attention_cm_fwd(qkv_t, num_heads, scale, with_lse=True)
-        ctx.save_for_backward(qkv_t, out, *(() if lse is None else (lse,)))
+        ctx.save_for_backward(qkv_t, *(() if lse is None else (lse,)))
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv_t, out, *lse = ctx.saved_tensors
-        return flash_attention_cm_bwd(qkv_t, out, lse[0] if lse else None, dout,
+        qkv_t, *lse = ctx.saved_tensors
+        return flash_attention_cm_bwd(qkv_t, lse[0] if lse else None, dout,
                                       ctx.num_heads, ctx.scale), None, None
 
 
@@ -343,30 +410,28 @@ def window_attention_bias_bwd(qkv_t: torch.Tensor, bias: Optional[torch.Tensor],
     return dqkv
 
 
-def flash_attention_cm_bwd(qkv_t: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
-                           dout: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
-    """K6: d(qkv_t) (B, 3C, N) of `flash_attention_cm` from d(out) (B, C, N), the
-    forward's `out` and the row log-sum-exp `lse` (B, H, N) that K2 wrote."""
+def flash_attention_cm_bwd(qkv_t: torch.Tensor, lse: Optional[torch.Tensor], dout: torch.Tensor,
+                           num_heads: int, scale: float) -> torch.Tensor:
+    """K6: d(qkv_t) (B, 3C, N) of `flash_attention_cm` from d(out) (B, C, N) and
+    the row log-sum-exp `lse` (B, H, N) that K2 wrote (None on the CPU)."""
     if not qkv_t.is_cuda:
-        return attention_cm_bwd_plain(qkv_t, dout, num_heads, scale, out=out)
+        return attention_cm_bwd_plain(qkv_t, dout, num_heads, scale)
     _check_cuda(qkv_t, num_heads)
     B, ZC, N = qkv_t.shape
-    for name, t, shape in (("out", out, (B, ZC // 3, N)), ("d(out)", dout, (B, ZC // 3, N)),
-                           ("lse", lse, (B, num_heads, N))):
-        if t.shape != shape or t.device != qkv_t.device:
-            raise ValueError(f"{name} must be {shape} on {qkv_t.device}, "
-                             f"got {tuple(t.shape)} on {t.device}")
+    for name, t, shape in (("d(out)", dout, (B, ZC // 3, N)), ("lse", lse, (B, num_heads, N))):
+        if t is None or t.shape != shape or t.device != qkv_t.device:
+            raise ValueError(f"{name} must be {shape} on {qkv_t.device}, got "
+                             f"{None if t is None else (tuple(t.shape), t.device)}")
     if lse.dtype != torch.float32:
         raise TypeError(f"lse must be float32, got {lse.dtype}")
     qkv_t = qkv_t.contiguous()
-    out = out.to(qkv_t.dtype).contiguous()
     dout = dout.to(qkv_t.dtype).contiguous()
     lse = lse.contiguous()
     dqkv = torch.empty_like(qkv_t)
-    delta = torch.empty_like(lse)  # sum_d d(out) out per row: pass 1 writes it, pass 2 reads it
-    flash_attention_cm_bwd_kernel(qkv_t.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                                  dout.data_ptr(), dqkv.data_ptr(), delta.data_ptr(), B,
-                                  ZC // 3, N, num_heads, float(scale), _DTYPES[qkv_t.dtype])
+    delta = torch.empty_like(lse)  # sum_j p dp per row: pass 1 writes it, pass 2 reads it
+    flash_attention_cm_bwd_kernel(qkv_t.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+                                  dqkv.data_ptr(), delta.data_ptr(), B, ZC // 3, N, num_heads,
+                                  float(scale), _DTYPES[qkv_t.dtype])
     return dqkv
 
 

@@ -11,7 +11,7 @@ and times its replays, which leaves only the device's time.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -53,20 +53,26 @@ def measure_ms(fn: Callable[..., Any], *args: Any, iters: int = 20, warmup: int 
     return _summary(_timed(run, repeats, iters))
 
 
-def measure_graph_ms(fn: Callable[[], Any], iters: int = 20, repeats: int = 5) -> Dict[str, Any]:
+def measure_graph_ms(fn: Callable[[], Any], iters: int = 20, repeats: int = 5,
+                     prepare: Optional[Callable[[], Any]] = None) -> Dict[str, Any]:
     """Per-call device milliseconds of `fn()`: `iters` calls captured in one
     CUDA graph (after a warm-up call outside it), the graph replayed
-    `repeats` times between CUDA events; same keys as `measure_ms`."""
+    `repeats` times between CUDA events; same keys as `measure_ms`.
+    `prepare()`, if given, runs first, untimed, on the stream the graph is
+    captured on: autograd runs a backward on the stream of its forward, so a
+    backward is captured only when `prepare` made its forward there."""
     if not torch.cuda.is_available():
         raise RuntimeError("measure_graph_ms times the CUDA device and there is none")
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
+        if prepare is not None:
+            prepare()
         fn()
     torch.cuda.current_stream().wait_stream(stream)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()

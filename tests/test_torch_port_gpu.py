@@ -27,7 +27,9 @@ RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8}
 # softmax weights to bf16 before PV, as the JAX kernels do: they are held to
 # `fa.bf16_error_bound` (ATOL + 2^-8 |plain| + 2^-8 plain(q, k, |v|), derived
 # there) against the plain version that rounds alike, and against the f32
-# plain version on the same bf16 values.
+# plain version on the same bf16 values. The bf16 attention backwards (K6,
+# K7) round ds and p to bf16 before their products, as the JAX kernels do:
+# they are held to `fa.bf16_bwd_error_bound` in the same two ways.
 
 
 @pytest.fixture
@@ -202,7 +204,8 @@ def test_dispatch_counts_launches(cuda):
 @pytest.mark.parametrize("B,C,N,heads", [(8, 256, 100, 8), (52, 256, 100, 8), (3, 64, 49, 2),
                                          (2, 128, 128, 4), (2, 128, 1, 2), (3, 192, 100, 12),
                                          (2, 768, 100, 12),  # head_dim 32, 16, 64
-                                         (2, 64, 33, 4), (2, 256, 33, 4)])  # plain loads
+                                         (2, 64, 33, 4), (2, 256, 33, 4),  # plain loads
+                                         (2, 512, 33, 8)])  # head_dim 64, plain loads
 def test_window_attention_without_bias_matches_plain(cuda, dtype, B, C, N, heads):
     qkv = _qkv(cuda, B, C, N, dtype).requires_grad_()
     dout = torch.randn((B, C, N), generator=cuda, device="cuda").to(dtype)
@@ -217,8 +220,7 @@ def test_window_attention_without_bias_matches_plain(cuda, dtype, B, C, N, heads
     assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 0, 0, 0, 0]
     assert out.dtype == dtype and qkv.grad.dtype == dtype
     _close_attention(out.detach(), qkv.detach(), heads, 0.7)
-    _close_bwd(qkv.grad, fa.attention_cm_bwd_plain(qkv.detach().float(), dout.float(), heads, 0.7),
-               dtype, "K7 without a bias")
+    _close_attention_bwd(qkv.grad, qkv.detach(), dout, heads, 0.7, "K7 without a bias")
 
 
 def _sampler_points(g, B, Q, heads, L, P):
@@ -319,9 +321,28 @@ def _close_bwd(out, ref, dtype, name, atol_scale=1.0):
     torch.testing.assert_close(out.float(), ref, atol=atol, rtol=RTOL[dtype], msg=lambda m: f"{name}: {m}")
 
 
+def _close_attention_bwd(dqkv, qkv, dout, heads, scale, name, bias=None):
+    """An attention backward kernel's d(qkv) against the plain backward: f32
+    within ATOL x max(1, max|plain|); bf16 within `bf16_bwd_error_bound` of the
+    plain version that rounds ds and p and of the f32 one on the same values
+    (the panel with the bias rounded in once)."""
+    panel = qkv if bias is None else qkv + bias.to(qkv.dtype)[:, None]
+    ref32 = fa.attention_cm_bwd_plain(panel.float(), dout.float(), heads, scale)
+    assert dqkv.shape == qkv.shape and dqkv.dtype == qkv.dtype
+    if qkv.dtype == torch.float32:
+        _close_bwd(dqkv, ref32, torch.float32, name)
+        return
+    assert torch.isfinite(dqkv).all()
+    for ref in (fa.attention_cm_bwd_plain(qkv, dout, heads, scale, bias=bias).float(), ref32):
+        bound = fa.bf16_bwd_error_bound(qkv, dout, heads, scale, ref, bias=bias)
+        excess = ((dqkv.float() - ref).abs() - bound).max().item()
+        assert excess <= 0, f"{name}: over the bf16 backward bound by {excess}"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,C,N,heads", [(64, 192, 100, 12), (3, 64, 49, 2), (2, 128, 128, 4),
-                                         (2, 128, 1, 2), (16, 384, 100, 12), (16, 768, 100, 12)])
+                                         (2, 128, 1, 2), (16, 384, 100, 12), (16, 768, 100, 12),
+                                         (3, 256, 33, 8), (3, 512, 33, 8)])  # plain loads
 def test_window_attention_bias_bwd_matches_plain(cuda, dtype, B, C, N, heads):
     qkv = _qkv(cuda, B, C, N, dtype)
     bias = 0.1 * torch.randn((3 * C,), generator=cuda, device="cuda")
@@ -329,16 +350,16 @@ def test_window_attention_bias_bwd_matches_plain(cuda, dtype, B, C, N, heads):
     before = fa.window_attention_bias_bwd_kernel.launches
     dqkv = fa.window_attention_bias_bwd(qkv, bias, dout, heads, 0.7)
     assert fa.window_attention_bias_bwd_kernel.launches == before + 1
-    ref = fa.attention_cm_bwd_plain(qkv.float(), dout.float(), heads, 0.7, bias=bias)
-    assert dqkv.shape == qkv.shape and dqkv.dtype == dtype
-    _close_bwd(dqkv, ref, dtype, "K7")
+    _close_attention_bwd(dqkv, qkv, dout, heads, 0.7, "K7", bias=bias)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,C,N,heads,scale", [(4, 192, 1600, 12, 1.0), (52, 256, 300, 8, 32 ** -0.5),
                                                (1, 128, 33, 2, 0.125), (1, 128, 1, 2, 0.125),
                                                (2, 384, 1600, 12, 1.0),  # head_dim 32
-                                               (2, 768, 1600, 12, 1.0)])  # head_dim 64
+                                               (2, 768, 1600, 12, 1.0),  # head_dim 64
+                                               (2, 384, 300, 12, 0.125), (2, 768, 300, 12, 0.125),
+                                               (1, 256, 33, 8, 0.125), (1, 512, 33, 8, 0.125)])
 def test_flash_attention_cm_bwd_matches_plain(cuda, dtype, B, C, N, heads, scale):
     qkv = _qkv(cuda, B, C, N, dtype).requires_grad_()
     dout = torch.randn((B, C, N), generator=cuda, device="cuda").to(dtype)
@@ -346,11 +367,7 @@ def test_flash_attention_cm_bwd_matches_plain(cuda, dtype, B, C, N, heads, scale
     out = fa.flash_attention_cm(qkv, heads, scale)
     out.backward(dout)
     assert fa.flash_attention_cm_bwd_kernel.launches == before + 1
-    # the plain version takes the row term from the same saved output as K6
-    ref = fa.attention_cm_bwd_plain(qkv.detach().float(), dout.float(), heads, scale,
-                                    out=out.detach().float())
-    assert qkv.grad.shape == qkv.shape and qkv.grad.dtype == dtype
-    _close_bwd(qkv.grad, ref, dtype, "K6")
+    _close_attention_bwd(qkv.grad, qkv.detach(), dout, heads, scale, "K6")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -483,8 +500,8 @@ def test_one_train_step_through_the_kernels_matches_the_plain_backwards(cuda):
                                lambda qkv, bias, dout, heads, scale:
                                fa.attention_cm_bwd_plain(qkv, dout, heads, scale, bias=bias)), \
                 mock.patch.object(fa, "flash_attention_cm_bwd",
-                                  lambda qkv, out, lse, dout, heads, scale:
-                                  fa.attention_cm_bwd_plain(qkv, dout, heads, scale, out=out)), \
+                                  lambda qkv, lse, dout, heads, scale:
+                                  fa.attention_cm_bwd_plain(qkv, dout, heads, scale)), \
                 mock.patch.object(da, "ms_deform_attn_sep_panels_bwd",
                                   da.ms_deform_attn_sep_panels_bwd_plain), \
                 mock.patch.object(da, "ms_deform_attn_cm_bwd",
