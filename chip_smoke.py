@@ -20,7 +20,10 @@ Run from the root of a checkout, with one card:
    large's two levels and at small's and tiny's train step, K5 at small's,
    tiny's and large's train shape, K8 at tiny's 1300 and small's 3900 train
    queries and at large's two levels, K10 (row-major) forward and backward at
-   tiny's eval and train shapes; K6 and K7 at small's and medium's train step
+   tiny's eval and train shapes, each with its call and CUDA-graph device times
+   and the reference's F.grid_sample formulation timed on the same values (its
+   backward for K5, K8, K10b; a yardstick the port never calls); K6 and K7 at
+   small's and medium's train step
    (K6 also at head_dim 64), in bf16 against `bf16_bwd_error_bound`, with
    SDPA's backward, the CUDA-graph device times and the registers and spills
    of every pass beside them; K9 (the short attention
@@ -53,7 +56,9 @@ Run from the root of a checkout, with one card:
    K5 3, K6 3, K7 3 with a bias and 3 without), `force_branch="cm"` (K3 3,
    K8 3 in place of K4, K5) and `"gather"` (K10 3 forward, 3 backward). The
    three losses must agree within 1e-4; the default branch takes the
-   optimizer steps, and every branch's step is timed.
+   optimizer steps, and every branch's step is timed. Each branch logs the
+   error of every `sampling_offsets.weight` gradient (the first that the
+   samplers' d(loc) feeds) against the plain backwards on the same forward.
 6. Drives the train step of LW-DETR-medium (ViT-small, head_dim 32) as
    small's: the same launch counts, 4 optimizer steps.
 
@@ -155,7 +160,7 @@ TRAIN_BATCH = 4
 TRAIN_STEPS = {"small": 8, "tiny": 6, "medium": 4}
 BRANCH_LOSS_ATOL = 1e-4  # one function from three value layouts
 # how the backward kernels' absolute bound scales (see `grad_scale`)
-_SCATTER_TOL = " x max(1, max |plain|), x 4 on d(value) for the order of its atomic adds"
+_SCATTER_TOL = " x max(1, max |plain|), x 4 on d(value) for the order of its additions"
 BWD_TOL = {"K5": _SCATTER_TOL, "K8": _SCATTER_TOL, "K10b": _SCATTER_TOL,
            "K6": " x max(1, max |plain|)", "K7": " x max(1, max |plain|)",
            "K7nb": " x max(1, max |plain|)"}
@@ -440,10 +445,53 @@ def to_f32(x):
     return [t.float() for t in x] if isinstance(x, (list, tuple)) else x.float()
 
 
+def grid_sample_sampler(torch, F, maps, loc, w):
+    """The reference's own PyTorch formulation of the sampling
+    (`ms_deform_attn_core_pytorch`): F.grid_sample(mode='bilinear',
+    padding_mode='zeros', align_corners=False) per level, times the weights,
+    summed; maps[l] (B H, D, H_l, W_l) -> (B, Q, H D). A yardstick the port
+    never calls."""
+    B, Q, H, L, P, _ = loc.shape
+    grids = (2 * loc - 1).to(maps[0].dtype)
+    out = 0
+    for lvl, v in enumerate(maps):
+        grid = grids[:, :, :, lvl].transpose(1, 2).flatten(0, 1)  # (B H, Q, P, 2)
+        s = F.grid_sample(v, grid, mode="bilinear", padding_mode="zeros", align_corners=False)
+        wl = w[:, :, :, lvl].transpose(1, 2).flatten(0, 1)[:, None].to(v.dtype)  # (B H, 1, Q, P)
+        out = out + (s * wl).sum(-1)  # (B H, D, Q)
+    return out.reshape(B, -1, Q).transpose(1, 2)
+
+
+def library_sampler(torch, F, measure_ms, vals, shapes, loc, w, dout, backward, iters):
+    """Call time of `grid_sample_sampler` on the panels' values (its backward
+    through torch.autograd.grad, the forward outside the timing), and its max
+    abs difference from the f32 plain forward (`ref`, given by the caller)."""
+    B, H = vals[0].shape[:2]
+    D = vals[0].shape[3] // shapes[0][1]
+    maps = [v.reshape(B, H, h, wd, D).permute(0, 1, 4, 2, 3).reshape(B * H, D, h, wd).contiguous()
+            for v, (h, wd) in zip(vals, shapes)]
+    if not backward:
+        with torch.no_grad():
+            return measure_ms(lambda: grid_sample_sampler(torch, F, maps, loc, w),
+                              iters=iters)["ms"]
+    leaves = [m.detach().requires_grad_() for m in maps] + [loc.detach().requires_grad_(),
+                                                           w.detach().requires_grad_()]
+    out = grid_sample_sampler(torch, F, leaves[:-2], leaves[-2], leaves[-1])
+    g = dout.to(out.dtype)
+    return measure_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True),
+                      iters=iters)["ms"]
+
+
 def compare_deform_sep(torch, da, measure_ms, dtype, shape, name="K4",
                        layout="panels"):
     """A sampler's forward against its plain version at `shape`: K4 on panels,
-    K10 on the row-major and K3 on the channel-major layout of the same values."""
+    K10 on the row-major and K3 on the channel-major layout of the same values;
+    call and device (CUDA-graph) times, and the reference's grid_sample
+    formulation on the same values beside them."""
+    import torch.nn.functional as F
+
+    from lwdetr_tpu_torch.utils.timing import measure_graph_ms
+
     dt = getattr(torch, dtype)
     B, H, D, P, Q, shapes = shape
     L = len(shapes)
@@ -462,8 +510,10 @@ def compare_deform_sep(torch, da, measure_ms, dtype, shape, name="K4",
         # ~0.05 ms a call: 200 calls a sample, so that launch jitter averages out
         timed = measure_ms(kernel, iters=200, repeats=7)
         ms = timed["ms"]
+        device_ms = measure_graph_ms(kernel)["ms"]
         plain_ms = measure_ms(plain, iters=5)["ms"]
         panel_bytes = sep_panel_bytes(torch, vals, loc, shapes, D)
+    library_ms = library_sampler(torch, F, measure_ms, vals, shapes, loc, w, dout, False, 20)
     # bytes the function must move for these locations: of each level only the
     # distinct in-map corners the points name (each D channels wide), once
     # each, and never more than the level; loc and weights in, (B, Q, C) out
@@ -473,12 +523,13 @@ def compare_deform_sep(torch, da, measure_ms, dtype, shape, name="K4",
     bms, by, _ = bound_ms(nbytes, flops, 0, dtype)
     log(f"{name} {dtype} {layout} {[tuple(v.shape) for v in tensors(value)]} Q {Q}: {outside:.3f} "
         f"of the points outside [0, 1]; err {err:.3g} ms {ms:.4f} (samples {timed['ms_min']:.4f}-"
-        f"{timed['ms_max']:.4f}) plain {plain_ms:.4f} bound {bms:.4f} ({by}, {nbytes / 1e6:.1f} MB: "
+        f"{timed['ms_max']:.4f}) device {device_ms:.4f} plain {plain_ms:.4f} grid_sample "
+        f"{library_ms:.4f} bound {bms:.4f} ({by}, {nbytes / 1e6:.1f} MB: "
         f"levels {[round(b / 1e6, 1) for b in panel_bytes]} of "
         f"{[round(v.numel() * isz / 1e6, 1) for v in vals]} MB)")
     return {"shape": [list(v.shape) for v in tensors(value)] + [Q], "max_abs_err": err, "ms": ms,
-            "ms_min": timed["ms_min"], "ms_max": timed["ms_max"],
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "ms_min": timed["ms_min"], "ms_max": timed["ms_max"], "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
             "bound_bytes": nbytes, "panel_bytes_needed": panel_bytes,
             "panel_bytes": [v.numel() * isz for v in vals], "points_outside_share": outside}
 
@@ -486,12 +537,19 @@ def compare_deform_sep(torch, da, measure_ms, dtype, shape, name="K4",
 def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape, name="K5", layout="panels"):
     """A sampler's backward against its plain version: d(value), d(loc) and
     d(weights) from d(out). K5 on panels, K10's backward on the row-major and
-    K8 on the channel-major layout of the same values."""
+    K8 on the channel-major layout of the same values; call and device
+    (CUDA-graph) times, and the backward of the reference's grid_sample
+    formulation on the same values beside them."""
+    import torch.nn.functional as F
+
+    from lwdetr_tpu_torch.utils.timing import measure_graph_ms
+
     dt = getattr(torch, dtype)
     B, H, D, P, Q, shapes = shape
     L = len(shapes)
     vals, loc, w, dout, outside = sep_inputs(torch, dt, shape)
     lay = as_layout(torch, da, layout, vals, shapes, dout)
+    sep_dout = dout
     value, dout = lay.value, lay.dout
     kernel = lambda: lay.bwd(value, loc, w, dout)  # noqa: E731
     plain = lambda: lay.bwd_plain(value, loc, w, dout)  # noqa: E731
@@ -500,7 +558,7 @@ def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape, name="K5", layou
         rvals, rloc, rw = lay.bwd_plain(to_f32(value), loc, w, dout.float())
         dvals, rvals = tensors(dvals), tensors(rvals)
         torch.cuda.synchronize()
-        # d(value): up to hundreds of f32 atomic adds per position, in an order
+        # d(value): up to hundreds of f32 additions per position, in an order
         # that changes from run to run: 4 x the f32 bound of the other outputs
         err = max(check_close(torch, f"{name} d(value {i})", dtype, dv, rv, 4.0 * grad_scale(rv))
                   for i, (dv, rv) in enumerate(zip(dvals, rvals)))
@@ -509,10 +567,14 @@ def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape, name="K5", layou
         untouched = sum(int(((rv == 0) & (dv.float() != 0)).sum()) for dv, rv in zip(dvals, rvals))
         if untouched:
             raise AssertionError(f"{name}: {untouched} positions no point touches got a gradient")
-        timed = measure_ms(kernel, iters=200 if Q * L * P * B < 1e5 else 50, repeats=5)
+        iters = 200 if Q * L * P * B < 1e5 else 50
+        timed = measure_ms(kernel, iters=iters, repeats=5)
         ms = timed["ms"]
+        device_ms = measure_graph_ms(kernel, iters=iters)["ms"]
         plain_ms = measure_ms(plain, iters=3, repeats=3)["ms"]
         panel_bytes = sep_panel_bytes(torch, vals, loc, shapes, D)
+    library_ms = library_sampler(torch, F, measure_ms, vals, shapes, loc, w, sep_dout, True,
+                                 min(iters, 20))
     # bytes: the corners the points name and d(out), loc, weights in; every
     # d(value) position (touched or zero), d(loc) and d(weights) out
     isz = vals[0].element_size()
@@ -524,13 +586,14 @@ def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape, name="K5", layou
     log(f"{name} {dtype} {layout} {[tuple(v.shape) for v in tensors(value)]} Q {Q} P {P}: "
         f"{outside:.3f} of the points outside [0, 1]; err d(value) {err:.3g} (max |plain| "
         f"{max(rv.abs().max().item() for rv in rvals):.3g}) d(loc) {err_loc:.3g} d(w) {err_w:.3g} "
-        f"ms {ms:.4f} (samples {timed['ms_min']:.4f}-{timed['ms_max']:.4f}) plain {plain_ms:.4f} "
-        f"bound {bms:.4f} ({by}, {nbytes / 1e6:.1f} MB; at most {adds / 1e6:.1f} M atomic adds)")
+        f"ms {ms:.4f} (samples {timed['ms_min']:.4f}-{timed['ms_max']:.4f}) device {device_ms:.4f} "
+        f"plain {plain_ms:.4f} grid_sample bwd {library_ms:.4f} bound {bms:.4f} ({by}, "
+        f"{nbytes / 1e6:.1f} MB; at most {adds / 1e6:.1f} M additions into d(value))")
     return {"shape": [list(v.shape) for v in tensors(value)] + [Q], "max_abs_err": err,
             "max_abs_err_dloc": err_loc, "max_abs_err_dweights": err_w, "ms": ms,
-            "ms_min": timed["ms_min"], "ms_max": timed["ms_max"], "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None, "bound_bytes": nbytes,
-            "atomic_adds_at_most": adds, "points_outside_share": outside}
+            "ms_min": timed["ms_min"], "ms_max": timed["ms_max"], "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+            "bound_bytes": nbytes, "dvalue_additions": adds, "points_outside_share": outside}
 
 
 def compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N, heads, scale, bias, dtype,
@@ -915,7 +978,7 @@ def train_phase(torch, fa, da, kernels, measure_ms, card, preset):
         log(f"{tag}, kernels vs {label}, f32, batch {TRAIN_BATCH}: gradient max "
             f"rel err over {len(rel)} parameter tensors {rel[worst]:.3g} ({worst}), median "
             f"{sorted(rel.values())[len(rel) // 2]:.3g}; relative L2 error of all gradients {l2:.3g}")
-        return rel[worst], worst, l2
+        return rel[worst], worst, l2, rel
 
     def replay():
         return (mock.patch.object(tr, "select_proposals", replay_pick),
@@ -957,14 +1020,19 @@ def train_phase(torch, fa, da, kernels, measure_ms, card, preset):
                if k.name in BACKWARD_KERNELS):
             raise AssertionError(f"{path}: the step on the plain backwards launched a backward "
                                  "kernel")
-        bwd_err, bwd_worst, bwd_l2 = compare(grads_k, grads_b,
-                                             f"the plain backwards on the same forward ({path})")
+        bwd_err, bwd_worst, bwd_l2, rel = compare(
+            grads_k, grads_b, f"the plain backwards on the same forward ({path})")
+        # the gradients that d(loc) of the samplers feeds first (trap (c))
+        offsets = {n: e for n, e in rel.items() if n.endswith("sampling_offsets.weight")}
+        log(f"{path}@640 sampling_offsets.weight vs the plain backwards: "
+            + ", ".join(f"{n.split('.cross_attn')[0]} {e:.3g}" for n, e in offsets.items()))
         if abs(loss_b - loss_k) > 1e-6 * abs(loss_k) or bwd_err > TRAIN_GRAD_RTOL:
             raise AssertionError(f"{path}: backward kernels disagree with their plain versions: "
                                  f"{bwd_worst} {bwd_err}, loss {loss_k} vs {loss_b}")
         branch_res[path] = {"loss_kernels": loss_k, "grad_max_rel_err_plain_backwards": bwd_err,
                             "grad_worst_tensor_plain_backwards": bwd_worst,
-                            "grad_rel_l2_plain_backwards": bwd_l2}
+                            "grad_rel_l2_plain_backwards": bwd_l2,
+                            "sampling_offsets_weight_rel_err": offsets}
         if branch is None:
             default_grads = grads_k
         del grads_b
@@ -993,7 +1061,8 @@ def train_phase(torch, fa, da, kernels, measure_ms, card, preset):
     same_pick = min((a == b).float().mean().item() for a, b in zip(picks, replayed[n_replayed:]))
     log(f"{tag} loss, kernels {loss_k:.7f} vs all plain {loss_p:.7f}; the plain "
         f"forward's own picks at the same position {same_pick:.4f}")
-    all_err, all_worst, all_l2 = compare(grads_k, grads_p, "the whole step on the plain versions")
+    all_err, all_worst, all_l2, _ = compare(grads_k, grads_p,
+                                            "the whole step on the plain versions")
     if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or all_l2 > TRAIN_GRAD_L2:
         raise AssertionError(f"train step disagrees with the plain versions: loss {loss_k} vs "
                              f"{loss_p}, relative L2 error of the gradients {all_l2}")

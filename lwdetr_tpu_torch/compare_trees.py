@@ -1,7 +1,8 @@
 """Two checkouts of the repo measured in turns, on one CUDA card.
 
     python -m lwdetr_tpu_torch.compare_trees --other path/to/other/checkout \\
-        --presets small tiny [--tool bench|bench_train|bench_attention] [--breakdown]
+        --presets small tiny [--tool bench|bench_train|bench_attention|bench_deform] \\
+        [--breakdown]
 
 Host-bound steps move with the machine by 25% between runs, so two versions
 are compared only inside one run, in turns. This builds each checkout's
@@ -9,7 +10,9 @@ kernels first (its own `build/`, one nvcc per source), then for each preset
 runs `python -m lwdetr_tpu_torch.<tool> --preset P --batch B` from the other
 checkout and from this one in the order other, this, this, other (each a
 fresh process): `bench` (eval img/s, B 32), `bench_train` (the f32 train
-step, B 4) or `bench_attention` (device ms of the attention kernels, B 8).
+step, B 4), `bench_attention` (device ms of the attention kernels, B 8) or
+`bench_deform` (device ms of the samplers, train step B 4; both trees must
+have `bench_deform.py`).
 With `--breakdown` (bench, bench_train) it adds `python -m
 lwdetr_tpu_torch.breakdown` with the same step once from each (device busy
 time and idle share). Prints one JSON line: every run's output in that
@@ -27,8 +30,9 @@ from lwdetr_tpu_torch.utils.device import card_line
 
 THIS = Path(__file__).resolve().parents[1]
 BUILD = "from lwdetr_tpu_torch.ops import _build; _build.build(_build.SOURCES)"
-# each tool's batch: the eval metric's, the train step's, the kernel checks' of chip_smoke.py
-BATCH = {"bench": 32, "bench_train": 4, "bench_attention": 8}
+# each tool's batch: the eval metric's, the train step's, the kernel checks' of
+# chip_smoke.py, the train step's
+BATCH = {"bench": 32, "bench_train": 4, "bench_attention": 8, "bench_deform": 4}
 
 
 def run_json(tree: Path, args) -> dict:
@@ -48,7 +52,7 @@ def main() -> None:
     ap.add_argument("--breakdown", action="store_true", help="bench and bench_train only")
     args = ap.parse_args()
     tool, batch = args.tool, BATCH[args.tool]
-    if args.breakdown and tool == "bench_attention":
+    if args.breakdown and tool in ("bench_attention", "bench_deform"):
         ap.error("--breakdown times a whole step: bench or bench_train")
     trees = {"other": args.other.resolve(), "this": THIS}
     for tree in trees.values():  # so that no timed run compiles

@@ -23,6 +23,16 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The pixel coordinate x size - 0.5 of a normalized sampling location,
+// rounded as PyTorch, and so the plain versions, round it: the product, then
+// the difference. nvcc would contract the two into one fused multiply-add,
+// whose single rounding can put a point that lies within an ulp of a grid line
+// on the other side of it: other corners than the plain version's, and, in a
+// backward, a d(loc) that jumps by size w <g, second difference of the values>.
+__device__ __forceinline__ float pixel(float x, int size) {
+  return __fsub_rn(__fmul_rn(x, static_cast<float>(size)), 0.5f);
+}
+
 // attrs[0..2]: registers a thread, local (spilled) bytes a thread, static
 // shared bytes a block of the kernel `fn`
 inline int kernel_attributes(const void* fn, int* attrs) {

@@ -61,8 +61,8 @@ deform_attn_cm_kernel(const T* __restrict__ value_t, const float* __restrict__ l
     const T* lrow = row + lv.start[l];
     for (int p = 0; p < P; ++p) {
       const int k = l * P + p;
-      const float px = lp[2 * k] * Wl - 0.5f;
-      const float py = lp[2 * k + 1] * Hl - 0.5f;
+      const float px = lw::pixel(lp[2 * k], Wl);
+      const float py = lw::pixel(lp[2 * k + 1], Hl);
       // no corner of a point outside (-1, W) x (-1, H) is in bounds; this
       // also drops NaN and keeps the integer casts below in range
       if (!(px > -1.f && px < Wl && py > -1.f && py < Hl)) continue;

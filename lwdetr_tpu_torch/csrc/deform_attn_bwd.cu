@@ -34,7 +34,7 @@
 // as one contiguous segment at every step of the loop, gather from and add
 // into one channel row of Len_in elements at a time (6.4 KB in f32 at 1600
 // positions: the row stays in L1 / L2 while the warp's 32 x 4 L P corners hit
-// it), and each thread keeps its own four dot products in registers, so no
+// it), and each thread keeps its own three dot products in registers, so no
 // sum crosses threads and d(loc), d(w) are written by the thread that formed
 // them (every element, so they need no zeroing). d(value_t) is accumulated
 // with f32 atomicAdd into a buffer the caller zeroed, f32 also for bf16
@@ -84,11 +84,11 @@ deform_attn_cm_bwd_kernel(const T* __restrict__ value_t, const float* __restrict
     const int Hl = lv.h[l];
     for (int p = 0; p < P; ++p) {
       const int k = l * P + p;
-      const float px = lp[2 * k] * Wl - 0.5f;
-      const float py = lp[2 * k + 1] * Hl - 0.5f;
+      const float px = lw::pixel(lp[2 * k], Wl);
+      const float py = lw::pixel(lp[2 * k + 1], Hl);
       const float aw = wp[k];
       float fx = 0.f, fy = 0.f;
-      float d00 = 0.f, d01 = 0.f, d10 = 0.f, d11 = 0.f;
+      float sw = 0.f, sx = 0.f, sy = 0.f;  // <g, value>, <g, d/dx>, <g, d/dy> over the head
       // no corner of a point outside (-1, W) x (-1, H) is in bounds; this
       // also drops NaN and keeps the integer casts below in range
       if (px > -1.f && px < Wl && py > -1.f && py < Hl) {
@@ -110,27 +110,34 @@ deform_attn_cm_bwd_kernel(const T* __restrict__ value_t, const float* __restrict
           const float gd = lw::to_f32(g[static_cast<size_t>(d) * Q]);
           const T* v = vrows + static_cast<size_t>(d) * len_in + at;
           float* dv = dvrows + static_cast<size_t>(d) * len_in + at;
+          float v00 = 0.f, v01 = 0.f, v10 = 0.f, v11 = 0.f;
           if (ok00) {
-            d00 = fmaf(gd, lw::to_f32(v[0]), d00);
+            v00 = lw::to_f32(v[0]);
             atomicAdd(dv, c00 * gd);
           }
           if (ok01) {
-            d01 = fmaf(gd, lw::to_f32(v[1]), d01);
+            v01 = lw::to_f32(v[1]);
             atomicAdd(dv + 1, c01 * gd);
           }
           if (ok10) {
-            d10 = fmaf(gd, lw::to_f32(v[Wl]), d10);
+            v10 = lw::to_f32(v[Wl]);
             atomicAdd(dv + Wl, c10 * gd);
           }
           if (ok11) {
-            d11 = fmaf(gd, lw::to_f32(v[Wl + 1]), d11);
+            v11 = lw::to_f32(v[Wl + 1]);
             atomicAdd(dv + Wl + 1, c11 * gd);
           }
+          // d(loc) from the differenced corners (exact for close values), not
+          // from a difference of two dot products, which would cancel
+          sw = fmaf(gd, (1.f - fy) * ((1.f - fx) * v00 + fx * v01)
+                            + fy * ((1.f - fx) * v10 + fx * v11), sw);
+          sx = fmaf(gd, (1.f - fy) * (v01 - v00) + fy * (v11 - v10), sx);
+          sy = fmaf(gd, (1.f - fx) * (v10 - v00) + fx * (v11 - v01), sy);
         }
       }
-      dwp[k] = (1.f - fy) * ((1.f - fx) * d00 + fx * d01) + fy * ((1.f - fx) * d10 + fx * d11);
-      dlp[2 * k] = Wl * aw * ((1.f - fy) * (d01 - d00) + fy * (d11 - d10));
-      dlp[2 * k + 1] = Hl * aw * ((1.f - fx) * (d10 - d00) + fx * (d11 - d01));
+      dwp[k] = sw;
+      dlp[2 * k] = Wl * aw * sx;
+      dlp[2 * k + 1] = Hl * aw * sy;
     }
   }
 }

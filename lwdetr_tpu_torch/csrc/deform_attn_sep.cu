@@ -111,8 +111,8 @@ deform_attn_sep_kernel(const float* __restrict__ loc, const float* __restrict__ 
 #pragma unroll 4
     for (int p = 0; p < P; ++p) {
       const int k = l * P + p;
-      const float px = lp[2 * k] * Wl - 0.5f;
-      const float py = lp[2 * k + 1] * Hl - 0.5f;
+      const float px = lw::pixel(lp[2 * k], Wl);
+      const float py = lw::pixel(lp[2 * k + 1], Hl);
       // no corner of a point outside (-1, W) x (-1, H) is in bounds; this
       // also drops NaN and keeps the integer casts below in range
       if (!(px > -1.f && px < Wl && py > -1.f && py < Hl)) continue;

@@ -7,40 +7,52 @@
 // locations and attention weights. K10's backward replaces ::_dvalue_kernel
 // and ::_dweight_kernel (launched from _sample_bwd) together with the VJP of
 // _prep_indices_weights. One device body serves both layouts over the layout
-// policy of the forward (deform_attn_sep.cu); each kernel has its own entry
+// policy of the forward (deform_layout.cuh); each kernel has its own entry
 // symbol. For the forward
 //   out[b, q, hD + d] = sum_{l, p} w[b, q, h, l, p]
 //                       * bilinear(panel_l[b, h, :, :, d], loc[b, q, h, l, p])
 // and g = d(out)[b, q, hD:(h+1)D], with the four corner values v00, v01, v10,
 // v11 (row y0 / y0 + 1, column x0 / x0 + 1; a corner outside the map is 0)
 // and the fractions fx, fy of a point, it computes
-//   d(w)      = <g, (1-fy)(1-fx) v00 + (1-fy) fx v01 + fy (1-fx) v10 + fy fx v11>
+//   d(w)      = <g, (1-fy)((1-fx) v00 + fx v01) + fy((1-fx) v10 + fx v11)>
 //   d(loc_x)  = W_l w <g, (1-fy)(v01 - v00) + fy (v11 - v10)>
 //   d(loc_y)  = H_l w <g, (1-fx)(v10 - v00) + fx (v11 - v01)>
 //   d(panel_l)[b, h, corner, :] += w * corner weight * g      (corners in the map)
 // floor carries no gradient, and a point outside (-1, W) x (-1, H), or NaN,
-// gives zeros, as in the forward.
+// gives zeros, as in the forward. d(loc) differences the corner values
+// before the one dot product: neighbouring values are close, and their
+// difference is exact in f32 (Sterbenz), where a difference of two dot
+// products <g, v01> - <g, v00> would cancel and keep the rounding error of
+// each, of order eps |<g, v00>|, against a result of order |<g, v01 - v00>|.
 //
 // The TPU kernel rebuilds the forward's one-hot row and column masks per
-// query block and turns the scatter into matmuls against them, accumulating
-// d(value) in f32 VMEM scratch over the query blocks of a sequential grid.
-// None of that is carried over: here the scatter is an atomic add.
+// query block, turns the scatter into matmuls against them, and keeps d(value)
+// of one batch element in f32 VMEM scratch across a sequential grid of query
+// blocks. Neither is carried over.
 //
 // What bounds it on an H100: per (b, q, h) it reads 4 L P corners of D
-// channels and adds into as many, so it is bound by bytes, and in practice
-// by the atomic adds into d(panel) (Q L P points spread over H_l W_l
-// positions per head: about ten adds a position at Q = 3900, P = 2 on a
-// 40 x 40 map). Design: the thread layout of the forward, each thread owning
-// 4 neighbouring channels of one (b, q, h), so a corner is read as one
-// 16-byte (f32) or 8-byte (bf16) vector and the D / 4 threads of a head are
-// neighbouring lanes of one warp. Each lane takes the dot products <g, v> of
-// its 4 channels, the lanes of a head sum them with shuffles, and the first
-// lane writes d(loc) and d(w) (every element, so they need no zeroing). d(panel)
-// is accumulated with f32 atomicAdd into buffers the caller zeroed, f32 also
-// for bf16 panels (rounded once by the caller): the order of the adds is not
-// fixed, so two runs differ in the last f32 bits. All lanes of a warp run the
-// same L x P loop with no early exit, so the shuffles are convergent; a thread
-// past the end carries zeros.
+// channels and d(out) once, and adds 32-383 M products into d(value) at the
+// train shapes (Q L P points x 4 corners x D channels). Design, one launch a
+// level: a point is taken by the D / 4 neighbouring lanes of a warp, each
+// owning 4 channels, which read a corner as one 16-byte (f32) or 8-byte (bf16)
+// vector through the read-only path, add w x corner weight x g into d(value)
+// with one float4 vector reduction (atomicAdd on float4, sm_90) into an f32
+// buffer the caller zeroed (f32 also for bf16 values, rounded once by the
+// caller), and sum their dot products for d(loc) and d(w) with shuffles among
+// themselves; CTAs of 512 threads over slices of the queries of one (b, h)
+// map, so that the card is full and its loads overlap. The order of the adds
+// is not fixed, so two runs differ in the last f32 bits.
+//
+// Summing d(value) in shared memory instead, and writing it once, was measured
+// slower on an H100 at every driven shape (f32 device time at small's / large's
+// train shape, against this design, `bench_deform.py`): the card has no f32
+// add in shared memory, an atomicAdd there is a compare-and-swap loop (SASS
+// ATOMS.CAST.SPIN), and bands of a map's rows, one CTA a band, with a shared
+// atomicAdd per corner channel read 2.6x / 2.1x; the bands as one cluster
+// whose CTAs split the queries and add through distributed shared memory 4.3x
+// / 3.8x; corners filed by position with integer shared atomics and a block
+// scan, then summed per position in registers, no float atomics, 1.22x /
+// 1.34x, this design's zeroing of its buffer included (PERF.md, section 6).
 #include "deform_layout.cuh"
 
 namespace {
@@ -51,203 +63,228 @@ using lw::load4;
 using lw::PanelLayout;
 using lw::RowMajorLayout;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kChunkIters = 4;  // queries a CTA = groups of a CTA x kChunkIters
 
-struct Levels {
-  int n;
-  int len_in;  // positions of all levels together (the row-major layout's batch stride)
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  const void* panel[kMaxLevels];  // level l's first element
-  float* dpanel[kMaxLevels];      // and its gradient's
+// one level of one launch
+struct Level {
+  int l;           // its index among the L levels of loc / weights
+  int h, w;        // map rows, columns
+  int len_in;      // positions of all levels together (the row-major layout's batch stride)
+  const void* value;  // the level's first element
+  float* dvalue;      // its gradient's, f32, zeroed by the caller
+};
+
+struct Args {
+  const float* loc;
+  const float* attw;
+  const void* dout;
+  float* dloc;
+  float* dattw;
+  int B, Q, H, D, L, P;
 };
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
 }
-
-__device__ __forceinline__ void scatter4(float* p, float c, float4 g) {
-  atomicAdd(p, c * g.x);
-  atomicAdd(p + 1, c * g.y);
-  atomicAdd(p + 2, c * g.z);
-  atomicAdd(p + 3, c * g.w);
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
+  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+// s a + t b
+__device__ __forceinline__ float4 mix4(float s, float4 a, float t, float4 b) {
+  return make_float4(fmaf(s, a.x, t * b.x), fmaf(s, a.y, t * b.y), fmaf(s, a.z, t * b.z),
+                     fmaf(s, a.w, t * b.w));
 }
 
+// a sampling point of one level: where it falls, its fractions and weight
+struct Point {
+  bool inside;  // some corner may be in the map; false also for NaN
+  int x0, y0;   // upper-left corner, >= -1 when inside
+  float fx, fy, aw;
+};
+
+__device__ __forceinline__ Point point_at(const float* loc, const float* attw, size_t pt, int Wl,
+                                          int Hl) {
+  Point pnt;
+  const float px = lw::pixel(loc[2 * pt], Wl);
+  const float py = lw::pixel(loc[2 * pt + 1], Hl);
+  // no corner of a point outside (-1, W) x (-1, H) is in bounds; this also
+  // drops NaN and keeps the integer casts below in range
+  pnt.inside = px > -1.f && px < Wl && py > -1.f && py < Hl;
+  const float x0f = pnt.inside ? floorf(px) : 0.f;
+  const float y0f = pnt.inside ? floorf(py) : 0.f;
+  pnt.x0 = static_cast<int>(x0f);
+  pnt.y0 = static_cast<int>(y0f);
+  pnt.fx = pnt.inside ? px - x0f : 0.f;
+  pnt.fy = pnt.inside ? py - y0f : 0.f;
+  pnt.aw = attw[pt];
+  return pnt;
+}
+
+// d(value), d(loc) and d(w) of queries [blockIdx.x q_per_cta, ...) of map
+// (b, h) = blockIdx.y at level lv
 template <typename T, typename Layout>
 __global__ void __launch_bounds__(kThreads)
 deform_attn_sep_bwd_kernel(const float* __restrict__ loc, const float* __restrict__ attw,
                            const T* __restrict__ dout, float* __restrict__ dloc,
-                           float* __restrict__ dattw, int Q, int H, int D, int P, Levels lv,
-                           size_t total) {
-  const size_t tid = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const bool active = tid < total;  // total = B Q C / kVec
-  const size_t t = active ? tid : 0;  // an idle thread shadows thread 0 and writes nothing
-  const int C = H * D;
-  const int vec_per_row = C / kVec;
-  const int c = static_cast<int>(t % vec_per_row) * kVec;  // first of this thread's channels
-  const size_t bq = t / vec_per_row;
-  const int b = static_cast<int>(bq / Q);
-  const int h = c / D;
-  const int d = c - h * D;
-  const int lanes = D / kVec;  // lanes of one head: 4 or 8, aligned in the warp
-
-  const size_t bqh = bq * H + h;
-  const float* lp = loc + bqh * lv.n * P * 2;
-  const float* wp = attw + bqh * lv.n * P;
-  float* dlp = dloc + bqh * lv.n * P * 2;
-  float* dwp = dattw + bqh * lv.n * P;
-  const float4 g = active ? load4(dout + bq * C + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int l = 0; l < lv.n; ++l) {
-    const int Wl = lv.w[l];
-    const int Hl = lv.h[l];
-    const int xs = Layout::x_stride(H, D);           // elements between neighbouring positions
-    const size_t row = static_cast<size_t>(Wl) * xs;  // elements per map row
-    const size_t off = Layout::origin(b, h, H, D, Hl, Wl, lv.len_in) + d;
-    const T* map = static_cast<const T*>(lv.panel[l]) + off;
-    float* dmap = lv.dpanel[l] + off;
+                           float* __restrict__ dattw, int Q, int H, int D, int L, int P, Level lv,
+                           int q_per_cta) {
+  const int Hl = lv.h, Wl = lv.w;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int lanes = D / kVec;  // lanes of one point: 4 or 8, aligned in the warp
+  const int group = threadIdx.x / lanes;
+  const int lane = threadIdx.x - group * lanes;
+  const int groups = kThreads / lanes;
+  const int d = lane * kVec;  // first of this lane's channels
+  const unsigned gmask = ((1u << lanes) - 1u) << ((threadIdx.x & 31) & ~(lanes - 1));
+  const int xs = Layout::x_stride(H, D);
+  const size_t row = static_cast<size_t>(Wl) * xs;
+  const size_t origin = Layout::origin(b, h, H, D, Hl, Wl, lv.len_in) + d;
+  const T* map = static_cast<const T*>(lv.value) + origin;
+  float* dmap = lv.dvalue + origin;
+  const size_t bq0 = static_cast<size_t>(b) * Q;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int q1 = min(Q, static_cast<int>(blockIdx.x + 1) * q_per_cta);
+  // every lane of a group runs the same loop, so the shuffles are convergent
+  for (int q = blockIdx.x * q_per_cta + group; q < q1; q += groups) {
+    const float4 g = load4(dout + ((bq0 + q) * H + h) * D + d);
     for (int p = 0; p < P; ++p) {
-      const int k = l * P + p;
-      const float px = lp[2 * k] * Wl - 0.5f;
-      const float py = lp[2 * k + 1] * Hl - 0.5f;
-      const float aw = wp[k];
-      // no corner of a point outside (-1, W) x (-1, H) is in bounds; this
-      // also drops NaN and keeps the integer casts below in range
-      const bool inside = px > -1.f && px < Wl && py > -1.f && py < Hl;
-      float fx = 0.f, fy = 0.f;
-      float d00 = 0.f, d01 = 0.f, d10 = 0.f, d11 = 0.f;
-      if (inside) {
-        const float x0f = floorf(px);
-        const float y0f = floorf(py);
-        fx = px - x0f;
-        fy = py - y0f;
-        const int x0 = static_cast<int>(x0f);
-        const int y0 = static_cast<int>(y0f);
-        const bool x0ok = x0 >= 0, x1ok = x0 + 1 < Wl;
-        const bool y0ok = y0 >= 0, y1ok = y0 + 1 < Hl;
-        // x0 >= -1 and y0 >= -1 here; a pointer is used only for a corner in bounds
+      const size_t pt = (((bq0 + q) * H + h) * L + lv.l) * P + p;
+      const Point pnt = point_at(loc, attw, pt, Wl, Hl);
+      float sw = 0.f, sx = 0.f, sy = 0.f;
+      if (pnt.inside) {
+        const int x0 = pnt.x0, y0 = pnt.y0;
+        const float fx = pnt.fx, fy = pnt.fy, aw = pnt.aw;
+        const bool x0ok = x0 >= 0, x1ok = x0 + 1 < Wl, y0ok = y0 >= 0, y1ok = y0 + 1 < Hl;
+        // x0 >= -1 and y0 >= -1 here; a pointer is used only for a corner in the map
         const ptrdiff_t at = y0 * static_cast<ptrdiff_t>(row) + x0 * xs;
-        if (y0ok && x0ok) {
-          d00 = dot4(g, load4(map + at));
-          if (active) scatter4(dmap + at, aw * (1.f - fy) * (1.f - fx), g);
-        }
-        if (y0ok && x1ok) {
-          d01 = dot4(g, load4(map + at + xs));
-          if (active) scatter4(dmap + at + xs, aw * (1.f - fy) * fx, g);
-        }
-        if (y1ok && x0ok) {
-          d10 = dot4(g, load4(map + at + row));
-          if (active) scatter4(dmap + at + row, aw * fy * (1.f - fx), g);
-        }
-        if (y1ok && x1ok) {
-          d11 = dot4(g, load4(map + at + row + xs));
-          if (active) scatter4(dmap + at + row + xs, aw * fy * fx, g);
+        auto add = [&](ptrdiff_t off, float c) {
+          atomicAdd(reinterpret_cast<float4*>(dmap + off),
+                    make_float4(c * g.x, c * g.y, c * g.z, c * g.w));
+        };
+        if (y0ok && x0ok) add(at, aw * (1.f - fy) * (1.f - fx));
+        if (y0ok && x1ok) add(at + xs, aw * (1.f - fy) * fx);
+        if (y1ok && x0ok) add(at + row, aw * fy * (1.f - fx));
+        if (y1ok && x1ok) add(at + row + xs, aw * fy * fx);
+        const float4 v00 = y0ok && x0ok ? load4(map + at) : zero;
+        const float4 v01 = y0ok && x1ok ? load4(map + at + xs) : zero;
+        const float4 v10 = y1ok && x0ok ? load4(map + at + row) : zero;
+        const float4 v11 = y1ok && x1ok ? load4(map + at + row + xs) : zero;
+        sw = dot4(g, mix4(1.f - fy, mix4(1.f - fx, v00, fx, v01), fy,
+                          mix4(1.f - fx, v10, fx, v11)));
+        sx = dot4(g, mix4(1.f - fy, sub4(v01, v00), fy, sub4(v11, v10)));
+        sy = dot4(g, mix4(1.f - fx, sub4(v10, v00), fx, sub4(v11, v01)));
+        for (int s = 1; s < lanes; s <<= 1) {  // sum over the lanes of this point
+          sw += __shfl_xor_sync(gmask, sw, s);
+          sx += __shfl_xor_sync(gmask, sx, s);
+          sy += __shfl_xor_sync(gmask, sy, s);
         }
       }
-      // sum the four dot products over the lanes of this head
-      for (int s = 1; s < lanes; s <<= 1) {
-        d00 += __shfl_xor_sync(0xffffffffu, d00, s);
-        d01 += __shfl_xor_sync(0xffffffffu, d01, s);
-        d10 += __shfl_xor_sync(0xffffffffu, d10, s);
-        d11 += __shfl_xor_sync(0xffffffffu, d11, s);
-      }
-      if (active && d == 0) {
-        dwp[k] = (1.f - fy) * ((1.f - fx) * d00 + fx * d01) + fy * ((1.f - fx) * d10 + fx * d11);
-        dlp[2 * k] = Wl * aw * ((1.f - fy) * (d01 - d00) + fy * (d11 - d10));
-        dlp[2 * k + 1] = Hl * aw * ((1.f - fx) * (d10 - d00) + fx * (d11 - d01));
+      if (lane == 0) {  // every element, so d(loc) and d(w) need no zeroing
+        dattw[pt] = sw;
+        dloc[2 * pt] = Wl * pnt.aw * sx;
+        dloc[2 * pt + 1] = Hl * pnt.aw * sy;
       }
     }
   }
 }
 
+// one launch a level
 template <typename Layout>
-int launch(const Levels& lv, const void* loc, const void* attw, const void* dout, void* dloc,
-           void* dattw, int B, int Q, int num_heads, int head_dim, int n_points, int dtype,
-           void* stream) {
-  const size_t total = static_cast<size_t>(B) * Q * num_heads * head_dim / kVec;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+int launch(const Args& a, const Level* levels, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* lp = static_cast<const float*>(loc);
-  const float* wp = static_cast<const float*>(attw);
-  float* dlp = static_cast<float*>(dloc);
-  float* dwp = static_cast<float*>(dattw);
-  if (dtype == lw::kFloat32) {
-    deform_attn_sep_bwd_kernel<float, Layout><<<blocks, kThreads, 0, st>>>(
-        lp, wp, static_cast<const float*>(dout), dlp, dwp, Q, num_heads, head_dim, n_points, lv,
-        total);
-  } else if (dtype == lw::kBFloat16) {
-    deform_attn_sep_bwd_kernel<__nv_bfloat16, Layout><<<blocks, kThreads, 0, st>>>(
-        lp, wp, static_cast<const __nv_bfloat16*>(dout), dlp, dwp, Q, num_heads, head_dim,
-        n_points, lv, total);
-  } else {
-    return cudaErrorInvalidValue;
+  const int q_per_cta = kThreads / (a.D / kVec) * kChunkIters;
+  const dim3 grid((a.Q + q_per_cta - 1) / q_per_cta, a.B * a.H);
+  for (int l = 0; l < a.L; ++l) {
+    if (dtype == lw::kFloat32)
+      deform_attn_sep_bwd_kernel<float, Layout><<<grid, kThreads, 0, st>>>(
+          a.loc, a.attw, static_cast<const float*>(a.dout), a.dloc, a.dattw, a.Q, a.H, a.D, a.L,
+          a.P, levels[l], q_per_cta);
+    else
+      deform_attn_sep_bwd_kernel<__nv_bfloat16, Layout><<<grid, kThreads, 0, st>>>(
+          a.loc, a.attw, static_cast<const __nv_bfloat16*>(a.dout), a.dloc, a.dattw, a.Q, a.H,
+          a.D, a.L, a.P, levels[l], q_per_cta);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
   }
-  return cudaGetLastError();
+  return cudaSuccess;
 }
 
-// the lanes of a head must be a power of two that divides a warp
-bool sizes_ok(int B, int Q, int num_heads, int head_dim, int n_levels, int n_points) {
+// the lanes of a point must be a power of two that divides a warp
+bool sizes_ok(int B, int Q, int num_heads, int head_dim, int n_levels, int n_points, int dtype) {
   return B >= 1 && Q >= 1 && num_heads >= 1 && (head_dim == 16 || head_dim == 32) &&
-         n_points >= 1 && n_levels >= 1 && n_levels <= kMaxLevels;
+         n_points >= 1 && n_levels >= 1 && n_levels <= kMaxLevels &&
+         (dtype == lw::kFloat32 || dtype == lw::kBFloat16);
 }
 
 }  // namespace
 
 // K5. panels[l]: level l's values (B, H, h[l], w[l] * D) in `dtype`, contiguous,
 // 16-byte aligned; dpanels[l]: its gradient, f32, same shape, zeroed by the
-// caller; level_hw: (h, w) per level; loc (B, Q, H, L, P, 2) and attw
-// (B, Q, H, L, P) f32 with gradients dloc, dattw of the same shapes; dout
-// (B, Q, H * D) in `dtype`. `panels`, `dpanels` and `level_hw` are host arrays.
+// caller, 16-byte aligned; level_hw: (h, w) per level; loc (B, Q, H, L, P, 2)
+// and attw (B, Q, H, L, P) f32 with gradients dloc, dattw of the same shapes;
+// dout (B, Q, H * D) in `dtype`. `panels`, `dpanels` and `level_hw` are host
+// arrays.
 extern "C" int lw_deform_attn_sep_bwd(const void* const* panels, void* const* dpanels,
                                       const int* level_hw, const void* loc, const void* attw,
                                       const void* dout, void* dloc, void* dattw, int B, int Q,
                                       int num_heads, int head_dim, int n_levels, int n_points,
                                       int dtype, void* stream) {
-  if (!sizes_ok(B, Q, num_heads, head_dim, n_levels, n_points)) return cudaErrorInvalidValue;
-  Levels lv;
-  lv.n = n_levels;
-  lv.len_in = 0;
+  if (!sizes_ok(B, Q, num_heads, head_dim, n_levels, n_points, dtype))
+    return cudaErrorInvalidValue;
+  Level levels[kMaxLevels];
   for (int l = 0; l < n_levels; ++l) {
-    lv.h[l] = level_hw[2 * l];
-    lv.w[l] = level_hw[2 * l + 1];
-    lv.panel[l] = panels[l];
-    lv.dpanel[l] = static_cast<float*>(dpanels[l]);
-    if (lv.h[l] < 1 || lv.w[l] < 1 || lv.panel[l] == nullptr || lv.dpanel[l] == nullptr ||
-        reinterpret_cast<size_t>(lv.panel[l]) % 16 != 0)
+    Level& lv = levels[l];
+    lv.l = l;
+    lv.h = level_hw[2 * l];
+    lv.w = level_hw[2 * l + 1];
+    lv.len_in = 0;
+    lv.value = panels[l];
+    lv.dvalue = static_cast<float*>(dpanels[l]);
+    if (lv.h < 1 || lv.w < 1 || lv.value == nullptr || lv.dvalue == nullptr ||
+        reinterpret_cast<size_t>(lv.value) % 16 != 0 ||
+        reinterpret_cast<size_t>(lv.dvalue) % 16 != 0)
       return cudaErrorInvalidValue;
   }
-  return launch<PanelLayout>(lv, loc, attw, dout, dloc, dattw, B, Q, num_heads, head_dim,
-                             n_points, dtype, stream);
+  const Args a = {static_cast<const float*>(loc), static_cast<const float*>(attw), dout,
+                  static_cast<float*>(dloc), static_cast<float*>(dattw), B, Q, num_heads,
+                  head_dim, n_levels, n_points};
+  return launch<PanelLayout>(a, levels, dtype, stream);
 }
 
 // K10, backward. value (B, len_in, H, D) in `dtype`, contiguous, 16-byte
 // aligned, the levels one after another along len_in; dvalue: its gradient,
-// f32, same shape, zeroed by the caller; the rest as for K5. `level_hw` is a
-// host array.
+// f32, same shape, zeroed by the caller, 16-byte aligned; the rest as for K5.
+// `level_hw` is a host array.
 extern "C" int lw_deform_attn_rowmajor_bwd(const void* value, void* dvalue, const int* level_hw,
                                            const void* loc, const void* attw, const void* dout,
                                            void* dloc, void* dattw, int B, int len_in, int Q,
                                            int num_heads, int head_dim, int n_levels,
                                            int n_points, int dtype, void* stream) {
-  if (!sizes_ok(B, Q, num_heads, head_dim, n_levels, n_points) || value == nullptr ||
+  if (!sizes_ok(B, Q, num_heads, head_dim, n_levels, n_points, dtype) || value == nullptr ||
       dvalue == nullptr || reinterpret_cast<size_t>(value) % 16 != 0 ||
-      (dtype != lw::kFloat32 && dtype != lw::kBFloat16))
+      reinterpret_cast<size_t>(dvalue) % 16 != 0)
     return cudaErrorInvalidValue;
   const size_t position = static_cast<size_t>(num_heads) * head_dim;  // elements
   const size_t isz = dtype == lw::kFloat32 ? sizeof(float) : sizeof(__nv_bfloat16);
-  Levels lv;
-  lv.n = n_levels;
-  lv.len_in = len_in;
+  Level levels[kMaxLevels];
   long long start = 0;
   for (int l = 0; l < n_levels; ++l) {
-    lv.h[l] = level_hw[2 * l];
-    lv.w[l] = level_hw[2 * l + 1];
-    if (lv.h[l] < 1 || lv.w[l] < 1) return cudaErrorInvalidValue;
-    lv.panel[l] = static_cast<const char*>(value) + start * position * isz;
-    lv.dpanel[l] = static_cast<float*>(dvalue) + start * position;
-    start += static_cast<long long>(lv.h[l]) * lv.w[l];
+    Level& lv = levels[l];
+    lv.l = l;
+    lv.h = level_hw[2 * l];
+    lv.w = level_hw[2 * l + 1];
+    if (lv.h < 1 || lv.w < 1) return cudaErrorInvalidValue;
+    lv.len_in = len_in;
+    lv.value = static_cast<const char*>(value) + start * position * isz;
+    lv.dvalue = static_cast<float*>(dvalue) + start * position;
+    start += static_cast<long long>(lv.h) * lv.w;
   }
   if (start != len_in) return cudaErrorInvalidValue;
-  return launch<RowMajorLayout>(lv, loc, attw, dout, dloc, dattw, B, Q, num_heads, head_dim,
-                                n_points, dtype, stream);
+  const Args a = {static_cast<const float*>(loc), static_cast<const float*>(attw), dout,
+                  static_cast<float*>(dloc), static_cast<float*>(dattw), B, Q, num_heads,
+                  head_dim, n_levels, n_points};
+  return launch<RowMajorLayout>(a, levels, dtype, stream);
 }

@@ -21,9 +21,10 @@ align_corners=False)`` semantics, weighted and summed over levels and points:
 Each forward / backward pair is a `torch.autograd.Function`; every backward
 gives the gradients of the values, the sampling locations and the attention
 weights. The kernels are direct bilinear gathers (the backwards scatter with
-atomic adds). On CUDA tensors they launch or the call raises; tensors on the
-CPU take the plain versions (`*_plain`, `*_bwd_plain`), the counterparts of
-the JAX gather formulation `ms_deform_attn`.
+atomic adds: K5 and K10's backward one f32 vector reduction a corner). On CUDA
+tensors they launch or the call raises; tensors on the CPU take the plain
+versions (`*_plain`, `*_bwd_plain`), the counterparts of the JAX gather
+formulation `ms_deform_attn`.
 """
 from __future__ import annotations
 
@@ -327,8 +328,8 @@ def ms_deform_attn_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
 def ms_deform_attn_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                        loc: torch.Tensor, weights: torch.Tensor, dout: torch.Tensor):
     """K10 backward: (d(value), d(loc), d(weights)) of `ms_deform_attn` from
-    d(out) (B, Q, H * D). d(value) is summed with f32 atomic adds, in no fixed
-    order, and for bf16 values rounded once from the f32 sums."""
+    d(out) (B, Q, H * D). d(value) is summed with f32 vector atomic adds, in
+    no fixed order, and for bf16 values rounded once from the f32 sums."""
     if not value.is_cuda:
         return ms_deform_attn_bwd_plain(value, spatial_shapes, loc, weights, dout)
     _check_rowmajor_cuda(value, spatial_shapes, loc, weights)
@@ -450,6 +451,11 @@ def ms_deform_attn_sep_panels_bwd_plain(vals: Sequence[torch.Tensor],
     outside the map): d(weights) = <g, bilinear value>, d(loc_x) = W_l w
     <g, (1-fy)(v01-v00) + fy (v11-v10)>, d(loc_y) = H_l w <g, (1-fx)(v10-v00)
     + fx (v11-v01)>, and d(panel) is the scatter-add of w x corner weight x g.
+    d(loc) differences the corner values first and takes one dot product:
+    neighbouring values are close and their difference is exact (Sterbenz),
+    where the difference of two dot products (the JAX package's VJP of
+    `_prep_separable`) cancels and keeps the rounding of each, of order
+    eps |<g, v00>|. So this is closer to exact than `jax.grad`, by that much.
     Returns ([d(panel_l)] in the panels' dtype, d(loc), d(weights))."""
     B, H = vals[0].shape[:2]
     Q, P = loc.shape[1], loc.shape[4]
@@ -473,25 +479,29 @@ def ms_deform_attn_sep_panels_bwd_plain(vals: Sequence[torch.Tensor],
         y0 = y0.long()
         aw = wf[:, :, :, lvl]  # (B, Q, H, P)
         dv = torch.zeros_like(v_l)
-        dots = {}
+        corners = []
         for dy, dx, cw in ((0, 0, (1 - fy) * (1 - fx)), (0, 1, (1 - fy) * fx),
                            (1, 0, fy * (1 - fx)), (1, 1, fy * fx)):
             xi = x0 + dx
             yi = y0 + dy
-            valid = (xi >= 0) & (xi < Wl) & (yi >= 0) & (yi < Hl)
+            valid = ((xi >= 0) & (xi < Wl) & (yi >= 0) & (yi < Hl)).permute(0, 2, 1, 3)
             idx = yi.clamp(0, Hl - 1) * Wl + xi.clamp(0, Wl - 1)  # (B, Q, H, P)
             idx = idx.permute(0, 2, 1, 3).reshape(B, H, Q * P, 1).expand(-1, -1, -1, D)
             corner = torch.gather(v_l, 2, idx).reshape(B, H, Q, P, D)
-            dot = torch.einsum("bhqd,bhqpd->bhqp", g, corner).permute(0, 2, 1, 3)
-            dots[dy, dx] = dot * valid  # (B, Q, H, P): <g, corner value>, 0 outside
-            coef = (cw * valid * aw).permute(0, 2, 1, 3)  # (B, H, Q, P)
+            corners.append(corner * valid[..., None])  # (B, H, Q, P, D), 0 outside
+            coef = cw.permute(0, 2, 1, 3) * valid * aw.permute(0, 2, 1, 3)  # (B, H, Q, P)
             add = coef[..., None] * g[:, :, :, None, :]  # (B, H, Q, P, D)
             dv.scatter_add_(2, idx, add.reshape(B, H, Q * P, D))
-        d00, d01, d10, d11 = dots[0, 0], dots[0, 1], dots[1, 0], dots[1, 1]
-        dw[:, :, :, lvl] = ((1 - fy) * ((1 - fx) * d00 + fx * d01)
-                            + fy * ((1 - fx) * d10 + fx * d11))
-        dloc[:, :, :, lvl, :, 0] = Wl * aw * ((1 - fy) * (d01 - d00) + fy * (d11 - d10))
-        dloc[:, :, :, lvl, :, 1] = Hl * aw * ((1 - fx) * (d10 - d00) + fx * (d11 - d01))
+        v00, v01, v10, v11 = corners
+        fxc, fyc = (t.permute(0, 2, 1, 3)[..., None] for t in (fx, fy))  # (B, H, Q, P, 1)
+
+        def dot(t):  # <g, t> over the head's channels, as (B, Q, H, P)
+            return torch.einsum("bhqd,bhqpd->bhqp", g, t).permute(0, 2, 1, 3)
+
+        dw[:, :, :, lvl] = dot((1 - fyc) * ((1 - fxc) * v00 + fxc * v01)
+                               + fyc * ((1 - fxc) * v10 + fxc * v11))
+        dloc[:, :, :, lvl, :, 0] = Wl * aw * dot((1 - fyc) * (v01 - v00) + fyc * (v11 - v10))
+        dloc[:, :, :, lvl, :, 1] = Hl * aw * dot((1 - fxc) * (v10 - v00) + fxc * (v11 - v01))
         dvals.append(dv.reshape(panel.shape).to(panel.dtype))
     return dvals, dloc.to(loc.dtype), dw.to(weights.dtype)
 
@@ -509,8 +519,8 @@ def ms_deform_attn_sep_panels_bwd(vals: Sequence[torch.Tensor],
                                   spatial_shapes: Sequence[Tuple[int, int]],
                                   loc: torch.Tensor, weights: torch.Tensor, dout: torch.Tensor):
     """K5: ([d(panel_l)], d(loc), d(weights)) of `ms_deform_attn_sep_panels`
-    from d(out) (B, Q, H * D). d(panel) is summed with f32 atomic adds, in no
-    fixed order, and for bf16 panels rounded once from the f32 sums."""
+    from d(out) (B, Q, H * D). d(panel) is summed with f32 vector atomic adds,
+    in no fixed order, and for bf16 panels rounded once from the f32 sums."""
     spatial_shapes = _int_shapes(spatial_shapes)
     vals = list(vals)
     if not vals[0].is_cuda:

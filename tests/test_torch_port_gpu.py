@@ -235,6 +235,13 @@ def _sampler_points(g, B, Q, heads, L, P):
 
 SAMPLER_CASES = [([(40, 40)], 1300, 16, 16, 2), ([(80, 80), (20, 20)], 301, 24, 16, 4),
                  ([(16, 20), (8, 10)], 37, 3, 32, 2), ([(5, 7)], 1, 2, 16, 1)]
+# K5 / K10b: (B, shapes, Q, heads, D, P): many maps of 40 x 40 with few
+# queries, small's and tiny's train map with small's queries, large's train
+# levels, head_dim 32, a map of 5 rows, and a 160 x 160 map beside a small one
+SAMPLER_BWD_CASES = [(8, [(40, 40)], 300, 16, 16, 2), (2, [(40, 40)], 3900, 16, 16, 2),
+                     (2, [(80, 80), (20, 20)], 3900, 24, 16, 4),
+                     (2, [(16, 20), (8, 10)], 37, 3, 32, 2), (2, [(5, 7)], 1, 2, 16, 1),
+                     (2, [(160, 160), (20, 20)], 50, 2, 16, 2)]
 
 
 def _check_sampler_grads(name, dtype, grads, refs):
@@ -247,6 +254,7 @@ def _check_sampler_grads(name, dtype, grads, refs):
     _close_bwd(dw, rw, torch.float32, f"{name} d(weights)")
     assert ((rv == 0) <= (dv == 0)).all()  # untouched positions get an exact zero
     assert not dl[1, 0, 0, 0, 0].any() and not dl[1, 0, 1, 0, 0].any()  # far out, NaN
+    assert not dw[1, 0, 0, 0, 0].any() and not dw[1, 0, 1, 0, 0].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -271,9 +279,9 @@ def test_deform_attn_cm_bwd_matches_plain(cuda, dtype, shapes, Q, heads, D, P):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shapes,Q,heads,D,P", SAMPLER_CASES)
-def test_deform_attn_row_major_matches_plain(cuda, dtype, shapes, Q, heads, D, P):
-    B, L, len_in = 2, len(shapes), sum(h * w for h, w in shapes)
+@pytest.mark.parametrize("B,shapes,Q,heads,D,P", SAMPLER_BWD_CASES)
+def test_deform_attn_row_major_matches_plain(cuda, dtype, B, shapes, Q, heads, D, P):
+    L, len_in = len(shapes), sum(h * w for h, w in shapes)
     value = torch.randn((B, len_in, heads, D), generator=cuda, device="cuda").to(dtype)
     value.requires_grad_()
     loc, w = (t.requires_grad_() for t in _sampler_points(cuda, B, Q, heads, L, P))
@@ -371,33 +379,56 @@ def test_flash_attention_cm_bwd_matches_plain(cuda, dtype, B, C, N, heads, scale
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shapes,Q,heads,D,P", [([(40, 40)], 3900, 16, 16, 2),
-                                                ([(80, 80), (20, 20)], 3900, 24, 16, 4),
-                                                ([(16, 20), (8, 10)], 37, 3, 32, 2),
-                                                ([(5, 7)], 1, 2, 16, 1)])
-def test_deform_attn_sep_panels_bwd_matches_plain(cuda, dtype, shapes, Q, heads, D, P):
-    B, L = 2, len(shapes)
+@pytest.mark.parametrize("B,shapes,Q,heads,D,P", SAMPLER_BWD_CASES)
+def test_deform_attn_sep_panels_bwd_matches_plain(cuda, dtype, B, shapes, Q, heads, D, P):
+    L = len(shapes)
     vals = [v.requires_grad_() for v in _panels(cuda, B, heads, D, shapes, dtype)]
-    loc = torch.rand((B, Q, heads, L, P, 2), generator=cuda, device="cuda") * 1.4 - 0.2
-    loc[0, 0, 0, 0, 0] = torch.tensor([0.0, 1.0])
-    loc[1, 0, 0, 0, 0] = torch.tensor([-1e9, 0.5])
-    loc.requires_grad_()
-    w = torch.rand((B, Q, heads, L, P), generator=cuda, device="cuda").requires_grad_()
+    loc, w = (t.requires_grad_() for t in _sampler_points(cuda, B, Q, heads, L, P))
     dout = torch.randn((B, Q, heads * D), generator=cuda, device="cuda").to(dtype)
     before = da.deform_attn_sep_bwd_kernel.launches
-    da.ms_deform_attn_sep_panels(vals, shapes, loc, w).backward(dout)
+    with mock.patch.object(da, "ms_deform_attn_sep_panels_bwd_plain",
+                           side_effect=AssertionError("plain")):
+        da.ms_deform_attn_sep_panels(vals, shapes, loc, w).backward(dout)
     assert da.deform_attn_sep_bwd_kernel.launches == before + 1
+    clean = torch.nan_to_num(loc.detach(), nan=-5.0)
     dvals, dloc, dw = da.ms_deform_attn_sep_panels_bwd_plain(
-        [v.detach().float() for v in vals], shapes, loc.detach(), w.detach(), dout.float())
+        [v.detach().float() for v in vals], shapes, clean, w.detach(), dout.float())
     for v, ref in zip(vals, dvals):
-        assert v.grad.dtype == dtype
-        # d(panel) sums up to hundreds of atomic adds per position in an order
-        # that changes from run to run: 4 x the f32 bound
-        _close_bwd(v.grad, ref, dtype, "K5 d(panel)", atol_scale=4.0)
-    _close_bwd(loc.grad, dloc, torch.float32, "K5 d(loc)")
-    _close_bwd(w.grad, dw, torch.float32, "K5 d(weights)")
-    # positions that no point touches get an exact zero
-    assert all(((ref == 0) <= (v.grad == 0)).all() for v, ref in zip(vals, dvals))
+        _check_sampler_grads("K5", dtype, (v.grad, loc.grad, w.grad), (ref, dloc, dw))
+
+
+# A location whose pixel coordinate x W - 0.5 (W = 40) is 8.0 when the
+# product is rounded before the difference, as PyTorch and the plain versions
+# round it, and 7.9999996 when the two are one fused multiply-add. The sampling
+# is continuous there, its gradient in loc is not: the floor picks the corners
+# of d(loc), which jumps by W w <g, v9 - 2 v8 + v7>.
+GRID_LINE_X = float.fromhex("0x1.b33332p-3")
+
+
+@pytest.mark.parametrize("layout", ["panels", "rowmajor", "cm"])
+def test_sampling_coordinates_round_as_the_plain_versions(cuda, layout):
+    B, H, D, P, Q, shapes = 2, 2, 16, 1, 5, [(40, 40)]
+    vals = _panels(cuda, B, H, D, shapes, torch.float32)
+    loc = torch.full((B, Q, H, 1, P, 2), GRID_LINE_X, device="cuda")
+    loc[:, 1:, :, :, :, 1] = torch.rand((B, Q - 1, H, 1, P), generator=cuda, device="cuda")
+    w = torch.rand((B, Q, H, 1, P), generator=cuda, device="cuda")
+    dout = torch.randn((B, Q, H * D), generator=cuda, device="cuda")
+    assert float(torch.floor(loc[0, 0, 0, 0, 0, 0] * 40 - 0.5)) == 8.0
+    rows = vals[0].reshape(B, H, -1, D)
+    if layout == "panels":
+        got = da.ms_deform_attn_sep_panels_bwd(vals, shapes, loc, w, dout)
+        ref = da.ms_deform_attn_sep_panels_bwd_plain(vals, shapes, loc, w, dout)
+    elif layout == "rowmajor":
+        value = rows.transpose(1, 2).contiguous()
+        got = da.ms_deform_attn_bwd(value, shapes, loc, w, dout)
+        ref = da.ms_deform_attn_bwd_plain(value, shapes, loc, w, dout)
+    else:
+        value_t = rows.transpose(2, 3).reshape(B, H * D, -1).contiguous()
+        dout_t = dout.transpose(1, 2).contiguous()
+        got = da.ms_deform_attn_cm_bwd(value_t, shapes, loc, w, dout_t, H)
+        ref = da.ms_deform_attn_cm_bwd_plain(value_t, shapes, loc, w, dout_t, H)
+    _close_bwd(got[1], ref[1], torch.float32, f"{layout} d(loc) on a grid line")
+    _close_bwd(got[2], ref[2], torch.float32, f"{layout} d(weights) on a grid line")
 
 
 def test_backward_dispatch_counts_launches(cuda):

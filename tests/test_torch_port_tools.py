@@ -3,7 +3,7 @@ into groups, on kernel names the H100 profiler reports for the small@640
 and large@640 steps, and which presets the tools take."""
 import pytest
 
-from lwdetr_tpu_torch import bench, bench_attention, bench_train, breakdown
+from lwdetr_tpu_torch import bench, bench_attention, bench_deform, bench_train, breakdown
 from lwdetr_tpu_torch.breakdown import _group
 
 
@@ -57,6 +57,19 @@ from lwdetr_tpu_torch.breakdown import _group
     ("void (anonymous namespace)::deform_attn_sep_bwd_kernel<float, lw::RowMajorLayout>(float "
      "const*, float const*, float const*, float*, float*, int, int, int, int, (anonymous",
      "K10 deform_attn_rowmajor_bwd"),
+    # K5 / K10b with one launch a level: the level and the queries a CTA as arguments
+    ("void (anonymous namespace)::deform_attn_sep_bwd_kernel<float, lw::PanelLayout>(float "
+     "const*, float const*, float const*, float*, float*, int, int, int, int, int, (anonymous "
+     "namespace)::Level, int)", "K5 deform_attn_sep_bwd"),
+    ("void (anonymous namespace)::deform_attn_sep_bwd_kernel<__nv_bfloat16, lw::PanelLayout>("
+     "float const*, float const*, __nv_bfloat16 const*, float*, float*, int, int, int, int, int",
+     "K5 deform_attn_sep_bwd"),
+    ("void (anonymous namespace)::deform_attn_sep_bwd_kernel<float, lw::RowMajorLayout>(float "
+     "const*, float const*, float const*, float*, float*, int, int, int, int, int, (anonymous "
+     "namespace)::Level, int)", "K10 deform_attn_rowmajor_bwd"),
+    ("void (anonymous namespace)::deform_attn_sep_bwd_kernel<__nv_bfloat16, lw::RowMajorLayout>("
+     "float const*, float const*, __nv_bfloat16 const*, float*, float*, int, int, int, int, int",
+     "K10 deform_attn_rowmajor_bwd"),
     # the bf16 tensor-core cases: <head_dim, copy width> and, for K1 / K9, the bias flag
     ("void (anonymous namespace)::flash_attention_cm_mma_kernel<16, 8>(__nv_bfloat16 const*, "
      "__nv_bfloat16*, float*, int, int, float)", "K2 flash_attention_cm"),
@@ -94,8 +107,8 @@ def test_breakdown_groups_kernel_names(name, group):
     assert _group(name) == group
 
 
-TOOLS = [bench, breakdown, bench_train, bench_attention]
-TOOL_IDS = ["bench", "breakdown", "bench_train", "bench_attention"]
+TOOLS = [bench, breakdown, bench_train, bench_attention, bench_deform]
+TOOL_IDS = ["bench", "breakdown", "bench_train", "bench_attention", "bench_deform"]
 
 
 @pytest.mark.parametrize("tool", TOOLS, ids=TOOL_IDS)
@@ -139,3 +152,30 @@ def test_breakdown_train_mode_defaults():
     assert args.train and args.batch is None and args.dtype is None
     with pytest.raises(NotImplementedError, match="float32"):
         breakdown.run("small", 4, __import__("torch").bfloat16, train=True)
+
+
+def test_bench_deform_defaults_and_its_tolerance():
+    """`bench_deform` times the train step at batch 4 (what `compare_trees`
+    passes) beside a bf16 eval step at 32, and holds every output to the
+    tolerance of chip_smoke.py: 2e-5 on an output, x max(1, max |plain|) on a
+    gradient and x 4 more on d(value), + 2^-8 |plain| in bf16."""
+    import torch
+
+    from lwdetr_tpu_torch import compare_trees
+
+    args = bench_deform.parser().parse_args([])
+    assert (args.preset, args.batch, args.eval_batch) == ("small", 4, 32)
+    assert compare_trees.BATCH["bench_deform"] == 4
+    ref = torch.full((3,), 10.0)
+    ok = ref + 7.9e-4  # 4 x 2e-5 x 10 = 8e-4
+    assert bench_deform.max_error(([ok], ref, ref), ([ref], ref, ref), torch.float32) > 0
+    with pytest.raises(AssertionError, match="dvalue"):
+        bench_deform.max_error(([ref + 9e-4], ref, ref), ([ref], ref, ref), torch.float32)
+    with pytest.raises(AssertionError, match="dloc"):
+        bench_deform.max_error(([ref], ref + 3e-4, ref), ([ref], ref, ref), torch.float32)
+    # a forward output in bf16: half a bf16 ulp of the value
+    assert bench_deform.max_error(ref + 0.039, ref, torch.bfloat16) > 0
+    with pytest.raises(AssertionError, match="out"):
+        bench_deform.max_error(ref + 0.041, ref, torch.bfloat16)
+    B, H, D, P, Q, shapes = bench_deform.LARGE_TRAIN
+    assert (B, H, D, P, Q) == (8, 24, 16, 4, 3900) and shapes == [(80, 80), (20, 20)]
