@@ -16,10 +16,14 @@ Run from the root of a checkout, with one card:
    registers and spilled bytes of the case that ran, and K2's log-sum-exp
    against the plain one; the samplers on one set of inputs (border and
    far-outside queries included) in their three layouts: K3 (channel-major) at
-   small's and tiny's eval forward and tiny's "cm" train step, K4 (panels) at
-   large's two levels and at small's and tiny's train step, K5 at small's,
-   tiny's and large's train shape, K8 at tiny's 1300 and small's 3900 train
-   queries and at large's two levels, K10 (row-major) forward and backward at
+   small's and tiny's eval forward, tiny's "cm" train step and large's two
+   levels, K4 (panels) at large's two levels and at small's and tiny's train
+   step, K5 at small's, tiny's and large's train shape, K8 at tiny's 1300 and
+   small's 3900 train queries and at large's two levels, K3 and K8 also on
+   every route of `csrc/deform_cm.cuh` (1001 queries, Q = 1, a map of no
+   multiple of 16 bytes, head_dim 32), each with the route its source chose
+   (shared bytes, CTAs a map, registers, local bytes), K10 (row-major)
+   forward and backward at
    tiny's eval and train shapes, each with its call and CUDA-graph device times
    and the reference's F.grid_sample formulation timed on the same values (its
    backward for K5, K8, K10b; a yardstick the port never calls); K6 and K7 at
@@ -380,6 +384,14 @@ SEP_SMALL_TRAIN = (4, 16, 16, 2, 3900, [(40, 40)])              # small's train 
 SEP_LARGE_TRAIN = (BATCH, 24, 16, 4, 3900, [(80, 80), (20, 20)])  # large with 13 query groups
 SEP_TINY_TRAIN = (4, 16, 16, 2, 1300, [(40, 40)])               # tiny's train step, batch 4
 SEP_TINY = (BATCH, 16, 16, 2, 100, [(40, 40)])                  # tiny's eval forward
+# the channel-major pair's other routes (`csrc/deform_cm.cuh`): tiny's train map
+# with a Q that no CTA's query slice divides; Q = 1; a map of 840 bytes in bf16,
+# no multiple of 16 (copied element by element); D = 32 (f32: 205 KB, device memory)
+CM_Q1001 = (4, 16, 16, 2, 1001, [(40, 40)])
+CM_Q1 = (2, 2, 16, 1, 1, [(5, 7)])
+CM_ODD_MAP = (2, 3, 12, 2, 37, [(5, 7)])
+CM_D32 = (4, 8, 32, 2, 300, [(40, 40)])
+CM_CHECKS = (("q1001", CM_Q1001), ("q1", CM_Q1), ("odd_map", CM_ODD_MAP), ("d32", CM_D32))
 
 
 def sep_inputs(torch, dt, shape, seed=4):
@@ -392,7 +404,8 @@ def sep_inputs(torch, dt, shape, seed=4):
     loc = torch.rand((B, Q, H, L, P, 2), generator=g, device="cuda") * 1.1 - 0.05
     loc[:, 0, :, :, 0::2] = 0.0
     loc[:, 0, :, :, 1::2] = 1.0
-    loc[:, 1] = loc[:, 1] * 1e6 - 3e5
+    if Q > 1:
+        loc[:, 1] = loc[:, 1] * 1e6 - 3e5
     outside = ((loc < 0) | (loc > 1)).any(-1).float().mean().item()
     w = torch.randn((B, Q, H, L * P), generator=g, device="cuda").softmax(-1).reshape(B, Q, H, L, P)
     dout = torch.randn((B, Q, H * D), generator=g, device="cuda").to(dt)
@@ -482,6 +495,23 @@ def library_sampler(torch, F, measure_ms, vals, shapes, loc, w, dout, backward, 
                       iters=iters)["ms"]
 
 
+def cm_route(da, name, layout, value, Q, H):
+    """The route K3 or K8 takes on the channel-major `value` (as the kernel's
+    source chooses it; None for the other layouts)."""
+    if layout != "cm":
+        return None
+    kernel = da.deform_attn_cm_kernel if name == "K3" else da.deform_attn_cm_bwd_kernel
+    return da.cm_route(kernel, value, Q, H)
+
+
+def route_note(route):
+    if not route:
+        return ""
+    return (f"; route: {route['route']}, {route['shared_bytes']} shared bytes, no cluster, "
+            f"{route['ctas_per_map']} CTAs a map of {route['threads']} threads, "
+            f"{route['registers']} registers, {route['local_bytes']} local bytes")
+
+
 def compare_deform_sep(torch, da, measure_ms, dtype, shape, name="K4",
                        layout="panels"):
     """A sampler's forward against its plain version at `shape`: K4 on panels,
@@ -513,6 +543,7 @@ def compare_deform_sep(torch, da, measure_ms, dtype, shape, name="K4",
         device_ms = measure_graph_ms(kernel)["ms"]
         plain_ms = measure_ms(plain, iters=5)["ms"]
         panel_bytes = sep_panel_bytes(torch, vals, loc, shapes, D)
+    route = cm_route(da, name, layout, value, Q, H)
     library_ms = library_sampler(torch, F, measure_ms, vals, shapes, loc, w, dout, False, 20)
     # bytes the function must move for these locations: of each level only the
     # distinct in-map corners the points name (each D channels wide), once
@@ -526,12 +557,13 @@ def compare_deform_sep(torch, da, measure_ms, dtype, shape, name="K4",
         f"{timed['ms_max']:.4f}) device {device_ms:.4f} plain {plain_ms:.4f} grid_sample "
         f"{library_ms:.4f} bound {bms:.4f} ({by}, {nbytes / 1e6:.1f} MB: "
         f"levels {[round(b / 1e6, 1) for b in panel_bytes]} of "
-        f"{[round(v.numel() * isz / 1e6, 1) for v in vals]} MB)")
+        f"{[round(v.numel() * isz / 1e6, 1) for v in vals]} MB){route_note(route)}")
     return {"shape": [list(v.shape) for v in tensors(value)] + [Q], "max_abs_err": err, "ms": ms,
             "ms_min": timed["ms_min"], "ms_max": timed["ms_max"], "device_ms": device_ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
             "bound_bytes": nbytes, "panel_bytes_needed": panel_bytes,
-            "panel_bytes": [v.numel() * isz for v in vals], "points_outside_share": outside}
+            "panel_bytes": [v.numel() * isz for v in vals], "points_outside_share": outside,
+            **({"cm_route": route} if route else {})}
 
 
 def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape, name="K5", layout="panels"):
@@ -573,6 +605,7 @@ def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape, name="K5", layou
         device_ms = measure_graph_ms(kernel, iters=iters)["ms"]
         plain_ms = measure_ms(plain, iters=3, repeats=3)["ms"]
         panel_bytes = sep_panel_bytes(torch, vals, loc, shapes, D)
+    route = cm_route(da, name, layout, value, Q, H)
     library_ms = library_sampler(torch, F, measure_ms, vals, shapes, loc, w, sep_dout, True,
                                  min(iters, 20))
     # bytes: the corners the points name and d(out), loc, weights in; every
@@ -588,12 +621,14 @@ def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape, name="K5", layou
         f"{max(rv.abs().max().item() for rv in rvals):.3g}) d(loc) {err_loc:.3g} d(w) {err_w:.3g} "
         f"ms {ms:.4f} (samples {timed['ms_min']:.4f}-{timed['ms_max']:.4f}) device {device_ms:.4f} "
         f"plain {plain_ms:.4f} grid_sample bwd {library_ms:.4f} bound {bms:.4f} ({by}, "
-        f"{nbytes / 1e6:.1f} MB; at most {adds / 1e6:.1f} M additions into d(value))")
+        f"{nbytes / 1e6:.1f} MB; at most {adds / 1e6:.1f} M additions into d(value))"
+        f"{route_note(route)}")
     return {"shape": [list(v.shape) for v in tensors(value)] + [Q], "max_abs_err": err,
             "max_abs_err_dloc": err_loc, "max_abs_err_dweights": err_w, "ms": ms,
             "ms_min": timed["ms_min"], "ms_max": timed["ms_max"], "device_ms": device_ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
-            "bound_bytes": nbytes, "dvalue_additions": adds, "points_outside_share": outside}
+            "bound_bytes": nbytes, "dvalue_additions": adds, "points_outside_share": outside,
+            **({"cm_route": route} if route else {})}
 
 
 def compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N, heads, scale, bias, dtype,
@@ -732,7 +767,8 @@ def kernel_phase(torch, F, fa, da, measure_ms):
             res[(key, dtype)] = compare_attention(torch, F, fa, measure_ms, name, B, C, N, heads,
                                                   scale, bias, dtype)
         for key, shape in (("K3", SEP_SMALL), ("K3@tiny", SEP_TINY),
-                           ("K3@tiny_train", SEP_TINY_TRAIN)):
+                           ("K3@tiny_train", SEP_TINY_TRAIN), ("K3@large", SEP_LARGE),
+                           *((f"K3@{k}", v) for k, v in CM_CHECKS)):
             res[(key, dtype)] = compare_deform_sep(torch, da, measure_ms, dtype, shape, "K3", "cm")
         for key, shape in (("K4", SEP_LARGE), ("K4@train", SEP_SMALL_TRAIN),
                            ("K4@tiny_train", SEP_TINY_TRAIN)):
@@ -744,7 +780,7 @@ def kernel_phase(torch, F, fa, da, measure_ms):
                            ("K5@tiny_train", SEP_TINY_TRAIN)):
             res[(key, dtype)] = compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape)
         for key, shape in (("K8", SEP_TINY_TRAIN), ("K8@small", SEP_SMALL_TRAIN),
-                           ("K8@large", SEP_LARGE_TRAIN)):
+                           ("K8@large", SEP_LARGE_TRAIN), *((f"K8@{k}", v) for k, v in CM_CHECKS)):
             res[(key, dtype)] = compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape,
                                                        "K8", "cm")
         for key, shape in (("K10", SEP_TINY_TRAIN), ("K10@eval", SEP_TINY)):
@@ -1184,7 +1220,10 @@ def main() -> int:
                   for key, kname, *_ in ATTENTION_SHAPES + ATTENTION_BWD_SHAPES
                   if kname == name and "@" in key}
         if name == "K3":
-            others.update(tiny=both("K3@tiny"), tiny_cm_train=both("K3@tiny_train"))
+            others.update(tiny=both("K3@tiny"), tiny_cm_train=both("K3@tiny_train"),
+                          large=both("K3@large"))
+        if name in ("K3", "K8"):
+            others.update({k: both(f"{name}@{k}") for k, _ in CM_CHECKS})
         if name == "K4":
             others.update(small_train=both("K4@train"), tiny_train=both("K4@tiny_train"))
         if name == "K5":

@@ -14,9 +14,11 @@ through the wrapper (host included), and the largest difference from the plain
 version run in f32 on the same inputs, held to the tolerance of `chip_smoke.py`.
 K5 is also timed, in f32 and bf16, at large's train shape (`LARGE_TRAIN`, on
 inputs made from a seed: that step is not ported). Prints one JSON line;
-`value` is the device time of the default train step's sampler launches (ms),
-the measure for comparing two versions in turns (`compare_trees.py --tool
-bench_deform`).
+`value` is the device time of one step's sampler launches (ms), the step
+`--value_step` names (default: the default train step; `train/cm` is K3 and
+K8, `eval` the bf16 eval step's forwards), the measure for comparing two
+versions in turns (`compare_trees.py --tool bench_deform`). Every step's sum
+is in `device_ms_by_step`.
 """
 from __future__ import annotations
 
@@ -41,6 +43,8 @@ WRAPPERS = {"ms_deform_attn_cm_fwd": ("K3", "ms_deform_attn_cm_plain"),
             "ms_deform_attn_fwd": ("K10", "ms_deform_attn_plain"),
             "ms_deform_attn_bwd": ("K10b", "ms_deform_attn_bwd_plain")}
 BRANCHES = (None, "cm", "gather")
+# the steps whose sampler launches `run` sums, one of which is `value`
+STEPS = tuple(f"train/{b or 'default'}" for b in BRANCHES) + ("eval",)
 # large's train step is not ported yet: K5 at its shape (batch 8, 24 heads, 4
 # points, 13 groups of 300 queries over P3 + P5), checked on inputs made from a
 # seed, 3 launches a step: (B, heads, head_dim, points, queries, levels)
@@ -166,7 +170,10 @@ def timed(call, ref, dtype) -> dict:
             "max_abs_err": err}
 
 
-def run(preset: str = "small", batch: int = 4, eval_batch: int = 32) -> dict:
+def run(preset: str = "small", batch: int = 4, eval_batch: int = 32,
+        value_step: str = "train/default") -> dict:
+    if value_step not in STEPS or (value_step == "eval" and not eval_batch):
+        raise ValueError(f"value_step {value_step!r}: one of {STEPS} whose step runs")
     rows, by_step = [], {}
     calls = recorded_calls(preset, batch, eval_batch)
     for dtype in (torch.float32, torch.bfloat16):
@@ -184,8 +191,9 @@ def run(preset: str = "small", batch: int = 4, eval_batch: int = 32) -> dict:
                    **timed(call, ref, dtype)}
         by_step[step] = by_step.get(step, 0.0) + launches * row["device_ms"]
         rows.append(row)
-    return {"metric": f"lwdetr_{preset}_640_f32_train_sampler_device_ms",
-            "value": by_step["train/default"], "unit": "ms", "batch": batch,
+    kind = "bf16_eval" if value_step == "eval" else "f32_" + value_step.replace("/", "_")
+    return {"metric": f"lwdetr_{preset}_640_{kind}_sampler_device_ms",
+            "value": by_step[value_step], "value_step": value_step, "unit": "ms", "batch": batch,
             "eval_batch": eval_batch, "device_ms_by_step": by_step, "kernels": rows,
             "large_train": LARGE_TRAIN,
             "device": torch.cuda.get_device_name(), "card": card_line()}
@@ -196,12 +204,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--preset", default="small", choices=tuple(PRESETS))
     ap.add_argument("--batch", type=int, default=4, help="the train step's")
     ap.add_argument("--eval_batch", type=int, default=32, help="the bf16 eval step's; 0: none")
+    ap.add_argument("--value_step", default="train/default", choices=STEPS,
+                    help="the step whose sampler launches `value` sums")
     return ap
 
 
 def main() -> None:
     args = parser().parse_args()
-    print(json.dumps(run(args.preset, args.batch, args.eval_batch)))
+    print(json.dumps(run(args.preset, args.batch, args.eval_batch, args.value_step)))
 
 
 if __name__ == "__main__":

@@ -47,7 +47,8 @@ GROUPS = (
                                        r"window_attention_mma_kernel<[^(]*false>")),
     ("K1 window_attention_bias", ("window_attention_bias_kernel", "window_attention_mma_kernel")),
     ("K2 flash_attention_cm", ("flash_attention_cm_kernel", "flash_attention_cm_mma_kernel")),
-    ("K8 deform_attn_cm_bwd", ("deform_attn_cm_bwd_kernel",)),
+    # K8 launches its kernel and the pass that turns its d(value) channel-major
+    ("K8 deform_attn_cm_bwd", ("deform_attn_cm_bwd_kernel", "position_to_channel_major")),
     ("K3 deform_attn_cm", ("deform_attn_cm_kernel",)),
     ("K10 deform_attn_rowmajor", (r"deform_attn_sep_kernel<[^(]*rowmajorlayout",)),
     ("K10 deform_attn_rowmajor_bwd", (r"deform_attn_sep_bwd_kernel<[^(]*rowmajorlayout",)),

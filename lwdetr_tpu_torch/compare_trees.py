@@ -2,7 +2,7 @@
 
     python -m lwdetr_tpu_torch.compare_trees --other path/to/other/checkout \\
         --presets small tiny [--tool bench|bench_train|bench_attention|bench_deform] \\
-        [--breakdown]
+        [--breakdown] [--value_step train/cm]
 
 Host-bound steps move with the machine by 25% between runs, so two versions
 are compared only inside one run, in turns. This builds each checkout's
@@ -12,7 +12,8 @@ checkout and from this one in the order other, this, this, other (each a
 fresh process): `bench` (eval img/s, B 32), `bench_train` (the f32 train
 step, B 4), `bench_attention` (device ms of the attention kernels, B 8) or
 `bench_deform` (device ms of the samplers, train step B 4; both trees must
-have `bench_deform.py`).
+have `bench_deform.py`; `--value_step` is passed to it: the step whose
+sampler launches are `value`).
 With `--breakdown` (bench, bench_train) it adds `python -m
 lwdetr_tpu_torch.breakdown` with the same step once from each (device busy
 time and idle share). Prints one JSON line: every run's output in that
@@ -50,18 +51,22 @@ def main() -> None:
     ap.add_argument("--presets", nargs="+", default=["small", "tiny"])
     ap.add_argument("--tool", default="bench", choices=tuple(BATCH))
     ap.add_argument("--breakdown", action="store_true", help="bench and bench_train only")
+    ap.add_argument("--value_step", help="bench_deform only: its --value_step")
     args = ap.parse_args()
     tool, batch = args.tool, BATCH[args.tool]
     if args.breakdown and tool in ("bench_attention", "bench_deform"):
         ap.error("--breakdown times a whole step: bench or bench_train")
+    if args.value_step and tool != "bench_deform":
+        ap.error("--value_step is bench_deform's")
     trees = {"other": args.other.resolve(), "this": THIS}
     for tree in trees.values():  # so that no timed run compiles
         subprocess.run([sys.executable, "-c", BUILD], cwd=tree, check=True)
     runs = []
     for preset in args.presets:
         tail = ["--preset", preset, "--batch", str(batch)]
+        step = ["--value_step", args.value_step] if args.value_step else []
         for which in ("other", "this", "this", "other"):
-            out = run_json(trees[which], ["-m", f"lwdetr_tpu_torch.{tool}", *tail])
+            out = run_json(trees[which], ["-m", f"lwdetr_tpu_torch.{tool}", *tail, *step])
             runs.append({"tree": which, "tool": tool, "preset": preset, **out})
             print(f"{preset} {which}: {out['value']:.4f} {out['unit']}", file=sys.stderr,
                   flush=True)

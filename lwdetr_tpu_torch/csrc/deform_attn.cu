@@ -5,124 +5,171 @@
 //   out[b, hD + d, q] = sum_{l, p} w[b, q, h, l, p]
 //                       * bilinear(value_t[b, hD + d, level l], loc[b, q, h, l, p])
 // with grid_sample(align_corners=False, padding_mode='zeros') semantics: a
-// location x in [0, 1] maps to the pixel coordinate x W_l - 0.5, the four
-// corners around it are weighted bilinearly, and a corner outside the level
-// contributes zero.
+// location x in [0, 1] maps to the pixel coordinate x W_l - 0.5 (rounded as
+// PyTorch rounds it, lw::pixel), the four corners around it are weighted
+// bilinearly, and a corner outside the level contributes zero; a point
+// outside (-1, W) x (-1, H), or NaN, contributes nothing.
 //
-// The TPU kernel builds a (q, n) one-hot sampling matrix and multiplies it
-// on the MXU, because gathers are slow there. On a GPU a gather is a plain
-// load, so this kernel reads the corners directly, the way the reference's
-// CUDA im2col does. What bounds it on an H100: each output element reads
-// 4 L P corners and does as many multiply-adds, so the work is a few
-// megabytes of gathered reads and next to no arithmetic; the value tensor at
-// small@640 (B = 8: 13 MB in f32) stays in the 50 MB L2, so it is bound by
-// the latency of the scattered reads. Design: one thread per output element
-// (b, q, c) with the channel fastest, so the threads of one (query, head)
-// read the same location and weight (a broadcast) and write their outputs
-// in one pass; each thread accumulates in f32. Coordinates use floorf, not a
-// truncating cast, and a location far outside the level is skipped before
-// any index is formed.
-#include "common.cuh"
+// The TPU kernel copies a (C, n_blk) block of the value into VMEM and
+// builds a (q, n) one-hot sampling matrix for the MXU there. Here the block
+// is the (b, h) map (D channel rows of Len_in: 51 KB in bf16, 102 KB in f32
+// at small's and tiny's 40 x 40 level), staged in shared memory by bulk
+// copies (deform_cm.cuh), and a corner is a plain load from it. What bounds
+// it on an H100: each output element reads 4 L P corners and does as many
+// multiply-adds, so the work is a few megabytes and next to no arithmetic;
+// gathering those corners straight from device memory, a warp's lanes are
+// Len_in elements apart (a sector each), so the latency of scattered loads,
+// not bytes, set the pace. Thread map: one thread per query, q fastest across
+// the lanes. A thread reads its points' locations and weights once, keeps up
+// to 16 channels' sums in f32 registers (more channels: the points again for
+// each 16), gathers the corners from shared memory (the lanes of a warp read
+// positions of one channel row: the bank follows the position) and writes
+// out[b, hD + d, q .. q + 31] as one coalesced store a channel. A map over the
+// staging budget (large's levels) takes the same thread map, gathering from
+// device memory.
+#include "deform_cm.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 4;
-constexpr int kThreads = 256;
+using lw::CmLevels;
+using lw::CmRoute;
 
-struct Levels {
-  int n;
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int start[kMaxLevels];
-};
+constexpr int kChunk = 16;  // channels a pass over the points
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, bool kStaged>
+__global__ void __launch_bounds__(lw::kCmThreads)
 deform_attn_cm_kernel(const T* __restrict__ value_t, const float* __restrict__ loc,
                       const float* __restrict__ attw, T* __restrict__ out, int C, int len_in,
-                      int Q, int H, int P, Levels lv, size_t total) {
-  const size_t t = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= total) return;
-  const int c = static_cast<int>(t % C);
-  const size_t bq = t / C;
-  const int q = static_cast<int>(bq % Q);
-  const int b = static_cast<int>(bq / Q);
-  const int h = c / (C / H);
-
-  const T* row = value_t + (static_cast<size_t>(b) * C + c) * len_in;
-  const size_t bqh = (static_cast<size_t>(b) * Q + q) * H + h;
-  const float* lp = loc + bqh * lv.n * P * 2;
-  const float* wp = attw + bqh * lv.n * P;
-
-  float acc = 0.f;
-  for (int l = 0; l < lv.n; ++l) {
-    const int Wl = lv.w[l];
-    const int Hl = lv.h[l];
-    const T* lrow = row + lv.start[l];
-    for (int p = 0; p < P; ++p) {
-      const int k = l * P + p;
-      const float px = lw::pixel(lp[2 * k], Wl);
-      const float py = lw::pixel(lp[2 * k + 1], Hl);
-      // no corner of a point outside (-1, W) x (-1, H) is in bounds; this
-      // also drops NaN and keeps the integer casts below in range
-      if (!(px > -1.f && px < Wl && py > -1.f && py < Hl)) continue;
-      const float x0f = floorf(px);
-      const float y0f = floorf(py);
-      const float fx = px - x0f;
-      const float fy = py - y0f;
-      const int x0 = static_cast<int>(x0f);
-      const int y0 = static_cast<int>(y0f);
-      const float aw = wp[k];
-      const bool x0ok = x0 >= 0, x1ok = x0 + 1 < Wl;
-      const bool y0ok = y0 >= 0, y1ok = y0 + 1 < Hl;
-      float s = 0.f;
-      if (y0ok && x0ok) s += (1.f - fy) * (1.f - fx) * lw::to_f32(lrow[y0 * Wl + x0]);
-      if (y0ok && x1ok) s += (1.f - fy) * fx * lw::to_f32(lrow[y0 * Wl + x0 + 1]);
-      if (y1ok && x0ok) s += fy * (1.f - fx) * lw::to_f32(lrow[(y0 + 1) * Wl + x0]);
-      if (y1ok && x1ok) s += fy * fx * lw::to_f32(lrow[(y0 + 1) * Wl + x0 + 1]);
-      acc = fmaf(aw, s, acc);
+                      int Q, int H, int P, CmLevels lv, CmRoute route) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bar;
+  // the (b, h) map (channels bh D .. bh D + D - 1 of the batch) and its query slice
+  const int bh = blockIdx.x / route.ctas_per_map;
+  const int slice = blockIdx.x - bh * route.ctas_per_map;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int D = C / H;
+  const T* gmap = value_t + static_cast<size_t>(bh) * D * len_in;
+  const T* map = kStaged ? lw::cm_stage(gmap, static_cast<size_t>(D) * len_in, smem, &bar,
+                                        route.bulk)
+                         : gmap;
+  const int q1 = min(Q, (slice + 1) * route.q_per_cta);
+  const int LP = lv.n * P;
+  for (int q = slice * route.q_per_cta + threadIdx.x; q < q1; q += blockDim.x) {
+    const size_t bqh = (static_cast<size_t>(b) * Q + q) * H + h;
+    const float2* lp = reinterpret_cast<const float2*>(loc) + bqh * LP;
+    const float* wp = attw + bqh * LP;
+    T* o = out + static_cast<size_t>(bh) * D * Q + q;
+    for (int c0 = 0; c0 < D; c0 += kChunk) {
+      const int nc = min(kChunk, D - c0);
+      const T* rows = map + static_cast<size_t>(c0) * len_in;
+      float acc[kChunk];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) acc[j] = 0.f;
+      // unrolled, so that lv is read at fixed offsets (indexed, it goes to local memory)
+#pragma unroll
+      for (int l = 0; l < lw::kMaxLevels; ++l) {
+        if (l == lv.n) break;
+        const int Wl = lv.w[l];
+        const int Hl = lv.h[l];
+        for (int p = 0; p < P; ++p) {
+          const int k = l * P + p;
+          const float2 xy = lp[k];
+          const float px = lw::pixel(xy.x, Wl);
+          const float py = lw::pixel(xy.y, Hl);
+          // no corner of a point outside (-1, W) x (-1, H) is in bounds; this
+          // also drops NaN and keeps the integer casts below in range
+          if (!(px > -1.f && px < Wl && py > -1.f && py < Hl)) continue;
+          const float x0f = floorf(px);
+          const float y0f = floorf(py);
+          const float fx = px - x0f;
+          const float fy = py - y0f;
+          const int x0 = static_cast<int>(x0f);
+          const int y0 = static_cast<int>(y0f);
+          const float aw = wp[k];
+          // a corner outside the map weighs 0 and reads a position inside it
+          const bool x0ok = x0 >= 0, x1ok = x0 + 1 < Wl;
+          const bool y0ok = y0 >= 0, y1ok = y0 + 1 < Hl;
+          const float w00 = y0ok && x0ok ? aw * ((1.f - fy) * (1.f - fx)) : 0.f;
+          const float w01 = y0ok && x1ok ? aw * ((1.f - fy) * fx) : 0.f;
+          const float w10 = y1ok && x0ok ? aw * (fy * (1.f - fx)) : 0.f;
+          const float w11 = y1ok && x1ok ? aw * (fy * fx) : 0.f;
+          const int xa = x0ok ? x0 : 0, xb = x1ok ? x0 + 1 : Wl - 1;
+          const int ya = (y0ok ? y0 : 0) * Wl + lv.start[l];
+          const int yb = (y1ok ? y0 + 1 : Hl - 1) * Wl + lv.start[l];
+#pragma unroll
+          for (int j = 0; j < kChunk; ++j) {
+            if (j < nc) {
+              const T* row = rows + static_cast<size_t>(j) * len_in;
+              acc[j] = fmaf(w00, lw::to_f32(row[ya + xa]),
+                            fmaf(w01, lw::to_f32(row[ya + xb]),
+                                 fmaf(w10, lw::to_f32(row[yb + xa]),
+                                      fmaf(w11, lw::to_f32(row[yb + xb]), acc[j]))));
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j)
+        if (j < nc) o[static_cast<size_t>(c0 + j) * Q] = lw::from_f32<T>(acc[j]);
     }
   }
-  out[(static_cast<size_t>(b) * C + c) * Q + q] = lw::from_f32<T>(acc);
+}
+
+int check(int B, int C, int len_in, int Q, int num_heads, int n_points, int dtype) {
+  if (B < 1 || C < 1 || len_in < 1 || Q < 1 || num_heads < 1 || C % num_heads != 0 ||
+      n_points < 1 || (dtype != lw::kFloat32 && dtype != lw::kBFloat16))
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+CmRoute route_of(const void* value_t, int B, int C, int len_in, int Q, int num_heads, int dtype) {
+  const size_t isz = dtype == lw::kFloat32 ? sizeof(float) : sizeof(__nv_bfloat16);
+  return lw::cm_route(value_t, B, num_heads, C / num_heads, len_in, Q, isz, 1);
+}
+
+template <typename T>
+auto kernel_for(const CmRoute& r) {
+  return r.staged ? &deform_attn_cm_kernel<T, true> : &deform_attn_cm_kernel<T, false>;
+}
+
+template <typename T>
+int launch(const CmRoute& r, const void* value_t, const void* loc, const void* attw, void* out,
+           int B, int C, int len_in, int Q, int H, int P, const CmLevels& lv, cudaStream_t st) {
+  return lw::cm_launch(kernel_for<T>(r), r, B * H, st, static_cast<const T*>(value_t),
+                       static_cast<const float*>(loc), static_cast<const float*>(attw),
+                       static_cast<T*>(out), C, len_in, Q, H, P, lv, r);
 }
 
 }  // namespace
 
 // value_t (B, C, len_in) and out (B, C, Q) in `dtype`; loc (B, Q, H, L, P, 2)
 // and attw (B, Q, H, L, P) f32; level l spans value_t[..., start[l] :
-// start[l] + h[l] w[l]]. All contiguous.
+// start[l] + h[l] w[l]]. All contiguous; `level_hw_start` is a host array.
 extern "C" int lw_deform_attn_cm(const void* value_t, const void* loc, const void* attw,
                                  void* out, int B, int C, int len_in, int Q, int num_heads,
                                  int n_levels, int n_points, const int* level_hw_start,
                                  int dtype, void* stream) {
-  if (B < 1 || C < 1 || Q < 1 || num_heads < 1 || C % num_heads != 0 || n_points < 1 ||
-      n_levels < 1 || n_levels > kMaxLevels)
-    return cudaErrorInvalidValue;
-  Levels lv;
-  lv.n = n_levels;
-  for (int l = 0; l < n_levels; ++l) {
-    lv.h[l] = level_hw_start[3 * l];
-    lv.w[l] = level_hw_start[3 * l + 1];
-    lv.start[l] = level_hw_start[3 * l + 2];
-    if (lv.h[l] < 1 || lv.w[l] < 1 || lv.start[l] < 0 ||
-        lv.start[l] + static_cast<long long>(lv.h[l]) * lv.w[l] > len_in)
-      return cudaErrorInvalidValue;
-  }
-  const size_t total = static_cast<size_t>(B) * Q * C;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  if (const int err = check(B, C, len_in, Q, num_heads, n_points, dtype)) return err;
+  CmLevels lv;
+  if (const int err = lw::cm_levels(level_hw_start, n_levels, len_in, &lv)) return err;
+  const CmRoute r = route_of(value_t, B, C, len_in, Q, num_heads, dtype);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* lp = static_cast<const float*>(loc);
-  const float* wp = static_cast<const float*>(attw);
-  if (dtype == lw::kFloat32) {
-    deform_attn_cm_kernel<float><<<blocks, kThreads, 0, st>>>(
-        static_cast<const float*>(value_t), lp, wp, static_cast<float*>(out), C, len_in, Q,
-        num_heads, n_points, lv, total);
-  } else if (dtype == lw::kBFloat16) {
-    deform_attn_cm_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(value_t), lp, wp, static_cast<__nv_bfloat16*>(out), C,
-        len_in, Q, num_heads, n_points, lv, total);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (dtype == lw::kFloat32)
+    return launch<float>(r, value_t, loc, attw, out, B, C, len_in, Q, num_heads, n_points, lv, st);
+  return launch<__nv_bfloat16>(r, value_t, loc, attw, out, B, C, len_in, Q, num_heads, n_points,
+                               lv, st);
+}
+
+// The route `lw_deform_attn_cm` takes for these arguments (deform_cm.cuh,
+// `report_route`): route[0..6].
+extern "C" int lw_deform_attn_cm_route(const void* value_t, int B, int C, int len_in, int Q,
+                                       int num_heads, int dtype, int* route) {
+  if (const int err = check(B, C, len_in, Q, num_heads, 1, dtype)) return err;
+  const CmRoute r = route_of(value_t, B, C, len_in, Q, num_heads, dtype);
+  return lw::report_route(r,
+                          dtype == lw::kFloat32
+                              ? reinterpret_cast<const void*>(kernel_for<float>(r))
+                              : reinterpret_cast<const void*>(kernel_for<__nv_bfloat16>(r)),
+                          route);
 }

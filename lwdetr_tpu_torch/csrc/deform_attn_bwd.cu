@@ -16,176 +16,230 @@
 //   d(loc_y)   = H_l w <g, (1-fx)(v10 - v00) + fx (v11 - v01)>
 //   d(value_t)[b, hD + d, corner] += w * corner weight * g[d]   (corners in the map)
 // floor carries no gradient, and a point outside (-1, W) x (-1, H), or NaN,
-// gives zeros to all three, as it gives nothing to the forward.
+// gives zeros to all three, as it gives nothing to the forward. d(loc) comes
+// from differenced corners (lw::corner_dots).
 //
 // The TPU pair rebuilds the (q, n) one-hot sampling matrix per block and
 // takes d(value) and d(corner weights) as two matmuls against it, with
 // d(value) accumulated in f32 VMEM scratch over a sequential grid. None of
-// that is carried over: the scatter is an atomic add.
+// that is carried over.
 //
 // What bounds it on an H100: per (b, q, h) it reads 4 L P corners of D
-// channels and adds into as many, with next to no arithmetic: bytes, and in
-// practice the atomic adds into d(value_t). In this layout the D channels of
-// one corner lie Len_in elements apart and d(out) is contiguous along q, so
-// the thread map of the panel backward (4 neighbouring channels a thread, the
-// lanes of a head summing with shuffles) does not fit. Thread map: one
-// thread per (b, h, q) with q fastest, each walking the D channels of its
-// head in a loop. The threads of a warp then read d(out)[b, hD + d, q..q+31]
-// as one contiguous segment at every step of the loop, gather from and add
-// into one channel row of Len_in elements at a time (6.4 KB in f32 at 1600
-// positions: the row stays in L1 / L2 while the warp's 32 x 4 L P corners hit
-// it), and each thread keeps its own three dot products in registers, so no
-// sum crosses threads and d(loc), d(w) are written by the thread that formed
-// them (every element, so they need no zeroing). d(value_t) is accumulated
-// with f32 atomicAdd into a buffer the caller zeroed, f32 also for bf16
-// values (rounded once by the caller): the order of the adds is not fixed, so
-// two runs differ in the last f32 bits.
-#include "common.cuh"
+// channels and adds into as many, with next to no arithmetic: the reductions
+// into d(value) (10.6 M channel additions at tiny's train shape). In the
+// channel-major layout a corner's D channels lie Len_in elements apart, so a
+// reduction could add one channel only. Design: the sums go into an f32
+// scratch laid out position-major, (B, Len_in, H, D), zeroed by the caller,
+// where 4 channels of a corner are 16 contiguous bytes: one float4 vector
+// reduction (atomicAdd on float4, sm_90) each, as K5 adds (on sm_90 shared
+// memory has no f32 add: an atomicAdd there is a compare-and-swap loop, and
+// K5's shared sums measured slower). Thread map, K5's: a point is taken by
+// D / 4 neighbouring lanes (rounded up to a power of two), each owning 4
+// channels, which sum their dot products for d(loc) and d(w) with shuffles;
+// the lanes of one channel read d(out)[b, hD + d, q .. q + 7] contiguously.
+// The (b, h) map is staged in shared memory as in K3 (deform_cm.cuh), and a
+// lane gathers its 4 channels of a corner from 4 rows there. Then one pass
+// turns the scratch into channel-major d(value_t) in the value's dtype (a
+// 32 x 32 tiled transpose through shared memory, rounding bf16 once). The
+// order of the adds is not fixed, so two runs differ in the last f32 bits.
+#include "deform_cm.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 4;
-constexpr int kThreads = 128;
+using lw::CmLevels;
+using lw::CmRoute;
+using lw::kVec;
+using lw::Point;
 
-struct Levels {
-  int n;
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int start[kMaxLevels];
-};
+constexpr int kTile = 32;       // the transposing pass: a 32 x 32 tile a CTA
+constexpr int kTileRows = 8;    // rows a thread of it moves: 32 x 8 threads
 
+// 4 channels, Len_in apart, of one position
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ float4 load_cm4(const T* p, int len_in) {
+  return make_float4(lw::to_f32(p[0]), lw::to_f32(p[len_in]), lw::to_f32(p[2 * len_in]),
+                     lw::to_f32(p[3 * len_in]));
+}
+
+template <typename T, bool kStaged>
+__global__ void __launch_bounds__(lw::kCmThreads)
 deform_attn_cm_bwd_kernel(const T* __restrict__ value_t, const float* __restrict__ loc,
                           const float* __restrict__ attw, const T* __restrict__ dout,
-                          float* __restrict__ dvalue_t, float* __restrict__ dloc,
+                          float* __restrict__ dscratch, float* __restrict__ dloc,
                           float* __restrict__ dattw, int C, int len_in, int Q, int H, int P,
-                          Levels lv, size_t total) {
-  const size_t t = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= total) return;  // total = B H Q; no thread waits on another
-  const int q = static_cast<int>(t % Q);
-  const size_t bh = t / Q;
-  const int h = static_cast<int>(bh % H);
-  const int b = static_cast<int>(bh / H);
+                          int lanes, CmLevels lv, CmRoute route) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bar;
+  const int bh = blockIdx.x / route.ctas_per_map;  // the (b, h) map
+  const int slice = blockIdx.x - bh * route.ctas_per_map;
+  const int b = bh / H;
+  const int h = bh - b * H;
   const int D = C / H;
-
-  const size_t chan0 = static_cast<size_t>(b) * C + static_cast<size_t>(h) * D;
-  const T* vrows = value_t + chan0 * len_in;   // the head's D channel rows
-  float* dvrows = dvalue_t + chan0 * len_in;
-  const T* g = dout + chan0 * Q + q;           // g[d] at g[d * Q]
-  const size_t bqh = (static_cast<size_t>(b) * Q + q) * H + h;
-  const float* lp = loc + bqh * lv.n * P * 2;
-  const float* wp = attw + bqh * lv.n * P;
-  float* dlp = dloc + bqh * lv.n * P * 2;
-  float* dwp = dattw + bqh * lv.n * P;
-
-  for (int l = 0; l < lv.n; ++l) {
-    const int Wl = lv.w[l];
-    const int Hl = lv.h[l];
-    for (int p = 0; p < P; ++p) {
-      const int k = l * P + p;
-      const float px = lw::pixel(lp[2 * k], Wl);
-      const float py = lw::pixel(lp[2 * k + 1], Hl);
-      const float aw = wp[k];
-      float fx = 0.f, fy = 0.f;
-      float sw = 0.f, sx = 0.f, sy = 0.f;  // <g, value>, <g, d/dx>, <g, d/dy> over the head
-      // no corner of a point outside (-1, W) x (-1, H) is in bounds; this
-      // also drops NaN and keeps the integer casts below in range
-      if (px > -1.f && px < Wl && py > -1.f && py < Hl) {
-        const float x0f = floorf(px);
-        const float y0f = floorf(py);
-        fx = px - x0f;
-        fy = py - y0f;
-        const int x0 = static_cast<int>(x0f);
-        const int y0 = static_cast<int>(y0f);
-        const bool x0ok = x0 >= 0, x1ok = x0 + 1 < Wl;
-        const bool y0ok = y0 >= 0, y1ok = y0 + 1 < Hl;
-        const bool ok00 = y0ok && x0ok, ok01 = y0ok && x1ok;
-        const bool ok10 = y1ok && x0ok, ok11 = y1ok && x1ok;
-        // x0 >= -1 and y0 >= -1 here; an index is used only for a corner in bounds
-        const ptrdiff_t at = lv.start[l] + y0 * static_cast<ptrdiff_t>(Wl) + x0;
-        const float c00 = aw * (1.f - fy) * (1.f - fx), c01 = aw * (1.f - fy) * fx;
-        const float c10 = aw * fy * (1.f - fx), c11 = aw * fy * fx;
-        for (int d = 0; d < D; ++d) {
-          const float gd = lw::to_f32(g[static_cast<size_t>(d) * Q]);
-          const T* v = vrows + static_cast<size_t>(d) * len_in + at;
-          float* dv = dvrows + static_cast<size_t>(d) * len_in + at;
-          float v00 = 0.f, v01 = 0.f, v10 = 0.f, v11 = 0.f;
-          if (ok00) {
-            v00 = lw::to_f32(v[0]);
-            atomicAdd(dv, c00 * gd);
+  const T* gmap = value_t + static_cast<size_t>(bh) * D * len_in;
+  const T* map = kStaged ? lw::cm_stage(gmap, static_cast<size_t>(D) * len_in, smem, &bar,
+                                        route.bulk)
+                         : gmap;
+  const int group = threadIdx.x / lanes;  // lanes of one query: aligned in the warp
+  const int lane = threadIdx.x - group * lanes;
+  const int groups = blockDim.x / lanes;
+  const int d = lane * kVec;  // first of this lane's channels
+  const bool active = d < D;  // lanes past D (D / 4 not a power of two) add nothing
+  const unsigned gmask = ((lanes == 32 ? 0u : 1u << lanes) - 1u)
+                         << ((threadIdx.x & 31) & ~(lanes - 1));
+  const T* vrows = map + static_cast<size_t>(active ? d : 0) * len_in;
+  const T* grows = dout + (static_cast<size_t>(bh) * D + (active ? d : 0)) * Q;
+  // position s of the scratch: dmap + s C
+  float* dmap = dscratch + static_cast<size_t>(b) * len_in * C + h * D + d;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int LP = lv.n * P;
+  const int q1 = min(Q, (slice + 1) * route.q_per_cta);
+  // every lane of a group runs the same loop, so the shuffles are convergent
+  for (int q = slice * route.q_per_cta + group; q < q1; q += groups) {
+    const float4 g = active ? make_float4(lw::to_f32(grows[q]), lw::to_f32(grows[Q + q]),
+                                          lw::to_f32(grows[2 * Q + q]),
+                                          lw::to_f32(grows[3 * static_cast<size_t>(Q) + q]))
+                            : zero;
+    const size_t pt0 = ((static_cast<size_t>(b) * Q + q) * H + h) * LP;
+    // unrolled, so that lv is read at fixed offsets (indexed, it goes to local memory)
+#pragma unroll
+    for (int l = 0; l < lw::kMaxLevels; ++l) {
+      if (l == lv.n) break;
+      const int Wl = lv.w[l];
+      const int Hl = lv.h[l];
+      for (int p = 0; p < P; ++p) {
+        const size_t pt = pt0 + l * P + p;
+        const Point pnt = lw::point_at(loc, attw, pt, Wl, Hl);
+        float sw = 0.f, sx = 0.f, sy = 0.f;
+        if (pnt.inside) {
+          const int x0 = pnt.x0, y0 = pnt.y0;
+          const float fx = pnt.fx, fy = pnt.fy, aw = pnt.aw;
+          const bool ok00 = y0 >= 0 && x0 >= 0, ok01 = y0 >= 0 && x0 + 1 < Wl;
+          const bool ok10 = y0 + 1 < Hl && x0 >= 0, ok11 = y0 + 1 < Hl && x0 + 1 < Wl;
+          // x0 >= -1 and y0 >= -1 here; a position is used only for a corner in the map
+          const ptrdiff_t at = lv.start[l] + y0 * static_cast<ptrdiff_t>(Wl) + x0;
+          if (active) {
+            if (ok00) lw::add4(dmap + at * C, aw * (1.f - fy) * (1.f - fx), g);
+            if (ok01) lw::add4(dmap + (at + 1) * C, aw * (1.f - fy) * fx, g);
+            if (ok10) lw::add4(dmap + (at + Wl) * C, aw * fy * (1.f - fx), g);
+            if (ok11) lw::add4(dmap + (at + Wl + 1) * C, aw * fy * fx, g);
           }
-          if (ok01) {
-            v01 = lw::to_f32(v[1]);
-            atomicAdd(dv + 1, c01 * gd);
+          const float4 v00 = active && ok00 ? load_cm4(vrows + at, len_in) : zero;
+          const float4 v01 = active && ok01 ? load_cm4(vrows + at + 1, len_in) : zero;
+          const float4 v10 = active && ok10 ? load_cm4(vrows + at + Wl, len_in) : zero;
+          const float4 v11 = active && ok11 ? load_cm4(vrows + at + Wl + 1, len_in) : zero;
+          lw::corner_dots(g, v00, v01, v10, v11, fx, fy, sw, sx, sy);
+          for (int s = 1; s < lanes; s <<= 1) {  // sum over the lanes of this point
+            sw += __shfl_xor_sync(gmask, sw, s);
+            sx += __shfl_xor_sync(gmask, sx, s);
+            sy += __shfl_xor_sync(gmask, sy, s);
           }
-          if (ok10) {
-            v10 = lw::to_f32(v[Wl]);
-            atomicAdd(dv + Wl, c10 * gd);
-          }
-          if (ok11) {
-            v11 = lw::to_f32(v[Wl + 1]);
-            atomicAdd(dv + Wl + 1, c11 * gd);
-          }
-          // d(loc) from the differenced corners (exact for close values), not
-          // from a difference of two dot products, which would cancel
-          sw = fmaf(gd, (1.f - fy) * ((1.f - fx) * v00 + fx * v01)
-                            + fy * ((1.f - fx) * v10 + fx * v11), sw);
-          sx = fmaf(gd, (1.f - fy) * (v01 - v00) + fy * (v11 - v10), sx);
-          sy = fmaf(gd, (1.f - fx) * (v10 - v00) + fx * (v11 - v01), sy);
+        }
+        if (lane == 0) {  // every element, so d(loc) and d(w) need no zeroing
+          dattw[pt] = sw;
+          dloc[2 * pt] = Wl * pnt.aw * sx;
+          dloc[2 * pt + 1] = Hl * pnt.aw * sy;
         }
       }
-      dwp[k] = sw;
-      dlp[2 * k] = Wl * aw * sx;
-      dlp[2 * k + 1] = Hl * aw * sy;
     }
   }
 }
 
+// dst[b, c, s] = src[b, s, c]: (B, len_in, C) f32 -> (B, C, len_in) in T,
+// one 32 x 32 tile of (s, c) a CTA, read and written 32 contiguous elements
+// a warp
+template <typename T>
+__global__ void __launch_bounds__(kTile * kTileRows)
+position_to_channel_major(const float* __restrict__ src, T* __restrict__ dst, int C, int len_in) {
+  __shared__ float tile[kTile][kTile + 1];  // + 1: a column read hits 32 banks
+  const int s0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
+  const size_t batch = static_cast<size_t>(blockIdx.z) * len_in * C;
+  for (int i = threadIdx.y; i < kTile; i += kTileRows) {
+    const int s = s0 + i, c = c0 + threadIdx.x;
+    if (s < len_in && c < C) tile[i][threadIdx.x] = src[batch + static_cast<size_t>(s) * C + c];
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < kTile; i += kTileRows) {
+    const int c = c0 + i, s = s0 + threadIdx.x;
+    if (c < C && s < len_in)
+      dst[batch + static_cast<size_t>(c) * len_in + s] = lw::from_f32<T>(tile[threadIdx.x][i]);
+  }
+}
+
+// lanes of one query: D / 4, rounded up to a power of two
+int lanes_of(int D) { return static_cast<int>(lw::pow2_at_least((D + kVec - 1) / kVec)); }
+
+int check(int B, int C, int len_in, int Q, int num_heads, int n_points, int dtype) {
+  if (B < 1 || C < 1 || len_in < 1 || Q < 1 || num_heads < 1 || C % num_heads != 0 ||
+      n_points < 1 || (dtype != lw::kFloat32 && dtype != lw::kBFloat16))
+    return cudaErrorInvalidValue;
+  const int D = C / num_heads;  // whole float4s of channels, and at most a warp a point
+  if (D % kVec != 0 || lanes_of(D) > 32 || B > 65535) return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+CmRoute route_of(const void* value_t, int B, int C, int len_in, int Q, int num_heads, int dtype) {
+  const size_t isz = dtype == lw::kFloat32 ? sizeof(float) : sizeof(__nv_bfloat16);
+  const int D = C / num_heads;
+  return lw::cm_route(value_t, B, num_heads, D, len_in, Q, isz, lanes_of(D));
+}
+
+template <typename T>
+auto kernel_for(const CmRoute& r) {
+  return r.staged ? &deform_attn_cm_bwd_kernel<T, true> : &deform_attn_cm_bwd_kernel<T, false>;
+}
+
+template <typename T>
+int launch(const CmRoute& r, const void* value_t, const void* loc, const void* attw,
+           const void* dout, void* dscratch, void* dvalue_t, void* dloc, void* dattw, int B,
+           int C, int len_in, int Q, int H, int P, const CmLevels& lv, cudaStream_t st) {
+  const cudaError_t err = lw::cm_launch(
+      kernel_for<T>(r), r, B * H, st, static_cast<const T*>(value_t),
+      static_cast<const float*>(loc), static_cast<const float*>(attw), static_cast<const T*>(dout),
+      static_cast<float*>(dscratch), static_cast<float*>(dloc), static_cast<float*>(dattw), C,
+      len_in, Q, H, P, lanes_of(C / H), lv, r);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((len_in + kTile - 1) / kTile, (C + kTile - 1) / kTile, B);
+  position_to_channel_major<T><<<grid, dim3(kTile, kTileRows), 0, st>>>(
+      static_cast<const float*>(dscratch), static_cast<T*>(dvalue_t), C, len_in);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// value_t (B, C, len_in) and dout (B, C, Q) in `dtype`; dvalue_t (B, C, len_in)
-// f32, zeroed by the caller; loc (B, Q, H, L, P, 2) and attw (B, Q, H, L, P)
-// f32 with gradients dloc, dattw of the same shapes; level l spans
-// value_t[..., start[l] : start[l] + h[l] w[l]]. All contiguous;
+// value_t (B, C, len_in) and dout (B, C, Q) in `dtype`, with the gradient
+// dvalue_t (B, C, len_in) in `dtype`; dscratch (B, len_in, C) f32, zeroed by
+// the caller, 16-byte aligned, which the kernel adds into; loc (B, Q, H, L, P,
+// 2) and attw (B, Q, H, L, P) f32 with gradients dloc, dattw of the same
+// shapes; level l spans value_t[..., start[l] : start[l] + h[l] w[l]]. All
+// contiguous; the head dim C / num_heads a multiple of 4, at most 128;
 // `level_hw_start` is a host array.
 extern "C" int lw_deform_attn_cm_bwd(const void* value_t, const void* loc, const void* attw,
-                                     const void* dout, void* dvalue_t, void* dloc, void* dattw,
-                                     int B, int C, int len_in, int Q, int num_heads,
+                                     const void* dout, void* dscratch, void* dvalue_t, void* dloc,
+                                     void* dattw, int B, int C, int len_in, int Q, int num_heads,
                                      int n_levels, int n_points, const int* level_hw_start,
                                      int dtype, void* stream) {
-  if (B < 1 || C < 1 || Q < 1 || num_heads < 1 || C % num_heads != 0 || n_points < 1 ||
-      n_levels < 1 || n_levels > kMaxLevels)
-    return cudaErrorInvalidValue;
-  Levels lv;
-  lv.n = n_levels;
-  for (int l = 0; l < n_levels; ++l) {
-    lv.h[l] = level_hw_start[3 * l];
-    lv.w[l] = level_hw_start[3 * l + 1];
-    lv.start[l] = level_hw_start[3 * l + 2];
-    if (lv.h[l] < 1 || lv.w[l] < 1 || lv.start[l] < 0 ||
-        lv.start[l] + static_cast<long long>(lv.h[l]) * lv.w[l] > len_in)
-      return cudaErrorInvalidValue;
-  }
-  const size_t total = static_cast<size_t>(B) * num_heads * Q;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  if (const int err = check(B, C, len_in, Q, num_heads, n_points, dtype)) return err;
+  if (reinterpret_cast<uintptr_t>(dscratch) % 16 != 0) return cudaErrorInvalidValue;
+  CmLevels lv;
+  if (const int err = lw::cm_levels(level_hw_start, n_levels, len_in, &lv)) return err;
+  const CmRoute r = route_of(value_t, B, C, len_in, Q, num_heads, dtype);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* lp = static_cast<const float*>(loc);
-  const float* wp = static_cast<const float*>(attw);
-  float* dv = static_cast<float*>(dvalue_t);
-  float* dlp = static_cast<float*>(dloc);
-  float* dwp = static_cast<float*>(dattw);
-  if (dtype == lw::kFloat32) {
-    deform_attn_cm_bwd_kernel<float><<<blocks, kThreads, 0, st>>>(
-        static_cast<const float*>(value_t), lp, wp, static_cast<const float*>(dout), dv, dlp,
-        dwp, C, len_in, Q, num_heads, n_points, lv, total);
-  } else if (dtype == lw::kBFloat16) {
-    deform_attn_cm_bwd_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(value_t), lp, wp,
-        static_cast<const __nv_bfloat16*>(dout), dv, dlp, dwp, C, len_in, Q, num_heads,
-        n_points, lv, total);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (dtype == lw::kFloat32)
+    return launch<float>(r, value_t, loc, attw, dout, dscratch, dvalue_t, dloc, dattw, B, C,
+                         len_in, Q, num_heads, n_points, lv, st);
+  return launch<__nv_bfloat16>(r, value_t, loc, attw, dout, dscratch, dvalue_t, dloc, dattw, B,
+                               C, len_in, Q, num_heads, n_points, lv, st);
+}
+
+// The route `lw_deform_attn_cm_bwd` takes for these arguments (deform_cm.cuh,
+// `report_route`): route[0..6].
+extern "C" int lw_deform_attn_cm_bwd_route(const void* value_t, int B, int C, int len_in, int Q,
+                                           int num_heads, int dtype, int* route) {
+  if (const int err = check(B, C, len_in, Q, num_heads, 1, dtype)) return err;
+  const CmRoute r = route_of(value_t, B, C, len_in, Q, num_heads, dtype);
+  return lw::report_route(r,
+                          dtype == lw::kFloat32
+                              ? reinterpret_cast<const void*>(kernel_for<float>(r))
+                              : reinterpret_cast<const void*>(kernel_for<__nv_bfloat16>(r)),
+                          route);
 }

@@ -61,6 +61,7 @@ using lw::kMaxLevels;
 using lw::kVec;
 using lw::load4;
 using lw::PanelLayout;
+using lw::Point;
 using lw::RowMajorLayout;
 
 constexpr int kThreads = 512;
@@ -83,43 +84,6 @@ struct Args {
   float* dattw;
   int B, Q, H, D, L, P;
 };
-
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
-}
-__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
-  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
-}
-// s a + t b
-__device__ __forceinline__ float4 mix4(float s, float4 a, float t, float4 b) {
-  return make_float4(fmaf(s, a.x, t * b.x), fmaf(s, a.y, t * b.y), fmaf(s, a.z, t * b.z),
-                     fmaf(s, a.w, t * b.w));
-}
-
-// a sampling point of one level: where it falls, its fractions and weight
-struct Point {
-  bool inside;  // some corner may be in the map; false also for NaN
-  int x0, y0;   // upper-left corner, >= -1 when inside
-  float fx, fy, aw;
-};
-
-__device__ __forceinline__ Point point_at(const float* loc, const float* attw, size_t pt, int Wl,
-                                          int Hl) {
-  Point pnt;
-  const float px = lw::pixel(loc[2 * pt], Wl);
-  const float py = lw::pixel(loc[2 * pt + 1], Hl);
-  // no corner of a point outside (-1, W) x (-1, H) is in bounds; this also
-  // drops NaN and keeps the integer casts below in range
-  pnt.inside = px > -1.f && px < Wl && py > -1.f && py < Hl;
-  const float x0f = pnt.inside ? floorf(px) : 0.f;
-  const float y0f = pnt.inside ? floorf(py) : 0.f;
-  pnt.x0 = static_cast<int>(x0f);
-  pnt.y0 = static_cast<int>(y0f);
-  pnt.fx = pnt.inside ? px - x0f : 0.f;
-  pnt.fy = pnt.inside ? py - y0f : 0.f;
-  pnt.aw = attw[pt];
-  return pnt;
-}
 
 // d(value), d(loc) and d(w) of queries [blockIdx.x q_per_cta, ...) of map
 // (b, h) = blockIdx.y at level lv
@@ -152,7 +116,7 @@ deform_attn_sep_bwd_kernel(const float* __restrict__ loc, const float* __restric
     const float4 g = load4(dout + ((bq0 + q) * H + h) * D + d);
     for (int p = 0; p < P; ++p) {
       const size_t pt = (((bq0 + q) * H + h) * L + lv.l) * P + p;
-      const Point pnt = point_at(loc, attw, pt, Wl, Hl);
+      const Point pnt = lw::point_at(loc, attw, pt, Wl, Hl);
       float sw = 0.f, sx = 0.f, sy = 0.f;
       if (pnt.inside) {
         const int x0 = pnt.x0, y0 = pnt.y0;
@@ -160,22 +124,15 @@ deform_attn_sep_bwd_kernel(const float* __restrict__ loc, const float* __restric
         const bool x0ok = x0 >= 0, x1ok = x0 + 1 < Wl, y0ok = y0 >= 0, y1ok = y0 + 1 < Hl;
         // x0 >= -1 and y0 >= -1 here; a pointer is used only for a corner in the map
         const ptrdiff_t at = y0 * static_cast<ptrdiff_t>(row) + x0 * xs;
-        auto add = [&](ptrdiff_t off, float c) {
-          atomicAdd(reinterpret_cast<float4*>(dmap + off),
-                    make_float4(c * g.x, c * g.y, c * g.z, c * g.w));
-        };
-        if (y0ok && x0ok) add(at, aw * (1.f - fy) * (1.f - fx));
-        if (y0ok && x1ok) add(at + xs, aw * (1.f - fy) * fx);
-        if (y1ok && x0ok) add(at + row, aw * fy * (1.f - fx));
-        if (y1ok && x1ok) add(at + row + xs, aw * fy * fx);
+        if (y0ok && x0ok) lw::add4(dmap + at, aw * (1.f - fy) * (1.f - fx), g);
+        if (y0ok && x1ok) lw::add4(dmap + at + xs, aw * (1.f - fy) * fx, g);
+        if (y1ok && x0ok) lw::add4(dmap + at + row, aw * fy * (1.f - fx), g);
+        if (y1ok && x1ok) lw::add4(dmap + at + row + xs, aw * fy * fx, g);
         const float4 v00 = y0ok && x0ok ? load4(map + at) : zero;
         const float4 v01 = y0ok && x1ok ? load4(map + at + xs) : zero;
         const float4 v10 = y1ok && x0ok ? load4(map + at + row) : zero;
         const float4 v11 = y1ok && x1ok ? load4(map + at + row + xs) : zero;
-        sw = dot4(g, mix4(1.f - fy, mix4(1.f - fx, v00, fx, v01), fy,
-                          mix4(1.f - fx, v10, fx, v11)));
-        sx = dot4(g, mix4(1.f - fy, sub4(v01, v00), fy, sub4(v11, v10)));
-        sy = dot4(g, mix4(1.f - fx, sub4(v10, v00), fx, sub4(v11, v01)));
+        lw::corner_dots(g, v00, v01, v10, v11, fx, fy, sw, sx, sy);
         for (int s = 1; s < lanes; s <<= 1) {  // sum over the lanes of this point
           sw += __shfl_xor_sync(gmask, sw, s);
           sx += __shfl_xor_sync(gmask, sx, s);

@@ -20,8 +20,10 @@ align_corners=False)`` semantics, weighted and summed over levels and points:
 
 Each forward / backward pair is a `torch.autograd.Function`; every backward
 gives the gradients of the values, the sampling locations and the attention
-weights. The kernels are direct bilinear gathers (the backwards scatter with
-atomic adds: K5 and K10's backward one f32 vector reduction a corner). On CUDA
+weights. The kernels are direct bilinear gathers (K3 and K8 from the head's
+map staged in shared memory); the backwards scatter d(value) with one f32
+vector reduction per corner and 4 channels (K8 into a position-major scratch
+that it turns channel-major). On CUDA
 tensors they launch or the call raises; tensors on the CPU take the plain
 versions (`*_plain`, `*_bwd_plain`), the counterparts of the JAX gather
 formulation `ms_deform_attn`.
@@ -34,7 +36,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from lwdetr_tpu_torch.ops._build import CudaKernel
+from lwdetr_tpu_torch.ops._build import CudaKernel, load
 from lwdetr_tpu_torch.ops.flash_attention import needs_grad, plain_dtype
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,7 +63,8 @@ deform_attn_sep_bwd_kernel = CudaKernel(
 # (and the VJP of _prep_indices_weights_lanes)
 deform_attn_cm_bwd_kernel = CudaKernel(
     "K8", "deform_attn_bwd.cu", "lw_deform_attn_cm_bwd",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int), _I])
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int),
+     _I])
 # K10 replaces lwdetr_tpu/ops/deform_attn.py:149 _deform_kernel
 deform_attn_rowmajor_kernel = CudaKernel(
     "K10", "deform_attn_sep.cu", "lw_deform_attn_rowmajor",
@@ -205,8 +208,10 @@ def ms_deform_attn_cm_bwd(value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[
                           loc: torch.Tensor, weights: torch.Tensor, dout: torch.Tensor,
                           n_heads: int):
     """K8: (d(value_t), d(loc), d(weights)) of `ms_deform_attn_cm` from d(out)
-    (B, C, Q). d(value_t) is summed with f32 atomic adds, in no fixed order,
-    and for bf16 values rounded once from the f32 sums."""
+    (B, C, Q). d(value_t) is summed with f32 vector reductions, in no fixed
+    order, into a position-major scratch, which the same launch turns
+    channel-major in value_t's dtype (for bf16 rounded once from the f32
+    sums). Head dims a multiple of 4, at most 128."""
     if not value_t.is_cuda:
         return ms_deform_attn_cm_bwd_plain(value_t, spatial_shapes, loc, weights, dout, n_heads)
     _check_cuda(value_t, spatial_shapes, loc, weights, n_heads)
@@ -215,19 +220,50 @@ def ms_deform_attn_cm_bwd(value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[
     if dout.shape != (B, C, Q) or dout.device != value_t.device:
         raise ValueError(f"d(out) must be {(B, C, Q)} on {value_t.device}, "
                          f"got {tuple(dout.shape)} on {dout.device}")
+    if (C // n_heads) % 4 or C // n_heads > 128:
+        raise ValueError(f"K8 takes head dims that are a multiple of 4 up to 128, "
+                         f"got {C // n_heads}")
     value_t = value_t.contiguous()
     locf = loc.to(torch.float32).contiguous()
     wf = weights.to(torch.float32).contiguous()
     dout = dout.to(value_t.dtype).contiguous()
-    # the kernel adds into this: zeroed each call, so untouched positions get 0
-    dvalue_t = torch.zeros(value_t.shape, device=value_t.device, dtype=torch.float32)
+    # the kernel adds into this, (B, Len_in, C): zeroed each call, so untouched positions get 0
+    scratch = torch.zeros((B, len_in, C), device=value_t.device, dtype=torch.float32)
+    dvalue_t = torch.empty_like(value_t)
     dloc = torch.empty_like(locf)
     dw = torch.empty_like(wf)
     deform_attn_cm_bwd_kernel(value_t.data_ptr(), locf.data_ptr(), wf.data_ptr(),
-                              dout.data_ptr(), dvalue_t.data_ptr(), dloc.data_ptr(),
-                              dw.data_ptr(), B, C, len_in, Q, n_heads, L, P,
+                              dout.data_ptr(), scratch.data_ptr(), dvalue_t.data_ptr(),
+                              dloc.data_ptr(), dw.data_ptr(), B, C, len_in, Q, n_heads, L, P,
                               _level_starts(spatial_shapes), _DTYPES[value_t.dtype])
-    return dvalue_t.to(value_t.dtype), dloc.to(loc.dtype), dw.to(weights.dtype)
+    return dvalue_t, dloc.to(loc.dtype), dw.to(weights.dtype)
+
+
+_ROUTE_KEYS = ("staged", "bulk_copy", "shared_bytes", "ctas_per_map", "threads", "registers",
+               "local_bytes")
+
+
+def cm_route(kernel: CudaKernel, value_t: torch.Tensor, n_queries: int, n_heads: int) -> dict:
+    """The route K3 or K8 (`kernel`) takes on this CUDA value_t (B, C, Len_in)
+    with `n_queries` queries, as its source chooses it: the (b, h) map staged
+    in shared memory or gathered from device memory, copied by bulk copies or
+    element by element, the shared bytes, CTAs a map and threads a CTA, and
+    the registers and local (stack and spilled) bytes a thread of the kernel
+    that runs."""
+    if kernel.name not in ("K3", "K8"):
+        raise ValueError(f"routes are reported for K3 and K8, not {kernel.name}")
+    B, C, len_in = value_t.shape
+    fn = getattr(load(kernel.source), kernel.symbol + "_route")
+    fn.argtypes = [_P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]
+    fn.restype = _I
+    out = (_I * len(_ROUTE_KEYS))()
+    err = fn(value_t.data_ptr(), B, C, len_in, n_queries, n_heads, _DTYPES[value_t.dtype], out)
+    if err:
+        raise RuntimeError(f"{kernel.symbol}_route failed: CUDA error {err}")
+    route = dict(zip(_ROUTE_KEYS, out))
+    route["route"] = ("device memory" if not route["staged"] else
+                      "shared, bulk copy" if route["bulk_copy"] else "shared, element copy")
+    return route
 
 
 class _DeformAttnCM(torch.autograd.Function):

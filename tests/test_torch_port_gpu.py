@@ -278,6 +278,62 @@ def test_deform_attn_cm_bwd_matches_plain(cuda, dtype, shapes, Q, heads, D, P):
     _check_sampler_grads("K8", dtype, (value_t.grad, loc.grad, w.grad), refs)
 
 
+# K3 and K8 on each route of `csrc/deform_cm.cuh`: (B, shapes, Q, heads, D,
+# P). large's two levels (over the staging budget: gathered from device
+# memory); tiny's train map with a Q that no CTA's query slice divides
+# (several CTAs a map); Q = 1; a bf16 map of 840 bytes, no multiple of 16
+# (copied element by element; 1680 bytes in f32: bulk copies); D = 32 (in
+# f32 a map of 205 KB: device memory; in bf16 staged)
+CM_ROUTE_CASES = [(8, [(80, 80), (20, 20)], 300, 24, 16, 4), (4, [(40, 40)], 1001, 16, 16, 2),
+                  (2, [(5, 7)], 1, 2, 16, 1), (2, [(5, 7)], 37, 3, 12, 2),
+                  (4, [(40, 40)], 300, 8, 32, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,shapes,Q,heads,D,P", CM_ROUTE_CASES)
+def test_channel_major_pair_matches_plain_on_every_route(cuda, dtype, B, shapes, Q, heads, D, P):
+    L, len_in = len(shapes), sum(h * w for h, w in shapes)
+    value_t = torch.randn((B, heads * D, len_in), generator=cuda, device="cuda").to(dtype)
+    loc, w = _sampler_points(cuda, B, Q, heads, L, P)
+    dout = torch.randn((B, heads * D, Q), generator=cuda, device="cuda").to(dtype)
+    routes = {k.name: da.cm_route(k, value_t, Q, heads)
+              for k in (da.deform_attn_cm_kernel, da.deform_attn_cm_bwd_kernel)}
+    map_bytes = D * len_in * value_t.element_size()
+    for name, route in routes.items():
+        assert route["local_bytes"] == 0, (name, route)
+        if map_bytes > 200_000:
+            assert not route["staged"], (name, route)
+        elif map_bytes % 16:
+            assert route["staged"] and not route["bulk_copy"], (name, route)
+        else:
+            assert route["staged"] and route["bulk_copy"], (name, route)
+            assert route["shared_bytes"] == map_bytes, (name, route)
+    before = (da.deform_attn_cm_kernel.launches, da.deform_attn_cm_bwd_kernel.launches)
+    out = da.ms_deform_attn_cm(value_t, shapes, loc, w, heads)
+    grads = da.ms_deform_attn_cm_bwd(value_t, shapes, loc, w, dout, heads)
+    assert (da.deform_attn_cm_kernel.launches, da.deform_attn_cm_bwd_kernel.launches) == \
+        (before[0] + 1, before[1] + 1)
+    # a NaN location gives nothing, as one far outside the map
+    loc_ref = torch.nan_to_num(loc, nan=-5.0)
+    ref = da.ms_deform_attn_cm_plain(value_t.float(), shapes, loc_ref, w, heads)
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=RTOL[dtype])
+    refs = da.ms_deform_attn_cm_bwd_plain(value_t.float(), shapes, loc_ref, w, dout.float(), heads)
+    _check_sampler_grads("K8", dtype, grads, refs)
+
+
+def test_channel_major_backward_refuses_head_dims_off_whole_float4s(cuda):
+    value_t = torch.zeros((1, 12, 12), device="cuda")  # 2 heads of 6 channels
+    loc = torch.rand((1, 5, 2, 1, 2, 2), device="cuda")
+    w = torch.rand((1, 5, 2, 1, 2), device="cuda")
+    launches = da.deform_attn_cm_bwd_kernel.launches
+    with pytest.raises(ValueError, match="multiple of 4"):
+        da.ms_deform_attn_cm_bwd(value_t, [(3, 4)], loc, w, torch.zeros((1, 12, 5), device="cuda"),
+                                 2)
+    assert da.deform_attn_cm_bwd_kernel.launches == launches
+    da.ms_deform_attn_cm(value_t, [(3, 4)], loc, w, 2)  # the forward takes any head dim
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,shapes,Q,heads,D,P", SAMPLER_BWD_CASES)
 def test_deform_attn_row_major_matches_plain(cuda, dtype, B, shapes, Q, heads, D, P):

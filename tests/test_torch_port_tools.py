@@ -70,6 +70,15 @@ from lwdetr_tpu_torch.breakdown import _group
     ("void (anonymous namespace)::deform_attn_sep_bwd_kernel<__nv_bfloat16, lw::RowMajorLayout>("
      "float const*, float const*, __nv_bfloat16 const*, float*, float*, int, int, int, int, int",
      "K10 deform_attn_rowmajor_bwd"),
+    # K3 and K8 staged in shared memory or not, and K8's transposing pass
+    ("void (anonymous namespace)::deform_attn_cm_kernel<__nv_bfloat16, true>(__nv_bfloat16 "
+     "const*, float const*, float const*, __nv_bfloat16*, int, int, int, int, int, lw::CmLevels",
+     "K3 deform_attn_cm"),
+    ("void (anonymous namespace)::deform_attn_cm_bwd_kernel<float, false>(float const*, float "
+     "const*, float const*, float const*, float*, float*, float*, int, int, int, int, int, int",
+     "K8 deform_attn_cm_bwd"),
+    ("void (anonymous namespace)::position_to_channel_major<__nv_bfloat16>(float const*, "
+     "__nv_bfloat16*, int, int)", "K8 deform_attn_cm_bwd"),
     # the bf16 tensor-core cases: <head_dim, copy width> and, for K1 / K9, the bias flag
     ("void (anonymous namespace)::flash_attention_cm_mma_kernel<16, 8>(__nv_bfloat16 const*, "
      "__nv_bfloat16*, float*, int, int, float)", "K2 flash_attention_cm"),
@@ -179,3 +188,47 @@ def test_bench_deform_defaults_and_its_tolerance():
         bench_deform.max_error(ref + 0.041, ref, torch.bfloat16)
     B, H, D, P, Q, shapes = bench_deform.LARGE_TRAIN
     assert (B, H, D, P, Q) == (8, 24, 16, 4, 3900) and shapes == [(80, 80), (20, 20)]
+
+
+@pytest.mark.parametrize("step", bench_deform.STEPS)
+def test_bench_deform_value_reads_the_step_it_is_given(step):
+    """`--value_step` picks the step whose sampler launches `value` sums (a
+    stubbed run: one recorded call a step, each step with its own launch
+    count), and `compare_trees.py` passes it to every run of both trees."""
+    from unittest import mock
+
+    import torch
+
+    from lwdetr_tpu_torch import compare_trees
+
+    assert bench_deform.parser().parse_args([]).value_step == "train/default"
+    assert bench_deform.parser().parse_args(["--value_step", step]).value_step == step
+    with pytest.raises(SystemExit):
+        bench_deform.parser().parse_args(["--value_step", "train/other"])
+    x = torch.zeros(2)
+    calls = {(s, "K3", "[]"): [i + 1, "ms_deform_attn_cm_fwd", [x]]
+             for i, s in enumerate(bench_deform.STEPS)}
+    with mock.patch.object(bench_deform, "recorded_calls", return_value=calls), \
+            mock.patch.object(bench_deform, "large_train_call", return_value=[x]), \
+            mock.patch.object(bench_deform, "timed",
+                              return_value={"device_ms": 0.5, "ms": 1.0, "max_abs_err": 0.0}), \
+            mock.patch.object(bench_deform.da, "ms_deform_attn_cm_plain", return_value=x), \
+            mock.patch.object(bench_deform.da, "ms_deform_attn_sep_panels_bwd_plain",
+                              return_value=x), \
+            mock.patch.object(bench_deform, "card_line", return_value="card, 700 W"), \
+            mock.patch.object(bench_deform.torch.cuda, "get_device_name", return_value="card"):
+        out = bench_deform.run("tiny", 4, 32, step)
+    assert out["value_step"] == step
+    assert out["value"] == 0.5 * (bench_deform.STEPS.index(step) + 1)
+    assert out["device_ms_by_step"]["check/large_train"] == 0.5 * 3 * 2  # f32 and bf16
+    runs = []
+    with mock.patch.object(compare_trees, "run_json",
+                           side_effect=lambda tree, args: runs.append(args) or
+                           {"value": 1.0, "unit": "ms"}), \
+            mock.patch.object(compare_trees.subprocess, "run"), \
+            mock.patch.object(compare_trees, "card_line", return_value="card, 700 W"), \
+            mock.patch("sys.argv", ["compare_trees", "--other", ".", "--presets", "tiny",
+                                    "--tool", "bench_deform", "--value_step", step]):
+        compare_trees.main()
+    assert len(runs) == 4
+    assert all(args[-2:] == ["--value_step", step] for args in runs)
