@@ -24,7 +24,10 @@ Run from the root of a checkout, with one card:
    multiple of 16 bytes, head_dim 32), each with the route its source chose
    (shared bytes, CTAs a map, registers, local bytes), K10 (row-major)
    forward and backward at
-   tiny's eval and train shapes, each with its call and CUDA-graph device times
+   tiny's eval and train shapes, K4 and K10 also at Q = 1001, Q = 1, head_dim
+   32 and 64 and four levels, with points on grid lines, far outside and NaN,
+   each with its route (work order, tile, threads, shared bytes, registers;
+   any local byte fails), each with its call and CUDA-graph device times
    and the reference's F.grid_sample formulation timed on the same values (its
    backward for K5, K8, K10b; a yardstick the port never calls); K6 and K7 at
    small's and medium's train step
@@ -129,6 +132,9 @@ MIN_TOPK_OVERLAP = 0.98  # of the 300 (tiny: 100) picks / (query, label) pairs p
 BATCH = 8
 KERNEL_NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K7nb", "K8", "K9", "K10", "K10b")
 BACKWARD_KERNELS = ("K5", "K6", "K7", "K7nb", "K8", "K10b")
+# the keys every entry of the kernels line carries
+CONTRACT_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+                 "bound_ms", "bound_by", "library_ms")
 
 
 def launch_counts(**counts):
@@ -392,9 +398,20 @@ CM_Q1 = (2, 2, 16, 1, 1, [(5, 7)])
 CM_ODD_MAP = (2, 3, 12, 2, 37, [(5, 7)])
 CM_D32 = (4, 8, 32, 2, 300, [(40, 40)])
 CM_CHECKS = (("q1001", CM_Q1001), ("q1", CM_Q1), ("odd_map", CM_ODD_MAP), ("d32", CM_D32))
+# K4 and K10 beyond the paths' shapes, each in both layouts, with points on
+# grid lines (pixel centres), far outside and NaN besides the borders: a Q
+# that no query tile divides; Q = 1; head_dim 32 and 64 (3 points a level: 6
+# a (q, h), padded to 8); four levels (kMaxLevels, 16 points a (q, h))
+SEP_CHECKS = (("q1001", CM_Q1001), ("q1", CM_Q1), ("d32", CM_D32),
+              ("d64", (2, 4, 64, 3, 77, [(20, 20), (10, 10)])),
+              ("four_levels", (2, 8, 16, 4, 150, [(40, 40), (20, 20), (10, 10), (5, 5)])))
 
 
-def sep_inputs(torch, dt, shape, seed=4):
+def sep_inputs(torch, dt, shape, seed=4, special=False):
+    """Values, locations, softmax weights and d(out) at `shape`. With
+    `special`, some points also lie on grid lines (the pixel centres of the last
+    five queries) and one is NaN (query 2): its plain reference takes it as a
+    point far outside (`torch.nan_to_num`)."""
     B, H, D, P, Q, shapes = shape
     L = len(shapes)
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -402,6 +419,14 @@ def sep_inputs(torch, dt, shape, seed=4):
     # about a sixth of the points fall outside [0, 1] in x or y, so some or all
     # of their corners drop out; query 0 sits on the borders, query 1 far outside
     loc = torch.rand((B, Q, H, L, P, 2), generator=g, device="cuda") * 1.1 - 0.05
+    if special:
+        n = min(Q, 5)
+        for lvl, (h, w) in enumerate(shapes):
+            for axis, size in ((0, w), (1, h)):
+                pick = torch.randint(0, size, (B, n, H, P), generator=g, device="cuda")
+                loc[:, Q - n:, :, lvl, :, axis] = (pick.float() + 0.5) / size
+        if Q > 2:
+            loc[:, 2, 0, 0, 0, 0] = float("nan")
     loc[:, 0, :, :, 0::2] = 0.0
     loc[:, 0, :, :, 1::2] = 1.0
     if Q > 1:
@@ -495,29 +520,44 @@ def library_sampler(torch, F, measure_ms, vals, shapes, loc, w, dout, backward, 
                       iters=iters)["ms"]
 
 
-def cm_route(da, name, layout, value, Q, H):
-    """The route K3 or K8 takes on the channel-major `value` (as the kernel's
-    source chooses it; None for the other layouts)."""
-    if layout != "cm":
+def sampler_route(da, name, layout, value, shape):
+    """The route K3 or K8 takes on the channel-major `value`, or K4 or K10 at
+    `shape`, as the kernel's source chooses it (None for the backwards of the
+    other layouts). K4 and K10 must keep no stack and spill nothing."""
+    B, H, D, P, Q, shapes = shape
+    if layout == "cm":
+        kernel = da.deform_attn_cm_kernel if name == "K3" else da.deform_attn_cm_bwd_kernel
+        return da.cm_route(kernel, value, Q, H)
+    if name not in ("K4", "K10"):
         return None
-    kernel = da.deform_attn_cm_kernel if name == "K3" else da.deform_attn_cm_bwd_kernel
-    return da.cm_route(kernel, value, Q, H)
+    kernel = da.deform_attn_sep_kernel if name == "K4" else da.deform_attn_rowmajor_kernel
+    route = da.sep_route(kernel, B, Q, H, D, len(shapes), P, tensors(value)[0].dtype)
+    if route["local_bytes"]:
+        raise AssertionError(f"{name} at {shape}: {route['local_bytes']} local bytes a thread")
+    return route
 
 
 def route_note(route):
     if not route:
         return ""
+    if "work_order" in route:
+        return (f"; route: {route['work_order']}, tile {route['queries_a_cta']} queries x "
+                f"{route['heads_a_cta']} heads, {route['threads']} threads a CTA, "
+                f"{route['ctas']} CTAs, {route['channels_a_thread']} channels a thread, "
+                f"{route['points_in_flight']} points in flight, {route['shared_bytes']} shared "
+                f"bytes, {route['registers']} registers, {route['local_bytes']} local bytes")
     return (f"; route: {route['route']}, {route['shared_bytes']} shared bytes, no cluster, "
             f"{route['ctas_per_map']} CTAs a map of {route['threads']} threads, "
             f"{route['registers']} registers, {route['local_bytes']} local bytes")
 
 
 def compare_deform_sep(torch, da, measure_ms, dtype, shape, name="K4",
-                       layout="panels"):
+                       layout="panels", special=False):
     """A sampler's forward against its plain version at `shape`: K4 on panels,
-    K10 on the row-major and K3 on the channel-major layout of the same values;
-    call and device (CUDA-graph) times, and the reference's grid_sample
-    formulation on the same values beside them."""
+    K10 on the row-major and K3 on the channel-major layout of the same values
+    (`special`: points on grid lines and NaN too, see `sep_inputs`); call and
+    device (CUDA-graph) times, and the reference's grid_sample formulation on
+    the same values beside them."""
     import torch.nn.functional as F
 
     from lwdetr_tpu_torch.utils.timing import measure_graph_ms
@@ -525,14 +565,14 @@ def compare_deform_sep(torch, da, measure_ms, dtype, shape, name="K4",
     dt = getattr(torch, dtype)
     B, H, D, P, Q, shapes = shape
     L = len(shapes)
-    vals, loc, w, dout, outside = sep_inputs(torch, dt, shape)
+    vals, loc, w, dout, outside = sep_inputs(torch, dt, shape, special=special)
     lay = as_layout(torch, da, layout, vals, shapes, dout)
     value = lay.value
     kernel = lambda: lay.fwd(value, loc, w)  # noqa: E731
     plain = lambda: lay.fwd_plain(value, loc, w)  # noqa: E731
     with torch.no_grad():
         out = kernel()
-        ref = lay.fwd_plain(to_f32(value), loc, w)
+        ref = lay.fwd_plain(to_f32(value), torch.nan_to_num(loc, nan=-5.0), w)
         torch.cuda.synchronize()
         if out.shape != lay.dout.shape or out.dtype != dt:
             raise AssertionError(f"{name} output {tuple(out.shape)} {out.dtype}")
@@ -543,7 +583,7 @@ def compare_deform_sep(torch, da, measure_ms, dtype, shape, name="K4",
         device_ms = measure_graph_ms(kernel)["ms"]
         plain_ms = measure_ms(plain, iters=5)["ms"]
         panel_bytes = sep_panel_bytes(torch, vals, loc, shapes, D)
-    route = cm_route(da, name, layout, value, Q, H)
+    route = sampler_route(da, name, layout, value, shape)
     library_ms = library_sampler(torch, F, measure_ms, vals, shapes, loc, w, dout, False, 20)
     # bytes the function must move for these locations: of each level only the
     # distinct in-map corners the points name (each D channels wide), once
@@ -563,7 +603,7 @@ def compare_deform_sep(torch, da, measure_ms, dtype, shape, name="K4",
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
             "bound_bytes": nbytes, "panel_bytes_needed": panel_bytes,
             "panel_bytes": [v.numel() * isz for v in vals], "points_outside_share": outside,
-            **({"cm_route": route} if route else {})}
+            **({"kernel_route": route} if route else {})}
 
 
 def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape, name="K5", layout="panels"):
@@ -605,7 +645,7 @@ def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape, name="K5", layou
         device_ms = measure_graph_ms(kernel, iters=iters)["ms"]
         plain_ms = measure_ms(plain, iters=3, repeats=3)["ms"]
         panel_bytes = sep_panel_bytes(torch, vals, loc, shapes, D)
-    route = cm_route(da, name, layout, value, Q, H)
+    route = sampler_route(da, name, layout, value, shape)
     library_ms = library_sampler(torch, F, measure_ms, vals, shapes, loc, w, sep_dout, True,
                                  min(iters, 20))
     # bytes: the corners the points name and d(out), loc, weights in; every
@@ -628,7 +668,7 @@ def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape, name="K5", layou
             "ms_min": timed["ms_min"], "ms_max": timed["ms_max"], "device_ms": device_ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
             "bound_bytes": nbytes, "dvalue_additions": adds, "points_outside_share": outside,
-            **({"cm_route": route} if route else {})}
+            **({"kernel_route": route} if route else {})}
 
 
 def compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N, heads, scale, bias, dtype,
@@ -786,6 +826,10 @@ def kernel_phase(torch, F, fa, da, measure_ms):
         for key, shape in (("K10", SEP_TINY_TRAIN), ("K10@eval", SEP_TINY)):
             res[(key, dtype)] = compare_deform_sep(torch, da, measure_ms, dtype, shape,
                                                    "K10", "rowmajor")
+        for key, shape in SEP_CHECKS:
+            for name, layout in (("K4", "panels"), ("K10", "rowmajor")):
+                res[(f"{name}@{key}", dtype)] = compare_deform_sep(
+                    torch, da, measure_ms, dtype, shape, name, layout, special=True)
         res[("K10b", dtype)] = compare_deform_sep_bwd(torch, da, measure_ms, dtype,
                                                       SEP_TINY_TRAIN, "K10b", "rowmajor")
     return res
@@ -1226,6 +1270,8 @@ def main() -> int:
             others.update({k: both(f"{name}@{k}") for k, _ in CM_CHECKS})
         if name == "K4":
             others.update(small_train=both("K4@train"), tiny_train=both("K4@tiny_train"))
+        if name in ("K4", "K10"):
+            others.update({k: both(f"{name}@{k}") for k, _ in SEP_CHECKS})
         if name == "K5":
             others.update(large_train=both("K5@large"), tiny_train=both("K5@tiny_train"))
         if name == "K8":
@@ -1235,6 +1281,9 @@ def main() -> int:
         if others:
             entry["other_shapes"] = others
         entries.append(entry)
+    for entry in entries:  # the kernels line's contract: a shape's numbers must not shadow it
+        if entry["route"] not in ("cuda", "triton") or any(k not in entry for k in CONTRACT_KEYS):
+            raise AssertionError(f"{entry['name']}: kernels-line entry breaks its contract")
     print(json.dumps({"forward_f32": fwd, "throughput": thr, "train_f32": train}))
     print(card_line())
     print(json.dumps({"kernels": entries}))

@@ -6,8 +6,9 @@ on one CUDA card.
 
 Runs one f32 train step of the preset at `--batch` in each branch of the
 decoder's cross-attention (default: panels, K4 / K5; "cm": K3 / K8; "gather":
-K10 / K10b) and one bf16 eval step at `--eval_batch` (0: none), and keeps
-every sampler call's inputs. Then for each distinct (step, kernel, shape): the
+K10 / K10b; 0: none, for the presets whose train step is not ported) and one
+bf16 eval step at `--eval_batch` (0: none), and keeps every sampler call's
+inputs. Then for each distinct (step, kernel, shape): the
 device time of one launch (`measure_graph_ms`: calls replayed from a CUDA
 graph, the card's time without the host's), the time of back-to-back calls
 through the wrapper (host included), and the largest difference from the plain
@@ -18,7 +19,10 @@ inputs made from a seed: that step is not ported). Prints one JSON line;
 `--value_step` names (default: the default train step; `train/cm` is K3 and
 K8, `eval` the bf16 eval step's forwards), the measure for comparing two
 versions in turns (`compare_trees.py --tool bench_deform`). Every step's sum
-is in `device_ms_by_step`.
+is in `device_ms_by_step`. K4 on large's own bf16 eval inputs:
+
+    python -m lwdetr_tpu_torch.bench_deform --preset large --batch 0 --eval_batch 32 \
+        --value_step eval
 """
 from __future__ import annotations
 
@@ -113,7 +117,8 @@ def max_error(out, ref, dtype) -> float:
 
 def recorded_calls(preset: str, batch: int, eval_batch: int) -> dict:
     """{(step, kernel, shapes): [launches, wrapper name, args]} of one f32
-    train step in each branch and one bf16 eval step."""
+    train step in each branch (none at batch 0) and one bf16 eval step (none
+    at eval_batch 0)."""
     calls, where = {}, {"step": None}
 
     def recorder(wrapper):
@@ -134,12 +139,13 @@ def recorded_calls(preset: str, batch: int, eval_batch: int) -> dict:
     for p in patches:
         p.start()
     try:
-        state, step = bench_train.make_train_step(preset, batch, seed=0)
-        for branch in BRANCHES:
-            set_force_branch(state.model, branch)
-            where["step"] = f"train/{branch or 'default'}"
-            step()
-        del state, step
+        if batch:
+            state, step = bench_train.make_train_step(preset, batch, seed=0)
+            for branch in BRANCHES:
+                set_force_branch(state.model, branch)
+                where["step"] = f"train/{branch or 'default'}"
+                step()
+            del state, step
         if eval_batch:
             where["step"] = "eval"
             with torch.no_grad():
@@ -172,7 +178,7 @@ def timed(call, ref, dtype) -> dict:
 
 def run(preset: str = "small", batch: int = 4, eval_batch: int = 32,
         value_step: str = "train/default") -> dict:
-    if value_step not in STEPS or (value_step == "eval" and not eval_batch):
+    if value_step not in STEPS or not (eval_batch if value_step == "eval" else batch):
         raise ValueError(f"value_step {value_step!r}: one of {STEPS} whose step runs")
     rows, by_step = [], {}
     calls = recorded_calls(preset, batch, eval_batch)
@@ -202,7 +208,7 @@ def run(preset: str = "small", batch: int = 4, eval_batch: int = 32,
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", default="small", choices=tuple(PRESETS))
-    ap.add_argument("--batch", type=int, default=4, help="the train step's")
+    ap.add_argument("--batch", type=int, default=4, help="the train step's; 0: none")
     ap.add_argument("--eval_batch", type=int, default=32, help="the bf16 eval step's; 0: none")
     ap.add_argument("--value_step", default="train/default", choices=STEPS,
                     help="the step whose sampler launches `value` sums")

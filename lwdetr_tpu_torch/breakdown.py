@@ -10,8 +10,10 @@ seeded weights, images on the card) or, with `--train`, the f32 train step of
 given) under `torch.profiler` for a few steps after warm-up, and prints
 one JSON line: device time per step by kernel group (the port's kernels
 K1-K10, GEMMs, convolutions, the optimizer's and EMA's fused passes, the
-rest), the top kernels by device time, the host time the matcher takes per
-train step (its wait for the forward and its scipy solves), and
+rest), the top kernels by device time, the device time of the decoder's
+head-major value copies (`value_panels`, the panel branch; profiler range
+`VALUE_COPY_RANGE`), the host time the matcher takes per train step (its wait
+for the forward and its scipy solves), and
 the device's idle share of a step (1 - busy / step time, where busy is the
 sum of kernel times under the profiler, kernels on one stream do not
 overlap, and the step time is the mean over 15 steps timed without the
@@ -34,7 +36,7 @@ from torch.profiler import ProfilerActivity, profile
 from lwdetr_tpu_torch import bench_train
 from lwdetr_tpu_torch.bench import make_step
 from lwdetr_tpu_torch.config import PRESETS, TRAIN_PRESETS
-from lwdetr_tpu_torch.models.transformer import BRANCHES
+from lwdetr_tpu_torch.models.transformer import BRANCHES, VALUE_COPY_RANGE
 from lwdetr_tpu_torch.utils.device import card_line
 from lwdetr_tpu_torch.utils.timing import measure_ms
 
@@ -98,7 +100,10 @@ def run(preset: str = "small", batch: int = 32, dtype: torch.dtype = torch.bfloa
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = defaultdict(float)
+    value_copy_ms = 0.0
     for evt in prof.key_averages():
+        if evt.key == VALUE_COPY_RANGE and evt.device_type == torch.autograd.DeviceType.CPU:
+            value_copy_ms += evt.device_time_total / 1e3  # the kernels launched inside the range
         # device events only, and no annotation mirrored onto the device's
         # timeline (`Optimizer.step#AdamW.step` spans the kernels it encloses)
         if (evt.device_type == torch.autograd.DeviceType.CUDA
@@ -121,6 +126,7 @@ def run(preset: str = "small", batch: int = 32, dtype: torch.dtype = torch.bfloa
         "device_idle_share": 1.0 - busy / steps / step_ms,
         "groups_ms_per_step": {k: v / steps for k, v in sorted(groups.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms_per_step": [[name[:120], ms / steps] for name, ms in top],
+        "value_panels_copy_ms_per_step": value_copy_ms / steps,
         "device": torch.cuda.get_device_name(),
         "card": card_line(),
     }

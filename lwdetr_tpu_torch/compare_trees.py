@@ -13,7 +13,9 @@ fresh process): `bench` (eval img/s, B 32), `bench_train` (the f32 train
 step, B 4), `bench_attention` (device ms of the attention kernels, B 8) or
 `bench_deform` (device ms of the samplers, train step B 4; both trees must
 have `bench_deform.py`; `--value_step` is passed to it: the step whose
-sampler launches are `value`).
+sampler launches are `value`). `--batch` replaces the tool's batch (for
+`bench_deform`, 0 runs the eval step alone:
+`--tool bench_deform --presets large --batch 0 --value_step eval`).
 With `--breakdown` (bench, bench_train) it adds `python -m
 lwdetr_tpu_torch.breakdown` with the same step once from each (device busy
 time and idle share). Prints one JSON line: every run's output in that
@@ -52,8 +54,10 @@ def main() -> None:
     ap.add_argument("--tool", default="bench", choices=tuple(BATCH))
     ap.add_argument("--breakdown", action="store_true", help="bench and bench_train only")
     ap.add_argument("--value_step", help="bench_deform only: its --value_step")
+    ap.add_argument("--batch", type=int, help="the tool's --batch (default: BATCH[tool])")
     args = ap.parse_args()
-    tool, batch = args.tool, BATCH[args.tool]
+    tool = args.tool
+    batch = BATCH[tool] if args.batch is None else args.batch
     if args.breakdown and tool in ("bench_attention", "bench_deform"):
         ap.error("--breakdown times a whole step: bench or bench_train")
     if args.value_step and tool != "bench_deform":

@@ -13,44 +13,62 @@
 // where panel_l is (B, H, H_l, W_l * D): the head-h map of level l with the
 // D channels of one position contiguous. Sampling has
 // grid_sample(align_corners=False, padding_mode='zeros') semantics: a
-// location x in [0, 1] maps to the pixel coordinate x W_l - 0.5, the four
-// corners around it are weighted bilinearly, and a corner outside the level
-// contributes zero.
+// location x in [0, 1] maps to the pixel coordinate x W_l - 0.5 (rounded as
+// PyTorch rounds it, `lw::pixel`), the four corners around it are weighted
+// bilinearly, and a corner outside the level contributes zero.
 //
 // The TPU kernel factors the gather into a (q, H_l) one-hot row-mask matmul,
-// a (q, W_l D) column mask and a lane-regroup matmul, fed by packed per-axis
-// indices and weights, because a TPU gathers badly. None of that is carried
-// over: here the gather is a load. The kernel takes the sampling locations
-// and attention weights as they are and forms the floor, the fractions and
-// the corner weights in registers.
+// a (q, W_l D) column mask and a lane-regroup matmul, fed by per-axis indices
+// and weights packed ahead of it, because a TPU gathers badly. What carries
+// over is its order: the indices and weights once, then the values. Here the
+// gather is a load.
 //
 // What bounds it on an H100: each (b, q, h) reads 4 L P corners of D
 // channels and does as many D-wide multiply-adds, a few hundred bytes per
-// flop-pair, so it is bound by bytes: at least the panels once, in practice
-// the gathered corner reads (at large@640, batch 8, 57,600 groups x 32
-// corners x 64 B = 118 MB in f32). Design: the panel layout keeps a corner's
-// D channels contiguous (64 B in f32 at D = 16), so each thread owns 4
-// neighbouring channels of one (b, q, h) and loads them as one 16-byte (f32)
-// or 8-byte (bf16) vector; the D / 4 threads of a head read one whole corner
-// as one contiguous segment, and they share the location and weight (a
-// broadcast). Threads run channel-fastest over the (B, Q, C) output, so a
-// warp writes 512 contiguous bytes of one output row. Accumulation is f32,
-// rounded once on the store. Coordinates use floorf, not a truncating cast,
-// and a location far outside the level (or NaN) is skipped before any index
-// is formed. K10 differs in the addresses alone: position (y, x) of level l
-// lies at value[b, start_l + y W_l + x, h, :], so neighbouring positions are
-// H D elements apart and the heads of one position are contiguous.
+// flop-pair, so it is bound by bytes: at least the corners its points name,
+// once, in practice every corner read from L2 (at large@640, batch 8, 57,600
+// (b, q, h) x 32 corners x 64 B = 118 MB in f32). The design keeps enough
+// of those reads in flight that L2's rate for them, not their latency, is
+// what it waits on:
+// 1. The point table. A CTA takes a tile of `queries` queries x `heads`
+//    heads of one image. Its threads first form, once per sampling point
+//    (one thread a point, reading loc and the attention weight coalesced), the
+//    address of the point's upper-left corner in its (b, h, l) map and the
+//    step to the row below, both clamped into the map, and the four corner
+//    weights aw x bilinear, zero for a corner outside the map or a point
+//    outside (-1, W) x (-1, H) or NaN (no index is formed from those), into
+//    shared memory: 28 bytes a point.
+// 2. The gathers. Each thread then owns V neighbouring channels of one (q, h)
+//    (V = 4 in f32: one 16-byte load a corner; V = 8 in bf16: one 16-byte
+//    load): it reads its point's table entries (a broadcast over the head's D /
+//    V threads) and issues the four corner loads of G points (2 or 4) before
+//    it uses any of them. Every address is inside the map and every weight is
+//    already zero where a corner drops out, so nothing branches between the
+//    loads and 4 G of them are in flight. Accumulation is f32, in the order
+//    levels, points, corners, rounded once on the store. Points are padded to
+//    a multiple of G with points of weight 0.
+// 3. The work order. A CTA covers a run of queries of one (b, h) map, so its
+//    gathers stay in one map and neighbouring CTAs take the same map (all
+//    heads of a few queries ran 14-68% slower in bf16 at large's eval), or of
+//    as few heads as fill a 32-byte sector with a query's attention weights
+//    (4 heads at 2 points a (q, h): 8-16% faster than one map at small's train
+//    shape). The output rows of a (q, h) are D contiguous channels.
+// The times are device times on an H100 (`bench_variants.py`, which builds
+// the variants named here from this source).
+// K10 differs in the addresses alone: position (y, x) of level l lies at
+// value[b, start_l + y W_l + x, h, :], so neighbouring positions are H D
+// elements apart and the heads of one position are contiguous.
+#include <algorithm>
+
 #include "deform_layout.cuh"
 
 namespace {
 
 using lw::kMaxLevels;
-using lw::kVec;
-using lw::load4;
 using lw::PanelLayout;
 using lw::RowMajorLayout;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // most threads a CTA
 
 struct Levels {
   int n;
@@ -60,105 +78,301 @@ struct Levels {
   const void* panel[kMaxLevels];  // level l's first element
 };
 
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
+// A launch's cover of its B x H maps and Q queries: CTA x takes image b, heads
+// [h0, h0 + heads) and queries [q0, q0 + queries), the query tile fastest
+struct Tile {
+  int heads;        // a CTA
+  int queries;      // a CTA
+  int head_groups;  // ceil(H / heads)
+  int query_tiles;  // ceil(Q / queries)
+};
+
+// A thread's channels of a corner: 16 bytes, one vector load
+constexpr int kLoadBytes = 16;
+template <typename T> struct Channels;
+template <> struct Channels<float> {
+  static constexpr int V = 4;
+  using Raw = float4;
+};
+template <> struct Channels<__nv_bfloat16> {
+  static constexpr int V = 8;
+  using Raw = uint4;
+};
+
+// a bf16 is the high half of an f32
+__device__ __forceinline__ float lo(unsigned x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float hi(unsigned x) { return __uint_as_float(x & 0xffff0000u); }
+
+// acc += a x channels
+__device__ __forceinline__ void axpy(float a, float4 x, float (&acc)[4]) {
+  acc[0] = fmaf(a, x.x, acc[0]);
+  acc[1] = fmaf(a, x.y, acc[1]);
+  acc[2] = fmaf(a, x.z, acc[2]);
+  acc[3] = fmaf(a, x.w, acc[3]);
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  auto bits = [](float x) -> unsigned {
-    return __bfloat16_as_ushort(lw::from_f32<__nv_bfloat16>(x));
-  };
-  uint2 raw;
-  raw.x = bits(v.x) | (bits(v.y) << 16);
-  raw.y = bits(v.z) | (bits(v.w) << 16);
-  *reinterpret_cast<uint2*>(p) = raw;
+__device__ __forceinline__ void axpy(float a, uint4 x, float (&acc)[8]) {
+  acc[0] = fmaf(a, lo(x.x), acc[0]);
+  acc[1] = fmaf(a, hi(x.x), acc[1]);
+  acc[2] = fmaf(a, lo(x.y), acc[2]);
+  acc[3] = fmaf(a, hi(x.y), acc[3]);
+  acc[4] = fmaf(a, lo(x.z), acc[4]);
+  acc[5] = fmaf(a, hi(x.z), acc[5]);
+  acc[6] = fmaf(a, lo(x.w), acc[6]);
+  acc[7] = fmaf(a, hi(x.w), acc[7]);
 }
 
-__device__ __forceinline__ void axpy4(float a, float4 x, float4& y) {
-  y.x = fmaf(a, x.x, y.x);
-  y.y = fmaf(a, x.y, y.y);
-  y.z = fmaf(a, x.z, y.z);
-  y.w = fmaf(a, x.w, y.w);
+// a and b rounded to bf16, to nearest even, a in the low half
+__device__ __forceinline__ unsigned bf16x2(float a, float b) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(b), "f"(a));
+  return r;
+}
+__device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]),
+                                            bf16x2(v[4], v[5]), bf16x2(v[6], v[7]));
 }
 
-template <typename T, typename Layout>
+// One table entry: where the point's corners lie, and their weights.
+//   at: the address of channel 0 of corner (ya, xa) in the point's (b, h, l)
+//       map, | 1 when (ya, xb) is the next position (xb = xa + 1); a corner's
+//       channels start on 8 bytes at least, which frees the low bits
+//   dy: elements from (ya, xa) to (yb, xa): a row, or 0
+//   w: the weights of (ya, xa), (ya, xb), (yb, xa), (yb, xb)
+// with xa, xb, ya, yb the corner coordinates clamped into the map (a corner
+// that was clamped has weight 0).
+struct Entry {
+  unsigned long long at;
+  unsigned dy;
+  float4 w;
+};
+// bytes an entry takes in the table, which keeps its three fields apart
+constexpr int kEntryBytes = sizeof(unsigned long long) + sizeof(unsigned) + sizeof(float4);
+
+// `map`: position (0, 0) of the point's (b, h, l) map
+template <typename T>
+__device__ __forceinline__ Entry point_entry(const float* loc, const float* attw, size_t pt,
+                                             bool real, const T* map, int Wl, int Hl, int xs) {
+  float x = 0.f, y = 0.f, aw = 0.f;
+  if (real) {
+    const float2 xy = __ldg(reinterpret_cast<const float2*>(loc) + pt);
+    x = xy.x;
+    y = xy.y;
+    aw = __ldg(attw + pt);
+  }
+  const float px = lw::pixel(x, Wl);
+  const float py = lw::pixel(y, Hl);
+  // no corner of a point outside (-1, W) x (-1, H) is in bounds; this also
+  // drops NaN and keeps the integer casts below in range
+  const bool inside = real && px > -1.f && px < Wl && py > -1.f && py < Hl;
+  const float x0f = inside ? floorf(px) : 0.f;
+  const float y0f = inside ? floorf(py) : 0.f;
+  const float fx = px - x0f;
+  const float fy = py - y0f;
+  const int x0 = static_cast<int>(x0f);
+  const int y0 = static_cast<int>(y0f);
+  const bool x0ok = inside && x0 >= 0, x1ok = inside && x0 + 1 < Wl;
+  const bool y0ok = inside && y0 >= 0, y1ok = inside && y0 + 1 < Hl;
+  const int xa = max(x0, 0), xb = min(x0 + 1, Wl - 1);
+  const int ya = max(y0, 0), yb = min(y0 + 1, Hl - 1);
+  const size_t row = static_cast<size_t>(Wl) * xs;
+  Entry e;
+  e.at = reinterpret_cast<unsigned long long>(map + ya * row + static_cast<size_t>(xa) * xs) |
+         (xb > xa ? 1ull : 0ull);
+  e.dy = static_cast<unsigned>((yb - ya) * row);
+  e.w.x = y0ok && x0ok ? aw * (1.f - fy) * (1.f - fx) : 0.f;
+  e.w.y = y0ok && x1ok ? aw * (1.f - fy) * fx : 0.f;
+  e.w.z = y1ok && x0ok ? aw * fy * (1.f - fx) : 0.f;
+  e.w.w = y1ok && x1ok ? aw * fy * fx : 0.f;
+  return e;
+}
+
+// T: the value's dtype; G: points whose loads are in flight together
+template <typename T, typename Layout, int G>
 __global__ void __launch_bounds__(kThreads)
 deform_attn_sep_kernel(const float* __restrict__ loc, const float* __restrict__ attw,
-                       T* __restrict__ out, int Q, int H, int D, int P, Levels lv,
-                       size_t total) {
-  const size_t t = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= total) return;  // total = B Q C / kVec
-  const int C = H * D;
-  const int vec_per_row = C / kVec;
-  const int c = static_cast<int>(t % vec_per_row) * kVec;  // first of this thread's channels
-  const size_t bq = t / vec_per_row;
-  const int b = static_cast<int>(bq / Q);
-  const int h = c / D;
-  const int d = c - h * D;
+                       T* __restrict__ out, int Q, int H, int D, int P, Levels lv, Tile tile) {
+  constexpr int V = Channels<T>::V;
+  using R = typename Channels<T>::Raw;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int KP = lv.n * P;  // points a (q, h)
+  const int KG = (KP + G - 1) / G * G;  // padded with points of weight 0
+  const int S = tile.heads * tile.queries;  // (q, h) slots of the tile
+  float4* tw = reinterpret_cast<float4*>(smem);  // [KG][S], slot fastest
+  unsigned long long* ta = reinterpret_cast<unsigned long long*>(tw + KG * S);
+  unsigned* td = reinterpret_cast<unsigned*>(ta + KG * S);
 
-  const size_t bqh = bq * H + h;
-  const float* lp = loc + bqh * lv.n * P * 2;
-  const float* wp = attw + bqh * lv.n * P;
+  int blk = blockIdx.x;
+  const int qt = blk % tile.query_tiles;
+  blk /= tile.query_tiles;
+  const int h0 = (blk % tile.head_groups) * tile.heads;
+  const int b = blk / tile.head_groups;
+  const int q0 = qt * tile.queries;
+  const int xs = Layout::x_stride(H, D);  // elements between neighbouring positions
 
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int l = 0; l < lv.n; ++l) {
-    const int Wl = lv.w[l];
-    const int Hl = lv.h[l];
-    const int xs = Layout::x_stride(H, D);           // elements between neighbouring positions
-    const size_t row = static_cast<size_t>(Wl) * xs;  // elements per map row
-    // this thread's channels of position (0, 0) of the (b, h) map
-    const T* map = static_cast<const T*>(lv.panel[l]) +
-                   Layout::origin(b, h, H, D, Hl, Wl, lv.len_in) + d;
-#pragma unroll 4
-    for (int p = 0; p < P; ++p) {
-      const int k = l * P + p;
-      const float px = lw::pixel(lp[2 * k], Wl);
-      const float py = lw::pixel(lp[2 * k + 1], Hl);
-      // no corner of a point outside (-1, W) x (-1, H) is in bounds; this
-      // also drops NaN and keeps the integer casts below in range
-      if (!(px > -1.f && px < Wl && py > -1.f && py < Hl)) continue;
-      const float x0f = floorf(px);
-      const float y0f = floorf(py);
-      const float fx = px - x0f;
-      const float fy = py - y0f;
-      const int x0 = static_cast<int>(x0f);
-      const int y0 = static_cast<int>(y0f);
-      const float aw = wp[k];
-      const bool x0ok = x0 >= 0, x1ok = x0 + 1 < Wl;
-      const bool y0ok = y0 >= 0, y1ok = y0 + 1 < Hl;
-      // x0 >= -1 and y0 >= -1 here; a pointer is formed only for a corner in bounds
-      const T* c00 = map + y0 * static_cast<ptrdiff_t>(row) + x0 * xs;
-      if (y0ok && x0ok) axpy4(aw * (1.f - fy) * (1.f - fx), load4(c00), acc);
-      if (y0ok && x1ok) axpy4(aw * (1.f - fy) * fx, load4(c00 + xs), acc);
-      if (y1ok && x0ok) axpy4(aw * fy * (1.f - fx), load4(c00 + row), acc);
-      if (y1ok && x1ok) axpy4(aw * fy * fx, load4(c00 + row + xs), acc);
+  // 1. the point table: one thread a point, the tile's points in memory order
+  for (int i = threadIdx.x; i < S * KG; i += blockDim.x) {
+    const int s = i / KG;
+    const int k = i - s * KG;
+    const int q = q0 + s / tile.heads;
+    const int h = h0 + s % tile.heads;
+    const int l = min(k / P, lv.n - 1);  // a padding point takes the last level
+    const int hc = min(h, H - 1);
+    int Wl = lv.w[0], Hl = lv.h[0];
+    const void* panel = lv.panel[0];
+#pragma unroll
+    for (int j = 1; j < kMaxLevels; ++j) {  // constant indices: no stack
+      Wl = l == j ? lv.w[j] : Wl;
+      Hl = l == j ? lv.h[j] : Hl;
+      panel = l == j ? lv.panel[j] : panel;
+    }
+    const T* map = static_cast<const T*>(panel) + Layout::origin(b, hc, H, D, Hl, Wl, lv.len_in);
+    const bool real = k < KP && q < Q && h < H;
+    const size_t pt = (static_cast<size_t>(b * Q + min(q, Q - 1)) * H + hc) * KP + min(k, KP - 1);
+    const Entry e = point_entry(loc, attw, pt, real, map, Wl, Hl, xs);
+    tw[k * S + s] = e.w;
+    ta[k * S + s] = e.at;
+    td[k * S + s] = e.dy;
+  }
+  __syncthreads();
+
+  // 2. the gathers: D / V threads a (q, h), V channels each
+  const int lanes = D / V;
+  const int s = threadIdx.x / lanes;
+  const int q = q0 + s / tile.heads;
+  const int h = h0 + s % tile.heads;
+  if (s >= S || q >= Q || h >= H) return;
+  const int c = (threadIdx.x - s * lanes) * V;
+  float acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = 0.f;
+  for (int k = 0; k < KG; k += G) {
+    R x[G][4];
+    float4 w[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const unsigned long long at = ta[(k + j) * S + s];
+      w[j] = tw[(k + j) * S + s];
+      const T* r0 = reinterpret_cast<const T*>(at & ~7ull) + c;
+      const T* r1 = r0 + td[(k + j) * S + s];
+      const int dx = at & 1ull ? xs : 0;
+      x[j][0] = __ldg(reinterpret_cast<const R*>(r0));
+      x[j][1] = __ldg(reinterpret_cast<const R*>(r0 + dx));
+      x[j][2] = __ldg(reinterpret_cast<const R*>(r1));
+      x[j][3] = __ldg(reinterpret_cast<const R*>(r1 + dx));
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      axpy(w[j].x, x[j][0], acc);
+      axpy(w[j].y, x[j][1], acc);
+      axpy(w[j].z, x[j][2], acc);
+      axpy(w[j].w, x[j][3], acc);
     }
   }
-  store4(out + bq * C + c, acc);
+  store(out + (static_cast<size_t>(b * Q + q) * H + h) * D + c, acc);
+}
+
+// How one launch covers its work
+struct Route {
+  int vec;    // channels a thread
+  int group;  // points whose loads are in flight together
+  Tile tile;
+  int threads;  // a CTA
+  int smem;     // bytes of the point table
+  long long ctas;
+};
+
+Route route(int B, int Q, int H, int D, int n_levels, int P, int dtype) {
+  Route r;
+  r.vec = kLoadBytes / (dtype == lw::kFloat32 ? sizeof(float) : sizeof(__nv_bfloat16));
+  const int KP = n_levels * P;
+  // f32 takes 4 points when they divide a (q, h)'s points (1-4% faster than 2
+  // at large's eval); bf16 2: with 4, ptxas spills to stay at 40 registers,
+  // and it ran 10% slower
+  r.group = dtype == lw::kFloat32 && KP % 4 == 0 ? 4 : 2;
+  const int KG = (KP + r.group - 1) / r.group * r.group;
+  const int lanes = D / r.vec;
+  // (q, h) slots a CTA: a CTA's threads, and a table of at most 48 KB
+  const int slots = std::max(1, std::min(kThreads / lanes,
+                                         48 * 1024 / (KG * kEntryBytes)));
+  // the fewest heads (a power of two) whose points of one query fill a
+  // 32-byte sector of the attention weights, so that the table reads whole
+  // sectors: one (b, h) map a CTA at 8 points a (q, h), 4 heads at 2 points
+  r.tile.heads = 1;
+  while (r.tile.heads < H && r.tile.heads * KP * static_cast<int>(sizeof(float)) < 32 &&
+         2 * r.tile.heads <= slots)
+    r.tile.heads *= 2;
+  r.tile.head_groups = (H + r.tile.heads - 1) / r.tile.heads;
+  const int qslots = slots / r.tile.heads;
+  r.tile.query_tiles = (Q + qslots - 1) / qslots;
+  r.tile.queries = (Q + r.tile.query_tiles - 1) / r.tile.query_tiles;
+  r.threads = (r.tile.queries * r.tile.heads * lanes + 31) / 32 * 32;
+  r.smem = KG * r.tile.queries * r.tile.heads * kEntryBytes;
+  r.ctas = static_cast<long long>(B) * r.tile.head_groups * r.tile.query_tiles;
+  return r;
+}
+
+template <typename T, typename Layout, int G>
+const void* kernel_fn() {
+  return reinterpret_cast<const void*>(&deform_attn_sep_kernel<T, Layout, G>);
+}
+
+// the kernel a route runs, nullptr for a dtype it does not take
+template <typename Layout>
+const void* pick(const Route& r, int dtype) {
+  if (dtype == lw::kFloat32)
+    return r.group == 4 ? kernel_fn<float, Layout, 4>() : kernel_fn<float, Layout, 2>();
+  return dtype == lw::kBFloat16 ? kernel_fn<__nv_bfloat16, Layout, 2>() : nullptr;
 }
 
 template <typename Layout>
 int launch(const Levels& lv, const void* loc, const void* attw, void* out, int B, int Q,
            int num_heads, int head_dim, int n_points, int dtype, void* stream) {
-  const size_t total = static_cast<size_t>(B) * Q * num_heads * head_dim / kVec;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Route r = route(B, Q, num_heads, head_dim, lv.n, n_points, dtype);
+  const void* fn = pick<Layout>(r, dtype);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  if (r.smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, r.smem);
+    if (err != cudaSuccess) return err;
+  }
   const float* lp = static_cast<const float*>(loc);
   const float* wp = static_cast<const float*>(attw);
-  if (dtype == lw::kFloat32) {
-    deform_attn_sep_kernel<float, Layout><<<blocks, kThreads, 0, st>>>(
-        lp, wp, static_cast<float*>(out), Q, num_heads, head_dim, n_points, lv, total);
-  } else if (dtype == lw::kBFloat16) {
-    deform_attn_sep_kernel<__nv_bfloat16, Layout><<<blocks, kThreads, 0, st>>>(
-        lp, wp, static_cast<__nv_bfloat16*>(out), Q, num_heads, head_dim, n_points, lv, total);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  Tile tile = r.tile;
+  Levels levels = lv;
+  void* args[] = {&lp, &wp, &out, &Q, &num_heads, &head_dim, &n_points, &levels, &tile};
+  return cudaLaunchKernel(fn, dim3(static_cast<unsigned>(r.ctas)), dim3(r.threads), args,
+                          r.smem, static_cast<cudaStream_t>(stream));
 }
 
-bool sizes_ok(int B, int Q, int num_heads, int head_dim, int n_levels, int n_points) {
-  return B >= 1 && Q >= 1 && num_heads >= 1 && head_dim >= kVec && head_dim % kVec == 0 &&
-         n_points >= 1 && n_levels >= 1 && n_levels <= kMaxLevels;
+// head_dim: whole 16-byte loads (4 f32 channels, 8 bf16), at most one CTA's
+bool sizes_ok(int B, int Q, int num_heads, int head_dim, int n_levels, int n_points,
+              int dtype) {
+  const int vec = dtype == lw::kFloat32 ? 4 : 8;
+  return (dtype == lw::kFloat32 || dtype == lw::kBFloat16) && B >= 1 && Q >= 1 &&
+         num_heads >= 1 && head_dim >= vec && head_dim % vec == 0 &&
+         head_dim <= vec * kThreads && n_points >= 1 && n_levels >= 1 &&
+         n_levels <= kMaxLevels;
+}
+
+// route[0..8]: channels a thread, points in flight together, heads and
+// queries a CTA, threads a CTA, shared bytes, CTAs, and the registers and
+// local (stack and spilled) bytes a thread of the kernel that runs
+template <typename Layout>
+int report(int B, int Q, int num_heads, int head_dim, int n_levels, int n_points, int dtype,
+           int* out) {
+  if (!sizes_ok(B, Q, num_heads, head_dim, n_levels, n_points, dtype)) return cudaErrorInvalidValue;
+  const Route r = route(B, Q, num_heads, head_dim, n_levels, n_points, dtype);
+  const void* fn = pick<Layout>(r, dtype);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  int attrs[3];
+  if (const int err = lw::kernel_attributes(fn, attrs)) return err;
+  const int v[9] = {r.vec, r.group, r.tile.heads, r.tile.queries, r.threads, r.smem,
+                    static_cast<int>(r.ctas), attrs[0], attrs[1]};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -171,16 +385,18 @@ extern "C" int lw_deform_attn_sep(const void* const* panels, const int* level_hw
                                   const void* loc, const void* attw, void* out, int B, int Q,
                                   int num_heads, int head_dim, int n_levels, int n_points,
                                   int dtype, void* stream) {
-  if (!sizes_ok(B, Q, num_heads, head_dim, n_levels, n_points)) return cudaErrorInvalidValue;
-  Levels lv;
+  if (!sizes_ok(B, Q, num_heads, head_dim, n_levels, n_points, dtype)) return cudaErrorInvalidValue;
+  Levels lv{};
   lv.n = n_levels;
   lv.len_in = 0;
   for (int l = 0; l < n_levels; ++l) {
     lv.h[l] = level_hw[2 * l];
     lv.w[l] = level_hw[2 * l + 1];
     lv.panel[l] = panels[l];
+    // the table's row step is 32-bit
     if (lv.h[l] < 1 || lv.w[l] < 1 || lv.panel[l] == nullptr ||
-        reinterpret_cast<size_t>(lv.panel[l]) % 16 != 0)
+        reinterpret_cast<size_t>(lv.panel[l]) % 16 != 0 ||
+        static_cast<long long>(lv.w[l]) * head_dim >= (1LL << 31))
       return cudaErrorInvalidValue;
   }
   return launch<PanelLayout>(lv, loc, attw, out, B, Q, num_heads, head_dim, n_points, dtype,
@@ -195,24 +411,36 @@ extern "C" int lw_deform_attn_rowmajor(const void* value, const int* level_hw, c
                                        const void* attw, void* out, int B, int len_in, int Q,
                                        int num_heads, int head_dim, int n_levels, int n_points,
                                        int dtype, void* stream) {
-  if (!sizes_ok(B, Q, num_heads, head_dim, n_levels, n_points) || value == nullptr ||
-      reinterpret_cast<size_t>(value) % 16 != 0 ||
-      (dtype != lw::kFloat32 && dtype != lw::kBFloat16))
+  if (!sizes_ok(B, Q, num_heads, head_dim, n_levels, n_points, dtype) || value == nullptr ||
+      reinterpret_cast<size_t>(value) % 16 != 0)
     return cudaErrorInvalidValue;
   const size_t position = static_cast<size_t>(num_heads) * head_dim *
                           (dtype == lw::kFloat32 ? sizeof(float) : sizeof(__nv_bfloat16));
-  Levels lv;
+  Levels lv{};
   lv.n = n_levels;
   lv.len_in = len_in;
   long long start = 0;
   for (int l = 0; l < n_levels; ++l) {
     lv.h[l] = level_hw[2 * l];
     lv.w[l] = level_hw[2 * l + 1];
-    if (lv.h[l] < 1 || lv.w[l] < 1) return cudaErrorInvalidValue;
+    // the table's row step is 32-bit
+    if (lv.h[l] < 1 || lv.w[l] < 1 ||
+        static_cast<long long>(lv.w[l]) * num_heads * head_dim >= (1LL << 31))
+      return cudaErrorInvalidValue;
     lv.panel[l] = static_cast<const char*>(value) + start * position;
     start += static_cast<long long>(lv.h[l]) * lv.w[l];
   }
   if (start != len_in) return cudaErrorInvalidValue;
   return launch<RowMajorLayout>(lv, loc, attw, out, B, Q, num_heads, head_dim, n_points, dtype,
                                 stream);
+}
+
+// The route a K4 / K10 launch of these sizes takes (see `report`).
+extern "C" int lw_deform_attn_sep_route(int B, int Q, int num_heads, int head_dim, int n_levels,
+                                        int n_points, int dtype, int* route) {
+  return report<PanelLayout>(B, Q, num_heads, head_dim, n_levels, n_points, dtype, route);
+}
+extern "C" int lw_deform_attn_rowmajor_route(int B, int Q, int num_heads, int head_dim,
+                                             int n_levels, int n_points, int dtype, int* route) {
+  return report<RowMajorLayout>(B, Q, num_heads, head_dim, n_levels, n_points, dtype, route);
 }

@@ -40,6 +40,8 @@ from lwdetr_tpu_torch.ops.embeddings import query_sine_embed
 # CPU each branch runs with its sampler's plain version.
 SEP_MIN_LEN_IN = 4096
 BRANCHES = ("sep", "cm", "gather")
+# the profiler range around `value_panels`' head-major copy (`breakdown.py` reads it)
+VALUE_COPY_RANGE = "value_panels head-major copy"
 
 
 class MLPHead(nn.Module):
@@ -110,7 +112,9 @@ class MSDeformAttnModule(nn.Module):
         for (hl, wl), mem_l in zip(spatial_shapes, memory_levels):
             B, n, C = mem_l.shape
             v = self.value_proj(mem_l).reshape(B, n, H, C // H).permute(0, 2, 1, 3)
-            panels.append(v.contiguous().reshape(B, H, hl, wl * (C // H)))
+            with torch.profiler.record_function(VALUE_COPY_RANGE):
+                v = v.contiguous()
+            panels.append(v.reshape(B, H, hl, wl * (C // H)))
         return panels
 
     def forward(self, query: torch.Tensor, reference_points: torch.Tensor,

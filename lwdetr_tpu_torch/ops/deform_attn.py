@@ -21,7 +21,10 @@ align_corners=False)`` semantics, weighted and summed over levels and points:
 Each forward / backward pair is a `torch.autograd.Function`; every backward
 gives the gradients of the values, the sampling locations and the attention
 weights. The kernels are direct bilinear gathers (K3 and K8 from the head's
-map staged in shared memory); the backwards scatter d(value) with one f32
+map staged in shared memory; K4 and K10 from a table of each point's clamped
+corner addresses and weights that a CTA forms once in shared memory, then
+with the loads of two or four points in flight, no branch between them;
+`sep_route` reports their route); the backwards scatter d(value) with one f32
 vector reduction per corner and 4 channels (K8 into a position-major scratch
 that it turns channel-major). On CUDA
 tensors they launch or the call raises; tensors on the CPU take the plain
@@ -74,7 +77,9 @@ deform_attn_rowmajor_kernel = CudaKernel(
 deform_attn_rowmajor_bwd_kernel = CudaKernel(
     "K10b", "deform_attn_sep_bwd.cu", "lw_deform_attn_rowmajor_bwd",
     [_P, _P, ctypes.POINTER(ctypes.c_int), _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I])
-_SEP_HEAD_DIMS = (16, 32)
+# head dims the panel and row-major kernels take: the forwards (K4, K10) and the backwards (K5, K10b)
+_SEP_HEAD_DIMS = (16, 32, 64)
+_SEP_BWD_HEAD_DIMS = (16, 32)
 
 
 def sampling_offsets_init_bias(n_heads: int, n_levels: int, n_points: int) -> torch.Tensor:
@@ -266,6 +271,33 @@ def cm_route(kernel: CudaKernel, value_t: torch.Tensor, n_queries: int, n_heads:
     return route
 
 
+SEP_ROUTE_KEYS = ("channels_a_thread", "points_in_flight", "heads_a_cta", "queries_a_cta",
+                   "threads", "shared_bytes", "ctas", "registers", "local_bytes")
+
+
+def sep_route(kernel: CudaKernel, B: int, n_queries: int, n_heads: int, head_dim: int,
+              n_levels: int, n_points: int, dtype: torch.dtype) -> dict:
+    """The route K4 or K10 (`kernel`) takes for these sizes, as its source
+    chooses it: the channels a thread gathers, the points whose corner loads
+    are in flight together, the tile of heads and queries a CTA covers (its
+    work order), threads a CTA, the point table's shared bytes, CTAs, and the
+    registers and local (stack and spilled) bytes a thread of the kernel that
+    runs."""
+    if kernel.name not in ("K4", "K10"):
+        raise ValueError(f"this route is reported for K4 and K10, not {kernel.name}")
+    fn = getattr(load(kernel.source), kernel.symbol + "_route")
+    fn.argtypes = [_I] * 7 + [ctypes.POINTER(_I)]
+    fn.restype = _I
+    out = (_I * len(SEP_ROUTE_KEYS))()
+    err = fn(B, n_queries, n_heads, head_dim, n_levels, n_points, _DTYPES[dtype], out)
+    if err:
+        raise RuntimeError(f"{kernel.symbol}_route failed: CUDA error {err}")
+    route = dict(zip(SEP_ROUTE_KEYS, out))
+    route["work_order"] = ("one (b, h) map a CTA" if route["heads_a_cta"] == 1 else
+                           f"{route['heads_a_cta']} heads a CTA")
+    return route
+
+
 class _DeformAttnCM(torch.autograd.Function):
     """K3 forward, K8 backward; the plain versions on CPU tensors."""
 
@@ -324,11 +356,11 @@ def ms_deform_attn_bwd_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple
     return dvalue, dloc, dw
 
 
-def _check_rowmajor_cuda(value, spatial_shapes, loc, weights):
+def _check_rowmajor_cuda(value, spatial_shapes, loc, weights, head_dims=_SEP_HEAD_DIMS):
     if value.dtype not in _DTYPES:
         raise TypeError(f"K10 takes float32 or bfloat16 values, got {value.dtype}")
-    if value.dim() != 4 or value.shape[3] not in _SEP_HEAD_DIMS:
-        raise ValueError(f"value must be (B, Len_in, H, D) with D in {_SEP_HEAD_DIMS}, "
+    if value.dim() != 4 or value.shape[3] not in head_dims:
+        raise ValueError(f"value must be (B, Len_in, H, D) with D in {head_dims}, "
                          f"got {tuple(value.shape)}")
     B, len_in, H, _ = value.shape
     L = len(spatial_shapes)
@@ -368,7 +400,7 @@ def ms_deform_attn_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
     no fixed order, and for bf16 values rounded once from the f32 sums."""
     if not value.is_cuda:
         return ms_deform_attn_bwd_plain(value, spatial_shapes, loc, weights, dout)
-    _check_rowmajor_cuda(value, spatial_shapes, loc, weights)
+    _check_rowmajor_cuda(value, spatial_shapes, loc, weights, _SEP_BWD_HEAD_DIMS)
     B, len_in, H, D = value.shape
     _, Q, _, L, P, _ = loc.shape
     if dout.shape != (B, Q, H * D) or dout.device != value.device:
@@ -453,7 +485,7 @@ def ms_deform_attn_sep_panels_plain(vals: Sequence[torch.Tensor],
     return out.permute(0, 2, 1, 3).reshape(B, Q, H * D).to(vals[0].dtype)
 
 
-def _check_sep_cuda(vals, spatial_shapes, loc, weights):
+def _check_sep_cuda(vals, spatial_shapes, loc, weights, head_dims=_SEP_HEAD_DIMS):
     dtype = vals[0].dtype
     if dtype not in _DTYPES:
         raise TypeError(f"K4 / K5 take float32 or bfloat16 panels, got {dtype}")
@@ -466,8 +498,8 @@ def _check_sep_cuda(vals, spatial_shapes, loc, weights):
         raise ValueError(f"K4 / K5 take 1..{_MAX_LEVELS} levels matching loc, got {len(vals)} panels "
                          f"and {len(spatial_shapes)} shapes for L = {L}")
     D, rem = divmod(vals[0].shape[-1], spatial_shapes[0][1])
-    if rem or D not in _SEP_HEAD_DIMS:
-        raise ValueError(f"K4 / K5 take head_dim in {_SEP_HEAD_DIMS}, got panel width "
+    if rem or D not in head_dims:
+        raise ValueError(f"K4 / K5 take head_dim in {head_dims}, got panel width "
                          f"{vals[0].shape[-1]} for W = {spatial_shapes[0][1]}")
     for panel, (h, w) in zip(vals, spatial_shapes):
         if panel.shape != (B, H, h, w * D) or panel.dtype != dtype:
@@ -561,7 +593,7 @@ def ms_deform_attn_sep_panels_bwd(vals: Sequence[torch.Tensor],
     vals = list(vals)
     if not vals[0].is_cuda:
         return ms_deform_attn_sep_panels_bwd_plain(vals, spatial_shapes, loc, weights, dout)
-    _check_sep_cuda(vals, spatial_shapes, loc, weights)
+    _check_sep_cuda(vals, spatial_shapes, loc, weights, _SEP_BWD_HEAD_DIMS)
     B, Q, H, L, P, _ = loc.shape
     D = vals[0].shape[-1] // spatial_shapes[0][1]
     if dout.shape != (B, Q, H * D) or dout.device != loc.device:

@@ -149,6 +149,52 @@ def test_deform_attn_sep_panels_matches_plain(cuda, dtype, shapes, Q, heads, D, 
     torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=RTOL[dtype])
 
 
+# K4 and K10 beyond the paths' shapes: (B, shapes, Q, heads, D, P). A Q that
+# no query tile divides, Q = 1, head_dim 32 and 64 (3 points a level: 6 a (q,
+# h), padded to 8 in the point table), four levels (16 points a (q, h))
+SEP_ROUTE_CASES = [(4, [(40, 40)], 1001, 16, 16, 2), (2, [(5, 7)], 1, 2, 16, 1),
+                   (4, [(40, 40)], 300, 8, 32, 2), (2, [(20, 20), (10, 10)], 77, 4, 64, 3),
+                   (2, [(40, 40), (20, 20), (10, 10), (5, 5)], 150, 8, 16, 4)]
+
+
+@pytest.mark.parametrize("layout", ["panels", "rowmajor"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,shapes,Q,heads,D,P", SEP_ROUTE_CASES)
+def test_panel_and_row_major_forwards_match_plain_on_every_route(cuda, layout, dtype, B, shapes,
+                                                                 Q, heads, D, P):
+    """K4 (panels) and K10 (row-major) against the plain version, one launch
+    each, with points on the borders, far outside, NaN and (the last query) on
+    grid lines; the route keeps no stack and spills nothing. The backwards
+    (K5, K10b) take head_dim 16 and 32 only."""
+    L = len(shapes)
+    vals = _panels(cuda, B, heads, D, shapes, dtype)
+    loc, w = _sampler_points(cuda, B, Q, heads, L, P)
+    for lvl, (h, wd) in enumerate(shapes):  # pixel centres: fractions 0
+        for axis, size in ((0, wd), (1, h)):
+            pick = torch.randint(0, size, (B, heads, P), generator=cuda, device="cuda")
+            loc[:, -1, :, lvl, :, axis] = (pick.float() + 0.5) / size
+    kernel = da.deform_attn_sep_kernel if layout == "panels" else da.deform_attn_rowmajor_kernel
+    route = da.sep_route(kernel, B, Q, heads, D, L, P, dtype)
+    assert route["local_bytes"] == 0 and route["threads"] <= 512, route
+    before = kernel.launches
+    if layout == "panels":
+        out = da.ms_deform_attn_sep_panels(vals, shapes, loc, w)
+    else:
+        value = torch.cat([v.reshape(B, heads, -1, D) for v in vals], dim=2)
+        out = da.ms_deform_attn(value.transpose(1, 2).contiguous(), shapes, loc, w)
+    assert kernel.launches == before + 1
+    ref = da.ms_deform_attn_sep_panels_plain([v.float() for v in vals], shapes,
+                                             torch.nan_to_num(loc, nan=-5.0), w)
+    assert out.shape == (B, Q, heads * D) and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=RTOL[dtype])
+    if D == 64:
+        with pytest.raises(ValueError, match="head_dim|D in"):
+            if layout == "panels":
+                da.ms_deform_attn_sep_panels_bwd(vals, shapes, loc, w, out)
+            else:
+                da.ms_deform_attn_bwd(value.transpose(1, 2).contiguous(), shapes, loc, w, out)
+
+
 def test_deform_attn_sep_panels_agrees_with_the_channel_major_kernel(cuda):
     # K4 and K3 compute one function from two layouts of the same values
     shapes, B, Q, heads, D, P = [(12, 9), (6, 5)], 2, 50, 4, 16, 4

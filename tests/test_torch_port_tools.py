@@ -3,7 +3,8 @@ into groups, on kernel names the H100 profiler reports for the small@640
 and large@640 steps, and which presets the tools take."""
 import pytest
 
-from lwdetr_tpu_torch import bench, bench_attention, bench_deform, bench_train, breakdown
+from lwdetr_tpu_torch import (bench, bench_attention, bench_deform, bench_train, bench_variants,
+                              breakdown)
 from lwdetr_tpu_torch.breakdown import _group
 
 
@@ -232,3 +233,87 @@ def test_bench_deform_value_reads_the_step_it_is_given(step):
         compare_trees.main()
     assert len(runs) == 4
     assert all(args[-2:] == ["--value_step", step] for args in runs)
+
+
+@pytest.mark.parametrize("batch,steps", [
+    (4, ["eval", "train/cm", "train/default", "train/gather"]),
+    (0, ["eval"]),
+], ids=["train_and_eval", "eval_only"])
+def test_bench_deform_batch_0_runs_the_eval_step_alone(batch, steps):
+    """`--batch 0` skips the train steps (large's and xlarge's are not ported),
+    so that `--preset large --batch 0 --value_step eval` times K4 on the bf16
+    eval step's own inputs (stubbed steps: each calls one sampler wrapper);
+    a train step's `value` then refuses, and `compare_trees.py` passes
+    `--batch` to every run of both trees."""
+    from types import SimpleNamespace
+    from unittest import mock
+
+    import torch
+
+    from lwdetr_tpu_torch import compare_trees
+
+    assert bench_deform.parser().parse_args(["--batch", "0"]).batch == 0
+    x = torch.zeros(2)
+    made = []
+
+    def make_train_step(preset, b, seed):
+        made.append(("train", preset, b))
+        return SimpleNamespace(model=None), lambda: bench_deform.da.ms_deform_attn_sep_panels_fwd(x)
+
+    def make_step(preset, b, dtype):
+        made.append(("eval", preset, b))
+        return lambda: bench_deform.da.ms_deform_attn_sep_panels_fwd(x)
+
+    with mock.patch.object(bench_deform.da, "ms_deform_attn_sep_panels_fwd", return_value=x), \
+            mock.patch.object(bench_deform.bench_train, "make_train_step", make_train_step), \
+            mock.patch.object(bench_deform.bench, "make_step", make_step), \
+            mock.patch.object(bench_deform, "set_force_branch"), \
+            mock.patch.object(bench_deform.torch.cuda, "synchronize"):
+        calls = bench_deform.recorded_calls("large", batch, 32)
+        assert sorted(step for step, *_ in calls) == steps
+        assert all(name == "K4" and n == 1 for (_, name, _), (n, *_) in calls.items())
+        assert made == [("train", "large", batch)] * (batch > 0) + [("eval", "large", 32)]
+        with mock.patch.object(bench_deform, "large_train_call", return_value=[x]), \
+                mock.patch.object(bench_deform, "timed",
+                                  return_value={"device_ms": 0.5, "ms": 1.0, "max_abs_err": 0.0}), \
+                mock.patch.object(bench_deform.da, "ms_deform_attn_sep_panels_plain",
+                                  return_value=x), \
+                mock.patch.object(bench_deform.da, "ms_deform_attn_sep_panels_bwd_plain",
+                                  return_value=x), \
+                mock.patch.object(bench_deform, "card_line", return_value="card, 700 W"), \
+                mock.patch.object(bench_deform.torch.cuda, "get_device_name",
+                                  return_value="card"):
+            out = bench_deform.run("large", batch, 32, "eval")
+            assert out["value"] == 0.5 and out["batch"] == batch
+            assert sorted(out["device_ms_by_step"]) == sorted(steps + ["check/large_train"])
+            if not batch:
+                with pytest.raises(ValueError, match="value_step"):
+                    bench_deform.run("large", batch, 32, "train/default")
+    runs = []
+    with mock.patch.object(compare_trees, "run_json",
+                           side_effect=lambda tree, args: runs.append(args) or
+                           {"value": 1.0, "unit": "ms"}), \
+            mock.patch.object(compare_trees.subprocess, "run"), \
+            mock.patch.object(compare_trees, "card_line", return_value="card, 700 W"), \
+            mock.patch("sys.argv", ["compare_trees", "--other", ".", "--presets", "large",
+                                    "--tool", "bench_deform", "--batch", str(batch),
+                                    "--value_step", "eval"]):
+        compare_trees.main()
+    assert len(runs) == 4
+    assert all(args[args.index("--batch") + 1] == str(batch) for args in runs)
+
+
+@pytest.mark.parametrize("name", list(bench_variants.VARIANTS))
+def test_bench_variants_edits_match_the_sampler_source(name):
+    """Each variant of `bench_variants` is the K4 / K10 source with text edits
+    that must each match it once, so that a later change of the source that
+    breaks a variant shows here, not on the card; a stale edit raises."""
+    from lwdetr_tpu_torch.ops import _build
+
+    text = (_build.CSRC / bench_variants.SOURCE).read_text()
+    edited = bench_variants.variant_source(text, bench_variants.VARIANTS[name])
+    assert (edited == text) == (name == "tree")
+    with pytest.raises(ValueError, match="once"):
+        bench_variants.variant_source(text, [["no such text in the source", ""]])
+    args = bench_variants.parser().parse_args(["--variants", name, "--no-steps"])
+    assert args.variants == [name] and not args.steps and args.other is None
