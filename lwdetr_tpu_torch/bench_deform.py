@@ -58,6 +58,11 @@ LARGE_TRAIN = (8, 24, 16, 4, 3900, [(80, 80), (20, 20)])
 # 2^-8 |plain| in bf16
 ATOL = 2e-5
 RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8}
+# bf16 samplers that round where the JAX kernels round are held to their plain
+# version on the same bf16 values, within one bf16 ulp (chip_smoke.py's
+# SAMPLER_RTOL); K5's d(loc) and d(weights) also within sep_panels_bwd_bf16_bound
+ROUNDED_AS_JAX = ("K3", "K4", "K10", "K5", "K8")
+ROUNDED_RTOL = 2.0 ** -7
 
 
 def _clone(x):
@@ -99,15 +104,18 @@ def _flat(out):
         [("dloc", dloc), ("dweights", dw)]
 
 
-def max_error(out, ref, dtype) -> float:
-    """max |kernel - plain| over the outputs; raises past the tolerance."""
+def max_error(out, ref, dtype, rtol=None, bounds=None) -> float:
+    """max |kernel - plain| over the outputs; raises past the tolerance
+    (`rtol` in place of RTOL[dtype]; `bounds`: role -> an elementwise bound
+    added)."""
     worst = 0.0
     for (role, t), (_, r) in zip(_flat(out), _flat(ref)):
+        r = r.float()
         diff = (t.float() - r).abs()
         scale = 1.0 if role == "out" else max(1.0, r.abs().max().item())
         atol = ATOL * scale * (4.0 if role == "dvalue" else 1.0)
-        rtol = RTOL[dtype] if role in ("out", "dvalue") else 0.0
-        excess = (diff - (atol + rtol * r.abs())).max().item()
+        rel = (RTOL[dtype] if rtol is None else rtol) if role in ("out", "dvalue") else 0.0
+        excess = (diff - (atol + rel * r.abs() + (bounds or {}).get(role, 0.0))).max().item()
         if not torch.isfinite(t).all() or excess > 0:
             raise AssertionError(f"{role}: max abs err {diff.max().item()}, "
                                  f"over its bound by {excess}")
@@ -170,8 +178,8 @@ def large_train_call(dtype: torch.dtype, seed: int = 4) -> list:
     return [vals, shapes, loc, w, dout]
 
 
-def timed(call, ref, dtype) -> dict:
-    err = max_error(call(), ref, dtype)
+def timed(call, ref, dtype, rtol=None, bounds=None) -> dict:
+    err = max_error(call(), ref, dtype, rtol, bounds)
     return {"device_ms": measure_graph_ms(call)["ms"], "ms": measure_ms(call)["ms"],
             "max_abs_err": err}
 
@@ -189,12 +197,19 @@ def run(preset: str = "small", batch: int = 4, eval_batch: int = 32,
         fn, plain = getattr(da, wrapper), getattr(da, WRAPPERS[wrapper][1])
         dtype = _value(args).dtype
         call = lambda: fn(*args)  # noqa: E731
+        rtol = bounds = None
         with torch.no_grad():
-            ref = plain(*[_f32(a) for a in args])
+            if dtype == torch.bfloat16 and name in ROUNDED_AS_JAX:
+                ref, rtol = plain(*args), ROUNDED_RTOL
+                if name == "K5":
+                    bloc, bw = da.sep_panels_bwd_bf16_bound(*args)
+                    bounds = {"dloc": bloc, "dweights": bw}
+            else:
+                ref = plain(*[_f32(a) for a in args])
             row = {"step": step, "kernel": name, "shape": [_shape(a) for a in args
                                                            if _shape(a) is not None],
                    "dtype": str(dtype).replace("torch.", ""), "launches": launches,
-                   **timed(call, ref, dtype)}
+                   **timed(call, ref, dtype, rtol, bounds)}
         by_step[step] = by_step.get(step, 0.0) + launches * row["device_ms"]
         rows.append(row)
     kind = "bf16_eval" if value_step == "eval" else "f32_" + value_step.replace("/", "_")

@@ -8,8 +8,9 @@ A variant is `csrc/deform_attn_sep.cu` with the text edits of `VARIANTS`
 applied (each must match the source once), built by nvcc with the tree's
 headers into `build/variants/<name>/`; "tree" is the source as it is, and
 "parent" the source of `--other` with its own headers. Every variant is held
-to the plain version (chip_smoke.py's tolerance: 2e-5, + 2^-8 |plain| in
-bf16) and timed (device ms of one launch, `measure_graph_ms` over 50
+to the plain version (chip_smoke.py's tolerance: 2e-5; in bf16 + 2^-7
+|plain| of the plain version on the same bf16 values, which rounds as the
+kernel) and timed (device ms of one launch, `measure_graph_ms` over 50
 launches) at each shape of `SHAPES` (seeded inputs; "clustered": a query's
 points near one reference point, as a decoder's are) and, unless
 `--no-steps`, at the K4 / K10 calls of large's bf16 eval step at batch 32
@@ -45,34 +46,15 @@ VARIANTS = {
     # the work order: one (b, h) map a CTA at every shape, or all heads (a power of two) of a few queries
     "one_map_a_cta": [_ONE_HEAD],
     "all_heads_a_cta": [["r.tile.heads * KP * static_cast<int>(sizeof(float)) < 32 &&", "true &&"]],
-    # points in flight: 2 in f32 too; 4 in bf16 too (at 8 points a (q, h))
-    "f32_2_points": [["r.group = dtype == lw::kFloat32 && KP % 4 == 0 ? 4 : 2;", "r.group = 2;"]],
-    "bf16_4_points": [["r.group = dtype == lw::kFloat32 && KP % 4 == 0 ? 4 : 2;",
-                       "r.group = KP % 4 == 0 ? 4 : 2;"],
-                      ["return dtype == lw::kBFloat16 ? kernel_fn<__nv_bfloat16, Layout, 2>() : nullptr;",
-                       "if (dtype != lw::kBFloat16) return nullptr;\n  return r.group == 4 ? "
-                       "kernel_fn<__nv_bfloat16, Layout, 4>() : kernel_fn<__nv_bfloat16, Layout, 2>();"]],
-    # bf16: 4 channels a thread (8-byte loads) in place of 8
-    "bf16_4_channels": [
-        ["  static constexpr int V = 8;\n  using Raw = uint4;",
-         "  static constexpr int V = 4;\n  using Raw = uint2;"],
-        ["__device__ __forceinline__ void axpy(float a, uint4 x, float (&acc)[8]) {",
-         "__device__ __forceinline__ void axpy(float a, uint2 x, float (&acc)[4]) {\n"
-         "  acc[0] = fmaf(a, lo(x.x), acc[0]);\n  acc[1] = fmaf(a, hi(x.x), acc[1]);\n"
-         "  acc[2] = fmaf(a, lo(x.y), acc[2]);\n  acc[3] = fmaf(a, hi(x.y), acc[3]);\n}\n"
-         "__device__ __forceinline__ void axpy(float a, uint4 x, float (&acc)[8]) {"],
-        ["__device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[8]) {",
-         "__device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[4]) {\n"
-         "  *reinterpret_cast<uint2*>(p) = make_uint2(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]));\n}\n"
-         "__device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[8]) {"],
-        ["r.vec = kLoadBytes / (dtype == lw::kFloat32 ? sizeof(float) : sizeof(__nv_bfloat16));",
-         "r.vec = 4;"],
-        ["const int vec = dtype == lw::kFloat32 ? 4 : 8;", "const int vec = 4;"]],
+    # points in flight: 2 in f32 too (bf16 has a kernel of its own)
+    "f32_2_points": [["r.group = dtype != lw::kFloat32 ? 1 : KP % 4 == 0 ? 4 : 2;",
+                      "r.group = dtype != lw::kFloat32 ? 1 : 2;"]],
     # threads a CTA
     "threads_128": [["constexpr int kThreads = 256;", "constexpr int kThreads = 128;"]],
     "threads_512": [["constexpr int kThreads = 256;", "constexpr int kThreads = 512;"]],
     # registers: a minimum of one CTA an SM lets ptxas take as many as it likes
-    "min_one_cta_an_sm": [["__launch_bounds__(kThreads)", "__launch_bounds__(kThreads, 1)"]],
+    "min_one_cta_an_sm": [["__launch_bounds__(kThreads)\ndeform_attn_sep_kernel(",
+                           "__launch_bounds__(kThreads, 1)\ndeform_attn_sep_kernel("]],
     # one map a CTA, 4 CTAs a map walking its query tiles, so that the map stays in L1
     "map_in_l1": [
         _ONE_HEAD,
@@ -209,7 +191,17 @@ def compare(libs, name, layout, vals, shapes, loc, w) -> dict:
     device times, taken in the order of `libs` and then reversed."""
     B, Q, H = loc.shape[:3]
     dt = vals[0].dtype
-    ref = da.ms_deform_attn_sep_panels_plain([v.float() for v in vals], shapes, loc, w)
+    rtol = RTOL[dt]
+    if dt == torch.bfloat16:  # the plain version rounding where the kernel does: one ulp
+        rtol = 2.0 ** -7
+        if layout == "panels":
+            ref = da.ms_deform_attn_sep_panels_plain(vals, shapes, loc, w).float()
+        else:
+            D = vals[0].shape[3] // shapes[0][1]
+            rows = torch.cat([v.reshape(B, H, -1, D) for v in vals], dim=2).transpose(1, 2)
+            ref = da.ms_deform_attn_plain(rows.contiguous(), shapes, loc, w).float()
+    else:
+        ref = da.ms_deform_attn_sep_panels_plain([v.float() for v in vals], shapes, loc, w)
     row, calls = {"shape": name, "layout": layout, "dtype": str(dt).replace("torch.", "")}, {}
     for vname, lib in libs.items():
         out = torch.empty((B, Q, ref.shape[-1]), device="cuda", dtype=dt)
@@ -217,7 +209,7 @@ def compare(libs, name, layout, vals, shapes, loc, w) -> dict:
         calls[vname]()
         torch.cuda.synchronize()
         diff = (out.float() - ref).abs()
-        if not torch.isfinite(out).all() or (diff > ATOL + RTOL[dt] * ref.abs()).any():
+        if not torch.isfinite(out).all() or (diff > ATOL + rtol * ref.abs()).any():
             raise AssertionError(f"{vname} at {name} {layout} {dt}: max abs err {diff.max().item()}")
         row[vname] = {"max_abs_err": diff.max().item(),
                       "route": route(lib, layout, vals, shapes, loc), "device_ms": []}

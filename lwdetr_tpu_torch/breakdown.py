@@ -3,10 +3,12 @@
     python -m lwdetr_tpu_torch.breakdown --preset small --batch 32
     python -m lwdetr_tpu_torch.breakdown --preset small --train
     python -m lwdetr_tpu_torch.breakdown --preset tiny --train --force_branch cm
+    python -m lwdetr_tpu_torch.breakdown --preset xlarge --train --dtype bfloat16
 
 Runs the step of `lwdetr_tpu_torch.bench` (forward + `post_process`,
-seeded weights, images on the card) or, with `--train`, the f32 train step of
-`lwdetr_tpu_torch.bench_train` (batch: the release per-device batch unless
+seeded weights, images on the card) or, with `--train`, the train step of
+`lwdetr_tpu_torch.bench_train` (f32 unless `--dtype` says otherwise, with
+`--grad_checkpointing` if given; batch: the release per-device batch unless
 given) under `torch.profiler` for a few steps after warm-up, and prints
 one JSON line: device time per step by kernel group (the port's kernels
 K1-K10, GEMMs, convolutions, the optimizer's and EMA's fused passes, the
@@ -17,8 +19,9 @@ for the forward and its scipy solves), and
 the device's idle share of a step (1 - busy / step time, where busy is the
 sum of kernel times under the profiler, kernels on one stream do not
 overlap, and the step time is the mean over 15 steps timed without the
-profiler, with CUDA events, since the profiler slows the host). The card's name and power limit are in
-the line.
+profiler, with CUDA events, since the profiler slows the host), and the peak
+device memory (`torch.cuda.max_memory_allocated`) over the run. The card's
+name and power limit are in the line.
 """
 from __future__ import annotations
 
@@ -52,9 +55,11 @@ GROUPS = (
     # K8 launches its kernel and the pass that turns its d(value) channel-major
     ("K8 deform_attn_cm_bwd", ("deform_attn_cm_bwd_kernel", "position_to_channel_major")),
     ("K3 deform_attn_cm", ("deform_attn_cm_kernel",)),
-    ("K10 deform_attn_rowmajor", (r"deform_attn_sep_kernel<[^(]*rowmajorlayout",)),
+    ("K10 deform_attn_rowmajor", (r"deform_attn_sep_kernel<[^(]*rowmajorlayout",
+                                  r"deform_attn_sep_bf16_kernel<[^(]*rowmajorlayout")),
     ("K10 deform_attn_rowmajor_bwd", (r"deform_attn_sep_bwd_kernel<[^(]*rowmajorlayout",)),
-    ("K4 deform_attn_sep", ("deform_attn_sep_kernel",)),
+    # bf16 K4 / K10 are a kernel of their own (they round as the TPU kernels do)
+    ("K4 deform_attn_sep", ("deform_attn_sep_kernel", "deform_attn_sep_bf16_kernel")),
     ("K5 deform_attn_sep_bwd", ("deform_attn_sep_bwd_kernel",)),
     ("K6 flash_attention_cm_bwd", ("attention_bwd_dq_kernel", "attention_bwd_dkdv_kernel")),
     ("K7 window_attention_bwd (no bias)", (r"window_attention_bias_bwd_kernel<[^(]*false>",)),
@@ -70,6 +75,8 @@ GROUPS = (
 
 
 ANNOTATIONS = ("Optimizer.", "ProfilerStep", "## ")
+# --dtype: the names of bench_train, and the short names this tool took before
+DTYPES = dict(bench_train.DTYPES, f32=torch.float32, bf16=torch.bfloat16)
 
 
 def _group(name: str) -> str:
@@ -81,11 +88,12 @@ def _group(name: str) -> str:
 
 
 def run(preset: str = "small", batch: int = 32, dtype: torch.dtype = torch.bfloat16,
-        steps: int = 5, train: bool = False, force_branch: Optional[str] = None) -> dict:
+        steps: int = 5, train: bool = False, force_branch: Optional[str] = None,
+        grad_checkpointing: bool = False) -> dict:
+    torch.cuda.reset_peak_memory_stats()
     if train:
-        if dtype != torch.float32:
-            raise NotImplementedError("the train step is ported in float32 only")
-        _, step = bench_train.make_train_step(preset, batch, force_branch=force_branch)
+        _, step = bench_train.make_train_step(preset, batch, force_branch=force_branch,
+                                              dtype=dtype, grad_checkpointing=grad_checkpointing)
     else:
         step = make_step(preset, batch, dtype, force_branch=force_branch)
     matcher = bench_train.HostTimer(bench_train.criterion_mod.hungarian_match)
@@ -127,6 +135,8 @@ def run(preset: str = "small", batch: int = 32, dtype: torch.dtype = torch.bfloa
         "groups_ms_per_step": {k: v / steps for k, v in sorted(groups.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms_per_step": [[name[:120], ms / steps] for name, ms in top],
         "value_panels_copy_ms_per_step": value_copy_ms / steps,
+        "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+        "grad_checkpointing": grad_checkpointing,
         "device": torch.cuda.get_device_name(),
         "card": card_line(),
     }
@@ -137,9 +147,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--preset", default="small", choices=tuple(PRESETS))
     ap.add_argument("--batch", type=int, default=None,
                     help="default: 32 for eval, the release per-device batch for --train")
-    ap.add_argument("--dtype", default=None, choices=("bf16", "f32"),
-                    help="default: bf16 for eval; --train runs in f32")
+    ap.add_argument("--dtype", default=None, choices=tuple(DTYPES),
+                    help="default: bfloat16 for eval, float32 for --train")
     ap.add_argument("--train", action="store_true", help="profile the train step")
+    ap.add_argument("--grad_checkpointing", action="store_true",
+                    help="--train: recompute each ViT block in the backward")
     ap.add_argument("--force_branch", default=None, choices=BRANCHES,
                     help="the cross-attention's value layout (default: cm in eval under 4096 "
                          "memory positions, else sep)")
@@ -149,13 +161,14 @@ def parser() -> argparse.ArgumentParser:
 def main() -> None:
     args = parser().parse_args()
     if args.train:
-        dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+        dtype = DTYPES[args.dtype or "float32"]
         batch = args.batch or TRAIN_PRESETS[args.preset].batch_size
     else:
-        dtype = torch.float32 if args.dtype == "f32" else torch.bfloat16
+        dtype = DTYPES[args.dtype or "bfloat16"]
         batch = args.batch or 32
     print(json.dumps(run(args.preset, batch, dtype, train=args.train,
-                         force_branch=args.force_branch)))
+                         force_branch=args.force_branch,
+                         grad_checkpointing=args.grad_checkpointing)))
 
 
 if __name__ == "__main__":

@@ -27,6 +27,15 @@
 // out[b, hD + d, q .. q + 31] as one coalesced store a channel. A map over the
 // staging budget (large's levels) takes the same thread map, gathering from
 // device memory.
+//
+// bf16 rounds where the TPU kernel rounds: the weights (1-fy)(1-fx) aw of the
+// corners of one (q, h) that land on one position are summed in f32 (in the
+// order of _prep_indices_weights_lanes: level, corner, point) and the sum is
+// rounded to bf16 before its product with the value (`p.astype(val.dtype)`).
+// A thread finds a position's corners by recomputing and comparing them, first
+// occurrence first: quadratic in the corners of a level, where f32 is linear.
+#include <type_traits>
+
 #include "deform_cm.cuh"
 
 namespace {
@@ -36,11 +45,37 @@ using lw::CmRoute;
 
 constexpr int kChunk = 16;  // channels a pass over the points
 
+// Corner cc (0: (y0, x0), 1: (y0, x0 + 1), 2: (y0 + 1, x0), 3: (y0 + 1, x0 + 1))
+// of point k of a (q, h) at a level starting at `start`: its position in the
+// level-concatenated map, -1 outside it (and for a point outside (-1, W) x
+// (-1, H), or NaN), and its weight, formed as _prep_indices_weights_lanes
+// forms it: (1-fy)(1-fx) aw, ...
+__device__ __forceinline__ int cm_corner(const float2* lp, const float* wp, int k, int cc, int Wl,
+                                         int Hl, int start, float& w) {
+  w = 0.f;
+  const float2 xy = lp[k];
+  const float px = lw::pixel(xy.x, Wl);
+  const float py = lw::pixel(xy.y, Hl);
+  if (!(px > -1.f && px < Wl && py > -1.f && py < Hl)) return -1;
+  const float x0f = floorf(px);
+  const float y0f = floorf(py);
+  const int xi = static_cast<int>(x0f) + (cc & 1);
+  const int yi = static_cast<int>(y0f) + (cc >> 1);
+  if (xi < 0 || xi >= Wl || yi < 0 || yi >= Hl) return -1;
+  const float fx = __fsub_rn(px, x0f);
+  const float fy = __fsub_rn(py, y0f);
+  const float wy = cc >> 1 ? fy : __fsub_rn(1.f, fy);
+  const float wx = cc & 1 ? fx : __fsub_rn(1.f, fx);
+  w = __fmul_rn(__fmul_rn(wy, wx), wp[k]);
+  return start + yi * Wl + xi;
+}
+
 template <typename T, bool kStaged>
-__global__ void __launch_bounds__(lw::kCmThreads)
-deform_attn_cm_kernel(const T* __restrict__ value_t, const float* __restrict__ loc,
-                      const float* __restrict__ attw, T* __restrict__ out, int C, int len_in,
-                      int Q, int H, int P, CmLevels lv, CmRoute route) {
+__device__ __forceinline__ void cm_sample(const T* __restrict__ value_t,
+                                          const float* __restrict__ loc,
+                                          const float* __restrict__ attw, T* __restrict__ out,
+                                          int C, int len_in, int Q, int H, int P,
+                                          const CmLevels& lv, const CmRoute& route) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t bar;
   // the (b, h) map (channels bh D .. bh D + D - 1 of the batch) and its query slice
@@ -72,6 +107,35 @@ deform_attn_cm_kernel(const T* __restrict__ value_t, const float* __restrict__ l
         if (l == lv.n) break;
         const int Wl = lv.w[l];
         const int Hl = lv.h[l];
+        if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+          // corners j = corner * P + p: a position's merged weight, rounded once
+          for (int j = 0; j < 4 * P; ++j) {
+            const int cj = j / P;
+            float wj;
+            const int pos = cm_corner(lp, wp, l * P + j - cj * P, cj, Wl, Hl, lv.start[l], wj);
+            if (pos < 0) continue;
+            bool first = true;
+            for (int f = 0; f < j && first; ++f) {
+              float wf;
+              const int cf = f / P;
+              first = cm_corner(lp, wp, l * P + f - cf * P, cf, Wl, Hl, lv.start[l], wf) != pos;
+            }
+            if (!first) continue;
+            float wsum = wj;
+            for (int f = j + 1; f < 4 * P; ++f) {
+              float wf;
+              const int cf = f / P;
+              if (cm_corner(lp, wp, l * P + f - cf * P, cf, Wl, Hl, lv.start[l], wf) == pos)
+                wsum = __fadd_rn(wsum, wf);
+            }
+            const float wr = __bfloat162float(__float2bfloat16_rn(wsum));
+#pragma unroll
+            for (int c = 0; c < kChunk; ++c)
+              if (c < nc)  // bf16 x bf16: an exact product
+                acc[c] = fmaf(wr, lw::to_f32(rows[static_cast<size_t>(c) * len_in + pos]), acc[c]);
+          }
+          continue;
+        }
         for (int p = 0; p < P; ++p) {
           const int k = l * P + p;
           const float2 xy = lp[k];
@@ -116,6 +180,25 @@ deform_attn_cm_kernel(const T* __restrict__ value_t, const float* __restrict__ l
   }
 }
 
+template <typename T, bool kStaged>
+__global__ void __launch_bounds__(lw::kCmThreads)
+deform_attn_cm_kernel(const T* __restrict__ value_t, const float* __restrict__ loc,
+                      const float* __restrict__ attw, T* __restrict__ out, int C, int len_in,
+                      int Q, int H, int P, CmLevels lv, CmRoute route) {
+  cm_sample<T, kStaged>(value_t, loc, attw, out, C, len_in, Q, H, P, lv, route);
+}
+
+// bf16, whose position merging is heavier: a minimum of one CTA an SM (at the
+// default ptxas spilled 36 bytes to stay at 64 registers)
+template <bool kStaged>
+__global__ void __launch_bounds__(lw::kCmThreads, 1)
+deform_attn_cm_kernel_bf16(const __nv_bfloat16* __restrict__ value_t,
+                           const float* __restrict__ loc, const float* __restrict__ attw,
+                           __nv_bfloat16* __restrict__ out, int C, int len_in, int Q, int H, int P,
+                           CmLevels lv, CmRoute route) {
+  cm_sample<__nv_bfloat16, kStaged>(value_t, loc, attw, out, C, len_in, Q, H, P, lv, route);
+}
+
 int check(int B, int C, int len_in, int Q, int num_heads, int n_points, int dtype) {
   if (B < 1 || C < 1 || len_in < 1 || Q < 1 || num_heads < 1 || C % num_heads != 0 ||
       n_points < 1 || (dtype != lw::kFloat32 && dtype != lw::kBFloat16))
@@ -130,7 +213,10 @@ CmRoute route_of(const void* value_t, int B, int C, int len_in, int Q, int num_h
 
 template <typename T>
 auto kernel_for(const CmRoute& r) {
-  return r.staged ? &deform_attn_cm_kernel<T, true> : &deform_attn_cm_kernel<T, false>;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return r.staged ? &deform_attn_cm_kernel_bf16<true> : &deform_attn_cm_kernel_bf16<false>;
+  else
+    return r.staged ? &deform_attn_cm_kernel<T, true> : &deform_attn_cm_kernel<T, false>;
 }
 
 template <typename T>

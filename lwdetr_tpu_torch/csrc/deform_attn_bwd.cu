@@ -17,7 +17,10 @@
 //   d(value_t)[b, hD + d, corner] += w * corner weight * g[d]   (corners in the map)
 // floor carries no gradient, and a point outside (-1, W) x (-1, H), or NaN,
 // gives zeros to all three, as it gives nothing to the forward. d(loc) comes
-// from differenced corners (lw::corner_dots).
+// from differenced corners (lw::corner_dots). On bf16 values d(value_t) is
+// formed as _dvalue_cm_kernel forms it: the weights of a (q, h)'s corners that
+// land on one position summed in f32 and rounded to bf16 (the forward's
+// merged weights, deform_attn.cu), times g, one reduction a position.
 //
 // The TPU pair rebuilds the (q, n) one-hot sampling matrix per block and
 // takes d(value) and d(corner weights) as two matmuls against it, with
@@ -42,6 +45,8 @@
 // turns the scratch into channel-major d(value_t) in the value's dtype (a
 // 32 x 32 tiled transpose through shared memory, rounding bf16 once). The
 // order of the adds is not fixed, so two runs differ in the last f32 bits.
+#include <type_traits>
+
 #include "deform_cm.cuh"
 
 namespace {
@@ -61,13 +66,32 @@ __device__ __forceinline__ float4 load_cm4(const T* p, int len_in) {
                      lw::to_f32(p[3 * len_in]));
 }
 
+// Corner cc (0: (y0, x0), 1: (y0, x0 + 1), 2: (y0 + 1, x0), 3: (y0 + 1, x0 + 1))
+// of the point at pt of a level starting at `start`: its position in the
+// level-concatenated map, -1 outside it (or for a point outside or NaN), and
+// its weight as _prep_indices_weights_lanes forms it, (1-fy)(1-fx) aw, ...
+__device__ __forceinline__ int merged_corner(const float* loc, const float* attw, size_t pt,
+                                             int cc, int Wl, int Hl, int start, float& w) {
+  w = 0.f;
+  const Point pnt = lw::point_at(loc, attw, pt, Wl, Hl);
+  if (!pnt.inside) return -1;
+  const int xi = pnt.x0 + (cc & 1);
+  const int yi = pnt.y0 + (cc >> 1);
+  if (xi < 0 || xi >= Wl || yi < 0 || yi >= Hl) return -1;
+  const float wy = cc >> 1 ? pnt.fy : __fsub_rn(1.f, pnt.fy);
+  const float wx = cc & 1 ? pnt.fx : __fsub_rn(1.f, pnt.fx);
+  w = __fmul_rn(__fmul_rn(wy, wx), pnt.aw);
+  return start + yi * Wl + xi;
+}
+
 template <typename T, bool kStaged>
-__global__ void __launch_bounds__(lw::kCmThreads)
-deform_attn_cm_bwd_kernel(const T* __restrict__ value_t, const float* __restrict__ loc,
-                          const float* __restrict__ attw, const T* __restrict__ dout,
-                          float* __restrict__ dscratch, float* __restrict__ dloc,
-                          float* __restrict__ dattw, int C, int len_in, int Q, int H, int P,
-                          int lanes, CmLevels lv, CmRoute route) {
+__device__ __forceinline__ void cm_bwd(const T* __restrict__ value_t,
+                                       const float* __restrict__ loc,
+                                       const float* __restrict__ attw,
+                                       const T* __restrict__ dout, float* __restrict__ dscratch,
+                                       float* __restrict__ dloc, float* __restrict__ dattw, int C,
+                                       int len_in, int Q, int H, int P, int lanes,
+                                       const CmLevels& lv, const CmRoute& route) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t bar;
   const int bh = blockIdx.x / route.ctas_per_map;  // the (b, h) map
@@ -117,7 +141,37 @@ deform_attn_cm_bwd_kernel(const T* __restrict__ value_t, const float* __restrict
           const bool ok10 = y0 + 1 < Hl && x0 >= 0, ok11 = y0 + 1 < Hl && x0 + 1 < Wl;
           // x0 >= -1 and y0 >= -1 here; a position is used only for a corner in the map
           const ptrdiff_t at = lv.start[l] + y0 * static_cast<ptrdiff_t>(Wl) + x0;
-          if (active) {
+          if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+            // as _dvalue_cm_kernel: the weights of the (q, h)'s corners on one
+            // position summed in f32, in (level, corner, point) order, and the
+            // sum rounded to bf16 (the forward's merged weights), times g
+            const size_t base = pt0 + l * P;
+            for (int cc = 0; active && cc < 4; ++cc) {
+              float wj;
+              const int pos = merged_corner(loc, attw, base + p, cc, Wl, Hl, lv.start[l], wj);
+              if (pos < 0) continue;
+              const int j = cc * P + p;
+              bool first = true;
+              for (int f = 0; f < j && first; ++f) {
+                float wf;
+                const int cf = f / P;
+                first = merged_corner(loc, attw, base + f - cf * P, cf, Wl, Hl, lv.start[l],
+                                      wf) != pos;
+              }
+              if (!first) continue;
+              float wsum = wj;
+              for (int f = j + 1; f < 4 * P; ++f) {
+                float wf;
+                const int cf = f / P;
+                if (merged_corner(loc, attw, base + f - cf * P, cf, Wl, Hl, lv.start[l], wf) ==
+                    pos)
+                  wsum = __fadd_rn(wsum, wf);
+              }
+              // bf16 x bf16 products: exact
+              lw::add4(dmap + static_cast<ptrdiff_t>(pos) * C,
+                       __bfloat162float(__float2bfloat16_rn(wsum)), g);
+            }
+          } else if (active) {
             if (ok00) lw::add4(dmap + at * C, aw * (1.f - fy) * (1.f - fx), g);
             if (ok01) lw::add4(dmap + (at + 1) * C, aw * (1.f - fy) * fx, g);
             if (ok10) lw::add4(dmap + (at + Wl) * C, aw * fy * (1.f - fx), g);
@@ -142,6 +196,31 @@ deform_attn_cm_bwd_kernel(const T* __restrict__ value_t, const float* __restrict
       }
     }
   }
+}
+
+template <typename T, bool kStaged>
+__global__ void __launch_bounds__(lw::kCmThreads)
+deform_attn_cm_bwd_kernel(const T* __restrict__ value_t, const float* __restrict__ loc,
+                          const float* __restrict__ attw, const T* __restrict__ dout,
+                          float* __restrict__ dscratch, float* __restrict__ dloc,
+                          float* __restrict__ dattw, int C, int len_in, int Q, int H, int P,
+                          int lanes, CmLevels lv, CmRoute route) {
+  cm_bwd<T, kStaged>(value_t, loc, attw, dout, dscratch, dloc, dattw, C, len_in, Q, H, P, lanes,
+                     lv, route);
+}
+
+// bf16, whose position merging is heavier: a minimum of one CTA an SM, so that
+// ptxas keeps it in registers
+template <bool kStaged>
+__global__ void __launch_bounds__(lw::kCmThreads, 1)
+deform_attn_cm_bwd_kernel_bf16(const __nv_bfloat16* __restrict__ value_t,
+                               const float* __restrict__ loc, const float* __restrict__ attw,
+                               const __nv_bfloat16* __restrict__ dout,
+                               float* __restrict__ dscratch, float* __restrict__ dloc,
+                               float* __restrict__ dattw, int C, int len_in, int Q, int H, int P,
+                               int lanes, CmLevels lv, CmRoute route) {
+  cm_bwd<__nv_bfloat16, kStaged>(value_t, loc, attw, dout, dscratch, dloc, dattw, C, len_in, Q,
+                                 H, P, lanes, lv, route);
 }
 
 // dst[b, c, s] = src[b, s, c]: (B, len_in, C) f32 -> (B, C, len_in) in T,
@@ -185,7 +264,10 @@ CmRoute route_of(const void* value_t, int B, int C, int len_in, int Q, int num_h
 
 template <typename T>
 auto kernel_for(const CmRoute& r) {
-  return r.staged ? &deform_attn_cm_bwd_kernel<T, true> : &deform_attn_cm_bwd_kernel<T, false>;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return r.staged ? &deform_attn_cm_bwd_kernel_bf16<true> : &deform_attn_cm_bwd_kernel_bf16<false>;
+  else
+    return r.staged ? &deform_attn_cm_bwd_kernel<T, true> : &deform_attn_cm_bwd_kernel<T, false>;
 }
 
 template <typename T>

@@ -58,7 +58,23 @@
 // K10 differs in the addresses alone: position (y, x) of level l lies at
 // value[b, start_l + y W_l + x, h, :], so neighbouring positions are H D
 // elements apart and the heads of one position are contiguous.
+//
+// bf16 rounds where the TPU kernels round, not once (deform_attn_sep_bf16_kernel;
+// the f32 kernel above is untouched by it). K4 as _sep_kernel: the table holds
+// a point's y-weights and x-weights rounded to bf16 (the attention weight
+// folded into the x-weights first, _prep_separable), the row gather of each of
+// its two columns is summed in f32 and times its x-weight, rounded; the
+// entries of one level's points that share a column are summed in f32, in
+// point order, and the sum rounded to bf16 before the columns are summed in
+// f32 (`msum.astype(dt)`). K10 as _deform_kernel:
+// the weights (1-fy)(1-fx) aw of the corners of one (q, h) that land on one
+// position are summed in f32 and the sum rounded to bf16 before its product
+// with the value. A thread finds the entries of a column (a position) by
+// comparing the table's columns (addresses), first occurrence first, and
+// loads one entry's rows at a time: slower than the f32 kernel's loads in
+// flight, and bound by their latency.
 #include <algorithm>
+#include <type_traits>
 
 #include "deform_layout.cuh"
 
@@ -93,10 +109,6 @@ template <typename T> struct Channels;
 template <> struct Channels<float> {
   static constexpr int V = 4;
   using Raw = float4;
-};
-template <> struct Channels<__nv_bfloat16> {
-  static constexpr int V = 8;
-  using Raw = uint4;
 };
 
 // a bf16 is the high half of an f32
@@ -148,8 +160,11 @@ struct Entry {
   unsigned dy;
   float4 w;
 };
-// bytes an entry takes in the table, which keeps its three fields apart
+// bytes an entry takes in the table, which keeps its three fields apart; the
+// bf16 kernel keeps a point's two clamped columns besides
 constexpr int kEntryBytes = sizeof(unsigned long long) + sizeof(unsigned) + sizeof(float4);
+constexpr int kBf16EntryBytes = kEntryBytes + sizeof(unsigned);
+inline int entry_bytes(int dtype) { return dtype == lw::kFloat32 ? kEntryBytes : kBf16EntryBytes; }
 
 // `map`: position (0, 0) of the point's (b, h, l) map
 template <typename T>
@@ -274,6 +289,210 @@ deform_attn_sep_kernel(const float* __restrict__ loc, const float* __restrict__ 
   store(out + (static_cast<size_t>(b * Q + q) * H + h) * D + c, acc);
 }
 
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A point's entry for the bf16 kernel: `at` and `dy` as above; w holds, for
+// K4 (kColumns), the y-weights (1-fy), fy and the x-weights (1-fx) aw, fx aw
+// of _prep_separable rounded to bf16 (0 where the row or column is outside
+// the map), for K10 the four corner weights (1-fy)(1-fx) aw, ... formed in
+// _prep_indices_weights' order (0 for a corner outside); col: the clamped
+// columns xa | xb << 16.
+template <bool kColumns>
+__device__ __forceinline__ Entry point_entry_bf16(const float* loc, const float* attw, size_t pt,
+                                                  bool real, const __nv_bfloat16* map, int Wl,
+                                                  int Hl, int xs, unsigned& col) {
+  float x = 0.f, y = 0.f, aw = 0.f;
+  if (real) {
+    const float2 xy = __ldg(reinterpret_cast<const float2*>(loc) + pt);
+    x = xy.x;
+    y = xy.y;
+    aw = __ldg(attw + pt);
+  }
+  const float px = lw::pixel(x, Wl);
+  const float py = lw::pixel(y, Hl);
+  const bool inside = real && px > -1.f && px < Wl && py > -1.f && py < Hl;
+  const float x0f = inside ? floorf(px) : 0.f;
+  const float y0f = inside ? floorf(py) : 0.f;
+  const float fx = __fsub_rn(px, x0f);
+  const float fy = __fsub_rn(py, y0f);
+  const int x0 = static_cast<int>(x0f);
+  const int y0 = static_cast<int>(y0f);
+  const bool x0ok = inside && x0 >= 0, x1ok = inside && x0 + 1 < Wl;
+  const bool y0ok = inside && y0 >= 0, y1ok = inside && y0 + 1 < Hl;
+  const int xa = max(x0, 0), xb = min(x0 + 1, Wl - 1);
+  const int ya = max(y0, 0), yb = min(y0 + 1, Hl - 1);
+  const size_t row = static_cast<size_t>(Wl) * xs;
+  Entry e;
+  e.at = reinterpret_cast<unsigned long long>(map + ya * row + static_cast<size_t>(xa) * xs) |
+         (xb > xa ? 1ull : 0ull);
+  e.dy = static_cast<unsigned>((yb - ya) * row);
+  const float gx = __fsub_rn(1.f, fx), gy = __fsub_rn(1.f, fy);
+  if (kColumns) {
+    e.w.x = round_bf16(y0ok ? gy : 0.f);
+    e.w.y = round_bf16(y1ok ? fy : 0.f);
+    e.w.z = round_bf16(x0ok ? __fmul_rn(gx, aw) : 0.f);
+    e.w.w = round_bf16(x1ok ? __fmul_rn(fx, aw) : 0.f);
+  } else {
+    e.w.x = y0ok && x0ok ? __fmul_rn(__fmul_rn(gy, gx), aw) : 0.f;
+    e.w.y = y0ok && x1ok ? __fmul_rn(__fmul_rn(gy, fx), aw) : 0.f;
+    e.w.z = y1ok && x0ok ? __fmul_rn(__fmul_rn(fy, gx), aw) : 0.f;
+    e.w.w = y1ok && x1ok ? __fmul_rn(__fmul_rn(fy, fx), aw) : 0.f;
+  }
+  col = static_cast<unsigned>(xa) | static_cast<unsigned>(xb) << 16;
+  return e;
+}
+
+// a channel pair of the row gather: two exact products (bf16 x bf16), one
+// rounding; times the x-weight, rounded; added in f32
+__device__ __forceinline__ void mix2(float wy0, unsigned a, float wy1, unsigned b, float wx,
+                                     float& s0, float& s1) {
+  s0 = __fadd_rn(s0, __fmul_rn(wx, fmaf(wy0, lo(a), wy1 * lo(b))));
+  s1 = __fadd_rn(s1, __fmul_rn(wx, fmaf(wy0, hi(a), wy1 * hi(b))));
+}
+// sum += wx (wy0 v0 + wy1 v1) over 8 bf16 channels, rounded as _sep_kernel
+__device__ __forceinline__ void row_mix(float wy0, uint4 v0, float wy1, uint4 v1, float wx,
+                                        float (&sum)[8]) {
+  mix2(wy0, v0.x, wy1, v1.x, wx, sum[0], sum[1]);
+  mix2(wy0, v0.y, wy1, v1.y, wx, sum[2], sum[3]);
+  mix2(wy0, v0.z, wy1, v1.z, wx, sum[4], sum[5]);
+  mix2(wy0, v0.w, wy1, v1.w, wx, sum[6], sum[7]);
+}
+
+// weight `i` of an entry's four, picked without indexing (no stack)
+__device__ __forceinline__ float comp(const float4& w, int i) {
+  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+}
+
+// the bf16 samplers (K4: kColumns, K10: positions), rounding as the TPU kernels do
+// (a minimum of one CTA an SM: at the default ptxas spilled 8 bytes to stay at 48 registers)
+template <typename Layout, bool kColumns>
+__global__ void __launch_bounds__(kThreads, 1)
+deform_attn_sep_bf16_kernel(const float* __restrict__ loc, const float* __restrict__ attw,
+                            __nv_bfloat16* __restrict__ out, int Q, int H, int D, int P,
+                            Levels lv, Tile tile) {
+  using T = __nv_bfloat16;
+  constexpr int V = 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int KP = lv.n * P;  // points a (q, h)
+  const int S = tile.heads * tile.queries;
+  float4* tw = reinterpret_cast<float4*>(smem);  // [KP][S], slot fastest
+  unsigned long long* ta = reinterpret_cast<unsigned long long*>(tw + KP * S);
+  unsigned* td = reinterpret_cast<unsigned*>(ta + KP * S);
+  unsigned* tc = td + KP * S;
+
+  int blk = blockIdx.x;
+  const int qt = blk % tile.query_tiles;  // the query tile
+  blk /= tile.query_tiles;
+  const int h0 = (blk % tile.head_groups) * tile.heads;
+  const int b = blk / tile.head_groups;
+  const int q0 = qt * tile.queries;
+  const int xs = Layout::x_stride(H, D);
+
+  for (int i = threadIdx.x; i < S * KP; i += blockDim.x) {
+    const int s = i / KP;
+    const int k = i - s * KP;
+    const int q = q0 + s / tile.heads;
+    const int h = h0 + s % tile.heads;
+    const int l = k / P;
+    const int hc = min(h, H - 1);
+    int Wl = lv.w[0], Hl = lv.h[0];
+    const void* panel = lv.panel[0];
+#pragma unroll
+    for (int j = 1; j < kMaxLevels; ++j) {
+      Wl = l == j ? lv.w[j] : Wl;
+      Hl = l == j ? lv.h[j] : Hl;
+      panel = l == j ? lv.panel[j] : panel;
+    }
+    const T* map = static_cast<const T*>(panel) + Layout::origin(b, hc, H, D, Hl, Wl, lv.len_in);
+    const bool real = q < Q && h < H;
+    const size_t pt = (static_cast<size_t>(b * Q + min(q, Q - 1)) * H + hc) * KP + k;
+    unsigned col;
+    const Entry e = point_entry_bf16<kColumns>(loc, attw, pt, real, map, Wl, Hl, xs, col);
+    tw[k * S + s] = e.w;
+    ta[k * S + s] = e.at;
+    td[k * S + s] = e.dy;
+    tc[k * S + s] = col;
+  }
+  __syncthreads();
+
+  const int lanes = D / V;
+  const int s = threadIdx.x / lanes;
+  const int q = q0 + s / tile.heads;
+  const int h = h0 + s % tile.heads;
+  if (s >= S || q >= Q || h >= H) {  // a slot past the tile
+    return;
+  }
+  const int c = (threadIdx.x - s * lanes) * V;
+  float acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = 0.f;
+  for (int l = 0; l < lv.n; ++l) {
+    const int k0 = l * P;
+    if (kColumns) {
+      // entries e = 2 p + side: point p's column xa (side 0) or xb (side 1)
+      for (int e = 0; e < 2 * P; ++e) {
+        const unsigned cl = (tc[(k0 + e / 2) * S + s] >> (16 * (e & 1))) & 0xffffu;
+        bool first = true;
+        for (int f = 0; f < e; ++f)
+          first = first && ((tc[(k0 + f / 2) * S + s] >> (16 * (f & 1))) & 0xffffu) != cl;
+        if (!first) continue;
+        float sum[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) sum[v] = 0.f;
+        for (int f = e; f < 2 * P; ++f) {  // the column's entries, in point order
+          const int k = (k0 + f / 2) * S + s;
+          if (((tc[k] >> (16 * (f & 1))) & 0xffffu) != cl) continue;
+          const unsigned long long at = ta[k];
+          const float4 w = tw[k];
+          const T* r0 = reinterpret_cast<const T*>(at & ~7ull) + c + ((f & 1) && (at & 1ull) ? xs : 0);
+          const uint4 v0 = __ldg(reinterpret_cast<const uint4*>(r0));
+          const uint4 v1 = __ldg(reinterpret_cast<const uint4*>(r0 + td[k]));
+          row_mix(w.x, v0, w.y, v1, (f & 1) ? w.w : w.z, sum);
+        }
+        // the column's rounded sum, added in f32 (the TPU kernel sums a
+        // level's columns first, then adds the level: another f32 order)
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[v] = __fadd_rn(acc[v], round_bf16(sum[v]));
+      }
+    } else {
+      // entries j = corner * P + p, the order of _prep_indices_weights; a
+      // corner's position is its address
+      for (int j = 0; j < 4 * P; ++j) {
+        const int cj = j / P;
+        const int k = (k0 + j - cj * P) * S + s;
+        const unsigned long long at = ta[k];
+        const T* pj = reinterpret_cast<const T*>(at & ~7ull) + ((cj & 1) && (at & 1ull) ? xs : 0) +
+                      (cj >= 2 ? td[k] : 0u);
+        bool first = true;
+        for (int f = 0; f < j; ++f) {
+          const int cf = f / P;
+          const int kf = (k0 + f - cf * P) * S + s;
+          const unsigned long long af = ta[kf];
+          const T* pf = reinterpret_cast<const T*>(af & ~7ull) +
+                        ((cf & 1) && (af & 1ull) ? xs : 0) + (cf >= 2 ? td[kf] : 0u);
+          first = first && pf != pj;
+        }
+        if (!first) continue;
+        float wsum = 0.f;
+        for (int f = j; f < 4 * P; ++f) {
+          const int cf = f / P;
+          const int kf = (k0 + f - cf * P) * S + s;
+          const unsigned long long af = ta[kf];
+          const T* pf = reinterpret_cast<const T*>(af & ~7ull) +
+                        ((cf & 1) && (af & 1ull) ? xs : 0) + (cf >= 2 ? td[kf] : 0u);
+          if (pf == pj) wsum = __fadd_rn(wsum, comp(tw[kf], cf));
+        }
+        const float wr = round_bf16(wsum);
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(pj + c));
+        axpy(wr, x, acc);  // bf16 x bf16: exact products
+      }
+    }
+  }
+  store(out + (static_cast<size_t>(b * Q + q) * H + h) * D + c, acc);  // rounded once
+}
+
 // How one launch covers its work
 struct Route {
   int vec;    // channels a thread
@@ -289,14 +508,13 @@ Route route(int B, int Q, int H, int D, int n_levels, int P, int dtype) {
   r.vec = kLoadBytes / (dtype == lw::kFloat32 ? sizeof(float) : sizeof(__nv_bfloat16));
   const int KP = n_levels * P;
   // f32 takes 4 points when they divide a (q, h)'s points (1-4% faster than 2
-  // at large's eval); bf16 2: with 4, ptxas spills to stay at 40 registers,
-  // and it ran 10% slower
-  r.group = dtype == lw::kFloat32 && KP % 4 == 0 ? 4 : 2;
+  // at large's eval), else 2; the bf16 kernel loads one entry's rows at a time
+  r.group = dtype != lw::kFloat32 ? 1 : KP % 4 == 0 ? 4 : 2;
   const int KG = (KP + r.group - 1) / r.group * r.group;
   const int lanes = D / r.vec;
   // (q, h) slots a CTA: a CTA's threads, and a table of at most 48 KB
   const int slots = std::max(1, std::min(kThreads / lanes,
-                                         48 * 1024 / (KG * kEntryBytes)));
+                                         48 * 1024 / (KG * entry_bytes(dtype))));
   // the fewest heads (a power of two) whose points of one query fill a
   // 32-byte sector of the attention weights, so that the table reads whole
   // sectors: one (b, h) map a CTA at 8 points a (q, h), 4 heads at 2 points
@@ -309,7 +527,7 @@ Route route(int B, int Q, int H, int D, int n_levels, int P, int dtype) {
   r.tile.query_tiles = (Q + qslots - 1) / qslots;
   r.tile.queries = (Q + r.tile.query_tiles - 1) / r.tile.query_tiles;
   r.threads = (r.tile.queries * r.tile.heads * lanes + 31) / 32 * 32;
-  r.smem = KG * r.tile.queries * r.tile.heads * kEntryBytes;
+  r.smem = KG * r.tile.queries * r.tile.heads * entry_bytes(dtype);
   r.ctas = static_cast<long long>(B) * r.tile.head_groups * r.tile.query_tiles;
   return r;
 }
@@ -319,12 +537,16 @@ const void* kernel_fn() {
   return reinterpret_cast<const void*>(&deform_attn_sep_kernel<T, Layout, G>);
 }
 
-// the kernel a route runs, nullptr for a dtype it does not take
+// the kernel a route runs, nullptr for a dtype it does not take; bf16 rounds
+// as the TPU kernel of its layout does (K4: per column, K10: per position)
 template <typename Layout>
 const void* pick(const Route& r, int dtype) {
   if (dtype == lw::kFloat32)
     return r.group == 4 ? kernel_fn<float, Layout, 4>() : kernel_fn<float, Layout, 2>();
-  return dtype == lw::kBFloat16 ? kernel_fn<__nv_bfloat16, Layout, 2>() : nullptr;
+  constexpr bool kColumns = std::is_same<Layout, PanelLayout>::value;
+  return dtype == lw::kBFloat16
+             ? reinterpret_cast<const void*>(&deform_attn_sep_bf16_kernel<Layout, kColumns>)
+             : nullptr;
 }
 
 template <typename Layout>

@@ -43,6 +43,22 @@
 // map, so that the card is full and its loads overlap. The order of the adds
 // is not fixed, so two runs differ in the last f32 bits.
 //
+// bf16 panels (K5) compute as _sep_bwd_kernel and the VJP of _prep_separable
+// do, not by the f32 formulas above (deform_attn_sep.cu packs the same bf16
+// y- and x-weights wy_r, wx_c for the forward): with a point's row gathers
+// g_c = wy0 v[ya, x_c] + wy1 v[yb, x_c] (f32) at its clamped columns,
+//   d(wx_c)  = bf16(sum_d g_c g)           (each product rounded, then summed)
+//   dg_c     = bf16(wx_c g)
+//   d(wy_r)  = bf16(sum_{c, d} dg_c v[y_r, x_c])
+//   d(value)[y_r, x_c] += wy_r dg_c        (corners in the map)
+// and in f32 d(w) = d(wx_0) (1-fx) + d(wx_1) fx, d(loc_x) = W_l (aw d(wx_1) -
+// aw d(wx_0)), d(loc_y) = H_l (d(wy_1) - d(wy_0)), a flag zeroing each term
+// whose row or column is outside the map. The row-major bf16 backward (K10's)
+// keeps the f32 formulas.
+//
+// A point takes the fewest lanes, a power of two, that cover D / 4: head dims
+// 8 to 64 in steps of 8, idle lanes where D / 4 is no power of two.
+//
 // Summing d(value) in shared memory instead, and writing it once, was measured
 // slower on an H100 at every driven shape (f32 device time at small's / large's
 // train shape, against this design, `bench_deform.py`): the card has no f32
@@ -53,6 +69,8 @@
 // / 3.8x; corners filed by position with integer shared atomics and a block
 // scan, then summed per position in registers, no float atomics, 1.22x /
 // 1.34x, this design's zeroing of its buffer included (PERF.md, section 6).
+#include <type_traits>
+
 #include "deform_layout.cuh"
 
 namespace {
@@ -66,6 +84,39 @@ using lw::RowMajorLayout;
 
 constexpr int kThreads = 512;
 constexpr int kChunkIters = 4;  // queries a CTA = groups of a CTA x kChunkIters
+
+// lanes of one point: the fewest, a power of two, that cover D / kVec channels
+__host__ __device__ __forceinline__ int point_lanes(int D) {
+  int n = 1;
+  while (n * kVec < D) n <<= 1;
+  return n;
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+// wy0 a + wy1 b per channel: two exact products (bf16 x bf16), one rounding
+__device__ __forceinline__ float4 row_gather(float wy0, float4 a, float wy1, float4 b) {
+  return make_float4(fmaf(wy0, a.x, wy1 * b.x), fmaf(wy0, a.y, wy1 * b.y),
+                     fmaf(wy0, a.z, wy1 * b.z), fmaf(wy0, a.w, wy1 * b.w));
+}
+// sum of the products a b, each rounded to f32 first (no fused multiply-add)
+__device__ __forceinline__ float rounded_dot(float4 a, float4 b) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)),
+                             __fmul_rn(a.z, b.z)), __fmul_rn(a.w, b.w));
+}
+// bf16(c g) per channel
+__device__ __forceinline__ float4 bf16_scaled(float c, float4 g) {
+  return make_float4(round_bf16(__fmul_rn(c, g.x)), round_bf16(__fmul_rn(c, g.y)),
+                     round_bf16(__fmul_rn(c, g.z)), round_bf16(__fmul_rn(c, g.w)));
+}
+__device__ __forceinline__ float4 scale4(float c, float4 g) {
+  return make_float4(c * g.x, c * g.y, c * g.z, c * g.w);
+}
+// d(value)[4 channels at p] += v: one vector reduction into f32 device memory
+__device__ __forceinline__ void add4v(float* p, float4 v) {
+  atomicAdd(reinterpret_cast<float4*>(p), v);
+}
 
 // one level of one launch
 struct Level {
@@ -97,12 +148,14 @@ deform_attn_sep_bwd_kernel(const float* __restrict__ loc, const float* __restric
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int lanes = D / kVec;  // lanes of one point: 4 or 8, aligned in the warp
+  const int lanes = point_lanes(D);  // lanes of one point, a power of two in the warp
   const int group = threadIdx.x / lanes;
   const int lane = threadIdx.x - group * lanes;
   const int groups = kThreads / lanes;
-  const int d = lane * kVec;  // first of this lane's channels
-  const unsigned gmask = ((1u << lanes) - 1u) << ((threadIdx.x & 31) & ~(lanes - 1));
+  const bool active = lane * kVec < D;  // idle lanes add zeros to the sums
+  const int d = active ? lane * kVec : 0;  // first of this lane's channels
+  const unsigned gmask = (lanes == 32 ? 0xffffffffu : ((1u << lanes) - 1u))
+                         << ((threadIdx.x & 31) & ~(lanes - 1));
   const int xs = Layout::x_stride(H, D);
   const size_t row = static_cast<size_t>(Wl) * xs;
   const size_t origin = Layout::origin(b, h, H, D, Hl, Wl, lv.len_in) + d;
@@ -111,38 +164,86 @@ deform_attn_sep_bwd_kernel(const float* __restrict__ loc, const float* __restric
   const size_t bq0 = static_cast<size_t>(b) * Q;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   const int q1 = min(Q, static_cast<int>(blockIdx.x + 1) * q_per_cta);
+  constexpr bool kRoundAsTpu =
+      std::is_same<T, __nv_bfloat16>::value && std::is_same<Layout, PanelLayout>::value;
   // every lane of a group runs the same loop, so the shuffles are convergent
   for (int q = blockIdx.x * q_per_cta + group; q < q1; q += groups) {
-    const float4 g = load4(dout + ((bq0 + q) * H + h) * D + d);
+    const float4 g = active ? load4(dout + ((bq0 + q) * H + h) * D + d) : zero;
     for (int p = 0; p < P; ++p) {
       const size_t pt = (((bq0 + q) * H + h) * L + lv.l) * P + p;
       const Point pnt = lw::point_at(loc, attw, pt, Wl, Hl);
-      float sw = 0.f, sx = 0.f, sy = 0.f;
+      float sw = 0.f, sx = 0.f, sy = 0.f;  // d(w), and d(loc) before the scale by W_l, H_l
       if (pnt.inside) {
         const int x0 = pnt.x0, y0 = pnt.y0;
         const float fx = pnt.fx, fy = pnt.fy, aw = pnt.aw;
         const bool x0ok = x0 >= 0, x1ok = x0 + 1 < Wl, y0ok = y0 >= 0, y1ok = y0 + 1 < Hl;
-        // x0 >= -1 and y0 >= -1 here; a pointer is used only for a corner in the map
-        const ptrdiff_t at = y0 * static_cast<ptrdiff_t>(row) + x0 * xs;
-        if (y0ok && x0ok) lw::add4(dmap + at, aw * (1.f - fy) * (1.f - fx), g);
-        if (y0ok && x1ok) lw::add4(dmap + at + xs, aw * (1.f - fy) * fx, g);
-        if (y1ok && x0ok) lw::add4(dmap + at + row, aw * fy * (1.f - fx), g);
-        if (y1ok && x1ok) lw::add4(dmap + at + row + xs, aw * fy * fx, g);
-        const float4 v00 = y0ok && x0ok ? load4(map + at) : zero;
-        const float4 v01 = y0ok && x1ok ? load4(map + at + xs) : zero;
-        const float4 v10 = y1ok && x0ok ? load4(map + at + row) : zero;
-        const float4 v11 = y1ok && x1ok ? load4(map + at + row + xs) : zero;
-        lw::corner_dots(g, v00, v01, v10, v11, fx, fy, sw, sx, sy);
-        for (int s = 1; s < lanes; s <<= 1) {  // sum over the lanes of this point
-          sw += __shfl_xor_sync(gmask, sw, s);
-          sx += __shfl_xor_sync(gmask, sx, s);
-          sy += __shfl_xor_sync(gmask, sy, s);
+        if constexpr (kRoundAsTpu) {
+          // clamped rows and columns, as _prep_separable packs them
+          const ptrdiff_t ra = max(y0, 0) * static_cast<ptrdiff_t>(row);
+          const ptrdiff_t rb = min(y0 + 1, Hl - 1) * static_cast<ptrdiff_t>(row);
+          const ptrdiff_t ca = max(x0, 0) * static_cast<ptrdiff_t>(xs);
+          const ptrdiff_t cb = min(x0 + 1, Wl - 1) * static_cast<ptrdiff_t>(xs);
+          const float xwu0 = x0ok ? __fsub_rn(1.f, fx) : 0.f, xwu1 = x1ok ? fx : 0.f;
+          const float wy0 = round_bf16(y0ok ? __fsub_rn(1.f, fy) : 0.f);
+          const float wy1 = round_bf16(y1ok ? fy : 0.f);
+          const float wx0 = round_bf16(__fmul_rn(xwu0, aw));
+          const float wx1 = round_bf16(__fmul_rn(xwu1, aw));
+          const float4 vaa = active ? load4(map + ra + ca) : zero;
+          const float4 vab = active ? load4(map + ra + cb) : zero;
+          const float4 vba = active ? load4(map + rb + ca) : zero;
+          const float4 vbb = active ? load4(map + rb + cb) : zero;
+          const float4 ga = row_gather(wy0, vaa, wy1, vba);
+          const float4 gb = row_gather(wy0, vab, wy1, vbb);
+          float s0 = rounded_dot(ga, g), s1 = rounded_dot(gb, g);
+          const float4 dga = bf16_scaled(wx0, g), dgb = bf16_scaled(wx1, g);
+          float t0 = lw::dot4(dga, vaa) + lw::dot4(dgb, vab);  // exact products
+          float t1 = lw::dot4(dga, vba) + lw::dot4(dgb, vbb);
+          if (active) {
+            if (y0ok && x0ok) add4v(dmap + ra + ca, scale4(wy0, dga));
+            if (y0ok && x1ok) add4v(dmap + ra + cb, scale4(wy0, dgb));
+            if (y1ok && x0ok) add4v(dmap + rb + ca, scale4(wy1, dga));
+            if (y1ok && x1ok) add4v(dmap + rb + cb, scale4(wy1, dgb));
+          }
+          for (int s = 1; s < lanes; s <<= 1) {
+            s0 += __shfl_xor_sync(gmask, s0, s);
+            s1 += __shfl_xor_sync(gmask, s1, s);
+            t0 += __shfl_xor_sync(gmask, t0, s);
+            t1 += __shfl_xor_sync(gmask, t1, s);
+          }
+          const float dx0 = round_bf16(s0), dx1 = round_bf16(s1);
+          const float dy0 = round_bf16(t0), dy1 = round_bf16(t1);
+          sw = __fadd_rn(__fmul_rn(dx0, xwu0), __fmul_rn(dx1, xwu1));
+          sx = __fsub_rn(x1ok ? __fmul_rn(dx1, aw) : 0.f, x0ok ? __fmul_rn(dx0, aw) : 0.f);
+          sy = __fsub_rn(y1ok ? dy1 : 0.f, y0ok ? dy0 : 0.f);
+          sx = __fmul_rn(sx, static_cast<float>(Wl));
+          sy = __fmul_rn(sy, static_cast<float>(Hl));
+        } else {
+          // x0 >= -1 and y0 >= -1 here; a pointer is used only for a corner in the map
+          const ptrdiff_t at = y0 * static_cast<ptrdiff_t>(row) + x0 * xs;
+          if (active) {
+            if (y0ok && x0ok) lw::add4(dmap + at, aw * (1.f - fy) * (1.f - fx), g);
+            if (y0ok && x1ok) lw::add4(dmap + at + xs, aw * (1.f - fy) * fx, g);
+            if (y1ok && x0ok) lw::add4(dmap + at + row, aw * fy * (1.f - fx), g);
+            if (y1ok && x1ok) lw::add4(dmap + at + row + xs, aw * fy * fx, g);
+          }
+          const float4 v00 = active && y0ok && x0ok ? load4(map + at) : zero;
+          const float4 v01 = active && y0ok && x1ok ? load4(map + at + xs) : zero;
+          const float4 v10 = active && y1ok && x0ok ? load4(map + at + row) : zero;
+          const float4 v11 = active && y1ok && x1ok ? load4(map + at + row + xs) : zero;
+          lw::corner_dots(g, v00, v01, v10, v11, fx, fy, sw, sx, sy);
+          for (int s = 1; s < lanes; s <<= 1) {  // sum over the lanes of this point
+            sw += __shfl_xor_sync(gmask, sw, s);
+            sx += __shfl_xor_sync(gmask, sx, s);
+            sy += __shfl_xor_sync(gmask, sy, s);
+          }
+          sx = Wl * pnt.aw * sx;
+          sy = Hl * pnt.aw * sy;
         }
       }
       if (lane == 0) {  // every element, so d(loc) and d(w) need no zeroing
         dattw[pt] = sw;
-        dloc[2 * pt] = Wl * pnt.aw * sx;
-        dloc[2 * pt + 1] = Hl * pnt.aw * sy;
+        dloc[2 * pt] = sx;
+        dloc[2 * pt + 1] = sy;
       }
     }
   }
@@ -152,7 +253,7 @@ deform_attn_sep_bwd_kernel(const float* __restrict__ loc, const float* __restric
 template <typename Layout>
 int launch(const Args& a, const Level* levels, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int q_per_cta = kThreads / (a.D / kVec) * kChunkIters;
+  const int q_per_cta = kThreads / point_lanes(a.D) * kChunkIters;
   const dim3 grid((a.Q + q_per_cta - 1) / q_per_cta, a.B * a.H);
   for (int l = 0; l < a.L; ++l) {
     if (dtype == lw::kFloat32)
@@ -169,9 +270,10 @@ int launch(const Args& a, const Level* levels, int dtype, void* stream) {
   return cudaSuccess;
 }
 
-// the lanes of a point must be a power of two that divides a warp
+// head dims 8 to 64 in steps of 8 (a point's lanes, a power of two, divide a warp)
 bool sizes_ok(int B, int Q, int num_heads, int head_dim, int n_levels, int n_points, int dtype) {
-  return B >= 1 && Q >= 1 && num_heads >= 1 && (head_dim == 16 || head_dim == 32) &&
+  return B >= 1 && Q >= 1 && num_heads >= 1 && head_dim >= 8 && head_dim <= 64 &&
+         head_dim % 8 == 0 &&
          n_points >= 1 && n_levels >= 1 && n_levels <= kMaxLevels &&
          (dtype == lw::kFloat32 || dtype == lw::kBFloat16);
 }

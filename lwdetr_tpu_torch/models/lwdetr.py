@@ -5,8 +5,10 @@ group; in train mode (`model.training`) every group of `group_detr` runs and
 the outputs hold `num_queries x group_detr` queries. Images are square and
 unpadded (the release `square_resize_div_64` recipe), so no padding masks are
 built. The decoder never reads per-level position embeddings, so none are
-computed. Stochastic depth and dropout are not ported: a config that sets
-either is refused in train mode (the large and xlarge recipes).
+computed. In train mode `forward` takes the step's stochastic-depth rates
+(one a ViT block) and dropout rate, and a mask source that draws their masks
+(`models/drop.py`), as the JAX model's `drop_path_rates` / `dropout_rate`;
+`ModelConfig.grad_checkpointing` recomputes each ViT block in the backward.
 
 Parameters and buffers are float32 in every compute dtype, as in the JAX
 package; `compute_dtype` (float32 or bfloat16, set by `build_model`) is the
@@ -16,12 +18,13 @@ float32.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from lwdetr_tpu_torch.config import ModelConfig
+from lwdetr_tpu_torch.models import drop
 from lwdetr_tpu_torch.models.cast import Linear, cast_params
 from lwdetr_tpu_torch.models.projector import LEVEL2SCALE, MultiScaleProjector
 from lwdetr_tpu_torch.models.transformer import MLPHead, Transformer, box_reparam_combine
@@ -38,13 +41,14 @@ class Backbone(nn.Module):
             raise NotImplementedError(f"encoder {cfg.encoder}: only the ViT encoders are ported")
         self.encoder = ViT(cfg.embed_dim, cfg.vit_encoder_num_layers, cfg.num_heads,
                            window_block_indexes=cfg.window_block_indexes,
-                           out_feature_indexes=cfg.out_feature_indexes)
+                           out_feature_indexes=cfg.out_feature_indexes,
+                           grad_checkpointing=cfg.grad_checkpointing)
         self.projector = MultiScaleProjector(
             [cfg.embed_dim] * len(cfg.out_feature_indexes), cfg.hidden_dim,
             [LEVEL2SCALE[lvl] for lvl in cfg.projector_scale])
 
-    def forward(self, images: torch.Tensor):
-        return self.projector(self.encoder(images))
+    def forward(self, images: torch.Tensor, drop_path_rates=None, mask_source=None):
+        return self.projector(self.encoder(images, drop_path_rates, mask_source))
 
 
 class LWDETR(nn.Module):
@@ -75,23 +79,25 @@ class LWDETR(nn.Module):
         self.query_feat = nn.Embedding(nq, cfg.hidden_dim)
         self.compute_dtype = torch.float32
 
-    def forward(self, images: torch.Tensor) -> dict:
+    def forward(self, images: torch.Tensor, drop_path_rates: Optional[Sequence[float]] = None,
+                dropout_rate: float = 0.0,
+                mask_source: Optional[drop.MaskSource] = None) -> dict:
         """images (B, H, W, 3) normalized, cast to `compute_dtype` ->
         dict(pred_logits (B, Q, K) in `compute_dtype`, pred_boxes (B, Q, 4)
-        float32 cxcywh in [0, 1], aux_outputs, enc_outputs)."""
+        float32 cxcywh in [0, 1], aux_outputs, enc_outputs).
+        drop_path_rates (one a ViT block) and dropout_rate take effect in
+        train mode with a `mask_source`; in eval nothing is dropped."""
         cfg = self.cfg
-        if self.training and (cfg.drop_path or cfg.dropout):
-            raise NotImplementedError(
-                f"train mode with drop_path={cfg.drop_path}, dropout={cfg.dropout}: stochastic "
-                "depth and dropout belong to the large / xlarge training slice, not ported yet")
+        if not self.training:
+            mask_source = None
         groups = cfg.group_detr if self.training else 1
         nq = cfg.num_queries * groups
-        feats = self.backbone[0](images.to(self.compute_dtype))
+        feats = self.backbone[0](images.to(self.compute_dtype), drop_path_rates, mask_source)
         query_feat = self.query_feat.weight
         (query_feat,) = cast_params(self, ("query_feat", nq), self.compute_dtype, (query_feat,),
                                     lambda: (query_feat[:nq],))
         hs, ref, hs_enc, ref_enc = self.transformer(
-            feats, self.refpoint_embed.weight[:nq], query_feat)
+            feats, self.refpoint_embed.weight[:nq], query_feat, dropout_rate, mask_source)
         outputs_coord = box_reparam_combine(ref, self.bbox_embed(hs).float())
         outputs_class = self.class_embed(hs)
         out = {"pred_logits": outputs_class[-1], "pred_boxes": outputs_coord[-1]}
@@ -142,10 +148,9 @@ def build_model(cfg: ModelConfig, device=None, dtype: torch.dtype = torch.float3
     float32 parameters and buffers (the JAX package's rule); `state_dict`
     (reference keys) is loaded strictly. By default an eval-mode model with
     its parameters frozen; `train=True` gives a train-mode model whose
-    parameters require grad (f32 only: bf16 training is not ported)."""
+    parameters require grad, in either compute dtype (bf16 training keeps
+    f32 parameters, as the JAX package's `--bf16`)."""
     device = resolve_device(device)
-    if train and dtype != torch.float32:
-        raise NotImplementedError(f"training in {dtype}: only float32 training is ported")
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
     model = LWDETR(cfg)

@@ -12,9 +12,13 @@ head-major value panels and `ms_deform_attn_sep_panels` (K4) from
 `SEP_MIN_LEN_IN` positions up (the P3+P5 presets); in train mode the panels
 at every memory length (K4, backward K5). `MSDeformAttnModule.force_branch`
 takes one of the three value layouts whatever the mode: "cm" (K3, backward
-K8), "sep" (K4 / K5) or "gather" (row-major values, K10). Dropout is not
-ported: the release recipes train with dropout 0. Module and parameter names follow the
-reference's state_dict (`transformer.decoder.layers.{i}...`,
+K8), "sep" (K4 / K5) or "gather" (row-major values, K10). In train mode a
+dropout rate above 0 drops at the JAX layer's sites (`models/drop.py`): the
+self-attention's weights, which takes the self-attention off the kernels onto
+the plain einsum form, as the JAX module does, and the outputs of the
+self-attention, the cross-attention and both FFN products; a rate of exactly
+0 (the release recipes) draws nothing and keeps K2 / K9. Module and parameter
+names follow the reference's state_dict (`transformer.decoder.layers.{i}...`,
 `transformer.enc_output.{g}`, ...).
 """
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lwdetr_tpu_torch.models import drop
 from lwdetr_tpu_torch.models.cast import LayerNorm, Linear, cast_params, weight_and_bias
 from lwdetr_tpu_torch.models.vit import DenseCM, dense_to_cm
 from lwdetr_tpu_torch.ops import deform_attn as da
@@ -70,13 +75,27 @@ class MultiheadSelfAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = DenseCM(d_model, d_model)
 
-    def forward(self, qk: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        """qk (B, N, C) feeds queries and keys, v (B, N, C) values -> (B, N, C)."""
-        C = qk.shape[-1]
+    def forward(self, qk: torch.Tensor, v: torch.Tensor, dropout_rate=0.0,
+                mask_source: Optional[drop.MaskSource] = None) -> torch.Tensor:
+        """qk (B, N, C) feeds queries and keys, v (B, N, C) values -> (B, N, C).
+        With a mask source and a rate above 0 the attention weights are
+        dropped, on the einsum form of `lwdetr_tpu/models/transformer.py:
+        118-136` (the kernels never see the weights)."""
+        B, N, C = qk.shape
+        H = self.num_heads
         w, b = cast_params(self, "in_proj", qk.dtype, (self.in_proj_weight, self.in_proj_bias))
+        if mask_source is not None and float(dropout_rate) != 0.0:
+            D = C // H
+            qp = F.linear(qk, w[:C], b[:C]).reshape(B, N, H, D)
+            kp = F.linear(qk, w[C:2 * C], b[C:2 * C]).reshape(B, N, H, D)
+            vp = F.linear(v, w[2 * C:], b[2 * C:]).reshape(B, N, H, D)
+            attn = torch.einsum("bnhd,bmhd->bhnm", qp * D ** -0.5, kp).softmax(dim=-1)
+            attn = drop.dropout(attn, dropout_rate, mask_source)
+            out = torch.einsum("bhnm,bmhd->bnhd", attn, vp).reshape(B, N, C)
+            return F.linear(out, *weight_and_bias(self.out_proj, out.dtype))
         qkv_t = torch.cat([dense_to_cm(qk, w[:2 * C], b[:2 * C]),
                            dense_to_cm(v, w[2 * C:], b[2 * C:])], dim=1)  # (B, 3C, N)
-        out_t = fa.attention_cm(qkv_t, self.num_heads, scale=(C // self.num_heads) ** -0.5)
+        out_t = fa.attention_cm(qkv_t, H, scale=(C // H) ** -0.5)
         return self.out_proj(out_t)
 
 
@@ -170,7 +189,8 @@ class DecoderLayer(nn.Module):
         self.linear2 = Linear(dim_feedforward, d_model)
         self.norm3 = LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, tgt, memory, query_pos, reference_points, spatial_shapes, memory_levels):
+    def forward(self, tgt, memory, query_pos, reference_points, spatial_shapes, memory_levels,
+                dropout_rate=0.0, mask_source: Optional[drop.MaskSource] = None):
         B, Q, C = tgt.shape
         qk, v = tgt + query_pos, tgt
         if self.training and self.group_detr > 1:
@@ -179,11 +199,13 @@ class DecoderLayer(nn.Module):
             # already ordered groups-within-image
             qk = qk.reshape(B * self.group_detr, Q // self.group_detr, C)
             v = v.reshape(B * self.group_detr, Q // self.group_detr, C)
-        tgt = self.norm1(tgt + self.self_attn(qk, v).reshape(B, Q, C))
+        tgt2 = self.self_attn(qk, v, dropout_rate, mask_source).reshape(B, Q, C)
+        tgt = self.norm1(tgt + drop.dropout(tgt2, dropout_rate, mask_source))
         tgt2 = self.cross_attn(tgt + query_pos, reference_points, memory, spatial_shapes,
                                memory_levels)
-        tgt = self.norm2(tgt + tgt2)
-        return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
+        tgt = self.norm2(tgt + drop.dropout(tgt2, dropout_rate, mask_source))
+        h = drop.dropout(F.relu(self.linear1(tgt)), dropout_rate, mask_source)
+        return self.norm3(tgt + drop.dropout(self.linear2(h), dropout_rate, mask_source))
 
 
 def set_force_branch(model: nn.Module, branch: Optional[str]) -> nn.Module:
@@ -272,12 +294,14 @@ class Transformer(nn.Module):
         self.enc_out_bbox_embed = nn.ModuleList(
             MLPHead(d_model, d_model, 4, 3) for _ in range(group_detr))
 
-    def forward(self, srcs, refpoint_embed: torch.Tensor, query_feat: torch.Tensor):
+    def forward(self, srcs, refpoint_embed: torch.Tensor, query_feat: torch.Tensor,
+                dropout_rate=0.0, mask_source: Optional[drop.MaskSource] = None):
         """srcs: list[(B, H, W, C)] projector outputs; refpoint_embed (nq, 4);
         query_feat (nq, C) in the compute dtype, nq = num_queries x groups;
         the reference points stay in float32, as in the JAX package. Returns hs (L, B, nq, C),
         references (1, B, nq, 4), memory_ts (B, nq, C) and boxes_ts (B, nq, 4):
-        each group's picked proposals, groups concatenated."""
+        each group's picked proposals, groups concatenated. `dropout_rate`
+        and `mask_source` go to every decoder layer."""
         spatial_shapes = [(s.shape[1], s.shape[2]) for s in srcs]
         B = srcs[0].shape[0]
         dtype = srcs[0].dtype
@@ -312,6 +336,6 @@ class Transformer(nn.Module):
         intermediates = []
         for layer in self.decoder.layers:
             output = layer(output, memory, query_pos, refpoints_input.to(dtype), spatial_shapes,
-                           memory_levels)
+                           memory_levels, dropout_rate, mask_source)
             intermediates.append(self.decoder.norm(output))
         return torch.stack(intermediates), refpoints[None], memory_ts, boxes_ts

@@ -1,8 +1,6 @@
 """ViTDet-style plain ViT encoder with interleaved window/global attention.
 
-Counterpart of `lwdetr_tpu/models/vit.py`, eval and train without stochastic
-depth (the tiny, small and medium recipes; `LWDETR` refuses a nonzero
-`drop_path` in train mode):
+Counterpart of `lwdetr_tpu/models/vit.py`, eval and train:
 
 * channel-last (B, H, W, C) maps; the token buffer is reorganized once into
   16 windows (B*16, hw, C); window blocks attend within a window and global
@@ -17,7 +15,18 @@ depth (the tiny, small and medium recipes; `LWDETR` refuses a nonzero
 * attention runs channel-major: the qkv product writes (B, 3C, N), the
   attention (ops/flash_attention.attention_cm: K1 for windows, K2 for global
   blocks; K7 and K6 in the backward) returns (B, C, N), and the projection
-  reads it back.
+  reads it back;
+* stochastic depth in train mode: each block takes its rate (the linear ramp
+  of `train/optim.drop_path_rates_for`) and drops rows of the window-major
+  buffer after the gamma-scaled attention and after the gamma-scaled MLP,
+  one mask a window row (B * 16, 1, 1), as the JAX mask has that shape on the
+  same buffer (`models/drop.py`);
+* remat (`grad_checkpointing`): each block runs under
+  `torch.utils.checkpoint`, so that its activations are recomputed in the
+  backward (the JAX package's `nn.remat(Block)`); its two masks are drawn
+  before, outside the checkpointed function, so that the recompute applies
+  the same masks (`preserve_rng_state` restores the default generators, not an
+  explicit one). The forward kernels then run twice a block and step.
 """
 from __future__ import annotations
 
@@ -27,7 +36,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from lwdetr_tpu_torch.models import drop
 from lwdetr_tpu_torch.models.cast import LayerNorm, Linear, cast_params, weight_and_bias
 from lwdetr_tpu_torch.ops import flash_attention as fa
 from lwdetr_tpu_torch.ops.resize import bicubic_resize_2d
@@ -130,15 +141,17 @@ class Block(nn.Module):
         self.gamma_1 = nn.Parameter(torch.full((dim,), 0.1))
         self.gamma_2 = nn.Parameter(torch.full((dim,), 0.1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # x: (B*16, hw, C) window-major token buffer
+    def forward(self, x: torch.Tensor, drop_attn=None, drop_mlp=None) -> torch.Tensor:
+        """x: (B*16, hw, C) window-major token buffer; drop_attn / drop_mlp:
+        the `drop.draw` results of the block's two stochastic-depth sites, or
+        None."""
         Bw, HW, C = x.shape
         h = self.norm1(x)
         if not self.window:
             h = h.reshape(Bw // 16, 16 * HW, C)
         h = self.attn(h, out_scale=self.gamma_1)
-        x = x + h.reshape(Bw, HW, C)
-        return x + self.mlp(self.norm2(x), out_scale=self.gamma_2)
+        x = x + drop.apply(h.reshape(Bw, HW, C), drop_attn)
+        return x + drop.apply(self.mlp(self.norm2(x), out_scale=self.gamma_2), drop_mlp)
 
 
 class PatchEmbedGEMM(nn.Module):
@@ -169,8 +182,10 @@ class ViT(nn.Module):
                  patch_size: int = 16, mlp_ratio: float = 4.0,
                  window_block_indexes: Sequence[int] = (),
                  out_feature_indexes: Sequence[int] = (-1,),
-                 pretrain_img_size: int = 224, pretrain_use_cls_token: bool = True):
+                 pretrain_img_size: int = 224, pretrain_use_cls_token: bool = True,
+                 grad_checkpointing: bool = False):
         super().__init__()
+        self.grad_checkpointing = grad_checkpointing
         num_positions = (pretrain_img_size // patch_size) ** 2 + int(pretrain_use_cls_token)
         self.pretrain_use_cls_token = pretrain_use_cls_token
         self.pos_embed = nn.Parameter(torch.zeros(1, num_positions, embed_dim))
@@ -183,8 +198,11 @@ class ViT(nn.Module):
             Block(embed_dim, num_heads, window=i in window_block_indexes, mlp_ratio=mlp_ratio)
             for i in range(depth))
 
-    def forward(self, x: torch.Tensor):
-        """x (B, H_img, W_img, 3) -> list[(B, H, W, C)], H = H_img // patch."""
+    def forward(self, x: torch.Tensor, drop_path_rates: Optional[Sequence[float]] = None,
+                mask_source: Optional[drop.MaskSource] = None):
+        """x (B, H_img, W_img, 3) -> list[(B, H, W, C)], H = H_img // patch.
+        drop_path_rates: one rate a block (None: no stochastic depth), whose
+        masks `mask_source` draws (None: none drawn, as in eval)."""
         x = self.patch_embed(x)
         B, H, W, C = x.shape
         # resized in float32, cast once
@@ -197,8 +215,18 @@ class ViT(nn.Module):
         x = x.reshape(B, NUM_WINDOWS_SIDE, h, NUM_WINDOWS_SIDE, w, C)
         x = x.transpose(2, 3).reshape(B * 16, h * w, C)
         outs = []
-        for blk, tap in zip(self.blocks, self.out_flags):
-            x = blk(x)
+        rates = [0.0] * len(self.blocks) if drop_path_rates is None else list(drop_path_rates)
+        if len(rates) != len(self.blocks):
+            raise ValueError(f"{len(rates)} drop-path rates for {len(self.blocks)} blocks")
+        remat = self.grad_checkpointing and torch.is_grad_enabled()
+        for blk, tap, rate in zip(self.blocks, self.out_flags, rates):
+            # both masks drawn here, in the JAX order, before any recompute
+            drop_attn = drop.drop_path_mask(mask_source, rate, x)
+            drop_mlp = drop.drop_path_mask(mask_source, rate, x)
+            if remat:
+                x = checkpoint(blk, x, drop_attn, drop_mlp, use_reentrant=False)
+            else:
+                x = blk(x, drop_attn, drop_mlp)
             if tap:
                 o = x.reshape(B, NUM_WINDOWS_SIDE, NUM_WINDOWS_SIDE, h, w, C)
                 outs.append(o.transpose(2, 3).reshape(B, H, W, C))

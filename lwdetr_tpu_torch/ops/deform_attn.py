@@ -29,7 +29,9 @@ vector reduction per corner and 4 channels (K8 into a position-major scratch
 that it turns channel-major). On CUDA
 tensors they launch or the call raises; tensors on the CPU take the plain
 versions (`*_plain`, `*_bwd_plain`), the counterparts of the JAX gather
-formulation `ms_deform_attn`.
+formulation `ms_deform_attn`. In bf16 the forwards, and the panel backward,
+round where the JAX package's kernels round (see "bf16" below), not once at
+the end; the f32 paths are the plain f32 formulas.
 """
 from __future__ import annotations
 
@@ -77,9 +79,11 @@ deform_attn_rowmajor_kernel = CudaKernel(
 deform_attn_rowmajor_bwd_kernel = CudaKernel(
     "K10b", "deform_attn_sep_bwd.cu", "lw_deform_attn_rowmajor_bwd",
     [_P, _P, ctypes.POINTER(ctypes.c_int), _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I])
-# head dims the panel and row-major kernels take: the forwards (K4, K10) and the backwards (K5, K10b)
-_SEP_HEAD_DIMS = (16, 32, 64)
-_SEP_BWD_HEAD_DIMS = (16, 32)
+# head dims the panel and row-major kernels take, forwards (K4, K10) and
+# backwards (K5, K10b): every multiple of 8 up to 64 (a thread's 16-byte run
+# of channels is 4 f32 or 8 bf16); any other is refused, never sent elsewhere
+_SEP_HEAD_DIMS = tuple(range(8, 65, 8))
+_SEP_BWD_HEAD_DIMS = _SEP_HEAD_DIMS
 
 
 def sampling_offsets_init_bias(n_heads: int, n_levels: int, n_points: int) -> torch.Tensor:
@@ -99,10 +103,15 @@ def ms_deform_attn_cm_plain(value_t: torch.Tensor, spatial_shapes: Sequence[Tupl
                             loc: torch.Tensor, weights: torch.Tensor,
                             n_heads: int) -> torch.Tensor:
     """Plain PyTorch version: four corner gathers per level, f32 sums,
-    result in value_t's dtype."""
+    result in value_t's dtype. On bf16 values it rounds as `_deform_cm_kernel`
+    does (`merged_corner_weights_plain`)."""
     B, C, _ = value_t.shape
     _, Q, H, L, P, _ = loc.shape
     D = C // n_heads
+    if value_t.dtype == torch.bfloat16:
+        v = value_t.reshape(B, n_heads, D, -1).transpose(2, 3)  # (B, H, Len_in, D)
+        out = _merged_sample_bf16(v, spatial_shapes, loc, weights)  # (B, H, Q, D)
+        return out.permute(0, 1, 3, 2).reshape(B, C, Q)
     ct = plain_dtype(value_t)
     val = value_t.to(ct).reshape(B, n_heads, D, -1)
     loc = loc.to(ct)
@@ -199,12 +208,25 @@ def ms_deform_attn_cm_bwd_plain(value_t: torch.Tensor, spatial_shapes: Sequence[
                                 n_heads: int):
     """Plain PyTorch version of K8: (d(value_t), d(loc), d(weights)) of
     `ms_deform_attn_cm` from d(out) (B, C, Q), by the explicit formulas of
-    `ms_deform_attn_sep_panels_bwd_plain` on the same values regrouped."""
+    `ms_deform_attn_sep_panels_bwd_plain` on the same values regrouped. On bf16
+    values d(value_t) is formed as `_dvalue_cm_kernel` forms it: the merged
+    corner weights of a position rounded to bf16 (`merged_corner_weights_plain`,
+    as the forward), times the bf16 d(out), summed in f32 and rounded once."""
     B, C, len_in = value_t.shape
-    dvals, dloc, dw = ms_deform_attn_sep_panels_bwd_plain(
+    dvals, dloc, dw = _sep_panels_bwd_formulas(
         _cm_panels(value_t, spatial_shapes, n_heads), spatial_shapes, loc, weights,
         dout.transpose(1, 2))
     D = C // n_heads
+    if value_t.dtype == torch.bfloat16:
+        Q = loc.shape[1]
+        idx, w = merged_corner_weights_plain(spatial_shapes, loc, weights)  # (B, Q, H, J)
+        J = idx.shape[-1]
+        g = dout.to(torch.bfloat16).float().reshape(B, n_heads, D, Q).transpose(2, 3)
+        terms = w.permute(0, 2, 1, 3)[..., None] * g[:, :, :, None, :]  # (B, H, Q, J, D)
+        dv = torch.zeros((B, n_heads, len_in, D), device=value_t.device, dtype=torch.float32)
+        pos = idx.clamp(min=0).permute(0, 2, 1, 3).reshape(B, n_heads, Q * J, 1)
+        dv.scatter_add_(2, pos.expand(-1, -1, -1, D), terms.reshape(B, n_heads, Q * J, D))
+        return dv.transpose(2, 3).reshape(B, C, len_in).to(value_t.dtype), dloc, dw
     dvalue_t = torch.cat([dv.reshape(B, n_heads, -1, D).transpose(2, 3) for dv in dvals], dim=3)
     return dvalue_t.reshape(B, C, len_in), dloc, dw
 
@@ -340,7 +362,12 @@ def ms_deform_attn_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int
                          loc: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of `ms_deform_attn` (counterpart of the JAX gather
     formulation of the same name): the corner gathers of
-    `ms_deform_attn_sep_panels_plain` on the same values regrouped."""
+    `ms_deform_attn_sep_panels_plain` on the same values regrouped; on bf16
+    values rounded as `_deform_kernel` does (`merged_corner_weights_plain`)."""
+    if value.dtype == torch.bfloat16:
+        B, _, H, D = value.shape
+        out = _merged_sample_bf16(value.transpose(1, 2), spatial_shapes, loc, weights)
+        return out.transpose(1, 2).reshape(B, -1, H * D)
     return ms_deform_attn_sep_panels_plain(_rowmajor_panels(value, spatial_shapes),
                                            spatial_shapes, loc, weights)
 
@@ -350,7 +377,7 @@ def ms_deform_attn_bwd_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple
     """Plain PyTorch version of K10's backward: (d(value), d(loc), d(weights))
     of `ms_deform_attn` from d(out) (B, Q, H * D)."""
     B, _, H, D = value.shape
-    dvals, dloc, dw = ms_deform_attn_sep_panels_bwd_plain(
+    dvals, dloc, dw = _sep_panels_bwd_formulas(
         _rowmajor_panels(value, spatial_shapes), spatial_shapes, loc, weights, dout)
     dvalue = torch.cat([dv.reshape(B, H, -1, D).transpose(1, 2) for dv in dvals], dim=1)
     return dvalue, dloc, dw
@@ -453,7 +480,10 @@ def ms_deform_attn_sep_panels_plain(vals: Sequence[torch.Tensor],
                                     spatial_shapes: Sequence[Tuple[int, int]],
                                     loc: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: four corner gathers per level straight from the
-    head-major panels, f32 sums, result in the panels' dtype."""
+    head-major panels, f32 sums, result in the panels' dtype. On bf16 panels it
+    rounds as `_sep_kernel` does (`_sep_panels_bf16_plain`)."""
+    if vals[0].dtype == torch.bfloat16:
+        return _sep_panels_bf16_plain(vals, spatial_shapes, loc, weights)
     B, H = vals[0].shape[:2]
     Q, P = loc.shape[1], loc.shape[4]
     D = vals[0].shape[3] // spatial_shapes[0][1]
@@ -524,7 +554,19 @@ def ms_deform_attn_sep_panels_bwd_plain(vals: Sequence[torch.Tensor],
     where the difference of two dot products (the JAX package's VJP of
     `_prep_separable`) cancels and keeps the rounding of each, of order
     eps |<g, v00>|. So this is closer to exact than `jax.grad`, by that much.
-    Returns ([d(panel_l)] in the panels' dtype, d(loc), d(weights))."""
+    Returns ([d(panel_l)] in the panels' dtype, d(loc), d(weights)). On bf16
+    panels it computes as `_sep_bwd_kernel` and the VJP of `_prep_separable`
+    do (`_sep_panels_bwd_bf16_plain`)."""
+    if vals[0].dtype == torch.bfloat16:
+        return _sep_panels_bwd_bf16_plain(vals, spatial_shapes, loc, weights, dout)
+    return _sep_panels_bwd_formulas(vals, spatial_shapes, loc, weights, dout)
+
+
+def _sep_panels_bwd_formulas(vals, spatial_shapes, loc, weights, dout):
+    """The explicit formulas of `ms_deform_attn_sep_panels_bwd_plain` in f32
+    (f64 on f64 inputs), whatever the panels' dtype; d(panel) rounded once to
+    it. The row-major backward (K10b) takes these in bf16 too, the
+    channel-major one (K8) for d(loc) and d(weights)."""
     B, H = vals[0].shape[:2]
     Q, P = loc.shape[1], loc.shape[4]
     D = vals[0].shape[3] // spatial_shapes[0][1]
@@ -664,3 +706,240 @@ def ms_deform_attn_sep_panels(vals: Sequence[torch.Tensor],
     if not needs_grad(loc, weights, *vals):
         return ms_deform_attn_sep_panels_fwd(vals, spatial_shapes, loc, weights)
     return _DeformAttnSepPanels.apply(spatial_shapes, loc, weights, *vals)
+
+
+# ---------------------------------------------------------------------------
+# bf16: where the JAX kernels round
+#
+# The JAX package's bf16 samplers round in more places than one rounding of
+# an f32 sum, and the port's bf16 plain versions and kernels round where they
+# do. The f32 paths are untouched by any of this.
+# * `_sep_kernel` (K4): the y- and x-weights are packed in bf16, the attention
+#   weight folded into the x-weights first (`_prep_separable`); a point's row
+#   gather is summed in f32, times its x-weight (rounded); the points' entries
+#   that share a column are summed in f32 and that column sum is rounded to
+#   bf16 before the regroup sums the columns in f32 (`msum.astype(dt)`).
+# * `_deform_kernel` (K10) and `_deform_cm_kernel` (K3): a corner's weight
+#   (1-fy)(1-fx) x aw in f32; the weights of all the corners of one (q, h)
+#   that land on one position are summed in f32 and the sum rounded to bf16
+#   before its product with the value.
+# * `_sep_bwd_kernel` (K5): see `_sep_panels_bwd_bf16_plain`.
+# * `_dvalue_cm_kernel` (K8): d(value) from the merged weights of the forward,
+#   rounded alike (`ms_deform_attn_cm_bwd_plain`). K10b's `_dvalue_kernel`
+#   keeps them in f32, as the port does.
+# ---------------------------------------------------------------------------
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (to nearest even), as f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _grid(loc_l: torch.Tensor, Hl: int, Wl: int):
+    """A level's points (B, Q, H, P, 2) -> integer upper-left corners and
+    fractions, x W - 0.5 rounded as PyTorch rounds it."""
+    px = loc_l[..., 0] * Wl - 0.5
+    py = loc_l[..., 1] * Hl - 0.5
+    x0 = torch.floor(px)
+    y0 = torch.floor(py)
+    return x0.long(), y0.long(), px - x0, py - y0
+
+
+def _ordered_sum(terms: torch.Tensor, keys: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum `terms` along `dim` one after another in ascending `keys` order,
+    in f32 (the order the JAX kernels' matmuls take over their positions)."""
+    order = keys.argsort(dim=dim, stable=True)
+    shape = list(order.shape) + [1] * (terms.dim() - order.dim())
+    terms = torch.gather(terms, dim, order.reshape(shape).expand_as(terms))
+    acc = torch.zeros_like(terms.select(dim, 0))
+    for i in range(terms.shape[dim]):
+        acc = acc + terms.select(dim, i)
+    return acc
+
+
+def _group_sums(keys: torch.Tensor, terms: torch.Tensor):
+    """For entries along the last dim of `keys` (terms: the same leading dims,
+    maybe a trailing channel dim): the f32 sum of the terms of the entries
+    that share an entry's key, in entry order, and whether the entry is the
+    first of its key (the one that carries the sum)."""
+    n = keys.shape[-1]
+    same = keys[..., :, None] == keys[..., None, :]  # (..., n, n)
+    earlier = torch.ones(n, n, dtype=torch.bool, device=keys.device).tril(-1)
+    first = ~(same & earlier).any(dim=-1)
+    wide = terms.dim() > keys.dim()
+    sums = torch.zeros_like(terms)
+    for j in range(n):  # entry order: the JAX kernels' sums run in it
+        hit = same[..., j]
+        t = terms[..., j:j + 1, :] if wide else terms[..., j:j + 1]
+        sums = sums + torch.where(hit[..., None] if wide else hit, t, torch.zeros_like(t))
+    return sums, first
+
+
+def merged_corner_weights_plain(spatial_shapes, loc: torch.Tensor, weights: torch.Tensor):
+    """The corners of every (b, q, h) over all levels as `_deform_kernel` /
+    `_deform_cm_kernel` form them: (position into the level-concatenated map,
+    -1 outside; its f32 weight, the weights of the corners that land on one
+    position summed in entry order and rounded to bf16, 0 on all but the first
+    of them), each (B, Q, H, 4 L P), entries ordered (level, corner, point)."""
+    idx_parts, w_parts = [], []
+    start = 0
+    aw_all = weights.float()
+    for lvl, (Hl, Wl) in enumerate(spatial_shapes):
+        x0, y0, fx, fy = _grid(loc[:, :, :, lvl].float(), Hl, Wl)
+        aw = aw_all[:, :, :, lvl]
+        for dy, dx, cw in ((0, 0, (1 - fy) * (1 - fx)), (0, 1, (1 - fy) * fx),
+                           (1, 0, fy * (1 - fx)), (1, 1, fy * fx)):
+            xi, yi = x0 + dx, y0 + dy
+            valid = (xi >= 0) & (xi < Wl) & (yi >= 0) & (yi < Hl)
+            idx = start + yi.clamp(0, Hl - 1) * Wl + xi.clamp(0, Wl - 1)
+            idx_parts.append(torch.where(valid, idx, torch.full_like(idx, -1)))
+            w_parts.append(cw * valid.float() * aw)
+        start += Hl * Wl
+    idx = torch.cat(idx_parts, dim=-1)  # (B, Q, H, L * 4 * P), (level, corner, point)
+    w = torch.cat(w_parts, dim=-1)
+    sums, first = _group_sums(idx, w)
+    return idx, torch.where(first & (idx >= 0), _bf16(sums), torch.zeros_like(sums))
+
+
+def _merged_sample_bf16(value_hm: torch.Tensor, spatial_shapes, loc: torch.Tensor,
+                        weights: torch.Tensor) -> torch.Tensor:
+    """K10 / K3 on bf16 values (B, H, Len_in, D) -> (B, H, Q, D) bf16: the
+    rounded merged weights times the values, summed in f32 in ascending
+    position order, rounded once."""
+    B, H, _, D = value_hm.shape
+    Q = loc.shape[1]
+    idx, w = merged_corner_weights_plain(spatial_shapes, loc, weights)  # (B, Q, H, J)
+    idx = idx.permute(0, 2, 1, 3)  # (B, H, Q, J)
+    w = w.permute(0, 2, 1, 3)
+    J = idx.shape[-1]
+    g = torch.gather(value_hm.float(), 2, idx.clamp(min=0).reshape(B, H, Q * J, 1)
+                     .expand(-1, -1, -1, D)).reshape(B, H, Q, J, D)
+    terms = w[..., None] * g
+    keys = torch.where(idx >= 0, idx, torch.full_like(idx, torch.iinfo(torch.int64).max))
+    return _ordered_sum(terms, keys, 3).to(torch.bfloat16)
+
+
+def _sep_level_bf16(loc_l, aw, Hl: int, Wl: int):
+    """One level's separable packing of `_prep_separable` in bf16, (B, Q, H, P)
+    each: the clamped rows and columns, the bf16 y-weights and x-weights (the
+    attention weight folded into the x-weights before the rounding, as f32),
+    and the f32 parts the VJP reads (fractions, the in-map flags, the
+    x-weights before the attention weight)."""
+    x0, y0, fx, fy = _grid(loc_l, Hl, Wl)
+    y0ok = ((y0 >= 0) & (y0 < Hl)).float()
+    y1ok = ((y0 + 1 >= 0) & (y0 + 1 < Hl)).float()
+    x0ok = ((x0 >= 0) & (x0 < Wl)).float()
+    x1ok = ((x0 + 1 >= 0) & (x0 + 1 < Wl)).float()
+    xwu0, xwu1 = (1.0 - fx) * x0ok, fx * x1ok
+    return dict(ya=y0.clamp(0, Hl - 1), yb=(y0 + 1).clamp(0, Hl - 1),
+                xa=x0.clamp(0, Wl - 1), xb=(x0 + 1).clamp(0, Wl - 1),
+                wy0=_bf16((1.0 - fy) * y0ok), wy1=_bf16(fy * y1ok),
+                wx0=_bf16(xwu0 * aw), wx1=_bf16(xwu1 * aw),
+                xwu0=xwu0, xwu1=xwu1, y0ok=y0ok, y1ok=y1ok, x0ok=x0ok, x1ok=x1ok)
+
+
+def _gather_hm(v_l: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """v_l (B, H, N, D) at positions pos (B, Q, H, P) -> (B, H, Q, P, D)."""
+    B, H, _, D = v_l.shape
+    Q, P = pos.shape[1], pos.shape[3]
+    idx = pos.permute(0, 2, 1, 3).reshape(B, H, Q * P, 1).expand(-1, -1, -1, D)
+    return torch.gather(v_l, 2, idx).reshape(B, H, Q, P, D)
+
+
+def _hm(t: torch.Tensor) -> torch.Tensor:
+    """(B, Q, H, P) -> (B, H, Q, P, 1), to weigh (B, H, Q, P, D) corners."""
+    return t.permute(0, 2, 1, 3)[..., None]
+
+
+def _sep_panels_bf16_plain(vals, spatial_shapes, loc, weights) -> torch.Tensor:
+    """K4 on bf16 panels, rounded as `_sep_kernel` rounds (see above)."""
+    B, H = vals[0].shape[:2]
+    Q, P = loc.shape[1], loc.shape[4]
+    D = vals[0].shape[3] // spatial_shapes[0][1]
+    acc = torch.zeros((B, H, Q, D), device=loc.device, dtype=torch.float32)
+    for lvl, ((Hl, Wl), panel) in enumerate(zip(spatial_shapes, vals)):
+        v_l = panel.float().reshape(B, H, Hl * Wl, D)
+        k = _sep_level_bf16(loc[:, :, :, lvl].float(), weights[:, :, :, lvl].float(), Hl, Wl)
+        # entries (point, column): e = 2 p + c, as the kernel's point order
+        cols, terms = [], []
+        for xc, wx in ((k["xa"], k["wx0"]), (k["xb"], k["wx1"])):
+            g = (_hm(k["wy0"]) * _gather_hm(v_l, k["ya"] * Wl + xc)
+                 + _hm(k["wy1"]) * _gather_hm(v_l, k["yb"] * Wl + xc))  # f32, one rounding
+            terms.append(_hm(wx) * g)  # (B, H, Q, P, D)
+            cols.append(xc.permute(0, 2, 1, 3))
+        col = torch.stack(cols, dim=-1).reshape(B, H, Q, 2 * P)
+        m = torch.stack(terms, dim=4).reshape(B, H, Q, 2 * P, D)
+        sums, first = _group_sums(col, m)
+        r = torch.where(first[..., None], _bf16(sums), torch.zeros_like(sums))
+        acc = acc + _ordered_sum(r, col, 3)  # the regroup: columns ascending, in f32
+    return acc.permute(0, 2, 1, 3).reshape(B, Q, H * D).to(torch.bfloat16)
+
+
+def _sep_panels_bwd_bf16_plain(vals, spatial_shapes, loc, weights, dout, with_bound=False):
+    """K5 on bf16 panels, as `_sep_bwd_kernel` and the VJP of `_prep_separable`
+    compute it. With g the head's bf16 d(out), per point and column c of its
+    two (clamped) columns, and rows r:
+      g_c      = wy0 v[ya, x_c] + wy1 v[yb, x_c]            (f32)
+      d(xw_c)  = bf16(sum_d g_c g)                          (each product rounded, then summed)
+      dg_c     = bf16(xw_c g)
+      d(yw_r)  = bf16(sum_{c, d} dg_c v[y_r, x_c])
+      d(value)[y_r, x_c] += yw_r dg_c                        (f32, rounded once at the end)
+    then in f32: d(aw) = sum_c d(xw_c) xwu_c, d(loc_x) = W (aw d(xw_1) x1ok -
+    aw d(xw_0) x0ok), d(loc_y) = H (d(yw_1) y1ok - d(yw_0) y0ok). With
+    `with_bound`, also the bounds of `sep_panels_bwd_bf16_bound`."""
+    B, H = vals[0].shape[:2]
+    Q, P = loc.shape[1], loc.shape[4]
+    D = vals[0].shape[3] // spatial_shapes[0][1]
+    g = dout.to(torch.bfloat16).float().reshape(B, Q, H, D).permute(0, 2, 1, 3)[:, :, :, None]
+    dloc = torch.zeros(loc.shape, device=loc.device, dtype=torch.float32)
+    dw = torch.zeros(weights.shape, device=loc.device, dtype=torch.float32)
+    bloc, bw = torch.zeros_like(dloc), torch.zeros_like(dw)
+    dvals = []
+    for lvl, ((Hl, Wl), panel) in enumerate(zip(spatial_shapes, vals)):
+        v_l = panel.float().reshape(B, H, Hl * Wl, D)
+        aw = weights[:, :, :, lvl].float()
+        k = _sep_level_bf16(loc[:, :, :, lvl].float(), aw, Hl, Wl)
+        dv = torch.zeros_like(v_l)
+        rows = ((k["ya"], k["wy0"]), (k["yb"], k["wy1"]))
+        dxw, dya = [], [0.0, 0.0]
+        for xc, wx in ((k["xa"], k["wx0"]), (k["xb"], k["wx1"])):
+            va = _gather_hm(v_l, k["ya"] * Wl + xc)
+            vb = _gather_hm(v_l, k["yb"] * Wl + xc)
+            gc = _hm(k["wy0"]) * va + _hm(k["wy1"]) * vb  # (B, H, Q, P, D)
+            dxw.append(_bf16((gc * g).sum(-1)).permute(0, 2, 1, 3))  # (B, Q, H, P)
+            dg = _bf16(_hm(wx) * g)
+            for r, ((yr, wy), vr) in enumerate(zip(rows, (va, vb))):
+                dya[r] = dya[r] + (dg * vr).sum(-1)
+                pos = (yr * Wl + xc).permute(0, 2, 1, 3).reshape(B, H, Q * P, 1)
+                dv.scatter_add_(2, pos.expand(-1, -1, -1, D),
+                                (_hm(wy) * dg).reshape(B, H, Q * P, D))
+        dyw = [_bf16(t).permute(0, 2, 1, 3) for t in dya]
+        dw[:, :, :, lvl] = dxw[0] * k["xwu0"] + dxw[1] * k["xwu1"]
+        dloc[:, :, :, lvl, :, 0] = ((dxw[1] * aw) * k["x1ok"] - (dxw[0] * aw) * k["x0ok"]) * Wl
+        dloc[:, :, :, lvl, :, 1] = (dyw[1] * k["y1ok"] - dyw[0] * k["y0ok"]) * Hl
+        if with_bound:
+            ux, uy = [_bf16_ulp(t) for t in dxw], [_bf16_ulp(t) for t in dyw]
+            bw[:, :, :, lvl] = ux[0] * k["xwu0"] + ux[1] * k["xwu1"]
+            bloc[:, :, :, lvl, :, 0] = Wl * aw * (ux[0] * k["x0ok"] + ux[1] * k["x1ok"])
+            bloc[:, :, :, lvl, :, 1] = Hl * (uy[0] * k["y0ok"] + uy[1] * k["y1ok"])
+        dvals.append(dv.reshape(panel.shape).to(panel.dtype))
+    out = (dvals, dloc.to(loc.dtype), dw.to(weights.dtype))
+    return out + (bloc, bw) if with_bound else out
+
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at |t| (7 fraction bits), at least 2^-133."""
+    return torch.exp2(torch.floor(torch.log2(t.abs().clamp(min=2.0 ** -126))) - 7)
+
+
+def sep_panels_bwd_bf16_bound(vals, spatial_shapes, loc, weights, dout):
+    """How far K5's bf16 d(loc) and d(weights) may lie from the plain
+    version's: each comes from four bf16 weight gradients (d(xw_c), d(yw_r)),
+    sums of products that the kernel adds in another f32 order, so each may
+    round to the neighbouring bf16 number; the bound is what one ulp of each
+    moves: (W aw (ulp(d(xw_0)) + ulp(d(xw_1))), H (ulp(d(yw_0)) + ulp(d(yw_1))))
+    for d(loc), ulp(d(xw_0)) (1-fx) + ulp(d(xw_1)) fx for d(weights), with the
+    flags of the columns and rows in the map. Returns (d(loc) bound,
+    d(weights) bound), f32."""
+    return _sep_panels_bwd_bf16_plain(list(vals), _int_shapes(spatial_shapes), loc, weights,
+                                      dout, with_bound=True)[3:]

@@ -217,7 +217,7 @@ def bf16_bwd_error_bound(qkv_t: torch.Tensor, dout: torch.Tensor, num_heads: int
     K7), with `plain` (f32) the plain backward on the same bf16 `qkv_t`,
     `dout` (and `bias`):
 
-        2e-5 max(1, max |plain|) + 2^-8 |plain| + 2^-8 [sum_j |ds| |k|,
+        2e-5 max(1, max |plain|) + ulp(plain) + 2^-8 [sum_j |ds| |k|,
                                                       sum_i |ds| |q|,
                                                       sum_i p |d(out)|]
 
@@ -226,8 +226,9 @@ def bf16_bwd_error_bound(qkv_t: torch.Tensor, dout: torch.Tensor, num_heads: int
     likewise dk, and dv with p. The kernel rounds its own f32 ds and p (p from
     K2's log-sum-exp, ds with another sum order) and the plain version its
     own: two roundings that differ, a factor 2. The result's rounding to bf16
-    is half an ulp on either side, 2^-8 |plain| in all; the first term is the
-    f32 tolerance of the backwards (sums in another order)."""
+    is half an ulp on either side: one bf16 ulp of |plain| in all,
+    2^(floor(log2 |plain|) - 7), between 2^-8 and 2^-7 of |plain|; the first
+    term is the f32 tolerance of the backwards (sums in another order)."""
     if qkv_t.dtype != torch.bfloat16:
         raise TypeError(f"the bound is for bf16 inputs, got {qkv_t.dtype}")
     B, ZC, N = qkv_t.shape
@@ -237,7 +238,8 @@ def bf16_bwd_error_bound(qkv_t: torch.Tensor, dout: torch.Tensor, num_heads: int
                          torch.einsum("bhnm,bhdn->bhdm", ads, q.abs()),
                          torch.einsum("bhnm,bhdn->bhdm", p, g.abs())], dim=1).reshape(B, ZC, N)
     plain = plain.float()
-    return 2e-5 * max(1.0, plain.abs().max().item()) + 2.0 ** -8 * (plain.abs() + terms)
+    ulp = torch.exp2(torch.floor(torch.log2(plain.abs().clamp(min=2.0 ** -126))) - 7)
+    return 2e-5 * max(1.0, plain.abs().max().item()) + ulp + 2.0 ** -8 * terms
 
 
 def _check_cuda(qkv_t: torch.Tensor, num_heads: int) -> None:

@@ -1,4 +1,5 @@
-"""Optimizer: AdamW with per-parameter lr / wd, StepLR, EMA, drop schedules.
+"""Optimizer: AdamW with per-parameter lr / wd, StepLR, EMA, drop schedules
+and the stochastic-depth ramp over the ViT blocks.
 
 Counterpart of `lwdetr_tpu/train/optim.py`, with the reference's three
 parameter regions, keyed on the reference's state_dict names (which the
@@ -122,3 +123,23 @@ def drop_scheduler(drop_rate: float, epochs: int, niter_per_ep: int, cutoff_epoc
         raise ValueError("the late drop mode takes the constant schedule only")
     return np.concatenate([np.zeros(early_iters, np.float32),
                            np.full(late_iters, drop_rate, np.float32)])
+
+
+def drop_path_rates_for(rate, depth: int) -> np.ndarray:
+    """The per-block stochastic-depth rates, the linear ramp linspace(0, 1,
+    depth) x rate in float32 (`lwdetr_tpu/train/optim.py:151-155`), the ramp
+    formed as XLA forms jnp.linspace: i x (1 / (depth - 1)) in float32, then 1."""
+    if depth < 2:
+        ramp = np.zeros(depth, np.float32)
+    else:
+        step = np.float32(1.0) / np.float32(depth - 1)
+        ramp = np.append(np.arange(depth - 1, dtype=np.float32) * step, np.float32(1.0))
+    return ramp * np.float32(rate)
+
+
+def scheduled(sched, step: int) -> float:
+    """The rate a per-iteration schedule gives step `step`: its last entry
+    past its end, 0 without a schedule (`lwdetr_tpu/train/engine.py:181-184`)."""
+    if sched is None or len(sched) == 0:
+        return 0.0
+    return float(sched[min(step, len(sched) - 1)])

@@ -30,6 +30,21 @@ RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8}
 # plain version on the same bf16 values. The bf16 attention backwards (K6,
 # K7) round ds and p to bf16 before their products, as the JAX kernels do:
 # they are held to `fa.bf16_bwd_error_bound` in the same two ways.
+# The bf16 samplers (K3, K4, K10; K5's backward) round where the JAX kernels
+# round (`ops/deform_attn.py`, "bf16"), as their plain versions on the same
+# bf16 values do: held to those within ATOL + SAMPLER_RTOL |plain|, one bf16
+# ulp, since a sum in another f32 order may tip a rounding. K5's bf16 d(loc) and
+# d(weights) come from bf16 weight gradients: within `sep_panels_bwd_bf16_bound`
+# (one ulp of each) of the plain version's.
+SAMPLER_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+
+
+def _sampler_ref(plain, value, dtype, *args):
+    """A forward sampler's plain reference: on the f32 values in f32, on the
+    bf16 values themselves in bf16 (rounding as the kernel), as f32."""
+    if dtype == torch.float32:
+        value = [v.float() for v in value] if isinstance(value, list) else value.float()
+    return plain(value, *args).float()
 
 
 @pytest.fixture
@@ -120,8 +135,9 @@ def test_deform_attn_cm_matches_plain(cuda, dtype, shapes, Q, heads, P):
     loc = torch.rand((B, Q, heads, L, P, 2), generator=cuda, device="cuda") * 1.4 - 0.2
     w = torch.rand((B, Q, heads, L, P), generator=cuda, device="cuda")
     out = da.ms_deform_attn_cm(value_t, shapes, loc, w, heads)
-    ref = da.ms_deform_attn_cm_plain(value_t.float(), shapes, loc, w, heads)
-    torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=RTOL[dtype])
+    ref = _sampler_ref(lambda v, *a: da.ms_deform_attn_cm_plain(v, *a), value_t, dtype, shapes,
+                       loc, w, heads)
+    torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=SAMPLER_RTOL[dtype])
 
 
 def _panels(g, B, heads, D, shapes, dtype):
@@ -143,18 +159,20 @@ def test_deform_attn_sep_panels_matches_plain(cuda, dtype, shapes, Q, heads, D, 
     loc[1, 0, 1, 0, 0] = torch.tensor([0.5, float("nan")])
     w = torch.rand((B, Q, heads, L, P), generator=cuda, device="cuda")
     out = da.ms_deform_attn_sep_panels(vals, shapes, loc, w)
-    ref = da.ms_deform_attn_sep_panels_plain([v.float() for v in vals], shapes,
-                                             torch.nan_to_num(loc, nan=-5.0), w)
+    ref = _sampler_ref(da.ms_deform_attn_sep_panels_plain, vals, dtype, shapes,
+                       torch.nan_to_num(loc, nan=-5.0), w)
     assert out.shape == (B, Q, heads * D) and out.dtype == dtype
-    torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=RTOL[dtype])
+    torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=SAMPLER_RTOL[dtype])
 
 
 # K4 and K10 beyond the paths' shapes: (B, shapes, Q, heads, D, P). A Q that
 # no query tile divides, Q = 1, head_dim 32 and 64 (3 points a level: 6 a (q,
-# h), padded to 8 in the point table), four levels (16 points a (q, h))
+# h), padded to 8 in the point table), four levels (16 points a (q, h)), and
+# head_dim 8 (the micro fixture's cross-attention) and 24 (no power of two)
 SEP_ROUTE_CASES = [(4, [(40, 40)], 1001, 16, 16, 2), (2, [(5, 7)], 1, 2, 16, 1),
                    (4, [(40, 40)], 300, 8, 32, 2), (2, [(20, 20), (10, 10)], 77, 4, 64, 3),
-                   (2, [(40, 40), (20, 20), (10, 10), (5, 5)], 150, 8, 16, 4)]
+                   (2, [(40, 40), (20, 20), (10, 10), (5, 5)], 150, 8, 16, 4),
+                   (2, [(16, 16), (4, 4)], 60, 8, 8, 4), (2, [(12, 10)], 33, 4, 24, 2)]
 
 
 @pytest.mark.parametrize("layout", ["panels", "rowmajor"])
@@ -164,8 +182,7 @@ def test_panel_and_row_major_forwards_match_plain_on_every_route(cuda, layout, d
                                                                  Q, heads, D, P):
     """K4 (panels) and K10 (row-major) against the plain version, one launch
     each, with points on the borders, far outside, NaN and (the last query) on
-    grid lines; the route keeps no stack and spills nothing. The backwards
-    (K5, K10b) take head_dim 16 and 32 only."""
+    grid lines; the route keeps no stack and spills nothing."""
     L = len(shapes)
     vals = _panels(cuda, B, heads, D, shapes, dtype)
     loc, w = _sampler_points(cuda, B, Q, heads, L, P)
@@ -183,16 +200,14 @@ def test_panel_and_row_major_forwards_match_plain_on_every_route(cuda, layout, d
         value = torch.cat([v.reshape(B, heads, -1, D) for v in vals], dim=2)
         out = da.ms_deform_attn(value.transpose(1, 2).contiguous(), shapes, loc, w)
     assert kernel.launches == before + 1
-    ref = da.ms_deform_attn_sep_panels_plain([v.float() for v in vals], shapes,
-                                             torch.nan_to_num(loc, nan=-5.0), w)
+    clean = torch.nan_to_num(loc, nan=-5.0)
+    if layout == "panels":
+        ref = _sampler_ref(da.ms_deform_attn_sep_panels_plain, vals, dtype, shapes, clean, w)
+    else:
+        ref = _sampler_ref(da.ms_deform_attn_plain, value.transpose(1, 2).contiguous(), dtype,
+                           shapes, clean, w)
     assert out.shape == (B, Q, heads * D) and out.dtype == dtype
-    torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=RTOL[dtype])
-    if D == 64:
-        with pytest.raises(ValueError, match="head_dim|D in"):
-            if layout == "panels":
-                da.ms_deform_attn_sep_panels_bwd(vals, shapes, loc, w, out)
-            else:
-                da.ms_deform_attn_bwd(value.transpose(1, 2).contiguous(), shapes, loc, w, out)
+    torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=SAMPLER_RTOL[dtype])
 
 
 def test_deform_attn_sep_panels_agrees_with_the_channel_major_kernel(cuda):
@@ -287,15 +302,17 @@ SAMPLER_CASES = [([(40, 40)], 1300, 16, 16, 2), ([(80, 80), (20, 20)], 301, 24, 
 SAMPLER_BWD_CASES = [(8, [(40, 40)], 300, 16, 16, 2), (2, [(40, 40)], 3900, 16, 16, 2),
                      (2, [(80, 80), (20, 20)], 3900, 24, 16, 4),
                      (2, [(16, 20), (8, 10)], 37, 3, 32, 2), (2, [(5, 7)], 1, 2, 16, 1),
-                     (2, [(160, 160), (20, 20)], 50, 2, 16, 2)]
+                     (2, [(160, 160), (20, 20)], 50, 2, 16, 2),
+                     (2, [(16, 16), (4, 4)], 60, 8, 8, 4), (2, [(20, 20), (10, 10)], 77, 4, 64, 3),
+                     (2, [(12, 10)], 33, 4, 24, 2)]
 
 
-def _check_sampler_grads(name, dtype, grads, refs):
+def _check_sampler_grads(name, dtype, grads, refs, rtol=None):
     (dv, dl, dw), (rv, rl, rw) = grads, refs
     assert dv.dtype == dtype and dl.dtype == dw.dtype == torch.float32
     # d(value) sums up to hundreds of atomic adds per position in an order that
     # changes from run to run: 4 x the f32 bound
-    _close_bwd(dv, rv, dtype, f"{name} d(value)", atol_scale=4.0)
+    _close_bwd(dv, rv.float(), dtype, f"{name} d(value)", atol_scale=4.0, rtol=rtol)
     _close_bwd(dl, rl, torch.float32, f"{name} d(loc)")
     _close_bwd(dw, rw, torch.float32, f"{name} d(weights)")
     assert ((rv == 0) <= (dv == 0)).all()  # untouched positions get an exact zero
@@ -318,10 +335,18 @@ def test_deform_attn_cm_bwd_matches_plain(cuda, dtype, shapes, Q, heads, D, P):
         da.ms_deform_attn_cm(value_t, shapes, loc, w, heads).backward(dout)
     assert (da.deform_attn_cm_kernel.launches, da.deform_attn_cm_bwd_kernel.launches) == \
         (before[0] + 1, before[1] + 1)
-    refs = da.ms_deform_attn_cm_bwd_plain(value_t.detach().float(), shapes,
-                                          torch.nan_to_num(loc.detach(), nan=-5.0), w.detach(),
-                                          dout.float(), heads)
-    _check_sampler_grads("K8", dtype, (value_t.grad, loc.grad, w.grad), refs)
+    refs = _cm_bwd_ref(value_t.detach(), shapes, torch.nan_to_num(loc.detach(), nan=-5.0),
+                       w.detach(), dout, heads)
+    _check_sampler_grads("K8", dtype, (value_t.grad, loc.grad, w.grad), refs,
+                         SAMPLER_RTOL[dtype])
+
+
+def _cm_bwd_ref(value_t, shapes, loc, w, dout, heads):
+    """K8's plain reference: in f32 on f32 values; on bf16 values in bf16, its
+    d(value) from the merged weights rounded as the kernel rounds them."""
+    if value_t.dtype == torch.float32:
+        return da.ms_deform_attn_cm_bwd_plain(value_t, shapes, loc, w, dout.float(), heads)
+    return da.ms_deform_attn_cm_bwd_plain(value_t, shapes, loc, w, dout, heads)
 
 
 # K3 and K8 on each route of `csrc/deform_cm.cuh`: (B, shapes, Q, heads, D,
@@ -361,11 +386,12 @@ def test_channel_major_pair_matches_plain_on_every_route(cuda, dtype, B, shapes,
         (before[0] + 1, before[1] + 1)
     # a NaN location gives nothing, as one far outside the map
     loc_ref = torch.nan_to_num(loc, nan=-5.0)
-    ref = da.ms_deform_attn_cm_plain(value_t.float(), shapes, loc_ref, w, heads)
+    ref = _sampler_ref(lambda v, *a: da.ms_deform_attn_cm_plain(v, *a), value_t, dtype, shapes,
+                       loc_ref, w, heads)
     assert out.dtype == dtype
-    torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=RTOL[dtype])
-    refs = da.ms_deform_attn_cm_bwd_plain(value_t.float(), shapes, loc_ref, w, dout.float(), heads)
-    _check_sampler_grads("K8", dtype, grads, refs)
+    torch.testing.assert_close(out.float(), ref, atol=ATOL, rtol=SAMPLER_RTOL[dtype])
+    refs = _cm_bwd_ref(value_t, shapes, loc_ref, w, dout, heads)
+    _check_sampler_grads("K8", dtype, grads, refs, SAMPLER_RTOL[dtype])
 
 
 def test_channel_major_backward_refuses_head_dims_off_whole_float4s(cuda):
@@ -399,9 +425,9 @@ def test_deform_attn_row_major_matches_plain(cuda, dtype, B, shapes, Q, heads, D
         out.backward(dout)
     assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 0, 0]
     clean = torch.nan_to_num(loc.detach(), nan=-5.0)
-    ref = da.ms_deform_attn_plain(value.detach().float(), shapes, clean, w.detach())
+    ref = _sampler_ref(da.ms_deform_attn_plain, value.detach(), dtype, shapes, clean, w.detach())
     assert out.shape == (B, Q, heads * D) and out.dtype == dtype
-    torch.testing.assert_close(out.detach().float(), ref, atol=ATOL, rtol=RTOL[dtype])
+    torch.testing.assert_close(out.detach().float(), ref, atol=ATOL, rtol=SAMPLER_RTOL[dtype])
     refs = da.ms_deform_attn_bwd_plain(value.detach().float(), shapes, clean, w.detach(),
                                        dout.float())
     _check_sampler_grads("K10", dtype, (value.grad, loc.grad, w.grad), refs)
@@ -411,8 +437,10 @@ def test_row_major_sampler_refuses_what_the_kernel_does_not_take(cuda):
     loc = torch.rand((1, 5, 2, 1, 2, 2), device="cuda")
     w = torch.rand((1, 5, 2, 1, 2), device="cuda")
     launches = da.deform_attn_rowmajor_kernel.launches
-    with pytest.raises(ValueError, match="D in"):
-        da.ms_deform_attn(torch.zeros((1, 12, 2, 8), device="cuda"), [(3, 4)], loc, w)
+    # head dims that are no multiple of 8, or over 64, are refused (8 .. 64 are taken)
+    for D in (12, 72):
+        with pytest.raises(ValueError, match="D in"):
+            da.ms_deform_attn(torch.zeros((1, 12, 2, D), device="cuda"), [(3, 4)], loc, w)
     with pytest.raises(TypeError):
         da.ms_deform_attn(torch.zeros((1, 12, 2, 16), device="cuda", dtype=torch.float16),
                           [(3, 4)], loc, w)
@@ -426,9 +454,10 @@ def test_row_major_sampler_refuses_what_the_kernel_does_not_take(cuda):
 # Backward kernels against their plain versions in f32 on the same inputs. The
 # gradients are sums of many terms of either sign, so the f32 bound scales with
 # the result's magnitude: ATOL x max(1, max|plain|); bf16 as above.
-def _close_bwd(out, ref, dtype, name, atol_scale=1.0):
+def _close_bwd(out, ref, dtype, name, atol_scale=1.0, rtol=None):
     atol = ATOL * atol_scale * max(1.0, ref.abs().max().item())
-    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=RTOL[dtype], msg=lambda m: f"{name}: {m}")
+    rtol = RTOL[dtype] if rtol is None else rtol
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=rtol, msg=lambda m: f"{name}: {m}")
 
 
 def _close_attention_bwd(dqkv, qkv, dout, heads, scale, name, bias=None):
@@ -493,10 +522,30 @@ def test_deform_attn_sep_panels_bwd_matches_plain(cuda, dtype, B, shapes, Q, hea
         da.ms_deform_attn_sep_panels(vals, shapes, loc, w).backward(dout)
     assert da.deform_attn_sep_bwd_kernel.launches == before + 1
     clean = torch.nan_to_num(loc.detach(), nan=-5.0)
-    dvals, dloc, dw = da.ms_deform_attn_sep_panels_bwd_plain(
-        [v.detach().float() for v in vals], shapes, clean, w.detach(), dout.float())
-    for v, ref in zip(vals, dvals):
-        _check_sampler_grads("K5", dtype, (v.grad, loc.grad, w.grad), (ref, dloc, dw))
+    _check_sep_bwd(dtype, [v.detach() for v in vals], shapes, clean, w.detach(), dout,
+                   ([v.grad for v in vals], loc.grad, w.grad))
+
+
+def _check_sep_bwd(dtype, vals, shapes, loc, w, dout, grads):
+    """K5's gradients against the plain backward: in f32 on f32 values as the
+    other backwards; in bf16 on the bf16 values (rounding as the kernel), d(value)
+    within one bf16 ulp, d(loc) and d(weights) within `sep_panels_bwd_bf16_bound`."""
+    dvals, dloc, dw = grads
+    if dtype == torch.float32:
+        rvals, rloc, rw = da.ms_deform_attn_sep_panels_bwd_plain(vals, shapes, loc, w, dout)
+        for dv, rv in zip(dvals, rvals):
+            _check_sampler_grads("K5", dtype, (dv, dloc, dw), (rv, rloc, rw))
+        return
+    rvals, rloc, rw = da.ms_deform_attn_sep_panels_bwd_plain(vals, shapes, loc, w, dout)
+    bloc, bw = da.sep_panels_bwd_bf16_bound(vals, shapes, loc, w, dout)
+    for dv, rv in zip(dvals, rvals):
+        assert dv.dtype == torch.bfloat16
+        scale = 4 * ATOL * max(1.0, rv.float().abs().max().item())
+        torch.testing.assert_close(dv.float(), rv.float(), atol=scale, rtol=SAMPLER_RTOL[dtype])
+    for name, got, ref, bound in (("d(loc)", dloc, rloc, bloc), ("d(weights)", dw, rw, bw)):
+        excess = ((got - ref).abs() - bound - ATOL * max(1.0, ref.abs().max().item())).max()
+        assert excess.item() <= 0, f"K5 bf16 {name} over its bound by {excess.item()}"
+    assert not dloc[1, 0, 0, 0, 0].any() and not dw[1, 0, 0, 0, 0].any()  # far out
 
 
 # A location whose pixel coordinate x W - 0.5 (W = 40) is 8.0 when the
@@ -555,9 +604,10 @@ def test_sep_panels_refuses_what_the_kernel_does_not_take(cuda):
     loc = torch.rand((1, 5, 2, 1, 2, 2), device="cuda")
     w = torch.rand((1, 5, 2, 1, 2), device="cuda")
     launches = da.deform_attn_sep_kernel.launches
-    with pytest.raises(ValueError, match="head_dim"):
-        da.ms_deform_attn_sep_panels([torch.zeros((1, 2, 3, 4 * 8), device="cuda")], [(3, 4)],
-                                     loc, w)
+    for D in (12, 72):  # no multiple of 8, over 64 (8 .. 64 are taken)
+        with pytest.raises(ValueError, match="head_dim"):
+            da.ms_deform_attn_sep_panels([torch.zeros((1, 2, 3, 4 * D), device="cuda")],
+                                         [(3, 4)], loc, w)
     with pytest.raises(TypeError):
         da.ms_deform_attn_sep_panels([torch.zeros((1, 2, 3, 4 * 16), device="cuda",
                                                   dtype=torch.float16)], [(3, 4)], loc, w)
@@ -649,3 +699,78 @@ def test_one_train_step_through_the_kernels_matches_the_plain_backwards(cuda):
         losses[branch] = loss_k
     # the three layouts compute one function
     assert max(losses.values()) - min(losses.values()) <= 1e-4
+
+
+@pytest.mark.parametrize("preset,remat", [("large", False), ("xlarge", True)])
+def test_large_bf16_train_step_launches_each_kernel_as_expected(cuda, preset, remat):
+    """One bf16 train step of the release recipe at 640x640, batch 2 (drop_path
+    0.1 at its step-0 rate): the forward launches K1 6, K2 7 (4 global blocks +
+    3 decoder self-attentions), K4 3 (the panels, as in every train step);
+    with remat every ViT block runs its forward twice (K1 12, K2 4 x 2 + 3);
+    the backward K7 6, K6 7, K5 3; the loss is finite."""
+    from lwdetr_tpu_torch import bench_train
+
+    kernels = {"K1": fa.window_attention_bias_kernel, "K2": fa.flash_attention_cm_kernel,
+               "K4": da.deform_attn_sep_kernel, "K5": da.deform_attn_sep_bwd_kernel,
+               "K6": fa.flash_attention_cm_bwd_kernel, "K7": fa.window_attention_bias_bwd_kernel}
+    state, step = bench_train.make_train_step(preset, 2, dtype=torch.bfloat16,
+                                              grad_checkpointing=remat)
+    assert state.model.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    before = {k: v.launches for k, v in kernels.items()}
+    metrics = step()
+    assert torch.isfinite(metrics["loss"]).item()
+    got = {k: v.launches - before[k] for k, v in kernels.items()}
+    assert got == {"K1": 12 if remat else 6, "K2": 11 if remat else 7, "K4": 3, "K5": 3,
+                   "K6": 7, "K7": 6}, got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decoder_dropout_takes_the_self_attention_off_the_kernels(cuda, dtype):
+    """A dropout rate above 0 in train mode drops the decoder's attention
+    weights on the einsum form, as the JAX module does: the decoder's
+    self-attention launches no kernel (its K9 / K7nb go), everything else runs
+    as without dropout; the drawn masks have the JAX sites' shapes."""
+    from lwdetr_tpu_torch.config import ModelConfig, TrainConfig
+    from lwdetr_tpu_torch.models import drop
+    from lwdetr_tpu_torch.models.criterion import SetCriterion, Targets
+    from lwdetr_tpu_torch.models.lwdetr import build_model
+    from lwdetr_tpu_torch.weights import init_state_dict
+
+    cfg = ModelConfig(encoder="vit_tiny", vit_encoder_num_layers=3, window_block_indexes=(0, 2),
+                      out_feature_indexes=(1, 2), projector_scale=("P4",), hidden_dim=64,
+                      dim_feedforward=128, sa_nheads=4, ca_nheads=4, dec_n_points=2,
+                      dec_layers=2, group_detr=3, num_queries=16, num_classes=7, two_stage=True,
+                      bbox_reparam=True, lite_refpoint_refine=True, drop_path=0.1, dropout=0.1)
+    model = build_model(cfg, state_dict=init_state_dict(cfg, 0), train=True, dtype=dtype)
+    criterion = SetCriterion(cfg, TrainConfig(ia_bce_loss=True, cls_loss_coef=1.0, max_gt=8))
+    images = torch.randn((2, 256, 256, 3), generator=cuda, device="cuda")
+    targets = Targets(torch.randint(0, 7, (2, 8), generator=cuda, device="cuda"),
+                      torch.rand((2, 8, 4), generator=cuda, device="cuda") * 0.4 + 0.2,
+                      (torch.arange(8, device="cuda") < 3).expand(2, -1).contiguous())
+    kernels = (fa.window_attention_bias_kernel, fa.flash_attention_cm_kernel,
+               fa.window_attention_kernel, fa.window_attention_bwd_kernel,
+               da.deform_attn_sep_kernel, da.deform_attn_sep_bwd_kernel)
+    shapes = []
+
+    def draws(rate):
+        gen = drop.Bernoulli(drop.step_generator("cuda", 0, 0))
+
+        def source(keep, shape, like):
+            shapes.append(tuple(shape))
+            return gen(keep, shape, like)
+
+        before = [k.launches for k in kernels]
+        total, _ = criterion(model(images, [0.0, 0.05, 0.1], rate, source), targets, train=True)
+        total.backward()
+        assert torch.isfinite(total).item()
+        return {k.name: k.launches - b for k, b in zip(kernels, before)}
+
+    plain = draws(0.0)
+    assert shapes == [(32, 1, 1)] * 4  # blocks 1 and 2, two sites each; dropout 0 draws nothing
+    shapes.clear()
+    dropped = draws(0.1)
+    assert plain == {"K1": 2, "K2": 1, "K9": 2, "K7nb": 2, "K4": 2, "K5": 2}
+    assert dropped == dict(plain, K9=0, K7nb=0)
+    layer = [(6, 4, 16, 16), (2, 48, 64), (2, 48, 64), (2, 48, 128), (2, 48, 64)]
+    assert shapes == [(32, 1, 1)] * 4 + layer * 2

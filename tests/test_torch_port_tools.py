@@ -80,6 +80,19 @@ from lwdetr_tpu_torch.breakdown import _group
      "K8 deform_attn_cm_bwd"),
     ("void (anonymous namespace)::position_to_channel_major<__nv_bfloat16>(float const*, "
      "__nv_bfloat16*, int, int)", "K8 deform_attn_cm_bwd"),
+    # the bf16 samplers that round as the TPU kernels, kernels of their own
+    ("void (anonymous namespace)::deform_attn_sep_bf16_kernel<lw::PanelLayout, true>(float "
+     "const*, float const*, __nv_bfloat16*, int, int, int, int, (anonymous namespace)::Levels",
+     "K4 deform_attn_sep"),
+    ("void (anonymous namespace)::deform_attn_sep_bf16_kernel<lw::RowMajorLayout, false>(float "
+     "const*, float const*, __nv_bfloat16*, int, int, int, int, (anonymous namespace)::Levels",
+     "K10 deform_attn_rowmajor"),
+    ("void (anonymous namespace)::deform_attn_cm_kernel_bf16<true>(__nv_bfloat16 const*, float "
+     "const*, float const*, __nv_bfloat16*, int, int, int, int, int, lw::CmLevels",
+     "K3 deform_attn_cm"),
+    ("void (anonymous namespace)::deform_attn_cm_bwd_kernel_bf16<false>(__nv_bfloat16 const*, "
+     "float const*, float const*, __nv_bfloat16 const*, float*, float*, float*, int, int",
+     "K8 deform_attn_cm_bwd"),
     # the bf16 tensor-core cases: <head_dim, copy width> and, for K1 / K9, the bias flag
     ("void (anonymous namespace)::flash_attention_cm_mma_kernel<16, 8>(__nv_bfloat16 const*, "
      "__nv_bfloat16*, float*, int, int, float)", "K2 flash_attention_cm"),
@@ -158,10 +171,17 @@ def test_bench_train_makes_the_synthetic_batch_from_a_seed():
 
 
 def test_breakdown_train_mode_defaults():
+    import torch
+
     args = breakdown.parser().parse_args(["--train"])
     assert args.train and args.batch is None and args.dtype is None
-    with pytest.raises(NotImplementedError, match="float32"):
-        breakdown.run("small", 4, __import__("torch").bfloat16, train=True)
+    assert not args.grad_checkpointing
+    # bf16 training is ported: --dtype takes both spellings, the release batch stays the default
+    for name in ("bfloat16", "bf16"):
+        args = breakdown.parser().parse_args(["--train", "--dtype", name, "--grad_checkpointing"])
+        assert breakdown.DTYPES[args.dtype] == torch.bfloat16 and args.grad_checkpointing
+    with pytest.raises(SystemExit):
+        breakdown.parser().parse_args(["--train", "--dtype", "float16"])
 
 
 def test_bench_deform_defaults_and_its_tolerance():

@@ -338,8 +338,8 @@ def test_thirty_steps_lower_the_loss_and_move_the_ema(bridged):
     step = engine.build_train_step(state, SetCriterion(NANO, tcfg), tcfg)
     losses, logged = [], []
 
-    def counted(b):
-        metrics = step(b)
+    def counted(b, *rates):
+        metrics = step(b, *rates)
         losses.append(float(metrics["loss"]))
         return metrics
 
@@ -359,7 +359,7 @@ def test_thirty_steps_lower_the_loss_and_move_the_ema(bridged):
 def test_train_one_epoch_aborts_on_a_non_finite_loss_and_honours_should_stop():
     calls = []
 
-    def fake_step(batch):
+    def fake_step(batch, *rates):
         calls.append(batch)
         return {"loss": torch.tensor(float("nan") if batch == 2 else 1.0),
                 "grad_norm": torch.tensor(1.0)}
@@ -375,11 +375,18 @@ def test_train_one_epoch_aborts_on_a_non_finite_loss_and_honours_should_stop():
 
 
 def test_train_mode_refuses_what_is_not_ported():
-    model = LWDETR(dataclasses.replace(NANO, drop_path=0.1))
-    with pytest.raises(NotImplementedError, match="drop_path"):
-        model(torch.zeros(1, IMG, IMG, 3))
-    with pytest.raises(NotImplementedError, match="float32"):
-        build_model(NANO, device="cpu", dtype=torch.bfloat16, train=True)
+    # stochastic depth, dropout and bf16 training are ported (test_torch_port_drop.py);
+    # what stays refused: the encoders and decoder variants no release preset uses,
+    # and compute dtypes other than float32 / bfloat16
+    with pytest.raises(NotImplementedError, match="ViT"):
+        LWDETR(dataclasses.replace(NANO, encoder="resnet18"))
+    with pytest.raises(NotImplementedError, match="learned"):
+        LWDETR(dataclasses.replace(NANO, position_embedding="learned"))
+    with pytest.raises(ValueError, match="bfloat16"):
+        build_model(NANO, device="cpu", dtype=torch.float16, train=True)
+    bf16 = build_model(dataclasses.replace(NANO, drop_path=0.1, dropout=0.1), device="cpu",
+                       dtype=torch.bfloat16, train=True)
+    assert bf16.training and bf16.compute_dtype == torch.bfloat16
     eval_model = build_model(NANO, device="cpu")
     assert not eval_model.training and not any(p.requires_grad for p in eval_model.parameters())
     train_model = build_model(NANO, device="cpu", train=True)
