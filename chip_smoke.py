@@ -68,6 +68,19 @@ Run from the root of a checkout, with one card:
    samplers' d(loc) feeds) against the plain backwards on the same forward.
 6. Drives the train step of LW-DETR-medium (ViT-small, head_dim 32) as
    small's: the same launch counts, 4 optimizer steps.
+7. Drives the eval entry point on the mAP fixture (`tests/fixtures/micro_map/`,
+   20 JPEGs): the micro model in f32 through `lwdetr_tpu_torch.main --eval`
+   with a .pth of the fixture's weights, batch 4 (K1 5, K2 5, K9 10, K3 10
+   over its 5 batches), its 12 stats within 1e-7 of `golden_stats.json`; in
+   bf16, every stat within 0.55 of the f32 golden (the distance to the JAX
+   bf16 golden printed); each again on the plain versions with the picks
+   replayed, the detections paired by the index `post_process` selected and
+   held within the f32 bounds or the bf16 drift ceiling; small at full width,
+   bf16, batch 8, seeded weights (K1 18, K2 21, K3 9), its detections against
+   the plain versions' within the bf16 drift ceiling, and the eval loop's
+   img/s, the loader's share of its wall time and the device's idle share;
+   then, on the fixture only, the same over 10 passes with the first left
+   out, the loader alone, the step alone and each image's decode and resize.
 
 Any failure exits non-zero. Without a CUDA card, or outside a checkout, it
 exits non-zero and prints no result. The line before the last holds one JSON
@@ -139,8 +152,15 @@ BF16_DRIFT = {"prob_mean": 0.01, "prob_max": 0.2, "box_mean": 0.03}
 FWD_ATOL_LOGITS = 2e-3
 FWD_ATOL_BOXES = 5e-4
 MIN_TOPK_OVERLAP = 0.98  # of the 300 (tiny: 100) picks / (query, label) pairs per image
+# a detection's score against its query's sigmoid for its label, computed by
+# another launch on the same f32 value; and a shared detection's box difference
+# (over the image's size) against its query's: f32 rounding of a scale to
+# 3200 pixels and back, where a box set against another query's moves by 1e-2 or more
+SCORE_MATCH_ATOL = 1e-6
+PAIRING_ATOL = 1e-6
 
 BATCH = 8
+MICRO_BATCH = 4  # the eval batch of the mAP fixture's pipeline (its golden was made at 4)
 KERNEL_NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K7nb", "K8", "K9", "K10", "K10b")
 BACKWARD_KERNELS = ("K5", "K6", "K7", "K7nb", "K8", "K10b")
 # the keys every entry of the kernels line carries
@@ -450,6 +470,7 @@ SEP_SMALL_TRAIN = (4, 16, 16, 2, 3900, [(40, 40)])              # small's train 
 SEP_LARGE_TRAIN = (BATCH, 24, 16, 4, 3900, [(80, 80), (20, 20)])  # large with 13 query groups
 SEP_TINY_TRAIN = (4, 16, 16, 2, 1300, [(40, 40)])               # tiny's train step, batch 4
 SEP_TINY = (BATCH, 16, 16, 2, 100, [(40, 40)])                  # tiny's eval forward
+SEP_MICRO = (MICRO_BATCH, 8, 8, 2, 12, [(40, 40)])               # the mAP fixture's micro model
 # large's and xlarge's train step at their release batch of 2
 SEP_LARGE_TRAIN_B2 = (LARGE_TRAIN_BATCH, 24, 16, 4, 3900, [(80, 80), (20, 20)])
 # head dims 8 (the micro fixture's cross-attention) and 64 of the panel and
@@ -865,6 +886,12 @@ ATTENTION_SHAPES = (
     ("K2dec@large", "K2", BATCH, 384, 300, 12, 32 ** -0.5, False),  # large and xlarge decoder
     ("K9", "K9", BATCH, 256, 100, 8, 32 ** -0.5, False),            # tiny's decoder: 100 queries
     ("K9@train", "K9", TRAIN_BATCH * 13, 256, 100, 8, 32 ** -0.5, False),  # 13 groups in the batch
+    # the mAP fixture's micro model at the eval pipeline's batch of 4: its
+    # window and global blocks, and its decoder's self-attention (12 queries,
+    # 4 heads of 16)
+    ("K1@micro", "K1", MICRO_BATCH * 16, 192, 100, 12, 1.0, True),
+    ("K2@micro", "K2", MICRO_BATCH, 192, 1600, 12, 1.0, False),
+    ("K9@micro", "K9", MICRO_BATCH, 64, 12, 4, 16 ** -0.5, False),
 )
 
 
@@ -898,7 +925,7 @@ def kernel_phase(torch, F, fa, da, measure_ms):
         for key, name, B, C, N, heads, scale, bias in ATTENTION_SHAPES:
             res[(key, dtype)] = compare_attention(torch, F, fa, measure_ms, name, B, C, N, heads,
                                                   scale, bias, dtype)
-        for key, shape in (("K3", SEP_SMALL), ("K3@tiny", SEP_TINY),
+        for key, shape in (("K3", SEP_SMALL), ("K3@tiny", SEP_TINY), ("K3@micro", SEP_MICRO),
                            ("K3@tiny_train", SEP_TINY_TRAIN), ("K3@large", SEP_LARGE),
                            *((f"K3@{k}", v) for k, v in CM_CHECKS)):
             res[(key, dtype)] = compare_deform_sep(torch, da, measure_ms, dtype, shape, "K3", "cm")
@@ -942,6 +969,73 @@ def plain_attention(fa):
     return attention
 
 
+def plain_patches(fa, da):
+    """Every kernel of the eval forward swapped for its plain version."""
+    return (mock.patch.object(fa, "attention_cm", plain_attention(fa)),
+            mock.patch.object(da, "ms_deform_attn_cm", da.ms_deform_attn_cm_plain),
+            mock.patch.object(da, "ms_deform_attn_sep_panels", da.ms_deform_attn_sep_panels_plain))
+
+
+def plain_backward_patches(fa, da):
+    """Every backward kernel swapped for its plain version (the forward kernels stay)."""
+    return (mock.patch.object(fa, "window_attention_bias_bwd",
+                              lambda qkv, bias, dout, heads, scale:
+                              fa.attention_cm_bwd_plain(qkv, dout, heads, scale, bias=bias)),
+            mock.patch.object(fa, "flash_attention_cm_bwd",
+                              lambda qkv, lse, dout, heads, scale:
+                              fa.attention_cm_bwd_plain(qkv, dout, heads, scale)),
+            mock.patch.object(da, "ms_deform_attn_sep_panels_bwd",
+                              da.ms_deform_attn_sep_panels_bwd_plain),
+            mock.patch.object(da, "ms_deform_attn_cm_bwd", da.ms_deform_attn_cm_bwd_plain),
+            mock.patch.object(da, "ms_deform_attn_bwd", da.ms_deform_attn_bwd_plain))
+
+
+def run_patched(fn, patches):
+    from contextlib import ExitStack
+
+    with ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        return fn()
+
+
+def counted(torch, kernels, fn):
+    """fn() with every launch counter set to 0 just before and read just after."""
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.name: k.launches for k in kernels}
+
+
+class Picks:
+    """`transformer.select_proposals` recorded on a first run and replayed on
+    later ones, cyclically: the two-stage head picks its queries by score,
+    near-tied scores can swap under another rounding, and a swap reseeds
+    whole queries (trap (d)). A replaying run's own picks are kept in `own`,
+    to be compared with the replayed ones on their own. The patches replace
+    a module attribute, so the model must call `tr.select_proposals` through
+    its module: the launch and replay counts check that it does."""
+
+    def __init__(self, tr, recorded=None):
+        self.tr, self.select = tr, tr.select_proposals
+        self.recorded = [] if recorded is None else recorded
+        self.own, self.pool = [], None
+
+    def record(self, scores, k):
+        self.pool = scores.shape[1]
+        self.recorded.append(self.select(scores, k))
+        return self.recorded[-1]
+
+    def replay(self, scores, k):
+        self.own.append(self.select(scores, k))
+        return self.recorded[(len(self.own) - 1) % len(self.recorded)]
+
+    def patch(self, replay):
+        return mock.patch.object(self.tr, "select_proposals",
+                                 self.replay if replay else self.record)
+
+
 def forward_phase(torch, fa, da, kernels, preset):
     """`preset`'s eval path once through the kernels (counted), once through the plain versions."""
     from lwdetr_tpu_torch.config import get_config
@@ -963,50 +1057,27 @@ def forward_phase(torch, fa, da, kernels, preset):
         torch.cuda.synchronize()
         return out, dets
 
-    # the two-stage head picks 300 (tiny: 100) of the 1600 (P4) or 6800 (P3 + P5) proposals by score; near-tied
-    # scores can swap under f32 rounding, and a swap reseeds whole queries.
-    # The plain run below reuses the kernel run's picks (compared on their own)
-    # so that the outputs compare query for query. The patches below replace
-    # module attributes, so the model must keep calling `tr.select_proposals`,
-    # `fa.attention_cm`, `da.ms_deform_attn_cm` and `da.ms_deform_attn_sep_panels`
-    # through their modules: the
-    # launch counts and the replay counts check that it does.
-    picks, own_picks, pool = [], [], []
-
-    def record(scores, k):
-        idx = select(scores, k)
-        picks.append(idx)
-        pool.append(scores.shape[1])
-        return idx
-
-    def replay(scores, k):
-        own_picks.append(select(scores, k))
-        return picks[len(own_picks) - 1]
-
-    select = tr.select_proposals
-    for k in kernels:
-        k.launches = 0
-    with mock.patch.object(tr, "select_proposals", record):
-        out, dets = run()
-    launches = {k.name: k.launches for k in kernels}
+    # the two-stage head picks 300 (tiny: 100) of the 1600 (P4) or 6800 (P3 +
+    # P5) proposals by score: the plain run reuses the kernel run's picks
+    # (compared on their own), so that the outputs compare query for query
+    picks = Picks(tr)
+    (out, dets), launches = counted(torch, kernels, lambda: run_patched(run, (picks.patch(False),)))
     log(f"{preset}@640 launches: {launches}")
     if launches != EXPECTED_LAUNCHES[preset]:
         raise AssertionError(f"{preset}: launches {launches} != {EXPECTED_LAUNCHES[preset]}")
 
-    with mock.patch.object(fa, "attention_cm", plain_attention(fa)), \
-            mock.patch.object(da, "ms_deform_attn_cm", da.ms_deform_attn_cm_plain), \
-            mock.patch.object(da, "ms_deform_attn_sep_panels",
-                              da.ms_deform_attn_sep_panels_plain), \
-            mock.patch.object(tr, "select_proposals", replay):
-        ref, ref_dets = run()
-    if [k.launches for k in kernels] != list(launches.values()):
-        raise AssertionError(f"{preset}: the plain forward launched a kernel")
-    if len(picks) != 1 or len(own_picks) != len(picks):
-        raise AssertionError(f"proposal picks: {len(picks)} recorded, {len(own_picks)} replayed")
-    same_pos = (picks[0] == own_picks[0]).float().mean().item()
+    (ref, ref_dets), n = counted(torch, kernels, lambda: run_patched(
+        run, plain_patches(fa, da) + (picks.patch(True),)))
+    if any(n.values()):
+        raise AssertionError(f"{preset}: the plain forward launched a kernel: {n}")
+    if len(picks.recorded) != 1 or len(picks.own) != 1:
+        raise AssertionError(f"proposal picks: {len(picks.recorded)} recorded, "
+                             f"{len(picks.own)} replayed")
+    recorded, own = picks.recorded[0], picks.own[0]
+    same_pos = (recorded == own).float().mean().item()
     same_set = min(len(set(a.tolist()) & set(b.tolist())) / a.numel()
-                   for a, b in zip(picks[0], own_picks[0]))
-    log(f"{preset}@640 two-stage picks ({picks[0].shape[1]} of {pool[0]}), kernels vs plain: "
+                   for a, b in zip(recorded, own))
+    log(f"{preset}@640 two-stage picks ({recorded.shape[1]} of {picks.pool}), kernels vs plain: "
         f"same position {same_pos:.4f}, same set min {same_set:.4f}")
     if same_set < MIN_TOPK_OVERLAP:
         raise AssertionError(f"two-stage picks differ: set overlap {same_set}")
@@ -1041,36 +1112,31 @@ def forward_phase(torch, fa, da, kernels, preset):
     model16 = build_model(cfg, device="cuda", dtype=torch.bfloat16,
                           state_dict=init_state_dict(cfg, seed=0))
     images16 = images.to(torch.bfloat16)
-    own_picks.clear()
-    for k in kernels:
-        k.launches = 0
-    with torch.no_grad(), mock.patch.object(tr, "select_proposals", replay):
-        out16 = model16(images16)
-    launches16 = {k.name: k.launches for k in kernels}
+    picks.own.clear()
+    with torch.no_grad():
+        out16, launches16 = counted(torch, kernels, lambda: run_patched(
+            lambda: model16(images16), (picks.patch(True),)))
     if launches16 != EXPECTED_LAUNCHES[preset]:
         raise AssertionError(f"{preset} bf16: launches {launches16} != {EXPECTED_LAUNCHES[preset]}")
-    if len(own_picks) != len(picks):
-        raise AssertionError(f"bf16 forward replayed {len(own_picks)} of {len(picks)} picks")
+    if len(picks.own) != 1:
+        raise AssertionError(f"bf16 forward replayed {len(picks.own)} of 1 picks")
     if not (torch.isfinite(out16["pred_logits"]).all() and torch.isfinite(out16["pred_boxes"]).all()):
         raise AssertionError("non-finite bf16 outputs")
     if out16["pred_boxes"].dtype != torch.float32 or out16["pred_logits"].dtype != torch.bfloat16:
         raise AssertionError(f"bf16 forward: boxes {out16['pred_boxes'].dtype}, logits "
                              f"{out16['pred_logits'].dtype}")
     bf16_set = min(len(set(a.tolist()) & set(b.tolist())) / a.numel()
-                   for a, b in zip(picks[0], own_picks[0]))
+                   for a, b in zip(recorded, picks.own[0]))
     bf16_l = (out16["pred_logits"].float() - logits).abs().max().item()
     bf16_b = (out16["pred_boxes"].float() - boxes).abs().max().item()
     log(f"{preset}@640 bf16 forward vs f32 (f32 picks): logits max diff {bf16_l:.3g}, "
         f"boxes {bf16_b:.3g}; bf16's own picks share {bf16_set:.4f} of the f32 set")
-    own_picks.clear()
-    with torch.no_grad(), mock.patch.object(fa, "attention_cm", plain_attention(fa)), \
-            mock.patch.object(da, "ms_deform_attn_cm", da.ms_deform_attn_cm_plain), \
-            mock.patch.object(da, "ms_deform_attn_sep_panels",
-                              da.ms_deform_attn_sep_panels_plain), \
-            mock.patch.object(tr, "select_proposals", replay):
-        ref16 = model16(images16)
-    if [k.launches for k in kernels] != list(launches16.values()):
-        raise AssertionError(f"{preset}: the plain bf16 forward launched a kernel")
+    picks.own.clear()
+    with torch.no_grad():
+        ref16, n = counted(torch, kernels, lambda: run_patched(
+            lambda: model16(images16), plain_patches(fa, da) + (picks.patch(True),)))
+    if any(n.values()):
+        raise AssertionError(f"{preset}: the plain bf16 forward launched a kernel: {n}")
     dp = (out16["pred_logits"].float().sigmoid() - ref16["pred_logits"].float().sigmoid()).abs()
     db = (out16["pred_boxes"] - ref16["pred_boxes"]).abs()
     drift = {"prob_mean": dp.mean().item(), "prob_max": dp.max().item(),
@@ -1117,16 +1183,7 @@ def train_phase(torch, fa, da, kernels, measure_ms, card, preset):
     # flip moves a gradient tensor by up to 1e-2 of its maximum. So the
     # per-tensor bound holds (a1), where both runs share one forward bit for bit,
     # and (a2) is held to the loss and to the relative L2 error over all gradients.
-    select, match = tr.select_proposals, cm.hungarian_match
-    picks, matchings, replayed = [], [], []
-
-    def record_pick(scores, k):
-        picks.append(select(scores, k))
-        return picks[-1]
-
-    def replay_pick(scores, k):
-        replayed.append(select(scores, k))
-        return picks[(len(replayed) - 1) % len(picks)]
+    picks, match, matchings = Picks(tr), cm.hungarian_match, []
 
     def record_match(*args, **kwargs):
         matchings.append(match(*args, **kwargs))
@@ -1157,21 +1214,18 @@ def train_phase(torch, fa, da, kernels, measure_ms, card, preset):
         return rel[worst], worst, l2, rel
 
     def replay():
-        return (mock.patch.object(tr, "select_proposals", replay_pick),
+        return (picks.patch(True),
                 mock.patch.object(cm, "hungarian_match", lambda *a, **kw: matchings[0]))
 
     launches, branch_res, default_grads = {}, {}, None
     for branch in TRAIN_BRANCHES[preset]:
         path = preset if branch is None else f"{preset}/{branch}"
         tr.set_force_branch(model, branch)
-        first = not picks
-        patches = ((mock.patch.object(tr, "select_proposals", record_pick),
-                    mock.patch.object(cm, "hungarian_match", record_match)) if first else replay())
-        for k in kernels:
-            k.launches = 0
-        with patches[0], patches[1]:
-            loss_k, grads_k = grads()
-        launches[path] = {k.name: k.launches for k in kernels}
+        first = not picks.recorded
+        patches = ((picks.patch(False), mock.patch.object(cm, "hungarian_match", record_match))
+                   if first else replay())
+        (loss_k, grads_k), launches[path] = counted(torch, kernels,
+                                                    lambda: run_patched(grads, patches))
         log(f"{path}@640 train step launches: {launches[path]}")
         if launches[path] != TRAIN_LAUNCHES[path]:
             raise AssertionError(f"{path} train step: launches {launches[path]} != "
@@ -1179,23 +1233,11 @@ def train_phase(torch, fa, da, kernels, measure_ms, card, preset):
         if not all(torch.isfinite(g).all() for g in grads_k.values()):
             raise AssertionError(f"{path}: non-finite gradients")
 
-        patches = replay()
-        with patches[0], patches[1], \
-                mock.patch.object(fa, "window_attention_bias_bwd",
-                                  lambda qkv, bias, dout, heads, scale:
-                                  fa.attention_cm_bwd_plain(qkv, dout, heads, scale, bias=bias)), \
-                mock.patch.object(fa, "flash_attention_cm_bwd",
-                                  lambda qkv, lse, dout, heads, scale:
-                                  fa.attention_cm_bwd_plain(qkv, dout, heads, scale)), \
-                mock.patch.object(da, "ms_deform_attn_sep_panels_bwd",
-                                  da.ms_deform_attn_sep_panels_bwd_plain), \
-                mock.patch.object(da, "ms_deform_attn_cm_bwd", da.ms_deform_attn_cm_bwd_plain), \
-                mock.patch.object(da, "ms_deform_attn_bwd", da.ms_deform_attn_bwd_plain):
-            loss_b, grads_b = grads()
-        if any(k.launches != launches[path][k.name] for k in kernels
-               if k.name in BACKWARD_KERNELS):
+        (loss_b, grads_b), n = counted(torch, kernels, lambda: run_patched(
+            grads, replay() + plain_backward_patches(fa, da)))
+        if any(n[k] for k in BACKWARD_KERNELS):
             raise AssertionError(f"{path}: the step on the plain backwards launched a backward "
-                                 "kernel")
+                                 f"kernel: {n}")
         bwd_err, bwd_worst, bwd_l2, rel = compare(
             grads_k, grads_b, f"the plain backwards on the same forward ({path})")
         # the gradients that d(loc) of the samplers feeds first (trap (c))
@@ -1220,21 +1262,18 @@ def train_phase(torch, fa, da, kernels, measure_ms, card, preset):
         raise AssertionError(f"{preset}: the branches' losses differ: {branch_losses}")
     loss_k, grads_k = branch_res[preset]["loss_kernels"], default_grads
 
-    before = [k.launches for k in kernels]
-    n_replayed = len(replayed)
-    patches = replay()
-    with patches[0], patches[1], mock.patch.object(fa, "attention_cm", plain_attention(fa)), \
-            mock.patch.object(da, "ms_deform_attn_sep_panels",
-                              da.ms_deform_attn_sep_panels_plain):
-        loss_p, grads_p = grads()
-    if [k.launches for k in kernels] != before:
-        raise AssertionError("the plain train step launched a kernel")
+    n_replayed = len(picks.own)
+    (loss_p, grads_p), n = counted(torch, kernels, lambda: run_patched(
+        grads, replay() + plain_patches(fa, da)))
+    if any(n.values()):
+        raise AssertionError(f"the plain train step launched a kernel: {n}")
     runs = 2 * len(TRAIN_BRANCHES[preset])  # every run after the first replays
-    if (len(picks) != mcfg.group_detr or len(replayed) != runs * len(picks)
+    if (len(picks.recorded) != mcfg.group_detr or len(picks.own) != runs * len(picks.recorded)
             or len(matchings) != 1):
-        raise AssertionError(f"{len(picks)} picks recorded, {len(replayed)} replayed, "
+        raise AssertionError(f"{len(picks.recorded)} picks recorded, {len(picks.own)} replayed, "
                              f"{len(matchings)} matchings")
-    same_pick = min((a == b).float().mean().item() for a, b in zip(picks, replayed[n_replayed:]))
+    same_pick = min((a == b).float().mean().item()
+                    for a, b in zip(picks.recorded, picks.own[n_replayed:]))
     log(f"{tag} loss, kernels {loss_k:.7f} vs all plain {loss_p:.7f}; the plain "
         f"forward's own picks at the same position {same_pick:.4f}")
     all_err, all_worst, all_l2, _ = compare(grads_k, grads_p,
@@ -1323,12 +1362,7 @@ def release_train_phase(torch, fa, da, kernels, measure_ms, card, path, preset, 
         masks.append(bern(keep, shape, like))
         return masks[-1]
 
-    select, match = tr.select_proposals, cm.hungarian_match
-    picks, matchings = [], []
-
-    def record_pick(scores, k):
-        picks.append(select(scores, k))
-        return picks[-1]
+    picks, match, matchings = Picks(tr), cm.hungarian_match, []
 
     def record_match(*args, **kwargs):
         matchings.append(match(*args, **kwargs))
@@ -1343,14 +1377,11 @@ def release_train_phase(torch, fa, da, kernels, measure_ms, card, path, preset, 
         return total.item(), {n: p.grad.clone() for n, p in model.named_parameters()
                               if p.grad is not None}
 
-    for k in kernels:
-        k.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    with mock.patch.object(tr, "select_proposals", record_pick), \
-            mock.patch.object(cm, "hungarian_match", record_match):
-        loss_k, grads_k = grads(record_mask)
+    (loss_k, grads_k), launches = counted(torch, kernels, lambda: run_patched(
+        lambda: grads(record_mask),
+        (picks.patch(False), mock.patch.object(cm, "hungarian_match", record_match))))
     peak_step = torch.cuda.max_memory_allocated() / 2 ** 20
-    launches = {k.name: k.launches for k in kernels}
     expect = TRAIN_LAUNCHES[f"{preset}/remat" if remat else preset]
     log(f"{path} launches: {launches}; {len(masks)} drop-path masks")
     if launches != expect:
@@ -1360,22 +1391,16 @@ def release_train_phase(torch, fa, da, kernels, measure_ms, card, path, preset, 
     if not all(torch.isfinite(g).all() for g in grads_k.values()):
         raise AssertionError(f"{path}: non-finite gradients")
     fed = drop.Fed(masks)
-    with mock.patch.object(tr, "select_proposals", lambda scores, k: picks.pop(0)), \
-            mock.patch.object(cm, "hungarian_match", lambda *a, **kw: matchings[0]), \
-            mock.patch.object(fa, "window_attention_bias_bwd",
-                              lambda qkv, bias, dout, heads, scale:
-                              fa.attention_cm_bwd_plain(qkv, dout, heads, scale, bias=bias)), \
-            mock.patch.object(fa, "flash_attention_cm_bwd",
-                              lambda qkv, lse, dout, heads, scale:
-                              fa.attention_cm_bwd_plain(qkv, dout, heads, scale)), \
-            mock.patch.object(da, "ms_deform_attn_sep_panels_bwd",
-                              da.ms_deform_attn_sep_panels_bwd_plain):
-        loss_b, grads_b = grads(fed)
-    if picks or fed.used != len(masks):
-        raise AssertionError(f"{path}: {len(picks)} picks and {len(masks) - fed.used} masks "
-                             "not replayed")
-    if any(k.launches != launches[k.name] for k in kernels if k.name in BACKWARD_KERNELS):
-        raise AssertionError(f"{path}: the step on the plain backwards launched a backward kernel")
+    (loss_b, grads_b), n = counted(torch, kernels, lambda: run_patched(
+        lambda: grads(fed),
+        (picks.patch(True), mock.patch.object(cm, "hungarian_match", lambda *a, **kw: matchings[0]))
+        + plain_backward_patches(fa, da)))
+    if len(picks.own) != len(picks.recorded) or fed.used != len(masks):
+        raise AssertionError(f"{path}: {len(picks.own)} of {len(picks.recorded)} picks and "
+                             f"{fed.used} of {len(masks)} masks replayed")
+    if any(n[k] for k in BACKWARD_KERNELS):
+        raise AssertionError(f"{path}: the step on the plain backwards launched a backward "
+                             f"kernel: {n}")
     top = max(g.abs().max().item() for g in grads_b.values())
     zero = exact_zero_grads(model) if dtype == "bfloat16" else set()
     rel = {n: ((grads_k[n].float() - g.float()).abs().max()
@@ -1412,6 +1437,382 @@ def release_train_phase(torch, fa, da, kernels, measure_ms, card, path, preset, 
           f"{peak_step:.1f} MiB ({card})")
     del state, step, model
     torch.cuda.empty_cache()
+    return launches, res
+
+
+# the eval entry point on the mAP fixture (`tests/fixtures/micro_map/`: 20
+# JPEGs, COCO annotations, the micro model's weights and the 12 stats the JAX
+# package's pipeline gives them). The micro model through the port's CLI
+# (`lwdetr_tpu_torch.main --eval`), batch 4: 5 batches, each launching K1 once
+# (one window block), K2 once (one global block), K9 twice (the decoder's
+# self-attention over 12 queries) and K3 twice (its cross-attention, 1600
+# memory positions); small's release preset at batch 8: 3 batches of K1 6, K2 7,
+# K3 3.
+FIXTURE = "tests/fixtures/micro_map"
+MICRO_FLAGS = ("--encoder vit_tiny --vit_encoder_num_layers 2 --window_block_indexes 0 "
+               "--out_feature_indexes 0 1 --projector_scale P4 --hidden_dim 64 "
+               "--dim_feedforward 128 --sa_nheads 4 --ca_nheads 8 --dec_n_points 2 "
+               "--dec_layers 2 --group_detr 2 --num_queries 12 --num_select 10 --two_stage "
+               "--lite_refpoint_refine --bbox_reparam --square_resize_div_64 --max_gt 10").split()
+MICRO_EVAL_BATCHES = 5
+MICRO_EVAL_LAUNCHES = launch_counts(K1=5, K2=5, K9=10, K3=10)
+SMALL_EVAL_BATCH = 8
+SMALL_EVAL_BATCHES = 3  # 20 images, the last batch padded with repeats
+SMALL_EVAL_LAUNCHES = launch_counts(K1=18, K2=21, K3=9)
+FIXTURE_REPEATS = 10  # the fixture's passes in the eval loop's longer window
+# the f32 pipeline holds the JAX package's golden stats as its test does
+# (tests/test_micro_map_golden.py); the bf16 one is held to the JAX test's
+# envelope around the f32 golden (random weights: scores within a bf16 ulp
+# of one another swap ranks, and AP on 20 images moves with them)
+GOLDEN_ATOL = 1e-7
+BF16_GOLDEN_ENVELOPE = 0.55
+
+
+class Recorder(Picks):
+    """The two-stage proposal picks (recorded, or replayed from another run
+    so that near-tied scores pick alike: trap (d)) and, for each batch, the
+    model's outputs and `post_process`'s detections, copied to the host,
+    with the flat (query, label) index of each detection."""
+
+    def __init__(self, torch, tr, engine, replay_from=None):
+        super().__init__(tr, None if replay_from is None else replay_from.recorded)
+        self.torch, self.replaying = torch, replay_from is not None
+        self.engine, self.post_process = engine, engine.post_process
+        self.outputs = []
+
+    def record_post_process(self, logits, boxes, sizes, num_select):
+        dets = self.post_process(logits, boxes, sizes, num_select=num_select)
+        self.outputs.append({"logits": logits.float().cpu(), "boxes": boxes.float().cpu(),
+                             "sizes": sizes.float().cpu(),
+                             "picks": detection_index(self.torch, logits, boxes, sizes, dets).cpu(),
+                             "dets": [d.float().cpu() for d in dets]})
+        return dets
+
+    def patches(self):
+        return (self.patch(self.replaying),
+                mock.patch.object(self.engine, "post_process", self.record_post_process))
+
+
+def detection_index(torch, logits, boxes, sizes, dets):
+    """The flat (query, label) index of each detection `post_process`
+    returned: the query whose box, scaled as `post_process` scales it, is
+    the detection's box bit for bit, and whose score for the detection's
+    label is nearest its score. A second top-k call would not do: among tied
+    bf16 logits the order of a top-k on the card may change from one call to
+    the next, and a detection would then be set against another's box."""
+    from lwdetr_tpu_torch.ops import box_ops
+
+    scores, labels, det_boxes = dets
+    B, Q, K = logits.shape
+    h, w = sizes[:, 0], sizes[:, 1]
+    scale = torch.stack([w, h, w, h], dim=1).to(torch.float32)
+    all_boxes = box_ops.box_cxcywh_to_xyxy(boxes.float()) * scale[:, None, :]  # (B, Q, 4)
+    same_box = (all_boxes[:, :, None, :] == det_boxes[:, None, :, :]).all(-1)  # (B, Q, S)
+    label_scores = logits.float().sigmoid().gather(2, labels[:, None, :].expand(-1, Q, -1))
+    gap = (label_scores - scores[:, None, :]).abs().masked_fill(~same_box, float("inf"))
+    best, query = gap.min(dim=1)
+    if not (best <= SCORE_MATCH_ATOL).all():
+        raise AssertionError(f"a detection matches no query's box and score: gap {best.max()}")
+    return query * K + labels
+
+
+def compare_detections(torch, tag, run, ref, num_select, bf16):
+    """The kernel run's outputs against the plain run's, batch by batch, on
+    the same proposal picks. f32: logits within FWD_ATOL_LOGITS, boxes within
+    FWD_ATOL_BOXES (normalized) over every query; the detections' scores,
+    sorted, within FWD_ATOL_LOGITS, and the boxes of the detections both
+    runs pick (the same query and label) within FWD_ATOL_BOXES of the image's
+    size. bf16: the drift ceiling over every query (BF16_DRIFT). Both: the
+    difference of each shared detection's boxes is its query's (xyxy, over
+    the image's size) within PAIRING_ATOL, which holds only if each
+    detection was paired by the index `post_process` itself selected."""
+    from lwdetr_tpu_torch.ops import box_ops
+
+    if len(run.outputs) != len(ref.outputs) or len(ref.own) != len(run.recorded):
+        raise AssertionError(f"{tag}: {len(run.outputs)} / {len(ref.outputs)} batches, "
+                             f"{len(run.recorded)} picks, {len(ref.own)} replayed")
+    worst = {"logits": 0.0, "boxes": 0.0, "scores": 0.0, "det_boxes": 0.0, "pairing": 0.0}
+    probs, boxes_d, overlap, same_picks = [], [], [], []
+    for a, b, own, replayed in zip(run.outputs, ref.outputs, ref.own, run.recorded):
+        same_picks.append(min(len(set(x.tolist()) & set(y.tolist())) / x.numel()
+                              for x, y in zip(own, replayed)))
+        worst["logits"] = max(worst["logits"], (a["logits"] - b["logits"]).abs().max().item())
+        worst["boxes"] = max(worst["boxes"], (a["boxes"] - b["boxes"]).abs().max().item())
+        probs.append((a["logits"].sigmoid() - b["logits"].sigmoid()).abs())
+        boxes_d.append((a["boxes"] - b["boxes"]).abs())
+        query_d = box_ops.box_cxcywh_to_xyxy(a["boxes"]) - box_ops.box_cxcywh_to_xyxy(b["boxes"])
+        K = a["logits"].shape[-1]
+        for i in range(a["logits"].shape[0]):
+            # scores sorted (a near-tie may swap two picks), boxes of the picks both share
+            worst["scores"] = max(worst["scores"],
+                                  (a["dets"][0][i] - b["dets"][0][i]).abs().max().item())
+            ia, ib = a["picks"][i].tolist(), b["picks"][i].tolist()
+            common = set(ia) & set(ib)
+            overlap.append(len(common) / num_select)
+            h, w = a["sizes"][i].tolist()
+            scale = torch.tensor([w, h, w, h])
+            for flat in common:
+                d = (a["dets"][2][i, ia.index(flat)] - b["dets"][2][i, ib.index(flat)]) / scale
+                worst["det_boxes"] = max(worst["det_boxes"], d.abs().max().item())
+                worst["pairing"] = max(worst["pairing"],
+                                       (d - query_d[i, flat // K]).abs().max().item())
+    dp, db = torch.cat([p.reshape(-1) for p in probs]), torch.cat([d.reshape(-1) for d in boxes_d])
+    drift = {"prob_mean": dp.mean().item(), "prob_max": dp.max().item(), "box_mean": db.mean().item()}
+    res = {**{f"{k}_max_abs_err": v for k, v in worst.items()}, "bf16_drift": drift,
+           "topk_overlap_min": min(overlap), "own_proposal_picks_same_set_min": min(same_picks)}
+    log(f"{tag}, kernels vs plain on the card: " + json.dumps(res))
+    if worst["pairing"] > PAIRING_ATOL:
+        raise AssertionError(f"{tag}: a detection was paired with another query's box: "
+                             f"{worst['pairing']}")
+    if bf16:
+        if any(v >= BF16_DRIFT[k] for k, v in drift.items()):
+            raise AssertionError(f"{tag}: bf16 pipeline drifts from its plain versions: {drift}")
+    elif (worst["logits"] > FWD_ATOL_LOGITS or worst["boxes"] > FWD_ATOL_BOXES
+          or worst["scores"] > FWD_ATOL_LOGITS or worst["det_boxes"] > FWD_ATOL_BOXES):
+        raise AssertionError(f"{tag}: detections disagree with the plain versions: {worst}")
+    return res
+
+
+def micro_pth(torch, path, args):
+    """The fixture's JAX weights (`weights.npz`) as a reference-style .pth."""
+    from lwdetr_tpu_torch.main import config_from_args
+    from lwdetr_tpu_torch.weights import read_jax_npz, state_dict_from_jax
+
+    tree = read_jax_npz(f"{FIXTURE}/weights.npz")
+    sd = state_dict_from_jax(tree["params"], tree.get("batch_stats"), config_from_args(args).model)
+    torch.save({"model": sd, "epoch": 0}, path)
+
+
+def eval_pipeline_phase(torch, fa, da, kernels, card):
+    """The eval entry point on the mAP fixture: (i) the micro model in f32
+    through `lwdetr_tpu_torch.main --eval` (launch counts; the 12 stats against
+    the golden), (ii) the same in bf16 (the envelope around the f32 golden;
+    the distance to the JAX bf16 golden printed); each again with every
+    kernel swapped for its plain version, detections against the kernel
+    run's on the same picks; (iii) small's release preset at full width,
+    bf16, batch 8, random weights from seed 0 (launch counts, detections
+    against the plain run within the bf16 ceiling, the eval loop's img/s,
+    the loader's share of its wall time and the device's idle share); (iv)
+    fixture-only host numbers: the loop over the fixture 10 times over
+    with its first epoch left out, the loader alone and the step alone over
+    it, and each image's decode and resize + normalize on one thread."""
+    import copy
+    import os
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from lwdetr_tpu_torch import main as cli
+    from lwdetr_tpu_torch.config import get_config, get_train_config
+    from lwdetr_tpu_torch.data import native
+    from lwdetr_tpu_torch.data.coco import CocoDetection
+    from lwdetr_tpu_torch.data.coco_eval import CocoEvaluator
+    from lwdetr_tpu_torch.data.loader import DetectionLoader, to_device
+    from lwdetr_tpu_torch.models import transformer as tr
+    from lwdetr_tpu_torch.models.criterion import SetCriterion
+    from lwdetr_tpu_torch.models.lwdetr import build_model
+    from lwdetr_tpu_torch.train import engine
+    from lwdetr_tpu_torch.weights import init_state_dict
+
+    with open(f"{FIXTURE}/golden_stats.json") as f:
+        golden = json.load(f)["stats"]
+    with open(f"{FIXTURE}/golden_stats_bf16.json") as f:
+        golden16 = json.load(f)["stats"]
+    out_dir = "build/chip_smoke"
+    os.makedirs(out_dir, exist_ok=True)
+    pth = f"{out_dir}/micro.pth"
+    res = {}
+    launches = {}
+
+    def cli_args(*extra):
+        return cli.parser().parse_args(["--eval", "--coco_path", FIXTURE, *MICRO_FLAGS,
+                                        "--batch_size", str(MICRO_BATCH), "--resume", pth,
+                                        "--output_dir", out_dir, *extra])
+
+    micro_pth(torch, pth, cli_args())
+    micro_runs = (("micro_eval_f32", ()), ("micro_eval_bf16", ("--bf16",)))
+    runs = {}
+    for tag, extra in micro_runs:
+        rec = Recorder(torch, tr, engine)
+        t0 = time.perf_counter()
+        out, n = counted(torch, kernels, lambda: run_patched(lambda: cli.main(cli_args(*extra)),
+                                                             rec.patches()))
+        wall = time.perf_counter() - t0
+        launches[tag] = n
+        log(f"{tag} launches (5 batches of 4): {n}")
+        if n != MICRO_EVAL_LAUNCHES:
+            raise AssertionError(f"{tag}: launches {n} != {MICRO_EVAL_LAUNCHES}")
+        stats = out["stats"]
+        dist = {k: stats[k] - golden[k] for k in golden}
+        dist16 = {k: stats[k] - golden16[k] for k in golden16}
+        runs[tag] = rec
+        res[tag] = {"stats": {k: stats[k] for k in golden}, "minus_golden_f32": dist,
+                    "minus_golden_bf16": dist16, "wall_s": wall}
+        print(f"{tag}: the 12 stats {json.dumps({k: stats[k] for k in golden})}; minus the f32 "
+              f"golden: max |d| {max(abs(v) for v in dist.values()):.3g}; minus the JAX bf16 "
+              f"golden: max |d| {max(abs(v) for v in dist16.values()):.3g} ({card})")
+        if tag.endswith("f32"):
+            bad = {k: v for k, v in dist.items() if abs(v) > GOLDEN_ATOL}
+            if bad:
+                raise AssertionError(f"{tag}: stats off the golden by more than {GOLDEN_ATOL}: {bad}")
+        else:
+            res[tag]["envelope_headroom"] = (BF16_GOLDEN_ENVELOPE
+                                             - max(abs(v) for v in dist.values()))
+            bad = {k: v for k, v in dist.items() if abs(v) >= BF16_GOLDEN_ENVELOPE}
+            if bad:
+                raise AssertionError(f"{tag}: bf16 stats off the f32 golden by "
+                                     f"{BF16_GOLDEN_ENVELOPE} or more: {bad}")
+    # (i) and (ii) again with every kernel swapped for its plain version, on each run's picks
+    for tag, extra in micro_runs:
+        plain = Recorder(torch, tr, engine, replay_from=runs[tag])
+        out, n = counted(torch, kernels, lambda: run_patched(
+            lambda: cli.main(cli_args(*extra)), plain_patches(fa, da) + plain.patches()))
+        if any(n.values()):
+            raise AssertionError(f"{tag}: the plain pipeline launched kernels: {n}")
+        res[tag]["kernels_vs_plain"] = compare_detections(torch, tag, runs[tag], plain, 10,
+                                                          bf16=tag.endswith("bf16"))
+        res[tag]["plain_stats_minus_golden"] = {k: out["stats"][k] - golden[k] for k in golden}
+
+    # (iii) small at full width, bf16, batch 8, over the fixture's 20 images
+    cfg = get_config("small")
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16,
+                        state_dict=init_state_dict(cfg, seed=0))
+    ds = CocoDetection(f"{FIXTURE}/val2017", f"{FIXTURE}/annotations/instances_val2017.json")
+
+    def make_loader(dataset):
+        return DetectionLoader(dataset, batch_size=SMALL_EVAL_BATCH, train=False, max_gt=100,
+                               square_div_64=True, num_workers=2, image_dtype=torch.bfloat16)
+
+    loader = make_loader(ds)
+    eval_step = engine.build_eval_step(model, cfg.num_select,
+                                       criterion=SetCriterion(cfg, get_train_config("small")))
+    put = lambda b: to_device(b, "cuda")  # noqa: E731
+
+    def evaluate(timed_loader=None):
+        return engine.evaluate(eval_step, timed_loader or loader, CocoEvaluator(ds.coco),
+                               put_fn=put, logger=log)
+
+    rec = Recorder(torch, tr, engine)
+    _, n = counted(torch, kernels, lambda: run_patched(evaluate, rec.patches()))
+    launches["small_eval_fixture"] = n
+    log(f"small_eval_fixture launches (3 batches of 8): {n}")
+    if n != SMALL_EVAL_LAUNCHES:
+        raise AssertionError(f"small_eval_fixture: launches {n} != {SMALL_EVAL_LAUNCHES}")
+    plain = Recorder(torch, tr, engine, replay_from=rec)
+    _, n = counted(torch, kernels, lambda: run_patched(evaluate, plain_patches(fa, da) +
+                                                       plain.patches()))
+    if any(n.values()):
+        raise AssertionError(f"the plain small pipeline launched kernels: {n}")
+    small = {"kernels_vs_plain": compare_detections(torch, "small_eval_fixture", rec, plain,
+                                                    cfg.num_select, bf16=True)}
+
+    class TimedLoader:
+        """A loader, with the time of each request for a batch (one more at
+        the end) and the caller's wait for each batch."""
+
+        def __init__(self, inner):
+            self.inner, self.starts, self.waits = inner, [], []
+
+        def __iter__(self):
+            it = iter(self.inner)
+            while True:
+                t = time.perf_counter()
+                self.starts.append(t)
+                batch = next(it, None)
+                if batch is None:
+                    return
+                self.waits.append(time.perf_counter() - t)
+                yield batch
+
+        def periods(self, first):
+            """Each batch's share of the loop from batch `first` on: (waits, periods)."""
+            return (self.waits[first:],
+                    [b - a for a, b in zip(self.starts[first:], self.starts[first + 1:])])
+
+    walls, waits = [], []
+    for _ in range(3):
+        timed = TimedLoader(loader)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = evaluate(timed)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        waits.append(sum(timed.waits))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        evaluate()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    wall = sorted(walls)[1]
+    n_img = len(ds)
+    small.update({"stats": {k: stats[k] for k in golden}, "wall_s": walls,
+                  "loader_wait_s": waits, "img_per_s": n_img / wall,
+                  "loader_share": waits[walls.index(wall)] / wall,
+                  "device_busy_s_profiled": busy, "device_idle_share": 1.0 - busy / wall,
+                  "images": n_img, "batch": SMALL_EVAL_BATCH, "card": card})
+    print(f"small_eval_fixture: bf16, batch {SMALL_EVAL_BATCH}, {n_img} images, start-up "
+          f"included: eval loop {small['img_per_s']:.2f} img/s (median of 3 walls "
+          f"{[round(w, 4) for w in walls]} s), loader wait {small['loader_share']:.3f} of the "
+          f"wall, device idle share {small['device_idle_share']:.3f} ({card})")
+
+    # (iv) fixture only, not COCO traffic (two of its 20 JPEGs are 1600x1200
+    # and 3200x2400): the same loop over the fixture FIXTURE_REPEATS times,
+    # with its first epoch (start-up, the evaluator's updates) left out; the
+    # loader alone over the same images, its first batch left out; the step
+    # alone (copy in, forward, eval losses, post_process) on one batch
+    repeated = copy.copy(ds)
+    repeated.ids = ds.ids * FIXTURE_REPEATS
+    timed = TimedLoader(make_loader(repeated))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        evaluate(timed)
+        torch.cuda.synchronize()
+    steady_busy = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    wait_s, period_s = timed.periods(SMALL_EVAL_BATCHES)
+    alone = TimedLoader(make_loader(repeated))
+    batches = [b for b in alone]
+    loader_s = sum(alone.periods(1)[1])
+    step_s = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        eval_step(put(batches[0]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    # each fixture image's decode and resize + normalize on one thread, best of 3
+    decode_s, resize_s, pixels = [], [], []
+    for img_id in ds.ids:
+        path = os.path.join(ds.img_folder, ds.coco.imgs[img_id]["file_name"])
+        best_d = best_r = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            rgb = native.decode_jpeg(path)
+            t1 = time.perf_counter()
+            native.resize_normalize(rgb, 640)
+            best_d, best_r = min(best_d, t1 - t0), min(best_r, time.perf_counter() - t1)
+        decode_s.append(best_d)
+        resize_s.append(best_r)
+        pixels.append(rgb.shape[0] * rgb.shape[1])
+    big = sorted(range(len(pixels)), key=pixels.__getitem__)[-2:]
+    small["fixture_steady"] = {
+        "repeats": FIXTURE_REPEATS, "batches_in_window": len(period_s),
+        "img_per_s": SMALL_EVAL_BATCH * len(period_s) / sum(period_s),
+        "loader_share": sum(wait_s) / sum(period_s),
+        "device_idle_share_whole_run": 1.0 - steady_busy / (timed.starts[-1] - timed.starts[0]),
+        "loader_alone_img_per_s": SMALL_EVAL_BATCH * (len(batches) - 1) / loader_s,
+        "step_alone_ms": sorted(step_s)[len(step_s) // 2] * 1e3,
+        "decode_ms_per_pass": sum(decode_s) * 1e3, "resize_ms_per_pass": sum(resize_s) * 1e3,
+        "decode_share_of_two_largest": sum(decode_s[i] for i in big) / sum(decode_s),
+        "megapixels_per_pass": sum(pixels) / 1e6, "card": card}
+    s = small["fixture_steady"]
+    print(f"small_eval_fixture, fixture only ({FIXTURE_REPEATS} passes, the first left out; "
+          f"not COCO traffic): eval loop {s['img_per_s']:.2f} img/s, loader wait "
+          f"{s['loader_share']:.3f} of the wall, device idle {s['device_idle_share_whole_run']:.3f}"
+          f"; the loader alone {s['loader_alone_img_per_s']:.2f} img/s, the step alone "
+          f"{s['step_alone_ms']:.2f} ms a batch of {SMALL_EVAL_BATCH}; one thread over the 20 "
+          f"images ({s['megapixels_per_pass']:.2f} MP): decode {s['decode_ms_per_pass']:.2f} ms "
+          f"({s['decode_share_of_two_largest']:.3f} of it the two largest), resize + normalize "
+          f"{s['resize_ms_per_pass']:.2f} ms ({card})")
+    res["small_eval_fixture"] = small
     return launches, res
 
 
@@ -1460,6 +1861,8 @@ def main() -> int:
     release["xlarge_f32_remat_peak_memory_share"] = peaks[1] / peaks[0]
     print(f"xlarge@640 f32 train step, batch {LARGE_TRAIN_BATCH}, peak device memory: "
           f"{peaks[0]:.1f} MiB, with remat {peaks[1]:.1f} MiB ({card_line()})")
+    by_path, eval_pipeline = eval_pipeline_phase(torch, fa, da, list(kernels.values()), card_line())
+    launches.update(by_path)
     for preset in EXPECTED_LAUNCHES:
         thr[preset] = bench.run(preset, batch=32)
         log(f"{preset}@640 bf16 throughput: {thr[preset]['value']} img/s at batch 32 "
@@ -1498,7 +1901,8 @@ def main() -> int:
                   for key, kname, *_ in ATTENTION_SHAPES + ATTENTION_BWD_SHAPES
                   if kname == name and "@" in key}
         if name == "K3":
-            others.update(tiny=both("K3@tiny"), tiny_cm_train=both("K3@tiny_train"),
+            others.update(tiny=both("K3@tiny"), micro=both("K3@micro"),
+                          tiny_cm_train=both("K3@tiny_train"),
                           large=both("K3@large"))
         if name in ("K3", "K8"):
             others.update({k: both(f"{name}@{k}") for k, _ in CM_CHECKS})
@@ -1523,7 +1927,7 @@ def main() -> int:
         if entry["route"] not in ("cuda", "triton") or any(k not in entry for k in CONTRACT_KEYS):
             raise AssertionError(f"{entry['name']}: kernels-line entry breaks its contract")
     print(json.dumps({"forward_f32": fwd, "throughput": thr, "train_f32": train,
-                      "release_train": release}))
+                      "release_train": release, "eval_pipeline": eval_pipeline}))
     print(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

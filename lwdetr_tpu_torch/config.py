@@ -2,12 +2,13 @@
 
 The port keeps its own copy of the JAX package's `ModelConfig`, `TrainConfig`
 and presets (`lwdetr_tpu/config.py`): the flag sets of the reference's
-`scripts/lwdetr_*_coco_train.sh`. The data config arrives with the data slice.
+`scripts/lwdetr_*_coco_train.sh`, with the data config and the whole-run
+`Config` that bundles the three.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Tuple
 
 
@@ -104,6 +105,31 @@ class TrainConfig:
     max_gt: int = 100
 
 
+@dataclass(frozen=True)
+class DataConfig:
+    dataset_file: str = "coco"  # coco | o365
+    coco_path: str = ""
+    square_resize_div_64: bool = False
+    # sample the square train size per image and pad the batch to its max with
+    # a pad_mask (the reference recipe); the default samples one size a batch
+    per_image_scales: bool = False
+    num_workers: int = 2
+    eval_square_size: int = 640
+
+
+@dataclass(frozen=True)
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    output_dir: str = "output"
+    # parameters are always float32; the compute dtype is configurable
+    compute_dtype: str = "float32"  # float32 | bfloat16
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
 def _release_train_defaults(**kw) -> TrainConfig:
     """Flag set shared by all scripts/lwdetr_*_coco_train.sh."""
     base = dict(
@@ -189,3 +215,10 @@ def get_train_config(name: str, **overrides) -> TrainConfig:
 def get_config(name: str, **overrides) -> ModelConfig:
     cfg = PRESETS[name]
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def release_config(name: str) -> Config:
+    """The whole release recipe of preset `name`: its model and train
+    configs and the `square_resize_div_64` data recipe every preset uses."""
+    return Config(model=PRESETS[name], train=TRAIN_PRESETS[name],
+                  data=DataConfig(square_resize_div_64=True))

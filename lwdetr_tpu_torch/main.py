@@ -1,0 +1,302 @@
+"""LW-DETR evaluation CLI of the PyTorch/CUDA port.
+
+    python -m lwdetr_tpu_torch.main --eval --preset small --coco_path /data/coco \\
+        --resume LWDETR_small_coco.pth [--bf16] [--use_ema]
+    python -m lwdetr_tpu_torch.main --eval --device cpu --coco_path DIR ... (model flags)
+
+Counterpart of the root `main.py` (`get_args_parser`, `config_from_args` and
+its `--eval` branch): the same flags with the same meanings, driving
+COCO-format dir -> `CocoDetection` -> `DetectionLoader` -> `build_eval_step`
+on the card (the port's kernels) -> `evaluate` -> `CocoEvaluator`, and one
+JSON line of the 12 AP/AR stats (and the eval losses). `--device` defaults
+to `cuda` and raises when there is no card; `--device cpu` runs the plain
+versions. Training through the CLI needs the train state's save and restore
+(ROADMAP.md § 1 item 4) and is refused, as is `export_model` (§ 1 item 8).
+f32 eval keeps TF32 off, so f32 means f32.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+
+import numpy as np
+import torch
+
+
+def get_args_parser():
+    p = argparse.ArgumentParser("LW-DETR PyTorch/CUDA", add_help=False)
+    p.add_argument("--preset", default=None,
+                   choices=("tiny", "small", "medium", "large", "xlarge"),
+                   help="release preset; individual flags override")
+    # optimization (reference main.py:41-66)
+    p.add_argument("--lr", default=1e-4, type=float)
+    p.add_argument("--lr_encoder", default=1.5e-4, type=float)
+    p.add_argument("--batch_size", default=2, type=int, help="batch of the loader")
+    p.add_argument("--weight_decay", default=1e-4, type=float)
+    p.add_argument("--epochs", default=12, type=int)
+    p.add_argument("--lr_drop", default=11, type=int)
+    p.add_argument("--clip_max_norm", default=0.1, type=float)
+    p.add_argument("--lr_vit_layer_decay", default=0.8, type=float)
+    p.add_argument("--lr_component_decay", default=1.0, type=float)
+    p.add_argument("--dropout", default=0, type=float)
+    p.add_argument("--drop_path", default=0, type=float)
+    p.add_argument("--drop_mode", default="standard", choices=("standard", "early", "late"))
+    p.add_argument("--drop_schedule", default="constant", choices=("constant", "linear"))
+    p.add_argument("--cutoff_epoch", default=0, type=int)
+    # model loading
+    p.add_argument("--pretrained_encoder", default=None, type=str)
+    p.add_argument("--pretrain_weights", default=None, type=str)
+    p.add_argument("--pretrain_exclude_keys", default=None, type=str, nargs="+")
+    p.add_argument("--pretrain_keys_modify_to_load", default=None, type=str, nargs="+")
+    # backbone
+    p.add_argument("--encoder", default="vit_tiny", type=str)
+    p.add_argument("--vit_encoder_num_layers", default=12, type=int)
+    p.add_argument("--window_block_indexes", default=None, type=int, nargs="+")
+    p.add_argument("--position_embedding", default="sine", choices=("sine", "learned"))
+    p.add_argument("--grad_checkpointing", action="store_true",
+                   help="recompute encoder blocks in the backward")
+    p.add_argument("--shard_opt_state", action="store_true",
+                   help="accepted for the JAX CLI's flag set; sharded optimizer state is "
+                        "ROADMAP.md § 1 item 7")
+    p.add_argument("--out_feature_indexes", default=[-1], type=int, nargs="+")
+    # transformer
+    p.add_argument("--dec_layers", default=3, type=int)
+    p.add_argument("--dim_feedforward", default=2048, type=int)
+    p.add_argument("--hidden_dim", default=256, type=int)
+    p.add_argument("--sa_nheads", default=8, type=int)
+    p.add_argument("--ca_nheads", default=8, type=int)
+    p.add_argument("--num_queries", default=300, type=int)
+    p.add_argument("--group_detr", default=13, type=int)
+    p.add_argument("--two_stage", action="store_true")
+    p.add_argument("--projector_scale", default=["P4"], type=str, nargs="+",
+                   choices=("P3", "P4", "P5", "P6"))
+    p.add_argument("--lite_refpoint_refine", action="store_true")
+    p.add_argument("--num_select", default=100, type=int)
+    p.add_argument("--dec_n_points", default=4, type=int)
+    p.add_argument("--decoder_norm", default="LN", type=str)
+    p.add_argument("--bbox_reparam", action="store_true")
+    # matcher / losses
+    p.add_argument("--set_cost_class", default=2, type=float)
+    p.add_argument("--set_cost_bbox", default=5, type=float)
+    p.add_argument("--set_cost_giou", default=2, type=float)
+    p.add_argument("--cls_loss_coef", default=2, type=float)
+    p.add_argument("--bbox_loss_coef", default=5, type=float)
+    p.add_argument("--giou_loss_coef", default=2, type=float)
+    p.add_argument("--focal_alpha", default=0.25, type=float)
+    p.add_argument("--no_aux_loss", dest="aux_loss", action="store_false")
+    p.add_argument("--sum_group_losses", action="store_true")
+    p.add_argument("--use_varifocal_loss", action="store_true")
+    p.add_argument("--use_position_supervised_loss", action="store_true")
+    p.add_argument("--ia_bce_loss", action="store_true")
+    # data
+    p.add_argument("--dataset_file", default="coco")
+    p.add_argument("--coco_path", type=str)
+    p.add_argument("--square_resize_div_64", action="store_true")
+    p.add_argument("--per_image_scales", action="store_true",
+                   help="sample the square train size per image and pad the batch to its max "
+                        "with a mask (the reference recipe)")
+    # run control
+    p.add_argument("--output_dir", default="output")
+    p.add_argument("--checkpoint_interval", default=10, type=int)
+    p.add_argument("--seed", default=42, type=int)
+    p.add_argument("--resume", default="", type=str, help="a reference .pth checkpoint")
+    p.add_argument("--start_epoch", default=0, type=int)
+    p.add_argument("--eval", action="store_true")
+    p.add_argument("--fp16_eval", action="store_true",
+                   help="half-precision eval: bfloat16 compute, float32 parameters (the "
+                        "reference's engine.py:96-97 runs model.half())")
+    p.add_argument("--sync_bn", action="store_true",
+                   help="accepted for the JAX CLI's flag set; SyncBN is ROADMAP.md § 1 item 7")
+    p.add_argument("--use_ema", action="store_true")
+    p.add_argument("--ema_decay", default=0.9997, type=float)
+    p.add_argument("--num_workers", default=2, type=int)
+    p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
+    p.add_argument("--max_gt", default=100, type=int)
+    p.add_argument("--dont_bench", action="store_true",
+                   help="accepted for the JAX CLI's flag set; the port runs no startup "
+                        "benchmark (python -m lwdetr_tpu_torch.bench measures throughput)")
+    p.add_argument("--device", default="cuda", type=str,
+                   help="cuda (the default; raises without a card) or cpu")
+    p.add_argument("--world_size", default=1, type=int,
+                   help="accepted for the JAX CLI's flag set; one process")
+    p.add_argument("--dist_url", default="env://", type=str,
+                   help="accepted for the JAX CLI's flag set; one process")
+    # subcommands
+    sub = p.add_subparsers(title="sub-commands", dest="subcommand")
+    pe = sub.add_parser("export_model", help="not ported (ROADMAP.md § 1 item 8)")
+    pe.add_argument("--shape", type=int, nargs=2, default=(640, 640))
+    pe.add_argument("--infer_dir", type=str, default=None)
+    pe.add_argument("--batch", type=int, default=1)
+    pe.add_argument("--dry-run", "--test", "-t", dest="dry_run", action="store_true")
+    return p
+
+
+def config_from_args(args):
+    from lwdetr_tpu_torch.config import (Config, DataConfig, ModelConfig, TrainConfig,
+                                         release_config)
+
+    if args.preset:
+        cfg = release_config(args.preset)
+        # CLI data flags still apply
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, coco_path=args.coco_path or "", dataset_file=args.dataset_file,
+            num_workers=args.num_workers))
+        # presets encode COCO's 91 classes; o365 needs the 366-way head
+        if args.dataset_file == "o365":
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, num_classes=366))
+        return cfg
+
+    num_classes = 91 if args.dataset_file == "coco" else (
+        366 if args.dataset_file == "o365" else 20)
+    model = ModelConfig(
+        encoder=args.encoder,
+        vit_encoder_num_layers=args.vit_encoder_num_layers,
+        window_block_indexes=tuple(args.window_block_indexes or ()),
+        out_feature_indexes=tuple(args.out_feature_indexes),
+        position_embedding=args.position_embedding,
+        drop_path=args.drop_path,
+        dropout=args.dropout,
+        grad_checkpointing=args.grad_checkpointing,
+        projector_scale=tuple(args.projector_scale),
+        dec_layers=args.dec_layers,
+        dim_feedforward=args.dim_feedforward,
+        hidden_dim=args.hidden_dim,
+        sa_nheads=args.sa_nheads,
+        ca_nheads=args.ca_nheads,
+        num_queries=args.num_queries,
+        group_detr=args.group_detr,
+        two_stage=args.two_stage,
+        lite_refpoint_refine=args.lite_refpoint_refine,
+        dec_n_points=args.dec_n_points,
+        decoder_norm=args.decoder_norm,
+        bbox_reparam=args.bbox_reparam,
+        aux_loss=args.aux_loss,
+        num_classes=num_classes,
+        num_select=args.num_select,
+    )
+    train = TrainConfig(
+        lr=args.lr, lr_encoder=args.lr_encoder, batch_size=args.batch_size,
+        weight_decay=args.weight_decay, epochs=args.epochs, lr_drop=args.lr_drop,
+        clip_max_norm=args.clip_max_norm,
+        lr_vit_layer_decay=args.lr_vit_layer_decay,
+        lr_component_decay=args.lr_component_decay,
+        drop_mode=args.drop_mode, drop_schedule=args.drop_schedule,
+        cutoff_epoch=args.cutoff_epoch,
+        set_cost_class=args.set_cost_class, set_cost_bbox=args.set_cost_bbox,
+        set_cost_giou=args.set_cost_giou,
+        cls_loss_coef=args.cls_loss_coef, bbox_loss_coef=args.bbox_loss_coef,
+        giou_loss_coef=args.giou_loss_coef, focal_alpha=args.focal_alpha,
+        sum_group_losses=args.sum_group_losses,
+        use_varifocal_loss=args.use_varifocal_loss,
+        use_position_supervised_loss=args.use_position_supervised_loss,
+        ia_bce_loss=args.ia_bce_loss,
+        use_ema=args.use_ema, ema_decay=args.ema_decay,
+        seed=args.seed, max_gt=args.max_gt,
+    )
+    data = DataConfig(
+        dataset_file=args.dataset_file, coco_path=args.coco_path or "",
+        square_resize_div_64=args.square_resize_div_64,
+        per_image_scales=args.per_image_scales,
+        num_workers=args.num_workers)
+    return Config(model=model, train=train, data=data, output_dir=args.output_dir)
+
+
+def main(args) -> dict:
+    """Runs `--eval`; returns {"stats": ..., "ema_stats": ... or None} and
+    prints the stats as one JSON line."""
+    from lwdetr_tpu_torch.data.coco import build_dataset
+    from lwdetr_tpu_torch.data.coco_eval import CocoEvaluator
+    from lwdetr_tpu_torch.data.loader import DetectionLoader, to_device
+    from lwdetr_tpu_torch.models.criterion import SetCriterion
+    from lwdetr_tpu_torch.models.lwdetr import build_model, resolve_device
+    from lwdetr_tpu_torch.train import checkpoint as ckpt
+    from lwdetr_tpu_torch.train.engine import build_eval_step, evaluate
+    from lwdetr_tpu_torch.utils.logging import is_main_process, write_log_line
+
+    if args.subcommand == "export_model":
+        raise NotImplementedError("export_model is not ported: ROADMAP.md § 1 item 8")
+    if not args.eval:
+        raise NotImplementedError(
+            "training through the CLI is not ported: it needs the train state's save and "
+            "restore (ROADMAP.md § 1 item 4); run with --eval")
+    if args.resume and not args.resume.endswith(".pth"):
+        raise NotImplementedError(f"--resume {args.resume}: the port reads reference .pth "
+                                  "checkpoints; its own save / restore is ROADMAP.md § 1 item 4")
+
+    cfg = config_from_args(args)
+    mcfg, tcfg, dcfg = cfg.model, cfg.train, cfg.data
+    print(f"config: {mcfg}")
+    # fail fast on bad weight paths
+    for flag, path in (("--pretrained_encoder", args.pretrained_encoder),
+                       ("--pretrain_weights", args.pretrain_weights),
+                       ("--resume", args.resume)):
+        if path and not os.path.exists(path):
+            raise FileNotFoundError(f"{flag}: no such file: {path}")
+
+    device = resolve_device(args.device)
+    torch.manual_seed(tcfg.seed)
+    np.random.seed(tcfg.seed)
+    # f32 stays f32: no TF32 in the GEMMs or the projector's convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # --fp16_eval: half-precision eval compute; bfloat16, with f32 parameters
+    half = args.bf16 or args.fp16_eval
+    dtype = torch.bfloat16 if half else torch.float32
+    model = build_model(mcfg, device=device, dtype=dtype)
+    criterion = SetCriterion(mcfg, tcfg)
+
+    # bf16 eval takes bf16 images from the loader: the cast runs on the host,
+    # in the loader's thread, and halves the bytes moved to the card
+    ds_val = build_dataset("val", dcfg)
+    val_loader = DetectionLoader(
+        ds_val, batch_size=max(tcfg.batch_size, 1), train=False, max_gt=tcfg.max_gt,
+        square_div_64=dcfg.square_resize_div_64, eval_size=dcfg.eval_square_size,
+        num_workers=dcfg.num_workers, image_dtype=torch.bfloat16 if half else None)
+
+    # weights: encoder, then pretrain, then resume (reference main.py:240-286)
+    ema = None
+    if args.pretrained_encoder:
+        n = ckpt.load_pretrained_encoder(args.pretrained_encoder, model)
+        print(f"loaded {n} encoder tensors from {args.pretrained_encoder}")
+    if args.pretrain_weights:
+        ckpt.load_pretrain_weights(model, args.pretrain_weights, args.pretrain_exclude_keys,
+                                   args.pretrain_keys_modify_to_load)
+        print(f"loaded pretrain weights from {args.pretrain_weights}")
+    if (args.pretrained_encoder or args.pretrain_weights) and tcfg.use_ema:
+        ema = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    if args.resume:
+        # with --use_ema the EMA weights are the checkpoint's (else None, as before)
+        ema, start_epoch = ckpt.resume_pth(model, args.resume, use_ema=tcfg.use_ema)
+        print(f"resumed model weights from {args.resume}"
+              + (f" (epoch {start_epoch - 1})" if start_epoch else ""))
+
+    def run_eval(eval_model):
+        eval_step = build_eval_step(eval_model, mcfg.num_select, criterion=criterion)
+        evaluator = CocoEvaluator(ds_val.coco)
+        return evaluate(eval_step, val_loader, evaluator,
+                        put_fn=lambda b: to_device(b, device))
+
+    stats = run_eval(model)
+    stats_ema = None
+    if tcfg.use_ema and ema is not None:
+        print("EMA eval:")
+        ema_model = build_model(mcfg, device=device, dtype=dtype)
+        ema_model.load_state_dict(ema, strict=True)
+        stats_ema = run_eval(ema_model)
+    if args.output_dir and is_main_process():
+        record = {f"test_{k}": v for k, v in stats.items()}
+        if stats_ema is not None:
+            record.update({f"ema_test_{k}": v for k, v in stats_ema.items()})
+        write_log_line(args.output_dir, record)
+    print(json.dumps(stats))
+    return {"stats": stats, "ema_stats": stats_ema}
+
+
+def parser() -> argparse.ArgumentParser:
+    return argparse.ArgumentParser("LW-DETR PyTorch/CUDA", parents=[get_args_parser()])
+
+
+if __name__ == "__main__":
+    main(parser().parse_args())

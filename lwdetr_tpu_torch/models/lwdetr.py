@@ -135,11 +135,10 @@ def post_process(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
 
 def resolve_device(device=None) -> torch.device:
     """The given device, else CUDA; raises rather than fall back to the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
-    return torch.device("cuda")
+    return device
 
 
 def build_model(cfg: ModelConfig, device=None, dtype: torch.dtype = torch.float32,

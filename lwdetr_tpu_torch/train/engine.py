@@ -7,14 +7,13 @@ rates) -> criterion (one host matching) -> backward -> clip -> AdamW -> LR
 schedule -> EMA. The drop masks come from a generator on the model's device
 seeded from (seed, step); a rate whose whole schedule is zero draws none.
 Metrics stay on the device as 0-dim tensors and are fetched one step late,
-so the host does not wait on the device for them. `evaluate` needs the COCO
-evaluator of the data slice and is not ported.
+so the host does not wait on the device for them. `evaluate` runs an eval
+step over a loader into the COCO evaluator (`data/coco_eval.py`).
 """
 from __future__ import annotations
 
 import math
 import time
-from collections import defaultdict
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
@@ -25,6 +24,7 @@ from lwdetr_tpu_torch.models import drop
 from lwdetr_tpu_torch.models.criterion import SetCriterion, Targets
 from lwdetr_tpu_torch.models.lwdetr import LWDETR, build_model, post_process
 from lwdetr_tpu_torch.train import optim
+from lwdetr_tpu_torch.utils.logging import MetricLogger, world_size
 
 
 @dataclass
@@ -123,22 +123,6 @@ def build_eval_step(model: LWDETR, num_select: int, criterion: Optional[SetCrite
     return eval_step
 
 
-class MetricLogger:
-    """Running global averages of named scalars."""
-
-    def __init__(self):
-        self.total = defaultdict(float)
-        self.count = defaultdict(int)
-
-    def update(self, **kwargs: float) -> None:
-        for k, v in kwargs.items():
-            self.total[k] += float(v)
-            self.count[k] += 1
-
-    def global_avg(self) -> Dict[str, float]:
-        return {k: self.total[k] / self.count[k] for k in self.total}
-
-
 def train_one_epoch(train_step, state: TrainState, loader, epoch: int, niter_per_ep: int,
                     put_fn=None, log_every: int = 50, logger=print, should_stop=None,
                     drop_path_sched=None, dropout_sched=None):
@@ -181,6 +165,60 @@ def train_one_epoch(train_step, state: TrainState, loader, epoch: int, niter_per
             break
     if pending is not None:
         consume(*pending)
-    meters = mlog.global_avg()
+    mlog.synchronize_between_processes()
+    meters = {k: m.global_avg for k, m in mlog.meters.items()}
     meters["epoch_time"] = time.time() - t0
     return meters
+
+
+def _fetch(tensors):
+    """Device tensors -> host numpy arrays, with one wait on the device."""
+    host = [t.detach().to("cpu", non_blocking=True) for t in tensors]
+    if any(t.is_cuda for t in tensors):
+        torch.cuda.current_stream().synchronize()
+    return [h.float().numpy() if h.dtype == torch.bfloat16 else h.numpy() for h in host]
+
+
+def merge_evaluators(evaluator):
+    """The evaluator of one process is the whole result; the merge across
+    processes (the JAX package's `parallel/dist.py:130 merge_evaluators`) is
+    not ported (ROADMAP.md § 1 item 7), so more than one process raises."""
+    if world_size() > 1:
+        raise NotImplementedError("evaluate across processes is not ported: the merge of their "
+                                  "evaluators is ROADMAP.md § 1 item 7")
+    return evaluator
+
+
+def evaluate(eval_step, loader, evaluator, put_fn=None, logger=print):
+    """Eval loop: forward + `post_process` on the device, COCO accumulation on
+    the host (the reference's engine.py:93-164; `lwdetr_tpu/train/engine.py:207`).
+    `eval_step(batch) -> ((scores, labels, boxes), losses)` is
+    `build_eval_step`'s; `put_fn` moves a host batch to the step's device
+    (`data.loader.to_device`). Each batch's detections and losses are fetched
+    in one wait; the padded duplicates of the last batch are skipped by image
+    id. When the step was built with a criterion, the loss components are
+    metered and returned alongside the 12 AP/AR stats."""
+    t0 = time.time()
+    seen = set()
+    mlog = MetricLogger()
+    for batch in loader:
+        dev_batch = put_fn(batch) if put_fn is not None else batch
+        (scores, labels, boxes), losses = eval_step(dev_batch)
+        names = list(losses)
+        scores, labels, boxes, *values = _fetch([scores, labels, boxes]
+                                                + [losses[k] for k in names])
+        if names:
+            mlog.update(**{k: float(v) for k, v in zip(names, values)})
+        results = {}
+        for i, img_id in enumerate(batch["image_id"].tolist()):
+            if img_id in seen:
+                continue  # padded duplicate in the final batch
+            seen.add(img_id)
+            results[img_id] = {"scores": scores[i], "labels": labels[i], "boxes": boxes[i]}
+        evaluator.update(results)
+    logger(f"eval forward done in {time.time() - t0:.1f}s ({len(seen)} images)")
+    evaluator = merge_evaluators(evaluator)
+    mlog.synchronize_between_processes()
+    stats = {k: m.global_avg for k, m in mlog.meters.items()}
+    stats.update(evaluator.summarize())
+    return stats

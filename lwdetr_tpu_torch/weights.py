@@ -14,7 +14,9 @@ layout transform between them:
 `state_dict_from_jax` needs numpy only: it takes the JAX variables as nested
 dicts of arrays. The map is linear, so `grads_from_jax` carries a JAX gradient
 tree into the port's names and layouts the same way. `init_state_dict` draws every weight from a seed with a
-`torch.Generator`, for runs that have no JAX.
+`torch.Generator`, for runs that have no JAX. `read_jax_npz` reads a JAX
+variable tree saved as `{keystr: array}` (the mAP fixture's `weights.npz`)
+into nested dicts, with no JAX.
 """
 from __future__ import annotations
 
@@ -205,6 +207,28 @@ def tensors_from_jax(mapping: List[Entry], params: dict,
           for tk, coll, fp, kind in mapping}
     sd.update(_bn_counters(sd))
     return sd
+
+
+_KEY_PART = re.compile(r"\['([^']*)'\]")
+
+
+def read_jax_npz(path: str) -> Dict[str, dict]:
+    """A JAX variable tree saved as {`jax.tree_util.keystr(path)`: array}
+    (keys such as "['params']['backbone']['encoder']['blocks_0']['attn']['qkv']['kernel']")
+    -> {collection: nested dict of float32 arrays}; half-precision entries
+    are upcast. Feed `tree["params"]`, `tree.get("batch_stats")` to
+    `state_dict_from_jax`."""
+    tree: Dict[str, dict] = {}
+    with np.load(path) as data:
+        for key in data.files:
+            parts = _KEY_PART.findall(key)
+            if not parts or "".join(f"['{p}']" for p in parts) != key:
+                raise ValueError(f"{path}: {key!r} is not a key path of dict keys")
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = np.asarray(data[key], np.float32)
+    return tree
 
 
 def state_dict_from_jax(params: dict, batch_stats: dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:

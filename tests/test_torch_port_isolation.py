@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no JAX, no JAX package, no silent CPU fallback."""
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -62,6 +63,48 @@ def test_the_train_modules_are_in_the_walk():
     assert {"models/matcher.py", "models/criterion.py", "train/optim.py", "train/engine.py",
             "bench_train.py", "config.py", "models/transformer.py", "ops/deform_attn.py",
             "ops/flash_attention.py", "ops/_build.py", "bench.py", "breakdown.py"} <= names
+
+
+def test_the_eval_slice_modules_are_in_the_walk():
+    names = {str(p.relative_to(ROOT / "lwdetr_tpu_torch")) for p in PORT_FILES[:-1]}
+    assert {"data/coco.py", "data/transforms.py", "data/loader.py", "data/native.py",
+            "data/coco_eval.py", "utils/logging.py", "utils/obj365_remap.py",
+            "train/checkpoint.py", "main.py"} <= names
+    assert PORT_FILES[-1].name == "chip_smoke.py"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_names_nothing_under_native(path):
+    """No string of the port names the JAX package's `native/` directory or
+    its library: the port builds its own copy of the preprocessing."""
+    strings = [n.value for n in ast.walk(ast.parse(path.read_text(), filename=str(path)))
+               if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+    bad = [s for s in strings if "libpreproc" in s or s.strip("/") == "native"
+           or s.startswith("native/") or "/native/" in s]
+    assert not bad, f"{path.name} names {bad}"
+
+
+def test_the_eval_path_loads_neither_jax_nor_the_native_directory():
+    """In a fresh process: the CLI's modules, the loader's fused path on a
+    fixture image, and the modules and shared libraries that are then loaded."""
+    code = (
+        "import json, sys\n"
+        "import lwdetr_tpu_torch.main, lwdetr_tpu_torch.data.loader\n"
+        "import lwdetr_tpu_torch.data.coco_eval, lwdetr_tpu_torch.train.checkpoint\n"
+        "import lwdetr_tpu_torch.utils.logging, lwdetr_tpu_torch.utils.obj365_remap\n"
+        "from lwdetr_tpu_torch.data import native\n"
+        "out = native.load_image_fast('tests/fixtures/micro_map/val2017/000000000001.jpg', 64)\n"
+        "assert out is not None and out[0].shape == (64, 64, 3)\n"
+        "maps = [l.split()[-1] for l in open('/proc/self/maps') if 'preproc' in l]\n"
+        "mods = sorted({m.split('.')[0] for m in sys.modules})\n"
+        "print(json.dumps({'maps': sorted(set(maps)), 'modules': mods}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert not set(seen["modules"]) & set(FORBIDDEN)
+    assert seen["maps"] and all(Path(m).parent == _build.BUILD_DIR for m in seen["maps"])
 
 
 def test_train_entry_points_raise_without_a_card(monkeypatch):
