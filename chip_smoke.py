@@ -4,8 +4,8 @@ Run from the root of a checkout, with one card:
 
     python3 chip_smoke.py
 
-1. Builds the kernels of the eval and train paths (K1-K10, twelve entry
-   symbols in eight sources of `lwdetr_tpu_torch/csrc/`) with nvcc, one
+1. Builds the kernels of the eval and train paths (K1-K10 and M1, thirteen
+   entry symbols in nine sources of `lwdetr_tpu_torch/csrc/`) with nvcc, one
    process per source, all at once, and prints the `-Xptxas -v` register,
    shared-memory and spill report of every template case.
 2. Holds each kernel against its plain PyTorch version, in f32 and bf16, at
@@ -35,7 +35,13 @@ Run from the root of a checkout, with one card:
    SDPA's backward, the CUDA-graph device times and the registers and spills
    of every pass beside them; K9 (the short attention
    without a bias) at tiny's decoder, batch 8 and 13 groups x 4, with K2 and
-   SDPA on the same inputs, and its backward with SDPA's beside it.
+   SDPA on the same inputs, and its backward with SDPA's beside it. M1, the
+   matcher's assignment (`csrc/matcher.cu`), against its plain version (the
+   same columns) and scipy (the total cost within 1e-5 relative) at small's
+   and large's train costs, T = 100 all valid, integer costs (ties), the
+   (T, Q) sweep and NaN rows, each launch polled with a time limit; its call,
+   CUDA-graph device and plain times, scipy's host time with the copy (what
+   the port ran before), registers, shared and local bytes.
 3. Drives five eval forwards + `post_process` at 640x640 from
    `init_state_dict(seed=0)`, batch 8, f32: small, then xlarge, large, tiny
    (100 queries) and medium (ViT-small on P4).
@@ -55,9 +61,11 @@ Run from the root of a checkout, with one card:
    kernels against the same forward with the plain backward versions, per
    parameter tensor, and against the whole step on the plain versions
    (proposal picks and matching replayed); the launch counts of that step
-   (K1 6, K2 7, K3 0, K4 3, K5 3, K6 7, K7 6); 8 steps with the release
-   optimizer settings (finite losses that fall, an EMA that moves); then the
-   step time, img/s, the matcher's host time per step and peak device memory.
+   (K1 6, K2 7, K3 0, K4 3, K5 3, K6 7, K7 6, M1 1: every train path
+   matches once a step); 8 steps with the release optimizer settings (finite
+   losses that fall, an EMA that moves); then the step time, img/s, the
+   matcher's host time per step (costs built, M1 enqueued), M1's device time
+   and peak device memory.
 5. Drives the train step of LW-DETR-tiny the same way in each branch of the
    decoder's cross-attention: the default (panels: K1 3, K2 3, K9 3, K4 3,
    K5 3, K6 3, K7 3 with a bias and 3 without), `force_branch="cm"` (K3 3,
@@ -81,6 +89,17 @@ Run from the root of a checkout, with one card:
    img/s, the loader's share of its wall time and the device's idle share;
    then, on the fixture only, the same over 10 passes with the first left
    out, the loader alone, the step alone and each image's decode and resize.
+8. Trains small (640, 13 groups of 300 queries, f32, batch 4, EMA, seeded
+   weights as `--pretrain_weights`) through
+   `lwdetr_tpu_torch.main` for 2 epochs over a COCO dir whose train2017 and
+   val2017 are the fixture's 20 images (`train_cli_phase`): finite losses,
+   two log records with the JAX CLI's keys, the checkpoint directories, the
+   launches per step and eval batch; resumes from the epoch-0 save (the
+   restored state equal to the saved one bit for bit; the first step's loss
+   within 1e-6 relative of the straight run's, later ones within 1e-3, its
+   train steps replaying the straight run's picks and matchings); then
+   `lwdetr_tpu_torch.demo` on one fixture image from the last checkpoint, its
+   detections equal to `build_eval_step`'s.
 
 Any failure exits non-zero. Without a CUDA card, or outside a checkout, it
 exits non-zero and prints no result. The line before the last holds one JSON
@@ -161,7 +180,8 @@ PAIRING_ATOL = 1e-6
 
 BATCH = 8
 MICRO_BATCH = 4  # the eval batch of the mAP fixture's pipeline (its golden was made at 4)
-KERNEL_NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K7nb", "K8", "K9", "K10", "K10b")
+KERNEL_NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K7nb", "K8", "K9", "K10", "K10b",
+                "M1")
 BACKWARD_KERNELS = ("K5", "K6", "K7", "K7nb", "K8", "K10b")
 # the keys every entry of the kernels line carries
 CONTRACT_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -185,14 +205,15 @@ EXPECTED_LAUNCHES = {"small": launch_counts(K1=6, K2=7, K3=3),
                      "tiny": launch_counts(K1=3, K2=3, K9=3, K3=3),
                      "medium": launch_counts(K1=6, K2=7, K3=3)}
 # one train step: the forward's launches (the decoder samples from panels in
-# train mode: K4, not K3) and one backward launch for each; tiny's decoder
+# train mode: K4, not K3), one backward launch for each, and one matching
+# launch (M1) for all output sets, images and query groups; tiny's decoder
 # folds its 13 groups of 100 queries into the batch, so K9 and the short
 # backward without a bias (K7nb) take its self-attention; "cm" and "gather"
 # are `force_branch` on the decoder's cross-attention
-_TINY_TRAIN = dict(K1=3, K2=3, K9=3, K6=3, K7=3, K7nb=3)
+_TINY_TRAIN = dict(K1=3, K2=3, K9=3, K6=3, K7=3, K7nb=3, M1=1)
 TRAIN_LAUNCHES = {
-    "small": launch_counts(K1=6, K2=7, K4=3, K5=3, K6=7, K7=6),
-    "medium": launch_counts(K1=6, K2=7, K4=3, K5=3, K6=7, K7=6),
+    "small": launch_counts(K1=6, K2=7, K4=3, K5=3, K6=7, K7=6, M1=1),
+    "medium": launch_counts(K1=6, K2=7, K4=3, K5=3, K6=7, K7=6, M1=1),
     "tiny": launch_counts(K4=3, K5=3, **_TINY_TRAIN),
     "tiny/cm": launch_counts(K3=3, K8=3, **_TINY_TRAIN),
     "tiny/gather": launch_counts(K10=3, K10b=3, **_TINY_TRAIN)}
@@ -207,7 +228,7 @@ LARGE_TRAIN_PATHS = (("large_train_f32", "large", "float32", False),
                      ("xlarge_train_bf16", "xlarge", "bfloat16", False),
                      ("xlarge_train_f32", "xlarge", "float32", False),
                      ("xlarge_train_f32_remat", "xlarge", "float32", True))
-_RELEASE_TRAIN = dict(K1=6, K2=7, K4=3, K5=3, K6=7, K7=6)
+_RELEASE_TRAIN = dict(K1=6, K2=7, K4=3, K5=3, K6=7, K7=6, M1=1)
 TRAIN_LAUNCHES.update({"large": launch_counts(**_RELEASE_TRAIN),
                        "xlarge": launch_counts(**_RELEASE_TRAIN),
                        "xlarge/remat": launch_counts(**dict(_RELEASE_TRAIN, K1=12, K2=11))})
@@ -272,6 +293,8 @@ REPLACES = {
     "K9": "lwdetr_tpu/ops/flash_attention.py:88 _attn_cm_allheads_kernel",
     "K10": "lwdetr_tpu/ops/deform_attn.py:149 _deform_kernel",
     "K10b": "lwdetr_tpu/ops/deform_attn.py:213 _dvalue_kernel",
+    # device code of the JAX package that is not Pallas: its lax.while_loop solver
+    "M1": "lwdetr_tpu/models/matcher.py:29 solve_assignment",
 }
 ALSO_REPLACES = {"K8": "lwdetr_tpu/ops/deform_attn.py:509 _dweight_cm_kernel",
                  "K10b": "lwdetr_tpu/ops/deform_attn.py:243 _dweight_kernel"}
@@ -286,7 +309,8 @@ SOURCES = {"K1": "lwdetr_tpu_torch/csrc/window_attention.cu",
            "K8": "lwdetr_tpu_torch/csrc/deform_attn_bwd.cu",
            "K9": "lwdetr_tpu_torch/csrc/window_attention.cu",
            "K10": "lwdetr_tpu_torch/csrc/deform_attn_sep.cu",
-           "K10b": "lwdetr_tpu_torch/csrc/deform_attn_sep_bwd.cu"}
+           "K10b": "lwdetr_tpu_torch/csrc/deform_attn_sep_bwd.cu",
+           "M1": "lwdetr_tpu_torch/csrc/matcher.cu"}
 
 
 def log(msg: str) -> None:
@@ -918,11 +942,190 @@ ATTENTION_BWD_SHAPES = (
 )
 
 
+# The train CLI's loader draws one square size a batch from the release
+# recipe's SCALES_SQUARE (data/transforms.py): small's train step at each size
+# but 640 (the tables above), patch 16, 4 x 4 windows an image, one memory
+# level at stride 16. A window of (g / 4)^2 tokens takes K1 / K7 up to 128
+# tokens and K2 / K6 above (the qkv bias added first), a global block K2 / K6
+# over g^2 tokens, the decoder's cross-attention the (g, g) panel (K4, K5).
+CLI_SCALES = (448, 512, 576, 704, 768, 832, 896)
+
+
+def cli_scale_shapes():
+    """(attention forwards, attention backwards, sampler shapes) of small's
+    train step at each of CLI_SCALES, in the formats of the tables above."""
+    fwd, bwd, sep = [], [], []
+    for size in CLI_SCALES:
+        g = size // 16
+        win = (g // 4) ** 2
+        short = win <= 128
+        fk, bk, iters = ("K1", "K7", 200) if short else ("K2", "K6", 20)
+        fwd += [(f"{fk}@cli{size}_windows", fk, TRAIN_BATCH * 16, 192, win, 12, 1.0, short),
+                (f"K2@cli{size}_global", "K2", TRAIN_BATCH, 192, g * g, 12, 1.0, False)]
+        bwd += [(f"{bk}@cli{size}_windows", bk, TRAIN_BATCH * 16, 192, win, 12, 1.0, short, iters),
+                (f"K6@cli{size}_global", "K6", TRAIN_BATCH, 192, g * g, 12, 1.0, False, 20)]
+        sep.append((f"cli{size}", (TRAIN_BATCH, 16, 16, 2, 3900, [(g, g)])))
+    return tuple(fwd), tuple(bwd), tuple(sep)
+
+
+CLI_ATTENTION_SHAPES, CLI_ATTENTION_BWD_SHAPES, CLI_SEP_SHAPES = cli_scale_shapes()
+
+
+# M1 against its plain version (the same columns) and scipy (the total within
+# 1e-5 relative), (key, S output sets, B, G, Qg, T, valid rows an image, cost):
+# small's and large's train steps (last, 2 auxiliary and encoder outputs, 13
+# groups of 300 queries, max_gt 100, 7 boxes an image), the worst case (T = 100
+# all valid), integer costs in {0, 1, 2} (ties everywhere), the (T, Q) sweep of
+# tests/test_matcher.py, and NaN rows (the JAX loop's finite 1e15 ends them)
+M1_SWEEP = ((1, 5), (4, 4), (7, 20), (30, 100), (100, 300))
+M1_CHECKS = (("small_train", 4, TRAIN_BATCH, 13, 300, 100, (7,) * TRAIN_BATCH, "match"),
+             ("large_train", 4, LARGE_TRAIN_BATCH, 13, 300, 100, (7,) * LARGE_TRAIN_BATCH,
+              "match"),
+             ("worst_T100", 4, TRAIN_BATCH, 13, 300, 100, (100,) * TRAIN_BATCH, "match"),
+             ("ties_012", 4, TRAIN_BATCH, 13, 300, 100, (7, 30, 0, 100), "int"),
+             *((f"sweep_{t}x{q}", 1, 3, 2, q, t, (t, max(t - 1, 0), t // 2), "normal")
+               for t, q in M1_SWEEP),
+             ("nan_rows", 4, TRAIN_BATCH, 13, 300, 100, (7,) * TRAIN_BATCH, "nan"))
+M1_TIMED = ("small_train", "large_train", "worst_T100")
+M1_TIME_LIMIT_S = 60.0  # a launch that has not ended by then has hung: the script fails
+M1_SCIPY_RTOL = 1e-5
+
+
+def m1_inputs(torch, S, B, G, Qg, T, counts, kind, seed):
+    """(cost (S, B, T, G * Qg) f32, valid (B, T)) on the card: "match" builds
+    the matcher's own cost from random predictions (91 classes), "int" draws
+    {0, 1, 2}, "normal" N(0, 9); "nan" is "match" with a valid row of image 0
+    and a padded row of image 1 made NaN."""
+    from lwdetr_tpu_torch.models import matcher as tm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    valid = torch.arange(T, device="cuda")[None, :] < torch.tensor(counts, device="cuda")[:, None]
+    if kind in ("match", "nan"):
+        logits = torch.randn((S, B, G * Qg, 91), generator=g, device="cuda")
+        boxes = torch.rand((S, B, G * Qg, 4), generator=g, device="cuda") * 0.4 + 0.2
+        labels = torch.randint(0, 91, (B, T), generator=g, device="cuda")
+        tboxes = torch.rand((B, T, 4), generator=g, device="cuda") * 0.4 + 0.2
+        cost = tm.match_cost_matrix(logits, boxes, labels, tboxes, valid)
+        if kind == "nan":
+            cost[:, 0, 1] = float("nan")
+            cost[:, 1 % B, T - 1] = float("nan")
+    elif kind == "int":
+        cost = torch.randint(0, 3, (S, B, T, G * Qg), generator=g, device="cuda").float()
+    else:
+        cost = 3.0 * torch.randn((S, B, T, G * Qg), generator=g, device="cuda")
+    return cost.contiguous(), valid
+
+
+def within_time(torch, fn, limit_s):
+    """fn() launched, then waited for by polling an event; exits the process
+    (status 3) rather than wait past `limit_s` on a launch that hangs."""
+    import os
+    import time
+
+    out = fn()
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.perf_counter()
+    while not done.query():
+        if time.perf_counter() - t0 > limit_s:
+            log(f"M1 did not finish within {limit_s} s: failing")
+            os._exit(3)
+        time.sleep(1e-3)
+    return out, time.perf_counter() - t0
+
+
+def compare_assignment(torch, measure_ms, key, S, B, G, Qg, T, counts, kind, seed=5):
+    """M1 against its plain version and scipy on one set of problems; times at M1_TIMED."""
+    import time
+
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    from lwdetr_tpu_torch.models import matcher as tm
+    from lwdetr_tpu_torch.utils.timing import measure_graph_ms
+
+    cost, valid = m1_inputs(torch, S, B, G, Qg, T, counts, kind, seed)
+    out, wait_s = within_time(torch, lambda: tm.assign(cost, valid, G), M1_TIME_LIMIT_S)
+    ref = tm.assign_plain(cost, valid, G)
+    if not torch.equal(out, ref):
+        bad = (out != ref).nonzero()[:4].tolist()
+        raise AssertionError(f"M1 {key}: columns differ from the plain version at {bad}")
+    res = {"shape": {"S": S, "B": B, "G": G, "Qg": Qg, "T": T, "valid": list(counts)},
+           "cost": kind, "columns_equal_plain": True, "first_wait_s": wait_s}
+    host = cost.cpu().numpy().astype(np.float64)
+    got = out.cpu().numpy()
+    worst = 0.0
+    if kind != "nan":
+        for s in range(S):
+            for b, n in enumerate(counts):
+                n = min(n, Qg)
+                for g in range(G):
+                    block = host[s, b, :n, g * Qg:(g + 1) * Qg]
+                    if not n:
+                        continue
+                    cols = got[s, b, g, :n] - g * Qg
+                    if len(set(cols.tolist())) != n:
+                        raise AssertionError(f"M1 {key}: columns not distinct at {(s, b, g)}")
+                    ri, ci = linear_sum_assignment(block)
+                    ours, best = block[np.arange(n), cols].sum(), block[ri, ci].sum()
+                    rel = abs(ours - best) / max(1.0, abs(best))
+                    worst = max(worst, rel)
+        if worst > M1_SCIPY_RTOL:
+            raise AssertionError(f"M1 {key}: total cost {worst} from scipy's (relative)")
+        res["total_vs_scipy_max_rel"] = worst
+    log(f"M1 {key}: columns equal the plain version's; total vs scipy {worst:.3g}")
+    if key not in M1_TIMED:
+        return res
+    call = measure_ms(lambda: tm.assign(cost, valid, G), iters=20, warmup=2, repeats=3)
+    device = measure_graph_ms(lambda: tm.assign(cost, valid, G), iters=20, repeats=3)
+    plain = measure_ms(lambda: tm.assign_plain(cost, valid, G), iters=1, warmup=0, repeats=1)
+    # what the port ran before M1: the valid rows copied to the host, scipy a problem
+    scipy_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vb, vt = torch.nonzero(valid, as_tuple=True)
+        rows = cost[:, vb, vt].cpu().numpy()
+        start = 0
+        for b in range(B):
+            n = int((vb == b).sum())
+            for s in range(S):
+                for g in range(G):
+                    if n:
+                        linear_sum_assignment(rows[s, start:start + n, g * Qg:(g + 1) * Qg])
+            start += n
+        scipy_s.append(time.perf_counter() - t0)
+    nbytes = cost.numel() * 4 + valid.numel() + out.numel() * 8
+    bms, by, _ = bound_ms(nbytes, 0.0, 0.0, "float32")
+    attrs = tm.kernel_attributes()
+    if attrs["local_bytes"]:
+        raise AssertionError(f"M1 spills: {attrs}")
+    layout = tm.shared_layout(T, Qg)
+    res.update({"ms": call["ms"], "device_ms": device["ms"], "plain_ms": plain["ms"],
+                "scipy_host_ms_with_copy": sorted(scipy_s)[1] * 1e3,
+                "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+                "registers": attrs["registers"], "local_bytes": attrs["local_bytes"],
+                "shared_bytes": layout["shared_bytes"] + attrs["static_shared_bytes"],
+                "staged_rows": layout["staged_rows"],
+                "threads": (Qg + 1 + 31) // 32 * 32, "ctas": S * B * G})
+    print(f"M1 {key}: {S * B * G} problems, call {call['ms']:.4f} ms, device (CUDA graph) "
+          f"{device['ms']:.4f} ms, plain {plain['ms']:.2f} ms, scipy on the host with the copy "
+          f"{res['scipy_host_ms_with_copy']:.2f} ms; byte bound {bms:.4f} ms; "
+          f"{attrs['registers']} registers, {res['shared_bytes']} shared bytes, "
+          f"{attrs['local_bytes']} local bytes")
+    return res
+
+
 def kernel_phase(torch, F, fa, da, measure_ms):
     """Every kernel against its plain version at the eval and train paths' shapes."""
+    from lwdetr_tpu_torch.data import transforms
+
+    if set(CLI_SCALES) | {640} != set(transforms.SCALES_SQUARE):
+        raise AssertionError(f"CLI_SCALES {CLI_SCALES} + 640 are not the loader's "
+                             f"{transforms.SCALES_SQUARE}")
     res = {}
     for dtype in ("float32", "bfloat16"):
-        for key, name, B, C, N, heads, scale, bias in ATTENTION_SHAPES:
+        for key, name, B, C, N, heads, scale, bias in ATTENTION_SHAPES + CLI_ATTENTION_SHAPES:
             res[(key, dtype)] = compare_attention(torch, F, fa, measure_ms, name, B, C, N, heads,
                                                   scale, bias, dtype)
         for key, shape in (("K3", SEP_SMALL), ("K3@tiny", SEP_TINY), ("K3@micro", SEP_MICRO),
@@ -930,14 +1133,16 @@ def kernel_phase(torch, F, fa, da, measure_ms):
                            *((f"K3@{k}", v) for k, v in CM_CHECKS)):
             res[(key, dtype)] = compare_deform_sep(torch, da, measure_ms, dtype, shape, "K3", "cm")
         for key, shape in (("K4", SEP_LARGE), ("K4@train", SEP_SMALL_TRAIN),
-                           ("K4@tiny_train", SEP_TINY_TRAIN), ("K4@large_train", SEP_LARGE_TRAIN_B2)):
+                           ("K4@tiny_train", SEP_TINY_TRAIN), ("K4@large_train", SEP_LARGE_TRAIN_B2),
+                           *((f"K4@{k}", v) for k, v in CLI_SEP_SHAPES)):
             res[(key, dtype)] = compare_deform_sep(torch, da, measure_ms, dtype, shape)
-        for key, name, B, C, N, heads, scale, bias, iters in ATTENTION_BWD_SHAPES:
+        for key, name, B, C, N, heads, scale, bias, iters in (ATTENTION_BWD_SHAPES
+                                                              + CLI_ATTENTION_BWD_SHAPES):
             res[(key, dtype)] = compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N,
                                                       heads, scale, bias, dtype, iters)
         for key, shape in (("K5", SEP_SMALL_TRAIN), ("K5@large", SEP_LARGE_TRAIN),
                            ("K5@tiny_train", SEP_TINY_TRAIN), ("K5@large_train", SEP_LARGE_TRAIN_B2),
-                           *((f"K5@{k}", v) for k, v in SEP_BWD_CHECKS)):
+                           *((f"K5@{k}", v) for k, v in SEP_BWD_CHECKS + CLI_SEP_SHAPES)):
             res[(key, dtype)] = compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape)
         for key, shape in SEP_BWD_CHECKS:
             res[(f"K10b@{key}", dtype)] = compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape,
@@ -955,6 +1160,8 @@ def kernel_phase(torch, F, fa, da, measure_ms):
                     torch, da, measure_ms, dtype, shape, name, layout, special=True)
         res[("K10b", dtype)] = compare_deform_sep_bwd(torch, da, measure_ms, dtype,
                                                       SEP_TINY_TRAIN, "K10b", "rowmajor")
+    for key, *shape in M1_CHECKS:  # float32 costs only
+        res[(f"M1@{key}", "float32")] = compare_assignment(torch, measure_ms, key, *shape)
     return res
 
 
@@ -970,10 +1177,13 @@ def plain_attention(fa):
 
 
 def plain_patches(fa, da):
-    """Every kernel of the eval forward swapped for its plain version."""
+    """Every kernel of the eval forward, and the matcher, swapped for its plain version."""
+    from lwdetr_tpu_torch.models import matcher as tm
+
     return (mock.patch.object(fa, "attention_cm", plain_attention(fa)),
             mock.patch.object(da, "ms_deform_attn_cm", da.ms_deform_attn_cm_plain),
-            mock.patch.object(da, "ms_deform_attn_sep_panels", da.ms_deform_attn_sep_panels_plain))
+            mock.patch.object(da, "ms_deform_attn_sep_panels", da.ms_deform_attn_sep_panels_plain),
+            mock.patch.object(tm, "assign", tm.assign_plain))
 
 
 def plain_backward_patches(fa, da):
@@ -1213,9 +1423,12 @@ def train_phase(torch, fa, da, kernels, measure_ms, card, preset):
             f"{sorted(rel.values())[len(rel) // 2]:.3g}; relative L2 error of all gradients {l2:.3g}")
         return rel[worst], worst, l2, rel
 
+    def replay_match(*args, **kwargs):
+        match(*args, **kwargs)  # M1 runs on every path, once a step; the first run's matching
+        return matchings[0]     # is what the step uses, so that the runs compare
+
     def replay():
-        return (picks.patch(True),
-                mock.patch.object(cm, "hungarian_match", lambda *a, **kw: matchings[0]))
+        return (picks.patch(True), mock.patch.object(cm, "hungarian_match", replay_match))
 
     launches, branch_res, default_grads = {}, {}, None
     for branch in TRAIN_BRANCHES[preset]:
@@ -1308,6 +1521,7 @@ def train_phase(torch, fa, da, kernels, measure_ms, card, preset):
     tr.set_force_branch(model, None)
     t = step_ms[preset]
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    m1_ms = bench_train.matcher_device_ms(step)
     res = {"batch": TRAIN_BATCH, "launches": launches[preset], "loss_kernels": loss_k,
            "loss_plain": loss_p, **{k: v for k, v in branch_res[preset].items() if k.startswith("grad")},
            "branches": branch_res,
@@ -1318,12 +1532,14 @@ def train_phase(torch, fa, da, kernels, measure_ms, card, preset):
            "step_ms_by_branch": {p: v["ms"] for p, v in step_ms.items()},
            "img_per_s": TRAIN_BATCH / (t["ms"] / 1e3),
            "matcher_host_ms_per_step": timer.seconds * 1e3 / timer.calls,
+           "matcher_device_ms_per_step": m1_ms,
            "peak_memory_mb": peak, "card": card}
     print(f"{preset}@640 f32 train step, batch {TRAIN_BATCH}: {t['ms']:.3f} ms "
           f"({card}), samples {[round(x, 3) for x in t['samples']]}"
           + "".join(f"; {p} {v['ms']:.3f} ms" for p, v in step_ms.items() if p != preset))
     print(f"lwdetr_{preset}_640_f32_train_throughput: {res['img_per_s']:.3f} img/s ({card})")
-    print(f"matcher host time: {res['matcher_host_ms_per_step']:.3f} ms per step ({card})")
+    print(f"matcher: host {res['matcher_host_ms_per_step']:.3f} ms a step (the costs built and "
+          f"M1 enqueued, no wait), M1 device {m1_ms:.4f} ms a step ({card})")
     print(f"peak device memory over the train steps: {peak:.1f} MiB ({card})")
     return launches, res
 
@@ -1445,9 +1661,9 @@ def release_train_phase(torch, fa, da, kernels, measure_ms, card, path, preset, 
 # package's pipeline gives them). The micro model through the port's CLI
 # (`lwdetr_tpu_torch.main --eval`), batch 4: 5 batches, each launching K1 once
 # (one window block), K2 once (one global block), K9 twice (the decoder's
-# self-attention over 12 queries) and K3 twice (its cross-attention, 1600
-# memory positions); small's release preset at batch 8: 3 batches of K1 6, K2 7,
-# K3 3.
+# self-attention over 12 queries), K3 twice (its cross-attention, 1600
+# memory positions) and M1 once (the eval losses' matching); small's release
+# preset at batch 8: 3 batches of K1 6, K2 7, K3 3, M1 1.
 FIXTURE = "tests/fixtures/micro_map"
 MICRO_FLAGS = ("--encoder vit_tiny --vit_encoder_num_layers 2 --window_block_indexes 0 "
                "--out_feature_indexes 0 1 --projector_scale P4 --hidden_dim 64 "
@@ -1455,10 +1671,10 @@ MICRO_FLAGS = ("--encoder vit_tiny --vit_encoder_num_layers 2 --window_block_ind
                "--dec_layers 2 --group_detr 2 --num_queries 12 --num_select 10 --two_stage "
                "--lite_refpoint_refine --bbox_reparam --square_resize_div_64 --max_gt 10").split()
 MICRO_EVAL_BATCHES = 5
-MICRO_EVAL_LAUNCHES = launch_counts(K1=5, K2=5, K9=10, K3=10)
+MICRO_EVAL_LAUNCHES = launch_counts(K1=5, K2=5, K9=10, K3=10, M1=5)
 SMALL_EVAL_BATCH = 8
 SMALL_EVAL_BATCHES = 3  # 20 images, the last batch padded with repeats
-SMALL_EVAL_LAUNCHES = launch_counts(K1=18, K2=21, K3=9)
+SMALL_EVAL_LAUNCHES = launch_counts(K1=18, K2=21, K3=9, M1=3)
 FIXTURE_REPEATS = 10  # the fixture's passes in the eval loop's longer window
 # the f32 pipeline holds the JAX package's golden stats as its test does
 # (tests/test_micro_map_golden.py); the bf16 one is held to the JAX test's
@@ -1816,6 +2032,243 @@ def eval_pipeline_phase(torch, fa, da, kernels, card):
     return launches, res
 
 
+# training through the port's CLI (`lwdetr_tpu_torch.main`, no --eval): small's
+# release preset at full width (640, 13 groups of 300 queries), f32, batch 4,
+# 2 epochs with EMA, from seeded weights given as --pretrain_weights (the
+# release recipe's start), over a COCO dir whose train2017 and val2017 are the
+# fixture's 20 images: 5 steps an epoch; after each epoch 5 eval batches of the
+# model and 5 of its EMA. The train recipe draws a square size a batch from
+# 448..896, and a window of more than 128 tokens (above 704) takes K2 / K6 for
+# K1 / K7, so the phase holds what does not depend on the sizes: per step
+# K1 + K2 = 13, K6 + K7 = 13, K4 = K5 = 3 and M1 = 1; per eval batch (640)
+# K1 + K2 = 13, K3 = 3, M1 = 1. The kernel phase holds every kernel against
+# its plain version at each of these sizes (CLI_SCALES), and the phase fails
+# if a step draws another. Resumed from the epoch-0 save, the first
+# step's loss is the straight run's within CLI_FIRST_LOSS_RTOL (a bit-equal
+# state on the same batch), later ones within CLI_LOSS_RTOL (K5 adds its
+# float sums in run-dependent order, so the weights part after one backward;
+# the resumed steps replay the straight run's proposal picks and matchings,
+# trap (d), so that a near tie cannot turn that part into a jump).
+CLI_EPOCHS = 2
+CLI_STEPS = 5
+CLI_EVAL_BATCHES = 10  # an epoch: 5 of the model, 5 of its EMA
+CLI_FIRST_LOSS_RTOL = 1e-6
+CLI_LOSS_RTOL = 1e-3
+
+
+def cli_launch_invariants(launches, steps, eval_batches):
+    """{check: (got, expected)} of a CLI run's launch counts."""
+    n = launches
+    return {"K1+K2": (n["K1"] + n["K2"], 13 * (steps + eval_batches)),
+            "K6+K7": (n["K6"] + n["K7"], 13 * steps), "K4": (n["K4"], 3 * steps),
+            "K5": (n["K5"], 3 * steps), "K3": (n["K3"], 3 * eval_batches),
+            "M1": (n["M1"], steps + eval_batches),
+            "others": (sum(n[k] for k in ("K7nb", "K8", "K9", "K10", "K10b")), 0)}
+
+
+def train_cli_phase(torch, kernels, card):
+    """small trained through `lwdetr_tpu_torch.main` for 2 epochs (finite
+    losses, two log records with the JAX CLI's keys, the checkpoint
+    directories), resumed from its epoch-0 save (the restored state equal to
+    the saved one bit for bit; the losses against the straight run's), then
+    the demo on one fixture image from the last checkpoint against
+    `build_eval_step` on the same image. Returns (launches, numbers)."""
+    import os
+    import shutil
+    import time
+
+    import numpy as np
+    from PIL import Image
+
+    from lwdetr_tpu_torch import demo
+    from lwdetr_tpu_torch import main as cli
+    from lwdetr_tpu_torch.config import get_config
+    from lwdetr_tpu_torch.data import transforms as T
+    from lwdetr_tpu_torch.models import criterion as cm
+    from lwdetr_tpu_torch.models import transformer as tr
+    from lwdetr_tpu_torch.models.lwdetr import build_model
+    from lwdetr_tpu_torch.train import checkpoint as ckpt
+    from lwdetr_tpu_torch.train import engine
+    from lwdetr_tpu_torch.weights import init_state_dict
+
+    work = os.path.abspath("build/chip_smoke/train_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    coco = os.path.join(work, "coco")
+    os.makedirs(os.path.join(coco, "annotations"))
+    # the release recipe starts from a detector checkpoint (--pretrain_weights,
+    # scripts/lwdetr_small_coco_train.sh): here small's seeded weights
+    pretrain = os.path.join(work, "pretrain.pth")
+    torch.save({"model": init_state_dict(get_config("small"), seed=0)}, pretrain)
+    for split in ("train2017", "val2017"):
+        os.symlink(os.path.abspath(f"{FIXTURE}/val2017"), os.path.join(coco, split))
+        shutil.copy(f"{FIXTURE}/annotations/instances_val2017.json",
+                    os.path.join(coco, "annotations", f"instances_{split}.json"))
+    # trap (d): the two-stage picks and the matching are discrete; a weight
+    # apart by one run-dependent f32 sum can swap a near-tied pick or
+    # assignment and move the loss by far more than the sum did. So the
+    # straight run's epoch-1 train steps record theirs and the resumed run's
+    # train steps replay them (M1 still runs there); the evals run free
+    losses, tape = [], {"mode": None, "picks": [], "match": [], "at": [0, 0]}
+    build, select, match = engine.build_train_step, tr.select_proposals, cm.hungarian_match
+
+    def taped(kind, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            i = ("picks", "match").index(kind)
+            if tape["mode"] == "record":
+                tape[kind].append(out)
+            elif tape["mode"] == "replay":
+                out = tape[kind][tape["at"][i]]
+                tape["at"][i] += 1
+            return out
+
+        return call
+
+    def recording_build(state, *a, **kw):
+        step = build(state, *a, **kw)
+
+        def recording(*sa, **skw):
+            sizes[-1].append(int(sa[0]["images"].shape[1]))  # (B, H, W, 3), square
+            tape["mode"] = modes[-1](len(losses[-1]))
+            metrics = step(*sa, **skw)
+            tape["mode"] = None
+            losses[-1].append(metrics["loss"])
+            return metrics
+
+        return recording
+
+    modes, sizes = [], []
+
+    def run(out, mode, *extra):
+        losses.append([])
+        sizes.append([])
+        modes.append(mode)
+        argv = ["--preset", "small", "--coco_path", coco, "--batch_size", str(TRAIN_BATCH),
+                "--epochs", str(CLI_EPOCHS), "--use_ema", "--checkpoint_interval", "1",
+                "--num_workers", "2", "--pretrain_weights", pretrain, "--output_dir", out, *extra]
+        t0 = time.perf_counter()
+        result, n = counted(torch, kernels, lambda: run_patched(
+            lambda: cli.main(cli.parser().parse_args(argv)),
+            (mock.patch.object(engine, "build_train_step", recording_build),
+             mock.patch.object(tr, "select_proposals", taped("picks", select)),
+             mock.patch.object(cm, "hungarian_match", taped("match", match)))))
+        return result, n, time.perf_counter() - t0, [float(x) for x in losses[-1]]
+
+    res, launches = {}, {}
+    out = os.path.join(work, "straight")
+    straight, launches["train_cli"], wall, loss_a = run(
+        out, lambda i: "record" if i >= CLI_STEPS else None)
+    bad = {k: v for k, v in cli_launch_invariants(launches["train_cli"], CLI_EPOCHS * CLI_STEPS,
+                                                  CLI_EPOCHS * CLI_EVAL_BATCHES).items()
+           if v[0] != v[1]}
+    log(f"train_cli launches: {launches['train_cli']}; train sizes {sizes[0]}")
+    if bad or len(loss_a) != CLI_EPOCHS * CLI_STEPS or not all(np.isfinite(loss_a)):
+        raise AssertionError(f"train_cli: launch checks {bad}, losses {loss_a}")
+    if not set(sizes[0]) <= set(CLI_SCALES) | {640}:  # the kernel phase's shapes
+        raise AssertionError(f"train_cli: train sizes {sizes[0]} outside the kernel checks'")
+    with open(os.path.join(out, "log.txt")) as f:
+        records = [json.loads(line) for line in f]
+    keys = {"epoch", "best_regular", "best_ema", "train_loss", "test_AP", "ema_test_AP"}
+    if [r["epoch"] for r in records] != [0, 1] or not all(keys <= set(r) for r in records) \
+            or not all(k in keys or k.startswith(("train_", "test_", "ema_test_"))
+                       for r in records for k in r):
+        raise AssertionError(f"train_cli: log records {[sorted(r) for r in records]}")
+    dirs = {sub: ckpt.checkpoint_keys(os.path.join(out, sub)) for sub in ckpt.KEEP}
+    want = {"ckpt": [CLI_STEPS, 2 * CLI_STEPS], "ckpt_epochs": [0, 1]}
+    if any(dirs[k] != v for k, v in want.items()) or len(dirs["ckpt_best_regular"]) != 1 \
+            or len(dirs["ckpt_best_ema"]) != 1:
+        raise AssertionError(f"train_cli: checkpoint dirs {dirs}")
+
+    # resume from the epoch-0 save: the restored state against the file
+    restore, restored = ckpt.restore_checkpoint, {}
+
+    def checked_restore(path, state, loaded=None):
+        step = restore(path, state, loaded)
+        saved = torch.load(ckpt.checkpoint_file(path), map_location="cpu", weights_only=False)
+        model = state.model.state_dict()
+        opt = state.optimizer.state_dict()
+        restored.update({
+            "model": model.keys() == saved["model"].keys() and all(
+                torch.equal(v.cpu(), saved["model"][k]) for k, v in model.items()),
+            "optimizer": opt["param_groups"] == saved["optimizer"]["param_groups"] and all(
+                torch.equal(t.cpu(), saved["optimizer"]["state"][i][name])
+                for i, st in opt["state"].items() for name, t in st.items()),
+            "ema": all(torch.equal(v.cpu(), saved["ema_model"][k]) for k, v in state.ema.items()),
+            "scheduler": state.scheduler.state_dict() == saved["lr_scheduler"],
+            "step": step == saved["step"] == CLI_STEPS})
+        return step
+
+    with mock.patch.object(ckpt, "restore_checkpoint", checked_restore):
+        resumed, launches["train_cli_resumed"], wall_r, loss_b = run(
+            os.path.join(work, "resumed"), lambda i: "replay", "--resume",
+            os.path.join(out, "ckpt", f"{CLI_STEPS}.pth"))
+    replayed = tape["at"] == [len(tape["picks"]), len(tape["match"])] and tape["match"]
+    bad = {k: v for k, v in cli_launch_invariants(launches["train_cli_resumed"], CLI_STEPS,
+                                                  CLI_EVAL_BATCHES).items() if v[0] != v[1]}
+    rel = [abs(a - b) / max(abs(a), 1e-12) for a, b in zip(loss_a[CLI_STEPS:], loss_b)]
+    log(f"train_cli resumed: restored equal {restored}; losses straight {loss_a[CLI_STEPS:]} "
+        f"resumed {loss_b}; relative differences {rel}")
+    if bad or not restored or not all(restored.values()) or len(loss_b) != CLI_STEPS \
+            or not replayed:
+        raise AssertionError(f"train_cli resumed: launches {bad}, restored {restored}, "
+                             f"{len(loss_b)} steps, replayed {tape['at']} of "
+                             f"{len(tape['picks'])} picks and {len(tape['match'])} matchings")
+    if rel[0] > CLI_FIRST_LOSS_RTOL or max(rel) > CLI_LOSS_RTOL:
+        raise AssertionError(f"train_cli resumed: losses off the straight run's: {rel}")
+
+    # the demo from the last checkpoint, against build_eval_step on the same image
+    image = os.path.join(FIXTURE, "val2017", sorted(os.listdir(f"{FIXTURE}/val2017"))[1])
+    dets, launches["demo"] = counted(torch, kernels, lambda: demo.main(
+        ["--image", image, "--checkpoint", os.path.join(out, "ckpt"),
+         "--output", os.path.join(work, "demo.jpg"), "--threshold", "0.3"]))
+    cfg = get_config("small")
+    saved = torch.load(ckpt.checkpoint_file(os.path.join(out, "ckpt")), map_location="cpu",
+                       weights_only=False)
+    model = build_model(cfg, device="cuda", state_dict=saved["model"])
+    pil = Image.open(image).convert("RGB")
+    arr, _ = T.val_transform_square(pil, None, 640)
+    batch = {"images": torch.from_numpy(np.ascontiguousarray(arr))[None].cuda(),
+             "orig_size": torch.tensor([[pil.height, pil.width]], dtype=torch.float32,
+                                       device="cuda")}
+    (scores, labels, boxes), _ = engine.build_eval_step(model, cfg.num_select)(batch)
+    same = (np.array_equal(dets["scores"], scores[0].cpu().numpy())
+            and np.array_equal(dets["labels"], labels[0].cpu().numpy())
+            and np.array_equal(dets["boxes"], boxes[0].cpu().numpy()))
+    if not same or launches["demo"] != launch_counts(K1=6, K2=7, K3=3):
+        raise AssertionError(f"demo: detections equal the eval step's: {same}; launches "
+                             f"{launches['demo']}")
+    res = {"straight_wall_s": wall, "resumed_wall_s": wall_r, "losses_straight": loss_a,
+           "losses_resumed": loss_b, "resumed_loss_rel_diff": rel, "restored_equal": restored,
+           "train_sizes": sizes[0], "resumed_train_sizes": sizes[1],
+           "records": records, "checkpoint_keys": dirs, "demo_kept": dets["kept"],
+           "demo_equals_eval_step": same, "card": card}
+    print(f"train_cli: small@640 f32, batch {TRAIN_BATCH}, {CLI_EPOCHS} epochs through "
+          f"lwdetr_tpu_torch.main in {wall:.1f} s (evals included), resumed from step "
+          f"{CLI_STEPS} in {wall_r:.1f} s: first step's loss {rel[0]:.3g} from the straight "
+          f"run's, the worst {max(rel):.3g}; demo {dets['kept']} detections, equal to the eval "
+          f"step's ({card})")
+    return launches, res
+
+
+def m1_entry(res, launches):
+    """M1's entry of the kernels line: small's train step (f32 costs), its
+    other shapes beside it; columns are integers, held equal (max_abs_err 0)."""
+    head = res[("M1@small_train", "float32")]
+    path = "small_train"
+    if launches[path]["M1"] < 1:
+        raise AssertionError(f"M1 was not launched on its path {path}")
+    return {"name": "M1", "route": "cuda", "source": SOURCES["M1"], "replaces": REPLACES["M1"],
+            "launches": launches[path]["M1"], "path": path,
+            "launches_by_path": {p: launches[p]["M1"] for p in launches}, "dtype": "float32",
+            "max_abs_err": 0, **{k: v for k, v in head.items() if k != "shape"},
+            "shape": head["shape"], "library_ms": None,
+            "tolerance": "columns equal to the plain version's (the JAX loop's); total cost "
+                         f"within {M1_SCIPY_RTOL} relative of scipy's; a launch ends within "
+                         f"{M1_TIME_LIMIT_S} s",
+            "other_shapes": {k: res[(f"M1@{k}", "float32")] for k, *_ in M1_CHECKS
+                             if k != "small_train"}}
+
+
 def main() -> int:
     import torch
 
@@ -1825,6 +2278,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from lwdetr_tpu_torch import bench
+    from lwdetr_tpu_torch.models import matcher as tm
     from lwdetr_tpu_torch.ops import deform_attn as da
     from lwdetr_tpu_torch.ops import flash_attention as fa
     from lwdetr_tpu_torch.utils.device import card_line
@@ -1837,7 +2291,8 @@ def main() -> int:
         da.deform_attn_sep_kernel, da.deform_attn_sep_bwd_kernel,
         fa.flash_attention_cm_bwd_kernel, fa.window_attention_bias_bwd_kernel,
         fa.window_attention_bwd_kernel, da.deform_attn_cm_bwd_kernel, fa.window_attention_kernel,
-        da.deform_attn_rowmajor_kernel, da.deform_attn_rowmajor_bwd_kernel)}
+        da.deform_attn_rowmajor_kernel, da.deform_attn_rowmajor_bwd_kernel,
+        tm.assignment_kernel)}
     if tuple(kernels) != KERNEL_NAMES:
         raise AssertionError(f"kernels {tuple(kernels)} != {KERNEL_NAMES}")
 
@@ -1863,6 +2318,8 @@ def main() -> int:
           f"{peaks[0]:.1f} MiB, with remat {peaks[1]:.1f} MiB ({card_line()})")
     by_path, eval_pipeline = eval_pipeline_phase(torch, fa, da, list(kernels.values()), card_line())
     launches.update(by_path)
+    by_path, train_cli = train_cli_phase(torch, list(kernels.values()), card_line())
+    launches.update(by_path)
     for preset in EXPECTED_LAUNCHES:
         thr[preset] = bench.run(preset, batch=32)
         log(f"{preset}@640 bf16 throughput: {thr[preset]['value']} img/s at batch 32 "
@@ -1881,6 +2338,9 @@ def main() -> int:
                      "K10": "tiny/gather_train", "K10b": "tiny/gather_train"}
     entries = []
     for name in kernels:
+        if name == "M1":
+            entries.append(m1_entry(res, launches))
+            continue
         path = headline_path.get(name, "small")
         if launches[path][name] < 1:
             raise AssertionError(f"{name} was not launched on its path {path}")
@@ -1898,7 +2358,8 @@ def main() -> int:
         if name in ("K2", "K6"):
             entry["decoder_shape"] = both(name + "dec")
         others = {key.split("@")[1] + ("_decoder" if "dec" in key else ""): both(key)
-                  for key, kname, *_ in ATTENTION_SHAPES + ATTENTION_BWD_SHAPES
+                  for key, kname, *_ in (ATTENTION_SHAPES + ATTENTION_BWD_SHAPES
+                                         + CLI_ATTENTION_SHAPES + CLI_ATTENTION_BWD_SHAPES)
                   if kname == name and "@" in key}
         if name == "K3":
             others.update(tiny=both("K3@tiny"), micro=both("K3@micro"),
@@ -1906,6 +2367,8 @@ def main() -> int:
                           large=both("K3@large"))
         if name in ("K3", "K8"):
             others.update({k: both(f"{name}@{k}") for k, _ in CM_CHECKS})
+        if name in ("K4", "K5"):
+            others.update({k: both(f"{name}@{k}") for k, _ in CLI_SEP_SHAPES})
         if name == "K4":
             others.update(small_train=both("K4@train"), tiny_train=both("K4@tiny_train"),
                           large_train=both("K4@large_train"))
@@ -1927,7 +2390,8 @@ def main() -> int:
         if entry["route"] not in ("cuda", "triton") or any(k not in entry for k in CONTRACT_KEYS):
             raise AssertionError(f"{entry['name']}: kernels-line entry breaks its contract")
     print(json.dumps({"forward_f32": fwd, "throughput": thr, "train_f32": train,
-                      "release_train": release, "eval_pipeline": eval_pipeline}))
+                      "release_train": release, "eval_pipeline": eval_pipeline,
+                      "train_cli": train_cli}))
     print(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,7 +14,9 @@ weights drawn from a seed; the batch is the preset's release per-device
 batch unless given (2 for large and xlarge). `--grad_checkpointing`
 recomputes each ViT block in the backward. Prints one JSON line with the
 metric `lwdetr_{preset}_640_{dtype}_train_throughput` in img/s, `step_ms`,
-the host time the matcher takes per step, peak device memory
+the host time the matcher takes per step (building the costs and enqueuing
+M1: it does not wait for the device), M1's device time on one step's costs
+(a CUDA graph of its launches), peak device memory
 (`torch.cuda.max_memory_allocated`), and the card's name and power limit.
 Timing: CUDA events around windows of `--steps` steps after 3 warm-up steps;
 the value is the median window, the spread its fastest and slowest.
@@ -31,13 +33,14 @@ import torch
 
 from lwdetr_tpu_torch.config import PRESETS, TRAIN_PRESETS, get_config, get_train_config
 from lwdetr_tpu_torch.models import criterion as criterion_mod
+from lwdetr_tpu_torch.models import matcher as matcher_mod
 from lwdetr_tpu_torch.models.criterion import SetCriterion
 from lwdetr_tpu_torch.models.lwdetr import resolve_device
 from lwdetr_tpu_torch.models.transformer import BRANCHES, set_force_branch
 from lwdetr_tpu_torch.train.engine import build_train_step, create_train_state
 from lwdetr_tpu_torch.train.optim import drop_scheduler
 from lwdetr_tpu_torch.utils.device import card_line
-from lwdetr_tpu_torch.utils.timing import measure_ms
+from lwdetr_tpu_torch.utils.timing import measure_graph_ms, measure_ms
 from lwdetr_tpu_torch.weights import init_state_dict
 
 
@@ -96,6 +99,23 @@ class HostTimer:
             self.calls += 1
 
 
+def matcher_device_ms(step) -> Optional[float]:
+    """M1's device time a launch on the costs of one call of `step`: its
+    launches replayed from a CUDA graph; None when the step launched none."""
+    seen = []
+
+    def record(*args):
+        seen.append(args)
+        return assign(*args)
+
+    assign = matcher_mod.assign
+    with mock.patch.object(matcher_mod, "assign", record):
+        step()
+    if not seen:
+        return None
+    return measure_graph_ms(lambda: assign(*seen[-1]), iters=20, repeats=3)["ms"]
+
+
 def run(preset: str = "small", batch: int = 4, steps: int = 10, repeats: int = 5,
         max_gt: int = 100, gt_per_img: int = 7, force_branch: Optional[str] = None,
         dtype: torch.dtype = torch.float32, grad_checkpointing: bool = False) -> dict:
@@ -103,11 +123,12 @@ def run(preset: str = "small", batch: int = 4, steps: int = 10, repeats: int = 5
                                   force_branch=force_branch, dtype=dtype,
                                   grad_checkpointing=grad_checkpointing)
     torch.cuda.reset_peak_memory_stats()
-    # the matcher's host time holds its wait for the forward and the scipy solves
+    # the matcher's host time: building the costs and enqueuing M1, no wait
     timer = HostTimer(criterion_mod.hungarian_match)
     with mock.patch.object(criterion_mod, "hungarian_match", timer):
         t = measure_ms(step, iters=steps, warmup=3, repeats=repeats)
     loss = float(step()["loss"])
+    m1_ms = matcher_device_ms(step)
     per_s = lambda ms: batch / (ms / 1000.0)  # noqa: E731
     return {
         "metric": f"lwdetr_{preset}_640_{'f32' if dtype == torch.float32 else 'bf16'}"
@@ -118,6 +139,7 @@ def run(preset: str = "small", batch: int = 4, steps: int = 10, repeats: int = 5
         "step_ms": t["ms"],
         "step_ms_samples": t["samples"],
         "matcher_host_ms_per_step": timer.seconds * 1e3 / timer.calls,
+        "matcher_device_ms_per_step": m1_ms,
         "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
         "steps_taken": state.step,
         "last_loss": loss,

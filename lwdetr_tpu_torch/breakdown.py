@@ -11,11 +11,12 @@ seeded weights, images on the card) or, with `--train`, the train step of
 `--grad_checkpointing` if given; batch: the release per-device batch unless
 given) under `torch.profiler` for a few steps after warm-up, and prints
 one JSON line: device time per step by kernel group (the port's kernels
-K1-K10, GEMMs, convolutions, the optimizer's and EMA's fused passes, the
+K1-K10 and M1, GEMMs, convolutions, the optimizer's and EMA's fused passes, the
 rest), the top kernels by device time, the device time of the decoder's
 head-major value copies (`value_panels`, the panel branch; profiler range
-`VALUE_COPY_RANGE`), the host time the matcher takes per train step (its wait
-for the forward and its scipy solves), and
+`VALUE_COPY_RANGE`), the host time the matcher takes per train step
+(building the costs and enqueuing M1; its device time is the "M1 assignment"
+group), and
 the device's idle share of a step (1 - busy / step time, where busy is the
 sum of kernel times under the profiler, kernels on one stream do not
 overlap, and the step time is the mean over 15 steps timed without the
@@ -64,6 +65,7 @@ GROUPS = (
     ("K6 flash_attention_cm_bwd", ("attention_bwd_dq_kernel", "attention_bwd_dkdv_kernel")),
     ("K7 window_attention_bwd (no bias)", (r"window_attention_bias_bwd_kernel<[^(]*false>",)),
     ("K7 window_attention_bias_bwd", ("window_attention_bias_bwd_kernel",)),
+    ("M1 assignment", ("assignment_kernel",)),
     # AdamW, gradient clipping and the EMA run as fused passes over tensor lists
     ("optimizer/EMA (foreach)", ("multi_tensor_apply", "lpnorm")),
     # norms before convolutions: cuDNN's batch norm (`cudnn::bn_fw_inf_...`) is no convolution

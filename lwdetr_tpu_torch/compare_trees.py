@@ -2,7 +2,7 @@
 
     python -m lwdetr_tpu_torch.compare_trees --other path/to/other/checkout \\
         --presets small tiny [--tool bench|bench_train|bench_attention|bench_deform] \\
-        [--breakdown] [--value_step train/cm]
+        [--breakdown] [--value_step train/cm] [--dtype bfloat16]
 
 Host-bound steps move with the machine by 25% between runs, so two versions
 are compared only inside one run, in turns. This builds each checkout's
@@ -16,9 +16,10 @@ have `bench_deform.py`; `--value_step` is passed to it: the step whose
 sampler launches are `value`). `--batch` replaces the tool's batch (for
 `bench_deform`, 0 runs the eval step alone:
 `--tool bench_deform --presets large --batch 0 --value_step eval`).
-With `--breakdown` (bench, bench_train) it adds `python -m
-lwdetr_tpu_torch.breakdown` with the same step once from each (device busy
-time and idle share). Prints one JSON line: every run's output in that
+`--dtype` (bench_train only) is the train step's compute dtype, passed to
+both tools. With `--breakdown` (bench, bench_train) it adds `python -m
+lwdetr_tpu_torch.breakdown` with the same step, in the same turns (device
+busy time and idle share). Prints one JSON line: every run's output in that
 order, and the card.
 """
 from __future__ import annotations
@@ -55,6 +56,8 @@ def main() -> None:
     ap.add_argument("--breakdown", action="store_true", help="bench and bench_train only")
     ap.add_argument("--value_step", help="bench_deform only: its --value_step")
     ap.add_argument("--batch", type=int, help="the tool's --batch (default: BATCH[tool])")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    help="bench_train only: the train step's compute dtype")
     args = ap.parse_args()
     tool = args.tool
     batch = BATCH[tool] if args.batch is None else args.batch
@@ -62,12 +65,15 @@ def main() -> None:
         ap.error("--breakdown times a whole step: bench or bench_train")
     if args.value_step and tool != "bench_deform":
         ap.error("--value_step is bench_deform's")
+    if args.dtype and tool != "bench_train":
+        ap.error("--dtype is bench_train's")
     trees = {"other": args.other.resolve(), "this": THIS}
     for tree in trees.values():  # so that no timed run compiles
         subprocess.run([sys.executable, "-c", BUILD], cwd=tree, check=True)
     runs = []
     for preset in args.presets:
         tail = ["--preset", preset, "--batch", str(batch)]
+        tail += ["--dtype", args.dtype] if args.dtype else []
         step = ["--value_step", args.value_step] if args.value_step else []
         for which in ("other", "this", "this", "other"):
             out = run_json(trees[which], ["-m", f"lwdetr_tpu_torch.{tool}", *tail, *step])
@@ -75,7 +81,7 @@ def main() -> None:
             print(f"{preset} {which}: {out['value']:.4f} {out['unit']}", file=sys.stderr,
                   flush=True)
         if args.breakdown:
-            for which in ("other", "this"):
+            for which in ("other", "this", "this", "other"):
                 out = run_json(trees[which], ["-m", "lwdetr_tpu_torch.breakdown", *tail,
                                               *(["--train"] if tool == "bench_train" else [])])
                 runs.append({"tree": which, "tool": "breakdown", "preset": preset, **out})

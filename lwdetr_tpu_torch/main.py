@@ -1,18 +1,31 @@
-"""LW-DETR evaluation CLI of the PyTorch/CUDA port.
+"""LW-DETR train / eval CLI of the PyTorch/CUDA port.
 
+    python -m lwdetr_tpu_torch.main --preset small --coco_path /data/coco \\
+        --output_dir out [--epochs N] [--bf16] [--resume out/ckpt]
     python -m lwdetr_tpu_torch.main --eval --preset small --coco_path /data/coco \\
         --resume LWDETR_small_coco.pth [--bf16] [--use_ema]
-    python -m lwdetr_tpu_torch.main --eval --device cpu --coco_path DIR ... (model flags)
+    python -m lwdetr_tpu_torch.main --device cpu --coco_path DIR ... (model flags)
 
-Counterpart of the root `main.py` (`get_args_parser`, `config_from_args` and
-its `--eval` branch): the same flags with the same meanings, driving
-COCO-format dir -> `CocoDetection` -> `DetectionLoader` -> `build_eval_step`
-on the card (the port's kernels) -> `evaluate` -> `CocoEvaluator`, and one
-JSON line of the 12 AP/AR stats (and the eval losses). `--device` defaults
-to `cuda` and raises when there is no card; `--device cpu` runs the plain
-versions. Training through the CLI needs the train state's save and restore
-(ROADMAP.md § 1 item 4) and is refused, as is `export_model` (§ 1 item 8).
-f32 eval keeps TF32 off, so f32 means f32.
+Counterpart of the root `main.py` (`get_args_parser`, `config_from_args`, its
+`--eval` branch and its train loop without the mesh): the same flags with the
+same meanings. Training: COCO-format dir -> `CocoDetection` ->
+`DetectionLoader` (reshuffled each epoch) -> `train_one_epoch` on the card
+(the port's kernels, the matcher M1) with the drop-path and dropout
+schedules; after each epoch the train state is saved (`ckpt/` by global
+step, keep 3; `ckpt_epochs/` at `lr_drop` and every `checkpoint_interval`
+epochs, keep all), evaluated (and its EMA), the precision / recall arrays
+dumped to `eval/latest.npz`, the best regular and EMA states saved
+(`ckpt_best_regular/`, `ckpt_best_ema/`, keep 1) and one JSON record with the
+JAX CLI's keys appended to `log.txt`. SIGTERM finishes the step in flight,
+saves and exits. `--resume` takes a reference `.pth` (weights, EMA, epoch) or
+the port's own checkpoint file or directory (the whole train state; the start
+epoch is step // steps an epoch). `--eval` runs `evaluate` -> `CocoEvaluator`
+and prints the 12 AP/AR stats (and the eval losses) as one JSON line. With a
+`--preset`, the train flags given on the command line (`--epochs`,
+`--batch_size`, `--use_ema`, ...) override the preset's recipe. `--device`
+defaults to `cuda` and raises when there is no card; `--device cpu` runs the
+plain versions. `export_model` is refused (ROADMAP.md § 1 item 8). f32 keeps
+TF32 off, so f32 means f32.
 """
 from __future__ import annotations
 
@@ -20,6 +33,7 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
 
 import numpy as np
 import torch
@@ -101,7 +115,8 @@ def get_args_parser():
     p.add_argument("--output_dir", default="output")
     p.add_argument("--checkpoint_interval", default=10, type=int)
     p.add_argument("--seed", default=42, type=int)
-    p.add_argument("--resume", default="", type=str, help="a reference .pth checkpoint")
+    p.add_argument("--resume", default="", type=str,
+                   help="a reference .pth, or the port's checkpoint file or directory")
     p.add_argument("--start_epoch", default=0, type=int)
     p.add_argument("--eval", action="store_true")
     p.add_argument("--fp16_eval", action="store_true",
@@ -139,8 +154,13 @@ def config_from_args(args):
 
     if args.preset:
         cfg = release_config(args.preset)
-        # CLI data flags still apply
-        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        # CLI data flags still apply, and the train flags given on the command line
+        flags = set(getattr(args, "flags_given", ()))
+        given = {f.name: getattr(args, f.name) for f in dataclasses.fields(TrainConfig)
+                 if f.name in flags}
+        cfg = dataclasses.replace(cfg, output_dir=args.output_dir,
+                                  train=dataclasses.replace(cfg.train, **given),
+                                  data=dataclasses.replace(
             cfg.data, coco_path=args.coco_path or "", dataset_file=args.dataset_file,
             num_workers=args.num_workers))
         # presets encode COCO's 91 classes; o365 needs the 366-way head
@@ -204,26 +224,16 @@ def config_from_args(args):
 
 
 def main(args) -> dict:
-    """Runs `--eval`; returns {"stats": ..., "ema_stats": ... or None} and
-    prints the stats as one JSON line."""
+    """Trains, or with `--eval` evaluates. Returns {"stats": the last eval's
+    stats, "ema_stats": its EMA's or None}, and in training also "state" (the
+    `TrainState`) and "epochs" (the epochs run)."""
     from lwdetr_tpu_torch.data.coco import build_dataset
-    from lwdetr_tpu_torch.data.coco_eval import CocoEvaluator
-    from lwdetr_tpu_torch.data.loader import DetectionLoader, to_device
+    from lwdetr_tpu_torch.data.loader import DetectionLoader
     from lwdetr_tpu_torch.models.criterion import SetCriterion
-    from lwdetr_tpu_torch.models.lwdetr import build_model, resolve_device
-    from lwdetr_tpu_torch.train import checkpoint as ckpt
-    from lwdetr_tpu_torch.train.engine import build_eval_step, evaluate
-    from lwdetr_tpu_torch.utils.logging import is_main_process, write_log_line
+    from lwdetr_tpu_torch.models.lwdetr import resolve_device
 
     if args.subcommand == "export_model":
         raise NotImplementedError("export_model is not ported: ROADMAP.md § 1 item 8")
-    if not args.eval:
-        raise NotImplementedError(
-            "training through the CLI is not ported: it needs the train state's save and "
-            "restore (ROADMAP.md § 1 item 4); run with --eval")
-    if args.resume and not args.resume.endswith(".pth"):
-        raise NotImplementedError(f"--resume {args.resume}: the port reads reference .pth "
-                                  "checkpoints; its own save / restore is ROADMAP.md § 1 item 4")
 
     cfg = config_from_args(args)
     mcfg, tcfg, dcfg = cfg.model, cfg.train, cfg.data
@@ -243,8 +253,6 @@ def main(args) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     # --fp16_eval: half-precision eval compute; bfloat16, with f32 parameters
     half = args.bf16 or args.fp16_eval
-    dtype = torch.bfloat16 if half else torch.float32
-    model = build_model(mcfg, device=device, dtype=dtype)
     criterion = SetCriterion(mcfg, tcfg)
 
     # bf16 eval takes bf16 images from the loader: the cast runs on the host,
@@ -254,9 +262,17 @@ def main(args) -> dict:
         ds_val, batch_size=max(tcfg.batch_size, 1), train=False, max_gt=tcfg.max_gt,
         square_div_64=dcfg.square_resize_div_64, eval_size=dcfg.eval_square_size,
         num_workers=dcfg.num_workers, image_dtype=torch.bfloat16 if half else None)
+    eval_dtype = torch.bfloat16 if half else torch.float32
+    if args.eval:
+        return _evaluate_only(args, mcfg, tcfg, device, eval_dtype, criterion, ds_val, val_loader)
+    return _train(args, cfg, device, eval_dtype, criterion, ds_val, val_loader)
 
-    # weights: encoder, then pretrain, then resume (reference main.py:240-286)
-    ema = None
+
+def _load_weights(args, model, use_ema: bool):
+    """--pretrained_encoder, then --pretrain_weights (reference main.py:240-259);
+    returns the EMA re-seeded from them with `use_ema`, else None."""
+    from lwdetr_tpu_torch.train import checkpoint as ckpt
+
     if args.pretrained_encoder:
         n = ckpt.load_pretrained_encoder(args.pretrained_encoder, model)
         print(f"loaded {n} encoder tensors from {args.pretrained_encoder}")
@@ -264,27 +280,44 @@ def main(args) -> dict:
         ckpt.load_pretrain_weights(model, args.pretrain_weights, args.pretrain_exclude_keys,
                                    args.pretrain_keys_modify_to_load)
         print(f"loaded pretrain weights from {args.pretrain_weights}")
-    if (args.pretrained_encoder or args.pretrain_weights) and tcfg.use_ema:
-        ema = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    if (args.pretrained_encoder or args.pretrain_weights) and use_ema:
+        return {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return None
+
+
+def _run_eval(model, mcfg, criterion, ds_val, val_loader, device):
+    """`evaluate` of `model` over the val loader; (stats, the evaluator)."""
+    from lwdetr_tpu_torch.data.coco_eval import CocoEvaluator
+    from lwdetr_tpu_torch.data.loader import to_device
+    from lwdetr_tpu_torch.train.engine import build_eval_step, evaluate
+
+    eval_step = build_eval_step(model, mcfg.num_select, criterion=criterion)
+    evaluator = CocoEvaluator(ds_val.coco)
+    stats = evaluate(eval_step, val_loader, evaluator, put_fn=lambda b: to_device(b, device))
+    return stats, evaluator
+
+
+def _evaluate_only(args, mcfg, tcfg, device, dtype, criterion, ds_val, val_loader) -> dict:
+    from lwdetr_tpu_torch.models.lwdetr import build_model
+    from lwdetr_tpu_torch.train import checkpoint as ckpt
+    from lwdetr_tpu_torch.utils.logging import is_main_process, write_log_line
+
+    model = build_model(mcfg, device=device, dtype=dtype)
+    # weights: encoder, then pretrain, then resume (reference main.py:240-286)
+    ema = _load_weights(args, model, tcfg.use_ema)
     if args.resume:
         # with --use_ema the EMA weights are the checkpoint's (else None, as before)
         ema, start_epoch = ckpt.resume_pth(model, args.resume, use_ema=tcfg.use_ema)
         print(f"resumed model weights from {args.resume}"
               + (f" (epoch {start_epoch - 1})" if start_epoch else ""))
 
-    def run_eval(eval_model):
-        eval_step = build_eval_step(eval_model, mcfg.num_select, criterion=criterion)
-        evaluator = CocoEvaluator(ds_val.coco)
-        return evaluate(eval_step, val_loader, evaluator,
-                        put_fn=lambda b: to_device(b, device))
-
-    stats = run_eval(model)
+    stats, _ = _run_eval(model, mcfg, criterion, ds_val, val_loader, device)
     stats_ema = None
     if tcfg.use_ema and ema is not None:
         print("EMA eval:")
         ema_model = build_model(mcfg, device=device, dtype=dtype)
         ema_model.load_state_dict(ema, strict=True)
-        stats_ema = run_eval(ema_model)
+        stats_ema, _ = _run_eval(ema_model, mcfg, criterion, ds_val, val_loader, device)
     if args.output_dir and is_main_process():
         record = {f"test_{k}": v for k, v in stats.items()}
         if stats_ema is not None:
@@ -294,8 +327,153 @@ def main(args) -> dict:
     return {"stats": stats, "ema_stats": stats_ema}
 
 
+def _train(args, cfg, device, eval_dtype, criterion, ds_val, val_loader) -> dict:
+    """The root `main.py:310-320`, `:343-356` and `:402-497`, without the mesh."""
+    import datetime
+    import signal
+    import time
+
+    from lwdetr_tpu_torch.data.coco import build_dataset
+    from lwdetr_tpu_torch.data.loader import DetectionLoader, to_device
+    from lwdetr_tpu_torch.models.lwdetr import build_model
+    from lwdetr_tpu_torch.train import checkpoint as ckpt
+    from lwdetr_tpu_torch.train import optim
+    from lwdetr_tpu_torch.train.engine import (build_train_step, create_train_state,
+                                               train_one_epoch)
+    from lwdetr_tpu_torch.utils.logging import (BestMetricHolder, is_main_process,
+                                                write_log_line)
+
+    mcfg, tcfg, dcfg = cfg.model, cfg.train, cfg.data
+    ds_train = build_dataset("train", dcfg)
+    train_loader = DetectionLoader(
+        ds_train, batch_size=tcfg.batch_size, train=True, max_gt=tcfg.max_gt, seed=tcfg.seed,
+        square_div_64=dcfg.square_resize_div_64, per_image_scales=dcfg.per_image_scales,
+        num_workers=dcfg.num_workers)
+    niter_per_ep = len(train_loader)
+    train_dtype = torch.bfloat16 if args.bf16 else torch.float32
+    state = create_train_state(mcfg, tcfg, niter_per_ep, device=device, dtype=train_dtype)
+    ema = _load_weights(args, state.model, tcfg.use_ema)
+    if ema is not None:  # reference main.py:257-259: EMA re-seeded from the loaded weights
+        state.ema = ema
+    start_epoch = args.start_epoch
+    if args.resume:
+        raw = ckpt.read_checkpoint(args.resume)
+        if ckpt.is_train_state(raw):
+            step = ckpt.restore_checkpoint(args.resume, state, raw)
+            start_epoch = step // max(niter_per_ep, 1)
+            print(f"resumed from {args.resume} at step {step}")
+        else:
+            # a reference .pth: weights (and EMA) and the epoch; the optimizer
+            # and schedule start afresh, as in the JAX CLI
+            ema, epoch = ckpt.resume_pth(state.model, args.resume, use_ema=tcfg.use_ema, ckpt=raw)
+            if ema is not None:
+                state.ema = ema
+            if epoch is not None:
+                start_epoch = epoch
+            print(f"resumed model weights from {args.resume}")
+        del raw
+
+    # schedules (reference main.py:296-309)
+    dp_sched = optim.drop_scheduler(mcfg.drop_path, tcfg.epochs, niter_per_ep, tcfg.cutoff_epoch,
+                                    tcfg.drop_mode, tcfg.drop_schedule)
+    do_sched = optim.drop_scheduler(mcfg.dropout, tcfg.epochs, niter_per_ep, tcfg.cutoff_epoch,
+                                    tcfg.drop_mode, tcfg.drop_schedule)
+    train_step = build_train_step(state, criterion, tcfg,
+                                  static_zero_drop_path=bool(np.all(dp_sched == 0)),
+                                  static_zero_dropout=bool(np.all(do_sched == 0)))
+    # the eval models: the trained model itself when it computes in the eval
+    # dtype (else a copy, refreshed before each eval), and one for the EMA weights
+    eval_model = (state.model if eval_dtype == train_dtype
+                  else build_model(mcfg, device=device, dtype=eval_dtype))
+    ema_model = build_model(mcfg, device=device, dtype=eval_dtype) if tcfg.use_ema else None
+    put = lambda b: to_device(b, device)  # noqa: E731
+    out_dir = args.output_dir if is_main_process() else ""
+
+    def save(sub: str, key: int, epoch: int):
+        if out_dir:
+            ckpt.save_checkpoint(os.path.join(out_dir, sub), key, state, epoch, args,
+                                 keep=ckpt.KEEP[sub])
+
+    # preemption: finish the step in flight, save, exit; resume is step-granular
+    preempt = {"sig": None}
+
+    def on_term(signum, frame):
+        preempt["sig"] = signum
+        print(f"signal {signum}: draining the current step, will save and exit", flush=True)
+
+    previous = signal.signal(signal.SIGTERM, on_term)
+    best = BestMetricHolder(use_ema=tcfg.use_ema)
+    stats = stats_ema = None
+    epochs = []
+    start = time.time()
+    try:
+        for epoch in range(start_epoch, tcfg.epochs):
+            train_loader.set_epoch(epoch)
+            train_meters = train_one_epoch(
+                train_step, state, train_loader, epoch, niter_per_ep, put_fn=put,
+                should_stop=lambda: preempt["sig"] is not None,
+                drop_path_sched=dp_sched, dropout_sched=do_sched)
+            if preempt["sig"] is not None:
+                save("ckpt", state.step, epoch)
+                print(f"preempted (signal {preempt['sig']}): saved at step {state.step}, exiting")
+                break
+            epochs.append(epoch)
+            # the rolling dir is keyed by global step; an extra durable save
+            # before the LR drop and every checkpoint_interval epochs
+            save("ckpt", state.step, epoch)
+            if (epoch + 1) % tcfg.lr_drop == 0 or (epoch + 1) % args.checkpoint_interval == 0:
+                save("ckpt_epochs", epoch, epoch)
+
+            if eval_model is not state.model:
+                eval_model.load_state_dict(state.model.state_dict())
+            stats, evaluator = _run_eval(eval_model, mcfg, criterion, ds_val, val_loader, device)
+            if out_dir and getattr(evaluator, "eval", None):
+                # precision / recall dump for offline analysis (reference main.py:402-411)
+                os.makedirs(os.path.join(out_dir, "eval"), exist_ok=True)
+                np.savez(os.path.join(out_dir, "eval", "latest.npz"), epoch=epoch,
+                         **evaluator.eval)
+            record = {"epoch": epoch, **{f"train_{k}": v for k, v in train_meters.items()},
+                      **{f"test_{k}": v for k, v in stats.items()}}
+            if best.update(stats["AP"], epoch):
+                save("ckpt_best_regular", epoch, epoch)
+            if tcfg.use_ema:
+                ema_model.load_state_dict(state.ema, strict=True)
+                stats_ema, _ = _run_eval(ema_model, mcfg, criterion, ds_val, val_loader, device)
+                record.update({f"ema_test_{k}": v for k, v in stats_ema.items()})
+                if best.update(stats_ema["AP"], epoch, is_ema=True):
+                    save("ckpt_best_ema", epoch, epoch)
+            record.update(best.summary())
+            write_log_line(out_dir, record)
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+    print(f"Training time {datetime.timedelta(seconds=int(time.time() - start))}")
+    return {"stats": stats, "ema_stats": stats_ema, "state": state, "epochs": epochs}
+
+
+def flags_given(argv) -> list:
+    """The destinations of the flags `argv` gives, whatever their values: every
+    destination starts as a marker (argparse sets no default where one is
+    set), so only a flag on the command line replaces it."""
+    bare = get_args_parser()
+    unset = object()
+    start = argparse.Namespace(**{dest: unset for dest in vars(bare.parse_args([]))})
+    return sorted(dest for dest, value in vars(bare.parse_known_args(argv, start)[0]).items()
+                  if value is not unset)
+
+
+class _Parser(argparse.ArgumentParser):
+    """Records in `args.flags_given` the flags the command line gives, so that a
+    preset's recipe yields to each of them, at its default value too."""
+
+    def parse_known_args(self, args=None, namespace=None):
+        argv = sys.argv[1:] if args is None else list(args)
+        parsed, rest = super().parse_known_args(argv, namespace)
+        parsed.flags_given = flags_given(argv)
+        return parsed, rest
+
+
 def parser() -> argparse.ArgumentParser:
-    return argparse.ArgumentParser("LW-DETR PyTorch/CUDA", parents=[get_args_parser()])
+    return _Parser("LW-DETR PyTorch/CUDA", parents=[get_args_parser()])
 
 
 if __name__ == "__main__":

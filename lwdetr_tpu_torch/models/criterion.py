@@ -199,7 +199,7 @@ class SetCriterion:
         if "enc_outputs" in outputs:
             sets.append((outputs["enc_outputs"], "_enc", False))
         if matched is None:
-            # one matching call for every output set: one wait on the device
+            # one matching launch (M1) for every output set, with no wait on the device
             matched = self.match(torch.stack([s[0]["pred_logits"].detach() for s in sets]),
                                  torch.stack([s[0]["pred_boxes"].detach() for s in sets]),
                                  targets, group_detr)

@@ -250,7 +250,9 @@ def _check_cuda(qkv_t: torch.Tensor, num_heads: int) -> None:
                          f"got {tuple(qkv_t.shape)}")
     D = qkv_t.shape[1] // 3 // num_heads
     if D not in _HEAD_DIMS:
-        raise ValueError(f"attention_cm kernels take head_dim in {_HEAD_DIMS}, got {D}")
+        raise ValueError(f"attention_cm kernels take head_dim in {_HEAD_DIMS}, got {D} "
+                         "(attention_cm zero-pads head_dim up to 64; above 64 is F4, "
+                         "ROADMAP.md § 3)")
 
 
 def _check_window(qkv_t: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
@@ -437,15 +439,55 @@ def flash_attention_cm_bwd(qkv_t: torch.Tensor, lse: Optional[torch.Tensor], dou
     return dqkv
 
 
+def padded_head_dim(head_dim: int) -> int:
+    """The head_dim of the kernel case a head_dim takes: the next of 16, 32, 64."""
+    for d in _HEAD_DIMS:
+        if head_dim <= d:
+            return d
+    raise ValueError(f"attention_cm kernels take head_dim up to {_HEAD_DIMS[-1]}, got "
+                     f"{head_dim}: F4 (ROADMAP.md § 3)")
+
+
+def _pad_heads(t: torch.Tensor, num_heads: int, head_dim: int, padded: int) -> torch.Tensor:
+    """(..., 3C, N) or (3C,) in q / k / v, head, channel order -> each head's
+    channels zero-padded from head_dim to `padded` (differentiable: the
+    gradient of the padding is the slice back)."""
+    lead, trail = t.shape[:-2] if t.dim() > 1 else (), t.shape[-1:] if t.dim() > 1 else ()
+    heads = t.reshape(*lead, 3, num_heads, head_dim, *trail)
+    pad = [0, 0] * len(trail) + [0, padded - head_dim]
+    return torch.nn.functional.pad(heads, pad).reshape(*lead, 3 * num_heads * padded, *trail)
+
+
+def attention_cm_padded(qkv_t: torch.Tensor, num_heads: int, scale: float,
+                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`attention_cm` at a head_dim outside {16, 32, 64} (up to 64): q, k, v
+    (and the bias) zero-padded along head_dim to the next kernel case, the
+    original `scale`, the output sliced back. Zero channels add exact zeros
+    to q.k and to p.v, so the function is unchanged; autograd slices d(qkv)
+    and d(bias) back through the padding."""
+    B, ZC, N = qkv_t.shape
+    D = ZC // 3 // num_heads
+    Dp = padded_head_dim(D)
+    qkv_p = _pad_heads(qkv_t, num_heads, D, Dp)
+    bias_p = None if bias is None else _pad_heads(bias, num_heads, D, Dp)
+    out = attention_cm(qkv_p, num_heads, scale, bias_p)
+    return out.reshape(B, num_heads, Dp, N)[:, :, :D].reshape(B, num_heads * D, N)
+
+
 def attention_cm(qkv_t: torch.Tensor, num_heads: int, scale: Optional[float] = None,
                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention over channel-major packed qkv (B, 3C, N) -> (B, C, N), with
-    an optional (3C,) qkv bias. Differentiable in qkv_t and bias."""
+    an optional (3C,) qkv bias. Differentiable in qkv_t and bias. On a CUDA
+    tensor a head_dim below 64 that no kernel case takes is zero-padded to
+    one (`attention_cm_padded`)."""
     B, ZC, N = qkv_t.shape
     if ZC % (3 * num_heads):
         raise ValueError(f"3C = {ZC} is not divisible by 3 x {num_heads} heads")
+    D = ZC // 3 // num_heads
     if scale is None:
-        scale = 1.0 / math.sqrt(ZC // 3 // num_heads)
+        scale = 1.0 / math.sqrt(D)
+    if qkv_t.is_cuda and D not in _HEAD_DIMS:
+        return attention_cm_padded(qkv_t, num_heads, scale, bias)
     if N <= _WINDOW_MAX_N:
         if bias is not None:
             return window_attention_bias(qkv_t, bias, num_heads, scale)

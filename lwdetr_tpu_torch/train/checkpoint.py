@@ -1,16 +1,25 @@
-"""Reference `.pth` checkpoints into the port's model.
+"""Checkpoints: reference `.pth` files into the port's model, and the save
+and restore of the whole train state.
 
-Counterpart of the `.pth` half of `lwdetr_tpu/train/checkpoint.py`
-(`clean_state_dict :230`, `load_pretrained_encoder :265`, `load_pth :312`)
-and of `main.py`'s `_load_pretrain` / `_resume_pth`. The port's `LWDETR`
-carries the reference's own state_dict keys, so a reference checkpoint needs
-no mapping: `torch.load` on the CPU, strip the DDP prefix, load. Save and
-restore of a whole train state (model, optimizer, schedule, EMA, step) is
-ROADMAP.md § 1 item 4 and is not here.
+Counterpart of `lwdetr_tpu/train/checkpoint.py`: its `.pth` half
+(`clean_state_dict :230`, `load_pretrained_encoder :265`, `load_pth :312`,
+and `main.py`'s `_load_pretrain` / `_resume_pth`), and its save / restore of
+the train state (`save_checkpoint :365`, `restore_checkpoint :377`) with
+`torch.save` in place of orbax. The port's `LWDETR` carries the reference's
+own state_dict keys, so a reference checkpoint needs no mapping.
+
+A saved train state is one `.pth` in the reference's format: `model` (the
+reference's keys, BatchNorm statistics included), `optimizer`,
+`lr_scheduler`, `ema_model` (with EMA on), `epoch`, plus `step` and `args`;
+the JAX package's `.pth` readers read its `model`. The directories keep the
+JAX CLI's layout and retention (`KEEP`), one file a key (`<key>.pth`: the
+global step in `ckpt/`, the epoch in the others). A file is written under a
+temporary name and renamed, so a run killed mid-write leaves no torn file.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Tuple
+import os
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -28,7 +37,14 @@ def _read(path: str):
     return torch.load(path, map_location="cpu", weights_only=False)
 
 
-def _state_dict(ckpt, key: str = "model") -> Dict[str, torch.Tensor]:
+def read_checkpoint(path: str):
+    """A checkpoint file, or a directory's latest, loaded on the CPU."""
+    return _read(checkpoint_file(path))
+
+
+def state_dict_of(ckpt, key: str = "model") -> Dict[str, torch.Tensor]:
+    """A loaded checkpoint's `key` entry (the whole file when it is a bare
+    state_dict), DDP prefixes stripped."""
     sd = ckpt.get(key, ckpt) if isinstance(ckpt, dict) else ckpt
     return clean_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
 
@@ -36,7 +52,7 @@ def _state_dict(ckpt, key: str = "model") -> Dict[str, torch.Tensor]:
 def load_pth(path: str) -> Dict[str, torch.Tensor]:
     """A reference `.pth` -> its 'model' state_dict (or the whole file when
     it is a bare state_dict), DDP prefixes stripped, on the CPU."""
-    return _state_dict(_read(path))
+    return state_dict_of(_read(path))
 
 
 def load_matching(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> int:
@@ -77,24 +93,113 @@ def load_pretrain_weights(model: torch.nn.Module, path: str,
     return load_matching(model, sd)
 
 
-def resume_pth(model: torch.nn.Module, path: str,
-               use_ema: bool) -> Tuple[Optional[Dict[str, torch.Tensor]], Optional[int]]:
+def resume_pth(model: torch.nn.Module, path: str, use_ema: bool,
+               ckpt: Optional[dict] = None) -> Tuple[Optional[Dict[str, torch.Tensor]],
+                                                     Optional[int]]:
     """`--resume X.pth` (the JAX CLI's `main.py:529-562 _resume_pth`; the
     reference's main.py:270-286): the model loads the checkpoint's 'model'
     strictly. With `use_ema` the EMA weights come from its 'ema_model' over
     the model's own (entries it lacks keep the model's), or are the model's
     when it has none. Returns (the EMA state_dict or None, the epoch to start
-    from, or None). The torch optimizer and schedule states are not read."""
-    ckpt = _read(path)
-    model.load_state_dict(_state_dict(ckpt, "model"), strict=True)
+    from, or None). The optimizer and schedule states are not read (a saved
+    train state restores them: `restore_checkpoint`). `path` may be a
+    checkpoint directory: its latest file (`ckpt`: that file already loaded)."""
+    if ckpt is None:
+        ckpt = read_checkpoint(path)
+    model.load_state_dict(state_dict_of(ckpt, "model"), strict=True)
     ema = None
     if use_ema:
         ema = {k: v.detach().clone() for k, v in model.state_dict().items()}
         if isinstance(ckpt, dict) and "ema_model" in ckpt:
-            for k, v in _state_dict(ckpt, "ema_model").items():
+            for k, v in state_dict_of(ckpt, "ema_model").items():
                 if k in ema and ema[k].shape == v.shape:
                     ema[k] = v.to(ema[k].device, ema[k].dtype)
     start_epoch = None
     if isinstance(ckpt, dict) and "epoch" in ckpt:
         start_epoch = int(ckpt["epoch"]) + 1
     return ema, start_epoch
+
+
+# retention a directory (None: keep all), as the JAX CLI's managers keep them
+KEEP = {"ckpt": 3, "ckpt_epochs": None, "ckpt_best_regular": 1, "ckpt_best_ema": 1}
+
+
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def checkpoint_keys(ckpt_dir: str) -> List[int]:
+    """The keys of the `<key>.pth` files in `ckpt_dir`, ascending."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    names = [n[:-4] for n in os.listdir(ckpt_dir) if n.endswith(".pth")]
+    return sorted(int(n) for n in names if n.isdigit())
+
+
+def checkpoint_file(path: str) -> str:
+    """A checkpoint file as given, or a directory's latest (highest key)."""
+    if not os.path.isdir(path):
+        return path
+    keys = checkpoint_keys(path)
+    if not keys:
+        raise FileNotFoundError(f"no checkpoint under {path}")
+    return os.path.join(path, f"{keys[-1]}.pth")
+
+
+def _payload(state, epoch: int, args=None) -> dict:
+    """The train state as the reference's `.pth` dict, on the CPU."""
+    payload = {"model": _to_cpu(state.model.state_dict()),
+               "optimizer": _to_cpu(state.optimizer.state_dict()),
+               "lr_scheduler": state.scheduler.state_dict(),
+               "epoch": int(epoch), "step": int(state.step),
+               "args": dict(vars(args)) if args is not None else None}
+    if state.ema is not None:
+        payload["ema_model"] = _to_cpu(state.ema)
+    return payload
+
+
+def save_checkpoint(ckpt_dir: str, key: int, state, epoch: int, args=None,
+                    keep: Optional[int] = 3) -> str:
+    """Writes `ckpt_dir/<key>.pth` (temporary name, then rename) and removes
+    the oldest files past `keep` (None keeps all); returns the path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"{int(key)}.pth")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(_payload(state, epoch, args), tmp)
+    os.replace(tmp, path)
+    if keep is not None:
+        for old in checkpoint_keys(ckpt_dir)[:-keep]:
+            os.remove(os.path.join(ckpt_dir, f"{old}.pth"))
+    return path
+
+
+def is_train_state(ckpt) -> bool:
+    """Whether a loaded `.pth` is a saved train state (not only weights)."""
+    return isinstance(ckpt, dict) and "optimizer" in ckpt and "step" in ckpt
+
+
+@torch.no_grad()
+def restore_checkpoint(path: str, state, ckpt: Optional[dict] = None) -> int:
+    """Restores `state` in place from a train-state file, or a directory's
+    latest (`ckpt`: that file already loaded): model (strictly, BatchNorm
+    statistics included), optimizer moments, the schedule, EMA (the model's
+    weights when the file has none) and `state.step`. Returns the step."""
+    if ckpt is None:
+        ckpt = read_checkpoint(path)
+    if not is_train_state(ckpt):
+        raise ValueError(f"{path} holds no train state (no optimizer / step)")
+    state.model.load_state_dict(state_dict_of(ckpt, "model"), strict=True)
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.scheduler.load_state_dict(ckpt["lr_scheduler"])
+    if state.ema is not None:
+        src = ckpt.get("ema_model") or state.model.state_dict()
+        for k, v in state.ema.items():
+            v.copy_(src[k])
+    state.step = int(ckpt["step"])
+    return state.step

@@ -245,16 +245,9 @@ def test_the_cli_runs_on_the_card_unless_asked(monkeypatch, micro_pth):
 # -- (e) what the CLI refuses ------------------------------------------------------------------
 
 
-def test_the_cli_refuses_to_train_naming_roadmap_item_4():
-    args = cli.parser().parse_args(["--device", "cpu", "--coco_path", FIXDIR, *MICRO_FLAGS])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md § 1 item 4"):
-        cli.main(args)
-
-
 @pytest.mark.parametrize("argv,match", [
-    (["--eval", "--resume", "out/ckpt"], r"§ 1 item 4"),
     (["--eval", "export_model"], r"§ 1 item 8"),
-], ids=["orbax_resume", "export"])
+], ids=["export"])
 def test_the_cli_refuses_what_is_not_ported(argv, match):
     args = cli.parser().parse_args(["--device", "cpu", "--coco_path", FIXDIR] + argv)
     with pytest.raises(NotImplementedError, match=match):

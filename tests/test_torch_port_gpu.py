@@ -774,3 +774,119 @@ def test_decoder_dropout_takes_the_self_attention_off_the_kernels(cuda, dtype):
     assert dropped == dict(plain, K9=0, K7nb=0)
     layer = [(6, 4, 16, 16), (2, 48, 64), (2, 48, 64), (2, 48, 128), (2, 48, 64)]
     assert shapes == [(32, 1, 1)] * 4 + layer * 2
+
+
+# -- M1, the assignment, and attention at zero-padded head dims (F4) -----------------------------
+
+
+def _m1_inputs(g, S, B, G, Qg, T, counts, kind):
+    from lwdetr_tpu_torch.models import matcher as tm
+
+    valid = torch.arange(T, device="cuda")[None, :] < torch.tensor(counts, device="cuda")[:, None]
+    if kind == "int":
+        return torch.randint(0, 3, (S, B, T, G * Qg), generator=g, device="cuda").float(), valid
+    logits = torch.randn((S, B, G * Qg, 91), generator=g, device="cuda")
+    boxes = torch.rand((S, B, G * Qg, 4), generator=g, device="cuda") * 0.4 + 0.2
+    labels = torch.randint(0, 91, (B, T), generator=g, device="cuda")
+    tboxes = torch.rand((B, T, 4), generator=g, device="cuda") * 0.4 + 0.2
+    cost = tm.match_cost_matrix(logits, boxes, labels, tboxes, valid)
+    if kind == "nan":
+        cost[:, 0, 1] = float("nan")
+        cost[:, -1, T - 1] = float("nan")
+    return cost.contiguous(), valid
+
+
+@pytest.mark.parametrize("S,B,G,Qg,T,counts,kind", [
+    (4, 4, 13, 300, 100, (7, 7, 7, 7), "match"),     # small's train step
+    (4, 2, 13, 300, 100, (7, 7), "match"),           # large's
+    (4, 4, 13, 300, 100, (100, 100, 100, 100), "match"),  # every target row valid
+    (2, 4, 3, 300, 100, (7, 30, 0, 100), "int"),     # ties everywhere
+    (1, 3, 2, 20, 7, (7, 6, 3), "match"),
+    (2, 2, 3, 20, 10, (6, 4), "nan"),
+    (1, 2, 1, 4, 6, (3, 4), "match"),                # more target slots than queries
+], ids=["small", "large", "all_valid", "ties", "sweep_7x20", "nan_rows", "t_above_q"])
+def test_assignment_kernel_gives_the_plain_versions_columns(cuda, S, B, G, Qg, T, counts, kind):
+    from lwdetr_tpu_torch.models import matcher as tm
+
+    cost, valid = _m1_inputs(cuda, S, B, G, Qg, T, counts, kind)
+    before = tm.assignment_kernel.launches
+    out = tm.assign(cost, valid, G)
+    torch.cuda.synchronize()
+    assert tm.assignment_kernel.launches == before + 1
+    assert out.shape == (S, B, G, T) and out.dtype == torch.int64
+    assert torch.equal(out, tm.assign_plain(cost, valid, G))
+    assert tm.kernel_attributes()["local_bytes"] == 0
+
+
+def test_hungarian_match_launches_m1_once_without_waiting_for_the_device(cuda):
+    from lwdetr_tpu_torch.models import matcher as tm
+
+    S, B, G, Qg, T, K = 4, 2, 13, 300, 100, 91
+    logits = torch.randn((S, B, G * Qg, K), generator=cuda, device="cuda")
+    boxes = torch.rand((S, B, G * Qg, 4), generator=cuda, device="cuda") * 0.4 + 0.2
+    labels = torch.randint(0, K, (B, T), generator=cuda, device="cuda")
+    tboxes = torch.rand((B, T, 4), generator=cuda, device="cuda") * 0.4 + 0.2
+    valid = (torch.arange(T, device="cuda") < 7).expand(B, T).contiguous()
+    before = tm.assignment_kernel.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        matched = tm.hungarian_match(logits, boxes, labels, tboxes, valid, group_detr=G)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tm.assignment_kernel.launches == before + 1
+    cost = tm.match_cost_matrix(logits, boxes, labels, tboxes, valid)
+    assert torch.equal(matched, tm.assign_plain(cost, valid, G))
+
+
+def test_assignment_kernel_refuses_more_than_1023_queries_a_group(cuda):
+    from lwdetr_tpu_torch.models import matcher as tm
+
+    with pytest.raises(ValueError, match="1023"):
+        tm.assign(torch.zeros((1, 1, 2, 1024), device="cuda"),
+                  torch.ones((1, 2), dtype=torch.bool, device="cuda"), 1)
+
+
+def test_staged_rows_fit_the_shared_memory_budget(cuda):
+    from lwdetr_tpu_torch.models import matcher as tm
+
+    for T, Q in [(1, 5), (4, 4), (7, 20), (30, 100), (100, 300), (300, 300), (1, 1023)]:
+        layout = tm.shared_layout(T, Q)
+        assert 0 <= layout["staged_rows"] <= T
+        assert layout["shared_bytes"] <= layout["budget_bytes"]
+    assert tm.shared_layout(7, 300)["staged_rows"] == 7
+    rows = tm.shared_layout(100, 300)["staged_rows"]
+    assert rows < 100 <= rows + 30
+
+
+@pytest.mark.parametrize("D", [8, 24, 48])
+@pytest.mark.parametrize("N,with_bias,kernel", [(100, True, "K1"), (100, False, "K9"),
+                                                (300, False, "K2")])
+def test_attention_at_padded_head_dims_matches_the_plain_version(cuda, D, N, with_bias, kernel):
+    """F4: head_dim 8, 24, 48 reach K1 / K9 / K2 (and K7 / K7nb / K6)
+    zero-padded to 16, 32, 64, forward and d(qkv) within ATOL (x max(1, max
+    |plain|)) of the plain version; d(bias) sums B x N such terms, so within
+    B x N times that."""
+    kern = {"K1": fa.window_attention_bias_kernel, "K9": fa.window_attention_kernel,
+            "K2": fa.flash_attention_cm_kernel}[kernel]
+    bwd = {"K1": fa.window_attention_bias_bwd_kernel, "K9": fa.window_attention_bwd_kernel,
+           "K2": fa.flash_attention_cm_bwd_kernel}[kernel]
+    heads, B = 4, 2
+    qkv = _qkv(cuda, B, heads * D, N, torch.float32).requires_grad_()
+    bias = (0.1 * torch.randn(3 * heads * D, generator=cuda, device="cuda")).requires_grad_() \
+        if with_bias else None
+    dout = torch.randn((B, heads * D, N), generator=cuda, device="cuda")
+    n0, b0 = kern.launches, bwd.launches
+    out = fa.attention_cm(qkv, heads, bias=bias)
+    grads = torch.autograd.grad(out, [qkv] + ([bias] if with_bias else []), dout)
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 1 and bwd.launches == b0 + 1
+    q2 = qkv.detach().clone().requires_grad_()
+    b2 = None if bias is None else bias.detach().clone().requires_grad_()
+    ref = fa.attention_cm_plain(q2 if b2 is None else q2 + b2[:, None], heads, D ** -0.5)
+    ref_grads = torch.autograd.grad(ref, [q2] + ([b2] if with_bias else []), dout)
+    assert (out - ref).abs().max().item() <= ATOL
+    scale = max(1.0, ref_grads[0].abs().max().item())
+    assert (grads[0] - ref_grads[0]).abs().max().item() <= ATOL * scale
+    if with_bias:
+        assert (grads[1] - ref_grads[1]).abs().max().item() <= ATOL * scale * B * N

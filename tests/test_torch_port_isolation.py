@@ -5,12 +5,14 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import pytest
 import torch
 
 from lwdetr_tpu_torch.config import ModelConfig
 from lwdetr_tpu_torch.models import lwdetr as port_model
+from lwdetr_tpu_torch.models import matcher as tmatcher
 from lwdetr_tpu_torch.ops import _build
 from lwdetr_tpu_torch.ops import deform_attn as tda
 from lwdetr_tpu_torch.ops import flash_attention as tfa
@@ -20,7 +22,8 @@ KERNELS = (tfa.window_attention_bias_kernel, tfa.flash_attention_cm_kernel,
            tda.deform_attn_sep_bwd_kernel, tfa.flash_attention_cm_bwd_kernel,
            tfa.window_attention_bias_bwd_kernel, tfa.window_attention_bwd_kernel,
            tda.deform_attn_cm_bwd_kernel, tfa.window_attention_kernel,
-           tda.deform_attn_rowmajor_kernel, tda.deform_attn_rowmajor_bwd_kernel)
+           tda.deform_attn_rowmajor_kernel, tda.deform_attn_rowmajor_bwd_kernel,
+           tmatcher.assignment_kernel)
 TINY = ModelConfig(vit_encoder_num_layers=1, out_feature_indexes=(0,), hidden_dim=32,
                    dim_feedforward=32, sa_nheads=2, ca_nheads=2, dec_layers=1,
                    num_queries=4, group_detr=1, num_classes=3, two_stage=True,
@@ -62,7 +65,9 @@ def test_the_train_modules_are_in_the_walk():
     names = {str(p.relative_to(ROOT / "lwdetr_tpu_torch")) for p in PORT_FILES[:-1]}
     assert {"models/matcher.py", "models/criterion.py", "train/optim.py", "train/engine.py",
             "bench_train.py", "config.py", "models/transformer.py", "ops/deform_attn.py",
-            "ops/flash_attention.py", "ops/_build.py", "bench.py", "breakdown.py"} <= names
+            "ops/flash_attention.py", "ops/_build.py", "bench.py", "breakdown.py",
+            "demo.py", "train/checkpoint.py", "main.py"} <= names
+    assert "matcher.cu" in _build.SOURCES  # M1, built with the others
 
 
 def test_the_eval_slice_modules_are_in_the_walk():
@@ -172,7 +177,7 @@ def test_every_kernel_source_is_registered_for_the_parallel_build():
     assert set(_build.SOURCES) == {p.name for p in _build.CSRC.glob("*.cu")}
     assert {k.source for k in KERNELS} == set(_build.SOURCES)
     assert [k.name for k in KERNELS] == ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K7nb", "K8",
-                                         "K9", "K10", "K10b"]
+                                         "K9", "K10", "K10b", "M1"]
     assert len({k.symbol for k in KERNELS}) == len(KERNELS)  # an entry symbol and a count each
     assert set(_build.HEADERS) == {p.name for p in _build.CSRC.glob("*.cuh")}
 
@@ -196,17 +201,59 @@ def test_chip_smoke_names_every_kernel_and_tinys_launches():
     assert all(chip_smoke.SOURCES[k.name].endswith(k.source) for k in KERNELS)
     used = lambda counts: {n: c for n, c in counts.items() if c}  # noqa: E731
     assert used(chip_smoke.EXPECTED_LAUNCHES["tiny"]) == {"K1": 3, "K2": 3, "K9": 3, "K3": 3}
-    tiny = dict(K1=3, K2=3, K9=3, K6=3, K7=3, K7nb=3)
+    tiny = dict(K1=3, K2=3, K9=3, K6=3, K7=3, K7nb=3, M1=1)
     assert used(chip_smoke.TRAIN_LAUNCHES["tiny"]) == dict(tiny, K4=3, K5=3)
     assert used(chip_smoke.TRAIN_LAUNCHES["tiny/cm"]) == dict(tiny, K3=3, K8=3)
     assert used(chip_smoke.TRAIN_LAUNCHES["tiny/gather"]) == dict(tiny, K10=3, K10b=3)
-    assert used(chip_smoke.TRAIN_LAUNCHES["small"]) == dict(K1=6, K2=7, K4=3, K5=3, K6=7, K7=6)
+    assert used(chip_smoke.TRAIN_LAUNCHES["small"]) == dict(K1=6, K2=7, K4=3, K5=3, K6=7, K7=6,
+                                                            M1=1)
+    # every train path matches once a step; no eval forward matches
+    assert all(n["M1"] == 1 for n in chip_smoke.TRAIN_LAUNCHES.values())
+    assert not any(n["M1"] for n in chip_smoke.EXPECTED_LAUNCHES.values())
     # every REPLACES entry names a line of the JAX package that defines that function
     for name, where in {**chip_smoke.REPLACES, **{k + "+": v for k, v in
                                                   chip_smoke.ALSO_REPLACES.items()}}.items():
         path, fn = where.split(" ")
         file, line = path.split(":")
         assert (ROOT / file).read_text().splitlines()[int(line) - 1].startswith(f"def {fn}("), name
+
+
+def test_chip_smoke_checks_the_kernels_at_each_train_cli_size():
+    """The kernel phase's CLI_SCALES tables are small's train step at every
+    size but 640 that the train loader draws: the attention calls of small's
+    ViT (N, heads, and the kernel `attention_cm` takes; its backward's
+    counterpart) and the map its projector gives the decoder's sampler."""
+    import chip_smoke
+    from lwdetr_tpu_torch.config import get_config
+    from lwdetr_tpu_torch.data import transforms as T
+    from lwdetr_tpu_torch.models.lwdetr import Backbone
+
+    assert set(chip_smoke.CLI_SCALES) | {640} == set(T.SCALES_SQUARE)
+    torch.manual_seed(0)
+    backbone = Backbone(get_config("small")).eval()
+    calls = set()
+
+    def record(qkv_t, num_heads, scale=None, bias=None):  # no attention computed: zeros
+        B, ZC, N = qkv_t.shape
+        kernel = ("K1" if bias is not None else "K9") if N <= tfa._WINDOW_MAX_N else "K2"
+        calls.add((kernel, B * chip_smoke.TRAIN_BATCH, ZC // 3, N, num_heads))
+        return qkv_t.new_zeros(B, ZC // 3, N)
+
+    backward = {"K1": "K7", "K2": "K6"}
+    panels = dict(chip_smoke.CLI_SEP_SHAPES)
+    for size in chip_smoke.CLI_SCALES:
+        calls.clear()
+        with mock.patch.object(tfa, "attention_cm", record), torch.no_grad():
+            maps = backbone(torch.zeros(1, size, size, 3))
+        tag = f"@cli{size}_"
+        fwd = {(k, B, C, N, h) for key, k, B, C, N, h, _, bias in chip_smoke.CLI_ATTENTION_SHAPES
+               if tag in key and bias == (k == "K1")}
+        bwd = {(k, B, C, N, h) for key, k, B, C, N, h, *_ in chip_smoke.CLI_ATTENTION_BWD_SHAPES
+               if tag in key}
+        assert calls == fwd, size
+        assert {(backward[k], *rest) for k, *rest in calls} == bwd, size
+        (B, H, D, P, Q, shapes), = [panels[f"cli{size}"]]
+        assert [tuple(m.shape) for m in maps] == [(1, *hw, H * D) for hw in shapes], size
 
 
 def _run_smoke(cwd: Path):

@@ -107,6 +107,47 @@ def test_attention_cm_matches_jax_interpret(N, heads, D, with_bias, scale):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
 
 
+@pytest.mark.parametrize("D", [8, 24, 48])
+@pytest.mark.parametrize("N,with_bias", [(100, True), (100, False), (200, True)],
+                         ids=["window_bias", "window", "long_bias"])
+def test_zero_padded_attention_equals_the_plain_version(D, N, with_bias):
+    """F4: a head_dim outside {16, 32, 64} reaches a kernel zero-padded to the
+    next case. On the same padded inputs the plain version gives the
+    unpadded output, and d(qkv), d(bias) sliced back, within f32 rounding of
+    a sum in another order, and JAX's attention on the unpadded inputs."""
+    rng = np.random.default_rng(D + N)
+    B, heads = 2, 3
+    C = heads * D
+    qkv = rng.standard_normal((B, 3 * C, N)).astype(np.float32)
+    bias = rng.standard_normal((3 * C,)).astype(np.float32) * 0.5 if with_bias else None
+    dout = rng.standard_normal((B, C, N)).astype(np.float32)
+    scale = D ** -0.5
+    assert tfa.padded_head_dim(D) == {8: 16, 24: 32, 48: 64}[D]
+
+    def run(fn):
+        q = torch.from_numpy(qkv).requires_grad_()
+        b = None if bias is None else torch.from_numpy(bias).requires_grad_()
+        out = fn(q, heads, scale, b)
+        out.backward(torch.from_numpy(dout))
+        return out.detach(), q.grad, None if b is None else b.grad
+
+    padded, plain = run(tfa.attention_cm_padded), run(tfa.attention_cm)
+    assert padded[0].shape == (B, C, N) and padded[1].shape == qkv.shape
+    for got, want in zip(padded, plain):
+        if want is not None:
+            np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=1e-5)
+    ref = jfa.attention_cm(jnp.asarray(qkv), heads, scale, interpret=True,
+                           bias=None if bias is None else jnp.asarray(bias))
+    np.testing.assert_allclose(padded[0].numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_attention_above_head_dim_64_is_refused_naming_f4():
+    with pytest.raises(ValueError, match="F4"):
+        tfa.padded_head_dim(72)
+    with pytest.raises(ValueError, match="F4"):
+        tfa.attention_cm_padded(torch.zeros(1, 3 * 72, 10), 1, 1.0)
+
+
 SHAPES = ((8, 10), (4, 5))
 
 

@@ -121,6 +121,8 @@ from lwdetr_tpu_torch.breakdown import _group
     ("sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc_nhwc_tilesize64x192x32_"
      "warpgroupsize1x1x1_", "conv"),
     ("void at::native::sbtopk::gatherTopK<float, unsigned int, 2, false>", "topk/sort"),
+    ("(anonymous namespace)::assignment_kernel(float const*, bool const*, long*, int, int, int, "
+     "int)", "M1 assignment"),
     ("void at::native::vectorized_elementwise_kernel<8, at::native::GeluCUDAKernelImpl"
      "(at::TensorIteratorBase&, at::native::Ge", "other elementwise/copy"),
     ("void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_impl_nocast"
@@ -337,3 +339,33 @@ def test_bench_variants_edits_match_the_sampler_source(name):
         bench_variants.variant_source(text, [["no such text in the source", ""]])
     args = bench_variants.parser().parse_args(["--variants", name, "--no-steps"])
     assert args.variants == [name] and not args.steps and args.other is None
+
+
+def test_compare_trees_passes_the_dtype_and_takes_breakdowns_in_turns():
+    """`--dtype` reaches bench_train and breakdown in both trees, and the
+    breakdowns run in the tool's turns: other, this, this, other."""
+    from unittest import mock
+
+    from lwdetr_tpu_torch import compare_trees
+
+    runs = []
+    with mock.patch.object(compare_trees, "run_json",
+                           side_effect=lambda tree, args: runs.append((tree, args)) or
+                           {"value": 1.0, "unit": "img/s"}), \
+            mock.patch.object(compare_trees.subprocess, "run"), \
+            mock.patch.object(compare_trees, "card_line", return_value="card, 700 W"), \
+            mock.patch("sys.argv", ["compare_trees", "--other", "/elsewhere", "--presets", "large",
+                                    "--tool", "bench_train", "--batch", "2", "--dtype", "bfloat16",
+                                    "--breakdown"]):
+        compare_trees.main()
+    assert len(runs) == 8
+    assert all(args[-2:] == ["--dtype", "bfloat16"] or args[-3:-1] == ["--dtype", "bfloat16"]
+               for _, args in runs)
+    tools = [args[1] for _, args in runs]
+    assert tools == ["lwdetr_tpu_torch.bench_train"] * 4 + ["lwdetr_tpu_torch.breakdown"] * 4
+    assert all(args[-1] == "--train" for _, args in runs[4:])
+    order = ["other" if str(tree) == "/elsewhere" else "this" for tree, _ in runs]
+    assert order == ["other", "this", "this", "other"] * 2
+    with mock.patch("sys.argv", ["compare_trees", "--other", ".", "--tool", "bench",
+                                 "--dtype", "bfloat16"]), pytest.raises(SystemExit):
+        compare_trees.main()
