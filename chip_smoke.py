@@ -100,6 +100,23 @@ Run from the root of a checkout, with one card:
    train steps replaying the straight run's picks and matchings); then
    `lwdetr_tpu_torch.demo` on one fixture image from the last checkpoint, its
    detections equal to `build_eval_step`'s.
+9. Padded batches (`padded_phase`): K2 / K6 on windows of 273 and 441 tokens
+   and global blocks of 4368 and 7056 (small at the legacy recipe's sizes),
+   K4 / K5 on 52 x 84 and 84 x 84 panels zeroed where padded, each against
+   its plain version in f32 and bf16; F4's head dims: K2 / K6 / K9 / K7nb at
+   head_dim 128, attention at 80 through `attention_cm`'s zero padding, the
+   samplers at 12, 72 and 128 through their pad-and-split routes (forward and
+   backward in each layout); small's eval forward on a padded batch of 4
+   fixture images (one portrait; K2 13, K4 3) against the plain versions on
+   the same picks; small's padded f32 train step (the legacy train recipe,
+   batch 4): its gradients against the plain backwards on the same forward,
+   and one step enqueued under `torch.cuda.set_sync_debug_mode("error")`;
+   the eval CLI on the legacy recipe (the micro model on
+   `tests/fixtures/micro_map_padded/`, batch 2) with its 12 stats within 1e-7
+   of `golden_stats_padded.json`; small trained one epoch from scratch
+   through the CLI on the legacy recipe (the fresh model's mean class
+   probability near the prior 0.01), then `--eval` of its checkpoint, whose
+   stats equal the training run's eval.
 
 Any failure exits non-zero. Without a CUDA card, or outside a checkout, it
 exits non-zero and prints no result. The line before the last holds one JSON
@@ -520,15 +537,23 @@ SEP_CHECKS = (("q1001", CM_Q1001), ("q1", CM_Q1), ("d32", CM_D32),
               ("four_levels", (2, 8, 16, 4, 150, [(40, 40), (20, 20), (10, 10), (5, 5)])))
 
 
-def sep_inputs(torch, dt, shape, seed=4, special=False):
+def sep_inputs(torch, dt, shape, seed=4, special=False, masked=False):
     """Values, locations, softmax weights and d(out) at `shape`. With
     `special`, some points also lie on grid lines (the pixel centres of the last
     five queries) and one is NaN (query 2): its plain reference takes it as a
-    point far outside (`torch.nan_to_num`)."""
+    point far outside (`torch.nan_to_num`). With `masked`, the values are
+    zero where a padded batch's are: image 0's last quarter of rows (a
+    landscape) and image 1's last quarter of columns (a portrait), as the
+    decoder zeroes them before its sampler."""
     B, H, D, P, Q, shapes = shape
     L = len(shapes)
     g = torch.Generator(device="cuda").manual_seed(seed)
     vals = [torch.randn((B, H, h, w * D), generator=g, device="cuda").to(dt) for h, w in shapes]
+    if masked:
+        for v, (h, w) in zip(vals, shapes):
+            v[0, :, h - h // 4:] = 0
+            if B > 1:
+                v[1, :, :, (w - w // 4) * D:] = 0
     # about a sixth of the points fall outside [0, 1] in x or y, so some or all
     # of their corners drop out; query 0 sits on the borders, query 1 far outside
     loc = torch.rand((B, Q, H, L, P, 2), generator=g, device="cuda") * 1.1 - 0.05
@@ -665,7 +690,7 @@ def route_note(route):
 
 
 def compare_deform_sep(torch, da, measure_ms, dtype, shape, name="K4",
-                       layout="panels", special=False):
+                       layout="panels", special=False, masked=False):
     """A sampler's forward against its plain version at `shape`: K4 on panels,
     K10 on the row-major and K3 on the channel-major layout of the same values
     (`special`: points on grid lines and NaN too, see `sep_inputs`); call and
@@ -678,7 +703,7 @@ def compare_deform_sep(torch, da, measure_ms, dtype, shape, name="K4",
     dt = getattr(torch, dtype)
     B, H, D, P, Q, shapes = shape
     L = len(shapes)
-    vals, loc, w, dout, outside = sep_inputs(torch, dt, shape, special=special)
+    vals, loc, w, dout, outside = sep_inputs(torch, dt, shape, special=special, masked=masked)
     lay = as_layout(torch, da, layout, vals, shapes, dout)
     value = lay.value
     kernel = lambda: lay.fwd(value, loc, w)  # noqa: E731
@@ -724,7 +749,8 @@ def compare_deform_sep(torch, da, measure_ms, dtype, shape, name="K4",
             **({"kernel_route": route} if route else {})}
 
 
-def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape, name="K5", layout="panels"):
+def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape, name="K5", layout="panels",
+                           masked=False):
     """A sampler's backward against its plain version: d(value), d(loc) and
     d(weights) from d(out). K5 on panels, K10's backward on the row-major and
     K8 on the channel-major layout of the same values; call and device
@@ -737,7 +763,7 @@ def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape, name="K5", layou
     dt = getattr(torch, dtype)
     B, H, D, P, Q, shapes = shape
     L = len(shapes)
-    vals, loc, w, dout, outside = sep_inputs(torch, dt, shape)
+    vals, loc, w, dout, outside = sep_inputs(torch, dt, shape, masked=masked)
     lay = as_layout(torch, da, layout, vals, shapes, dout)
     sep_dout = dout
     value, dout = lay.value, lay.dout
@@ -1586,7 +1612,7 @@ def release_train_phase(torch, fa, da, kernels, measure_ms, card, path, preset, 
 
     def grads(source):
         model.zero_grad(set_to_none=True)
-        out = model(data["images"], rates, mcfg.dropout, source)
+        out = model(data["images"], None, rates, mcfg.dropout, source)
         total, _ = criterion(out, targets, train=True)
         total.backward()
         torch.cuda.synchronize()
@@ -2250,6 +2276,492 @@ def train_cli_phase(torch, kernels, card):
     return launches, res
 
 
+# ---- padded batches (the legacy recipe and --per_image_scales) ---------------------------------
+
+PADDED_FIXTURE = "tests/fixtures/micro_map_padded"
+PADDED_BATCH = 4
+# small at the legacy recipe's sizes (shortest side 800, longest at most 1333,
+# padded to a multiple of 64): a 84 x 52 token map (4368 memory positions, the
+# panel branch K4 in eval) or 84 x 84 (7056); windows of 21 x 13 = 273 and
+# 21 x 21 = 441 tokens take K2 / K6 with the qkv bias added inline, not K1 /
+# K7. The global blocks' batch is cut to keep the plain backward's (B, H, N,
+# N) score tensors in memory.
+PADDED_ATTENTION_SHAPES = (
+    ("K2@pad_windows273", "K2", PADDED_BATCH * 16, 192, 273, 12, 1.0, False),
+    ("K2@pad_windows441", "K2", PADDED_BATCH * 16, 192, 441, 12, 1.0, False),
+    ("K2@pad_global4368", "K2", 2, 192, 4368, 12, 1.0, False),
+    ("K2@pad_global7056", "K2", 1, 192, 7056, 12, 1.0, False),
+    # F4: a decoder of 2 self-attention heads of 128 channels (--sa_nheads 2),
+    # over 300 queries in 13 groups a batch element (K2) and over 100 (K9)
+    ("K2@d128", "K2", TRAIN_BATCH * 13, 256, 300, 2, 128 ** -0.5, False),
+    ("K9@d128", "K9", BATCH, 256, 100, 2, 128 ** -0.5, False),
+)
+PADDED_ATTENTION_BWD_SHAPES = (
+    ("K6@pad_windows273", "K6", PADDED_BATCH * 16, 192, 273, 12, 1.0, False, 20),
+    ("K6@pad_windows441", "K6", PADDED_BATCH * 16, 192, 441, 12, 1.0, False, 20),
+    ("K6@pad_global4368", "K6", 2, 192, 4368, 12, 1.0, False, 5),
+    ("K6@pad_global7056", "K6", 1, 192, 7056, 12, 1.0, False, 3),
+    ("K6@d128", "K6", TRAIN_BATCH * 13, 256, 300, 2, 128 ** -0.5, False, 20),
+    ("K7nb@d128", "K7nb", TRAIN_BATCH * 13, 256, 100, 2, 128 ** -0.5, False, 50),
+)
+# the decoder's cross-attention on a padded map (values zeroed where padded):
+# eval (300 queries) on 52 x 84, train (13 groups) on 84 x 84; small's 16
+# heads of 16 channels, 2 points
+PADDED_SEP_SHAPES = (("pad52x84", (PADDED_BATCH, 16, 16, 2, 300, [(52, 84)])),
+                     ("pad84x84_train", (PADDED_BATCH, 16, 16, 2, 3900, [(84, 84)])))
+# F4 through the wrappers' routes: attention zero-padded from head_dim 80 to
+# the wide case (K2 / K6 over 300 queries, K9 / K7nb over 100), the samplers'
+# pad-and-split at head_dims 12, 72 and 128 (a decoder of 16, 8 or 2
+# cross-attention heads over hidden 192, 576 or 256) in each layout, forward
+# and backward through autograd
+F4_ATTENTION = (("K2", 300, 80), ("K9", 100, 80))
+F4_SAMPLER_DIMS = (12, 72, 128)
+F4_SAMPLER_SHAPE = (2, 2, None, 2, 300, [(40, 40), (20, 20)])  # D filled in
+# small's padded eval forward: the first batch of the padded fixture (640x480,
+# 480x640, 640x360, 280x210 through the legacy resize: 1088 x 1344 padded, 68 x
+# 84 tokens, windows of 17 x 21 = 357, 5712 memory positions)
+PADDED_EVAL_LAUNCHES = launch_counts(K2=13, K4=3)
+# the padded CLI runs: the micro model's eval on the padded fixture, 3
+# batches of 2 (68 x 68, 52 x 84 and 52 x 68 tokens: every window above 128
+# tokens, K4 at 4624 and 4368 memory positions, K3 at 3536), its eval losses
+# matched once a batch
+PADDED_CLI_LAUNCHES = launch_counts(K2=6, K9=6, K4=4, K3=2, M1=3)
+PADDED_CLI_STEPS = 5  # small, one epoch of the fixture's 20 images at batch 4
+PRIOR_PROB = 0.01  # sigmoid of the class heads' prior bias
+
+
+def small_cli_flags():
+    """LW-DETR-small's model and loss flags for `lwdetr_tpu_torch.main` without
+    `--preset` (a preset brings its data recipe, `square_resize_div_64`) and
+    without `--square_resize_div_64`: the legacy recipe."""
+    from lwdetr_tpu_torch import main as cli
+    from lwdetr_tpu_torch.config import get_config, get_train_config
+
+    cfg, tcfg = get_config("small"), get_train_config("small")
+    flags = []
+    for name in ("encoder", "vit_encoder_num_layers", "hidden_dim", "dim_feedforward",
+                 "sa_nheads", "ca_nheads", "dec_n_points", "dec_layers", "group_detr",
+                 "num_queries", "num_select"):
+        flags += [f"--{name}", str(getattr(cfg, name))]
+    for name in ("window_block_indexes", "out_feature_indexes", "projector_scale"):
+        flags += [f"--{name}", *map(str, getattr(cfg, name))]
+    flags += [f"--{name}" for name in ("two_stage", "lite_refpoint_refine", "bbox_reparam")
+              if getattr(cfg, name)]
+    flags += ["--ia_bce_loss", "--cls_loss_coef", str(tcfg.cls_loss_coef),
+              "--lr_component_decay", str(tcfg.lr_component_decay)]
+    parsed = cli.config_from_args(cli.parser().parse_args(["--coco_path", "x", *flags]))
+    if parsed.model != cfg or parsed.data.square_resize_div_64:
+        raise AssertionError(f"small's CLI flags give {parsed.model}")
+    return flags
+
+
+def padded_train_launches(height, width, steps):
+    """Launches of `steps` small train steps at a padded (height, width):
+    windows of at most 128 tokens take K1 / K7, longer ones K2 / K6."""
+    win = (height // 64) * (width // 64)
+    short = win <= 128
+    per = dict(K1=6 if short else 0, K2=7 if short else 13, K7=6 if short else 0,
+               K6=7 if short else 13, K4=3, K5=3, M1=1)
+    return launch_counts(**{k: v * steps for k, v in per.items()})
+
+
+def compare_split_route(torch, da, measure_ms, dtype, layout, D):
+    """F4: a sampler at a head_dim its kernels do not take, through the
+    public wrapper (zero-padded and split into `head_groups`), forward and
+    backward by autograd, against the same route with the plain versions
+    standing in for the two kernels (in bf16 they round as the JAX kernels;
+    the route with the plain versions equals the unsplit plain version,
+    tests/test_torch_port_ops.py): each kernel launched once; the output
+    within ATOL + SAMPLER_RTOL x |plain|, d(value) within 4 x ATOL x max(1,
+    max |plain|) + SAMPLER_RTOL x |plain|, d(loc) and d(weights) within ATOL x
+    max(1, max |plain|), and in bf16 on panels the groups' summed
+    `sep_panels_bwd_bf16_bound` besides (K5 rounds each group's weight
+    gradients)."""
+    B, H, _, P, Q, shapes = F4_SAMPLER_SHAPE
+    shape = (B, H, D, P, Q, shapes)
+    dt = getattr(torch, dtype)
+    vals, loc, w, dout, _ = sep_inputs(torch, dt, shape)
+    layout_name = {"K4": "panels", "K10": "rowmajor", "K3": "cm"}[layout]
+    lay = as_layout(torch, da, layout_name, vals, shapes, dout)
+    kern = {"K4": (da.deform_attn_sep_kernel, da.deform_attn_sep_bwd_kernel),
+            "K10": (da.deform_attn_rowmajor_kernel, da.deform_attn_rowmajor_bwd_kernel),
+            "K3": (da.deform_attn_cm_kernel, da.deform_attn_cm_bwd_kernel)}[layout]
+    G, Dg = da.head_groups(D, *((4, 128) if layout == "K3" else (8, 64)))
+    bounds = []
+
+    def panels_bwd_plain(v, sh, lc, a, g):
+        if dtype == "bfloat16" and not bounds:  # the bound on this group split's inputs
+            bounds.append(da.sep_panels_bwd_bf16_bound(v, sh, lc, a, g))
+        return da.ms_deform_attn_sep_panels_bwd_plain(v, sh, lc, a, g)
+
+    plain = {"K4": (("ms_deform_attn_sep_panels_fwd", da.ms_deform_attn_sep_panels_plain),
+                    ("ms_deform_attn_sep_panels_bwd", panels_bwd_plain)),
+             "K10": (("ms_deform_attn_fwd", da.ms_deform_attn_plain),
+                     ("ms_deform_attn_bwd", da.ms_deform_attn_bwd_plain)),
+             "K3": (("ms_deform_attn_cm_fwd", da.ms_deform_attn_cm_plain),
+                    ("ms_deform_attn_cm_bwd", da.ms_deform_attn_cm_bwd_plain))}[layout]
+
+    def run():
+        leaves = [t.detach().clone().requires_grad_() for t in tensors(lay.value) + [loc, w]]
+        v = leaves[:-2] if isinstance(lay.value, (list, tuple)) else leaves[0]
+        out = lay.fwd(v, leaves[-2], leaves[-1])
+        return [out] + list(torch.autograd.grad(out, leaves, lay.dout))
+
+    before = [k.launches for k in kern]
+    got = run()
+    torch.cuda.synchronize()
+    launched = [k.launches - b for k, b in zip(kern, before)]
+    if launched != [1, 1]:
+        raise AssertionError(f"F4 {layout} D={D}: launches {launched} != [1, 1]")
+    ref = run_patched(run, tuple(mock.patch.object(da, n, f) for n, f in plain))
+    if [k.launches - b for k, b in zip(kern, before)] != [1, 1]:
+        raise AssertionError(f"F4 {layout} D={D}: the plain route launched a kernel")
+    bloc = bw = None
+    if bounds:  # the groups' bounds summed, as autograd sums their d(loc), d(weights)
+        b_loc, b_w = bounds[0]
+        bloc = b_loc.reshape(B, Q, H, G, *b_loc.shape[3:]).sum(3)
+        bw = b_w.reshape(B, Q, H, G, *b_w.shape[3:]).sum(3)
+    rtol = SAMPLER_RTOL[dtype]
+    tag = f"F4 {layout} {dtype} D={D}"
+    err = check_close(torch, tag + " out", dtype, got[0], ref[0].float(), rtol=rtol)
+    err_v = max(check_close(torch, f"{tag} d(value {i})", dtype, a, b.float(),
+                            4.0 * grad_scale(b.float()), rtol=rtol)
+                for i, (a, b) in enumerate(zip(got[1:-2], ref[1:-2])))
+    err_l = check_close(torch, tag + " d(loc)", "float32", got[-2], ref[-2], grad_scale(ref[-2]),
+                        bound=bloc)
+    err_w = check_close(torch, tag + " d(weights)", "float32", got[-1], ref[-1],
+                        grad_scale(ref[-1]), bound=bw)
+    timed = measure_ms(run, iters=10, repeats=3)
+    plain_ms = measure_ms(lambda: run_patched(run, tuple(mock.patch.object(da, n, f)
+                                                         for n, f in plain)),
+                          iters=3, repeats=3)["ms"]
+    log(f"{tag} ({G} groups of {Dg}): err {err:.3g}, d(value) {err_v:.3g}, d(loc) {err_l:.3g}, "
+        f"d(weights) {err_w:.3g}; forward + backward ms {timed['ms']:.4f} plain {plain_ms:.4f}")
+    return {"shape": [list(t.shape) for t in tensors(lay.value)] + [Q], "head_dim": D,
+            "groups": G, "group_head_dim": Dg, "max_abs_err": err, "max_abs_err_dvalue": err_v,
+            "max_abs_err_dloc": err_l, "max_abs_err_dweights": err_w,
+            "fwd_bwd_ms": timed["ms"], "plain_fwd_bwd_ms": plain_ms}
+
+
+def compare_padded_attention(torch, fa, measure_ms, dtype, name, N, D):
+    """F4: attention at a head_dim between two kernel cases through
+    `attention_cm` (zero-padded to the next case), forward and backward, against
+    the plain version on the unpadded inputs: the forward kernel and its
+    backward launched once each; f32 within ATOL (x max(1, max |plain|) on
+    d(qkv)), bf16 within the bf16 attention bounds of the padded inputs."""
+    heads, B = 2, TRAIN_BATCH * 13 if N > 128 else BATCH
+    scale = D ** -0.5
+    dt = getattr(torch, dtype)
+    qkv, _ = attention_inputs(torch, B, heads * D, N, heads, dt, False, seed=D + N)
+    g = torch.Generator(device="cuda").manual_seed(D)
+    dout = torch.randn((B, heads * D, N), generator=g, device="cuda").to(dt)
+    fwd, bwd = {"K2": (fa.flash_attention_cm_kernel, fa.flash_attention_cm_bwd_kernel),
+                "K9": (fa.window_attention_kernel, fa.window_attention_bwd_kernel)}[name]
+
+    def run():
+        x = qkv.detach().requires_grad_()
+        out = fa.attention_cm(x, heads, scale)
+        return out, torch.autograd.grad(out, x, dout)[0]
+
+    before = (fwd.launches, bwd.launches)
+    out, dqkv = run()
+    torch.cuda.synchronize()
+    launched = (fwd.launches - before[0], bwd.launches - before[1])
+    x32 = qkv.float().requires_grad_()
+    ref = fa.attention_cm_plain(x32, heads, scale)
+    dref = torch.autograd.grad(ref, x32, dout.float())[0]
+    slack = 0.0 if dtype == "float32" else 2.0 ** -6  # p and ds rounded to bf16, and the result
+    err = check_close(torch, f"F4 {name} D={D} out", dtype, out, ref.detach(),
+                      rtol=slack, bound=slack * ref.detach().abs().max())
+    derr = check_close(torch, f"F4 {name} D={D} d(qkv)", dtype, dqkv, dref, grad_scale(dref),
+                       rtol=slack, bound=slack * dref.abs().max())
+    if launched != (1, 1):
+        raise AssertionError(f"F4 {name} D={D}: launches {launched} != (1, 1)")
+    timed = measure_ms(run, iters=10, repeats=3)
+    log(f"F4 {name} D={D} (padded to {fa.padded_head_dim(D)}) {dtype} qkv {tuple(qkv.shape)}: "
+        f"err {err:.3g}, d(qkv) {derr:.3g}; forward + backward ms {timed['ms']:.4f}")
+    return {"shape": list(qkv.shape), "head_dim": D, "padded_to": fa.padded_head_dim(D),
+            "max_abs_err": err, "max_abs_err_dqkv": derr, "fwd_bwd_ms": timed["ms"]}
+
+
+def padded_phase(torch, F, fa, da, kernels, measure_ms, card, res):
+    """Padded batches on the card: (a) the kernels against their plain versions
+    at the legacy recipe's shapes (K2 / K6 on windows of 273 and 441 tokens and
+    global blocks of 4368 and 7056, K4 / K5 on masked 52 x 84 and 84 x 84
+    panels) and F4's head dims (attention 80 and 128, the samplers 12, 72 and
+    128), into `res`; (b) small's padded eval forward against the plain
+    versions; (c) small's padded f32 train step: its gradients against the plain
+    backwards on the same forward, one step enqueued under
+    `torch.cuda.set_sync_debug_mode("error")`; (d) the eval CLI on the legacy
+    recipe against `golden_stats_padded.json`, and small trained one epoch
+    from scratch through the CLI on the legacy recipe (the first batch's mean
+    class probability at the prior), then `--eval` of its checkpoint. Returns
+    (launches, numbers)."""
+    import os
+    import shutil
+    import time
+
+    import numpy as np
+
+    from lwdetr_tpu_torch import main as cli
+    from lwdetr_tpu_torch.config import get_config, get_train_config
+    from lwdetr_tpu_torch.data.coco import CocoDetection
+    from lwdetr_tpu_torch.data.loader import DetectionLoader, to_device
+    from lwdetr_tpu_torch.models import criterion as cm
+    from lwdetr_tpu_torch.models import transformer as tr
+    from lwdetr_tpu_torch.models.lwdetr import build_model
+    from lwdetr_tpu_torch.train import engine
+    from lwdetr_tpu_torch.weights import init_state_dict
+
+    out = {"card": card}
+    launches = {}
+    # (a) kernels at the padded and F4 shapes
+    for dtype in ("float32", "bfloat16"):
+        for key, name, B, C, N, heads, scale, bias in PADDED_ATTENTION_SHAPES:
+            res[(key, dtype)] = compare_attention(torch, F, fa, measure_ms, name, B, C, N, heads,
+                                                  scale, bias, dtype)
+        for key, name, B, C, N, heads, scale, bias, iters in PADDED_ATTENTION_BWD_SHAPES:
+            res[(key, dtype)] = compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N,
+                                                      heads, scale, bias, dtype, iters)
+        for key, shape in PADDED_SEP_SHAPES:
+            res[(f"K4@{key}", dtype)] = compare_deform_sep(torch, da, measure_ms, dtype, shape,
+                                                           masked=True)
+            res[(f"K5@{key}", dtype)] = compare_deform_sep_bwd(torch, da, measure_ms, dtype,
+                                                               shape, masked=True)
+        out[f"f4_attention_{dtype}"] = {f"{n}_d{D}": compare_padded_attention(
+            torch, fa, measure_ms, dtype, n, N, D) for n, N, D in F4_ATTENTION}
+        out[f"f4_samplers_{dtype}"] = {f"{lay}_d{D}": compare_split_route(
+            torch, da, measure_ms, dtype, lay, D)
+            for D in F4_SAMPLER_DIMS for lay in ("K4", "K10", "K3")}
+
+    # (b) small's padded eval forward, kernels against the plain versions on the same picks
+    cfg = get_config("small")
+    ds = CocoDetection(f"{PADDED_FIXTURE}/val2017",
+                       f"{PADDED_FIXTURE}/annotations/instances_val2017.json")
+    batch = next(iter(DetectionLoader(ds, batch_size=PADDED_BATCH, train=False, max_gt=100,
+                                      square_div_64=False, num_workers=2)))
+    data = to_device(batch, "cuda")
+    masks = data["pad_mask"]
+    model = build_model(cfg, device="cuda", state_dict=init_state_dict(cfg, seed=0))
+
+    def forward():
+        with torch.no_grad():
+            return model(data["images"], masks)
+
+    picks = Picks(tr)
+    fwd_k, n = counted(torch, kernels, lambda: run_patched(forward, (picks.patch(False),)))
+    launches["padded_eval_small"] = n
+    log(f"small padded eval forward {tuple(data['images'].shape)} launches: {n}")
+    if n != PADDED_EVAL_LAUNCHES:
+        raise AssertionError(f"small padded eval: launches {n} != {PADDED_EVAL_LAUNCHES}")
+    fwd_p, n = counted(torch, kernels, lambda: run_patched(
+        forward, plain_patches(fa, da) + (picks.patch(True),)))
+    if any(n.values()):
+        raise AssertionError(f"the plain padded forward launched a kernel: {n}")
+    err_l = (fwd_k["pred_logits"] - fwd_p["pred_logits"]).abs().max().item()
+    err_b = (fwd_k["pred_boxes"] - fwd_p["pred_boxes"]).abs().max().item()
+    same_set = min(len(set(a.tolist()) & set(b.tolist())) / a.numel()
+                   for a, b in zip(picks.recorded[0], picks.own[0]))
+    with torch.no_grad():
+        forward_unmasked = model(data["images"])
+    unmasked = (forward_unmasked["pred_logits"] - fwd_k["pred_logits"]).abs().max().item()
+    log(f"small padded eval forward, kernels vs plain: logits {err_l:.3g}, boxes {err_b:.3g}; own "
+        f"picks same set {same_set:.4f}; the mask moves the logits by {unmasked:.3g}")
+    if err_l > FWD_ATOL_LOGITS or err_b > FWD_ATOL_BOXES or not unmasked > 1e-3:
+        raise AssertionError(f"small padded eval forward: logits {err_l}, boxes {err_b}, the "
+                             f"mask's effect {unmasked}")
+    out["eval_forward"] = {"images": list(data["images"].shape),
+                           "padded_share": masks.float().mean().item(),
+                           "logits_max_abs_err": err_l, "boxes_max_abs_err": err_b,
+                           "proposal_picks_same_set_min": same_set,
+                           "mask_moves_logits_by": unmasked}
+    del model, fwd_k, fwd_p, forward_unmasked
+
+    # (c) small's padded train step, f32, batch 4, the legacy train recipe
+    tcfg = get_train_config("small")
+    train_ds = CocoDetection(f"{FIXTURE}/val2017", f"{FIXTURE}/annotations/instances_val2017.json")
+    tbatch = next(iter(DetectionLoader(train_ds, batch_size=PADDED_BATCH, train=True,
+                                       max_gt=100, seed=3, square_div_64=False, num_workers=2)))
+    tdata = to_device(tbatch, "cuda")
+    state = engine.create_train_state(cfg, tcfg, niter_per_ep=10, device="cuda",
+                                      state_dict=init_state_dict(cfg, seed=0))
+    model = state.model
+    criterion = cm.SetCriterion(cfg, tcfg)
+    targets = cm.Targets(tdata["labels"], tdata["boxes"], tdata["valid"])
+    height, width = tdata["images"].shape[1:3]
+    expected = padded_train_launches(height, width, 1)
+    picks, match, matchings = Picks(tr), cm.hungarian_match, []
+
+    def record_match(*args, **kwargs):
+        matchings.append(match(*args, **kwargs))
+        return matchings[-1]
+
+    def replay_match(*args, **kwargs):
+        match(*args, **kwargs)
+        return matchings[0]
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        total, _ = criterion(model(tdata["images"], tdata["pad_mask"]), targets, train=True)
+        total.backward()
+        torch.cuda.synchronize()
+        return total.item(), {k: p.grad.clone() for k, p in model.named_parameters()
+                              if p.grad is not None}
+
+    (loss_k, grads_k), n = counted(torch, kernels, lambda: run_patched(
+        grads, (picks.patch(False), mock.patch.object(cm, "hungarian_match", record_match))))
+    launches["padded_train_small"] = n
+    log(f"small padded train step {tuple(tdata['images'].shape)} (padded share "
+        f"{tdata['pad_mask'].float().mean().item():.3f}) launches: {n}")
+    if n != expected:
+        raise AssertionError(f"small padded train step: launches {n} != {expected}")
+    (loss_b, grads_b), n = counted(torch, kernels, lambda: run_patched(
+        grads, (picks.patch(True), mock.patch.object(cm, "hungarian_match", replay_match))
+        + plain_backward_patches(fa, da)))
+    if any(n[k] for k in BACKWARD_KERNELS):
+        raise AssertionError(f"the plain padded backward launched a backward kernel: {n}")
+    top = max(g.abs().max().item() for g in grads_b.values())
+    rel = {k: ((grads_k[k] - g).abs().max() / g.abs().max().clamp(min=GRAD_FLOOR * top)).item()
+           for k, g in grads_b.items()}
+    worst = max(rel, key=rel.get)
+    log(f"small padded train step, kernels vs the plain backwards on the same forward: loss "
+        f"{loss_k:.7f} vs {loss_b:.7f}; gradient max rel err {rel[worst]:.3g} ({worst}), median "
+        f"{sorted(rel.values())[len(rel) // 2]:.3g} over {len(rel)} tensors")
+    if abs(loss_k - loss_b) > 1e-6 * abs(loss_k) or rel[worst] > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"small padded train step: {worst} {rel[worst]}, loss {loss_k} vs "
+                             f"{loss_b}")
+    del grads_k, grads_b
+    # one whole train step, enqueued with any host sync raising
+    step = engine.build_train_step(state, criterion, tcfg, static_zero_drop_path=True,
+                                   static_zero_dropout=True)
+    step(tdata)  # the first step builds what it caches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics, n = counted(torch, kernels, lambda: step(tdata))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches["padded_train_step_no_sync"] = n
+    if n != expected or not torch.isfinite(metrics["loss"]).item():
+        raise AssertionError(f"padded train step without host syncs: launches {n}, loss "
+                             f"{metrics['loss']}")
+    step_ms = measure_ms(lambda: step(tdata), iters=3, warmup=1, repeats=3)["ms"]
+    out["train_step"] = {"images": list(tdata["images"].shape),
+                         "padded_share": tdata["pad_mask"].float().mean().item(),
+                         "loss_kernels": loss_k, "loss_plain_backwards": loss_b,
+                         "grad_max_rel_err_plain_backwards": rel[worst],
+                         "grad_worst_tensor": worst, "enqueued_without_host_sync": True,
+                         "step_ms": step_ms}
+    print(f"small padded f32 train step {tuple(tdata['images'].shape)}: {step_ms:.3f} ms ({card})")
+    del state, model, step
+
+    # (d) the eval CLI on the legacy recipe against the JAX golden, then small
+    # trained from scratch one epoch through the CLI and evaluated by it
+    with open(f"{FIXTURE}/golden_stats_padded.json") as f:
+        golden = json.load(f)
+    work = os.path.abspath("build/chip_smoke/padded_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    pth = os.path.join(work, "micro.pth")
+    eval_argv = ["--eval", "--coco_path", PADDED_FIXTURE, *golden["flags"], "--resume", pth,
+                 "--output_dir", work]
+    if "--square_resize_div_64" in eval_argv:
+        raise AssertionError("the padded CLI run must take the legacy recipe")
+    micro_pth(torch, pth, cli.parser().parse_args(eval_argv))
+    t0 = time.perf_counter()
+    result, n = counted(torch, kernels, lambda: cli.main(cli.parser().parse_args(eval_argv)))
+    wall = time.perf_counter() - t0
+    launches["padded_cli_micro_eval"] = n
+    dist = {k: result["stats"][k] - v for k, v in golden["stats"].items()}
+    print(f"padded eval CLI (micro, f32, legacy recipe): the 12 stats "
+          f"{json.dumps({k: result['stats'][k] for k in golden['stats']})}; minus "
+          f"golden_stats_padded.json: max |d| {max(abs(v) for v in dist.values()):.3g} ({card})")
+    if n != PADDED_CLI_LAUNCHES:
+        raise AssertionError(f"padded eval CLI: launches {n} != {PADDED_CLI_LAUNCHES}")
+    bad = {k: v for k, v in dist.items() if abs(v) > GOLDEN_ATOL}
+    if bad:
+        raise AssertionError(f"padded eval CLI: stats off the golden by more than {GOLDEN_ATOL}: "
+                             f"{bad}")
+    out["cli_micro_eval"] = {"stats": result["stats"], "minus_golden": dist, "wall_s": wall}
+
+    coco = os.path.join(work, "coco")
+    os.makedirs(os.path.join(coco, "annotations"))
+    for split in ("train2017", "val2017"):
+        os.symlink(os.path.abspath(f"{FIXTURE}/val2017"), os.path.join(coco, split))
+        shutil.copy(f"{FIXTURE}/annotations/instances_val2017.json",
+                    os.path.join(coco, "annotations", f"instances_{split}.json"))
+    seed = 7
+    small = small_cli_flags()
+    train_argv = [*small, "--coco_path", coco, "--batch_size", str(PADDED_BATCH),
+                  "--epochs", "1", "--num_workers", "2", "--seed", str(seed),
+                  "--output_dir", os.path.join(work, "train")]
+    # the fresh model the CLI trains (the JAX package's initialisation drawn
+    # from --seed), on the first train batch: its class probabilities at the prior
+    args = cli.parser().parse_args(train_argv)
+    ccfg = cli.config_from_args(args)
+    fresh = engine.create_train_state(ccfg.model, ccfg.train, niter_per_ep=PADDED_CLI_STEPS,
+                                      device="cuda").model.eval()
+    first = next(iter(DetectionLoader(CocoDetection(f"{coco}/train2017",
+                                                    f"{coco}/annotations/instances_train2017.json"),
+                                      batch_size=PADDED_BATCH, train=True, max_gt=100, seed=seed,
+                                      square_div_64=False, num_workers=2)))
+    first = to_device(first, "cuda")
+    with torch.no_grad():
+        fresh_out = fresh(first["images"], first["pad_mask"])
+    mean_prob = fresh_out["pred_logits"].float().sigmoid().mean().item()
+    del fresh, fresh_out
+    log(f"a fresh small model (seed {seed}) on the first padded train batch: mean class "
+        f"probability {mean_prob:.4f} (prior {PRIOR_PROB})")
+    if not PRIOR_PROB / 2 < mean_prob < 3 * PRIOR_PROB:
+        raise AssertionError(f"a fresh model scores {mean_prob}, not near the prior {PRIOR_PROB}")
+    losses, sizes = [], []
+    build = engine.build_train_step
+
+    def recording_build(st, *a, **kw):
+        step_fn = build(st, *a, **kw)
+
+        def recording(*sa, **skw):
+            sizes.append(list(sa[0]["images"].shape[1:3]))
+            if "pad_mask" not in sa[0]:
+                raise AssertionError("the legacy recipe's train batch came without its pad_mask")
+            metrics = step_fn(*sa, **skw)
+            losses.append(metrics["loss"])
+            return metrics
+
+        return recording
+
+    t0 = time.perf_counter()
+    trained, n = counted(torch, kernels, lambda: run_patched(
+        lambda: cli.main(cli.parser().parse_args(train_argv)),
+        (mock.patch.object(engine, "build_train_step", recording_build),)))
+    wall_train = time.perf_counter() - t0
+    launches["padded_cli_train"] = n
+    losses = [float(x) for x in losses]
+    log(f"padded train CLI: launches {n}; sizes {sizes}; losses {losses}")
+    if len(losses) != PADDED_CLI_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"padded train CLI: losses {losses}")
+    # a step launches M1 once and K5 3 times; the eval's 5 batches M1 once each
+    if n["M1"] != PADDED_CLI_STEPS + 5 or n["K5"] != 3 * PADDED_CLI_STEPS:
+        raise AssertionError(f"padded train CLI: launches {n}")
+    ckpt_dir = os.path.join(work, "train", "ckpt")
+    result_eval, n = counted(torch, kernels, lambda: cli.main(cli.parser().parse_args(
+        ["--eval", *small, "--coco_path", coco, "--batch_size", str(PADDED_BATCH),
+         "--num_workers", "2", "--resume", ckpt_dir, "--output_dir", work])))
+    launches["padded_cli_eval"] = n
+    same = {k: result_eval["stats"][k] == trained["stats"][k] for k in golden["stats"]}
+    log(f"padded --eval of the trained checkpoint: launches {n}; stats equal the training "
+        f"run's eval: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"padded --eval: stats {result_eval['stats']} != the training run's "
+                             f"{trained['stats']}")
+    out["cli_train"] = {"fresh_mean_class_prob": mean_prob, "losses": losses, "sizes": sizes,
+                        "wall_s": wall_train, "eval_stats": trained["stats"]}
+    print(f"padded train CLI: small from scratch (seed {seed}), {PADDED_CLI_STEPS} steps of the "
+          f"legacy recipe in {wall_train:.1f} s with its eval, first mean class probability "
+          f"{mean_prob:.4f}, losses {[round(x, 4) for x in losses]} ({card})")
+    return launches, out
+
+
 def m1_entry(res, launches):
     """M1's entry of the kernels line: small's train step (f32 costs), its
     other shapes beside it; columns are integers, held equal (max_abs_err 0)."""
@@ -2320,6 +2832,9 @@ def main() -> int:
     launches.update(by_path)
     by_path, train_cli = train_cli_phase(torch, list(kernels.values()), card_line())
     launches.update(by_path)
+    by_path, padded = padded_phase(torch, F, fa, da, list(kernels.values()), measure_ms,
+                                   card_line(), res)
+    launches.update(by_path)
     for preset in EXPECTED_LAUNCHES:
         thr[preset] = bench.run(preset, batch=32)
         log(f"{preset}@640 bf16 throughput: {thr[preset]['value']} img/s at batch 32 "
@@ -2359,7 +2874,9 @@ def main() -> int:
             entry["decoder_shape"] = both(name + "dec")
         others = {key.split("@")[1] + ("_decoder" if "dec" in key else ""): both(key)
                   for key, kname, *_ in (ATTENTION_SHAPES + ATTENTION_BWD_SHAPES
-                                         + CLI_ATTENTION_SHAPES + CLI_ATTENTION_BWD_SHAPES)
+                                         + CLI_ATTENTION_SHAPES + CLI_ATTENTION_BWD_SHAPES
+                                         + PADDED_ATTENTION_SHAPES
+                                         + PADDED_ATTENTION_BWD_SHAPES)
                   if kname == name and "@" in key}
         if name == "K3":
             others.update(tiny=both("K3@tiny"), micro=both("K3@micro"),
@@ -2368,7 +2885,7 @@ def main() -> int:
         if name in ("K3", "K8"):
             others.update({k: both(f"{name}@{k}") for k, _ in CM_CHECKS})
         if name in ("K4", "K5"):
-            others.update({k: both(f"{name}@{k}") for k, _ in CLI_SEP_SHAPES})
+            others.update({k: both(f"{name}@{k}") for k, _ in CLI_SEP_SHAPES + PADDED_SEP_SHAPES})
         if name == "K4":
             others.update(small_train=both("K4@train"), tiny_train=both("K4@tiny_train"),
                           large_train=both("K4@large_train"))
@@ -2391,7 +2908,7 @@ def main() -> int:
             raise AssertionError(f"{entry['name']}: kernels-line entry breaks its contract")
     print(json.dumps({"forward_f32": fwd, "throughput": thr, "train_f32": train,
                       "release_train": release, "eval_pipeline": eval_pipeline,
-                      "train_cli": train_cli}))
+                      "train_cli": train_cli, "padded": padded}))
     print(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

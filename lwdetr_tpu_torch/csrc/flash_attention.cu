@@ -50,6 +50,10 @@
 // the backward kernel (flash_attention_bwd.cu) rebuilds the softmax weights
 // from it instead of taking the row max and sum again. `lse` is null in eval,
 // which then pays nothing for it. Both cases write it.
+//
+// Head dims 128 to 1024 (the decoder's wider heads) take the wide case,
+// attention_wide.cuh: CUDA cores in both dtypes.
+#include "attention_wide.cuh"
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -344,7 +348,7 @@ int check(int B, int C, int N, int num_heads, int dtype) {
       (dtype != lw::kFloat32 && dtype != lw::kBFloat16))
     return cudaErrorInvalidValue;
   const int D = C / num_heads;
-  return D == 16 || D == 32 || D == 64 ? cudaSuccess : cudaErrorInvalidValue;
+  return D == 16 || D == 32 || D == 64 || lw_wide::takes(D) ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -355,7 +359,11 @@ extern "C" int lw_flash_attention_cm(const void* qkv, void* out, void* lse, int 
   if (int err = check(B, C, N, num_heads, dtype)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lp = static_cast<float*>(lse);
-  switch (C / num_heads) {
+  const int D = C / num_heads;
+  if (lw_wide::takes(D))
+    return dtype == lw::kFloat32 ? lw_wide::forward<float>(qkv, out, lp, B, C, N, D, scale, st)
+                                 : lw_wide::forward<lw::bf16>(qkv, out, lp, B, C, N, D, scale, st);
+  switch (D) {
     case 16: return launch<16>(qkv, out, lp, B, C, N, scale, dtype, st);
     case 32: return launch<32>(qkv, out, lp, B, C, N, scale, dtype, st);
     default: return launch<64>(qkv, out, lp, B, C, N, scale, dtype, st);
@@ -367,6 +375,9 @@ extern "C" int lw_flash_attention_cm(const void* qkv, void* out, void* lse, int 
 extern "C" int lw_flash_attention_cm_attributes(const void* qkv, int B, int C, int N,
                                                 int num_heads, int dtype, int* attrs) {
   if (int err = check(B, C, N, num_heads, dtype)) return err;
+  if (lw_wide::takes(C / num_heads))
+    return dtype == lw::kFloat32 ? lw_wide::forward_attributes<float>(attrs)
+                                 : lw_wide::forward_attributes<lw::bf16>(attrs);
   const int vec = lw::bf16_vec(qkv, N);
   const void* fn = C / num_heads == 16 ? pick<16>(dtype, vec)
                    : C / num_heads == 32 ? pick<32>(dtype, vec) : pick<64>(dtype, vec);

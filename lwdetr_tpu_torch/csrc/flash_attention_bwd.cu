@@ -61,6 +61,10 @@
 //
 // Ragged tails: a key past N gets p = 0 (only the last key tile is masked);
 // a query past N has lse = +inf, so p = 0 and it adds nothing to dk or dv.
+//
+// Head dims 128 to 1024 (the decoder's wider heads) take the wide case,
+// attention_wide.cuh: the same two passes on the CUDA cores.
+#include "attention_wide.cuh"
 #include "common.cuh"
 #include "attention_bwd.cuh"
 
@@ -346,12 +350,15 @@ int check(int B, int C, int N, int num_heads, int dtype) {
       (dtype != lw::kFloat32 && dtype != lw::kBFloat16))
     return cudaErrorInvalidValue;
   const int D = C / num_heads;
-  return D == 16 || D == 32 || D == 64 ? cudaSuccess : cudaErrorInvalidValue;
+  return D == 16 || D == 32 || D == 64 || lw_wide::takes(D) ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <typename T>
 int dispatch(int D, const void* qkv, const float* lse, const void* dout, void* dqkv,
              float* delta, int B, int C, int N, float scale, cudaStream_t st) {
+  if (lw_wide::takes(D))
+    return lw_wide::backward<T>(qkv, const_cast<float*>(lse), dout, dqkv, delta, B, C, N, D,
+                                scale, false, st);
   switch (D) {
     case 16: return launch<T, 16>(qkv, lse, dout, dqkv, delta, B, C, N, scale, st);
     case 32: return launch<T, 32>(qkv, lse, dout, dqkv, delta, B, C, N, scale, st);
@@ -361,6 +368,7 @@ int dispatch(int D, const void* qkv, const float* lse, const void* dout, void* d
 
 template <typename T>
 int dispatch_attributes(int D, int* attrs) {
+  if (lw_wide::takes(D)) return lw_wide::backward_attributes<T>(D, attrs);
   switch (D) {
     case 16: return attributes<T, 16>(attrs);
     case 32: return attributes<T, 32>(attrs);

@@ -45,6 +45,11 @@
 // thread per query; the panel staged in f32 with the bias added, read as
 // shared-memory broadcasts; QK^T computed twice (the row max, then the
 // weights); bound by the f32 FMA rate.
+//
+// Without a bias, head dims 128 to 1024 (the decoder's wider heads) take the
+// wide case, attention_wide.cuh; K1 (the ViT's, whose heads never exceed 64
+// channels) takes none of them.
+#include "attention_wide.cuh"
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -317,20 +322,26 @@ cudaError_t launch(const void* qkv, const void* bias, void* out, int B, int C, i
   return cudaGetLastError();
 }
 
-int check(int B, int C, int N, int num_heads, int dtype) {
+int check(int B, int C, int N, int num_heads, int dtype, bool bias) {
   if (B < 1 || N < 1 || N > kMaxN || num_heads < 1 || C % num_heads != 0 ||
       (dtype != lw::kFloat32 && dtype != lw::kBFloat16))
     return cudaErrorInvalidValue;
   const int D = C / num_heads;
-  return D == 16 || D == 32 || D == 64 ? cudaSuccess : cudaErrorInvalidValue;
+  return D == 16 || D == 32 || D == 64 || (!bias && lw_wide::takes(D)) ? cudaSuccess
+                                                                       : cudaErrorInvalidValue;
 }
 
 template <bool kBias>
 int dispatch(const void* qkv, const void* bias, void* out, int B, int C, int N, int num_heads,
              float scale, int dtype, void* stream) {
-  if (int err = check(B, C, N, num_heads, dtype)) return err;
+  if (int err = check(B, C, N, num_heads, dtype, kBias)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (C / num_heads) {
+  const int D = C / num_heads;
+  if (lw_wide::takes(D))
+    return dtype == lw::kFloat32
+               ? lw_wide::forward<float>(qkv, out, nullptr, B, C, N, D, scale, st)
+               : lw_wide::forward<lw::bf16>(qkv, out, nullptr, B, C, N, D, scale, st);
+  switch (D) {
     case 16: return launch<16, kBias>(qkv, bias, out, B, C, N, scale, dtype, st);
     case 32: return launch<32, kBias>(qkv, bias, out, B, C, N, scale, dtype, st);
     default: return launch<64, kBias>(qkv, bias, out, B, C, N, scale, dtype, st);
@@ -339,9 +350,12 @@ int dispatch(const void* qkv, const void* bias, void* out, int B, int C, int N, 
 
 template <bool kBias>
 int attributes(const void* qkv, int B, int C, int N, int num_heads, int dtype, int* attrs) {
-  if (int err = check(B, C, N, num_heads, dtype)) return err;
+  if (int err = check(B, C, N, num_heads, dtype, kBias)) return err;
   const int vec = lw::bf16_vec(qkv, N);
   const int D = C / num_heads;
+  if (lw_wide::takes(D))
+    return dtype == lw::kFloat32 ? lw_wide::forward_attributes<float>(attrs)
+                                 : lw_wide::forward_attributes<lw::bf16>(attrs);
   const void* fn = D == 16 ? pick<16, kBias>(dtype, vec)
                    : D == 32 ? pick<32, kBias>(dtype, vec) : pick<64, kBias>(dtype, vec);
   return lw::kernel_attributes(fn, attrs);

@@ -53,6 +53,7 @@
 // Padded rows: a key past N gets p = 0 (masked before the max); a query past N
 // has d(out) = 0, so its dp, row and ds are 0 and it adds nothing to dK or dV,
 // as the JAX kernel's docstring says.
+#include "attention_wide.cuh"
 #include "common.cuh"
 #include "attention_bwd.cuh"
 
@@ -251,17 +252,23 @@ cudaError_t launch(const void* qkv, const void* bias, const void* dout, void* dq
   return cudaGetLastError();
 }
 
-int check(int B, int C, int N, int num_heads, int dtype) {
+int check(int B, int C, int N, int num_heads, int dtype, bool bias) {
   if (B < 1 || N < 1 || N > kMaxN || num_heads < 1 || C % num_heads != 0 ||
       (dtype != lw::kFloat32 && dtype != lw::kBFloat16))
     return cudaErrorInvalidValue;
   const int D = C / num_heads;
-  return D == 16 || D == 32 || D == 64 ? cudaSuccess : cudaErrorInvalidValue;
+  return D == 16 || D == 32 || D == 64 || (!bias && lw_wide::takes(D)) ? cudaSuccess
+                                                                       : cudaErrorInvalidValue;
 }
 
 template <typename T, bool kBias>
-int dispatch_d(int D, const void* qkv, const void* bias, const void* dout, void* dqkv, int B,
-               int C, int N, float scale, cudaStream_t st) {
+int dispatch_d(int D, const void* qkv, const void* bias, const void* dout, void* dqkv,
+               float* stats, int B, int C, int N, float scale, cudaStream_t st) {
+  if (lw_wide::takes(D)) {  // no forward wrote a log-sum-exp: pass 1 takes it
+    if (stats == nullptr) return cudaErrorInvalidValue;
+    float* delta = stats + static_cast<size_t>(B) * (C / D) * N;
+    return lw_wide::backward<T>(qkv, stats, dout, dqkv, delta, B, C, N, D, scale, true, st);
+  }
   switch (D) {
     case 16: return launch<T, 16, kBias>(qkv, bias, dout, dqkv, B, C, N, scale, st);
     case 32: return launch<T, 32, kBias>(qkv, bias, dout, dqkv, B, C, N, scale, st);
@@ -270,18 +277,26 @@ int dispatch_d(int D, const void* qkv, const void* bias, const void* dout, void*
 }
 
 template <bool kBias>
-int dispatch(const void* qkv, const void* bias, const void* dout, void* dqkv, int B, int C,
-             int N, int num_heads, float scale, int dtype, void* stream) {
-  if (int err = check(B, C, N, num_heads, dtype)) return err;
+int dispatch(const void* qkv, const void* bias, const void* dout, void* dqkv, float* stats,
+             int B, int C, int N, int num_heads, float scale, int dtype, void* stream) {
+  if (int err = check(B, C, N, num_heads, dtype, kBias)) return err;
   const int D = C / num_heads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == lw::kFloat32)
-    return dispatch_d<float, kBias>(D, qkv, bias, dout, dqkv, B, C, N, scale, st);
-  return dispatch_d<lw::bf16, kBias>(D, qkv, bias, dout, dqkv, B, C, N, scale, st);
+    return dispatch_d<float, kBias>(D, qkv, bias, dout, dqkv, stats, B, C, N, scale, st);
+  return dispatch_d<lw::bf16, kBias>(D, qkv, bias, dout, dqkv, stats, B, C, N, scale, st);
 }
 
 template <typename T, bool kBias>
 int attributes_t(int D, int* attrs) {
+  if (lw_wide::takes(D)) {  // two passes: the larger registers, the summed spills
+    int both[6];
+    if (int err = lw_wide::backward_attributes<T>(D, both)) return err;
+    attrs[0] = both[0] > both[3] ? both[0] : both[3];
+    attrs[1] = both[1] + both[4];
+    attrs[2] = both[2] > both[5] ? both[2] : both[5];
+    return cudaSuccess;
+  }
   const void* fn = reinterpret_cast<const void*>(
       D == 16   ? window_attention_bias_bwd_kernel<T, 16, kBias>
       : D == 32 ? window_attention_bias_bwd_kernel<T, 32, kBias>
@@ -291,7 +306,7 @@ int attributes_t(int D, int* attrs) {
 
 template <bool kBias>
 int attributes(int B, int C, int N, int num_heads, int dtype, int* attrs) {
-  if (int err = check(B, C, N, num_heads, dtype)) return err;
+  if (int err = check(B, C, N, num_heads, dtype, kBias)) return err;
   const int D = C / num_heads;
   return dtype == lw::kFloat32 ? attributes_t<float, kBias>(D, attrs)
                                : attributes_t<lw::bf16, kBias>(D, attrs);
@@ -305,14 +320,17 @@ extern "C" int lw_window_attention_bias_bwd(const void* qkv, const void* bias, c
                                             void* dqkv, int B, int C, int N, int num_heads,
                                             float scale, int dtype, void* stream) {
   if (bias == nullptr) return cudaErrorInvalidValue;
-  return dispatch<true>(qkv, bias, dout, dqkv, B, C, N, num_heads, scale, dtype, stream);
+  return dispatch<true>(qkv, bias, dout, dqkv, nullptr, B, C, N, num_heads, scale, dtype,
+                        stream);
 }
 
-// The backward of K9: the same, without a bias.
-extern "C" int lw_window_attention_bwd(const void* qkv, const void* dout, void* dqkv, int B,
-                                       int C, int N, int num_heads, float scale, int dtype,
-                                       void* stream) {
-  return dispatch<false>(qkv, nullptr, dout, dqkv, B, C, N, num_heads, scale, dtype, stream);
+// The backward of K9: the same, without a bias. `stats` (2, B, H, N) f32
+// scratch for the wide case's row log-sum-exp and row term (null otherwise).
+extern "C" int lw_window_attention_bwd(const void* qkv, const void* dout, void* dqkv,
+                                       void* stats, int B, int C, int N, int num_heads,
+                                       float scale, int dtype, void* stream) {
+  return dispatch<false>(qkv, nullptr, dout, dqkv, static_cast<float*>(stats), B, C, N,
+                         num_heads, scale, dtype, stream);
 }
 
 // Registers, local (spill) bytes and static shared bytes a thread / block of

@@ -302,7 +302,8 @@ def _evaluate_only(args, mcfg, tcfg, device, dtype, criterion, ds_val, val_loade
     from lwdetr_tpu_torch.train import checkpoint as ckpt
     from lwdetr_tpu_torch.utils.logging import is_main_process, write_log_line
 
-    model = build_model(mcfg, device=device, dtype=dtype)
+    model = build_model(mcfg, device=device, dtype=dtype,
+                        generator=torch.Generator().manual_seed(tcfg.seed))
     # weights: encoder, then pretrain, then resume (reference main.py:240-286)
     ema = _load_weights(args, model, tcfg.use_ema)
     if args.resume:

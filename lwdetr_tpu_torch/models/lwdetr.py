@@ -2,10 +2,14 @@
 
 Counterpart of `lwdetr_tpu/models/lwdetr.py`. Inference uses the first query
 group; in train mode (`model.training`) every group of `group_detr` runs and
-the outputs hold `num_queries x group_detr` queries. Images are square and
-unpadded (the release `square_resize_div_64` recipe), so no padding masks are
-built. The decoder never reads per-level position embeddings, so none are
-computed. In train mode `forward` takes the step's stochastic-depth rates
+the outputs hold `num_queries x group_detr` queries. A batch padded to a
+common size (the legacy recipe and `--per_image_scales`) comes with its
+`pad_mask` (B, H, W), True on padding: it is resized to each feature level by
+nearest-neighbour indices (`ops/resize.py::nearest_resize_index`) and the
+decoder takes the per-level masks (valid ratios, masked proposals, zeroed
+values); the release `square_resize_div_64` recipe pads nothing and passes
+None, which builds no mask at all. The decoder never reads per-level position
+embeddings, so none are computed. In train mode `forward` takes the step's stochastic-depth rates
 (one a ViT block) and dropout rate, and a mask source that draws their masks
 (`models/drop.py`), as the JAX model's `drop_path_rates` / `dropout_rate`;
 `ModelConfig.grad_checkpointing` recomputes each ViT block in the backward.
@@ -18,7 +22,7 @@ float32.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -30,6 +34,7 @@ from lwdetr_tpu_torch.models.projector import LEVEL2SCALE, MultiScaleProjector
 from lwdetr_tpu_torch.models.transformer import MLPHead, Transformer, box_reparam_combine
 from lwdetr_tpu_torch.models.vit import ViT
 from lwdetr_tpu_torch.ops import box_ops
+from lwdetr_tpu_torch.ops.resize import resize_table
 
 
 class Backbone(nn.Module):
@@ -79,25 +84,29 @@ class LWDETR(nn.Module):
         self.query_feat = nn.Embedding(nq, cfg.hidden_dim)
         self.compute_dtype = torch.float32
 
-    def forward(self, images: torch.Tensor, drop_path_rates: Optional[Sequence[float]] = None,
-                dropout_rate: float = 0.0,
+    def forward(self, images: torch.Tensor, masks: Optional[torch.Tensor] = None,
+                drop_path_rates: Optional[Sequence[float]] = None, dropout_rate: float = 0.0,
                 mask_source: Optional[drop.MaskSource] = None) -> dict:
-        """images (B, H, W, 3) normalized, cast to `compute_dtype` ->
-        dict(pred_logits (B, Q, K) in `compute_dtype`, pred_boxes (B, Q, 4)
-        float32 cxcywh in [0, 1], aux_outputs, enc_outputs).
-        drop_path_rates (one a ViT block) and dropout_rate take effect in
-        train mode with a `mask_source`; in eval nothing is dropped."""
+        """images (B, H, W, 3) normalized, cast to `compute_dtype`; masks (B, H, W)
+        bool, True on padding, or None -> dict(pred_logits (B, Q, K) in
+        `compute_dtype`, pred_boxes (B, Q, 4) float32 cxcywh in [0, 1],
+        aux_outputs, enc_outputs). drop_path_rates (one a ViT block) and
+        dropout_rate take effect in train mode with a `mask_source`; in eval
+        nothing is dropped."""
         cfg = self.cfg
         if not self.training:
             mask_source = None
         groups = cfg.group_detr if self.training else 1
         nq = cfg.num_queries * groups
         feats = self.backbone[0](images.to(self.compute_dtype), drop_path_rates, mask_source)
+        feat_masks = None if masks is None else [interpolate_mask(masks, f.shape[1:3])
+                                                 for f in feats]
         query_feat = self.query_feat.weight
         (query_feat,) = cast_params(self, ("query_feat", nq), self.compute_dtype, (query_feat,),
                                     lambda: (query_feat[:nq],))
         hs, ref, hs_enc, ref_enc = self.transformer(
-            feats, self.refpoint_embed.weight[:nq], query_feat, dropout_rate, mask_source)
+            feats, feat_masks, self.refpoint_embed.weight[:nq], query_feat, dropout_rate,
+            mask_source)
         outputs_coord = box_reparam_combine(ref, self.bbox_embed(hs).float())
         outputs_class = self.class_embed(hs)
         out = {"pred_logits": outputs_class[-1], "pred_boxes": outputs_coord[-1]}
@@ -111,6 +120,16 @@ class LWDETR(nn.Module):
                    for g in range(groups)]
         out["enc_outputs"] = {"pred_logits": torch.cat(cls_enc, dim=1), "pred_boxes": ref_enc}
         return out
+
+
+def interpolate_mask(masks: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """Nearest-resize a (B, H, W) bool mask to a feature level's (h, w), as the
+    reference's `F.interpolate` of the float mask (the JAX package's
+    `_interpolate_mask`, `lwdetr_tpu/models/lwdetr.py:224-231`), by
+    `nearest_resize_index`."""
+    hi = resize_table("nearest", masks.shape[1], int(hw[0]), masks.device, torch.int64)
+    wi = resize_table("nearest", masks.shape[2], int(hw[1]), masks.device, torch.int64)
+    return masks.index_select(1, hi).index_select(2, wi)
 
 
 def post_process(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
@@ -142,19 +161,26 @@ def resolve_device(device=None) -> torch.device:
 
 
 def build_model(cfg: ModelConfig, device=None, dtype: torch.dtype = torch.float32,
-                state_dict: Optional[dict] = None, train: bool = False) -> LWDETR:
+                state_dict: Optional[dict] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> LWDETR:
     """LW-DETR on `device` (CUDA unless given) computing in `dtype`, with
     float32 parameters and buffers (the JAX package's rule); `state_dict`
-    (reference keys) is loaded strictly. By default an eval-mode model with
-    its parameters frozen; `train=True` gives a train-mode model whose
-    parameters require grad, in either compute dtype (bf16 training keeps
-    f32 parameters, as the JAX package's `--bf16`)."""
+    (reference keys) is loaded strictly. Without one, the weights are drawn
+    as the JAX package initialises them (`weights.jax_init_state_dict`) from
+    `generator` (a CPU `torch.Generator`; seed 0 when None). By default an
+    eval-mode model with its parameters frozen; `train=True` gives a
+    train-mode model whose parameters require grad, in either compute dtype
+    (bf16 training keeps f32 parameters, as the JAX package's `--bf16`)."""
+    from lwdetr_tpu_torch.weights import jax_init_state_dict
+
     device = resolve_device(device)
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
     model = LWDETR(cfg)
-    if state_dict is not None:
-        model.load_state_dict(state_dict, strict=True)
+    if state_dict is None:
+        state_dict = jax_init_state_dict(
+            cfg, torch.Generator().manual_seed(0) if generator is None else generator)
+    model.load_state_dict(state_dict, strict=True)
     model.requires_grad_(train)
     model.compute_dtype = dtype
     return model.to(device=device).train(train)

@@ -17,8 +17,13 @@ dropout rate above 0 drops at the JAX layer's sites (`models/drop.py`): the
 self-attention's weights, which takes the self-attention off the kernels onto
 the plain einsum form, as the JAX module does, and the outputs of the
 self-attention, the cross-attention and both FFN products; a rate of exactly
-0 (the release recipes) draws nothing and keeps K2 / K9. Module and parameter
-names follow the reference's state_dict (`transformer.decoder.layers.{i}...`,
+0 (the release recipes) draws nothing and keeps K2 / K9. A padded batch
+brings per-level masks (True on padding): each level's valid ratios scale the
+reference points, the proposals are placed on each image's valid extent and
+masked, and every cross-attention zeroes the values at padded positions
+before its sampler, in each of the three layouts, where the JAX module does;
+without masks none of this runs. Module and parameter names follow the
+reference's state_dict (`transformer.decoder.layers.{i}...`,
 `transformer.enc_output.{g}`, ...).
 """
 from __future__ import annotations
@@ -121,16 +126,24 @@ class MSDeformAttnModule(nn.Module):
         self.output_proj = DenseCM(d_model, d_model)
 
     def value_panels(self, memory_levels: Sequence[torch.Tensor],
-                     spatial_shapes: Sequence[Tuple[int, int]]):
+                     spatial_shapes: Sequence[Tuple[int, int]],
+                     padding_mask: Optional[torch.Tensor] = None):
         """One value projection per level with the shared weights, laid out
         head-major: (B, H_l * W_l, C) -> (B, H, H_l * W_l, D), whose regroup to
         (B, H, H_l, W_l * D) is a view. The GEMM writes (B, N, H, D); the move
-        to head-major is one copy of the values per level."""
+        to head-major is one copy of the values per level. With a
+        `padding_mask` (B, Len_in) the level's padded positions are zeroed
+        first (`lwdetr_tpu/models/transformer.py:293-296`)."""
         H = self.n_heads
         panels = []
+        start = 0
         for (hl, wl), mem_l in zip(spatial_shapes, memory_levels):
             B, n, C = mem_l.shape
-            v = self.value_proj(mem_l).reshape(B, n, H, C // H).permute(0, 2, 1, 3)
+            v = self.value_proj(mem_l).reshape(B, n, H, C // H)
+            if padding_mask is not None:
+                v = v.masked_fill(padding_mask[:, start:start + n, None, None], 0.0)
+            start += n
+            v = v.permute(0, 2, 1, 3)
             with torch.profiler.record_function(VALUE_COPY_RANGE):
                 v = v.contiguous()
             panels.append(v.reshape(B, H, hl, wl * (C // H)))
@@ -138,11 +151,15 @@ class MSDeformAttnModule(nn.Module):
 
     def forward(self, query: torch.Tensor, reference_points: torch.Tensor,
                 memory: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
-                memory_levels: Sequence[torch.Tensor]) -> torch.Tensor:
+                memory_levels: Sequence[torch.Tensor],
+                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """query (B, Q, C); reference_points (B, Q, L, 2|4) in [0, 1];
         memory (B, Len_in, C); spatial_shapes [(H, W)] * L; memory_levels:
-        the per-level (B, H_l * W_l, C) maps `memory` was concatenated from
-        -> (B, Q, C)."""
+        the per-level (B, H_l * W_l, C) maps `memory` was concatenated from;
+        padding_mask (B, Len_in) True on padding, or None -> (B, Q, C). The
+        values at padded positions are zeroed before the sampler in every
+        layout (`lwdetr_tpu/models/transformer.py:271-272, :293-296,
+        :302-303`), so its backward sees the same zeros."""
         B, Q, C = query.shape
         H, L, P = self.n_heads, self.n_levels, self.n_points
         offsets = self.sampling_offsets(query).reshape(B, Q, H, L, P, 2)
@@ -163,13 +180,18 @@ class MSDeformAttnModule(nn.Module):
             branch = "sep" if self.training or memory.shape[1] >= SEP_MIN_LEN_IN else "cm"
         if branch == "cm":
             value_t = dense_to_cm(memory, *weight_and_bias(self.value_proj, memory.dtype))
+            if padding_mask is not None:
+                value_t = value_t.masked_fill(padding_mask[:, None, :], 0.0)
             out_t = da.ms_deform_attn_cm(value_t, spatial_shapes, loc, weights, H)  # (B, C, Q)
             return self.output_proj(out_t)
         if branch == "sep":
-            panels = self.value_panels(memory_levels, spatial_shapes)
+            panels = self.value_panels(memory_levels, spatial_shapes, padding_mask)
             out = da.ms_deform_attn_sep_panels(panels, spatial_shapes, loc, weights)  # (B, Q, C)
         else:
-            value = self.value_proj(memory).reshape(B, -1, H, C // H)
+            value = self.value_proj(memory)
+            if padding_mask is not None:
+                value = value.masked_fill(padding_mask[..., None], 0.0)
+            value = value.reshape(B, -1, H, C // H)
             out = da.ms_deform_attn(value, spatial_shapes, loc, weights)  # (B, Q, C)
         return F.linear(out, *weight_and_bias(self.output_proj, out.dtype))
 
@@ -190,7 +212,8 @@ class DecoderLayer(nn.Module):
         self.norm3 = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, tgt, memory, query_pos, reference_points, spatial_shapes, memory_levels,
-                dropout_rate=0.0, mask_source: Optional[drop.MaskSource] = None):
+                padding_mask=None, dropout_rate=0.0,
+                mask_source: Optional[drop.MaskSource] = None):
         B, Q, C = tgt.shape
         qk, v = tgt + query_pos, tgt
         if self.training and self.group_detr > 1:
@@ -202,7 +225,7 @@ class DecoderLayer(nn.Module):
         tgt2 = self.self_attn(qk, v, dropout_rate, mask_source).reshape(B, Q, C)
         tgt = self.norm1(tgt + drop.dropout(tgt2, dropout_rate, mask_source))
         tgt2 = self.cross_attn(tgt + query_pos, reference_points, memory, spatial_shapes,
-                               memory_levels)
+                               memory_levels, padding_mask)
         tgt = self.norm2(tgt + drop.dropout(tgt2, dropout_rate, mask_source))
         h = drop.dropout(F.relu(self.linear1(tgt)), dropout_rate, mask_source)
         return self.norm3(tgt + drop.dropout(self.linear2(h), dropout_rate, mask_source))
@@ -231,24 +254,54 @@ def select_proposals(scores: torch.Tensor, k: int) -> torch.Tensor:
     return torch.topk(scores, k, dim=1).indices
 
 
-def gen_encoder_output_proposals(memory: torch.Tensor,
-                                 spatial_shapes: Sequence[Tuple[int, int]]):
-    """Anchor-grid proposals per memory position, for unpadded maps and the
-    reparameterized boxes (cxcywh kept in [0, 1], not inverse-sigmoided).
+def valid_extent(mask: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) True on padding -> (B, 2) f32 [valid_w, valid_h]: the unpadded
+    columns of the first row and rows of the first column, counted on the
+    device (`lwdetr_tpu/models/transformer.py:445-446`, `:683-684`)."""
+    return torch.stack([(~mask[:, 0, :]).sum(dim=1), (~mask[:, :, 0]).sum(dim=1)],
+                       dim=-1).float()
 
-    memory (B, S, C) -> (output_memory (B, S, C), output_proposals (B, S, 4) f32);
-    positions whose proposal leaves (0.01, 0.99) are zeroed in both."""
-    dev = memory.device
+
+def valid_ratio(mask: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) True on padding -> (B, 2) [w_ratio, h_ratio] (the JAX
+    `Transformer._valid_ratio`); exactly 1 on an unpadded map."""
+    H, W = mask.shape[1], mask.shape[2]
+    extent = valid_extent(mask)
+    return torch.stack([extent[:, 0] / W, extent[:, 1] / H], dim=-1)
+
+
+def gen_encoder_output_proposals(memory: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                                 padding_mask: Optional[torch.Tensor] = None):
+    """Anchor-grid proposals per memory position, for the reparameterized boxes
+    (cxcywh kept in [0, 1], not inverse-sigmoided; `lwdetr_tpu/models/
+    transformer.py:434-481`).
+
+    memory (B, S, C); spatial_shapes [(H, W)] * L; padding_mask (B, S) True on
+    padding, or None ->
+    (output_memory (B, S, C), output_proposals (B, S, 4) f32). A level's grid
+    is placed on each image's valid extent ((x + 0.5) / valid_w, ...);
+    positions whose proposal leaves (0.01, 0.99), and padded positions, are
+    zeroed in both."""
+    B, dev = memory.shape[0], memory.device
     proposals = []
+    start = 0
     for lvl, (H, W) in enumerate(spatial_shapes):
+        if padding_mask is not None:
+            extent = valid_extent(padding_mask[:, start:start + H * W].reshape(B, H, W))
+        else:
+            extent = torch.stack([torch.full((B,), float(W), device=dev),
+                                  torch.full((B,), float(H), device=dev)], dim=-1)
         gy, gx = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
                                 torch.arange(W, dtype=torch.float32, device=dev), indexing="ij")
-        grid = (torch.stack([gx, gy], dim=-1) + 0.5) / torch.tensor([W, H], device=dev)
+        grid = (torch.stack([gx, gy], dim=-1)[None] + 0.5) / extent[:, None, None, :]
         wh = torch.full_like(grid, 0.05 * (2.0 ** lvl))
-        proposals.append(torch.cat([grid, wh], dim=-1).reshape(-1, 4))
-    output_proposals = torch.cat(proposals)[None].expand(memory.shape[0], -1, -1)
-    valid = ((output_proposals > 0.01) & (output_proposals < 0.99)).all(dim=-1, keepdim=True)
-    return memory.masked_fill(~valid, 0.0), output_proposals.masked_fill(~valid, 0.0)
+        proposals.append(torch.cat([grid, wh], dim=-1).reshape(B, -1, 4))
+        start += H * W
+    output_proposals = torch.cat(proposals, dim=1)
+    invalid = ~((output_proposals > 0.01) & (output_proposals < 0.99)).all(dim=-1, keepdim=True)
+    if padding_mask is not None:
+        invalid = invalid | padding_mask[..., None]
+    return memory.masked_fill(invalid, 0.0), output_proposals.masked_fill(invalid, 0.0)
 
 
 class Decoder(nn.Module):
@@ -294,11 +347,13 @@ class Transformer(nn.Module):
         self.enc_out_bbox_embed = nn.ModuleList(
             MLPHead(d_model, d_model, 4, 3) for _ in range(group_detr))
 
-    def forward(self, srcs, refpoint_embed: torch.Tensor, query_feat: torch.Tensor,
-                dropout_rate=0.0, mask_source: Optional[drop.MaskSource] = None):
-        """srcs: list[(B, H, W, C)] projector outputs; refpoint_embed (nq, 4);
-        query_feat (nq, C) in the compute dtype, nq = num_queries x groups;
-        the reference points stay in float32, as in the JAX package. Returns hs (L, B, nq, C),
+    def forward(self, srcs, masks: Optional[Sequence[torch.Tensor]], refpoint_embed: torch.Tensor,
+                query_feat: torch.Tensor, dropout_rate=0.0,
+                mask_source: Optional[drop.MaskSource] = None):
+        """srcs: list[(B, H, W, C)] projector outputs; masks: list[(B, H, W)]
+        bool, True on padding, or None; refpoint_embed (nq, 4); query_feat
+        (nq, C) in the compute dtype, nq = num_queries x groups; the reference
+        points stay in float32, as in the JAX package. Returns hs (L, B, nq, C),
         references (1, B, nq, 4), memory_ts (B, nq, C) and boxes_ts (B, nq, 4):
         each group's picked proposals, groups concatenated. `dropout_rate`
         and `mask_source` go to every decoder layer."""
@@ -309,8 +364,13 @@ class Transformer(nn.Module):
         memory = torch.cat(memory_levels, dim=1)
         groups = self.group_detr if self.training else 1
         nq = self.num_queries * groups
+        mask_flat = valid_ratios = None
+        if masks is not None:
+            mask_flat = torch.cat([m.reshape(B, -1) for m in masks], dim=1)
+            valid_ratios = torch.stack([valid_ratio(m) for m in masks], dim=1)  # (B, L, 2)
 
-        output_memory, output_proposals = gen_encoder_output_proposals(memory, spatial_shapes)
+        output_memory, output_proposals = gen_encoder_output_proposals(memory, spatial_shapes,
+                                                                       mask_flat)
         mem_ts, box_ts = [], []
         for g in range(groups):
             mem_g = self.enc_output_norm[g](self.enc_output[g](output_memory))
@@ -327,15 +387,19 @@ class Transformer(nn.Module):
         # boxes; the encoder outputs (memory_ts, boxes_ts) do
         refpoints = box_reparam_combine(boxes_ts.detach(), refpoint_embed[None, :nq].float())
 
-        # lite refinement: one query position for all layers, from the initial boxes
-        refpoints_input = refpoints[:, :, None].expand(-1, -1, self.num_feature_levels, -1)
+        # lite refinement: one query position for all layers, from the initial
+        # boxes, scaled per level by the valid ratios (the JAX `_get_reference`)
+        if valid_ratios is None:
+            refpoints_input = refpoints[:, :, None].expand(-1, -1, self.num_feature_levels, -1)
+        else:
+            refpoints_input = refpoints[:, :, None] * valid_ratios.repeat(1, 1, 2)[:, None]
         head = self.decoder.ref_point_head
-        qse = query_sine_embed(refpoints, dim=self.d_model // 2)
+        qse = query_sine_embed(refpoints_input[:, :, 0], dim=self.d_model // 2)
         query_pos = head(qse.to(dtype))
         output = query_feat[None, :nq].expand(B, -1, -1)
         intermediates = []
         for layer in self.decoder.layers:
             output = layer(output, memory, query_pos, refpoints_input.to(dtype), spatial_shapes,
-                           memory_levels, dropout_rate, mask_source)
+                           memory_levels, mask_flat, dropout_rate, mask_source)
             intermediates.append(self.decoder.norm(output))
         return torch.stack(intermediates), refpoints[None], memory_ts, boxes_ts

@@ -28,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lwdetr_tpu_torch"
 SOURCES = ("window_attention.cu", "flash_attention.cu", "deform_attn.cu",
            "deform_attn_sep.cu", "deform_attn_sep_bwd.cu", "flash_attention_bwd.cu",
            "window_attention_bwd.cu", "deform_attn_bwd.cu", "matcher.cu")
-HEADERS = ("attention_bwd.cuh", "common.cuh", "deform_cm.cuh", "deform_layout.cuh", "mma.cuh")
+HEADERS = ("attention_bwd.cuh", "attention_wide.cuh", "common.cuh", "deform_cm.cuh",
+           "deform_layout.cuh", "mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -32,6 +32,13 @@ versions (`*_plain`, `*_bwd_plain`), the counterparts of the JAX gather
 formulation `ms_deform_attn`. In bf16 the forwards, and the panel backward,
 round where the JAX package's kernels round (see "bf16" below), not once at
 the end; the f32 paths are the plain f32 formulas.
+
+Head dims: K4, K5, K10 and K10b take multiples of 8 up to 64, K8 multiples
+of 4 up to 128, K3 any. On CUDA tensors the public wrappers bring any other
+head dim to them (`*_split`): each head's channels zero-padded and split
+into groups (`head_groups`) that sample as heads of their own with the head's
+points and weights; channels never mix, so the result is exact, and autograd
+sums the groups' d(loc) and d(weights).
 """
 from __future__ import annotations
 
@@ -81,9 +88,43 @@ deform_attn_rowmajor_bwd_kernel = CudaKernel(
     [_P, _P, ctypes.POINTER(ctypes.c_int), _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I])
 # head dims the panel and row-major kernels take, forwards (K4, K10) and
 # backwards (K5, K10b): every multiple of 8 up to 64 (a thread's 16-byte run
-# of channels is 4 f32 or 8 bf16); any other is refused, never sent elsewhere
+# of channels is 4 f32 or 8 bf16); K8: every multiple of 4 up to 128. The
+# wrappers bring any other head dim to these (`head_groups`), never to a
+# plain version.
 _SEP_HEAD_DIMS = tuple(range(8, 65, 8))
 _SEP_BWD_HEAD_DIMS = _SEP_HEAD_DIMS
+_SEP_SPLIT = (8, 64)  # (multiple, largest) of a group's channels for K4 / K5 / K10 / K10b
+_CM_BWD_SPLIT = (4, 128)  # for K8
+
+
+def head_groups(head_dim: int, multiple: int, largest: int) -> Tuple[int, int]:
+    """(G, Dg): the split of a head's `head_dim` channels into G groups of Dg
+    channels, Dg a multiple of `multiple` at most `largest`, G x Dg >= head_dim
+    (the excess zero channels). Sampling never mixes channels, so each group
+    samples as a head of its own with the head's points and weights."""
+    groups = -(-head_dim // largest)
+    per = -(-head_dim // groups)
+    return groups, -(-per // multiple) * multiple
+
+
+def _groups_of(t: torch.Tensor, dim: int, groups: int, per: int) -> torch.Tensor:
+    """t with the head-channel axis `dim` zero-padded to groups x per and split
+    into (groups, per) there (differentiable: the gradient slices back)."""
+    pad = [0, 0] * (t.dim() - 1 - dim) + [0, groups * per - t.shape[dim]]
+    t = torch.nn.functional.pad(t, pad)
+    return t.reshape(*t.shape[:dim], groups, per, *t.shape[dim + 1:])
+
+
+def _repeat_heads(loc: torch.Tensor, weights: torch.Tensor, groups: int):
+    """loc (B, Q, H, L, P, 2) and weights (B, Q, H, L, P) with each head taken
+    `groups` times in a row; autograd sums their gradients over the groups."""
+    return loc.repeat_interleave(groups, dim=2), weights.repeat_interleave(groups, dim=2)
+
+
+def _merge_groups_rowmajor(out: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """(B, Q, H x G x Dg) -> (B, Q, H x head_dim): each head's first head_dim channels."""
+    B, Q, _ = out.shape
+    return out.reshape(B, Q, heads, -1)[..., :head_dim].reshape(B, Q, heads * head_dim)
 
 
 def sampling_offsets_init_bias(n_heads: int, n_levels: int, n_points: int) -> torch.Tensor:
@@ -341,11 +382,37 @@ def ms_deform_attn_cm(value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[int,
                       loc: torch.Tensor, weights: torch.Tensor, n_heads: int) -> torch.Tensor:
     """value_t (B, C, Len_in) channel-major (padded positions already zeroed),
     loc (B, Q, H, L, P, 2) normalized (x, y), weights (B, Q, H, L, P)
-    -> (B, C, Q) in value_t's dtype. Differentiable in value_t, loc and weights."""
+    -> (B, C, Q) in value_t's dtype. Differentiable in value_t, loc and weights.
+    K3 takes any head dim; when a gradient is wanted on a CUDA tensor and K8
+    does not take the head dim, both run on `ms_deform_attn_cm_split`'s groups."""
     spatial_shapes = _int_shapes(spatial_shapes)
     if not needs_grad(value_t, loc, weights):
         return ms_deform_attn_cm_fwd(value_t, spatial_shapes, loc, weights, n_heads)
+    D = value_t.shape[1] // n_heads
+    multiple, largest = _CM_BWD_SPLIT
+    if value_t.is_cuda and (D % multiple or D > largest):
+        return ms_deform_attn_cm_split(value_t, spatial_shapes, loc, weights, n_heads)
     return _DeformAttnCM.apply(value_t, spatial_shapes, loc, weights, n_heads)
+
+
+def ms_deform_attn_cm_split(value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                            loc: torch.Tensor, weights: torch.Tensor,
+                            n_heads: int) -> torch.Tensor:
+    """`ms_deform_attn_cm` through K3 / K8 at a head dim K8 does not take: each
+    head's channels zero-padded and split into `head_groups(D, 4, 128)`, each
+    group sampled as a head with the head's points and weights, the output's
+    padding sliced off. Zero channels sample zeros and add nothing to d(loc)
+    or d(weights), which autograd sums over the groups. On CPU tensors the
+    plain versions stand in for the kernels."""
+    B, C, len_in = value_t.shape
+    D = C // n_heads
+    G, Dg = head_groups(D, *_CM_BWD_SPLIT)
+    v = _groups_of(value_t.reshape(B, n_heads, D, len_in), 2, G, Dg)
+    loc_g, w_g = _repeat_heads(loc, weights, G)
+    out = ms_deform_attn_cm(v.reshape(B, n_heads * G * Dg, len_in), spatial_shapes, loc_g, w_g,
+                            n_heads * G)
+    Q = out.shape[-1]
+    return out.reshape(B, n_heads, G * Dg, Q)[:, :, :D].reshape(B, C, Q)
 
 
 def _rowmajor_panels(value: torch.Tensor, spatial_shapes):
@@ -471,9 +538,25 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]
     (B, Q, H, L, P, 2) normalized (x, y), weights (B, Q, H, L, P) ->
     (B, Q, H * D) in value's dtype. Differentiable in value, loc and weights."""
     spatial_shapes = _int_shapes(spatial_shapes)
+    if value.is_cuda and value.shape[-1] not in _SEP_HEAD_DIMS:
+        return ms_deform_attn_split(value, spatial_shapes, loc, weights)
     if not needs_grad(value, loc, weights):
         return ms_deform_attn_fwd(value, spatial_shapes, loc, weights)
     return _DeformAttn.apply(value, spatial_shapes, loc, weights)
+
+
+def ms_deform_attn_split(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                         loc: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """`ms_deform_attn` through K10 / K10b at a head dim they do not take:
+    each head's channels zero-padded and split into `head_groups(D, 8, 64)`,
+    sampled as heads of their own with the head's points and weights, the
+    padding sliced off the output (see `ms_deform_attn_cm_split`). On CPU
+    tensors the plain versions stand in for the kernels."""
+    B, len_in, H, D = value.shape
+    G, Dg = head_groups(D, *_SEP_SPLIT)
+    v = _groups_of(value, 3, G, Dg).reshape(B, len_in, H * G, Dg)
+    out = ms_deform_attn(v, spatial_shapes, *_repeat_heads(loc, weights, G))
+    return _merge_groups_rowmajor(out, H, D)
 
 
 def ms_deform_attn_sep_panels_plain(vals: Sequence[torch.Tensor],
@@ -703,9 +786,32 @@ def ms_deform_attn_sep_panels(vals: Sequence[torch.Tensor],
     Differentiable in the panels, loc and weights."""
     spatial_shapes = _int_shapes(spatial_shapes)
     vals = list(vals)
+    if vals[0].is_cuda and vals[0].shape[-1] // spatial_shapes[0][1] not in _SEP_HEAD_DIMS:
+        return ms_deform_attn_sep_panels_split(vals, spatial_shapes, loc, weights)
     if not needs_grad(loc, weights, *vals):
         return ms_deform_attn_sep_panels_fwd(vals, spatial_shapes, loc, weights)
     return _DeformAttnSepPanels.apply(spatial_shapes, loc, weights, *vals)
+
+
+def ms_deform_attn_sep_panels_split(vals: Sequence[torch.Tensor],
+                                    spatial_shapes: Sequence[Tuple[int, int]],
+                                    loc: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """`ms_deform_attn_sep_panels` through K4 / K5 at a head dim they do not
+    take: each head's channels zero-padded and split into `head_groups(D, 8,
+    64)`, each group's panel sampled as a head of its own with the head's
+    points and weights, the padding sliced off the output (see
+    `ms_deform_attn_cm_split`). On CPU tensors the plain versions stand in for
+    the kernels."""
+    spatial_shapes = _int_shapes(spatial_shapes)
+    B, H = vals[0].shape[:2]
+    D = vals[0].shape[-1] // spatial_shapes[0][1]
+    G, Dg = head_groups(D, *_SEP_SPLIT)
+    panels = []
+    for panel, (h, w) in zip(vals, spatial_shapes):
+        v = _groups_of(panel.reshape(B, H, h, w, D), 4, G, Dg)  # (B, H, h, w, G, Dg)
+        panels.append(v.permute(0, 1, 4, 2, 3, 5).reshape(B, H * G, h, w * Dg))
+    out = ms_deform_attn_sep_panels(panels, spatial_shapes, *_repeat_heads(loc, weights, G))
+    return _merge_groups_rowmajor(out, H, D)
 
 
 # ---------------------------------------------------------------------------

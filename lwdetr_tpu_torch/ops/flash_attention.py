@@ -21,6 +21,14 @@ the kernels run, or the call raises; a tensor on the CPU takes the plain
 versions, `attention_cm_plain` and `attention_cm_bwd_plain`, which are also
 what the kernels are held against on the card.
 
+Head dims: the kernels have cases for 16, 32 and 64 (the ViT's, on the
+tensor cores in bf16) and a wide case for 128, 256, 512 and 1024
+(`csrc/attention_wide.cuh`, CUDA cores: the decoder's heads when
+`--hidden_dim` / `--sa_nheads` make them wider, e.g. 256 / 2), which K2, K9,
+K6 and K7nb take; `attention_cm` zero-pads any other head dim to the next
+case (`attention_cm_padded`). K1 / K7 with the ViT's qkv bias keep 64 as their
+largest (every ViT has 12 heads of at most 64 channels).
+
 In bf16 the forward kernels (K1, K2, K9) run on the tensor cores and round
 what the JAX kernels round: the softmax weights p = exp(s - max) to bf16
 before PV, normalised by the f32 row sum after it, and (K1) the biased panel
@@ -41,8 +49,15 @@ import torch
 from lwdetr_tpu_torch.ops._build import CudaKernel, load
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the head dims of the kernels' cases: 16, 32, 64 (tensor cores in bf16), and
+# the wide case (`csrc/attention_wide.cuh`, CUDA cores) from 128 up, which K2 /
+# K6 / K9 / K7nb take for the decoder's wider heads
 _HEAD_DIMS = (16, 32, 64)
+_WIDE_HEAD_DIMS = (128, 256, 512, 1024)
 _WINDOW_MAX_N = 128
+_BIAS_MAX_HEAD_DIM = 64
+_BIAS_REFUSAL = ("K1 / K7 (the ViT's window attention with its qkv bias) take head_dim up to "
+                 "64: every ViT of the JAX package has 12 heads of at most 64 channels, got {}")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,7 +86,7 @@ window_attention_bias_bwd_kernel = CudaKernel(
 # no-bias case of K7's source, counted apart from K7's launches
 window_attention_bwd_kernel = CudaKernel(
     "K7nb", "window_attention_bwd.cu", "lw_window_attention_bwd",
-    [_P, _P, _P, _I, _I, _I, _I, _F, _I])
+    [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I])
 
 
 def kernel_attributes(kernel: CudaKernel, qkv_t: torch.Tensor, num_heads: int) -> dict:
@@ -114,25 +129,36 @@ def plain_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
+# the plain attention forms the scores of this many (image, head) pairs at a
+# time when all of them would exceed _PLAIN_SCORES values (long padded maps on
+# the CPU: 4624 tokens x 12 heads x 2 images would be 2 GB at once)
+_PLAIN_SCORES = 1 << 26
+
+
 def attention_cm_plain(qkv_t: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     """Plain PyTorch version (counterpart of `_xla_sdpa_cm`): f32 scores,
     exact softmax, result in the input's dtype. On bf16 inputs it rounds as
     the JAX kernel does (`_attn_cm_kernel`, lwdetr_tpu/ops/flash_attention.py:
     52-60): p = exp(s - max) is rounded to bf16 before PV, which sums in f32,
-    and the f32 row sum of the unrounded p divides after PV."""
+    and the f32 row sum of the unrounded p divides after PV. The scores of
+    many long rows are formed a few (image, head) pairs at a time."""
     B, ZC, N = qkv_t.shape
     C = ZC // 3
     D = C // num_heads
     x = qkv_t.to(plain_dtype(qkv_t)).reshape(B, 3, num_heads, D, N)
-    q, k, v = x[:, 0], x[:, 1], x[:, 2]  # (B, H, D, N)
-    s = torch.einsum("bhdn,bhdm->bhnm", q * scale, k)
-    if qkv_t.dtype != torch.bfloat16:
-        o = torch.einsum("bhnm,bhdm->bhdn", s.softmax(dim=-1), v)
-    else:
-        p = (s - s.amax(dim=-1, keepdim=True)).exp()
-        o = torch.einsum("bhnm,bhdm->bhdn", p.to(torch.bfloat16).to(p.dtype), v)
-        o = o / p.sum(dim=-1)[:, :, None, :]
-    return o.reshape(B, C, N).to(qkv_t.dtype)
+    q, k, v = (x[:, i].reshape(B * num_heads, D, N) for i in range(3))
+    step = max(1, _PLAIN_SCORES // (N * N))
+    outs = []
+    for i in range(0, B * num_heads, step):
+        qi, ki, vi = q[i:i + step], k[i:i + step], v[i:i + step]
+        s = torch.einsum("zdn,zdm->znm", qi * scale, ki)
+        if qkv_t.dtype != torch.bfloat16:
+            outs.append(torch.einsum("znm,zdm->zdn", s.softmax(dim=-1), vi))
+        else:
+            p = (s - s.amax(dim=-1, keepdim=True)).exp()
+            o = torch.einsum("znm,zdm->zdn", p.to(torch.bfloat16).to(p.dtype), vi)
+            outs.append(o / p.sum(dim=-1)[:, None, :])
+    return torch.cat(outs).reshape(B, C, N).to(qkv_t.dtype)
 
 
 def bf16_error_bound(qkv_t: torch.Tensor, num_heads: int, scale: float,
@@ -249,10 +275,9 @@ def _check_cuda(qkv_t: torch.Tensor, num_heads: int) -> None:
         raise ValueError(f"qkv_t must be (B, 3C, N) with C divisible by {num_heads} heads, "
                          f"got {tuple(qkv_t.shape)}")
     D = qkv_t.shape[1] // 3 // num_heads
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"attention_cm kernels take head_dim in {_HEAD_DIMS}, got {D} "
-                         "(attention_cm zero-pads head_dim up to 64; above 64 is F4, "
-                         "ROADMAP.md § 3)")
+    if D not in _HEAD_DIMS + _WIDE_HEAD_DIMS:
+        raise ValueError(f"attention_cm kernels take head_dim in {_HEAD_DIMS + _WIDE_HEAD_DIMS}, "
+                         f"got {D} (attention_cm zero-pads a head_dim to the next of them)")
 
 
 def _check_window(qkv_t: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
@@ -260,6 +285,13 @@ def _check_window(qkv_t: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
         raise ValueError(f"K1 / K9 / K7 take N <= {_WINDOW_MAX_N}, got {qkv_t.shape[2]}")
     if bias is not None and bias.shape != (qkv_t.shape[1],):
         raise ValueError(f"bias must be ({qkv_t.shape[1]},), got {tuple(bias.shape)}")
+
+
+def _check_bias_head_dim(qkv_t: torch.Tensor, bias: Optional[torch.Tensor],
+                         num_heads: int) -> None:
+    D = qkv_t.shape[1] // 3 // num_heads
+    if bias is not None and D > _BIAS_MAX_HEAD_DIM:
+        raise ValueError(_BIAS_REFUSAL.format(D))
 
 
 def _f32_bias(bias: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -281,6 +313,7 @@ def window_attention_bias_fwd(qkv_t: torch.Tensor, bias: Optional[torch.Tensor],
         return attention_cm_plain(qkv_t, num_heads, scale)
     _check_cuda(qkv_t, num_heads)
     _check_window(qkv_t, bias)
+    _check_bias_head_dim(qkv_t, bias, num_heads)
     B, ZC, N = qkv_t.shape
     qkv_t = qkv_t.contiguous()
     out = torch.empty((B, ZC // 3, N), device=qkv_t.device, dtype=qkv_t.dtype)
@@ -397,6 +430,7 @@ def window_attention_bias_bwd(qkv_t: torch.Tensor, bias: Optional[torch.Tensor],
         return attention_cm_bwd_plain(qkv_t, dout, num_heads, scale, bias=bias)
     _check_cuda(qkv_t, num_heads)
     _check_window(qkv_t, bias)
+    _check_bias_head_dim(qkv_t, bias, num_heads)
     B, ZC, N = qkv_t.shape
     if dout.shape != (B, ZC // 3, N) or dout.device != qkv_t.device:
         raise ValueError(f"d(out) must be {(B, ZC // 3, N)} on {qkv_t.device}, "
@@ -407,7 +441,11 @@ def window_attention_bias_bwd(qkv_t: torch.Tensor, bias: Optional[torch.Tensor],
     tail = (dout.data_ptr(), dqkv.data_ptr(), B, ZC // 3, N, num_heads, float(scale),
             _DTYPES[qkv_t.dtype])
     if bias is None:
-        window_attention_bwd_kernel(qkv_t.data_ptr(), *tail)
+        # the wide case takes each row's log-sum-exp and row term into this scratch
+        stats = (torch.empty((2, B, num_heads, N), device=qkv_t.device, dtype=torch.float32)
+                 if ZC // 3 // num_heads in _WIDE_HEAD_DIMS else None)
+        window_attention_bwd_kernel(qkv_t.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+                                    None if stats is None else stats.data_ptr(), *tail[2:])
     else:
         bias = _f32_bias(bias, qkv_t)
         window_attention_bias_bwd_kernel(qkv_t.data_ptr(), bias.data_ptr(), *tail)
@@ -440,12 +478,13 @@ def flash_attention_cm_bwd(qkv_t: torch.Tensor, lse: Optional[torch.Tensor], dou
 
 
 def padded_head_dim(head_dim: int) -> int:
-    """The head_dim of the kernel case a head_dim takes: the next of 16, 32, 64."""
-    for d in _HEAD_DIMS:
+    """The head_dim of the kernel case a head_dim takes: the next of 16, 32,
+    64, 128, 256, 512, 1024."""
+    for d in _HEAD_DIMS + _WIDE_HEAD_DIMS:
         if head_dim <= d:
             return d
-    raise ValueError(f"attention_cm kernels take head_dim up to {_HEAD_DIMS[-1]}, got "
-                     f"{head_dim}: F4 (ROADMAP.md § 3)")
+    raise ValueError(f"attention_cm kernels take head_dim up to {_WIDE_HEAD_DIMS[-1]}, got "
+                     f"{head_dim}")
 
 
 def _pad_heads(t: torch.Tensor, num_heads: int, head_dim: int, padded: int) -> torch.Tensor:
@@ -460,14 +499,17 @@ def _pad_heads(t: torch.Tensor, num_heads: int, head_dim: int, padded: int) -> t
 
 def attention_cm_padded(qkv_t: torch.Tensor, num_heads: int, scale: float,
                         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """`attention_cm` at a head_dim outside {16, 32, 64} (up to 64): q, k, v
-    (and the bias) zero-padded along head_dim to the next kernel case, the
-    original `scale`, the output sliced back. Zero channels add exact zeros
-    to q.k and to p.v, so the function is unchanged; autograd slices d(qkv)
-    and d(bias) back through the padding."""
+    """`attention_cm` at a head_dim that no kernel case has: q, k, v (and the
+    bias) zero-padded along head_dim to the next case (`padded_head_dim`),
+    the original `scale`, the output sliced back. Zero channels add exact
+    zeros to q.k and to p.v, so the function is unchanged; autograd slices
+    d(qkv) and d(bias) back through the padding. A bias with N <= 128 (K1)
+    takes no head_dim above 64."""
     B, ZC, N = qkv_t.shape
     D = ZC // 3 // num_heads
     Dp = padded_head_dim(D)
+    if bias is not None and N <= _WINDOW_MAX_N and Dp > _BIAS_MAX_HEAD_DIM:
+        raise ValueError(_BIAS_REFUSAL.format(D))
     qkv_p = _pad_heads(qkv_t, num_heads, D, Dp)
     bias_p = None if bias is None else _pad_heads(bias, num_heads, D, Dp)
     out = attention_cm(qkv_p, num_heads, scale, bias_p)
@@ -478,15 +520,15 @@ def attention_cm(qkv_t: torch.Tensor, num_heads: int, scale: Optional[float] = N
                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention over channel-major packed qkv (B, 3C, N) -> (B, C, N), with
     an optional (3C,) qkv bias. Differentiable in qkv_t and bias. On a CUDA
-    tensor a head_dim below 64 that no kernel case takes is zero-padded to
-    one (`attention_cm_padded`)."""
+    tensor a head_dim that no kernel case takes is zero-padded to one
+    (`attention_cm_padded`)."""
     B, ZC, N = qkv_t.shape
     if ZC % (3 * num_heads):
         raise ValueError(f"3C = {ZC} is not divisible by 3 x {num_heads} heads")
     D = ZC // 3 // num_heads
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    if qkv_t.is_cuda and D not in _HEAD_DIMS:
+    if qkv_t.is_cuda and D not in _HEAD_DIMS + _WIDE_HEAD_DIMS:
         return attention_cm_padded(qkv_t, num_heads, scale, bias)
     if N <= _WINDOW_MAX_N:
         if bias is not None:

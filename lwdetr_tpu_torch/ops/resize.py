@@ -54,8 +54,8 @@ def bicubic_resize_2d(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     oh, ow = out_hw
     if (h, w) == (oh, ow):
         return x
-    Mh = torch.from_numpy(bicubic_resize_matrix(h, oh).copy()).to(x.device, x.dtype)
-    Mw = torch.from_numpy(bicubic_resize_matrix(w, ow).copy()).to(x.device, x.dtype)
+    Mh = resize_table("bicubic", h, oh, x.device, x.dtype)
+    Mw = resize_table("bicubic", w, ow, x.device, x.dtype)
     x = torch.einsum("Hh,...hwc->...Hwc", Mh, x)
     return torch.einsum("Ww,...hwc->...hWc", Mw, x)
 
@@ -63,3 +63,16 @@ def bicubic_resize_2d(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
 def nearest_resize_index(src: int, dst: int) -> np.ndarray:
     """Index vector matching torch F.interpolate(mode='nearest')."""
     return np.minimum((np.arange(dst) * src // dst), src - 1).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def resize_table(kind: str, src: int, dst: int, device: torch.device,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """`bicubic_resize_matrix` ("bicubic") or `nearest_resize_index`
+    ("nearest") as a `dtype` tensor on `device`, made once a (src, dst, device,
+    dtype): to a card by a pinned, non-blocking copy, so that a forward that
+    resizes (every train step) never waits on the card for it."""
+    make = {"bicubic": bicubic_resize_matrix, "nearest": nearest_resize_index}[kind]
+    t = torch.from_numpy(np.array(make(src, dst))).to(dtype)
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+

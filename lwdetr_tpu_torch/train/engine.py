@@ -42,8 +42,10 @@ def create_train_state(mcfg: ModelConfig, tcfg: TrainConfig, niter_per_ep: int, 
     """A train-mode model computing in `dtype` (float32 or bfloat16; the
     parameters are float32 either way) on `device` (CUDA unless given; raises
     when there is no card), its optimizer and schedule, and the EMA copy if
-    configured."""
-    model = build_model(mcfg, device=device, dtype=dtype, state_dict=state_dict, train=True)
+    configured. Without `state_dict` the weights are the JAX package's
+    initialisation drawn from `tcfg.seed`."""
+    model = build_model(mcfg, device=device, dtype=dtype, state_dict=state_dict, train=True,
+                        generator=torch.Generator().manual_seed(tcfg.seed))
     optimizer, scheduler = optim.build_optimizer(model, mcfg, tcfg, niter_per_ep)
     ema = optim.ema_init(model) if tcfg.use_ema else None
     return TrainState(model, optimizer, scheduler, ema)
@@ -57,17 +59,17 @@ def build_train_step(state: TrainState, criterion: SetCriterion, tcfg: TrainConf
                      static_zero_drop_path: bool = False, static_zero_dropout: bool = False,
                      seed: Optional[int] = None) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns train_step(batch, drop_path_rate=0.0, dropout_rate=0.0,
-    mask_source=None) -> metrics. `batch` holds `images` (B, H, W, 3),
-    `labels` (B, T), `boxes` (B, T, 4) and `valid` (B, T) on the model's
-    device. The rates are the step's (`train_one_epoch` reads them from the
-    schedules); the ViT blocks take the linear ramp of `drop_path_rate`. The
-    masks are drawn with a generator seeded from (`seed`, default
-    `tcfg.seed`, and the step count), or by `mask_source` when one is given.
-    `static_zero_drop_path` / `static_zero_dropout`: the whole schedule is
-    zero, so no mask of that kind is drawn at all (the JAX package's flags of
-    the same names). The step updates `state` in place; the metrics (every
-    loss component, `loss`, and `grad_norm` before clipping) are 0-dim
-    tensors on the device."""
+    mask_source=None) -> metrics. `batch` holds `images` (B, H, W, 3), `labels` (B,
+    T), `boxes` (B, T, 4) and `valid` (B, T) on the model's device, and `pad_mask`
+    (B, H, W) when the loader padded the batch to a common size (the JAX step's
+    `masks=batch.get("pad_mask")`). The rates are the step's (`train_one_epoch`
+    reads them from the schedules); the ViT blocks take the linear ramp of
+    `drop_path_rate`. The masks are drawn with a generator seeded from (`seed`,
+    default `tcfg.seed`, and the step count), or by `mask_source` when one is given.
+    `static_zero_drop_path` / `static_zero_dropout`: the whole schedule is zero, so
+    no mask of that kind is drawn at all (the JAX package's flags of the same
+    names). The step updates `state` in place; the metrics (every loss component,
+    `loss`, and `grad_norm` before clipping) are 0-dim tensors on the device."""
     model = state.model
     params = [p for p in model.parameters() if p.requires_grad]
     depth = model.cfg.vit_encoder_num_layers
@@ -84,7 +86,7 @@ def build_train_step(state: TrainState, criterion: SetCriterion, tcfg: TrainConf
         if mask_source is None and drawn:
             mask_source = drop.Bernoulli(drop.step_generator(device, seed, state.step))
         state.optimizer.zero_grad(set_to_none=True)
-        out = model(batch["images"], dp_rates, do_rate, mask_source)
+        out = model(batch["images"], batch.get("pad_mask"), dp_rates, do_rate, mask_source)
         total, losses = criterion(out, _targets(batch), train=True)
         total.backward()
         # clips in place; returns the global norm before clipping
@@ -103,15 +105,15 @@ def build_train_step(state: TrainState, criterion: SetCriterion, tcfg: TrainConf
 
 
 def build_eval_step(model: LWDETR, num_select: int, criterion: Optional[SetCriterion] = None):
-    """Returns eval_step(batch) -> ((scores, labels, boxes_xyxy_abs), losses)
-    at the original image scale (`batch["orig_size"]`, (B, 2) as (h, w)). With
-    `criterion` the eval losses are computed on the same forward; losses is
-    {} otherwise."""
+    """Returns eval_step(batch) -> ((scores, labels, boxes_xyxy_abs), losses) at the
+    original image scale (`batch["orig_size"]`, (B, 2) as (h, w)); a padded batch's
+    `pad_mask` goes to the model. With `criterion` the eval losses are computed on
+    the same forward; losses is {} otherwise."""
 
     @torch.no_grad()
     def eval_step(batch):
         model.eval()
-        out = model(batch["images"])
+        out = model(batch["images"], batch.get("pad_mask"))
         losses = {}
         if criterion is not None:
             total, losses = criterion(out, _targets(batch), train=False)

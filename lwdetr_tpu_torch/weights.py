@@ -13,8 +13,12 @@ layout transform between them:
 
 `state_dict_from_jax` needs numpy only: it takes the JAX variables as nested
 dicts of arrays. The map is linear, so `grads_from_jax` carries a JAX gradient
-tree into the port's names and layouts the same way. `init_state_dict` draws every weight from a seed with a
-`torch.Generator`, for runs that have no JAX. `read_jax_npz` reads a JAX
+tree into the port's names and layouts the same way. `jax_init_state_dict`
+draws a fresh model's weights as the JAX package initialises its parameters
+(each module's flax initialiser, from a `torch.Generator`): what `build_model`
+loads when it is given no state_dict. `init_state_dict` draws every weight
+non-trivially from a seed, for tests and benchmarks whose every path must
+depend on its inputs. `read_jax_npz` reads a JAX
 variable tree saved as `{keystr: array}` (the mAP fixture's `weights.npz`)
 into nested dicts, with no JAX.
 """
@@ -247,6 +251,132 @@ def grads_from_jax(grads: dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
             for tk, _, fp, kind in mapping}
 
 
+_SQRT2 = math.sqrt(2.0)
+# the std of a standard normal cut at +-2 (the correction of flax's variance-scaling draws)
+_TRUNC2_STD = 0.87962566103423978
+PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
+
+
+def truncated_normal(shape, std: float, g: torch.Generator) -> torch.Tensor:
+    """`jax.random.truncated_normal(key, -2, 2, shape) * std`: a standard normal
+    cut at +-2 by the inverse CDF of a uniform draw between the cut's CDF
+    values (the JAX sampler's method), clamped inside the open interval, then
+    scaled; float32."""
+    lo, hi = math.erf(-2.0 / _SQRT2), math.erf(2.0 / _SQRT2)
+    u = torch.rand(shape, generator=g, dtype=torch.float64) * (hi - lo) + lo
+    x = (torch.erfinv(u) * _SQRT2).float()
+    edge = float(np.nextafter(np.float32(2.0), np.float32(0.0)))
+    return x.clamp_(-edge, edge) * std
+
+
+def _xavier_uniform(shape, g: torch.Generator) -> torch.Tensor:
+    """flax `xavier_uniform` of a Dense kernel (in, out): uniform in
+    +-sqrt(6 / (in + out))."""
+    limit = math.sqrt(6.0 / (shape[-2] + shape[-1]))
+    return (torch.rand(shape, generator=g, dtype=torch.float64) * 2 - 1).float() * limit
+
+
+def _lecun_normal(shape, g: torch.Generator) -> torch.Tensor:
+    """flax `lecun_normal` (the default of nn.Dense, nn.Conv, nn.ConvTranspose)
+    of a kernel (..., in, out): truncated normal with std sqrt(1 / fan_in),
+    fan_in = in x the receptive field, corrected for the cut."""
+    fan_in = math.prod(shape[:-1])
+    return truncated_normal(shape, math.sqrt(1.0 / fan_in) / _TRUNC2_STD, g)
+
+
+def jax_initializer(path: Tuple[str, ...]):
+    """The initialiser the JAX package gives the parameter or batch statistic
+    at flax `path`: ("zeros" | "ones" | "constant" | "grid" | "normal" |
+    "truncated_normal" | "lecun_normal" | "xavier_uniform", argument). From
+    `lwdetr_tpu/models/vit.py:87-94, :126, :154, :173, :204-205, :246, :290`,
+    `projector.py` (flax's defaults: lecun-normal kernels, zero biases, unit
+    scales, BatchNorm statistics 0 / 1), `transformer.py:61-72, :90-92, :119,
+    :137, :301, :309-319, :343, :353, :411, :416, :523-540` and
+    `lwdetr.py:136-146`."""
+    leaf = path[-1]
+    if path[:2] == ("backbone", "encoder"):  # the ViT
+        if leaf in ("pos_embed", "qkv_kernel") or (leaf == "kernel" and path[2] != "patch_embed"):
+            return ("truncated_normal", 0.02)
+        if leaf == "kernel":
+            return ("lecun_normal", None)
+        if leaf in ("gamma_1", "gamma_2"):
+            return ("constant", 0.1)
+        return ("ones", None) if leaf == "scale" else ("zeros", None)
+    if path[:2] == ("backbone", "projector"):
+        if leaf == "kernel":
+            return ("lecun_normal", None)
+        return ("ones", None) if leaf in ("scale", "weight", "var") else ("zeros", None)
+    if leaf == "refpoint_embed":
+        return ("zeros", None)
+    if leaf == "query_feat":
+        return ("normal", 1.0)
+    owner = path[-2]
+    if leaf == "scale":
+        return ("ones", None)
+    if owner == "class_embed" or owner.startswith("enc_out_class_embed_"):
+        return ("lecun_normal", None) if leaf == "kernel" else ("constant", PRIOR_BIAS)
+    if owner == "sampling_offsets":
+        return ("zeros", None) if leaf == "kernel" else ("grid", None)
+    if owner == "attention_weights":
+        return ("zeros", None)
+    # the box heads' last layer is zero (`zero_init_last`); their other
+    # layers, like every other kernel of the decoder, are xavier-uniform
+    head = path[-3] if len(path) > 2 else ""
+    if leaf in ("kernel", "in_proj_kernel"):
+        last = head == "bbox_embed" or head.startswith("enc_out_bbox_embed_")
+        if last and owner == "layers_2":
+            return ("zeros", None)
+        return ("xavier_uniform", None)
+    return ("zeros", None)
+
+
+def _flax_shape(shape, kind: str) -> Tuple[int, ...]:
+    """The flax layout of a torch tensor's shape (the inverse of `_f2t`'s transform)."""
+    if kind == "dense_w":
+        return tuple(shape)[::-1]
+    if kind in ("conv_w", "convT_w"):  # (out | in, in | out, kh, kw) -> (kh, kw, in, out)
+        a, b, kh, kw = shape
+        return (kh, kw, b, a) if kind == "conv_w" else (kh, kw, a, b)
+    return tuple(shape)
+
+
+def jax_init_state_dict(cfg: ModelConfig, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """A fresh model's weights as the JAX package initialises them (its
+    `model.init`), drawn from `generator` in the order of `build_mapping`
+    and laid out as the reference's state_dict: every constant equals JAX's
+    exactly (zeros, ones, the layer scales 0.1, the focal prior of the class
+    heads, the sampling offsets' grid), every random tensor follows JAX's
+    distribution (JAX's own bits come from its PRNG, not these). float32."""
+    from lwdetr_tpu_torch.models.lwdetr import LWDETR
+
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in LWDETR(cfg).state_dict().items()}
+    sd = {}
+    for tk, _, fp, kind in build_mapping(cfg):
+        shape = _flax_shape(shapes[tk], kind)
+        rule, arg = jax_initializer(fp)
+        if rule == "zeros":
+            arr = torch.zeros(shape)
+        elif rule == "ones":
+            arr = torch.ones(shape)
+        elif rule == "constant":
+            arr = torch.full(shape, float(arg))
+        elif rule == "grid":
+            arr = sampling_offsets_init_bias(cfg.ca_nheads, cfg.num_feature_levels,
+                                             cfg.dec_n_points)
+        elif rule == "normal":
+            arr = torch.randn(shape, generator=generator) * arg
+        elif rule == "truncated_normal":
+            arr = truncated_normal(shape, arg, generator)
+        elif rule == "lecun_normal":
+            arr = _lecun_normal(shape, generator)
+        else:
+            arr = _xavier_uniform(shape, generator)
+        sd[tk] = torch.from_numpy(np.ascontiguousarray(_f2t(arr.numpy(), kind)))
+    sd.update(_bn_counters(sd))
+    return sd
+
+
 def init_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
     """Random weights for `cfg`'s model drawn from `seed`, reference keys.
 
@@ -263,7 +393,7 @@ def init_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
     def uniform(shape, lo, hi):
         return torch.rand(shape, generator=g) * (hi - lo) + lo
 
-    prior = -math.log((1 - 0.01) / 0.01)
+    prior = PRIOR_BIAS
     sd = {}
     with torch.device("meta"):
         shapes = {k: v.shape for k, v in LWDETR(cfg).state_dict().items()}

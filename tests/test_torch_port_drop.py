@@ -133,7 +133,7 @@ def _port_grads(params, stats, batch, masks, dtype=torch.float32, remat=False):
         return picks[-1]
 
     with mock.patch.object(ttr, "select_proposals", spy):
-        out = model(torch.from_numpy(batch["images"]), RATES, CFG.dropout, source)
+        out = model(torch.from_numpy(batch["images"]), None, RATES, CFG.dropout, source)
     crit = SetCriterion(cfg, TCFG)
     targets = _targets(batch)
     sets = [out] + out["aux_outputs"] + [out["enc_outputs"]]

@@ -437,10 +437,15 @@ def test_row_major_sampler_refuses_what_the_kernel_does_not_take(cuda):
     loc = torch.rand((1, 5, 2, 1, 2, 2), device="cuda")
     w = torch.rand((1, 5, 2, 1, 2), device="cuda")
     launches = da.deform_attn_rowmajor_kernel.launches
-    # head dims that are no multiple of 8, or over 64, are refused (8 .. 64 are taken)
+    # F4: head dims that are no multiple of 8, or over 64, reach the kernel
+    # zero-padded and split into groups (`head_groups`), one launch each
     for D in (12, 72):
-        with pytest.raises(ValueError, match="D in"):
-            da.ms_deform_attn(torch.zeros((1, 12, 2, D), device="cuda"), [(3, 4)], loc, w)
+        value = torch.randn((1, 12, 2, D), device="cuda")
+        out = da.ms_deform_attn(value, [(3, 4)], loc, w)
+        torch.testing.assert_close(out, da.ms_deform_attn_plain(value, [(3, 4)], loc, w),
+                                   atol=ATOL, rtol=0)
+    assert da.deform_attn_rowmajor_kernel.launches == launches + 2
+    launches += 2
     with pytest.raises(TypeError):
         da.ms_deform_attn(torch.zeros((1, 12, 2, 16), device="cuda", dtype=torch.float16),
                           [(3, 4)], loc, w)
@@ -604,10 +609,15 @@ def test_sep_panels_refuses_what_the_kernel_does_not_take(cuda):
     loc = torch.rand((1, 5, 2, 1, 2, 2), device="cuda")
     w = torch.rand((1, 5, 2, 1, 2), device="cuda")
     launches = da.deform_attn_sep_kernel.launches
-    for D in (12, 72):  # no multiple of 8, over 64 (8 .. 64 are taken)
-        with pytest.raises(ValueError, match="head_dim"):
-            da.ms_deform_attn_sep_panels([torch.zeros((1, 2, 3, 4 * D), device="cuda")],
-                                         [(3, 4)], loc, w)
+    # F4: no multiple of 8, over 64: zero-padded and split into groups, one launch each
+    for D in (12, 72):
+        panel = torch.randn((1, 2, 3, 4 * D), device="cuda")
+        out = da.ms_deform_attn_sep_panels([panel], [(3, 4)], loc, w)
+        torch.testing.assert_close(out, da.ms_deform_attn_sep_panels_plain([panel], [(3, 4)],
+                                                                           loc, w),
+                                   atol=ATOL, rtol=0)
+    assert da.deform_attn_sep_kernel.launches == launches + 2
+    launches += 2
     with pytest.raises(TypeError):
         da.ms_deform_attn_sep_panels([torch.zeros((1, 2, 3, 4 * 16), device="cuda",
                                                   dtype=torch.float16)], [(3, 4)], loc, w)
@@ -761,7 +771,8 @@ def test_decoder_dropout_takes_the_self_attention_off_the_kernels(cuda, dtype):
             return gen(keep, shape, like)
 
         before = [k.launches for k in kernels]
-        total, _ = criterion(model(images, [0.0, 0.05, 0.1], rate, source), targets, train=True)
+        total, _ = criterion(model(images, None, [0.0, 0.05, 0.1], rate, source), targets,
+                             train=True)
         total.backward()
         assert torch.isfinite(total).item()
         return {k.name: k.launches - b for k, b in zip(kernels, before)}
@@ -890,3 +901,127 @@ def test_attention_at_padded_head_dims_matches_the_plain_version(cuda, D, N, wit
     assert (grads[0] - ref_grads[0]).abs().max().item() <= ATOL * scale
     if with_bias:
         assert (grads[1] - ref_grads[1]).abs().max().item() <= ATOL * scale * B * N
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [80, 128, 256])
+@pytest.mark.parametrize("N,kernel", [(300, "K2"), (100, "K9")])
+def test_wide_head_dims_match_the_plain_version(cuda, dtype, D, N, kernel):
+    """F4: the decoder's head dims above 64 reach the wide case of K2 / K9
+    and of their backwards K6 / K7nb (`csrc/attention_wide.cuh`), zero-padded
+    from 80 to 128: forward and d(qkv) against the plain version on the
+    unpadded inputs, in f32 within ATOL (x max(1, max |plain|)) and in bf16
+    within `bf16_error_bound` / `bf16_bwd_error_bound` at the kernel's head
+    dim (for 80: of the padded inputs, checked at 128)."""
+    heads, B = (2 if D < 256 else 1), 3
+    kern = {"K2": fa.flash_attention_cm_kernel, "K9": fa.window_attention_kernel}[kernel]
+    bwd = {"K2": fa.flash_attention_cm_bwd_kernel, "K9": fa.window_attention_bwd_kernel}[kernel]
+    qkv = _qkv(cuda, B, heads * D, N, dtype).requires_grad_()
+    dout = torch.randn((B, heads * D, N), generator=cuda, device="cuda").to(dtype)
+    scale = D ** -0.5
+    n0, b0 = kern.launches, bwd.launches
+    out = fa.attention_cm(qkv, heads, scale)
+    (dqkv,) = torch.autograd.grad(out, [qkv], dout)
+    torch.cuda.synchronize()
+    assert (kern.launches - n0, bwd.launches - b0) == (1, 1)
+    x = qkv.detach()
+    if dtype == torch.float32:
+        ref = fa.attention_cm_plain(x, heads, scale)
+        dref = fa.attention_cm_bwd_plain(x, dout, heads, scale)
+        assert (out - ref).abs().max().item() <= ATOL
+        assert (dqkv - dref).abs().max().item() <= ATOL * max(1.0, dref.abs().max().item())
+        return
+    Dp = fa.padded_head_dim(D)
+
+    def padded(t):  # (B, heads * D, N) -> each head's channels zero-padded to Dp
+        return torch.nn.functional.pad(t.reshape(B, heads, D, N), (0, 0, 0, Dp - D)).reshape(
+            B, heads * Dp, N)
+
+    xp, gp = fa._pad_heads(x, heads, D, Dp), padded(dout)
+    ref = fa.attention_cm_plain(xp, heads, scale).float()
+    dref = fa.attention_cm_bwd_plain(xp, gp, heads, scale).float()
+    bound = fa.bf16_error_bound(xp, heads, scale, ref)
+    dbound = fa.bf16_bwd_error_bound(xp, gp, heads, scale, dref)
+    assert ((padded(out.detach()).float() - ref).abs() - bound).max().item() <= 0
+    dqkvp = fa._pad_heads(dqkv, heads, D, Dp).float()
+    assert ((dqkvp - dref).abs() - dbound).max().item() <= 0
+
+
+def _padded_batch(g, B, side, valid_hw):
+    mask = torch.ones((B, side, side), dtype=torch.bool, device="cuda")
+    for i, (h, w) in enumerate(valid_hw):
+        mask[i, :h, :w] = False
+    images = torch.randn((B, side, side, 3), generator=g, device="cuda") * ~mask[..., None]
+    return images, mask
+
+
+@pytest.mark.parametrize("branch", [None, "cm", "sep", "gather"])
+def test_padded_forward_through_the_kernels_matches_the_plain_versions(cuda, branch):
+    """F6: a padded batch (two images of 256 x 384 and 384 x 256 padded to
+    384 x 384) through a reduced model in each cross-attention branch,
+    against the same model on the plain versions with the same picks."""
+    from lwdetr_tpu_torch.config import ModelConfig
+    from lwdetr_tpu_torch.models.lwdetr import build_model
+    from lwdetr_tpu_torch.weights import init_state_dict
+
+    cfg = ModelConfig(encoder="vit_tiny", vit_encoder_num_layers=2, window_block_indexes=(0,),
+                      out_feature_indexes=(0, 1), projector_scale=("P4",), hidden_dim=64,
+                      dim_feedforward=128, sa_nheads=4, ca_nheads=8, dec_n_points=2,
+                      dec_layers=2, group_detr=2, num_queries=12, num_classes=7,
+                      two_stage=True, bbox_reparam=True, lite_refpoint_refine=True)
+    model = tr.set_force_branch(build_model(cfg, device="cuda",
+                                            state_dict=init_state_dict(cfg, seed=0)), branch)
+    images, mask = _padded_batch(cuda, 2, 384, ((256, 384), (384, 256)))
+    picks, select = [], tr.select_proposals
+
+    def record(scores, k):
+        picks.append(select(scores, k))
+        return picks[-1]
+
+    with torch.no_grad(), mock.patch.object(tr, "select_proposals", record):
+        out = model(images, mask)
+    plain_attention = lambda qkv, heads, scale=None, bias=None: fa.attention_cm_plain(  # noqa
+        qkv if bias is None else qkv + bias[:, None], heads, scale)
+    with torch.no_grad(), mock.patch.object(tr, "select_proposals", lambda s, k: picks[0]), \
+            mock.patch.object(fa, "attention_cm", plain_attention), \
+            mock.patch.object(da, "ms_deform_attn_cm", da.ms_deform_attn_cm_plain), \
+            mock.patch.object(da, "ms_deform_attn_sep_panels",
+                              da.ms_deform_attn_sep_panels_plain), \
+            mock.patch.object(da, "ms_deform_attn", da.ms_deform_attn_plain):
+        ref = model(images, mask)
+    assert (out["pred_logits"] - ref["pred_logits"]).abs().max().item() <= 1e-4
+    assert (out["pred_boxes"] - ref["pred_boxes"]).abs().max().item() <= 1e-5
+
+
+def test_padded_train_step_enqueues_without_a_host_sync(cuda):
+    """F6: a padded train step of a reduced model (valid ratios, masks,
+    proposals and M1 on the card) runs under `set_sync_debug_mode("error")`."""
+    from lwdetr_tpu_torch.config import ModelConfig, TrainConfig
+    from lwdetr_tpu_torch.models.criterion import SetCriterion
+    from lwdetr_tpu_torch.train import engine
+    from lwdetr_tpu_torch.weights import init_state_dict
+
+    cfg = ModelConfig(encoder="vit_tiny", vit_encoder_num_layers=2, window_block_indexes=(0,),
+                      out_feature_indexes=(0, 1), projector_scale=("P4",), hidden_dim=64,
+                      dim_feedforward=128, sa_nheads=4, ca_nheads=8, dec_n_points=2,
+                      dec_layers=2, group_detr=2, num_queries=12, num_classes=7,
+                      two_stage=True, bbox_reparam=True, lite_refpoint_refine=True)
+    tcfg = TrainConfig(ia_bce_loss=True, max_gt=6)
+    state = engine.create_train_state(cfg, tcfg, niter_per_ep=10, device="cuda",
+                                      state_dict=init_state_dict(cfg, seed=0))
+    step = engine.build_train_step(state, SetCriterion(cfg, tcfg), tcfg,
+                                   static_zero_drop_path=True, static_zero_dropout=True)
+    images, mask = _padded_batch(cuda, 2, 384, ((256, 384), (384, 256)))
+    batch = {"images": images, "pad_mask": mask,
+             "labels": torch.randint(0, 7, (2, 6), generator=cuda, device="cuda"),
+             "boxes": torch.rand((2, 6, 4), generator=cuda, device="cuda") * 0.3 + 0.2,
+             "valid": torch.arange(6, device="cuda")[None].expand(2, 6) < 4}
+    step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(metrics["loss"]).item()
+

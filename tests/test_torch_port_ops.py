@@ -141,11 +141,38 @@ def test_zero_padded_attention_equals_the_plain_version(D, N, with_bias):
     np.testing.assert_allclose(padded[0].numpy(), np.asarray(ref), atol=ATOL)
 
 
-def test_attention_above_head_dim_64_is_refused_naming_f4():
-    with pytest.raises(ValueError, match="F4"):
-        tfa.padded_head_dim(72)
-    with pytest.raises(ValueError, match="F4"):
-        tfa.attention_cm_padded(torch.zeros(1, 3 * 72, 10), 1, 1.0)
+@pytest.mark.parametrize("D", [80, 128])
+@pytest.mark.parametrize("N", [100, 200], ids=["short", "long"])
+def test_attention_above_head_dim_64_runs_zero_padded_to_the_wide_case(D, N):
+    """F4: the decoder's head dims above 64 reach the kernels' wide case
+    (128 and up), zero-padded: on the same padded inputs the plain version
+    gives the unpadded output and d(qkv) sliced back, and JAX's attention."""
+    rng = np.random.default_rng(D + N)
+    B, heads = 2, 2
+    qkv = rng.standard_normal((B, 3 * heads * D, N)).astype(np.float32)
+    dout = rng.standard_normal((B, heads * D, N)).astype(np.float32)
+    scale = D ** -0.5
+    assert tfa.padded_head_dim(D) == 128 and tfa.padded_head_dim(129) == 256
+
+    def run(fn):
+        q = torch.from_numpy(qkv).requires_grad_()
+        out = fn(q, heads, scale)
+        out.backward(torch.from_numpy(dout))
+        return out.detach(), q.grad
+
+    padded, plain = run(tfa.attention_cm_padded), run(tfa.attention_cm)
+    for got, want in zip(padded, plain):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=1e-5)
+    ref = jfa.attention_cm(jnp.asarray(qkv), heads, scale, interpret=True)
+    np.testing.assert_allclose(padded[0].numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_the_window_kernel_with_a_bias_refuses_head_dims_above_64():
+    """K1 / K7 (the ViT's window attention with its qkv bias) keep head_dim
+    64 as their largest: every ViT of the JAX package has 12 heads of at most
+    64 channels. The refusal names that reason."""
+    with pytest.raises(ValueError, match="12 heads"):
+        tfa.attention_cm_padded(torch.zeros(1, 3 * 72, 10), 1, 1.0, bias=torch.zeros(3 * 72))
 
 
 SHAPES = ((8, 10), (4, 5))
@@ -263,3 +290,58 @@ def test_ms_deform_attn_sep_panels_keeps_the_panels_dtype():
                                          torch.from_numpy(np.abs(w)))
     excess = (out.float() - ref).abs() - 2.0 ** -8 * (ref.abs() + mags) - 1e-6
     assert excess.max().item() <= 0
+
+
+def _split_case(layout, D, seed):
+    """Inputs of one sampler layout at head dim D (two heads, two levels, 4
+    points) and the call of its pad-and-split route and of its unsplit plain
+    version: (tensors that want a gradient, split(*tensors), plain(*tensors))."""
+    vals, loc, w = _panel_inputs(seed, D=D)
+    B, H = 2, 2
+    value = np.concatenate([v.reshape(B, H, -1, D) for v in vals], axis=2)  # (B, H, Len, D)
+    shapes = PANEL_SHAPES
+    if layout == "sep":
+        tensors = [torch.from_numpy(v) for v in vals] + [torch.from_numpy(loc), torch.from_numpy(w)]
+        return (tensors,
+                lambda *t: tda.ms_deform_attn_sep_panels_split(list(t[:2]), shapes, *t[2:]),
+                lambda *t: tda.ms_deform_attn_sep_panels_plain(list(t[:2]), shapes, *t[2:]))
+    if layout == "rowmajor":
+        tensors = [torch.from_numpy(np.ascontiguousarray(value.transpose(0, 2, 1, 3))),
+                   torch.from_numpy(loc), torch.from_numpy(w)]
+        return (tensors, lambda *t: tda.ms_deform_attn_split(t[0], shapes, *t[1:]),
+                lambda *t: tda.ms_deform_attn_plain(t[0], shapes, *t[1:]))
+    value_t = np.ascontiguousarray(value.transpose(0, 1, 3, 2)).reshape(B, H * D, -1)
+    tensors = [torch.from_numpy(value_t), torch.from_numpy(loc), torch.from_numpy(w)]
+    return (tensors, lambda *t: tda.ms_deform_attn_cm_split(t[0], shapes, *t[1:], H),
+            lambda *t: tda.ms_deform_attn_cm_plain(t[0], shapes, *t[1:], H))
+
+
+@pytest.mark.parametrize("D", [12, 72, 96, 128])
+@pytest.mark.parametrize("layout", ["sep", "rowmajor", "cm"])
+def test_pad_and_split_route_equals_the_unsplit_plain_version(layout, D):
+    """F4: K4 / K5 / K10 / K10b take head dims that are a multiple of 8 up to
+    64, K8 a multiple of 4 up to 128. Any other head dim is zero-padded and
+    split into groups that share the head's points and weights
+    (`head_groups`). With the plain versions standing in for the kernels, the
+    route gives the unsplit plain version's output and gradients of the
+    values, the locations and the weights (the groups' d(loc), d(weights)
+    summed)."""
+    multiple, largest = (4, 128) if layout == "cm" else (8, 64)
+    G, Dg = tda.head_groups(D, multiple, largest)
+    assert Dg % multiple == 0 and Dg <= largest and G * Dg >= D and (G - 1) * Dg < D
+    tensors, split, plain = _split_case(layout, D, seed=D)
+    dout = None
+    results = []
+    for fn in (split, plain):
+        ins = [t.clone().requires_grad_() for t in tensors]
+        out = fn(*ins)
+        if dout is None:
+            dout = torch.from_numpy(np.random.default_rng(D).standard_normal(
+                tuple(out.shape)).astype(np.float32))
+        grads = torch.autograd.grad(out, ins, dout)
+        results.append((out.detach(),) + grads)
+    for got, want in zip(*results):
+        assert got.shape == want.shape
+        scale = max(1.0, want.abs().max().item())
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL * scale)
+
