@@ -106,11 +106,15 @@ Run from the root of a checkout, with one card:
    its plain version in f32 and bf16; F4's head dims: K2 / K6 / K9 / K7nb at
    head_dim 128, attention at 80 through `attention_cm`'s zero padding, the
    samplers at 12, 72 and 128 through their pad-and-split routes (forward and
-   backward in each layout); small's eval forward on a padded batch of 4
-   fixture images (one portrait; K2 13, K4 3) against the plain versions on
-   the same picks; small's padded f32 train step (the legacy train recipe,
-   batch 4): its gradients against the plain backwards on the same forward,
-   and one step enqueued under `torch.cuda.set_sync_debug_mode("error")`;
+   backward in each layout); K2 / K6 / K4 / K5 (K3 below 4096 positions)
+   untimed at every size the padded paths below draw from the fixture
+   (`PADDED_TRAIN_SIZES`, `PADDED_EVAL_SIZES`; a drawn size outside them
+   fails the script); small's eval forward on a padded batch of 4 fixture
+   images (one portrait; K2 13, K4 3) against the plain versions on the same
+   picks; small's padded f32 train step (the legacy train recipe, batch 4):
+   its forward against the plain forwards on the same picks, its gradients
+   against the plain backwards on the same forward, and one step enqueued
+   under `torch.cuda.set_sync_debug_mode("error")`;
    the eval CLI on the legacy recipe (the micro model on
    `tests/fixtures/micro_map_padded/`, batch 2) with its 12 stats within 1e-7
    of `golden_stats_padded.json`; small trained one epoch from scratch
@@ -391,11 +395,13 @@ def check_bound(torch, name, out, ref, bound):
     return diff.max().item()
 
 
-def compare_attention(torch, F, fa, measure_ms, name, B, C, N, heads, scale, bias, dtype):
+def compare_attention(torch, F, fa, measure_ms, name, B, C, N, heads, scale, bias, dtype,
+                      timed=True):
     """Kernel vs plain (and SDPA) on one attention shape; returns the numbers.
     `ms` is the time of back-to-back calls, host work included; `device_ms`
     the time of the same calls replayed from a CUDA graph, the device's alone
-    (the two part where the wrapper's host time exceeds the kernel's)."""
+    (the two part where the wrapper's host time exceeds the kernel's).
+    Without `timed`, the check alone: the errors, no times."""
     import math
 
     from lwdetr_tpu_torch.utils.timing import measure_graph_ms
@@ -446,6 +452,10 @@ def compare_attention(torch, F, fa, measure_ms, name, B, C, N, heads, scale, bia
                                   LSE_ATOL + LSE_RTOL * lse_ref.abs())
             if not torch.equal(out2, out):
                 raise AssertionError(f"{tag}: writing the log-sum-exp changed the output")
+        if not timed:
+            log(f"{tag}: err {err:.3g} (vs f32 plain {err32:.3g}"
+                + (f"; lse {lse_err:.3g}" if lse_err is not None else "") + ")")
+            return {"shape": list(qkv.shape), "max_abs_err": err, "max_abs_err_vs_f32_plain": err32}
         attrs = fa.kernel_attributes(kernel_obj, qkv, heads)
         ms = measure_ms(kernel)["ms"]
         device_ms = measure_graph_ms(kernel)["ms"]
@@ -690,12 +700,12 @@ def route_note(route):
 
 
 def compare_deform_sep(torch, da, measure_ms, dtype, shape, name="K4",
-                       layout="panels", special=False, masked=False):
+                       layout="panels", special=False, masked=False, timed=True):
     """A sampler's forward against its plain version at `shape`: K4 on panels,
     K10 on the row-major and K3 on the channel-major layout of the same values
     (`special`: points on grid lines and NaN too, see `sep_inputs`); call and
     device (CUDA-graph) times, and the reference's grid_sample formulation on
-    the same values beside them."""
+    the same values beside them (without `timed`, the check alone)."""
     import torch.nn.functional as F
 
     from lwdetr_tpu_torch.utils.timing import measure_graph_ms
@@ -720,6 +730,10 @@ def compare_deform_sep(torch, da, measure_ms, dtype, shape, name="K4",
             raise AssertionError(f"{name} output {tuple(out.shape)} {out.dtype}")
         err = check_close(torch, name, dtype, out, ref,
                           rtol=SAMPLER_RTOL[dtype] if name in ROUNDED_AS_JAX else None)
+        if not timed:
+            log(f"{name} {dtype} {layout} {[tuple(v.shape) for v in tensors(value)]} Q {Q}: err "
+                f"{err:.3g}")
+            return {"shape": [list(v.shape) for v in tensors(value)] + [Q], "max_abs_err": err}
         # ~0.05 ms a call: 200 calls a sample, so that launch jitter averages out
         timed = measure_ms(kernel, iters=200, repeats=7)
         ms = timed["ms"]
@@ -750,12 +764,13 @@ def compare_deform_sep(torch, da, measure_ms, dtype, shape, name="K4",
 
 
 def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape, name="K5", layout="panels",
-                           masked=False):
+                           masked=False, timed=True):
     """A sampler's backward against its plain version: d(value), d(loc) and
     d(weights) from d(out). K5 on panels, K10's backward on the row-major and
     K8 on the channel-major layout of the same values; call and device
     (CUDA-graph) times, and the backward of the reference's grid_sample
-    formulation on the same values beside them."""
+    formulation on the same values beside them (without `timed`, the check
+    alone)."""
     import torch.nn.functional as F
 
     from lwdetr_tpu_torch.utils.timing import measure_graph_ms
@@ -795,6 +810,11 @@ def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape, name="K5", layou
         untouched = sum(int(((rv == 0) & (dv.float() != 0)).sum()) for dv, rv in zip(dvals, rvals))
         if untouched:
             raise AssertionError(f"{name}: {untouched} positions no point touches got a gradient")
+        if not timed:
+            log(f"{name} {dtype} {layout} {[tuple(v.shape) for v in tensors(value)]} Q {Q} P {P}: "
+                f"err d(value) {err:.3g} d(loc) {err_loc:.3g} d(w) {err_w:.3g}")
+            return {"shape": [list(v.shape) for v in tensors(value)] + [Q], "max_abs_err": err,
+                    "max_abs_err_dloc": err_loc, "max_abs_err_dweights": err_w}
         iters = 200 if Q * L * P * B < 1e5 else 50
         timed = measure_ms(kernel, iters=iters, repeats=5)
         ms = timed["ms"]
@@ -828,12 +848,13 @@ def compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape, name="K5", layou
 
 
 def compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N, heads, scale, bias, dtype,
-                          iters):
+                          iters, timed=True):
     """K6, K7 (with `bias`) or K7nb (the short backward without one) vs the plain
     backward, and SDPA's backward, on one shape: call and device (CUDA-graph)
     times, registers and spills. bf16 is held to `bf16_bwd_error_bound` against
     the plain version that rounds ds and p as the kernels do, and against the
-    f32 plain version on the same values; f32 to ATOL x max(1, max |plain|)."""
+    f32 plain version on the same values; f32 to ATOL x max(1, max |plain|).
+    Without `timed`, the check alone."""
     from lwdetr_tpu_torch.utils.timing import measure_graph_ms
 
     dt = getattr(torch, dtype)
@@ -866,6 +887,10 @@ def compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N, heads, scale,
         else:
             ref = ref32
             err = err32 = check_close(torch, tag, dtype, dqkv, ref, grad_scale(ref))
+        if not timed:
+            log(f"{tag}: err {err:.3g} (vs f32 plain {err32:.3g}) of max |plain| "
+                f"{ref.abs().max().item():.3g}")
+            return {"shape": list(qkv.shape), "max_abs_err": err, "max_abs_err_vs_f32_plain": err32}
         attrs = fa.kernel_attributes(kernel_obj, qkv, heads)
         ms = measure_ms(kernel, iters=iters)["ms"]
         device_ms = measure_graph_ms(kernel, iters=iters)["ms"]
@@ -2328,6 +2353,51 @@ PADDED_EVAL_LAUNCHES = launch_counts(K2=13, K4=3)
 PADDED_CLI_LAUNCHES = launch_counts(K2=6, K9=6, K4=4, K3=2, M1=3)
 PADDED_CLI_STEPS = 5  # small, one epoch of the fixture's 20 images at batch 4
 PRIOR_PROB = 0.01  # sigmoid of the class heads' prior bias
+# The (height, width) that the padded paths draw from the fixture's 20 images
+# at batch 4 (data/loader.py; tests/test_torch_port_isolation.py ties these
+# tables to the loader): small's train step (c) takes the first batch of the
+# legacy train recipe at seed PADDED_TRAIN_SEED, the train CLI one epoch of it
+# at PADDED_CLI_SEED, and the CLI's evals (and the padded fixture's first
+# batch, (b)) the legacy val recipe's batches. `padded_size_shapes` gives the
+# kernels' shapes at each; the script fails on a drawn size outside them.
+PADDED_TRAIN_SEED, PADDED_CLI_SEED = 3, 7
+PADDED_TRAIN_SIZES = ((960, 704), (1024, 1024), (832, 1088), (832, 896), (896, 960), (1088, 832))
+PADDED_EVAL_SIZES = ((1088, 1088), (1088, 1344), (1344, 1088))
+
+
+def padded_size_shapes():
+    """(attention forwards, attention backwards, sampler forwards, sampler
+    backwards) of small at each size of PADDED_TRAIN_SIZES (its train step at
+    batch 4: 13 query groups, the panel branch) and of PADDED_EVAL_SIZES (its
+    eval forward at batch 4: 300 queries, K4 above 4096 memory positions,
+    else K3), in the formats of the tables above, each shape once. A window of
+    (g_h / 4) (g_w / 4) tokens takes K1 / K7 up to 128 tokens, K2 / K6 above;
+    a global block K2 / K6 over g_h g_w tokens."""
+    fwd, bwd, sep, sep_bwd = {}, {}, {}, {}
+    for train, sizes in ((True, PADDED_TRAIN_SIZES), (False, PADDED_EVAL_SIZES)):
+        for height, width in sizes:
+            gh, gw = height // 16, width // 16
+            win, glob = (gh // 4) * (gw // 4), gh * gw
+            short = win <= 128
+            fk, bk, iters = ("K1", "K7", 200) if short else ("K2", "K6", 20)
+            fwd[f"{fk}@padcli_windows{win}"] = (fk, PADDED_BATCH * 16, 192, win, 12, 1.0, short)
+            fwd[f"K2@padcli_global{glob}"] = ("K2", PADDED_BATCH, 192, glob, 12, 1.0, False)
+            if train:
+                bwd[f"{bk}@padcli_windows{win}"] = (bk, PADDED_BATCH * 16, 192, win, 12, 1.0,
+                                                    short, iters)
+                bwd[f"K6@padcli_global{glob}"] = ("K6", PADDED_BATCH, 192, glob, 12, 1.0, False, 5)
+                shape = (PADDED_BATCH, 16, 16, 2, 3900, [(gh, gw)])
+                sep[f"K4@padcli{gh}x{gw}_train"] = shape
+                sep_bwd[f"K5@padcli{gh}x{gw}_train"] = shape
+            else:
+                name = "K4" if glob > 4096 else "K3"
+                sep[f"{name}@padcli{gh}x{gw}_eval"] = (PADDED_BATCH, 16, 16, 2, 300, [(gh, gw)])
+    return (tuple((key, *v) for key, v in fwd.items()), tuple((key, *v) for key, v in bwd.items()),
+            tuple(sep.items()), tuple(sep_bwd.items()))
+
+
+(PADDED_DRAWN_ATTENTION, PADDED_DRAWN_ATTENTION_BWD, PADDED_DRAWN_SEP,
+ PADDED_DRAWN_SEP_BWD) = padded_size_shapes()
 
 
 def small_cli_flags():
@@ -2445,12 +2515,15 @@ def compare_split_route(torch, da, measure_ms, dtype, layout, D):
 
 def compare_padded_attention(torch, fa, measure_ms, dtype, name, N, D):
     """F4: attention at a head_dim between two kernel cases through
-    `attention_cm` (zero-padded to the next case), forward and backward, against
-    the plain version on the unpadded inputs: the forward kernel and its
-    backward launched once each; f32 within ATOL (x max(1, max |plain|) on
-    d(qkv)), bf16 within the bf16 attention bounds of the padded inputs."""
+    `attention_cm` (zero-padded to the next case), forward and backward: the
+    forward kernel and its backward launched once each; f32 against the plain
+    version on the unpadded inputs within ATOL (x max(1, max |plain|) on
+    d(qkv)); bf16 on the zero-padded inputs, as the kernels see them, against
+    the plain version within `bf16_error_bound` / `bf16_bwd_error_bound` at
+    the padded head_dim (tests/test_torch_port_gpu.py's rule)."""
     heads, B = 2, TRAIN_BATCH * 13 if N > 128 else BATCH
     scale = D ** -0.5
+    Dp = fa.padded_head_dim(D)
     dt = getattr(torch, dtype)
     qkv, _ = attention_inputs(torch, B, heads * D, N, heads, dt, False, seed=D + N)
     g = torch.Generator(device="cuda").manual_seed(D)
@@ -2463,24 +2536,35 @@ def compare_padded_attention(torch, fa, measure_ms, dtype, name, N, D):
         out = fa.attention_cm(x, heads, scale)
         return out, torch.autograd.grad(out, x, dout)[0]
 
+    def padded(t):  # (B, heads * D, N) -> each head's channels zero-padded to Dp
+        return torch.nn.functional.pad(t.reshape(B, heads, D, N), (0, 0, 0, Dp - D)).reshape(
+            B, heads * Dp, N)
+
     before = (fwd.launches, bwd.launches)
     out, dqkv = run()
     torch.cuda.synchronize()
     launched = (fwd.launches - before[0], bwd.launches - before[1])
-    x32 = qkv.float().requires_grad_()
-    ref = fa.attention_cm_plain(x32, heads, scale)
-    dref = torch.autograd.grad(ref, x32, dout.float())[0]
-    slack = 0.0 if dtype == "float32" else 2.0 ** -6  # p and ds rounded to bf16, and the result
-    err = check_close(torch, f"F4 {name} D={D} out", dtype, out, ref.detach(),
-                      rtol=slack, bound=slack * ref.detach().abs().max())
-    derr = check_close(torch, f"F4 {name} D={D} d(qkv)", dtype, dqkv, dref, grad_scale(dref),
-                       rtol=slack, bound=slack * dref.abs().max())
+    tag = f"F4 {name} D={D}"
+    with torch.no_grad():
+        if dtype == "float32":
+            ref = fa.attention_cm_plain(qkv, heads, scale)
+            dref = fa.attention_cm_bwd_plain(qkv, dout, heads, scale)
+            err = check_close(torch, tag + " out", dtype, out, ref)
+            derr = check_close(torch, tag + " d(qkv)", dtype, dqkv, dref, grad_scale(dref))
+        else:
+            xp, gp = fa._pad_heads(qkv, heads, D, Dp), padded(dout)
+            ref = fa.attention_cm_plain(xp, heads, scale).float()
+            dref = fa.attention_cm_bwd_plain(xp, gp, heads, scale).float()
+            err = check_bound(torch, tag + " out", padded(out), ref,
+                              fa.bf16_error_bound(xp, heads, scale, ref))
+            derr = check_bound(torch, tag + " d(qkv)", fa._pad_heads(dqkv, heads, D, Dp), dref,
+                               fa.bf16_bwd_error_bound(xp, gp, heads, scale, dref))
     if launched != (1, 1):
         raise AssertionError(f"F4 {name} D={D}: launches {launched} != (1, 1)")
     timed = measure_ms(run, iters=10, repeats=3)
-    log(f"F4 {name} D={D} (padded to {fa.padded_head_dim(D)}) {dtype} qkv {tuple(qkv.shape)}: "
+    log(f"F4 {name} D={D} (padded to {Dp}) {dtype} qkv {tuple(qkv.shape)}: "
         f"err {err:.3g}, d(qkv) {derr:.3g}; forward + backward ms {timed['ms']:.4f}")
-    return {"shape": list(qkv.shape), "head_dim": D, "padded_to": fa.padded_head_dim(D),
+    return {"shape": list(qkv.shape), "head_dim": D, "padded_to": Dp,
             "max_abs_err": err, "max_abs_err_dqkv": derr, "fwd_bwd_ms": timed["ms"]}
 
 
@@ -2489,9 +2573,11 @@ def padded_phase(torch, F, fa, da, kernels, measure_ms, card, res):
     at the legacy recipe's shapes (K2 / K6 on windows of 273 and 441 tokens and
     global blocks of 4368 and 7056, K4 / K5 on masked 52 x 84 and 84 x 84
     panels) and F4's head dims (attention 80 and 128, the samplers 12, 72 and
-    128), into `res`; (b) small's padded eval forward against the plain
-    versions; (c) small's padded f32 train step: its gradients against the plain
-    backwards on the same forward, one step enqueued under
+    128), and untimed at every size that (b)-(d) draw (`padded_size_shapes`),
+    into `res`; (b) small's padded eval forward against the plain versions;
+    (c) small's padded f32 train step: its forward against the plain forwards
+    on the same picks, its gradients against the plain backwards on the same
+    forward, one step enqueued under
     `torch.cuda.set_sync_debug_mode("error")`; (d) the eval CLI on the legacy
     recipe against `golden_stats_padded.json`, and small trained one epoch
     from scratch through the CLI on the legacy recipe (the first batch's mean
@@ -2528,6 +2614,22 @@ def padded_phase(torch, F, fa, da, kernels, measure_ms, card, res):
                                                            masked=True)
             res[(f"K5@{key}", dtype)] = compare_deform_sep_bwd(torch, da, measure_ms, dtype,
                                                                shape, masked=True)
+        # every shape the padded paths below draw, checked untimed
+        for key, name, B, C, N, heads, scale, bias in PADDED_DRAWN_ATTENTION:
+            res[(key, dtype)] = compare_attention(torch, F, fa, measure_ms, name, B, C, N, heads,
+                                                  scale, bias, dtype, timed=False)
+        for key, name, B, C, N, heads, scale, bias, iters in PADDED_DRAWN_ATTENTION_BWD:
+            res[(key, dtype)] = compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N,
+                                                      heads, scale, bias, dtype, iters,
+                                                      timed=False)
+        for key, shape in PADDED_DRAWN_SEP:
+            name = key.split("@")[0]
+            res[(key, dtype)] = compare_deform_sep(
+                torch, da, measure_ms, dtype, shape, name=name,
+                layout="panels" if name == "K4" else "cm", masked=True, timed=False)
+        for key, shape in PADDED_DRAWN_SEP_BWD:
+            res[(key, dtype)] = compare_deform_sep_bwd(torch, da, measure_ms, dtype, shape,
+                                                       masked=True, timed=False)
         out[f"f4_attention_{dtype}"] = {f"{n}_d{D}": compare_padded_attention(
             torch, fa, measure_ms, dtype, n, N, D) for n, N, D in F4_ATTENTION}
         out[f"f4_samplers_{dtype}"] = {f"{lay}_d{D}": compare_split_route(
@@ -2542,6 +2644,9 @@ def padded_phase(torch, F, fa, da, kernels, measure_ms, card, res):
                                       square_div_64=False, num_workers=2)))
     data = to_device(batch, "cuda")
     masks = data["pad_mask"]
+    if tuple(data["images"].shape[1:3]) not in PADDED_EVAL_SIZES:
+        raise AssertionError(f"small padded eval: size {tuple(data['images'].shape[1:3])} outside "
+                             "the kernel checks'")
     model = build_model(cfg, device="cuda", state_dict=init_state_dict(cfg, seed=0))
 
     def forward():
@@ -2581,7 +2686,8 @@ def padded_phase(torch, F, fa, da, kernels, measure_ms, card, res):
     tcfg = get_train_config("small")
     train_ds = CocoDetection(f"{FIXTURE}/val2017", f"{FIXTURE}/annotations/instances_val2017.json")
     tbatch = next(iter(DetectionLoader(train_ds, batch_size=PADDED_BATCH, train=True,
-                                       max_gt=100, seed=3, square_div_64=False, num_workers=2)))
+                                       max_gt=100, seed=PADDED_TRAIN_SEED, square_div_64=False,
+                                       num_workers=2)))
     tdata = to_device(tbatch, "cuda")
     state = engine.create_train_state(cfg, tcfg, niter_per_ep=10, device="cuda",
                                       state_dict=init_state_dict(cfg, seed=0))
@@ -2589,6 +2695,9 @@ def padded_phase(torch, F, fa, da, kernels, measure_ms, card, res):
     criterion = cm.SetCriterion(cfg, tcfg)
     targets = cm.Targets(tdata["labels"], tdata["boxes"], tdata["valid"])
     height, width = tdata["images"].shape[1:3]
+    if (height, width) not in PADDED_TRAIN_SIZES:
+        raise AssertionError(f"small padded train step: size {(height, width)} outside the kernel "
+                             "checks'")
     expected = padded_train_launches(height, width, 1)
     picks, match, matchings = Picks(tr), cm.hungarian_match, []
 
@@ -2602,9 +2711,11 @@ def padded_phase(torch, F, fa, da, kernels, measure_ms, card, res):
 
     def grads():
         model.zero_grad(set_to_none=True)
-        total, _ = criterion(model(tdata["images"], tdata["pad_mask"]), targets, train=True)
+        outputs = model(tdata["images"], tdata["pad_mask"])
+        total, _ = criterion(outputs, targets, train=True)
         total.backward()
         torch.cuda.synchronize()
+        grads.outputs = {k: outputs[k].detach() for k in ("pred_logits", "pred_boxes")}
         return total.item(), {k: p.grad.clone() for k, p in model.named_parameters()
                               if p.grad is not None}
 
@@ -2620,6 +2731,21 @@ def padded_phase(torch, F, fa, da, kernels, measure_ms, card, res):
         + plain_backward_patches(fa, da)))
     if any(n[k] for k in BACKWARD_KERNELS):
         raise AssertionError(f"the plain padded backward launched a backward kernel: {n}")
+    fwd_k = grads.outputs
+    # the forward kernels against the plain forwards on the same picks
+    with torch.no_grad():
+        fwd_p, n = counted(torch, kernels, lambda: run_patched(
+            lambda: model(tdata["images"], tdata["pad_mask"]),
+            plain_patches(fa, da) + (picks.patch(True),)))
+    if any(n.values()):
+        raise AssertionError(f"the plain padded train forward launched a kernel: {n}")
+    err_fl = (fwd_k["pred_logits"] - fwd_p["pred_logits"]).abs().max().item()
+    err_fb = (fwd_k["pred_boxes"] - fwd_p["pred_boxes"]).abs().max().item()
+    log(f"small padded train forward, kernels vs plain on the same picks: logits {err_fl:.3g}, "
+        f"boxes {err_fb:.3g}")
+    if err_fl > FWD_ATOL_LOGITS or err_fb > FWD_ATOL_BOXES:
+        raise AssertionError(f"small padded train forward: logits {err_fl}, boxes {err_fb}")
+    del fwd_p
     top = max(g.abs().max().item() for g in grads_b.values())
     rel = {k: ((grads_k[k] - g).abs().max() / g.abs().max().clamp(min=GRAD_FLOOR * top)).item()
            for k, g in grads_b.items()}
@@ -2648,6 +2774,8 @@ def padded_phase(torch, F, fa, da, kernels, measure_ms, card, res):
     step_ms = measure_ms(lambda: step(tdata), iters=3, warmup=1, repeats=3)["ms"]
     out["train_step"] = {"images": list(tdata["images"].shape),
                          "padded_share": tdata["pad_mask"].float().mean().item(),
+                         "forward_logits_max_abs_err": err_fl,
+                         "forward_boxes_max_abs_err": err_fb,
                          "loss_kernels": loss_k, "loss_plain_backwards": loss_b,
                          "grad_max_rel_err_plain_backwards": rel[worst],
                          "grad_worst_tensor": worst, "enqueued_without_host_sync": True,
@@ -2690,7 +2818,7 @@ def padded_phase(torch, F, fa, da, kernels, measure_ms, card, res):
         os.symlink(os.path.abspath(f"{FIXTURE}/val2017"), os.path.join(coco, split))
         shutil.copy(f"{FIXTURE}/annotations/instances_val2017.json",
                     os.path.join(coco, "annotations", f"instances_{split}.json"))
-    seed = 7
+    seed = PADDED_CLI_SEED
     small = small_cli_flags()
     train_argv = [*small, "--coco_path", coco, "--batch_size", str(PADDED_BATCH),
                   "--epochs", "1", "--num_workers", "2", "--seed", str(seed),
@@ -2714,8 +2842,17 @@ def padded_phase(torch, F, fa, da, kernels, measure_ms, card, res):
         f"probability {mean_prob:.4f} (prior {PRIOR_PROB})")
     if not PRIOR_PROB / 2 < mean_prob < 3 * PRIOR_PROB:
         raise AssertionError(f"a fresh model scores {mean_prob}, not near the prior {PRIOR_PROB}")
-    losses, sizes = [], []
-    build = engine.build_train_step
+    losses, sizes, eval_sizes = [], [], []
+    build, build_eval = engine.build_train_step, engine.build_eval_step
+
+    def recording_eval_build(*a, **kw):
+        step_fn = build_eval(*a, **kw)
+
+        def recording(batch, *sa, **skw):
+            eval_sizes.append(tuple(batch["images"].shape[1:3]))
+            return step_fn(batch, *sa, **skw)
+
+        return recording
 
     def recording_build(st, *a, **kw):
         step_fn = build(st, *a, **kw)
@@ -2733,7 +2870,8 @@ def padded_phase(torch, F, fa, da, kernels, measure_ms, card, res):
     t0 = time.perf_counter()
     trained, n = counted(torch, kernels, lambda: run_patched(
         lambda: cli.main(cli.parser().parse_args(train_argv)),
-        (mock.patch.object(engine, "build_train_step", recording_build),)))
+        (mock.patch.object(engine, "build_train_step", recording_build),
+         mock.patch.object(engine, "build_eval_step", recording_eval_build))))
     wall_train = time.perf_counter() - t0
     launches["padded_cli_train"] = n
     losses = [float(x) for x in losses]
@@ -2744,17 +2882,25 @@ def padded_phase(torch, F, fa, da, kernels, measure_ms, card, res):
     if n["M1"] != PADDED_CLI_STEPS + 5 or n["K5"] != 3 * PADDED_CLI_STEPS:
         raise AssertionError(f"padded train CLI: launches {n}")
     ckpt_dir = os.path.join(work, "train", "ckpt")
-    result_eval, n = counted(torch, kernels, lambda: cli.main(cli.parser().parse_args(
-        ["--eval", *small, "--coco_path", coco, "--batch_size", str(PADDED_BATCH),
-         "--num_workers", "2", "--resume", ckpt_dir, "--output_dir", work])))
+    result_eval, n = counted(torch, kernels, lambda: run_patched(
+        lambda: cli.main(cli.parser().parse_args(
+            ["--eval", *small, "--coco_path", coco, "--batch_size", str(PADDED_BATCH),
+             "--num_workers", "2", "--resume", ckpt_dir, "--output_dir", work])),
+        (mock.patch.object(engine, "build_eval_step", recording_eval_build),)))
     launches["padded_cli_eval"] = n
     same = {k: result_eval["stats"][k] == trained["stats"][k] for k in golden["stats"]}
     log(f"padded --eval of the trained checkpoint: launches {n}; stats equal the training "
-        f"run's eval: {same}")
+        f"run's eval: {same}; eval sizes {eval_sizes}")
+    outside = ({tuple(x) for x in sizes} - set(PADDED_TRAIN_SIZES)) | (set(eval_sizes)
+                                                                       - set(PADDED_EVAL_SIZES))
+    if outside or len(eval_sizes) != 10:  # 5 batches in each of the two evals
+        raise AssertionError(f"padded CLI: sizes {sorted(outside)} outside the kernel checks', "
+                             f"{len(eval_sizes)} eval batches")
     if not all(same.values()):
         raise AssertionError(f"padded --eval: stats {result_eval['stats']} != the training run's "
                              f"{trained['stats']}")
     out["cli_train"] = {"fresh_mean_class_prob": mean_prob, "losses": losses, "sizes": sizes,
+                        "eval_sizes": eval_sizes,
                         "wall_s": wall_train, "eval_stats": trained["stats"]}
     print(f"padded train CLI: small from scratch (seed {seed}), {PADDED_CLI_STEPS} steps of the "
           f"legacy recipe in {wall_train:.1f} s with its eval, first mean class probability "
@@ -2902,6 +3048,12 @@ def main() -> int:
             others["tiny_eval"] = both("K10@eval")
         if others:
             entry["other_shapes"] = others
+        checked = {key.split("@")[1]: both(key) for key, kname, *_ in (
+            PADDED_DRAWN_ATTENTION + PADDED_DRAWN_ATTENTION_BWD) if kname == name}
+        checked.update({key.split("@")[1]: both(key) for key, _ in (
+            PADDED_DRAWN_SEP + PADDED_DRAWN_SEP_BWD) if key.split("@")[0] == name})
+        if checked:  # the padded paths' drawn sizes, checked untimed
+            entry["checked_shapes"] = checked
         entries.append(entry)
     for entry in entries:  # the kernels line's contract: a shape's numbers must not shadow it
         if entry["route"] not in ("cuda", "triton") or any(k not in entry for k in CONTRACT_KEYS):

@@ -1,4 +1,4 @@
-// The wide case of the attention kernels: head_dim 128, 256, 512 or 1024.
+// The wide case of the attention kernels: head_dim 128 or 256.
 //
 // The JAX package computes the decoder's head_dim from the CLI's
 // --hidden_dim / --sa_nheads (e.g. 256 / 2 = 128); the ViT's heads never
@@ -20,8 +20,9 @@
 // of a row reads its own P rows of the tile, offset by one float a lane so
 // that the lanes' reads fall in different banks. P = 32 in the forward (q
 // and the accumulator: 64 registers of data); the backward holds four such
-// sets (q, d(out), dq; k, v, dk, dv), so P = 16 there up to D = 512 (P = 32
-// spilled at D = 128: 255 registers), 32 at D = 1024.
+// sets (q, d(out), dq; k, v, dk, dv), so P = 16 there (P = 32 spilled at
+// D = 128: 255 registers). A wider head (more than 256 channels) is refused
+// by `attention_cm`: no case here has been held against the plain version.
 //   forward (K2, K9): one sweep over the keys with an online softmax, as K2's
 //     f32 case; writes the row log-sum-exp in log2 units when asked (K6 reads
 //     it).
@@ -42,10 +43,9 @@ constexpr int kThreads = 128;
 constexpr int kForwardPart = 32;  // channels a thread holds in the forward
 constexpr int kTile = 16;  // keys (forward, pass 1) or queries (pass 2) a shared tile
 
-inline bool takes(int D) { return D == 128 || D == 256 || D == 512 || D == 1024; }
+inline bool takes(int D) { return D == 128 || D == 256; }
 
-// channels a thread holds in the backward
-inline int backward_part(int D) { return D <= 512 ? 16 : 32; }
+constexpr int kBackwardPart = 16;  // channels a thread holds in the backward
 
 // a tile's f32 floats: D channel rows of kTile, one float of offset a lane
 template <int P>
@@ -343,10 +343,14 @@ cudaError_t forward(const void* qkv, void* out, float* lse, int B, int C, int N,
   return cudaGetLastError();
 }
 
-template <typename T, int P>
-cudaError_t backward_p(const void* qkv, float* lse, const void* dout, void* dqkv, float* delta,
-                       int B, int C, int N, int D, float scale, bool take_lse,
-                       cudaStream_t stream) {
+// lse and delta (B, H, N) f32: lse as the forward wrote it, or, when
+// `take_lse`, scratch into which pass 1 writes the row log-sum-exp it takes
+// itself (no forward wrote one: K7nb); delta scratch
+template <typename T>
+cudaError_t backward(const void* qkv, float* lse, const void* dout, void* dqkv, float* delta,
+                     int B, int C, int N, int D, float scale, bool take_lse,
+                     cudaStream_t stream) {
+  constexpr int P = kBackwardPart;
   const size_t rows_smem = 2 * tile_floats<P>(D) * sizeof(float);
   const size_t cols_smem = rows_smem + 2 * kTile * sizeof(float);
   if (cudaError_t err = allow_smem(attention_bwd_rows_kernel<T, P>, rows_smem)) return err;
@@ -364,32 +368,17 @@ cudaError_t backward_p(const void* qkv, float* lse, const void* dout, void* dqkv
   return cudaGetLastError();
 }
 
-// lse and delta (B, H, N) f32: lse as the forward wrote it, or, when
-// `take_lse`, scratch into which pass 1 writes the row log-sum-exp it takes
-// itself (no forward wrote one: K7nb); delta scratch
-template <typename T>
-cudaError_t backward(const void* qkv, float* lse, const void* dout, void* dqkv, float* delta,
-                     int B, int C, int N, int D, float scale, bool take_lse,
-                     cudaStream_t stream) {
-  if (backward_part(D) == 16)
-    return backward_p<T, 16>(qkv, lse, dout, dqkv, delta, B, C, N, D, scale, take_lse, stream);
-  return backward_p<T, 32>(qkv, lse, dout, dqkv, delta, B, C, N, D, scale, take_lse, stream);
-}
-
 // attrs[0..2]: registers, local bytes, static shared bytes of the forward
 template <typename T>
 int forward_attributes(int* attrs) {
   return lw::kernel_attributes(reinterpret_cast<const void*>(attention_kernel<T>), attrs);
 }
 
-// attrs[0..2] and [3..5]: those of backward passes 1 and 2 at head_dim D
+// attrs[0..2] and [3..5]: those of backward passes 1 and 2
 template <typename T>
-int backward_attributes(int D, int* attrs) {
-  const bool narrow = backward_part(D) == 16;
-  const void* rows = narrow ? reinterpret_cast<const void*>(attention_bwd_rows_kernel<T, 16>)
-                            : reinterpret_cast<const void*>(attention_bwd_rows_kernel<T, 32>);
-  const void* cols = narrow ? reinterpret_cast<const void*>(attention_bwd_cols_kernel<T, 16>)
-                            : reinterpret_cast<const void*>(attention_bwd_cols_kernel<T, 32>);
+int backward_attributes(int* attrs) {
+  const void* rows = reinterpret_cast<const void*>(attention_bwd_rows_kernel<T, kBackwardPart>);
+  const void* cols = reinterpret_cast<const void*>(attention_bwd_cols_kernel<T, kBackwardPart>);
   if (int err = lw::kernel_attributes(rows, attrs)) return err;
   return lw::kernel_attributes(cols, attrs + 3);
 }

@@ -51,7 +51,7 @@
 // from it instead of taking the row max and sum again. `lse` is null in eval,
 // which then pays nothing for it. Both cases write it.
 //
-// Head dims 128 to 1024 (the decoder's wider heads) take the wide case,
+// Head dims 128 and 256 (the decoder's wider heads) take the wide case,
 // attention_wide.cuh: CUDA cores in both dtypes.
 #include "attention_wide.cuh"
 #include "common.cuh"

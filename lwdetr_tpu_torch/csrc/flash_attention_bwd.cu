@@ -62,7 +62,7 @@
 // Ragged tails: a key past N gets p = 0 (only the last key tile is masked);
 // a query past N has lse = +inf, so p = 0 and it adds nothing to dk or dv.
 //
-// Head dims 128 to 1024 (the decoder's wider heads) take the wide case,
+// Head dims 128 and 256 (the decoder's wider heads) take the wide case,
 // attention_wide.cuh: the same two passes on the CUDA cores.
 #include "attention_wide.cuh"
 #include "common.cuh"
@@ -368,7 +368,7 @@ int dispatch(int D, const void* qkv, const float* lse, const void* dout, void* d
 
 template <typename T>
 int dispatch_attributes(int D, int* attrs) {
-  if (lw_wide::takes(D)) return lw_wide::backward_attributes<T>(D, attrs);
+  if (lw_wide::takes(D)) return lw_wide::backward_attributes<T>(attrs);
   switch (D) {
     case 16: return attributes<T, 16>(attrs);
     case 32: return attributes<T, 32>(attrs);

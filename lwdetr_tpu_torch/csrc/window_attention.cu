@@ -46,7 +46,7 @@
 // shared-memory broadcasts; QK^T computed twice (the row max, then the
 // weights); bound by the f32 FMA rate.
 //
-// Without a bias, head dims 128 to 1024 (the decoder's wider heads) take the
+// Without a bias, head dims 128 and 256 (the decoder's wider heads) take the
 // wide case, attention_wide.cuh; K1 (the ViT's, whose heads never exceed 64
 // channels) takes none of them.
 #include "attention_wide.cuh"

@@ -291,7 +291,7 @@ template <typename T, bool kBias>
 int attributes_t(int D, int* attrs) {
   if (lw_wide::takes(D)) {  // two passes: the larger registers, the summed spills
     int both[6];
-    if (int err = lw_wide::backward_attributes<T>(D, both)) return err;
+    if (int err = lw_wide::backward_attributes<T>(both)) return err;
     attrs[0] = both[0] > both[3] ? both[0] : both[3];
     attrs[1] = both[1] + both[4];
     attrs[2] = both[2] > both[5] ? both[2] : both[5];

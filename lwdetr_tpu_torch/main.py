@@ -302,13 +302,16 @@ def _evaluate_only(args, mcfg, tcfg, device, dtype, criterion, ds_val, val_loade
     from lwdetr_tpu_torch.train import checkpoint as ckpt
     from lwdetr_tpu_torch.utils.logging import is_main_process, write_log_line
 
+    # weights: encoder, then pretrain, then resume (reference main.py:240-286);
+    # a fresh model's initialisation is drawn only when no resume replaces it
+    raw = ckpt.read_checkpoint(args.resume) if args.resume else None
     model = build_model(mcfg, device=device, dtype=dtype,
+                        state_dict=None if raw is None else ckpt.state_dict_of(raw, "model"),
                         generator=torch.Generator().manual_seed(tcfg.seed))
-    # weights: encoder, then pretrain, then resume (reference main.py:240-286)
     ema = _load_weights(args, model, tcfg.use_ema)
     if args.resume:
         # with --use_ema the EMA weights are the checkpoint's (else None, as before)
-        ema, start_epoch = ckpt.resume_pth(model, args.resume, use_ema=tcfg.use_ema)
+        ema, start_epoch = ckpt.resume_pth(model, args.resume, use_ema=tcfg.use_ema, ckpt=raw)
         print(f"resumed model weights from {args.resume}"
               + (f" (epoch {start_epoch - 1})" if start_epoch else ""))
 
@@ -316,8 +319,7 @@ def _evaluate_only(args, mcfg, tcfg, device, dtype, criterion, ds_val, val_loade
     stats_ema = None
     if tcfg.use_ema and ema is not None:
         print("EMA eval:")
-        ema_model = build_model(mcfg, device=device, dtype=dtype)
-        ema_model.load_state_dict(ema, strict=True)
+        ema_model = build_model(mcfg, device=device, dtype=dtype, state_dict=ema)
         stats_ema, _ = _run_eval(ema_model, mcfg, criterion, ds_val, val_loader, device)
     if args.output_dir and is_main_process():
         record = {f"test_{k}": v for k, v in stats.items()}
@@ -385,8 +387,10 @@ def _train(args, cfg, device, eval_dtype, criterion, ds_val, val_loader) -> dict
     # the eval models: the trained model itself when it computes in the eval
     # dtype (else a copy, refreshed before each eval), and one for the EMA weights
     eval_model = (state.model if eval_dtype == train_dtype
-                  else build_model(mcfg, device=device, dtype=eval_dtype))
-    ema_model = build_model(mcfg, device=device, dtype=eval_dtype) if tcfg.use_ema else None
+                  else build_model(mcfg, device=device, dtype=eval_dtype,
+                                   state_dict=state.model.state_dict()))
+    ema_model = (build_model(mcfg, device=device, dtype=eval_dtype, state_dict=state.ema)
+                 if tcfg.use_ema else None)
     put = lambda b: to_device(b, device)  # noqa: E731
     out_dir = args.output_dir if is_main_process() else ""
 

@@ -176,7 +176,11 @@ def build_model(cfg: ModelConfig, device=None, dtype: torch.dtype = torch.float3
     device = resolve_device(device)
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
-    model = LWDETR(cfg)
+    # built without values (PyTorch's default initialisation would be drawn
+    # and thrown away), then given the state_dict's or the drawn ones
+    with torch.device("meta"):
+        model = LWDETR(cfg)
+    model.to_empty(device="cpu")
     if state_dict is None:
         state_dict = jax_init_state_dict(
             cfg, torch.Generator().manual_seed(0) if generator is None else generator)

@@ -158,12 +158,16 @@ def test_batches_do_not_depend_on_the_worker_count(coco_dir):
 
 
 def test_a_failing_sample_raises_at_its_batch(coco_dir):
-    """An error in the loader's thread reaches the caller, not a short epoch."""
+    """An error in the loader's thread reaches the caller, not a short epoch:
+    the batch before the missing sample comes through, the sample's batch
+    raises. (The sample goes missing before the epoch starts: the thread
+    works ahead of the caller, so a change made after the first batch races
+    with it.)"""
     _, pds = _datasets(coco_dir)
     loader = ploader.DetectionLoader(pds, batch_size=2, train=False, max_gt=10, eval_size=128)
+    pds.coco.imgs[pds.ids[3]]["file_name"] = "missing.jpg"
     it = iter(loader)
     next(it)
-    pds.coco.imgs[pds.ids[3]]["file_name"] = "missing.jpg"
     with pytest.raises(FileNotFoundError):
         list(it)
 

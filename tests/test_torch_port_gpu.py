@@ -51,7 +51,10 @@ def _sampler_ref(plain, value, dtype, *args):
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # f32 stays f32 in matmuls and convolutions alike (as the CLI sets it), so
+    # no test's result depends on which test set the flags before it
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.Generator(device="cuda").manual_seed(0)
 
 

@@ -256,6 +256,82 @@ def test_chip_smoke_checks_the_kernels_at_each_train_cli_size():
         assert [tuple(m.shape) for m in maps] == [(1, *hw, H * D) for hw in shapes], size
 
 
+def _loader_sizes(folder, train, seed=0, batches=None):
+    from lwdetr_tpu_torch.data.coco import CocoDetection
+    from lwdetr_tpu_torch.data.loader import DetectionLoader
+
+    ds = CocoDetection(str(ROOT / folder / "val2017"),
+                       str(ROOT / folder / "annotations" / "instances_val2017.json"))
+    loader = DetectionLoader(ds, batch_size=4, train=train, max_gt=100, seed=seed,
+                             square_div_64=False, num_workers=0)
+    loader.set_epoch(0)
+    sizes = []
+    for batch in loader:
+        sizes.append(tuple(batch["images"].shape[1:3]))
+        if len(sizes) == batches:
+            break
+    return sizes
+
+
+def test_chip_smoke_checks_the_kernels_at_each_padded_size():
+    """The padded phase's size tables are what the legacy recipe draws from
+    the fixture at batch 4: the first train batch at PADDED_TRAIN_SEED (the
+    train step), one epoch at PADDED_CLI_SEED (the train CLI), the val
+    batches (the CLI's evals) and the padded fixture's first (the eval
+    forward). At each size, small's ViT attention calls and the map its
+    projector gives the sampler are in the drawn-shape tables, with their
+    backwards at the train sizes, and every entry of the tables is drawn."""
+    import chip_smoke as cs
+    from lwdetr_tpu_torch.config import get_config
+    from lwdetr_tpu_torch.models.lwdetr import Backbone
+
+    fixture = "tests/fixtures/micro_map"
+    train = (_loader_sizes(fixture, True, cs.PADDED_TRAIN_SEED, batches=1)
+             + _loader_sizes(fixture, True, cs.PADDED_CLI_SEED))
+    evals = _loader_sizes(fixture, False) + _loader_sizes(cs.PADDED_FIXTURE, False, batches=1)
+    assert sorted(set(train)) == sorted(cs.PADDED_TRAIN_SIZES)
+    assert sorted(set(evals)) == sorted(cs.PADDED_EVAL_SIZES)
+
+    torch.manual_seed(0)
+    backbone = Backbone(get_config("small")).eval()
+    calls = set()
+
+    def record(qkv_t, num_heads, scale=None, bias=None):  # no attention computed: zeros
+        B, ZC, N = qkv_t.shape
+        kernel = ("K1" if bias is not None else "K9") if N <= tfa._WINDOW_MAX_N else "K2"
+        calls.add((kernel, B * cs.PADDED_BATCH, ZC // 3, N, num_heads))
+        return qkv_t.new_zeros(B, ZC // 3, N)
+
+    fwd = {tuple(e[1:6]) for e in cs.PADDED_DRAWN_ATTENTION}
+    bwd = {tuple(e[1:6]) for e in cs.PADDED_DRAWN_ATTENTION_BWD}
+    sep = {(key.split("@")[0], Q, tuple(map(tuple, shapes)), H * D)
+           for key, (B, H, D, P, Q, shapes) in cs.PADDED_DRAWN_SEP}
+    sep_bwd = {(Q, tuple(map(tuple, shapes))) for _, (B, H, D, P, Q, shapes)
+               in cs.PADDED_DRAWN_SEP_BWD}
+    seen = {"fwd": set(), "bwd": set(), "sep": set(), "sep_bwd": set()}
+    backward = {"K1": "K7", "K2": "K6"}
+    for size, is_train in [(s, True) for s in cs.PADDED_TRAIN_SIZES] + [
+            (s, False) for s in cs.PADDED_EVAL_SIZES]:
+        calls.clear()
+        with mock.patch.object(tfa, "attention_cm", record), torch.no_grad():
+            maps = backbone(torch.zeros(1, *size, 3))
+        assert calls <= fwd, size
+        seen["fwd"] |= calls
+        (hw,) = [tuple(m.shape[1:3]) for m in maps]
+        positions = hw[0] * hw[1]
+        if is_train:
+            back = {(backward[k], *rest) for k, *rest in calls}
+            assert back <= bwd, size
+            seen["bwd"] |= back
+            panel = ("K4", 3900, (hw,), maps[0].shape[3])
+            seen["sep_bwd"].add((3900, (hw,)))
+        else:
+            panel = ("K4" if positions > 4096 else "K3", 300, (hw,), maps[0].shape[3])
+        assert panel in sep, size
+        seen["sep"].add(panel)
+    assert seen == {"fwd": fwd, "bwd": bwd, "sep": sep, "sep_bwd": sep_bwd}
+
+
 def _run_smoke(cwd: Path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,

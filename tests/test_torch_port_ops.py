@@ -167,6 +167,15 @@ def test_attention_above_head_dim_64_runs_zero_padded_to_the_wide_case(D, N):
     np.testing.assert_allclose(padded[0].numpy(), np.asarray(ref), atol=ATOL)
 
 
+@pytest.mark.parametrize("D", [257, 512, 1024])
+def test_attention_refuses_head_dims_above_the_widest_case(D):
+    """The wide case stops at head_dim 256: a wider decoder head has no
+    kernel, and the padding route says so rather than padding it."""
+    assert tfa.padded_head_dim(256) == 256
+    with pytest.raises(ValueError, match="up to 256"):
+        tfa.padded_head_dim(D)
+
+
 def test_the_window_kernel_with_a_bias_refuses_head_dims_above_64():
     """K1 / K7 (the ViT's window attention with its qkv bias) keep head_dim
     64 as their largest: every ViT of the JAX package has 12 heads of at most
