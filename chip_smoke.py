@@ -121,6 +121,28 @@ Run from the root of a checkout, with one card:
    through the CLI on the legacy recipe (the fresh model's mean class
    probability near the prior 0.01), then `--eval` of its checkpoint, whose
    stats equal the training run's eval.
+10. The decoder and encoder variants (`variants_phase`), F7 first: K2 / K9
+   forwards and K6 / K7nb backwards at head_dim 512, 1024 and 2048 (the
+   chunked wide case) at the decoder's eval (batch 8, 300 / 100 queries) and
+   train shapes (13 groups of batch 4), f32 and bf16, against their plain
+   versions, timed beside SDPA, no spilled byte; 384 through the zero padding
+   to 512; one decoder layer at --hidden_dim 512 --sa_nheads 1 in train mode
+   (K2 1, K4 1, K6 1, K5 1) against the plain versions; then at 640 x 640 with
+   seeded weights: (a) res50vd under small's decoder, (b) small's ViT with the
+   Deformable-DETR-style decoder (one-stage, box logits, the iterative
+   refinement, the learned embedding): the bf16 eval forward at batch 8
+   (res50vd K2 3, K3 3; (b) small's K1 6, K2 7, K3 3) against the plain
+   versions on the same picks, and the f32 train step at batch 4 (res50vd K2
+   3, K6 3, K4 3, K5 3, M1 1; (b) small's), its gradients against the plain
+   backwards on one forward, one optimizer step after which PResNet's
+   statistics are bit-equal and its norm weights moved, the learned
+   embedding decayed by (1 - lr wd) bit for bit, and the step time; (c) the
+   eval forward, f32 and bf16, of two-stage with box logits (+inf
+   proposals) and of the iterative refinement of reparameterized boxes; (e)
+   the micro model with (b)'s decoder through the eval CLI on
+   `tests/fixtures/micro_map_variants/` (the 12 f32 stats of
+   `golden_stats_variants.json` within 1e-7) and one train epoch through the
+   CLI (finite loss, launch invariants).
 
 Any failure exits non-zero. Without a CUDA card, or outside a checkout, it
 exits non-zero and prints no result. The line before the last holds one JSON
@@ -396,12 +418,13 @@ def check_bound(torch, name, out, ref, bound):
 
 
 def compare_attention(torch, F, fa, measure_ms, name, B, C, N, heads, scale, bias, dtype,
-                      timed=True):
+                      timed=True, iters=20):
     """Kernel vs plain (and SDPA) on one attention shape; returns the numbers.
     `ms` is the time of back-to-back calls, host work included; `device_ms`
     the time of the same calls replayed from a CUDA graph, the device's alone
     (the two part where the wrapper's host time exceeds the kernel's).
-    Without `timed`, the check alone: the errors, no times."""
+    Without `timed`, the check alone: the errors, no times; `iters` calls a
+    timing sample."""
     import math
 
     from lwdetr_tpu_torch.utils.timing import measure_graph_ms
@@ -457,11 +480,11 @@ def compare_attention(torch, F, fa, measure_ms, name, B, C, N, heads, scale, bia
                 + (f"; lse {lse_err:.3g}" if lse_err is not None else "") + ")")
             return {"shape": list(qkv.shape), "max_abs_err": err, "max_abs_err_vs_f32_plain": err32}
         attrs = fa.kernel_attributes(kernel_obj, qkv, heads)
-        ms = measure_ms(kernel)["ms"]
-        device_ms = measure_graph_ms(kernel)["ms"]
-        plain_ms = measure_ms(plain, iters=5)["ms"]
-        library_ms = measure_ms(library)["ms"]
-        library_device_ms = measure_graph_ms(library)["ms"]
+        ms = measure_ms(kernel, iters=iters)["ms"]
+        device_ms = measure_graph_ms(kernel, iters=iters)["ms"]
+        plain_ms = measure_ms(plain, iters=min(iters, 5))["ms"]
+        library_ms = measure_ms(library, iters=iters)["ms"]
+        library_device_ms = measure_graph_ms(library, iters=iters)["ms"]
         # the long-sequence kernel on the short kernel's inputs: what the decoder ran before K9
         k2 = lambda: fa.flash_attention_cm(qkv, heads, scale)  # noqa: E731
         k2_ms = measure_ms(k2)["ms"] if name == "K9" else None
@@ -1249,6 +1272,37 @@ def plain_backward_patches(fa, da):
                               da.ms_deform_attn_sep_panels_bwd_plain),
             mock.patch.object(da, "ms_deform_attn_cm_bwd", da.ms_deform_attn_cm_bwd_plain),
             mock.patch.object(da, "ms_deform_attn_bwd", da.ms_deform_attn_bwd_plain))
+
+
+ULP_JITTER = 2.0 ** -23  # one f32 ulp of a value in [1, 2)
+# an f32 variant eval's kernels against the plain run, each output set: at
+# most this many times the one-ulp run's distance, plus the floor (on an
+# H100 the two read 0.85-1.22 of each other at the decoder's last layer)
+JITTER_FACTOR, JITTER_FLOOR = 4.0, 1e-5
+
+
+def jittered_plain_patches(torch, fa, da, seed):
+    """`plain_patches` with each output of the kernels' plain versions moved by
+    one f32 ulp: times 1 +- 2^-23, the sign drawn an element from `seed`. The
+    least rounding difference a kernel can make there; the outputs' distance
+    from the unjittered plain run is how far the model carries it."""
+    from lwdetr_tpu_torch.models import matcher as tm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def jittered(fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            sign = torch.randint(0, 2, out.shape, generator=gen, device=out.device) * 2 - 1
+            return out * (1 + sign.to(out.dtype) * ULP_JITTER)
+
+        return call
+
+    return (mock.patch.object(fa, "attention_cm", jittered(plain_attention(fa))),
+            mock.patch.object(da, "ms_deform_attn_cm", jittered(da.ms_deform_attn_cm_plain)),
+            mock.patch.object(da, "ms_deform_attn_sep_panels",
+                              jittered(da.ms_deform_attn_sep_panels_plain)),
+            mock.patch.object(tm, "assign", tm.assign_plain))
 
 
 def run_patched(fn, patches):
@@ -2435,7 +2489,7 @@ def padded_train_launches(height, width, steps):
     return launch_counts(**{k: v * steps for k, v in per.items()})
 
 
-def compare_split_route(torch, da, measure_ms, dtype, layout, D):
+def compare_split_route(torch, F, da, measure_ms, dtype, layout, D):
     """F4: a sampler at a head_dim its kernels do not take, through the
     public wrapper (zero-padded and split into `head_groups`), forward and
     backward by autograd, against the same route with the plain versions
@@ -2505,12 +2559,25 @@ def compare_split_route(torch, da, measure_ms, dtype, layout, D):
     plain_ms = measure_ms(lambda: run_patched(run, tuple(mock.patch.object(da, n, f)
                                                          for n, f in plain)),
                           iters=3, repeats=3)["ms"]
+    # the reference's F.grid_sample formulation at head_dim D, forward and backward
+    library_ms = sum(library_sampler(torch, F, measure_ms, vals, shapes, loc, w, dout, bwd, 10)
+                     for bwd in (False, True))
+    # the bound of the sampler at head_dim D, forward and backward: the corners
+    # the points name read twice, the output and d(out), loc and weights in and
+    # their gradients out, every d(value) position written
+    isz = vals[0].element_size()
+    touched = sum(sep_panel_bytes(torch, vals, loc, shapes, D))
+    nbytes = (2 * touched + 2 * B * Q * H * D * isz + 4 * (loc.numel() + w.numel()) * 4
+              + sum(v.numel() for v in vals) * isz)
+    bms, by, _ = bound_ms(nbytes, 3 * 2 * 4 * B * Q * H * D * len(shapes) * P, 0, dtype)
     log(f"{tag} ({G} groups of {Dg}): err {err:.3g}, d(value) {err_v:.3g}, d(loc) {err_l:.3g}, "
-        f"d(weights) {err_w:.3g}; forward + backward ms {timed['ms']:.4f} plain {plain_ms:.4f}")
+        f"d(weights) {err_w:.3g}; forward + backward ms {timed['ms']:.4f} plain {plain_ms:.4f} "
+        f"grid_sample {library_ms:.4f} bound {bms:.4f} ({by}, {nbytes / 1e6:.2f} MB)")
     return {"shape": [list(t.shape) for t in tensors(lay.value)] + [Q], "head_dim": D,
             "groups": G, "group_head_dim": Dg, "max_abs_err": err, "max_abs_err_dvalue": err_v,
             "max_abs_err_dloc": err_l, "max_abs_err_dweights": err_w,
-            "fwd_bwd_ms": timed["ms"], "plain_fwd_bwd_ms": plain_ms}
+            "fwd_bwd_ms": timed["ms"], "plain_fwd_bwd_ms": plain_ms,
+            "library_fwd_bwd_ms": library_ms, "bound_ms": bms, "bound_by": by}
 
 
 def compare_padded_attention(torch, fa, measure_ms, dtype, name, N, D):
@@ -2633,7 +2700,7 @@ def padded_phase(torch, F, fa, da, kernels, measure_ms, card, res):
         out[f"f4_attention_{dtype}"] = {f"{n}_d{D}": compare_padded_attention(
             torch, fa, measure_ms, dtype, n, N, D) for n, N, D in F4_ATTENTION}
         out[f"f4_samplers_{dtype}"] = {f"{lay}_d{D}": compare_split_route(
-            torch, da, measure_ms, dtype, lay, D)
+            torch, F, da, measure_ms, dtype, lay, D)
             for D in F4_SAMPLER_DIMS for lay in ("K4", "K10", "K3")}
 
     # (b) small's padded eval forward, kernels against the plain versions on the same picks
@@ -2927,6 +2994,499 @@ def m1_entry(res, launches):
                              if k != "small_train"}}
 
 
+# ---- the decoder and encoder variants (ROADMAP.md § 1 item 6) and F7 ------------
+
+# F7: the wide attention case at head dims above 256 (chunked from 512): K2 /
+# K9 forwards at the decoder's eval shapes (batch 8, 300 / 100 queries), K6 /
+# K7nb backwards at its train shapes (13 groups of batch 4 folded), one head:
+# (key, kernel, B, C, N, heads, scale, bias[, calls a sample])
+F7_HEAD_DIMS = (512, 1024, 2048)
+F7_PADDED_HEAD_DIM = 384  # zero-padded to 512 by attention_cm
+F7_ATTENTION_SHAPES = tuple(
+    (f"{name}@f7_{D}", name, BATCH, D, N, 1, D ** -0.5, False)
+    for D in F7_HEAD_DIMS for name, N in (("K2", 300), ("K9", 100)))
+F7_ATTENTION_BWD_SHAPES = tuple(
+    (f"{name}@f7_{D}", name, TRAIN_BATCH * 13, D, N, 1, D ** -0.5, False, 2)
+    for D in F7_HEAD_DIMS for name, N in (("K6", 300), ("K7nb", 100)))
+# (path, overrides of small's flag set): (a) PResNet-50 under small's decoder;
+# (b) small's ViT with the Deformable-DETR-style decoder (one-stage, boxes as
+# logits, the iterative refinement, the learned embedding); (c) eval only:
+# two-stage with logit boxes (+inf proposals) and the iterative refinement of
+# reparameterized boxes. No preset sets them: full flag sets, as scripts/*.sh.
+VARIANT_CONFIGS = {
+    "res50vd": dict(encoder="res50vd"),
+    "deformable": dict(two_stage=False, bbox_reparam=False, lite_refpoint_refine=False,
+                       position_embedding="learned"),
+    "two_stage_logits": dict(bbox_reparam=False, lite_refpoint_refine=False),
+    "iterative_reparam": dict(lite_refpoint_refine=False),
+}
+VARIANT_TRAINED = ("res50vd", "deformable")
+# PResNet carries no attention: its path runs the decoder's kernels alone
+VARIANT_EVAL_LAUNCHES = {"res50vd": launch_counts(K2=3, K3=3),
+                         **{p: EXPECTED_LAUNCHES["small"] for p in VARIANT_CONFIGS
+                            if p != "res50vd"}}
+VARIANT_TRAIN_LAUNCHES = {"res50vd": launch_counts(K2=3, K4=3, K5=3, K6=3, M1=1),
+                          "deformable": TRAIN_LAUNCHES["small"]}
+# one decoder layer at --hidden_dim 512 --sa_nheads 1 (a head of 512 channels),
+# train mode, 13 groups of 300 queries at batch 4, small's 40 x 40 memory
+WIDE_LAYER_LAUNCHES = launch_counts(K2=1, K4=1, K6=1, K5=1)
+VARIANTS_FIXTURE = "tests/fixtures/micro_map_variants"
+VARIANT_CLI_EVAL_LAUNCHES = MICRO_EVAL_LAUNCHES
+# The variant train CLI's loader draws one square size a batch from the release
+# recipe's SCALES_SQUARE at VARIANT_CLI_SEED: one epoch of the fixture's 20
+# images at batch 4 (tests/test_torch_port_isolation.py ties the table to the
+# loader and the shapes below to the model). At those sizes the micro model's
+# ViT runs shapes of the kernel phase's tables (CLI_SCALES and 640 at batch 4);
+# its decoder, 2 groups of 12 queries folded into the batch, runs K9 / K7nb
+# over 8 x 12 queries (4 heads of 16) and K4 / K5 on the (g, g) panel with 24
+# queries (8 heads of 8, 2 points). The script fails on a drawn size outside
+# the table.
+VARIANT_CLI_SEED = 42
+VARIANT_CLI_SIZES = (576, 640, 704, 768)
+VARIANT_CLI_DRAWN_ATTENTION = (
+    ("K9@variant_cli", "K9", MICRO_BATCH * 2, 64, 12, 4, 16 ** -0.5, False),)
+VARIANT_CLI_DRAWN_ATTENTION_BWD = (
+    ("K7nb@variant_cli", "K7nb", MICRO_BATCH * 2, 64, 12, 4, 16 ** -0.5, False, 50),)
+VARIANT_CLI_DRAWN_SEP = tuple((f"variant_cli{size}", (MICRO_BATCH, 8, 8, 2, 24,
+                                                      [(size // 16, size // 16)]))
+                              for size in VARIANT_CLI_SIZES)
+
+
+def variant_cli_launch_invariants(n, steps, eval_batches):
+    """{check: (got, expected)} of the micro variant model through the CLI: its
+    two ViT blocks (one window, one global: K1 or K2 by the drawn size), its
+    two decoder layers' self-attention over 12 queries a group (K9, backward
+    K7nb), the samplers (K4 / K5 in train mode, K3 in eval), one matching a
+    step and an eval batch."""
+    return {"K1+K2": (n["K1"] + n["K2"], 2 * (steps + eval_batches)),
+            "K9": (n["K9"], 2 * (steps + eval_batches)), "K6+K7": (n["K6"] + n["K7"], 2 * steps),
+            "K7nb": (n["K7nb"], 2 * steps), "K4": (n["K4"], 2 * steps),
+            "K5": (n["K5"], 2 * steps), "K3": (n["K3"], 2 * eval_batches),
+            "M1": (n["M1"], steps + eval_batches),
+            "others": (sum(n[k] for k in ("K8", "K10", "K10b")), 0)}
+
+
+def f7_checks(torch, F, fa, measure_ms, res):
+    """F7 on the card: K2 / K9 forwards and K6 / K7nb backwards at head_dim
+    512, 1024 and 2048 (the chunked wide case) against their plain versions,
+    f32 and bf16, timed beside SDPA, with no local bytes; 384 through
+    `attention_cm`'s zero padding to 512. Into `res`."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for key, name, B, C, N, heads, scale, bias in F7_ATTENTION_SHAPES:
+            res[(key, dtype)] = compare_attention(torch, F, fa, measure_ms, name, B, C, N, heads,
+                                                  scale, bias, dtype, iters=3)
+        for key, name, B, C, N, heads, scale, bias, iters in F7_ATTENTION_BWD_SHAPES:
+            res[(key, dtype)] = compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N,
+                                                      heads, scale, bias, dtype, iters)
+        for name, N in (("K2", 300), ("K9", 100)):
+            out[f"{name}_{F7_PADDED_HEAD_DIM}_{dtype}"] = compare_padded_attention(
+                torch, fa, measure_ms, dtype, name, N, F7_PADDED_HEAD_DIM)
+    spilled = {k: v["spill_bytes"] for k, v in res.items() if "@f7_" in k[0] and v["spill_bytes"]}
+    if spilled:
+        raise AssertionError(f"F7: the wide case spilled: {spilled}")
+    return out
+
+
+def variant_cli_checks(torch, F, fa, da, measure_ms, res):
+    """The variant train CLI's decoder kernels at every size it draws
+    (VARIANT_CLI_DRAWN_*) against their plain versions, f32 and bf16, the
+    check alone (no times). Into `res`."""
+    for dtype in ("float32", "bfloat16"):
+        for key, name, B, C, N, heads, scale, bias in VARIANT_CLI_DRAWN_ATTENTION:
+            res[(key, dtype)] = compare_attention(torch, F, fa, measure_ms, name, B, C, N, heads,
+                                                  scale, bias, dtype, timed=False)
+        for key, name, B, C, N, heads, scale, bias, iters in VARIANT_CLI_DRAWN_ATTENTION_BWD:
+            res[(key, dtype)] = compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N,
+                                                      heads, scale, bias, dtype, iters,
+                                                      timed=False)
+        for key, shape in VARIANT_CLI_DRAWN_SEP:
+            res[(f"K4@{key}", dtype)] = compare_deform_sep(torch, da, measure_ms, dtype, shape,
+                                                           timed=False)
+            res[(f"K5@{key}", dtype)] = compare_deform_sep_bwd(torch, da, measure_ms, dtype,
+                                                               shape, timed=False)
+
+
+def wide_decoder_layer(torch, fa, da, kernels):
+    """One decoder layer at --hidden_dim 512 --sa_nheads 1 in train mode (13
+    groups folded into the batch: its self-attention is K2 at head_dim 512, its
+    cross-attention K4), forward and backward through the kernels against the
+    same inputs on the plain versions: the output within the f32 forward
+    bound, each parameter's gradient on the plain backwards of the same forward
+    within TRAIN_GRAD_RTOL of the tensor's largest. Returns (launches, numbers)."""
+    from lwdetr_tpu_torch.models.transformer import DecoderLayer
+
+    C, B, G, Qg = 512, TRAIN_BATCH, 13, 300
+    layer = DecoderLayer(C, 1, 16, 2048, 1, 2, group_detr=G)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():  # every weight drawn (the in-projection starts at zero)
+        for name, p in layer.named_parameters():
+            scale = p.shape[-1] ** -0.5 if p.dim() > 1 else 0.1
+            p.copy_(torch.randn(p.shape, generator=gen) * scale
+                    + (1.0 if name.startswith("norm") and name.endswith("weight") else 0.0))
+    layer = layer.cuda().train()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tgt = torch.randn((B, G * Qg, C), generator=g, device="cuda")
+    pos = torch.randn((B, G * Qg, C), generator=g, device="cuda")
+    ref = torch.rand((B, G * Qg, 1, 4), generator=g, device="cuda") * 0.5 + 0.25
+    memory = torch.randn((B, 1600, C), generator=g, device="cuda")
+    dout = torch.randn((B, G * Qg, C), generator=g, device="cuda")
+
+    def run():
+        layer.zero_grad(set_to_none=True)
+        out = layer(tgt, memory, pos, ref, [(40, 40)], [memory])
+        out.backward(dout)
+        torch.cuda.synchronize()
+        return out.detach(), {n: p.grad.clone() for n, p in layer.named_parameters()}
+
+    (out_k, grads_k), launches = counted(torch, kernels, run)
+    if launches != WIDE_LAYER_LAUNCHES:
+        raise AssertionError(f"decoder layer at head_dim 512: launches {launches}")
+    (out_p, _), n = counted(torch, kernels, lambda: run_patched(run, plain_patches(fa, da)))
+    (out_b, grads_b), nb = counted(torch, kernels, lambda: run_patched(
+        run, plain_backward_patches(fa, da)))
+    if any(n.values()) or any(nb[k] for k in BACKWARD_KERNELS):
+        raise AssertionError(f"the plain runs launched kernels: {n}, {nb}")
+    err = (out_k - out_p).abs().max().item()
+    top = max(gr.abs().max().item() for gr in grads_b.values())
+    rel = {k: ((grads_k[k] - gr).abs().max() / gr.abs().max().clamp(min=GRAD_FLOOR * top)).item()
+           for k, gr in grads_b.items()}
+    worst = max(rel, key=rel.get)
+    log(f"decoder layer, hidden 512, one self-attention head of 512, train mode ({B} x {G} "
+        f"groups of {Qg}): launches {launches}; output vs plain {err:.3g}; gradients vs the "
+        f"plain backwards, worst tensor {rel[worst]:.3g} ({worst})")
+    if err > FWD_ATOL_LOGITS or rel[worst] > TRAIN_GRAD_RTOL or not torch.equal(out_k, out_b):
+        raise AssertionError(f"decoder layer at head_dim 512: output {err}, gradients "
+                             f"{worst} {rel[worst]}")
+    return launches, {"output_max_abs_err": err, "grad_max_rel_err": rel[worst],
+                      "grad_worst_tensor": worst}
+
+
+def variant_config(path):
+    from lwdetr_tpu_torch.config import get_config
+
+    return get_config("small", **VARIANT_CONFIGS[path])
+
+
+def variant_eval(torch, fa, da, kernels, path, dtype):
+    """`path`'s eval forward at 640 x 640, batch 8, seeded weights, through the
+    kernels (counted) and on the plain versions with the same two-stage picks
+    (trap (d)): f32 within FWD_ATOL_LOGITS / _BOXES, bf16 (f32 parameters)
+    within the bf16 drift ceiling over all queries. In f32 also each output
+    set's distance from the plain run, through the kernels and through the
+    plain versions moved by one ulp (`jittered_plain_patches`): how far the
+    model carries a rounding difference, layer by layer; the kernels' may be
+    at most JITTER_FACTOR times it (+ JITTER_FLOOR). Returns (launches,
+    numbers)."""
+    from lwdetr_tpu_torch.models import transformer as tr
+    from lwdetr_tpu_torch.models.lwdetr import build_model
+    from lwdetr_tpu_torch.weights import init_state_dict
+
+    cfg = variant_config(path)
+    dt = getattr(torch, dtype)
+    model = build_model(cfg, device="cuda", dtype=dt, state_dict=init_state_dict(cfg, seed=0))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.randn((BATCH, 640, 640, 3), generator=g, device="cuda").to(dt)
+
+    def run():
+        with torch.no_grad():
+            return model(images)
+
+    picks = Picks(tr)
+    out, launches = counted(torch, kernels, lambda: run_patched(run, (picks.patch(False),)))
+    ref, n = counted(torch, kernels, lambda: run_patched(run, plain_patches(fa, da)
+                                                         + (picks.patch(True),)))
+    tag = f"{path}@640 {dtype} eval forward"
+    if launches != VARIANT_EVAL_LAUNCHES[path] or any(n.values()):
+        raise AssertionError(f"{tag}: launches {launches} (plain run {n})")
+    if len(picks.recorded) != int(cfg.two_stage):
+        raise AssertionError(f"{tag}: {len(picks.recorded)} proposal picks recorded")
+    logits, boxes = out["pred_logits"].float(), out["pred_boxes"]
+    if logits.shape != (BATCH, cfg.num_queries, 91) or boxes.dtype != torch.float32:
+        raise AssertionError(f"{tag}: logits {tuple(logits.shape)}, boxes {boxes.dtype}")
+    if not (torch.isfinite(logits).all() and torch.isfinite(boxes).all()):
+        raise AssertionError(f"{tag}: non-finite outputs")
+    if ("enc_outputs" in out) != cfg.two_stage:
+        raise AssertionError(f"{tag}: encoder outputs {'enc_outputs' in out}")
+    if dtype == "float32":
+        err = {"logits_max_abs_err": (logits - ref["pred_logits"]).abs().max().item(),
+               "boxes_max_abs_err": (boxes - ref["pred_boxes"]).abs().max().item()}
+        bad = (err["logits_max_abs_err"] > FWD_ATOL_LOGITS
+               or err["boxes_max_abs_err"] > FWD_ATOL_BOXES)
+        # where the distance comes from: each output set (the encoder's, then
+        # the decoder's layer by layer) through the kernels and, on the same
+        # picks, through the plain versions moved by one ulp, each from the
+        # plain run
+        jit, n = counted(torch, kernels, lambda: run_patched(
+            run, jittered_plain_patches(torch, fa, da, seed=1) + (picks.patch(True),)))
+        if any(n.values()):
+            raise AssertionError(f"{tag}: the jittered plain run launched kernels: {n}")
+
+        def by_set(a, b):
+            sets = ([("enc", a["enc_outputs"], b["enc_outputs"])] if cfg.two_stage else []) + [
+                (f"layer{i}", x, y) for i, (x, y) in enumerate(zip(a["aux_outputs"],
+                                                                   b["aux_outputs"]))] + [
+                (f"layer{len(a['aux_outputs'])}", a, b)]
+            return {name: [(x[k].float() - y[k].float()).abs().max().item()
+                           for k in ("pred_logits", "pred_boxes")] for name, x, y in sets}
+
+        err["by_set_kernels"] = by_set(out, ref)
+        err["by_set_plain_ulp_jitter"] = by_set(jit, ref)
+        # the kernels may lie no farther than rounding carries: a real fault
+        # below FWD_ATOL_* would stand out against the one-ulp run
+        bad = bad or any(k > JITTER_FACTOR * j + JITTER_FLOOR
+                         for name, ks in err["by_set_kernels"].items()
+                         for k, j in zip(ks, err["by_set_plain_ulp_jitter"][name]))
+    else:
+        dp = (logits.sigmoid() - ref["pred_logits"].float().sigmoid()).abs()
+        db = (boxes - ref["pred_boxes"]).abs()
+        err = {"prob_mean": dp.mean().item(), "prob_max": dp.max().item(),
+               "box_mean": db.mean().item()}
+        bad = any(v >= BF16_DRIFT[k] for k, v in err.items())
+        err["box_max"] = db.max().item()
+    log(f"{tag}, kernels vs plain on the same picks: launches {launches}; "
+        + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in err.items()))
+    if bad:
+        raise AssertionError(f"{tag}: kernels disagree with the plain versions: {err}")
+    return launches, err
+
+
+def variant_train(torch, fa, da, kernels, measure_ms, path, card):
+    """`path`'s f32 train step at 640 x 640, batch 4, 7 boxes an image, seeded
+    weights, release optimizer settings: launches; the gradients through the
+    kernels against the plain backwards on the same forward (per tensor,
+    TRAIN_GRAD_RTOL); one optimizer step after which PResNet's BatchNorm
+    statistics are bit-equal and its norm weights have moved, and the learned
+    embedding, which no forward reads, is its value times (1 - lr wd) bit for
+    bit (AdamW's decay with a zero gradient: the JAX optimizer's, to an ulp);
+    then the step time. Returns (launches, numbers)."""
+    from lwdetr_tpu_torch import bench_train
+    from lwdetr_tpu_torch.config import get_train_config
+    from lwdetr_tpu_torch.models import criterion as cm
+    from lwdetr_tpu_torch.models import transformer as tr
+    from lwdetr_tpu_torch.train import engine
+    from lwdetr_tpu_torch.weights import init_state_dict
+
+    cfg = variant_config(path)
+    tcfg = get_train_config("small", max_gt=100)
+    state = engine.create_train_state(cfg, tcfg, niter_per_ep=bench_train.NITER_PER_EP,
+                                      device="cuda", state_dict=init_state_dict(cfg, seed=0))
+    model = state.model
+    criterion = cm.SetCriterion(cfg, tcfg)
+    step = engine.build_train_step(state, criterion, tcfg, static_zero_drop_path=True,
+                                   static_zero_dropout=True)
+    data = bench_train.synthetic_batch(cfg.num_classes, TRAIN_BATCH, 640, 100, 7, "cuda", seed=0)
+    targets = cm.Targets(data["labels"], data["boxes"], data["valid"])
+    picks, match, matchings = Picks(tr), cm.hungarian_match, []
+    tag = f"{path}@640 f32 train step"
+
+    def record_match(*args, **kwargs):
+        matchings.append(match(*args, **kwargs))
+        return matchings[-1]
+
+    def replay_match(*args, **kwargs):
+        match(*args, **kwargs)
+        return matchings[0]
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        total, _ = criterion(model(data["images"]), targets, train=True)
+        total.backward()
+        torch.cuda.synchronize()
+        return total.item(), {n: p.grad.clone() for n, p in model.named_parameters()
+                              if p.grad is not None}
+
+    (loss_k, grads_k), launches = counted(torch, kernels, lambda: run_patched(
+        grads, (picks.patch(False), mock.patch.object(cm, "hungarian_match", record_match))))
+    if launches != VARIANT_TRAIN_LAUNCHES[path]:
+        raise AssertionError(f"{tag}: launches {launches} != {VARIANT_TRAIN_LAUNCHES[path]}")
+    (loss_b, grads_b), n = counted(torch, kernels, lambda: run_patched(
+        grads, (picks.patch(True), mock.patch.object(cm, "hungarian_match", replay_match))
+        + plain_backward_patches(fa, da)))
+    if any(n[k] for k in BACKWARD_KERNELS):
+        raise AssertionError(f"{tag}: the plain backwards launched a backward kernel: {n}")
+    top = max(g.abs().max().item() for g in grads_b.values())
+    rel = {k: ((grads_k[k] - g).abs().max() / g.abs().max().clamp(min=GRAD_FLOOR * top)).item()
+           for k, g in grads_b.items()}
+    worst = max(rel, key=rel.get)
+    median = sorted(rel.values())[len(rel) // 2]
+    log(f"{tag}: launches {launches}; gradients vs the plain backwards on the same forward, "
+        f"worst of {len(rel)} tensors {rel[worst]:.3g} ({worst}), median {median:.3g}; "
+        f"loss {loss_k:.7f} vs {loss_b:.7f}")
+    if rel[worst] > TRAIN_GRAD_RTOL or abs(loss_k - loss_b) > 1e-6 * abs(loss_k):
+        raise AssertionError(f"{tag}: backward kernels disagree: {worst} {rel[worst]}")
+    del grads_k, grads_b
+    model.zero_grad(set_to_none=True)
+
+    # one optimizer step: frozen statistics, moving norm weights, the embedding's decay
+    sd = model.state_dict()
+    stats = {k: v.clone() for k, v in sd.items() if ".norm.running_" in k}
+    norms = {k: v.clone() for k, v in sd.items() if ".encoder." in k and ".norm.weight" in k}
+    embed = {k: v.clone() for k, v in sd.items() if k.startswith("backbone.1.")}
+    decay = {}
+    for group in state.optimizer.param_groups:
+        for p in group["params"]:
+            decay[p] = 1 - group["lr"] * group["weight_decay"]
+    loss = float(step(data)["loss"])
+    sd = model.state_dict()
+    named = dict(model.named_parameters())
+    checks = {"finite loss": loss == loss and abs(loss) != float("inf"),
+              "statistics unchanged": all(torch.equal(sd[k], v) for k, v in stats.items()),
+              "norm weights moved": all(not torch.equal(sd[k], v) for k, v in norms.items()),
+              "embedding decayed as AdamW": all(
+                  torch.equal(sd[k], v * decay[named[k]]) for k, v in embed.items()),
+              "embedding within an ulp of optax": all(
+                  ((sd[k] - (v - (1 - decay[named[k]]) * v)).abs()
+                   <= 2.0 ** -23 * v.abs()).all().item() for k, v in embed.items())}
+    if path == "res50vd" and not (stats and norms):
+        checks["PResNet norms present"] = False
+    if path == "deformable" and not embed:
+        checks["embedding present"] = False
+    log(f"{tag}: one optimizer step, loss {loss:.5f}; {len(stats)} BatchNorm statistics, "
+        f"{len(norms)} encoder norm weights, {len(embed)} embedding tables: "
+        + ", ".join(f"{k} {v}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"{tag}: {checks}")
+    t = measure_ms(step, data, iters=3, warmup=1, repeats=3)
+    print(f"{path}@640 f32 train step, batch {TRAIN_BATCH}: {t['ms']:.3f} ms, samples "
+          f"{[round(x, 3) for x in t['samples']]} ({card}): measured, not claimed")
+    return launches, {"loss_kernels": loss_k, "grad_max_rel_err_plain_backwards": rel[worst],
+                      "grad_worst_tensor": worst, "grad_median_rel_err": median,
+                      "step_loss": loss, **{k.replace(" ", "_"): v for k, v in checks.items()},
+                      "step_ms": t["ms"], "step_ms_samples": t["samples"], "card": card}
+
+
+def variant_tables(embed_seed, num_pos_feats):
+    """The micro variant model's learned-embedding tables (never read): numpy's
+    default_rng(`embed_seed`) in U[0, 1), row first, as the golden's generator
+    (tests/gen_micro_map_variants_golden.py) draws them."""
+    import numpy as np
+
+    rng = np.random.default_rng(embed_seed)
+    return {"row_embed": rng.uniform(0.0, 1.0, (50, num_pos_feats)).astype(np.float32),
+            "col_embed": rng.uniform(0.0, 1.0, (50, num_pos_feats)).astype(np.float32)}
+
+
+def variants_cli_phase(torch, kernels, card):
+    """The micro model with the Deformable-DETR-style decoder through the CLI:
+    `--eval` on `tests/fixtures/micro_map_variants/` (its 12 f32 stats equal to
+    `golden_stats_variants.json` within 1e-7), then one train epoch (the
+    fixture's 20 images as train2017, batch 4, from the fixture's weights):
+    finite losses, the launch invariants, every drawn size in
+    VARIANT_CLI_SIZES (whose kernel shapes `variant_cli_checks` held to the
+    plain versions). Returns (launches, numbers)."""
+    import os
+    import shutil
+
+    from lwdetr_tpu_torch import main as cli
+    from lwdetr_tpu_torch.train import engine
+    from lwdetr_tpu_torch.weights import read_jax_npz, state_dict_from_jax
+
+    with open(f"{FIXTURE}/golden_stats_variants.json") as f:
+        golden = json.load(f)
+    work = os.path.abspath("build/chip_smoke/variants_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    flags = golden["flags"]
+    args = cli.parser().parse_args(["--eval", "--coco_path", VARIANTS_FIXTURE, *flags])
+    cfg = cli.config_from_args(args).model
+    tree = read_jax_npz(f"{FIXTURE}/weights.npz")
+    params = dict(tree["params"], pos_embedding=variant_tables(golden["embed_seed"],
+                                                              cfg.hidden_dim // 2))
+    pth = os.path.join(work, "micro_variant.pth")
+    torch.save({"model": state_dict_from_jax(params, tree.get("batch_stats"), cfg)}, pth)
+    launches = {}
+    argv = ["--eval", "--coco_path", VARIANTS_FIXTURE, *flags, "--resume", pth,
+            "--output_dir", os.path.join(work, "eval"), "--num_workers", "2"]
+    out, launches["variants_cli_eval"] = counted(
+        torch, kernels, lambda: cli.main(cli.parser().parse_args(argv)))
+    stats = out["stats"]
+    dist = {k: stats[k] - v for k, v in golden["stats"].items()}
+    print(f"variants_cli_eval (one-stage, logits, iterative, learned): the 12 stats "
+          f"{json.dumps({k: stats[k] for k in golden['stats']})}; minus the golden: max |d| "
+          f"{max(abs(v) for v in dist.values()):.3g} ({card})")
+    if launches["variants_cli_eval"] != VARIANT_CLI_EVAL_LAUNCHES:
+        raise AssertionError(f"variants_cli_eval: launches {launches['variants_cli_eval']}")
+    bad = {k: v for k, v in dist.items() if abs(v) > GOLDEN_ATOL}
+    if bad:
+        raise AssertionError(f"variants_cli_eval: stats off the golden by more than "
+                             f"{GOLDEN_ATOL}: {bad}")
+
+    coco = os.path.join(work, "coco")
+    os.makedirs(os.path.join(coco, "annotations"))
+    for split in ("train2017", "val2017"):
+        os.symlink(os.path.abspath(f"{FIXTURE}/val2017"), os.path.join(coco, split))
+        shutil.copy(f"{FIXTURE}/annotations/instances_val2017.json",
+                    os.path.join(coco, "annotations", f"instances_{split}.json"))
+    train_out = os.path.join(work, "train")
+    argv = ["--coco_path", coco, *flags, "--epochs", "1", "--num_workers", "2",
+            "--seed", str(VARIANT_CLI_SEED), "--pretrain_weights", pth,
+            "--output_dir", train_out]
+    build, sizes = engine.build_train_step, []
+
+    def recording_build(state, *a, **kw):
+        step = build(state, *a, **kw)
+
+        def recording(*sa, **skw):
+            sizes.append(int(sa[0]["images"].shape[1]))  # (B, H, W, 3), square
+            return step(*sa, **skw)
+
+        return recording
+
+    _, launches["variants_cli_train"] = counted(torch, kernels, lambda: run_patched(
+        lambda: cli.main(cli.parser().parse_args(argv)),
+        (mock.patch.object(engine, "build_train_step", recording_build),)))
+    with open(os.path.join(train_out, "log.txt")) as f:
+        record = json.loads(f.readline())
+    inv = variant_cli_launch_invariants(launches["variants_cli_train"], CLI_STEPS,
+                                        MICRO_EVAL_BATCHES)
+    bad = {k: v for k, v in inv.items() if v[0] != v[1]}
+    loss = record.get("train_loss")
+    log(f"variants_cli_train: one epoch of {CLI_STEPS} steps, train_loss {loss}, launches "
+        f"{launches['variants_cli_train']}; train sizes {sizes}")
+    if bad or loss is None or not (loss == loss and abs(loss) != float("inf")):
+        raise AssertionError(f"variants_cli_train: launch checks {bad}, train_loss {loss}")
+    if len(sizes) != CLI_STEPS or not set(sizes) <= set(VARIANT_CLI_SIZES):
+        raise AssertionError(f"variants_cli_train: train sizes {sizes} outside the kernel "
+                             f"checks' {VARIANT_CLI_SIZES}")
+    return launches, {"eval_stats": {k: stats[k] for k in golden["stats"]},
+                      "eval_minus_golden_max": max(abs(v) for v in dist.values()),
+                      "train_loss": loss, "train_sizes": sizes, "card": card}
+
+
+def variants_phase(torch, F, fa, da, kernels, measure_ms, card, res):
+    """ROADMAP.md § 1 item 6 on the card, F7 first: (d) the wide attention case
+    (`f7_checks`) and one decoder layer at head_dim 512; (a) res50vd under
+    small's decoder, (b) small's ViT with the Deformable-DETR-style decoder:
+    the bf16 eval forward at batch 8 and the f32 train step at batch 4; (c) the
+    eval forward of two-stage with logit boxes and of the iterative refinement
+    of reparameterized boxes, f32 and bf16; (e) the micro variant model through
+    the eval CLI (its golden) and one train epoch, its decoder's kernels first
+    held to their plain versions at every size the epoch draws
+    (`variant_cli_checks`). Returns (launches, numbers)."""
+    import time
+
+    t0 = time.perf_counter()
+    out = {"f7_padded": f7_checks(torch, F, fa, measure_ms, res)}
+    launches = {}
+    launches["decoder_512"], out["decoder_512"] = wide_decoder_layer(torch, fa, da, kernels)
+    for path in VARIANT_CONFIGS:
+        dtypes = ("bfloat16",) if path in VARIANT_TRAINED else ("float32", "bfloat16")
+        for dtype in dtypes:
+            key = path if dtype == "bfloat16" else f"{path}_f32"
+            launches[key], out[f"{key}_eval"] = variant_eval(torch, fa, da, kernels, path, dtype)
+        if path in VARIANT_TRAINED:
+            launches[f"{path}_train"], out[f"{path}_train"] = variant_train(
+                torch, fa, da, kernels, measure_ms, path, card)
+    variant_cli_checks(torch, F, fa, da, measure_ms, res)
+    by_path, out["cli"] = variants_cli_phase(torch, kernels, card)
+    launches.update(by_path)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"variants phase: {out['wall_s']:.1f} s ({card})")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -2981,6 +3541,9 @@ def main() -> int:
     by_path, padded = padded_phase(torch, F, fa, da, list(kernels.values()), measure_ms,
                                    card_line(), res)
     launches.update(by_path)
+    by_path, variants = variants_phase(torch, F, fa, da, list(kernels.values()), measure_ms,
+                                       card_line(), res)
+    launches.update(by_path)
     for preset in EXPECTED_LAUNCHES:
         thr[preset] = bench.run(preset, batch=32)
         log(f"{preset}@640 bf16 throughput: {thr[preset]['value']} img/s at batch 32 "
@@ -3022,7 +3585,8 @@ def main() -> int:
                   for key, kname, *_ in (ATTENTION_SHAPES + ATTENTION_BWD_SHAPES
                                          + CLI_ATTENTION_SHAPES + CLI_ATTENTION_BWD_SHAPES
                                          + PADDED_ATTENTION_SHAPES
-                                         + PADDED_ATTENTION_BWD_SHAPES)
+                                         + PADDED_ATTENTION_BWD_SHAPES
+                                         + F7_ATTENTION_SHAPES + F7_ATTENTION_BWD_SHAPES)
                   if kname == name and "@" in key}
         if name == "K3":
             others.update(tiny=both("K3@tiny"), micro=both("K3@micro"),
@@ -3049,10 +3613,13 @@ def main() -> int:
         if others:
             entry["other_shapes"] = others
         checked = {key.split("@")[1]: both(key) for key, kname, *_ in (
-            PADDED_DRAWN_ATTENTION + PADDED_DRAWN_ATTENTION_BWD) if kname == name}
+            PADDED_DRAWN_ATTENTION + PADDED_DRAWN_ATTENTION_BWD + VARIANT_CLI_DRAWN_ATTENTION
+            + VARIANT_CLI_DRAWN_ATTENTION_BWD) if kname == name}
         checked.update({key.split("@")[1]: both(key) for key, _ in (
             PADDED_DRAWN_SEP + PADDED_DRAWN_SEP_BWD) if key.split("@")[0] == name})
-        if checked:  # the padded paths' drawn sizes, checked untimed
+        if name in ("K4", "K5"):
+            checked.update({key: both(f"{name}@{key}") for key, _ in VARIANT_CLI_DRAWN_SEP})
+        if checked:  # the padded and variant CLI paths' drawn sizes, checked untimed
             entry["checked_shapes"] = checked
         entries.append(entry)
     for entry in entries:  # the kernels line's contract: a shape's numbers must not shadow it
@@ -3060,7 +3627,7 @@ def main() -> int:
             raise AssertionError(f"{entry['name']}: kernels-line entry breaks its contract")
     print(json.dumps({"forward_f32": fwd, "throughput": thr, "train_f32": train,
                       "release_train": release, "eval_pipeline": eval_pipeline,
-                      "train_cli": train_cli, "padded": padded}))
+                      "train_cli": train_cli, "padded": padded, "variants": variants}))
     print(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

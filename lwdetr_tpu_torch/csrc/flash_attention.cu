@@ -51,7 +51,7 @@
 // from it instead of taking the row max and sum again. `lse` is null in eval,
 // which then pays nothing for it. Both cases write it.
 //
-// Head dims 128 and 256 (the decoder's wider heads) take the wide case,
+// Head dims 128 to 2048 (the decoder's wider heads) take the wide case,
 // attention_wide.cuh: CUDA cores in both dtypes.
 #include "attention_wide.cuh"
 #include "common.cuh"
@@ -375,9 +375,10 @@ extern "C" int lw_flash_attention_cm(const void* qkv, void* out, void* lse, int 
 extern "C" int lw_flash_attention_cm_attributes(const void* qkv, int B, int C, int N,
                                                 int num_heads, int dtype, int* attrs) {
   if (int err = check(B, C, N, num_heads, dtype)) return err;
-  if (lw_wide::takes(C / num_heads))
-    return dtype == lw::kFloat32 ? lw_wide::forward_attributes<float>(attrs)
-                                 : lw_wide::forward_attributes<lw::bf16>(attrs);
+  const int D = C / num_heads;
+  if (lw_wide::takes(D))
+    return dtype == lw::kFloat32 ? lw_wide::forward_attributes<float>(D, attrs)
+                                 : lw_wide::forward_attributes<lw::bf16>(D, attrs);
   const int vec = lw::bf16_vec(qkv, N);
   const void* fn = C / num_heads == 16 ? pick<16>(dtype, vec)
                    : C / num_heads == 32 ? pick<32>(dtype, vec) : pick<64>(dtype, vec);

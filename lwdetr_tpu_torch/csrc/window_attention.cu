@@ -46,7 +46,7 @@
 // shared-memory broadcasts; QK^T computed twice (the row max, then the
 // weights); bound by the f32 FMA rate.
 //
-// Without a bias, head dims 128 and 256 (the decoder's wider heads) take the
+// Without a bias, head dims 128 to 2048 (the decoder's wider heads) take the
 // wide case, attention_wide.cuh; K1 (the ViT's, whose heads never exceed 64
 // channels) takes none of them.
 #include "attention_wide.cuh"
@@ -354,8 +354,8 @@ int attributes(const void* qkv, int B, int C, int N, int num_heads, int dtype, i
   const int vec = lw::bf16_vec(qkv, N);
   const int D = C / num_heads;
   if (lw_wide::takes(D))
-    return dtype == lw::kFloat32 ? lw_wide::forward_attributes<float>(attrs)
-                                 : lw_wide::forward_attributes<lw::bf16>(attrs);
+    return dtype == lw::kFloat32 ? lw_wide::forward_attributes<float>(D, attrs)
+                                 : lw_wide::forward_attributes<lw::bf16>(D, attrs);
   const void* fn = D == 16 ? pick<16, kBias>(dtype, vec)
                    : D == 32 ? pick<32, kBias>(dtype, vec) : pick<64, kBias>(dtype, vec);
   return lw::kernel_attributes(fn, attrs);

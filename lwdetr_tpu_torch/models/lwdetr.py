@@ -1,6 +1,7 @@
 """LW-DETR top-level model: backbone -> projector -> decoder -> heads.
 
-Counterpart of `lwdetr_tpu/models/lwdetr.py`. Inference uses the first query
+Counterpart of `lwdetr_tpu/models/lwdetr.py`, with its encoders (ViT,
+PResNet) and decoder variants. Inference uses the first query
 group; in train mode (`model.training`) every group of `group_detr` runs and
 the outputs hold `num_queries x group_detr` queries. A batch padded to a
 common size (the legacy recipe and `--per_image_scales`) comes with its
@@ -22,7 +23,7 @@ float32.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -30,6 +31,7 @@ from torch import nn
 from lwdetr_tpu_torch.config import ModelConfig
 from lwdetr_tpu_torch.models import drop
 from lwdetr_tpu_torch.models.cast import Linear, cast_params
+from lwdetr_tpu_torch.models.presnet import PResNet, depth_of, out_channels
 from lwdetr_tpu_torch.models.projector import LEVEL2SCALE, MultiScaleProjector
 from lwdetr_tpu_torch.models.transformer import MLPHead, Transformer, box_reparam_combine
 from lwdetr_tpu_torch.models.vit import ViT
@@ -37,46 +39,75 @@ from lwdetr_tpu_torch.ops import box_ops
 from lwdetr_tpu_torch.ops.resize import resize_table
 
 
+def encoder_channels(cfg: ModelConfig) -> List[int]:
+    """The channels of each encoder tap the projector takes: the ViT's
+    `embed_dim` for each of `out_feature_indexes`, PResNet's one
+    concatenated map (`presnet.out_channels`)."""
+    if "vit" in cfg.encoder:
+        return [cfg.embed_dim] * len(cfg.out_feature_indexes)
+    if "res" in cfg.encoder:
+        return out_channels(depth_of(cfg.encoder))
+    raise NotImplementedError(f"encoder {cfg.encoder!r}: the JAX package builds the ViT "
+                              "encoders ('vit' in the name) and PResNet ('res')")
+
+
 class Backbone(nn.Module):
-    """ViT encoder + projector (the reference's `backbone.0`)."""
+    """Encoder + projector (the reference's `backbone.0`): the ViT for an
+    `--encoder` naming "vit", PResNet for one naming "res" (its depth from the
+    name's digits), as the JAX `Backbone` dispatches. The projector takes the
+    encoder's channels: the ViT's `embed_dim` a tap, PResNet's one
+    concatenated map (`PResNet.out_channels`)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if "vit" not in cfg.encoder:
-            raise NotImplementedError(f"encoder {cfg.encoder}: only the ViT encoders are ported")
-        self.encoder = ViT(cfg.embed_dim, cfg.vit_encoder_num_layers, cfg.num_heads,
-                           window_block_indexes=cfg.window_block_indexes,
-                           out_feature_indexes=cfg.out_feature_indexes,
-                           grad_checkpointing=cfg.grad_checkpointing)
-        self.projector = MultiScaleProjector(
-            [cfg.embed_dim] * len(cfg.out_feature_indexes), cfg.hidden_dim,
-            [LEVEL2SCALE[lvl] for lvl in cfg.projector_scale])
+        in_channels = encoder_channels(cfg)
+        if "vit" in cfg.encoder:
+            self.encoder = ViT(cfg.embed_dim, cfg.vit_encoder_num_layers, cfg.num_heads,
+                               window_block_indexes=cfg.window_block_indexes,
+                               out_feature_indexes=cfg.out_feature_indexes,
+                               grad_checkpointing=cfg.grad_checkpointing)
+        else:
+            self.encoder = PResNet(depth_of(cfg.encoder))
+        self.projector = MultiScaleProjector(in_channels, cfg.hidden_dim,
+                                             [LEVEL2SCALE[lvl] for lvl in cfg.projector_scale])
 
     def forward(self, images: torch.Tensor, drop_path_rates=None, mask_source=None):
         return self.projector(self.encoder(images, drop_path_rates, mask_source))
 
 
+class LearnedPositionEncoding(nn.Module):
+    """The learned 50 x 50 row / column position embedding of
+    `--position_embedding learned` (the reference's `backbone.1`; JAX
+    `LearnedPositionEncoding`, `lwdetr_tpu/models/lwdetr.py:88-103`). Its
+    parameters only: the decoder never reads position embeddings, so no
+    forward computes from them (they train with zero gradients, and decay)."""
+
+    def __init__(self, num_pos_feats: int):
+        super().__init__()
+        self.row_embed = nn.Embedding(50, num_pos_feats)
+        self.col_embed = nn.Embedding(50, num_pos_feats)
+
+
 class LWDETR(nn.Module):
-    """Group-DETR detector."""
+    """Group-DETR detector, in every encoder and decoder variant of the JAX
+    package: ViT or PResNet; two-stage or one-stage, reparameterized boxes or
+    logits, lite or iterative refinement (`models/transformer.py`); sine or
+    learned position embedding; a final decoder norm or none."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        # what every release preset uses; the JAX package's other variants are not ported
-        off = [name for name in ("two_stage", "bbox_reparam", "lite_refpoint_refine")
-               if not getattr(cfg, name)]
-        if cfg.position_embedding != "sine":
-            off.append(f"position_embedding={cfg.position_embedding!r}")
-        if off:
-            raise NotImplementedError(f"not ported: {off} (the port runs two-stage, "
-                                      "bbox_reparam, lite-refine configs with the sine embedding)")
         self.cfg = cfg
         self.backbone = nn.ModuleList([Backbone(cfg)])
+        if cfg.position_embedding == "learned":
+            self.backbone.append(LearnedPositionEncoding(cfg.hidden_dim // 2))
         self.transformer = Transformer(
             d_model=cfg.hidden_dim, sa_nheads=cfg.sa_nheads, ca_nheads=cfg.ca_nheads,
             num_queries=cfg.num_queries, dec_layers=cfg.dec_layers,
             dim_feedforward=cfg.dim_feedforward, group_detr=cfg.group_detr,
             num_feature_levels=cfg.num_feature_levels, dec_n_points=cfg.dec_n_points,
-            decoder_norm=cfg.decoder_norm, num_classes=cfg.num_classes)
+            decoder_norm=cfg.decoder_norm, num_classes=cfg.num_classes,
+            two_stage=cfg.two_stage, bbox_reparam=cfg.bbox_reparam,
+            lite_refpoint_refine=cfg.lite_refpoint_refine)
         self.class_embed = Linear(cfg.hidden_dim, cfg.num_classes)
         self.bbox_embed = MLPHead(cfg.hidden_dim, cfg.hidden_dim, 4, 3)
         nq = cfg.num_queries * cfg.group_detr
@@ -106,19 +137,23 @@ class LWDETR(nn.Module):
                                     lambda: (query_feat[:nq],))
         hs, ref, hs_enc, ref_enc = self.transformer(
             feats, feat_masks, self.refpoint_embed.weight[:nq], query_feat, dropout_rate,
-            mask_source)
-        outputs_coord = box_reparam_combine(ref, self.bbox_embed(hs).float())
+            mask_source, bbox_embed=None if cfg.lite_refpoint_refine else self.bbox_embed)
+        delta = self.bbox_embed(hs).float()
+        outputs_coord = (box_reparam_combine(ref, delta) if cfg.bbox_reparam
+                         else (delta + ref).sigmoid())
         outputs_class = self.class_embed(hs)
         out = {"pred_logits": outputs_class[-1], "pred_boxes": outputs_coord[-1]}
         if cfg.aux_loss:
             out["aux_outputs"] = [
                 {"pred_logits": outputs_class[i], "pred_boxes": outputs_coord[i]}
                 for i in range(cfg.dec_layers - 1)]
-        # each group's own class head on its slice of the picked proposals
-        heads = self.transformer.enc_out_class_embed
-        cls_enc = [heads[g](hs_enc[:, g * cfg.num_queries:(g + 1) * cfg.num_queries])
-                   for g in range(groups)]
-        out["enc_outputs"] = {"pred_logits": torch.cat(cls_enc, dim=1), "pred_boxes": ref_enc}
+        if cfg.two_stage:
+            # each group's own class head on its slice of the picked proposals
+            heads = self.transformer.enc_out_class_embed
+            cls_enc = [heads[g](hs_enc[:, g * cfg.num_queries:(g + 1) * cfg.num_queries])
+                       for g in range(groups)]
+            out["enc_outputs"] = {"pred_logits": torch.cat(cls_enc, dim=1),
+                                  "pred_boxes": ref_enc}
         return out
 
 

@@ -1,9 +1,11 @@
 """DETR decoder with two-stage proposal selection and deformable cross-attention.
 
-Counterpart of `lwdetr_tpu/models/transformer.py`. In eval one query group
-runs; in train mode (`module.training`) all `group_detr` groups run, each
-with its own two-stage heads, folded into the batch for self-attention so
-that groups do not attend across. Self-attention runs channel-major through
+Counterpart of `lwdetr_tpu/models/transformer.py`, in each of its variants:
+two-stage or one-stage query init, reparameterized boxes or box logits, the
+lite or the iterative reference-point refinement (`Transformer`). In eval one
+query group runs; in train mode (`module.training`) all `group_detr` groups
+run, each with its own two-stage heads, folded into the batch for
+self-attention so that groups do not attend across. Self-attention runs channel-major through
 `ops/flash_attention.attention_cm` (K2, backward K6; K9 and the no-bias case
 of K7 for the 100 queries of the tiny preset). Cross-attention samples
 the memory through `ops/deform_attn`: in eval channel-major values and
@@ -271,17 +273,20 @@ def valid_ratio(mask: torch.Tensor) -> torch.Tensor:
 
 
 def gen_encoder_output_proposals(memory: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
-                                 padding_mask: Optional[torch.Tensor] = None):
-    """Anchor-grid proposals per memory position, for the reparameterized boxes
-    (cxcywh kept in [0, 1], not inverse-sigmoided; `lwdetr_tpu/models/
-    transformer.py:434-481`).
+                                 padding_mask: Optional[torch.Tensor] = None,
+                                 unsigmoid: bool = False):
+    """Anchor-grid proposals per memory position (`lwdetr_tpu/models/
+    transformer.py:431-479`): cxcywh in [0, 1] for the reparameterized boxes,
+    or, with `unsigmoid` (no reparameterization), their logits
+    log(p / (1 - p)).
 
     memory (B, S, C); spatial_shapes [(H, W)] * L; padding_mask (B, S) True on
     padding, or None ->
     (output_memory (B, S, C), output_proposals (B, S, 4) f32). A level's grid
     is placed on each image's valid extent ((x + 0.5) / valid_w, ...);
     positions whose proposal leaves (0.01, 0.99), and padded positions, are
-    zeroed in both."""
+    zeroed in the memory and filled in the proposals: with 0, or with +inf
+    in logit space."""
     B, dev = memory.shape[0], memory.device
     proposals = []
     start = 0
@@ -301,7 +306,11 @@ def gen_encoder_output_proposals(memory: torch.Tensor, spatial_shapes: Sequence[
     invalid = ~((output_proposals > 0.01) & (output_proposals < 0.99)).all(dim=-1, keepdim=True)
     if padding_mask is not None:
         invalid = invalid | padding_mask[..., None]
-    return memory.masked_fill(invalid, 0.0), output_proposals.masked_fill(invalid, 0.0)
+    fill = 0.0
+    if unsigmoid:
+        output_proposals = torch.log(output_proposals / (1 - output_proposals))
+        fill = float("inf")
+    return memory.masked_fill(invalid, 0.0), output_proposals.masked_fill(invalid, fill)
 
 
 class Decoder(nn.Module):
@@ -322,41 +331,93 @@ class Decoder(nn.Module):
 
 class Transformer(nn.Module):
     """Decoder-only transformer (query group 0 in eval, every group in train
-    mode), in the configuration of every release preset: two-stage proposals,
-    reparameterized boxes and the lite reference-point refinement (query
-    positions computed once, from the initial reference boxes)."""
+    mode), in every variant of the JAX module (`lwdetr_tpu/models/
+    transformer.py:482-676`):
+
+    * `two_stage`: the queries' reference boxes start from each group's
+      best-scoring proposals (one set of heads a group), combined with
+      `refpoint_embed`; one-stage: from `refpoint_embed` itself;
+    * `bbox_reparam`: boxes are reparameterized (`box_reparam_combine`, cxcywh
+      in [0, 1]); without it they are logits, combined by addition and read
+      through a sigmoid, the proposals inverse-sigmoided (+inf where invalid);
+    * `lite_refpoint_refine`: the query positions are computed once, from the
+      initial boxes; without it (the iterative refinement) each layer takes
+      its query positions from the current boxes, and the shared box head
+      (`LWDETR.bbox_embed`, passed at call time and not registered here)
+      refines them on the layer's un-normed output, detached before the next
+      layer."""
 
     def __init__(self, d_model: int, sa_nheads: int, ca_nheads: int, num_queries: int,
                  dec_layers: int, dim_feedforward: int, group_detr: int,
                  num_feature_levels: int, dec_n_points: int, decoder_norm: str = "LN",
-                 num_classes: int = 91):
+                 num_classes: int = 91, two_stage: bool = True, bbox_reparam: bool = True,
+                 lite_refpoint_refine: bool = True):
         super().__init__()
         self.d_model = d_model
         self.num_queries = num_queries
         self.group_detr = group_detr
         self.num_feature_levels = num_feature_levels
+        self.two_stage, self.bbox_reparam = two_stage, bbox_reparam
+        self.lite_refpoint_refine = lite_refpoint_refine
         self.decoder = Decoder(d_model, sa_nheads, ca_nheads, dim_feedforward, dec_layers,
                                num_feature_levels, dec_n_points, decoder_norm, group_detr)
-        # one set of two-stage heads per query group, as in the reference's
-        # checkpoint; eval uses group 0, training all of them
-        self.enc_output = nn.ModuleList(Linear(d_model, d_model) for _ in range(group_detr))
-        self.enc_output_norm = nn.ModuleList(
-            LayerNorm(d_model, eps=1e-5) for _ in range(group_detr))
-        self.enc_out_class_embed = nn.ModuleList(
-            Linear(d_model, num_classes) for _ in range(group_detr))
-        self.enc_out_bbox_embed = nn.ModuleList(
-            MLPHead(d_model, d_model, 4, 3) for _ in range(group_detr))
+        if two_stage:
+            # one set of two-stage heads per query group, as in the reference's
+            # checkpoint; eval uses group 0, training all of them
+            self.enc_output = nn.ModuleList(Linear(d_model, d_model) for _ in range(group_detr))
+            self.enc_output_norm = nn.ModuleList(
+                LayerNorm(d_model, eps=1e-5) for _ in range(group_detr))
+            self.enc_out_class_embed = nn.ModuleList(
+                Linear(d_model, num_classes) for _ in range(group_detr))
+            self.enc_out_bbox_embed = nn.ModuleList(
+                MLPHead(d_model, d_model, 4, 3) for _ in range(group_detr))
+
+    def proposals(self, memory, spatial_shapes, mask_flat, groups: int):
+        """Each group's picked proposals, groups concatenated: (memory_ts
+        (B, nq, C), boxes_ts (B, nq, 4) f32, undetached; logits without
+        reparameterization)."""
+        output_memory, output_proposals = gen_encoder_output_proposals(
+            memory, spatial_shapes, mask_flat, unsigmoid=not self.bbox_reparam)
+        mem_ts, box_ts = [], []
+        for g in range(groups):
+            mem_g = self.enc_output_norm[g](self.enc_output[g](output_memory))
+            cls_g = self.enc_out_class_embed[g](mem_g)  # (B, S, K)
+            delta_g = self.enc_out_bbox_embed[g](mem_g).float()
+            coords_g = (box_reparam_combine(output_proposals, delta_g) if self.bbox_reparam
+                        else delta_g + output_proposals)
+            topk_idx = select_proposals(cls_g.max(dim=-1).values, self.num_queries)  # (B, Qg)
+            box_ts.append(torch.gather(coords_g, 1, topk_idx[..., None].expand(-1, -1, 4)))
+            mem_ts.append(torch.gather(mem_g, 1,
+                                       topk_idx[..., None].expand(-1, -1, mem_g.shape[-1])))
+        return torch.cat(mem_ts, dim=1), torch.cat(box_ts, dim=1)
+
+    def reference(self, refpoints, valid_ratios, dtype):
+        """The JAX `_get_reference`: (refpoints_input (B, Q, L, 4) in `dtype`,
+        query_pos (B, Q, C)) from the current boxes (through a sigmoid without
+        reparameterization), scaled per level by the valid ratios."""
+        base = refpoints if self.bbox_reparam else refpoints.sigmoid()
+        if valid_ratios is None:
+            refpoints_input = base[:, :, None].expand(-1, -1, self.num_feature_levels, -1)
+        else:
+            refpoints_input = base[:, :, None] * valid_ratios.repeat(1, 1, 2)[:, None]
+        qse = query_sine_embed(refpoints_input[:, :, 0], dim=self.d_model // 2)
+        return refpoints_input.to(dtype), self.decoder.ref_point_head(qse.to(dtype))
 
     def forward(self, srcs, masks: Optional[Sequence[torch.Tensor]], refpoint_embed: torch.Tensor,
                 query_feat: torch.Tensor, dropout_rate=0.0,
-                mask_source: Optional[drop.MaskSource] = None):
+                mask_source: Optional[drop.MaskSource] = None,
+                bbox_embed: Optional[nn.Module] = None):
         """srcs: list[(B, H, W, C)] projector outputs; masks: list[(B, H, W)]
         bool, True on padding, or None; refpoint_embed (nq, 4); query_feat
         (nq, C) in the compute dtype, nq = num_queries x groups; the reference
-        points stay in float32, as in the JAX package. Returns hs (L, B, nq, C),
-        references (1, B, nq, 4), memory_ts (B, nq, C) and boxes_ts (B, nq, 4):
-        each group's picked proposals, groups concatenated. `dropout_rate`
-        and `mask_source` go to every decoder layer."""
+        points stay in float32, as in the JAX package; `bbox_embed`: the shared
+        box head of the iterative refinement (without `lite_refpoint_refine`).
+        Returns hs (L, B, nq, C), references ((1 | L), B, nq, 4: the initial
+        boxes, or [initial, refined_0 ... refined_{L-2}] with the iterative
+        refinement; logits without reparameterization), and, in two-stage,
+        memory_ts (B, nq, C) and boxes_ts (B, nq, 4, cxcywh in [0, 1]): each
+        group's picked proposals, groups concatenated (None in one-stage).
+        `dropout_rate` and `mask_source` go to every decoder layer."""
         spatial_shapes = [(s.shape[1], s.shape[2]) for s in srcs]
         B = srcs[0].shape[0]
         dtype = srcs[0].dtype
@@ -369,37 +430,39 @@ class Transformer(nn.Module):
             mask_flat = torch.cat([m.reshape(B, -1) for m in masks], dim=1)
             valid_ratios = torch.stack([valid_ratio(m) for m in masks], dim=1)  # (B, L, 2)
 
-        output_memory, output_proposals = gen_encoder_output_proposals(memory, spatial_shapes,
-                                                                       mask_flat)
-        mem_ts, box_ts = [], []
-        for g in range(groups):
-            mem_g = self.enc_output_norm[g](self.enc_output[g](output_memory))
-            cls_g = self.enc_out_class_embed[g](mem_g)  # (B, S, K)
-            coords_g = box_reparam_combine(output_proposals,
-                                           self.enc_out_bbox_embed[g](mem_g).float())
-            topk_idx = select_proposals(cls_g.max(dim=-1).values, self.num_queries)  # (B, Qg)
-            box_ts.append(torch.gather(coords_g, 1, topk_idx[..., None].expand(-1, -1, 4)))
-            mem_ts.append(torch.gather(mem_g, 1,
-                                       topk_idx[..., None].expand(-1, -1, mem_g.shape[-1])))
-        boxes_ts = torch.cat(box_ts, dim=1)
-        memory_ts = torch.cat(mem_ts, dim=1)
-        # the decoder's reference points carry no gradient into the proposal
-        # boxes; the encoder outputs (memory_ts, boxes_ts) do
-        refpoints = box_reparam_combine(boxes_ts.detach(), refpoint_embed[None, :nq].float())
+        refpoints = refpoint_embed[None, :nq].float().expand(B, -1, -1)
+        memory_ts = boxes_ts = None
+        if self.two_stage:
+            memory_ts, boxes_ts = self.proposals(memory, spatial_shapes, mask_flat, groups)
+            # the decoder's reference points carry no gradient into the proposal
+            # boxes; the encoder outputs (memory_ts, boxes_ts) do
+            refpoints = (box_reparam_combine(boxes_ts.detach(), refpoints) if self.bbox_reparam
+                         else refpoints + boxes_ts.detach())
 
-        # lite refinement: one query position for all layers, from the initial
-        # boxes, scaled per level by the valid ratios (the JAX `_get_reference`)
-        if valid_ratios is None:
-            refpoints_input = refpoints[:, :, None].expand(-1, -1, self.num_feature_levels, -1)
-        else:
-            refpoints_input = refpoints[:, :, None] * valid_ratios.repeat(1, 1, 2)[:, None]
-        head = self.decoder.ref_point_head
-        qse = query_sine_embed(refpoints_input[:, :, 0], dim=self.d_model // 2)
-        query_pos = head(qse.to(dtype))
+        lite = self.lite_refpoint_refine
+        if not lite and bbox_embed is None:
+            raise ValueError("the iterative refinement (lite_refpoint_refine off) needs the "
+                             "shared box head, bbox_embed")
+        ref_list = [refpoints]
+        if lite:
+            refpoints_input, query_pos = self.reference(refpoints, valid_ratios, dtype)
         output = query_feat[None, :nq].expand(B, -1, -1)
         intermediates = []
-        for layer in self.decoder.layers:
-            output = layer(output, memory, query_pos, refpoints_input.to(dtype), spatial_shapes,
+        layers = self.decoder.layers
+        for i, layer in enumerate(layers):
+            if not lite:
+                refpoints_input, query_pos = self.reference(refpoints, valid_ratios, dtype)
+            output = layer(output, memory, query_pos, refpoints_input, spatial_shapes,
                            memory_levels, mask_flat, dropout_rate, mask_source)
+            if not lite:
+                delta = bbox_embed(output).float()  # the un-normed output
+                new_ref = (box_reparam_combine(refpoints, delta) if self.bbox_reparam
+                           else refpoints + delta)
+                if i != len(layers) - 1:
+                    ref_list.append(new_ref)
+                refpoints = new_ref.detach()
             intermediates.append(self.decoder.norm(output))
-        return torch.stack(intermediates), refpoints[None], memory_ts, boxes_ts
+        references = refpoints[None] if lite else torch.stack(ref_list)
+        if self.two_stage and not self.bbox_reparam:
+            boxes_ts = boxes_ts.sigmoid()
+        return torch.stack(intermediates), references, memory_ts, boxes_ts

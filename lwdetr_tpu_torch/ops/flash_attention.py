@@ -22,13 +22,14 @@ versions, `attention_cm_plain` and `attention_cm_bwd_plain`, which are also
 what the kernels are held against on the card.
 
 Head dims: the kernels have cases for 16, 32 and 64 (the ViT's, on the
-tensor cores in bf16) and a wide case for 128 and 256
+tensor cores in bf16) and a wide case for 128, 256, 512, 1024 and 2048
 (`csrc/attention_wide.cuh`, CUDA cores: the decoder's heads when
-`--hidden_dim` / `--sa_nheads` make them wider, e.g. 256 / 2), which K2, K9,
-K6 and K7nb take; `attention_cm` zero-pads any other head dim to the next
-case (`attention_cm_padded`) and refuses a head of more than 256 channels.
-K1 / K7 with the ViT's qkv bias keep 64 as their largest (every ViT has 12
-heads of at most 64 channels).
+`--hidden_dim` / `--sa_nheads` make them wider, e.g. 256 / 2 or 512 / 1),
+which K2, K9, K6 and K7nb take; `attention_cm` zero-pads any other head dim
+up to 2048 to the next case (`attention_cm_padded`); a CUDA tensor with
+wider heads is refused, naming the widest case. K1 / K7 with the ViT's qkv
+bias keep 64 as their largest (every ViT has 12 heads of at most 64
+channels).
 
 In bf16 the forward kernels (K1, K2, K9) run on the tensor cores and round
 what the JAX kernels round: the softmax weights p = exp(s - max) to bf16
@@ -51,10 +52,10 @@ from lwdetr_tpu_torch.ops._build import CudaKernel, load
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head dims of the kernels' cases: 16, 32, 64 (tensor cores in bf16), and
-# the wide case (`csrc/attention_wide.cuh`, CUDA cores) at 128 and 256, which
+# the wide case (`csrc/attention_wide.cuh`, CUDA cores) at 128 to 2048, which
 # K2 / K6 / K9 / K7nb take for the decoder's wider heads
 _HEAD_DIMS = (16, 32, 64)
-_WIDE_HEAD_DIMS = (128, 256)
+_WIDE_HEAD_DIMS = (128, 256, 512, 1024, 2048)
 _WINDOW_MAX_N = 128
 _BIAS_MAX_HEAD_DIM = 64
 _BIAS_REFUSAL = ("K1 / K7 (the ViT's window attention with its qkv bias) take head_dim up to "
@@ -480,9 +481,9 @@ def flash_attention_cm_bwd(qkv_t: torch.Tensor, lse: Optional[torch.Tensor], dou
 
 def padded_head_dim(head_dim: int) -> int:
     """The head_dim of the kernel case a head_dim takes: the next of 16, 32,
-    64, 128, 256. A wider head raises: the wide case's backward holds 16 of
-    a head's channels a thread, and no wider case has been held against the
-    plain version on the card."""
+    64, 128, 256, 512, 1024, 2048. A wider head raises: the chunked wide case
+    keeps a block's four rows in shared memory, and 2048 is the widest whose
+    rows fit beside its tiles."""
     for d in _HEAD_DIMS + _WIDE_HEAD_DIMS:
         if head_dim <= d:
             return d
@@ -525,7 +526,7 @@ def attention_cm(qkv_t: torch.Tensor, num_heads: int, scale: Optional[float] = N
     """Attention over channel-major packed qkv (B, 3C, N) -> (B, C, N), with
     an optional (3C,) qkv bias. Differentiable in qkv_t and bias. On a CUDA
     tensor a head_dim that no kernel case takes is zero-padded to one
-    (`attention_cm_padded`)."""
+    (`attention_cm_padded`), which refuses a head wider than the widest case."""
     B, ZC, N = qkv_t.shape
     if ZC % (3 * num_heads):
         raise ValueError(f"3C = {ZC} is not divisible by 3 x {num_heads} heads")

@@ -28,9 +28,18 @@ from lwdetr_tpu_torch.utils.obj365_remap import remap_torch_state_dict
 ENCODER_PREFIX = "backbone.0.encoder."
 
 
+# the reference registers the shared box head of its iterative refinement
+# twice (`transformer.decoder.bbox_embed` is `bbox_embed`); the port, as the
+# JAX package's mapping, keeps it once, under `bbox_embed.`
+SHARED_HEAD_ALIAS = "transformer.decoder.bbox_embed."
+
+
 def clean_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Strip DDP 'module.' prefixes (reference util/utils.py:109-115)."""
-    return {(k[7:] if k.startswith("module.") else k): v for k, v in sd.items()}
+    """Strip DDP 'module.' prefixes (reference util/utils.py:109-115), and
+    the second copy of the shared box head (`SHARED_HEAD_ALIAS`), which the
+    model reads from `bbox_embed.*`."""
+    sd = {(k[7:] if k.startswith("module.") else k): v for k, v in sd.items()}
+    return {k: v for k, v in sd.items() if not k.startswith(SHARED_HEAD_ALIAS)}
 
 
 def _read(path: str):

@@ -89,6 +89,7 @@ def build_train_step(state: TrainState, criterion: SetCriterion, tcfg: TrainConf
         out = model(batch["images"], batch.get("pad_mask"), dp_rates, do_rate, mask_source)
         total, losses = criterion(out, _targets(batch), train=True)
         total.backward()
+        optim.zero_missing_grads(params)  # a parameter the forward does not read still decays
         # clips in place; returns the global norm before clipping
         grad_norm = torch.nn.utils.clip_grad_norm_(params, tcfg.clip_max_norm)
         state.optimizer.step()

@@ -7,14 +7,19 @@ port's modules carry):
 
 * ViT encoder (`backbone.0.encoder.`): lr = lr_encoder x
   layer_decay^(L + 1 - layer_id) x component_decay^2, weight decay zeroed for
-  gamma, pos_embed, bias and norm parameters;
+  gamma, pos_embed, bias and norm parameters; a PResNet encoder: lr = 0.1 x
+  lr, with the same weight-decay rule (`lwdetr_tpu/train/optim.py:63-65`);
 * decoder (`transformer.decoder.`: the layers, ref_point_head, the final
   norm): lr = lr x component_decay;
 * everything else: the base lr.
 
 `torch.optim.AdamW` with one parameter group per distinct (lr, wd): decoupled
 weight decay times the group's lr, gradient clipping before Adam, and StepLR
-(x 0.1 every `lr_drop` epochs) as a step-indexed `LambdaLR`.
+(x 0.1 every `lr_drop` epochs) as a step-indexed `LambdaLR`. The JAX
+optimizer updates every leaf, so a parameter the forward does not read (the
+learned position embedding) decays by (1 - s lr wd) a step; AdamW skips a
+parameter without a gradient, so the train step gives those zero gradients
+(`zero_missing_grads`).
 """
 from __future__ import annotations
 
@@ -48,6 +53,8 @@ def _vit_wd_rate(name: str) -> float:
 
 def param_lr_wd(name: str, mcfg: ModelConfig, tcfg: TrainConfig) -> Tuple[float, float]:
     """(lr, weight decay) of the parameter with the reference name `name`."""
+    if name.startswith(ENCODER) and "vit" not in mcfg.encoder:  # PResNet
+        return 0.1 * tcfg.lr, tcfg.weight_decay * _vit_wd_rate(name)
     if name.startswith(ENCODER):
         L = mcfg.vit_encoder_num_layers
         lr = (tcfg.lr_encoder * tcfg.lr_vit_layer_decay ** (L + 1 - _vit_layer_id(name, L))
@@ -56,6 +63,16 @@ def param_lr_wd(name: str, mcfg: ModelConfig, tcfg: TrainConfig) -> Tuple[float,
     if name.startswith(DECODER):
         return tcfg.lr * tcfg.lr_component_decay, tcfg.weight_decay
     return tcfg.lr, tcfg.weight_decay
+
+
+def zero_missing_grads(params) -> None:
+    """A zero gradient for each parameter the backward left without one, as
+    `jax.grad` gives a leaf the loss does not read: AdamW then decays it by
+    its weight decay, as the JAX optimizer does. Enqueued on the device, no
+    host wait."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
 
 
 def step_lr_lambda(lr_drop_epochs: int, niter_per_ep: int, gamma: float = 0.1):

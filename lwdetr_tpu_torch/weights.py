@@ -32,6 +32,8 @@ import numpy as np
 import torch
 
 from lwdetr_tpu_torch.config import ModelConfig
+from lwdetr_tpu_torch.models.lwdetr import encoder_channels
+from lwdetr_tpu_torch.models.presnet import RESNET_CFG, depth_of
 from lwdetr_tpu_torch.models.projector import LEVEL2SCALE
 from lwdetr_tpu_torch.ops.deform_attn import sampling_offsets_init_bias
 
@@ -115,8 +117,38 @@ def projector_mapping(proj_t: str, proj_f: Tuple[str, ...], scales, in_dims) -> 
     return m
 
 
+def _conv_norm(tk: str, fp: Tuple[str, ...]) -> List[Entry]:
+    return [(tk + ".conv.weight", "params", fp + ("conv", "kernel"), "conv_w")] + \
+        _bn(tk + ".norm", fp + ("norm",))
+
+
+def presnet_mapping(enc_t: str, enc_f: Tuple[str, ...], depth: int) -> List[Entry]:
+    """PResNet's entries (the JAX table maps the ViT only,
+    `lwdetr_tpu/train/checkpoint.py:135`): each `ConvNorm` as a conv kernel
+    and a BatchNorm, its statistics from `batch_stats`, in module order; the
+    keys are the flax tree's names under `enc_t` (the reference's PResNet
+    names are recorded nowhere in the repository)."""
+    m = []
+    for name in ("conv1_1", "conv1_2", "conv1_3"):
+        m += _conv_norm(f"{enc_t}.{name}", enc_f + (name,))
+    branches = ("branch2a", "branch2b") + (("branch2c",) if depth >= 50 else ())
+    for i, n in enumerate(RESNET_CFG[depth]):
+        for b in range(n):
+            t, f = f"{enc_t}.res{i}_{b}", enc_f + (f"res{i}_{b}",)
+            for br in branches:
+                m += _conv_norm(f"{t}.{br}", f + (br,))
+            if b == 0:  # the first block's shortcut: variant d's pooled 1x1 at stride 2
+                short = "short_conv" if i != 0 else "short"
+                m += _conv_norm(f"{t}.{short}", f + (short,))
+    return m
+
+
 def build_mapping(cfg: ModelConfig) -> List[Entry]:
-    """Every reference state_dict key of `cfg`'s model with its flax source."""
+    """Every reference state_dict key of `cfg`'s model with its flax source:
+    the JAX package's table (`lwdetr_tpu/train/checkpoint.py::build_mapping`),
+    with PResNet's rows and the projector's inputs taken from the encoder
+    (PResNet's one concatenated map, where the JAX table assumes one input a
+    ViT tap)."""
     m: List[Entry] = []
     m += _dense("class_embed", ("class_embed",))
     m += _mlp_head("bbox_embed", ("bbox_embed",))
@@ -171,11 +203,11 @@ def build_mapping(cfg: ModelConfig) -> List[Entry]:
             m.append((t + ".gamma_2", "params", f + ("gamma_2",), "raw"))
             m += _dense(t + ".mlp.fc1", f + ("mlp", "fc1"))
             m += _dense(t + ".mlp.fc2", f + ("mlp", "fc2"))
+    elif "res" in cfg.encoder:
+        m += presnet_mapping(enc_t, enc_f, depth_of(cfg.encoder))
 
-    in_dim = cfg.embed_dim if "vit" in cfg.encoder else 0
     m += projector_mapping("backbone.0.projector", ("backbone", "projector"),
-                           [LEVEL2SCALE[s] for s in cfg.projector_scale],
-                           [in_dim] * len(cfg.out_feature_indexes))
+                           [LEVEL2SCALE[s] for s in cfg.projector_scale], encoder_channels(cfg))
     return m
 
 
@@ -198,7 +230,7 @@ def _get_path(tree: dict, path: Tuple[str, ...]):
 def _bn_counters(keys) -> Dict[str, torch.Tensor]:
     """`num_batches_tracked` of every BatchNorm (torch keeps it in the state_dict)."""
     return {k[:-len("running_mean")] + "num_batches_tracked": torch.tensor(0, dtype=torch.long)
-            for k in keys if k.endswith(".bn.running_mean")}
+            for k in keys if k.endswith(".running_mean")}
 
 
 def tensors_from_jax(mapping: List[Entry], params: dict,
@@ -287,13 +319,21 @@ def _lecun_normal(shape, g: torch.Generator) -> torch.Tensor:
 def jax_initializer(path: Tuple[str, ...]):
     """The initialiser the JAX package gives the parameter or batch statistic
     at flax `path`: ("zeros" | "ones" | "constant" | "grid" | "normal" |
-    "truncated_normal" | "lecun_normal" | "xavier_uniform", argument). From
-    `lwdetr_tpu/models/vit.py:87-94, :126, :154, :173, :204-205, :246, :290`,
-    `projector.py` (flax's defaults: lecun-normal kernels, zero biases, unit
-    scales, BatchNorm statistics 0 / 1), `transformer.py:61-72, :90-92, :119,
-    :137, :301, :309-319, :343, :353, :411, :416, :523-540` and
-    `lwdetr.py:136-146`."""
+    "uniform" | "truncated_normal" | "lecun_normal" | "xavier_uniform",
+    argument). From `lwdetr_tpu/models/vit.py:87-94, :126, :154, :173,
+    :204-205, :246, :290`, `projector.py` and `presnet.py` (flax's defaults:
+    lecun-normal kernels, zero biases, unit scales, BatchNorm statistics 0 /
+    1), `transformer.py:61-72, :90-92, :119, :137, :301, :309-319, :343, :353,
+    :411, :416, :523-540` and `lwdetr.py:98-101` (the learned embedding,
+    U[0, 1)), `:136-146`."""
     leaf = path[-1]
+    if path[:2] == ("backbone", "encoder") and path[2].startswith(("conv1_", "res")):
+        # PResNet: flax Conv's lecun-normal kernels, BatchNorm 1 / 0, statistics 0 / 1
+        if leaf == "kernel":
+            return ("lecun_normal", None)
+        return ("ones", None) if leaf in ("scale", "var") else ("zeros", None)
+    if path[0] == "pos_embedding":  # nn.initializers.uniform(1.0): U[0, 1)
+        return ("uniform", 1.0)
     if path[:2] == ("backbone", "encoder"):  # the ViT
         if leaf in ("pos_embed", "qkv_kernel") or (leaf == "kernel" and path[2] != "patch_embed"):
             return ("truncated_normal", 0.02)
@@ -366,6 +406,8 @@ def jax_init_state_dict(cfg: ModelConfig, generator: torch.Generator) -> Dict[st
                                              cfg.dec_n_points)
         elif rule == "normal":
             arr = torch.randn(shape, generator=generator) * arg
+        elif rule == "uniform":
+            arr = torch.rand(shape, generator=generator) * arg
         elif rule == "truncated_normal":
             arr = truncated_normal(shape, arg, generator)
         elif rule == "lecun_normal":

@@ -907,15 +907,16 @@ def test_attention_at_padded_head_dims_matches_the_plain_version(cuda, D, N, wit
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [80, 128, 256])
+@pytest.mark.parametrize("D", [80, 128, 256, 384, 512, 1024, 2048])
 @pytest.mark.parametrize("N,kernel", [(300, "K2"), (100, "K9")])
 def test_wide_head_dims_match_the_plain_version(cuda, dtype, D, N, kernel):
-    """F4: the decoder's head dims above 64 reach the wide case of K2 / K9
-    and of their backwards K6 / K7nb (`csrc/attention_wide.cuh`), zero-padded
-    from 80 to 128: forward and d(qkv) against the plain version on the
-    unpadded inputs, in f32 within ATOL (x max(1, max |plain|)) and in bf16
-    within `bf16_error_bound` / `bf16_bwd_error_bound` at the kernel's head
-    dim (for 80: of the padded inputs, checked at 128)."""
+    """F4 / F7: the decoder's head dims above 64 reach the wide case of K2 /
+    K9 and of their backwards K6 / K7nb (`csrc/attention_wide.cuh`; chunked
+    from 512 up), zero-padded from 80 to 128 and from 384 to 512: forward and
+    d(qkv) against the plain version on the unpadded inputs, in f32 within
+    ATOL (x max(1, max |plain|)) and in bf16 within `bf16_error_bound` /
+    `bf16_bwd_error_bound` at the kernel's head dim (for 80 and 384: of the
+    padded inputs, checked at the padded head dim); no case spills."""
     heads, B = (2 if D < 256 else 1), 3
     kern = {"K2": fa.flash_attention_cm_kernel, "K9": fa.window_attention_kernel}[kernel]
     bwd = {"K2": fa.flash_attention_cm_bwd_kernel, "K9": fa.window_attention_bwd_kernel}[kernel]
@@ -928,19 +929,22 @@ def test_wide_head_dims_match_the_plain_version(cuda, dtype, D, N, kernel):
     torch.cuda.synchronize()
     assert (kern.launches - n0, bwd.launches - b0) == (1, 1)
     x = qkv.detach()
+    Dp = fa.padded_head_dim(D)
+    xp = fa._pad_heads(x, heads, D, Dp)
+    for k in (kern, bwd):
+        assert fa.kernel_attributes(k, xp, heads)["spill_bytes"] == 0, k.name
     if dtype == torch.float32:
         ref = fa.attention_cm_plain(x, heads, scale)
         dref = fa.attention_cm_bwd_plain(x, dout, heads, scale)
         assert (out - ref).abs().max().item() <= ATOL
         assert (dqkv - dref).abs().max().item() <= ATOL * max(1.0, dref.abs().max().item())
         return
-    Dp = fa.padded_head_dim(D)
 
     def padded(t):  # (B, heads * D, N) -> each head's channels zero-padded to Dp
         return torch.nn.functional.pad(t.reshape(B, heads, D, N), (0, 0, 0, Dp - D)).reshape(
             B, heads * Dp, N)
 
-    xp, gp = fa._pad_heads(x, heads, D, Dp), padded(dout)
+    gp = padded(dout)
     ref = fa.attention_cm_plain(xp, heads, scale).float()
     dref = fa.attention_cm_bwd_plain(xp, gp, heads, scale).float()
     bound = fa.bf16_error_bound(xp, heads, scale, ref)

@@ -256,14 +256,14 @@ def test_chip_smoke_checks_the_kernels_at_each_train_cli_size():
         assert [tuple(m.shape) for m in maps] == [(1, *hw, H * D) for hw in shapes], size
 
 
-def _loader_sizes(folder, train, seed=0, batches=None):
+def _loader_sizes(folder, train, seed=0, batches=None, square=False):
     from lwdetr_tpu_torch.data.coco import CocoDetection
     from lwdetr_tpu_torch.data.loader import DetectionLoader
 
     ds = CocoDetection(str(ROOT / folder / "val2017"),
                        str(ROOT / folder / "annotations" / "instances_val2017.json"))
     loader = DetectionLoader(ds, batch_size=4, train=train, max_gt=100, seed=seed,
-                             square_div_64=False, num_workers=0)
+                             square_div_64=square, num_workers=0)
     loader.set_epoch(0)
     sizes = []
     for batch in loader:
@@ -330,6 +330,83 @@ def test_chip_smoke_checks_the_kernels_at_each_padded_size():
         assert panel in sep, size
         seen["sep"].add(panel)
     assert seen == {"fwd": fwd, "bwd": bwd, "sep": sep, "sep_bwd": sep_bwd}
+
+
+def test_chip_smoke_checks_the_kernels_at_each_variant_cli_size():
+    """The variant train CLI's size table is what the square recipe draws from
+    the fixture in one epoch at batch 4 and VARIANT_CLI_SEED. At each size the
+    micro variant model (the golden's flags) in train mode calls attention at
+    shapes of the kernel phase's tables (its ViT) or of
+    VARIANT_CLI_DRAWN_ATTENTION (its decoder), with their backwards in the
+    backward tables, and the sampler at the size's VARIANT_CLI_DRAWN_SEP
+    entry; every entry of the variant tables is drawn. Its evals at 640 call
+    the micro model's eval shapes (K1 / K2 / K9@micro, SEP_MICRO)."""
+    import chip_smoke as cs
+    from lwdetr_tpu_torch import main as cli
+
+    sizes = _loader_sizes("tests/fixtures/micro_map", True, cs.VARIANT_CLI_SEED, square=True)
+    assert len(sizes) == cs.CLI_STEPS and all(h == w for h, w in sizes)
+    assert sorted({h for h, _ in sizes}) == sorted(cs.VARIANT_CLI_SIZES)
+    with open(ROOT / cs.FIXTURE / "golden_stats_variants.json") as f:
+        flags = json.load(f)["flags"]
+    cfg = cli.config_from_args(cli.parser().parse_args(["--coco_path", "x", *flags])).model
+    model = port_model.build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    calls, samples = set(), set()
+
+    def record(qkv_t, num_heads, scale=None, bias=None):  # no attention computed: zeros
+        B, ZC, N = qkv_t.shape
+        kernel = ("K1" if bias is not None else "K9") if N <= tfa._WINDOW_MAX_N else "K2"
+        calls.add((kernel, B * cs.MICRO_BATCH, ZC // 3, N, num_heads))
+        return qkv_t.new_zeros(B, ZC // 3, N)
+
+    def sample(kernel, B, C, shapes, loc):
+        Q, H, _, P = loc.shape[1:5]
+        samples.add((kernel, (B * cs.MICRO_BATCH, H, C // H, P, Q, tuple(map(tuple, shapes)))))
+
+    def panels(vals, shapes, loc, weights):  # vals[l] (B, H, H_l, W_l D)
+        C = vals[0].shape[1] * vals[0].shape[-1] // shapes[0][1]
+        sample("K4", loc.shape[0], C, shapes, loc)
+        return loc.new_zeros(*loc.shape[:2], C)
+
+    def cm(value_t, shapes, loc, weights, H):
+        sample("K3", value_t.shape[0], value_t.shape[1], shapes, loc)
+        return value_t.new_zeros(value_t.shape[0], value_t.shape[1], loc.shape[1])
+
+    def shape_set(table):
+        return {tuple(e[1:6]) for e in table}
+
+    def sep_set(kernel, table):
+        return {(kernel, (B, H, D, P, Q, tuple(map(tuple, shapes))))
+                for _, (B, H, D, P, Q, shapes) in table}
+
+    fwd = shape_set(cs.ATTENTION_SHAPES + cs.CLI_ATTENTION_SHAPES)
+    bwd = shape_set(cs.ATTENTION_BWD_SHAPES + cs.CLI_ATTENTION_BWD_SHAPES)
+    dec, dec_bwd = (shape_set(cs.VARIANT_CLI_DRAWN_ATTENTION),
+                    shape_set(cs.VARIANT_CLI_DRAWN_ATTENTION_BWD))
+    sep = sep_set("K4", cs.VARIANT_CLI_DRAWN_SEP)
+    backward = {"K1": "K7", "K2": "K6", "K9": "K7nb"}
+    seen = {"dec": set(), "dec_bwd": set(), "sep": set()}
+    patches = (mock.patch.object(tfa, "attention_cm", record),
+               mock.patch.object(tda, "ms_deform_attn_sep_panels", panels),
+               mock.patch.object(tda, "ms_deform_attn_cm", cm))
+    with patches[0], patches[1], patches[2], torch.no_grad():
+        for size in cs.VARIANT_CLI_SIZES:
+            calls.clear()
+            samples.clear()
+            model.train()(torch.zeros(1, size, size, 3))
+            assert calls <= fwd | dec, size
+            back = {(backward[k], *rest) for k, *rest in calls}
+            assert back <= bwd | dec_bwd, size
+            assert samples <= sep and len(samples) == 1, size
+            seen["dec"] |= calls & dec
+            seen["dec_bwd"] |= back & dec_bwd
+            seen["sep"] |= samples
+        calls.clear()
+        samples.clear()
+        model.eval()(torch.zeros(1, 640, 640, 3))
+    assert seen == {"dec": dec, "dec_bwd": dec_bwd, "sep": sep}
+    assert calls == shape_set([e for e in cs.ATTENTION_SHAPES if "@micro" in e[0]]), calls
+    assert samples == {("K3", (*cs.SEP_MICRO[:5], tuple(cs.SEP_MICRO[5])))}
 
 
 def _run_smoke(cwd: Path):

@@ -6,6 +6,7 @@ Pallas kernel it runs in interpret mode, as the JAX package's own tests run
 it; the port runs its plain versions, which its CUDA kernels are held
 against on the card.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -169,11 +170,15 @@ def test_attention_above_head_dim_64_runs_zero_padded_to_the_wide_case(D, N):
 
 @pytest.mark.parametrize("D", [257, 512, 1024])
 def test_attention_refuses_head_dims_above_the_widest_case(D):
-    """The wide case stops at head_dim 256: a wider decoder head has no
-    kernel, and the padding route says so rather than padding it."""
+    """F7: the wide case takes 512, 1024 and 2048 (chunked), so these decoder
+    heads now run, 257 zero-padded to 512; the widest case is 2048, and above
+    it the padding route refuses, naming the limit, rather than pad."""
     assert tfa.padded_head_dim(256) == 256
-    with pytest.raises(ValueError, match="up to 256"):
-        tfa.padded_head_dim(D)
+    assert tfa.padded_head_dim(D) == {257: 512, 512: 512, 1024: 1024}[D]
+    assert tfa.padded_head_dim(D + 1) == {257: 512, 512: 1024, 1024: 2048}[D]
+    assert tfa.padded_head_dim(2048) == 2048
+    with pytest.raises(ValueError, match="up to 2048"):
+        tfa.padded_head_dim(2048 + D)
 
 
 def test_the_window_kernel_with_a_bias_refuses_head_dims_above_64():
@@ -354,3 +359,29 @@ def test_pad_and_split_route_equals_the_unsplit_plain_version(layout, D):
         scale = max(1.0, want.abs().max().item())
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL * scale)
 
+
+# ---- F7: attention at every decoder head dim --------------------------------
+
+
+@pytest.mark.parametrize("D,N", [(512, 40), (1024, 24), (512, 150)])
+def test_wide_plain_attention_matches_the_jax_kernel_in_interpret_mode(D, N):
+    """The plain version the chunked wide case is held to on the card, at
+    head_dim 512 / 1024 (one head), against the JAX `attention_cm` through
+    its Pallas kernels in interpret mode: the all-heads kernel (K9's) at N <=
+    128, `_attn_cm_kernel` (K2's) above; forward and the backward through
+    `jax.vjp`, in f32."""
+    rng = np.random.default_rng(D + N)
+    qkv = rng.standard_normal((2, 3 * D, N)).astype(np.float32)
+    dout = rng.standard_normal((2, D, N)).astype(np.float32)
+    scale = D ** -0.5
+    ref, vjp = jax.vjp(lambda t: jfa.attention_cm(t, 1, scale, interpret=True), jnp.asarray(qkv))
+    (dref,) = vjp(jnp.asarray(dout))
+    x = torch.from_numpy(qkv).requires_grad_()
+    out = tfa.attention_cm(x, 1, scale)
+    (dx,) = torch.autograd.grad(out, [x], torch.from_numpy(dout))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=2e-5)
+    dref = np.asarray(dref)
+    np.testing.assert_allclose(dx.numpy(), dref, atol=2e-5 * max(1.0, np.abs(dref).max()))
+    np.testing.assert_allclose(tfa.attention_cm_bwd_plain(torch.from_numpy(qkv),
+                                                          torch.from_numpy(dout), 1, scale),
+                               dref, atol=2e-5 * max(1.0, np.abs(dref).max()))

@@ -375,13 +375,20 @@ def test_train_one_epoch_aborts_on_a_non_finite_loss_and_honours_should_stop():
 
 
 def test_train_mode_refuses_what_is_not_ported():
-    # stochastic depth, dropout and bf16 training are ported (test_torch_port_drop.py);
-    # what stays refused: the encoders and decoder variants no release preset uses,
-    # and compute dtypes other than float32 / bfloat16
-    with pytest.raises(NotImplementedError, match="ViT"):
-        LWDETR(dataclasses.replace(NANO, encoder="resnet18"))
-    with pytest.raises(NotImplementedError, match="learned"):
-        LWDETR(dataclasses.replace(NANO, position_embedding="learned"))
+    # stochastic depth, dropout and bf16 training are ported (test_torch_port_drop.py),
+    # and so are PResNet and the learned embedding (test_torch_port_presnet.py,
+    # test_torch_port_variants.py): "resnet18" builds PResNet-18, as the JAX
+    # package reads any encoder naming "res", and the learned embedding trains.
+    # What stays refused: an encoder the JAX package does not build either, and
+    # compute dtypes other than float32 / bfloat16
+    res = build_model(dataclasses.replace(NANO, encoder="resnet18"), device="cpu", train=True)
+    assert res.backbone[0].encoder.depth == 18 and res.training
+    assert res.backbone[0].encoder.out_channels == [896]
+    with pytest.raises(NotImplementedError, match="PResNet"):
+        LWDETR(dataclasses.replace(NANO, encoder="convnext_tiny"))
+    learned = build_model(dataclasses.replace(NANO, position_embedding="learned"), device="cpu",
+                          train=True)
+    assert learned.backbone[1].row_embed.weight.requires_grad
     with pytest.raises(ValueError, match="bfloat16"):
         build_model(NANO, device="cpu", dtype=torch.float16, train=True)
     bf16 = build_model(dataclasses.replace(NANO, drop_path=0.1, dropout=0.1), device="cpu",
