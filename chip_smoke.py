@@ -143,6 +143,24 @@ Run from the root of a checkout, with one card:
    `tests/fixtures/micro_map_variants/` (the 12 f32 stats of
    `golden_stats_variants.json` within 1e-7) and one train epoch through the
    CLI (finite loss, launch invariants).
+11. The deploy path (`deploy_phase`): small (f32 and bf16 at batch 1, bf16
+   at batch 32), large and tiny (bf16, batch 1) at 640 x 640 from the JAX
+   initialisation, exported by `torch.export` on the card
+   (`lwdetr_tpu_torch/deploy/export.py`), saved, loaded and called: each
+   artifact launches EXPECTED_LAUNCHES and gives the eager forward's scores,
+   labels and boxes bit for bit (else the first module that differs is
+   printed and its raw outputs held to the f32 forward bounds or the bf16
+   drift ceiling); the weight casts each graph makes a call; `measure` of
+   small's bf16 artifact and of its eager call at batch 1 and 32 (and their
+   host time under the profiler), and `python -m
+   lwdetr_tpu_torch.deploy.benchmark` on those artifacts in a process of its
+   own, beside `bench.run("small", 32)`; the host
+   us a call of K1, K2 and K3's operators against their direct launches;
+   the micro model's f32 artifact through `evaluate_coco` on the fixture
+   (K1 20, K2 20, K9 40, K3 40; its 12 stats within 1e-7 of
+   `golden_stats_deploy.json`; the bf16 artifact's printed);
+   `python -m lwdetr_tpu_torch.main ... export_model --infer_dir` in a
+   process of its own, exiting 0 with its top 5.
 
 Any failure exits non-zero. Without a CUDA card, or outside a checkout, it
 exits non-zero and prints no result. The line before the last holds one JSON
@@ -3487,6 +3505,321 @@ def variants_phase(torch, F, fa, da, kernels, measure_ms, card, res):
     return launches, out
 
 
+# ---- the deploy path (ROADMAP.md § 1, "Deploy: export and its benchmark") ------------------
+
+DEPLOY_HW = (640, 640)
+# (path, preset, compute dtype, batch), each exported on the card from the JAX
+# initialisation (seed 0), saved, loaded again and called
+DEPLOY_PATHS = (("deploy_small_f32", "small", "float32", 1),
+                ("deploy_small_bf16", "small", "bfloat16", 1),
+                ("deploy_small_bf16_b32", "small", "bfloat16", 32),
+                ("deploy_large_bf16", "large", "bfloat16", 1),
+                ("deploy_tiny_bf16", "tiny", "bfloat16", 1))
+DEPLOY_MEASURED = ("deploy_small_bf16", "deploy_small_bf16_b32")  # `measure`d, with the eager call
+DEPLOY_REPEATS = 20
+DEPLOY_GOLDEN = f"{FIXTURE}/golden_stats_deploy.json"
+# the micro model's artifact over the fixture's 20 images at batch 1: a
+# window block (K1) and a global block (K2), two decoder layers of 12 queries
+# (K9) sampling 1600 positions (K3) an image
+MICRO_DEPLOY_LAUNCHES = launch_counts(K1=20, K2=20, K9=40, K3=40)
+
+
+def first_difference(torch, model, images):
+    """Where the exported forward first leaves the eager one: the model's
+    forward (its pred_logits and pred_boxes) exported, its graph run node by
+    node, and the last node of each module held against that module's eager
+    output (forward hooks), in the graph's order. Returns (the first module
+    that differs, its node, the node's target) or None, and the graph's
+    (pred_logits, pred_boxes)."""
+    import torch.fx
+
+    class Raw(torch.nn.Module):
+        def __init__(self, m):
+            super().__init__()
+            self.model = m
+
+        def forward(self, x):
+            out = self.model(x)
+            return out["pred_logits"], out["pred_boxes"]
+
+    raw = Raw(model)
+    gm = torch.export.export(raw, (images,)).module()
+    eager, hooks = {}, []
+    for name, mod in raw.named_modules():
+        hooks.append(mod.register_forward_hook(  # a module called again: its last call
+            lambda m, i, o, name=name: eager.__setitem__(name, o)))
+    with torch.no_grad():
+        raw(images)
+    for h in hooks:
+        h.remove()
+    values, last = {}, {}
+
+    class Recording(torch.fx.Interpreter):
+        def run_node(self, n):
+            values[n.name] = super().run_node(n)
+            for path, _ in (n.meta.get("nn_module_stack") or {}).values():
+                last[path] = n  # a module's last node (its children's included)
+            return values[n.name]
+
+    with torch.no_grad():
+        outs = Recording(gm).run(images)
+    for path, node in sorted(last.items(), key=lambda kv: list(gm.graph.nodes).index(kv[1])):
+        a, b = values[node.name], eager.get(path)
+        if (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) and a.shape == b.shape
+                and not torch.equal(a, b)):
+            return (path, node.name, str(node.target)), outs
+    return None, outs
+
+
+def weight_casts(torch, gm):
+    """The casts of weights (float32 parameters and buffers) that an exported
+    graph makes at every call: (count, bytes read and written)."""
+    import functools
+
+    count = nbytes = 0
+    for n in gm.graph.nodes:
+        if (n.op == "call_function" and str(n.target) in ("aten.to.dtype", "aten._to_copy.default")
+                and n.args[0].op == "get_attr"):
+            w = functools.reduce(getattr, n.args[0].target.split("."), gm)
+            count += 1
+            nbytes += w.numel() * (w.element_size() + 2)
+    return count, nbytes
+
+
+def host_profile(torch, call, images, calls=5):
+    """torch.profiler over `calls` calls of `call(images)`: a call's self CPU
+    ms (every op and runtime call), device ms, kernel launches, and the `lwdetr`
+    operators' self CPU us a call of each (their Python: the dispatcher's
+    autograd and backend frames, the wrapper, the ctypes launch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call(images)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.key != "Activity Buffer Request"]  # the profiler's own set-up
+    return {"self_cpu_ms_a_call": sum(e.self_cpu_time_total for e in events) / 1e3 / calls,
+            "device_ms_a_call": sum(e.self_device_time_total for e in events) / 1e3 / calls,
+            "kernel_launches_a_call": sum(e.count for e in events if e.key in (
+                "cudaLaunchKernel", "cuLaunchKernelEx", "cudaLaunchKernelExC")) / calls,
+            "operator_self_cpu_us": {e.key: e.self_cpu_time_total / e.count for e in events
+                                     if e.key.startswith("lwdetr::")}}
+
+
+def operator_dispatch_us(torch, fa, da, turns=2, calls=500):
+    """Host us a call of each forward kernel's direct launch (`*_fwd`) and of
+    its operator, in turns, on small inputs (the enqueue, not the kernel):
+    what the operator's dispatch adds to a launch."""
+    import time
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q1 = torch.randn((2, 576, 100), generator=g, device="cuda")
+    bias = torch.randn((576,), generator=g, device="cuda")
+    q2 = torch.randn((1, 768, 300), generator=g, device="cuda")
+    v = torch.randn((1, 256, 1600), generator=g, device="cuda")
+    loc = torch.rand((1, 300, 8, 1, 4, 2), generator=g, device="cuda")
+    w = torch.rand((1, 300, 8, 1, 4), generator=g, device="cuda")
+    cases = {"K1": (lambda: fa.window_attention_bias_fwd(q1, bias, 12, 0.25),
+                    lambda: fa.window_attention_bias(q1, bias, 12, 0.25)),
+             "K2": (lambda: fa.flash_attention_cm_fwd(q2, 8, 0.17),
+                    lambda: fa.flash_attention_cm(q2, 8, 0.17)),
+             "K3": (lambda: da.ms_deform_attn_cm_fwd(v, [(40, 40)], loc, w, 8),
+                    lambda: da.ms_deform_attn_cm(v, [(40, 40)], loc, w, 8))}
+    out = {name: {"launch": [], "operator": []} for name in cases}
+    with torch.no_grad():
+        for _ in range(turns):
+            for name, fns in cases.items():
+                for kind, fn in zip(("launch", "operator"), fns):
+                    for _ in range(20):
+                        fn()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    for _ in range(calls):
+                        fn()
+                    out[name][kind].append((time.perf_counter() - t) / calls * 1e6)
+                    torch.cuda.synchronize()
+    return out
+
+
+def deploy_phase(torch, fa, da, kernels, card):
+    """ROADMAP.md § 1, "Deploy: export and its benchmark", on the card: each of
+    DEPLOY_PATHS exported (`deploy/export.py`), saved, loaded and called; its
+    launches equal to the eager forward's (EXPECTED_LAUNCHES) and its scores,
+    labels and boxes to the eager forward's bit for bit (else the first
+    module that differs is printed and the raw outputs held to the forward
+    bounds: f32 2e-3 / 5e-4 with the same picks, bf16 the drift ceiling);
+    the weight casts each graph makes a call; `measure` of the bf16 small
+    artifact and of its eager call at batch 1 and 32 (with their host time
+    under the profiler), and the deploy benchmark's CLI on those artifacts in a
+    process of its own, beside `bench.run`; the host us a call of each
+    operator against its direct launch; the
+    micro model's f32 artifact through `evaluate_coco` on the fixture (its 12
+    stats within 1e-7 of golden_stats_deploy.json; its bf16 artifact's
+    printed); the CLI's `export_model --infer_dir` in a process of its own.
+    Returns (launches, numbers)."""
+    import os
+    import subprocess
+    import time
+
+    from lwdetr_tpu_torch import bench
+    from lwdetr_tpu_torch import main as cli
+    from lwdetr_tpu_torch.config import get_config
+    from lwdetr_tpu_torch.deploy import benchmark, export
+    from lwdetr_tpu_torch.models.lwdetr import build_model
+    from lwdetr_tpu_torch.weights import jax_init_state_dict
+
+    t0 = time.perf_counter()
+    work = "build/chip_smoke/deploy"
+    os.makedirs(work, exist_ok=True)
+    launches, out, inits = {}, {}, {}
+    for path, preset, dtype, batch in DEPLOY_PATHS:
+        cfg = get_config(preset)
+        if preset not in inits:
+            inits[preset] = jax_init_state_dict(cfg, torch.Generator().manual_seed(0))
+        model = build_model(cfg, device="cuda", dtype=getattr(torch, dtype),
+                            state_dict=inits[preset])
+        t = time.perf_counter()
+        file = export.export_serialized(model, f"{work}/{path}.pt2", DEPLOY_HW, batch,
+                                        cfg.num_select)
+        export_s = time.perf_counter() - t
+        t = time.perf_counter()
+        call, meta = export.load_serialized(file)
+        load_s = time.perf_counter() - t
+        g = torch.Generator(device="cuda").manual_seed(1)
+        images = torch.randn((batch, *DEPLOY_HW, 3), generator=g, device="cuda")
+        fn = export.make_export_fn(model, cfg.num_select, DEPLOY_HW, batch)
+        with torch.no_grad():
+            ref, eager_n = counted(torch, kernels, lambda: fn(images))
+        got, launches[path] = counted(torch, kernels, lambda: call(images))
+        if launches[path] != EXPECTED_LAUNCHES[preset] or eager_n != EXPECTED_LAUNCHES[preset]:
+            raise AssertionError(f"{path}: artifact launches {launches[path]}, eager {eager_n}, "
+                                 f"!= {EXPECTED_LAUNCHES[preset]}")
+        shapes = [(batch, cfg.num_select), (batch, cfg.num_select), (batch, cfg.num_select, 4)]
+        if [list(t.shape) for t in got] != [list(s) for s in shapes] or not all(
+                torch.isfinite(t).all() for t in (got[0], got[2])):
+            raise AssertionError(f"{path}: outputs {[tuple(t.shape) for t in got]}, not finite "
+                                 f"or not {shapes}")
+        equal = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, ref))
+        casts, cast_bytes = weight_casts(torch, call)
+        entry = {"meta": meta, "export_s": export_s, "load_s": load_s, "bit_equal": equal,
+                 "launches": launches[path], "weight_casts_a_call": casts,
+                 "weight_cast_bytes_a_call": cast_bytes,
+                 "artifact_bytes": os.path.getsize(file)}
+        if not equal:
+            where, (logits, boxes) = first_difference(torch, model, images)
+            with torch.no_grad():
+                eager = model(images)
+            err_l = (logits.float() - eager["pred_logits"].float()).abs().max().item()
+            err_b = (boxes.float() - eager["pred_boxes"].float()).abs().max().item()
+            entry.update(first_difference=where, logits_max_abs_err=err_l, boxes_max_abs_err=err_b)
+            log(f"{path}: the artifact is not bit-equal to the eager forward; first at "
+                f"{where}; logits {err_l:.3g}, boxes {err_b:.3g}")
+            if dtype == "float32":
+                same_picks = torch.equal(got[1], ref[1]) and torch.equal(
+                    torch.topk(logits.reshape(batch, -1), cfg.num_select).indices,
+                    torch.topk(eager["pred_logits"].reshape(batch, -1), cfg.num_select).indices)
+                if err_l > FWD_ATOL_LOGITS or err_b > FWD_ATOL_BOXES or not same_picks:
+                    raise AssertionError(f"{path}: logits {err_l}, boxes {err_b}, same picks "
+                                         f"{same_picks}")
+            else:
+                dp = (logits.float().sigmoid() - eager["pred_logits"].float().sigmoid()).abs()
+                db = (boxes - eager["pred_boxes"]).abs()
+                drift = {"prob_mean": dp.mean().item(), "prob_max": dp.max().item(),
+                         "box_mean": db.mean().item()}
+                entry["drift"] = drift
+                if any(v >= BF16_DRIFT[k] for k, v in drift.items()):
+                    raise AssertionError(f"{path}: drifts from the eager forward: {drift}")
+        if path in DEPLOY_MEASURED:
+            with torch.no_grad():
+                entry["eager_measure"] = benchmark.measure(fn, DEPLOY_HW, batch, DEPLOY_REPEATS)
+            entry["measure"] = benchmark.measure(call, DEPLOY_HW, batch, DEPLOY_REPEATS)
+            entry["eager_host"] = host_profile(torch, fn, images)
+            entry["host"] = host_profile(torch, call, images)
+            print(f"{path}: a call, artifact / eager: self CPU "
+                  f"{entry['host']['self_cpu_ms_a_call']:.2f} / "
+                  f"{entry['eager_host']['self_cpu_ms_a_call']:.2f} ms, device "
+                  f"{entry['host']['device_ms_a_call']:.2f} / "
+                  f"{entry['eager_host']['device_ms_a_call']:.2f} ms, kernel launches "
+                  f"{entry['host']['kernel_launches_a_call']:.0f} / "
+                  f"{entry['eager_host']['kernel_launches_a_call']:.0f}; operators' self CPU us "
+                  f"a call {json.dumps(entry['host']['operator_self_cpu_us'])} / "
+                  f"{json.dumps(entry['eager_host']['operator_self_cpu_us'])} (profiled)")
+            print(f"{path}: artifact median {entry['measure']['median_ms']:.3f} ms, pipelined "
+                  f"{entry['measure']['pipelined_ms']:.3f} ms, {entry['measure']['imgs_per_s']:.1f}"
+                  f" img/s; eager median {entry['eager_measure']['median_ms']:.3f} ms, pipelined "
+                  f"{entry['eager_measure']['pipelined_ms']:.3f} ms ({card})")
+        log(f"{path}: exported in {export_s:.1f} s, loaded in {load_s:.1f} s, bit-equal {equal}, "
+            f"launches {launches[path]}, {casts} weight casts a call ({cast_bytes / 1e6:.1f} MB)")
+        out[path] = entry
+        del model, call, fn
+    # the deploy benchmark's CLI, as a user runs it: a process of its own
+    for path in DEPLOY_MEASURED:
+        proc = subprocess.run([sys.executable, "-m", "lwdetr_tpu_torch.deploy.benchmark", "--path",
+                               f"{work}/{path}.pt2", "--repeats", str(DEPLOY_REPEATS)],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"deploy benchmark CLI on {path} failed ({proc.returncode}):\n"
+                                 f"{proc.stderr[-4000:]}")
+        lat = json.loads(proc.stdout.strip().splitlines()[-1])["latency"]
+        out[path]["benchmark_cli"] = lat
+        print(f"{path}: python -m lwdetr_tpu_torch.deploy.benchmark: median {lat['median_ms']:.3f} "
+              f"ms, pipelined {lat['pipelined_ms']:.3f} ms, {lat['imgs_per_s']:.1f} img/s ({card})")
+    out["operator_dispatch_us"] = operator_dispatch_us(torch, fa, da)
+    print(f"host us a call, direct launch / operator (2 turns): "
+          f"{json.dumps(out['operator_dispatch_us'])} ({card})")
+    out["bench_small_b32"] = bench.run("small", batch=32)
+    print(f"small@640 bf16 eager bench: {out['bench_small_b32']['value']:.1f} img/s at batch 32 "
+          f"({card})")
+
+    # the micro model's artifacts through evaluate_coco on the fixture
+    with open(DEPLOY_GOLDEN) as f:
+        golden = json.load(f)["stats"]
+    pth = f"{work}/micro.pth"
+    micro_args = cli.parser().parse_args([*MICRO_FLAGS, "--resume", pth, "--output_dir",
+                                          f"{work}/cli", "export_model"])
+    micro_pth(torch, pth, micro_args)
+    mcfg = cli.config_from_args(micro_args).model
+    sd = torch.load(pth, map_location="cpu")["model"]
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(mcfg, device="cuda", dtype=getattr(torch, dtype), state_dict=sd)
+        file = export.export_serialized(model, f"{work}/micro_{dtype}.pt2", DEPLOY_HW, 1,
+                                        mcfg.num_select)
+        call, meta = export.load_serialized(file)
+        stats, n = counted(torch, kernels, lambda: benchmark.evaluate_coco(
+            call, FIXTURE, DEPLOY_HW, 1))
+        tag = f"deploy_micro_coco_{dtype}"
+        launches[tag] = n
+        dist = {k: stats[k] - golden[k] for k in golden}
+        out[tag] = {"stats": {k: stats[k] for k in golden}, "minus_golden": dist}
+        print(f"{tag}: the 12 stats {json.dumps(out[tag]['stats'])}; minus golden_stats_deploy: "
+              f"max |d| {max(abs(v) for v in dist.values()):.3g} ({card})")
+        if n != MICRO_DEPLOY_LAUNCHES:
+            raise AssertionError(f"{tag}: launches {n} != {MICRO_DEPLOY_LAUNCHES}")
+        bad = {k: v for k, v in dist.items() if abs(v) > GOLDEN_ATOL}
+        if dtype == "float32" and bad:
+            raise AssertionError(f"{tag}: stats off golden_stats_deploy by more than "
+                                 f"{GOLDEN_ATOL}: {bad}")
+
+    # the CLI, as a user runs it
+    image = f"{FIXTURE}/val2017/000000000001.jpg"
+    cmd = [sys.executable, "-m", "lwdetr_tpu_torch.main", *MICRO_FLAGS, "--resume", pth,
+           "--output_dir", f"{work}/cli", "export_model", "--shape", "640", "640",
+           "--infer_dir", image]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    top = [ln for ln in proc.stdout.splitlines() if "top-5" in ln]
+    out["cli"] = {"returncode": proc.returncode, "top5": top, "wall_s": time.perf_counter() - t,
+                  "meta": export.read_meta(f"{work}/cli/{export.ARTIFACT}")
+                  if proc.returncode == 0 else None}
+    print(f"deploy CLI export_model --infer_dir: exit {proc.returncode}; {top}")
+    if proc.returncode != 0 or len(top) != 1 or out["cli"]["meta"]["dtype"] != "bfloat16":
+        raise AssertionError(f"deploy CLI failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"deploy phase: {out['wall_s']:.1f} s ({card})")
+    return launches, out
+
+
 def main() -> int:
     import torch
 
@@ -3543,6 +3876,8 @@ def main() -> int:
     launches.update(by_path)
     by_path, variants = variants_phase(torch, F, fa, da, list(kernels.values()), measure_ms,
                                        card_line(), res)
+    launches.update(by_path)
+    by_path, deploy = deploy_phase(torch, fa, da, list(kernels.values()), card_line())
     launches.update(by_path)
     for preset in EXPECTED_LAUNCHES:
         thr[preset] = bench.run(preset, batch=32)
@@ -3627,7 +3962,8 @@ def main() -> int:
             raise AssertionError(f"{entry['name']}: kernels-line entry breaks its contract")
     print(json.dumps({"forward_f32": fwd, "throughput": thr, "train_f32": train,
                       "release_train": release, "eval_pipeline": eval_pipeline,
-                      "train_cli": train_cli, "padded": padded, "variants": variants}))
+                      "train_cli": train_cli, "padded": padded, "variants": variants,
+                      "deploy": deploy}))
     print(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,6 +5,8 @@
     python -m lwdetr_tpu_torch.main --eval --preset small --coco_path /data/coco \\
         --resume LWDETR_small_coco.pth [--bf16] [--use_ema]
     python -m lwdetr_tpu_torch.main --device cpu --coco_path DIR ... (model flags)
+    python -m lwdetr_tpu_torch.main --preset small export_model [--shape 640 640] \
+        [--infer_dir IMAGE] [--resume X.pth]
 
 Counterpart of the root `main.py` (`get_args_parser`, `config_from_args`, its
 `--eval` branch and its train loop without the mesh): the same flags with the
@@ -24,8 +26,10 @@ and prints the 12 AP/AR stats (and the eval losses) as one JSON line. With a
 `--preset`, the train flags given on the command line (`--epochs`,
 `--batch_size`, `--use_ema`, ...) override the preset's recipe. `--device`
 defaults to `cuda` and raises when there is no card; `--device cpu` runs the
-plain versions. `export_model` is refused (ROADMAP.md § 1 item 8). f32 keeps
-TF32 off, so f32 means f32.
+plain versions. `export_model` writes the deploy artifact: the eval forward
+and `post_process` through `torch.export`, in bf16 with float32 weights
+(`deploy/export.py`; `--dry-run` prints what it would do). f32 keeps TF32
+off, so f32 means f32.
 """
 from __future__ import annotations
 
@@ -73,7 +77,7 @@ def get_args_parser():
                    help="recompute encoder blocks in the backward")
     p.add_argument("--shard_opt_state", action="store_true",
                    help="accepted for the JAX CLI's flag set; sharded optimizer state is "
-                        "ROADMAP.md § 1 item 7")
+                        "ROADMAP.md § 1, 'Multi-process training and eval'")
     p.add_argument("--out_feature_indexes", default=[-1], type=int, nargs="+")
     # transformer
     p.add_argument("--dec_layers", default=3, type=int)
@@ -123,7 +127,8 @@ def get_args_parser():
                    help="half-precision eval: bfloat16 compute, float32 parameters (the "
                         "reference's engine.py:96-97 runs model.half())")
     p.add_argument("--sync_bn", action="store_true",
-                   help="accepted for the JAX CLI's flag set; SyncBN is ROADMAP.md § 1 item 7")
+                   help="accepted for the JAX CLI's flag set; SyncBN is ROADMAP.md § 1, "
+                        "'Multi-process training and eval'")
     p.add_argument("--use_ema", action="store_true")
     p.add_argument("--ema_decay", default=0.9997, type=float)
     p.add_argument("--num_workers", default=2, type=int)
@@ -140,7 +145,8 @@ def get_args_parser():
                    help="accepted for the JAX CLI's flag set; one process")
     # subcommands
     sub = p.add_subparsers(title="sub-commands", dest="subcommand")
-    pe = sub.add_parser("export_model", help="not ported (ROADMAP.md § 1 item 8)")
+    pe = sub.add_parser("export_model", help="export the bf16 eval forward + post_process "
+                        "with torch.export (deploy/export.py)")
     pe.add_argument("--shape", type=int, nargs=2, default=(640, 640))
     pe.add_argument("--infer_dir", type=str, default=None)
     pe.add_argument("--batch", type=int, default=1)
@@ -226,14 +232,18 @@ def config_from_args(args):
 def main(args) -> dict:
     """Trains, or with `--eval` evaluates. Returns {"stats": the last eval's
     stats, "ema_stats": its EMA's or None}, and in training also "state" (the
-    `TrainState`) and "epochs" (the epochs run)."""
+    `TrainState`) and "epochs" (the epochs run). `export_model` returns
+    {"path": the artifact's}."""
     from lwdetr_tpu_torch.data.coco import build_dataset
     from lwdetr_tpu_torch.data.loader import DetectionLoader
     from lwdetr_tpu_torch.models.criterion import SetCriterion
     from lwdetr_tpu_torch.models.lwdetr import resolve_device
 
+    # f32 stays f32: no TF32 in the GEMMs or the projector's convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if args.subcommand == "export_model":
-        raise NotImplementedError("export_model is not ported: ROADMAP.md § 1 item 8")
+        return export_model(args)
 
     cfg = config_from_args(args)
     mcfg, tcfg, dcfg = cfg.model, cfg.train, cfg.data
@@ -248,9 +258,6 @@ def main(args) -> dict:
     device = resolve_device(args.device)
     torch.manual_seed(tcfg.seed)
     np.random.seed(tcfg.seed)
-    # f32 stays f32: no TF32 in the GEMMs or the projector's convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     # --fp16_eval: half-precision eval compute; bfloat16, with f32 parameters
     half = args.bf16 or args.fp16_eval
     criterion = SetCriterion(mcfg, tcfg)
@@ -266,6 +273,19 @@ def main(args) -> dict:
     if args.eval:
         return _evaluate_only(args, mcfg, tcfg, device, eval_dtype, criterion, ds_val, val_loader)
     return _train(args, cfg, device, eval_dtype, criterion, ds_val, val_loader)
+
+
+def export_model(args) -> dict:
+    """`export_model`: the deploy artifact of `deploy/export.py::export_main`
+    ({"path": its path}), or with `--dry-run` only what it would do."""
+    from lwdetr_tpu_torch.deploy.export import ARTIFACT, export_main
+
+    if args.dry_run:
+        print(f"[dry-run] would export preset={args.preset} shape={tuple(args.shape)} "
+              f"batch={args.batch} resume={args.resume!r} device={args.device} -> "
+              f"{os.path.join(args.output_dir or 'output', ARTIFACT)}")
+        return {"path": None}
+    return {"path": export_main(args, config_from_args(args))}
 
 
 def _load_weights(args, model, use_ema: bool):

@@ -16,7 +16,10 @@ gradient is wanted (eval, `torch.no_grad`) they are built once and kept on the
 module, keyed on the dtype and on each parameter's storage and `_version`,
 the counter every in-place write bumps (`load_state_dict`, an optimizer step,
 an EMA update): a changed parameter is rebuilt at the next call, and an
-unchanged one costs the eager forward no cast launch. `Linear`, `Conv2d`,
+unchanged one costs the eager forward no cast launch. While `torch.export`
+traces the model they are built at every call, in the graph: an exported
+bf16 model carries its float32 weights and casts them where it uses them,
+as the JAX package's export does. `Linear`, `Conv2d`,
 `ConvTranspose2d` and `LayerNorm` are the `torch.nn` layers, with the same
 parameters and state_dict keys, on top of it.
 """
@@ -39,7 +42,9 @@ def cast_params(module: nn.Module, key: Hashable, dtype: torch.dtype,
     def build():
         return tuple(t.to(dtype) for t in (params if make is None else make()))
 
-    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+    # traced (torch.export): no storage to key on, and the graph casts at each call
+    if (torch.is_grad_enabled() and any(p.requires_grad for p in params)) \
+            or torch.compiler.is_compiling():
         return build()
     stamp = (dtype, *((p.data_ptr(), p._version) for p in params))
     cache = module.__dict__.setdefault("_cast_cache", {})

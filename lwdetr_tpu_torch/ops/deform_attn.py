@@ -18,10 +18,13 @@ align_corners=False)`` semantics, weighted and summed over levels and points:
   op. On CUDA tensors K10, forward and backward: the row-major cases of K4's
   and K5's sources, each with its own entry symbol and launch count.
 
-Each forward / backward pair is a `torch.autograd.Function`; every backward
-gives the gradients of the values, the sampling locations and the attention
-weights. The kernels are direct bilinear gathers (K3 and K8 from the head's
-map staged in shared memory; K4 and K10 from a table of each point's clamped
+Each forward kernel is an operator of the `lwdetr` namespace
+(`torch.ops.lwdetr.ms_deform_attn_cm`, `.ms_deform_attn_sep_panels`,
+`.ms_deform_attn`; see "operators" below) with a fake version and its
+backward kernel as the autograd formula; every backward gives the gradients
+of the values, the sampling locations and the attention weights. The
+kernels are direct bilinear gathers (K3 and K8 from the head's map staged
+in shared memory; K4 and K10 from a table of each point's clamped
 corner addresses and weights that a CTA forms once in shared memory, then
 with the loads of two or four points in flight, no branch between them;
 `sep_route` reports their route); the backwards scatter d(value) with one f32
@@ -361,23 +364,6 @@ def sep_route(kernel: CudaKernel, B: int, n_queries: int, n_heads: int, head_dim
     return route
 
 
-class _DeformAttnCM(torch.autograd.Function):
-    """K3 forward, K8 backward; the plain versions on CPU tensors."""
-
-    @staticmethod
-    def forward(ctx, value_t, spatial_shapes, loc, weights, n_heads):
-        ctx.spatial_shapes, ctx.n_heads = spatial_shapes, n_heads
-        ctx.save_for_backward(value_t, loc, weights)
-        return ms_deform_attn_cm_fwd(value_t, spatial_shapes, loc, weights, n_heads)
-
-    @staticmethod
-    def backward(ctx, dout):
-        value_t, loc, weights = ctx.saved_tensors
-        dvalue_t, dloc, dw = ms_deform_attn_cm_bwd(value_t, ctx.spatial_shapes, loc, weights,
-                                                   dout, ctx.n_heads)
-        return dvalue_t, None, dloc, dw, None
-
-
 def ms_deform_attn_cm(value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                       loc: torch.Tensor, weights: torch.Tensor, n_heads: int) -> torch.Tensor:
     """value_t (B, C, Len_in) channel-major (padded positions already zeroed),
@@ -386,13 +372,13 @@ def ms_deform_attn_cm(value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[int,
     K3 takes any head dim; when a gradient is wanted on a CUDA tensor and K8
     does not take the head dim, both run on `ms_deform_attn_cm_split`'s groups."""
     spatial_shapes = _int_shapes(spatial_shapes)
-    if not needs_grad(value_t, loc, weights):
-        return ms_deform_attn_cm_fwd(value_t, spatial_shapes, loc, weights, n_heads)
     D = value_t.shape[1] // n_heads
     multiple, largest = _CM_BWD_SPLIT
-    if value_t.is_cuda and (D % multiple or D > largest):
+    if (needs_grad(value_t, loc, weights) and value_t.is_cuda
+            and (D % multiple or D > largest)):
         return ms_deform_attn_cm_split(value_t, spatial_shapes, loc, weights, n_heads)
-    return _DeformAttnCM.apply(value_t, spatial_shapes, loc, weights, n_heads)
+    return torch.ops.lwdetr.ms_deform_attn_cm(value_t, _flat_shapes(spatial_shapes), loc,
+                                              weights, int(n_heads))
 
 
 def ms_deform_attn_cm_split(value_t: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
@@ -516,22 +502,6 @@ def ms_deform_attn_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
     return dvalue.to(value.dtype), dloc.to(loc.dtype), dw.to(weights.dtype)
 
 
-class _DeformAttn(torch.autograd.Function):
-    """K10 forward and backward; the plain versions on CPU tensors."""
-
-    @staticmethod
-    def forward(ctx, value, spatial_shapes, loc, weights):
-        ctx.spatial_shapes = spatial_shapes
-        ctx.save_for_backward(value, loc, weights)
-        return ms_deform_attn_fwd(value, spatial_shapes, loc, weights)
-
-    @staticmethod
-    def backward(ctx, dout):
-        value, loc, weights = ctx.saved_tensors
-        dvalue, dloc, dw = ms_deform_attn_bwd(value, ctx.spatial_shapes, loc, weights, dout)
-        return dvalue, None, dloc, dw
-
-
 def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                    loc: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """value (B, Len_in, H, D) row-major (padded positions already zeroed), loc
@@ -540,9 +510,7 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]
     spatial_shapes = _int_shapes(spatial_shapes)
     if value.is_cuda and value.shape[-1] not in _SEP_HEAD_DIMS:
         return ms_deform_attn_split(value, spatial_shapes, loc, weights)
-    if not needs_grad(value, loc, weights):
-        return ms_deform_attn_fwd(value, spatial_shapes, loc, weights)
-    return _DeformAttn.apply(value, spatial_shapes, loc, weights)
+    return torch.ops.lwdetr.ms_deform_attn(value, _flat_shapes(spatial_shapes), loc, weights)
 
 
 def ms_deform_attn_split(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
@@ -760,23 +728,6 @@ def ms_deform_attn_sep_panels_fwd(vals: Sequence[torch.Tensor],
     return out
 
 
-class _DeformAttnSepPanels(torch.autograd.Function):
-    """K4 forward, K5 backward; the plain versions on CPU tensors."""
-
-    @staticmethod
-    def forward(ctx, spatial_shapes, loc, weights, *vals):
-        ctx.spatial_shapes = spatial_shapes
-        ctx.save_for_backward(loc, weights, *vals)
-        return ms_deform_attn_sep_panels_fwd(vals, spatial_shapes, loc, weights)
-
-    @staticmethod
-    def backward(ctx, dout):
-        loc, weights, *vals = ctx.saved_tensors
-        dvals, dloc, dw = ms_deform_attn_sep_panels_bwd(vals, ctx.spatial_shapes, loc, weights,
-                                                        dout)
-        return (None, dloc, dw, *dvals)
-
-
 def ms_deform_attn_sep_panels(vals: Sequence[torch.Tensor],
                               spatial_shapes: Sequence[Tuple[int, int]],
                               loc: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -788,9 +739,8 @@ def ms_deform_attn_sep_panels(vals: Sequence[torch.Tensor],
     vals = list(vals)
     if vals[0].is_cuda and vals[0].shape[-1] // spatial_shapes[0][1] not in _SEP_HEAD_DIMS:
         return ms_deform_attn_sep_panels_split(vals, spatial_shapes, loc, weights)
-    if not needs_grad(loc, weights, *vals):
-        return ms_deform_attn_sep_panels_fwd(vals, spatial_shapes, loc, weights)
-    return _DeformAttnSepPanels.apply(spatial_shapes, loc, weights, *vals)
+    return torch.ops.lwdetr.ms_deform_attn_sep_panels(vals, _flat_shapes(spatial_shapes), loc,
+                                                      weights)
 
 
 def ms_deform_attn_sep_panels_split(vals: Sequence[torch.Tensor],
@@ -813,6 +763,97 @@ def ms_deform_attn_sep_panels_split(vals: Sequence[torch.Tensor],
     out = ms_deform_attn_sep_panels(panels, spatial_shapes, *_repeat_heads(loc, weights, G))
     return _merge_groups_rowmajor(out, H, D)
 
+
+# ---------------------------------------------------------------------------
+# operators: the forward kernels K3, K4 and K10 as operators of the `lwdetr`
+# namespace (torch.library), so that `torch.export` traces each as one opaque
+# node (its fake version gives the output's shape and dtype) and an exported
+# graph runs the kernel. Eager calls take the same operators. `spatial_shapes` goes in as
+# one flat list (h0, w0, h1, w1, ...). Each operator's implementation calls
+# the module's `*_fwd` function, looked up when it runs: on CUDA tensors it
+# launches the kernel or raises, on the CPU it runs the plain version. Each
+# backward calls the module's `*_bwd` function likewise (K8, K5, K10b).
+# ---------------------------------------------------------------------------
+
+
+def _flat_shapes(spatial_shapes) -> List[int]:
+    return [int(x) for hw in spatial_shapes for x in hw]
+
+
+def _pairs(flat: Sequence[int]) -> List[Tuple[int, int]]:
+    return list(zip(flat[0::2], flat[1::2]))
+
+
+@torch.library.custom_op("lwdetr::ms_deform_attn_cm", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _ms_deform_attn_cm_op(value_t: torch.Tensor, spatial_shapes: List[int], loc: torch.Tensor,
+                          weights: torch.Tensor, n_heads: int) -> torch.Tensor:
+    return ms_deform_attn_cm_fwd(value_t, _pairs(spatial_shapes), loc, weights, n_heads)
+
+
+@torch.library.custom_op("lwdetr::ms_deform_attn_sep_panels", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _ms_deform_attn_sep_panels_op(vals: List[torch.Tensor], spatial_shapes: List[int],
+                                  loc: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    return ms_deform_attn_sep_panels_fwd(vals, _pairs(spatial_shapes), loc, weights)
+
+
+@torch.library.custom_op("lwdetr::ms_deform_attn", mutates_args=(), device_types=("cpu", "cuda"))
+def _ms_deform_attn_op(value: torch.Tensor, spatial_shapes: List[int], loc: torch.Tensor,
+                       weights: torch.Tensor) -> torch.Tensor:
+    return ms_deform_attn_fwd(value, _pairs(spatial_shapes), loc, weights)
+
+
+@_ms_deform_attn_cm_op.register_fake
+def _(value_t, spatial_shapes, loc, weights, n_heads):
+    return value_t.new_empty((value_t.shape[0], value_t.shape[1], loc.shape[1]))
+
+
+@_ms_deform_attn_sep_panels_op.register_fake
+def _(vals, spatial_shapes, loc, weights):
+    B, H, _, WD = vals[0].shape
+    return vals[0].new_empty((B, loc.shape[1], H * (WD // spatial_shapes[1])))
+
+
+@_ms_deform_attn_op.register_fake
+def _(value, spatial_shapes, loc, weights):
+    B, _, H, D = value.shape
+    return value.new_empty((B, loc.shape[1], H * D))
+
+
+def _save_sampler(ctx, inputs, output):
+    """The tensors (a panel list flattened after loc and weights), and the rest."""
+    value, shapes, loc, weights, *rest = inputs
+    ctx.spatial_shapes, ctx.rest = _pairs(shapes), rest
+    ctx.save_for_backward(loc, weights, *(value if isinstance(value, list) else [value]))
+
+
+def _deform_attn_cm_backward(ctx, dout):
+    """K8."""
+    loc, weights, value_t = ctx.saved_tensors
+    dvalue_t, dloc, dw = ms_deform_attn_cm_bwd(value_t, ctx.spatial_shapes, loc, weights, dout,
+                                               *ctx.rest)
+    return dvalue_t, None, dloc, dw, None
+
+
+def _deform_attn_sep_panels_backward(ctx, dout):
+    """K5."""
+    loc, weights, *vals = ctx.saved_tensors
+    dvals, dloc, dw = ms_deform_attn_sep_panels_bwd(vals, ctx.spatial_shapes, loc, weights, dout)
+    return list(dvals), None, dloc, dw
+
+
+def _deform_attn_backward(ctx, dout):
+    """K10's backward."""
+    loc, weights, value = ctx.saved_tensors
+    dvalue, dloc, dw = ms_deform_attn_bwd(value, ctx.spatial_shapes, loc, weights, dout)
+    return dvalue, None, dloc, dw
+
+
+_ms_deform_attn_cm_op.register_autograd(_deform_attn_cm_backward, setup_context=_save_sampler)
+_ms_deform_attn_sep_panels_op.register_autograd(_deform_attn_sep_panels_backward,
+                                                setup_context=_save_sampler)
+_ms_deform_attn_op.register_autograd(_deform_attn_backward, setup_context=_save_sampler)
 
 # ---------------------------------------------------------------------------
 # bf16: where the JAX kernels round

@@ -16,10 +16,13 @@ same dispatch:
   `csrc/flash_attention_bwd.cu`, which reads the per-row log-sum-exp that K2
   writes when a gradient is needed and forms the row term sum_j p dp itself.
 
-Each forward / backward pair is a `torch.autograd.Function`. On a CUDA tensor
-the kernels run, or the call raises; a tensor on the CPU takes the plain
-versions, `attention_cm_plain` and `attention_cm_bwd_plain`, which are also
-what the kernels are held against on the card.
+Each forward kernel is an operator of the `lwdetr` namespace
+(`torch.ops.lwdetr.window_attention_bias`, `.window_attention`,
+`.flash_attention_cm`) with a fake version and its backward kernel as the
+autograd formula, so that `torch.export` keeps it as one node. On a CUDA
+tensor the kernels run, or the call raises; a tensor on the CPU takes the
+plain versions, `attention_cm_plain` and `attention_cm_bwd_plain`, which are
+also what the kernels are held against on the card.
 
 Head dims: the kernels have cases for 16, 32 and 64 (the ViT's, on the
 tensor cores in bf16) and a wide case for 128, 256, 512, 1024 and 2048
@@ -44,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -161,6 +164,19 @@ def attention_cm_plain(qkv_t: torch.Tensor, num_heads: int, scale: float) -> tor
             o = torch.einsum("znm,zdm->zdn", p.to(torch.bfloat16).to(p.dtype), vi)
             outs.append(o / p.sum(dim=-1)[:, None, :])
     return torch.cat(outs).reshape(B, C, N).to(qkv_t.dtype)
+
+
+def attention_lse_plain(qkv_t: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """Each row's log-sum-exp of the f32 scaled scores, in log2 units, (B, H, N)
+    f32: what K2 writes for K6, a few (image, head) pairs at a time."""
+    B, ZC, N = qkv_t.shape
+    D = ZC // 3 // num_heads
+    x = qkv_t.float().reshape(B, 3, num_heads, D, N)
+    q, k = (x[:, i].reshape(B * num_heads, D, N) for i in range(2))
+    step = max(1, _PLAIN_SCORES // (N * N))
+    lse = [torch.logsumexp(torch.einsum("zdn,zdm->znm", q[i:i + step] * scale, k[i:i + step]),
+                           dim=-1) for i in range(0, B * num_heads, step)]
+    return torch.cat(lse).reshape(B, num_heads, N) / math.log(2.0)
 
 
 def bf16_error_bound(qkv_t: torch.Tensor, num_heads: int, scale: float,
@@ -333,9 +349,10 @@ def flash_attention_cm_fwd(qkv_t: torch.Tensor, num_heads: int, scale: float,
     """K2 launch on a CUDA tensor (the plain version on the CPU), outside
     autograd: (out (B, C, N), lse). `lse` (B, H, N) f32, each row's
     log-sum-exp of the scaled scores in log2 units, is what K6 reads; it is
-    None, and not written, unless `with_lse` on a CUDA tensor."""
+    None, and not written, unless `with_lse` (on the CPU: `attention_lse_plain`)."""
     if not qkv_t.is_cuda:
-        return attention_cm_plain(qkv_t, num_heads, scale), None
+        lse = attention_lse_plain(qkv_t, num_heads, scale) if with_lse else None
+        return attention_cm_plain(qkv_t, num_heads, scale), lse
     _check_cuda(qkv_t, num_heads)
     B, ZC, N = qkv_t.shape
     qkv_t = qkv_t.contiguous()
@@ -348,80 +365,117 @@ def flash_attention_cm_fwd(qkv_t: torch.Tensor, num_heads: int, scale: float,
     return out, lse
 
 
-class _WindowAttentionBias(torch.autograd.Function):
-    """K1 forward, K7 backward; the plain versions on CPU tensors."""
-
-    @staticmethod
-    def forward(ctx, qkv_t, bias, num_heads, scale):
-        ctx.save_for_backward(qkv_t, bias)
-        ctx.num_heads, ctx.scale = num_heads, scale
-        return window_attention_bias_fwd(qkv_t, bias, num_heads, scale)
-
-    @staticmethod
-    def backward(ctx, dout):
-        qkv_t, bias = ctx.saved_tensors
-        dqkv = window_attention_bias_bwd(qkv_t, bias, dout, ctx.num_heads, ctx.scale)
-        dbias = None
-        if ctx.needs_input_grad[1]:
-            # summed in f32 outside the kernel, as the JAX VJP does
-            dbias = dqkv.to(plain_dtype(dqkv)).sum(dim=(0, 2)).to(bias.dtype)
-        return dqkv, dbias, None, None
+# The forward kernels as operators of the `lwdetr` namespace (torch.library),
+# so that `torch.export` traces each as one opaque node (its fake version gives
+# the output's shape and dtype) and an exported graph runs the kernel. Eager
+# calls take the same operators. Each operator's implementation calls the
+# module's `*_fwd` function, looked up when it runs, which launches the kernel
+# on a CUDA tensor or raises, and runs the plain version on a CPU tensor; each
+# backward calls the module's `*_bwd` function likewise (K7, K7nb, K6).
 
 
-class _WindowAttention(torch.autograd.Function):
-    """K9 forward, the no-bias case of K7 backward; the plain versions on CPU tensors."""
-
-    @staticmethod
-    def forward(ctx, qkv_t, num_heads, scale):
-        ctx.save_for_backward(qkv_t)
-        ctx.num_heads, ctx.scale = num_heads, scale
-        return window_attention_bias_fwd(qkv_t, None, num_heads, scale)
-
-    @staticmethod
-    def backward(ctx, dout):
-        (qkv_t,) = ctx.saved_tensors
-        return window_attention_bias_bwd(qkv_t, None, dout, ctx.num_heads, ctx.scale), None, None
+@torch.library.custom_op("lwdetr::window_attention_bias", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _window_attention_bias_op(qkv_t: torch.Tensor, bias: torch.Tensor, num_heads: int,
+                              scale: float) -> torch.Tensor:
+    return window_attention_bias_fwd(qkv_t, bias, num_heads, scale)
 
 
-class _FlashAttentionCM(torch.autograd.Function):
-    """K2 forward (writing the row log-sum-exp), K6 backward; the plain
-    versions on CPU tensors."""
+@torch.library.custom_op("lwdetr::window_attention", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _window_attention_op(qkv_t: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    return window_attention_bias_fwd(qkv_t, None, num_heads, scale)
 
-    @staticmethod
-    def forward(ctx, qkv_t, num_heads, scale):
-        ctx.num_heads, ctx.scale = num_heads, scale
-        out, lse = flash_attention_cm_fwd(qkv_t, num_heads, scale, with_lse=True)
-        ctx.save_for_backward(qkv_t, *(() if lse is None else (lse,)))
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        qkv_t, *lse = ctx.saved_tensors
-        return flash_attention_cm_bwd(qkv_t, lse[0] if lse else None, dout,
-                                      ctx.num_heads, ctx.scale), None, None
+@torch.library.custom_op("lwdetr::flash_attention_cm", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _flash_attention_cm_op(qkv_t: torch.Tensor, num_heads: int, scale: float,
+                           with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    out, lse = flash_attention_cm_fwd(qkv_t, num_heads, scale, with_lse)
+    return out, (qkv_t.new_empty((0,), dtype=torch.float32) if lse is None else lse)
+
+
+def _attention_out_fake(qkv_t: torch.Tensor) -> torch.Tensor:
+    B, ZC, N = qkv_t.shape
+    return qkv_t.new_empty((B, ZC // 3, N))
+
+
+@_window_attention_bias_op.register_fake
+def _(qkv_t, bias, num_heads, scale):
+    return _attention_out_fake(qkv_t)
+
+
+@_window_attention_op.register_fake
+def _(qkv_t, num_heads, scale):
+    return _attention_out_fake(qkv_t)
+
+
+@_flash_attention_cm_op.register_fake
+def _(qkv_t, num_heads, scale, with_lse):
+    B, _, N = qkv_t.shape
+    lse = qkv_t.new_empty((B, num_heads, N) if with_lse else (0,), dtype=torch.float32)
+    return _attention_out_fake(qkv_t), lse
+
+
+def _save_attention(ctx, inputs, output):
+    """K1 / K9: the inputs and (num_heads, scale) for the backward."""
+    ctx.save_for_backward(*(t for t in inputs if isinstance(t, torch.Tensor)))
+    ctx.num_heads, ctx.scale = inputs[-2:]
+
+
+def _window_attention_bias_backward(ctx, dout):
+    """K7: d(qkv_t) and, summed in f32 outside the kernel as the JAX VJP does, d(bias)."""
+    qkv_t, bias = ctx.saved_tensors
+    dqkv = window_attention_bias_bwd(qkv_t, bias, dout, ctx.num_heads, ctx.scale)
+    dbias = None
+    if ctx.needs_input_grad[1]:
+        dbias = dqkv.to(plain_dtype(dqkv)).sum(dim=(0, 2)).to(bias.dtype)
+    return dqkv, dbias, None, None
+
+
+def _window_attention_backward(ctx, dout):
+    """K7nb, the no-bias case of K7."""
+    (qkv_t,) = ctx.saved_tensors
+    return window_attention_bias_bwd(qkv_t, None, dout, ctx.num_heads, ctx.scale), None, None
+
+
+def _save_flash_attention(ctx, inputs, output):
+    qkv_t, num_heads, scale, _ = inputs
+    ctx.mark_non_differentiable(output[1])
+    ctx.save_for_backward(qkv_t, output[1])
+    ctx.num_heads, ctx.scale = num_heads, scale
+
+
+def _flash_attention_backward(ctx, dout, _dlse):
+    """K6, from the row log-sum-exp K2 wrote (the CPU's plain backward reads none)."""
+    qkv_t, lse = ctx.saved_tensors
+    return (flash_attention_cm_bwd(qkv_t, lse if qkv_t.is_cuda else None, dout, ctx.num_heads,
+                                   ctx.scale), None, None, None)
+
+
+_window_attention_bias_op.register_autograd(_window_attention_bias_backward,
+                                            setup_context=_save_attention)
+_window_attention_op.register_autograd(_window_attention_backward, setup_context=_save_attention)
+_flash_attention_cm_op.register_autograd(_flash_attention_backward,
+                                         setup_context=_save_flash_attention)
 
 
 def window_attention_bias(qkv_t: torch.Tensor, bias: torch.Tensor, num_heads: int,
                           scale: float) -> torch.Tensor:
     """K1 (backward K7): (B, 3C, N <= 128) qkv plus (3C,) bias -> (B, C, N)."""
-    if not needs_grad(qkv_t, bias):
-        return window_attention_bias_fwd(qkv_t, bias, num_heads, scale)
-    return _WindowAttentionBias.apply(qkv_t, bias, num_heads, scale)
+    return torch.ops.lwdetr.window_attention_bias(qkv_t, bias, int(num_heads), float(scale))
 
 
 def window_attention(qkv_t: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     """K9 (backward: the no-bias case of K7): (B, 3C, N <= 128) qkv -> (B, C, N)."""
-    if not needs_grad(qkv_t):
-        return window_attention_bias_fwd(qkv_t, None, num_heads, scale)
-    return _WindowAttention.apply(qkv_t, num_heads, scale)
+    return torch.ops.lwdetr.window_attention(qkv_t, int(num_heads), float(scale))
 
 
 def flash_attention_cm(qkv_t: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     """K2 (backward K6): (B, 3C, N) qkv -> (B, C, N). The row log-sum-exp is
     written only when a backward will read it."""
-    if not needs_grad(qkv_t):
-        return flash_attention_cm_fwd(qkv_t, num_heads, scale)[0]
-    return _FlashAttentionCM.apply(qkv_t, num_heads, scale)
+    return torch.ops.lwdetr.flash_attention_cm(qkv_t, int(num_heads), float(scale),
+                                               needs_grad(qkv_t))[0]
 
 
 def window_attention_bias_bwd(qkv_t: torch.Tensor, bias: Optional[torch.Tensor],

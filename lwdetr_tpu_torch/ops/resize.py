@@ -65,14 +65,27 @@ def nearest_resize_index(src: int, dst: int) -> np.ndarray:
     return np.minimum((np.arange(dst) * src // dst), src - 1).astype(np.int32)
 
 
-@functools.lru_cache(maxsize=None)
 def resize_table(kind: str, src: int, dst: int, device: torch.device,
                  dtype: torch.dtype) -> torch.Tensor:
     """`bicubic_resize_matrix` ("bicubic") or `nearest_resize_index`
     ("nearest") as a `dtype` tensor on `device`, made once a (src, dst, device,
     dtype): to a card by a pinned, non-blocking copy, so that a forward that
-    resizes (every train step) never waits on the card for it."""
+    resizes (every train step) never waits on the card for it. While
+    `torch.export` traces, the table is made anew (a constant of the graph)
+    and not kept: a traced tensor must not reach a later eager call."""
+    if torch.compiler.is_compiling():
+        return _table(kind, src, dst).to(device=device, dtype=dtype)
+    return _cached_table(kind, src, dst, device, dtype)
+
+
+def _table(kind: str, src: int, dst: int) -> torch.Tensor:
     make = {"bicubic": bicubic_resize_matrix, "nearest": nearest_resize_index}[kind]
-    t = torch.from_numpy(np.array(make(src, dst))).to(dtype)
+    return torch.from_numpy(np.array(make(src, dst)))
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_table(kind: str, src: int, dst: int, device: torch.device,
+                  dtype: torch.dtype) -> torch.Tensor:
+    t = _table(kind, src, dst).to(dtype)
     return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
 

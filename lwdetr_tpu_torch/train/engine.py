@@ -185,10 +185,11 @@ def _fetch(tensors):
 def merge_evaluators(evaluator):
     """The evaluator of one process is the whole result; the merge across
     processes (the JAX package's `parallel/dist.py:130 merge_evaluators`) is
-    not ported (ROADMAP.md § 1 item 7), so more than one process raises."""
+    not ported (ROADMAP.md § 1, "Multi-process training and eval"), so more than one
+    process raises."""
     if world_size() > 1:
         raise NotImplementedError("evaluate across processes is not ported: the merge of their "
-                                  "evaluators is ROADMAP.md § 1 item 7")
+                                  'evaluators is ROADMAP.md § 1, "Multi-process training and eval"')
     return evaluator
 
 

@@ -78,6 +78,11 @@ def test_the_eval_slice_modules_are_in_the_walk():
     assert PORT_FILES[-1].name == "chip_smoke.py"
 
 
+def test_the_deploy_modules_are_in_the_walk():
+    names = {str(p.relative_to(ROOT / "lwdetr_tpu_torch")) for p in PORT_FILES[:-1]}
+    assert {"deploy/__init__.py", "deploy/export.py", "deploy/benchmark.py"} <= names
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_names_nothing_under_native(path):
     """No string of the port names the JAX package's `native/` directory or
