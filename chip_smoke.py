@@ -161,6 +161,29 @@ Run from the root of a checkout, with one card:
    `golden_stats_deploy.json`; the bf16 artifact's printed);
    `python -m lwdetr_tpu_torch.main ... export_model --infer_dir` in a
    process of its own, exiting 0 with its top 5.
+12. The startup self-benchmark (`startup_bench_phase`): `benchmark_model`
+   (`lwdetr_tpu_torch/utils/benchmark.py`, which `lwdetr_tpu_torch.main` runs
+   on rank 0 at start-up unless `--dont_bench`) for small at 640 x 640, batch
+   1, f32 and bf16: the parameter count against SMALL_PARAMETERS (the CPU
+   test's number), the operators' FLOPs against `bench_operator_flops` (K1 6,
+   K2 7, K3 3 calls a forward), its 26 forwards' launches, and the GFLOPs by
+   class, fps and latency printed beside the card. The CLI phases above pass
+   `--dont_bench`.
+13. Multi-process training and eval (`dist_phase`): this script in two
+   processes on the one card (`gloo`, cuda:0 each), launched with torchrun's
+   variables: (a) small's f32 train step, 2 x batch 2, against this process's
+   step on the same 4 images (its picks, matchings, sampling cells and ReLU
+   units replayed: another batch size rounds otherwise, trap (b)): the mean loss
+   within 1e-5 relative, every gradient within 1e-4 x max(1, max |g|), the
+   projector's running statistics within 1e-6, each process's launches
+   small's train step's; (b) ZeRO-1 (`--shard_opt_state`) after 2 engine
+   steps whose optimizer takes the unsharded run's gradients: parameters and
+   EMA bit for bit, the optimizer-state bytes; (c) large's bf16 step at drop_path 0.1, 2 x 1 against 1 x 2: each
+   process's masks its rows of the one-process draw, the loss within 2^-6
+   relative; (d) `lwdetr_tpu_torch.main --eval` in 2 processes on the
+   fixture: the merged stats within 1e-7 of `golden_stats.json`, printed and
+   written by rank 0 only. A process that fails, outlives its time limit or
+   runs on the CPU fails the script.
 
 Any failure exits non-zero. Without a CUDA card, or outside a checkout, it
 exits non-zero and prints no result. The line before the last holds one JSON
@@ -1966,7 +1989,7 @@ def eval_pipeline_phase(torch, fa, da, kernels, card):
     def cli_args(*extra):
         return cli.parser().parse_args(["--eval", "--coco_path", FIXTURE, *MICRO_FLAGS,
                                         "--batch_size", str(MICRO_BATCH), "--resume", pth,
-                                        "--output_dir", out_dir, *extra])
+                                        "--output_dir", out_dir, "--dont_bench", *extra])
 
     micro_pth(torch, pth, cli_args())
     micro_runs = (("micro_eval_f32", ()), ("micro_eval_bf16", ("--bf16",)))
@@ -2268,7 +2291,8 @@ def train_cli_phase(torch, kernels, card):
         modes.append(mode)
         argv = ["--preset", "small", "--coco_path", coco, "--batch_size", str(TRAIN_BATCH),
                 "--epochs", str(CLI_EPOCHS), "--use_ema", "--checkpoint_interval", "1",
-                "--num_workers", "2", "--pretrain_weights", pretrain, "--output_dir", out, *extra]
+                "--num_workers", "2", "--pretrain_weights", pretrain, "--output_dir", out,
+                "--dont_bench", *extra]
         t0 = time.perf_counter()
         result, n = counted(torch, kernels, lambda: run_patched(
             lambda: cli.main(cli.parser().parse_args(argv)),
@@ -2877,7 +2901,7 @@ def padded_phase(torch, F, fa, da, kernels, measure_ms, card, res):
     os.makedirs(work)
     pth = os.path.join(work, "micro.pth")
     eval_argv = ["--eval", "--coco_path", PADDED_FIXTURE, *golden["flags"], "--resume", pth,
-                 "--output_dir", work]
+                 "--output_dir", work, "--dont_bench"]
     if "--square_resize_div_64" in eval_argv:
         raise AssertionError("the padded CLI run must take the legacy recipe")
     micro_pth(torch, pth, cli.parser().parse_args(eval_argv))
@@ -2907,7 +2931,7 @@ def padded_phase(torch, F, fa, da, kernels, measure_ms, card, res):
     small = small_cli_flags()
     train_argv = [*small, "--coco_path", coco, "--batch_size", str(PADDED_BATCH),
                   "--epochs", "1", "--num_workers", "2", "--seed", str(seed),
-                  "--output_dir", os.path.join(work, "train")]
+                  "--output_dir", os.path.join(work, "train"), "--dont_bench"]
     # the fresh model the CLI trains (the JAX package's initialisation drawn
     # from --seed), on the first train batch: its class probabilities at the prior
     args = cli.parser().parse_args(train_argv)
@@ -2970,7 +2994,8 @@ def padded_phase(torch, F, fa, da, kernels, measure_ms, card, res):
     result_eval, n = counted(torch, kernels, lambda: run_patched(
         lambda: cli.main(cli.parser().parse_args(
             ["--eval", *small, "--coco_path", coco, "--batch_size", str(PADDED_BATCH),
-             "--num_workers", "2", "--resume", ckpt_dir, "--output_dir", work])),
+             "--num_workers", "2", "--resume", ckpt_dir, "--output_dir", work,
+             "--dont_bench"])),
         (mock.patch.object(engine, "build_eval_step", recording_eval_build),)))
     launches["padded_cli_eval"] = n
     same = {k: result_eval["stats"][k] == trained["stats"][k] for k in golden["stats"]}
@@ -3416,7 +3441,7 @@ def variants_cli_phase(torch, kernels, card):
     torch.save({"model": state_dict_from_jax(params, tree.get("batch_stats"), cfg)}, pth)
     launches = {}
     argv = ["--eval", "--coco_path", VARIANTS_FIXTURE, *flags, "--resume", pth,
-            "--output_dir", os.path.join(work, "eval"), "--num_workers", "2"]
+            "--output_dir", os.path.join(work, "eval"), "--num_workers", "2", "--dont_bench"]
     out, launches["variants_cli_eval"] = counted(
         torch, kernels, lambda: cli.main(cli.parser().parse_args(argv)))
     stats = out["stats"]
@@ -3440,7 +3465,7 @@ def variants_cli_phase(torch, kernels, card):
     train_out = os.path.join(work, "train")
     argv = ["--coco_path", coco, *flags, "--epochs", "1", "--num_workers", "2",
             "--seed", str(VARIANT_CLI_SEED), "--pretrain_weights", pth,
-            "--output_dir", train_out]
+            "--output_dir", train_out, "--dont_bench"]
     build, sizes = engine.build_train_step, []
 
     def recording_build(state, *a, **kw):
@@ -3506,6 +3531,11 @@ def variants_phase(torch, F, fa, da, kernels, measure_ms, card, res):
 
 
 # ---- the deploy path (ROADMAP.md § 1, "Deploy: export and its benchmark") ------------------
+
+# the startup self-benchmark (`startup_bench_phase`): small's parameters, which
+# tests/test_torch_port_bench.py holds to the JAX package's count
+SMALL_PARAMETERS = 14557378
+BENCH_FORWARDS = 26  # one counted by FlopCounterMode, 5 warm-up, 20 timed
 
 DEPLOY_HW = (640, 640)
 # (path, preset, compute dtype, batch), each exported on the card from the JAX
@@ -3820,23 +3850,111 @@ def deploy_phase(torch, fa, da, kernels, card):
     return launches, out
 
 
-def main() -> int:
-    import torch
+# the startup self-benchmark (`startup_bench_phase`): `utils/benchmark.py`'s
+# `benchmark_model` for small at 640, batch 1, f32 and bf16, as the CLI runs it
+# at start-up; its forwards launch small's eval kernels
+BENCH_DTYPES = ("float32", "bfloat16")
 
-    if not torch.cuda.is_available():
-        log("chip_smoke: no CUDA device is available")
-        return 1
-    import torch.nn.functional as F
 
-    from lwdetr_tpu_torch import bench
+def bench_operator_flops(cfg, size=640, batch=1):
+    """The attention and sampling FLOPs of one eval forward of a ViT model
+    with a channel-major sampler, counted from the config: QK^T and PV, 4 B
+    N^2 C, for each window block (16 windows), each global block and each
+    decoder self-attention, under the operator `attention_cm` dispatches it
+    to (N <= 128: K1 with a bias, K9 without; else K2); 8 FLOPs an output
+    element a (level, point) for each cross-attention (K3)."""
+    side = size // 16
+    window = len(cfg.window_block_indexes)
+    flops = {"window_attention_bias": 0, "window_attention": 0, "flash_attention_cm": 0}
+
+    def attention(blocks, B, N, width, bias):
+        op = ("window_attention_bias" if bias else "window_attention") if N <= 128 else \
+            "flash_attention_cm"
+        flops[op] += blocks * 4 * B * N * N * width
+
+    attention(window, 16 * batch, (side // 4) ** 2, cfg.embed_dim, True)
+    attention(cfg.vit_encoder_num_layers - window, batch, side * side, cfg.embed_dim, True)
+    attention(cfg.dec_layers, batch, cfg.num_queries, cfg.hidden_dim, False)
+    flops["ms_deform_attn_cm"] = (cfg.dec_layers * 8 * batch * cfg.num_queries * cfg.hidden_dim
+                                  * len(cfg.projector_scale) * cfg.dec_n_points)
+    return flops
+
+
+def startup_bench_phase(torch, kernels, card):
+    """`benchmark_model` (`lwdetr_tpu_torch/utils/benchmark.py`, what
+    `lwdetr_tpu_torch.main` runs on rank 0 at start-up) for small at 640 x 640,
+    batch 1, in f32 and in bf16 (f32 parameters), seeded weights: the
+    parameter count against SMALL_PARAMETERS, the operators' FLOPs against
+    `bench_operator_flops`, the launches of its 26 forwards, and the GFLOPs by
+    class, the fps and the latency printed beside the card. Returns
+    (launches, numbers)."""
+    from lwdetr_tpu_torch.config import get_config
+    from lwdetr_tpu_torch.models.lwdetr import build_model
+    from lwdetr_tpu_torch.utils import benchmark as bm
+    from lwdetr_tpu_torch.weights import init_state_dict
+
+    cfg = get_config("small")
+    sd = init_state_dict(cfg, seed=0)
+    want_flops = bench_operator_flops(cfg)
+    want = {k: n * BENCH_FORWARDS for k, n in EXPECTED_LAUNCHES["small"].items()}
+    launches, res = {}, {}
+    for dtype in BENCH_DTYPES:
+        path = f"startup_bench_{dtype}"
+        model = build_model(cfg, device="cuda", dtype=getattr(torch, dtype), state_dict=sd)
+        stats, launches[path] = counted(
+            torch, kernels, lambda: bm.benchmark_model(model, image_size=640, batch=1,
+                                                       logger=log))
+        ops = stats["detailed_flops"]["flops_by_op"]
+        got_flops = {k: ops.get(k, 0) for k in want_flops}
+        log(f"{path} launches: {launches[path]}; operator FLOPs {got_flops}")
+        if launches[path] != want:
+            raise AssertionError(f"{path}: launches {launches[path]} != {want}")
+        if stats["n_parameters"] != SMALL_PARAMETERS:
+            raise AssertionError(f"{path}: {stats['n_parameters']} parameters, not "
+                                 f"{SMALL_PARAMETERS}")
+        if got_flops != want_flops:
+            raise AssertionError(f"{path}: operator FLOPs {got_flops} != {want_flops}")
+        by_class = stats["gflops_by_class"]
+        print(f"startup bench, small@640 batch 1 {dtype}: {stats['n_parameters']} parameters, "
+              f"{stats['gflops']:.4f} GFLOPs/img ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(by_class.items()))
+              + f"), {stats['fps']:.2f} img/s (median {stats['median_ms']:.4f} ms, mean "
+              f"{stats['mean_ms']:.4f}, p95 {stats['p95_ms']:.4f}) ({card})")
+        res[path] = {k: stats[k] for k in ("n_parameters", "gflops", "gflops_by_class", "fps",
+                                           "median_ms", "mean_ms", "p95_ms", "batch",
+                                           "image_size", "dtype")}
+        res[path]["gflops_by_stage"] = {
+            stage: {c: f / 1e9 for c, f in by.items()}
+            for stage, by in stats["detailed_flops"]["flops_by_stage"].items()}
+        res[path]["card"] = card
+        del model
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+# multi-process training and eval (`dist_phase`): two processes of this script
+# on the one card (`gloo`, each on cuda:0; NCCL refuses two ranks on a device),
+# launched with torchrun's variables. (a) small's f32 train step, 2 x batch 2
+# against this process's step on the same 4 images from the same weights; (b)
+# ZeRO-1 against the unsharded run; (c) large's bf16 step at its release
+# drop_path, 2 x 1 against 1 x 2; (d) the eval CLI on the fixture.
+DIST_WORLD = 2
+DIST_DIR = "build/chip_smoke/dist"
+DIST_TIMEOUT = 600  # seconds a launch of two processes may take
+DIST_LOSS_RTOL = 1e-5
+DIST_GRAD_TOL = 1e-4  # x max(1, the tensor's max |g|)
+DIST_BN_ATOL = 1e-6
+DIST_BF16_LOSS_RTOL = BF16_TRAIN_GRAD_MEDIAN
+DIST_ZERO_STEPS = 2
+DIST_EVAL_LAUNCHES = launch_counts(K1=3, K2=3, K9=6, K3=6, M1=3)  # 10 images: 3 batches of 4
+
+
+def port_kernels():
+    """{name: kernel} of every kernel of the port, in KERNEL_NAMES' order."""
     from lwdetr_tpu_torch.models import matcher as tm
     from lwdetr_tpu_torch.ops import deform_attn as da
     from lwdetr_tpu_torch.ops import flash_attention as fa
-    from lwdetr_tpu_torch.utils.device import card_line
-    from lwdetr_tpu_torch.utils.timing import measure_ms
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # f32 stays f32, so that the
-    torch.backends.cudnn.allow_tf32 = False  # projector convs hide no kernel error
     kernels = {k.name: k for k in (
         fa.window_attention_bias_kernel, fa.flash_attention_cm_kernel, da.deform_attn_cm_kernel,
         da.deform_attn_sep_kernel, da.deform_attn_sep_bwd_kernel,
@@ -3846,6 +3964,455 @@ def main() -> int:
         tm.assignment_kernel)}
     if tuple(kernels) != KERNEL_NAMES:
         raise AssertionError(f"kernels {tuple(kernels)} != {KERNEL_NAMES}")
+    return kernels
+
+
+def max_ulp(torch, a, b):
+    """The largest distance in f32 ulps between two float32 tensors."""
+    def ordered(t):
+        i = t.float().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max().item()) if a.numel() else 0
+
+
+def own_rows(full, like, rank):
+    """This process's part of a tensor recorded on the global batch: `rank`'s
+    slice along the first axis where `full` is larger than `like` (the batch
+    axis), `full` itself where they agree."""
+    for ax, (n, m) in enumerate(zip(full.shape, like.shape)):
+        if n != m:
+            return full.narrow(ax, rank * m, m).to(like.device)
+    return full.to(like.device)
+
+
+def dist_step(torch, kernels, cfg, tcfg, sd, batch, dtype, rate, replay=None, rank=0, steps=1,
+              shard=False, keep_state=False, feed_grads=None):
+    """`steps` train steps of `cfg` from `sd` through `engine.build_train_step`
+    on `batch` (DDP above one process), the drop-path rate `rate`: per step
+    the loss, the gradients before clipping and the BatchNorm statistics; the
+    launches; the drop masks the engine drew. With `feed_grads` (a dict of
+    gradients a step) the clip and the optimizer take those in place of the
+    step's own. The step's discrete choices are
+    recorded, or with `replay` replayed (this process's part of them, trap
+    (b)): the proposal picks and the matching (trap (d)), each sampling
+    point's cell (the points themselves, with d(loc) passed through: a point
+    within an ulp of a grid line takes the other cell under another rounding)
+    and each ReLU's active units (its input's signs, the gradient through the
+    recorded units)."""
+    import time
+
+    import torch.nn.functional as F
+
+    from lwdetr_tpu_torch.models import criterion as cm
+    from lwdetr_tpu_torch.models import drop
+    from lwdetr_tpu_torch.models import transformer as tr
+    from lwdetr_tpu_torch.ops import deform_attn as da
+    from lwdetr_tpu_torch.train import engine
+
+    state = engine.create_train_state(cfg, tcfg, niter_per_ep=1000, device="cuda", state_dict=sd,
+                                      dtype=dtype, shard_opt_state=shard)
+    step = engine.build_train_step(state, cm.SetCriterion(cfg, tcfg), tcfg)
+    named = list(state.model.named_parameters())
+    rec = {"picks": [], "matchings": [], "grads": [], "masks": [], "steps": [], "locs": [],
+           "relus": []}
+    select, match, clip = tr.select_proposals, cm.hungarian_match, torch.nn.utils.clip_grad_norm_
+    sampler, relu = da.ms_deform_attn_sep_panels, F.relu
+    draw = drop.RankRows.__call__  # the engine's source at every world size
+
+    def replayed(key, own):
+        rec[key].append(own)
+        if replay is None:
+            return own
+        return own_rows(replay[key][len(rec[key]) - 1], own, rank)
+
+    def spy_clip(params, max_norm):
+        if feed_grads is not None:
+            fed = feed_grads[len(rec["grads"])]
+            for n, p in named:
+                if p.grad is not None:
+                    p.grad.copy_(fed[n])
+        rec["grads"].append({n: p.grad.detach().clone() for n, p in named if p.grad is not None})
+        return clip(params, max_norm)
+
+    def record(self, keep, shape, like):
+        rec["masks"].append(draw(self, keep, shape, like))
+        return rec["masks"][-1]
+
+    def sample(panels, shapes, loc, weights):
+        given = replayed("locs", loc.detach())
+        return sampler(panels, shapes, loc + (given - loc).detach(), weights)
+
+    def replay_relu(x, inplace=False):
+        active = replayed("relus", x.detach() > 0)
+        return x * active.to(x.dtype) if replay is not None else relu(x)
+
+    patches = (mock.patch.object(tr, "select_proposals",
+                                 lambda scores, k: replayed("picks", select(scores, k))),
+               mock.patch.object(cm, "hungarian_match",
+                                 lambda *a, **kw: replayed("matchings", match(*a, **kw))),
+               mock.patch.object(torch.nn.utils, "clip_grad_norm_", spy_clip),
+               mock.patch.object(drop.RankRows, "__call__", record),
+               mock.patch.object(da, "ms_deform_attn_sep_panels", sample),
+               mock.patch.object(F, "relu", replay_relu))
+
+    def run():
+        for _ in range(steps):
+            metrics = step(batch, rate, cfg.dropout)
+            rec["steps"].append({
+                "loss": float(metrics["loss"]),
+                "bn": {k: v.detach().clone() for k, v in state.model.state_dict().items()
+                       if k.endswith(("running_mean", "running_var"))}})
+
+    t0 = time.perf_counter()
+    _, rec["launches"] = counted(torch, kernels, lambda: run_patched(run, patches))
+    rec["wall_ms_a_step"] = (time.perf_counter() - t0) * 1e3 / steps
+    rec["device"] = str(next(state.model.parameters()).device)
+    if keep_state:
+        rec["state"] = state
+    return rec
+
+
+def dist_inputs(torch):
+    """(a)'s and (c)'s configs, weights and batches: small f32 at batch 4 with
+    EMA, large bf16 at batch 2 with its release drop_path."""
+    import dataclasses
+
+    from lwdetr_tpu_torch import bench_train
+    from lwdetr_tpu_torch.config import get_config, get_train_config
+    from lwdetr_tpu_torch.weights import init_state_dict
+
+    out = {}
+    for key, preset, batch, dtype in (("a", "small", TRAIN_BATCH, "float32"),
+                                      ("c", "large", LARGE_TRAIN_BATCH, "bfloat16")):
+        cfg = get_config(preset)
+        tcfg = dataclasses.replace(get_train_config(preset), use_ema=True)
+        out[key] = {"cfg": cfg, "tcfg": tcfg, "sd": init_state_dict(cfg, seed=0), "dtype": dtype,
+                    "rate": cfg.drop_path,
+                    "batch": bench_train.synthetic_batch(cfg.num_classes, batch, 640, 100, 7,
+                                                         "cpu", seed=0)}
+    return out
+
+
+def dist_launch(mode, port, timeout=DIST_TIMEOUT):
+    """This script in DIST_WORLD processes, `mode` as its argument, with
+    torchrun's variables; each process's stdout. A process that fails or runs
+    past `timeout` fails the phase; none is left running."""
+    import os
+    import subprocess
+
+    procs = []
+    for r in range(DIST_WORLD):
+        env = dict(os.environ, WORLD_SIZE=str(DIST_WORLD), RANK=str(r), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(DIST_WORLD), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), PYTHONPATH=os.getcwd())
+        procs.append(subprocess.Popen([sys.executable, __file__, mode, DIST_DIR], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=timeout)
+            sys.stderr.write(err[-6000:])
+            if p.returncode != 0:
+                raise AssertionError(f"{mode} rank {r} exited {p.returncode}:\n{out[-3000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_child(out_dir) -> int:
+    """One process of `dist_phase`'s train launch: (a) the small step on this
+    process's rows of the batch, the parent's discrete choices replayed
+    (`dist_step`);
+    (b) ZeRO-1: DIST_ZERO_STEPS steps unsharded (its choices and gradients
+    recorded), then sharded (the choices replayed, the optimizer fed the
+    recorded gradients); (c) large's
+    bf16 step, the engine drawing its masks. Writes out_dir/rank<r>.pt."""
+    import os
+
+    import torch
+
+    from lwdetr_tpu_torch.parallel import dist as pdist
+    from lwdetr_tpu_torch.train import engine, optim
+
+    rank, world = pdist.init_distributed("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 stays f32, as in the parent
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = list(port_kernels().values())
+    inp = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
+    result = {"rank": rank, "world": world, "backend": pdist.backend()}
+    for key in ("a", "c"):
+        x = inp[key]
+        n = x["batch"]["images"].shape[0] // world
+        rows = slice(rank * n, (rank + 1) * n)
+        batch = {k: v[rows].cuda() for k, v in x["batch"].items()}
+        dtype = getattr(torch, x["dtype"])
+        rec = dist_step(torch, kernels, x["cfg"], x["tcfg"], x["sd"], batch, dtype, x["rate"],
+                        replay=inp[f"{key}_replay"], rank=rank)
+        result[key] = {"loss": rec["steps"][0]["loss"], "launches": rec["launches"],
+                       "wall_ms_a_step": rec["wall_ms_a_step"],
+                       "device": rec["device"], "masks": [m.cpu() for m in rec["masks"]],
+                       "bn": {k: v.cpu() for k, v in rec["steps"][0]["bn"].items()},
+                       "grad_sums": {k: float(g.double().square().sum())
+                                     for k, g in rec["grads"][0].items()}}
+        if key == "a" and rank == 0:
+            result[key]["grads"] = {k: g.cpu() for k, g in rec["grads"][0].items()}
+        torch.cuda.empty_cache()
+
+        if key != "a":
+            continue
+        # (b) ZeRO-1 against the unsharded run, both through the engine's step: the
+        # sharded run's optimizer takes the unsharded run's gradients (the backward
+        # kernels' atomic sums are not bit-reproducible from run to run)
+        runs = {}
+        for name, shard in (("unsharded", False), ("sharded", True)):
+            fed = runs["unsharded"]["grads"] if shard else None
+            r = dist_step(torch, kernels, x["cfg"], x["tcfg"], x["sd"], batch, dtype, x["rate"],
+                          replay=runs["unsharded"] if shard else None, steps=DIST_ZERO_STEPS,
+                          shard=shard, keep_state=True, feed_grads=fed)
+            st = r.pop("state")
+            r["params"] = {k: v.detach().clone() for k, v in st.model.state_dict().items()}
+            r["ema"] = {k: v.clone() for k, v in optim.ema_full(st.ema, st.shards).items()}
+            r["opt_bytes"] = optim.state_bytes(st.optimizer)
+            r["planned"] = len(st.shards or {})
+            runs[name] = r
+            del st
+        base, other = runs["unsharded"], runs["sharded"]
+        zero = {
+            "launches": other["launches"],
+            "params_bit_equal": all(torch.equal(base["params"][k], v)
+                                    for k, v in other["params"].items()),
+            "ema_bit_equal": all(torch.equal(base["ema"][k], v) for k, v in other["ema"].items()),
+            "params_max_ulp": max(max_ulp(torch, base["params"][k], v)
+                                  for k, v in other["params"].items() if v.is_floating_point()),
+            "ema_max_ulp": max(max_ulp(torch, base["ema"][k], v)
+                               for k, v in other["ema"].items() if v.is_floating_point()),
+            "opt_bytes": other["opt_bytes"], "planned": other["planned"],
+            "unsharded_opt_bytes": base["opt_bytes"]}
+        result["b"] = zero
+        del runs, base, other
+        torch.cuda.empty_cache()
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    pdist.shutdown()
+    return 0
+
+
+def dist_eval_child(out_dir) -> int:
+    """One process of `dist_phase`'s eval launch: `lwdetr_tpu_torch.main
+    --eval` on the fixture, f32, batch 4, `--resume micro.pth`, its launches
+    counted; writes out_dir/eval_rank<r>.json."""
+    import os
+
+    import torch
+
+    from lwdetr_tpu_torch import main as cli
+    from lwdetr_tpu_torch.parallel import dist as pdist
+
+    kernels = list(port_kernels().values())
+    argv = ["--eval", "--coco_path", FIXTURE, *MICRO_FLAGS, "--batch_size", str(MICRO_BATCH),
+            "--resume", os.path.join(out_dir, "micro.pth"), "--output_dir",
+            os.path.join(out_dir, "eval"), "--dont_bench", "--num_workers", "2"]
+    out, launches = counted(torch, kernels, lambda: cli.main(cli.parser().parse_args(argv)))
+    rank = pdist.rank()
+    with open(os.path.join(out_dir, f"eval_rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "world": pdist.world_size(), "backend": pdist.backend(),
+                   "device": f"cuda:{torch.cuda.current_device()}", "launches": launches,
+                   "stats": out["stats"]}, f)
+    pdist.shutdown()
+    return 0
+
+
+def dist_phase(torch, kernels, card):
+    """Multi-process training and eval (`lwdetr_tpu_torch/parallel/`), two
+    processes of this script on the one card over `gloo`:
+    (a) small's f32 train step, 2 x batch 2 against this process's step on the
+        same 4 images from the same weights (its proposal picks, matchings,
+        sampling cells and ReLU units replayed, trap (b)): the mean of the
+        processes' losses within 1e-5
+        relative, every gradient within 1e-4 x max(1, max |g|), the
+        projector's running statistics within 1e-6, each process's launches
+        small's train step's;
+    (b) ZeRO-1 after DIST_ZERO_STEPS engine steps against the unsharded run,
+        its optimizer fed the unsharded run's gradients (the backward kernels'
+        atomic sums are not bit-reproducible): parameters and EMA bit for bit,
+        each process's launches, the optimizer-state bytes;
+    (c) large's bf16 step at drop_path 0.1, 2 x batch 1 against 1 x 2: each
+        process's masks its rows of the one-process draw, the loss within
+        DIST_BF16_LOSS_RTOL;
+    (d) `lwdetr_tpu_torch.main --eval` in 2 processes on the fixture: the
+        merged 12 stats within 1e-7 of `golden_stats.json`, printed and
+        written by rank 0 only.
+    The step times of two processes sharing one card measure nothing a user
+    runs and are not taken. Returns (launches, numbers)."""
+    import os
+    import shutil
+    import time
+
+    from lwdetr_tpu_torch import main as cli
+
+    t0 = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    inp = dist_inputs(torch)
+    ref = {}
+    for key, x in list(inp.items()):
+        batch = {k: v.cuda() for k, v in x["batch"].items()}
+        ref[key] = dist_step(torch, kernels, x["cfg"], x["tcfg"], x["sd"], batch,
+                             getattr(torch, x["dtype"]), x["rate"])
+        inp[f"{key}_replay"] = {k: [t.cpu() for t in ref[key][k]]
+                                for k in ("picks", "matchings", "locs", "relus")}
+        torch.cuda.empty_cache()
+    if ref["a"]["launches"] != TRAIN_LAUNCHES["small"]:
+        raise AssertionError(f"dist (a): one-process launches {ref['a']['launches']}")
+    torch.save(inp, os.path.join(DIST_DIR, "inputs.pt"))
+    dist_launch("--dist-child", free_port())
+    ranks = [torch.load(os.path.join(DIST_DIR, f"rank{r}.pt"), weights_only=False)
+             for r in range(DIST_WORLD)]
+    launches, res = {}, {"card": card}
+
+    # (a)
+    a = [r["a"] for r in ranks]
+    for r, x in enumerate(a):
+        launches[f"dist_small_train_rank{r}"] = x["launches"]
+        if x["launches"] != TRAIN_LAUNCHES["small"] or not x["device"].startswith("cuda"):
+            raise AssertionError(f"dist (a) rank {r}: launches {x['launches']} on {x['device']}")
+        if ranks[r]["backend"] != "gloo":
+            raise AssertionError(f"dist rank {r}: backend {ranks[r]['backend']}")
+    loss = sum(x["loss"] for x in a) / DIST_WORLD
+    loss_ref = ref["a"]["steps"][0]["loss"]
+    grads_ref = {k: g.cpu() for k, g in ref["a"]["grads"][0].items()}
+    errs = {k: (a[0]["grads"][k] - g).abs().max().item() / max(1.0, g.abs().max().item())
+            for k, g in grads_ref.items()}
+    worst = max(errs, key=errs.get)
+    same = all(a[0]["grad_sums"][k] == a[1]["grad_sums"][k] for k in grads_ref)
+    bn = max((x["bn"][k] - v.cpu()).abs().max().item()
+             for x in a for k, v in ref["a"]["steps"][0]["bn"].items())
+    top = sorted(errs, key=errs.get)[-6:]
+    log("dist (a) largest gradient errors: " + ", ".join(
+        f"{k} {errs[k]:.3g} (max |g| {grads_ref[k].abs().max().item():.3g})" for k in top))
+    log(f"dist (a) small f32, 2 x {TRAIN_BATCH // DIST_WORLD} vs 1 x {TRAIN_BATCH}: loss "
+        f"{loss:.8f} vs {loss_ref:.8f} (ranks {[x['loss'] for x in a]}); gradient max err "
+        f"{errs[worst]:.3g} x max(1, max |g|) ({worst}), median "
+        f"{sorted(errs.values())[len(errs) // 2]:.3g}; BN statistics {bn:.3g}; the ranks' "
+        f"gradients equal: {same}")
+    if (abs(loss - loss_ref) > DIST_LOSS_RTOL * abs(loss_ref) or errs[worst] > DIST_GRAD_TOL
+            or bn > DIST_BN_ATOL or not same or set(a[0]["grads"]) != set(grads_ref)):
+        raise AssertionError(f"dist (a): loss {loss} vs {loss_ref}, gradient {worst} "
+                             f"{errs[worst]}, BN {bn}, ranks' gradients equal {same}")
+    res["a_small_f32_train"] = {"loss_2proc_mean": loss, "loss_1proc": loss_ref,
+                                "rank_losses": [x["loss"] for x in a],
+                                "grad_max_err": errs[worst], "grad_worst_tensor": worst,
+                                "grad_median_err": sorted(errs.values())[len(errs) // 2],
+                                "bn_max_abs_err": bn}
+
+    # (b)
+    b = [r["b"] for r in ranks]
+    for r, z in enumerate(b):
+        launches[f"dist_small_zero1_rank{r}"] = z["launches"]
+        log(f"dist (b) rank {r}, {DIST_ZERO_STEPS} steps on the same gradients: ZeRO-1 vs "
+            f"unsharded params bit-equal {z['params_bit_equal']} (max {z['params_max_ulp']} "
+            f"ulp), EMA {z['ema_bit_equal']} ({z['ema_max_ulp']} ulp); optimizer state "
+            f"{z['opt_bytes']} B sharded ({z['planned']} planned leaves) vs "
+            f"{z['unsharded_opt_bytes']} B")
+        if (not (z["params_bit_equal"] and z["ema_bit_equal"])
+                or not z["opt_bytes"] < z["unsharded_opt_bytes"] or z["planned"] == 0
+                or z["launches"] != {k: DIST_ZERO_STEPS * v
+                                     for k, v in TRAIN_LAUNCHES["small"].items()}):
+            raise AssertionError(f"dist (b) rank {r}: {z}")
+    res["b_zero1"] = b
+
+    # (c)
+    c = [r["c"] for r in ranks]
+    n = LARGE_TRAIN_BATCH // DIST_WORLD
+    ref_masks = ref["c"]["masks"]
+    for r, x in enumerate(c):
+        launches[f"dist_large_bf16_train_rank{r}"] = x["launches"]
+        rows_ok = len(x["masks"]) == len(ref_masks) > 0 and all(
+            torch.equal(m, full.cpu()[r * m.shape[0]:(r + 1) * m.shape[0]])
+            for m, full in zip(x["masks"], ref_masks))
+        if not rows_ok or x["launches"] != TRAIN_LAUNCHES["large"]:
+            raise AssertionError(f"dist (c) rank {r}: masks are rows of the one-process draw: "
+                                 f"{rows_ok}; launches {x['launches']}")
+    differ = any(not torch.equal(m0, m1) for m0, m1 in zip(c[0]["masks"], c[1]["masks"]))
+    loss = sum(x["loss"] for x in c) / DIST_WORLD
+    loss_ref = ref["c"]["steps"][0]["loss"]
+    log(f"dist (c) large bf16, drop_path {inp['c']['rate']}, 2 x {n} vs 1 x "
+        f"{LARGE_TRAIN_BATCH}: {len(ref_masks)} masks, each process's its rows of the one-process "
+        f"draw, the processes' masks differ: {differ}; loss {loss:.6f} vs {loss_ref:.6f} (bound "
+        f"{DIST_BF16_LOSS_RTOL} relative)")
+    if not differ or abs(loss - loss_ref) > DIST_BF16_LOSS_RTOL * abs(loss_ref):
+        raise AssertionError(f"dist (c): masks differ {differ}, loss {loss} vs {loss_ref}")
+    res["c_large_bf16_train"] = {"masks": len(ref_masks), "loss_2proc_mean": loss,
+                                 "loss_1proc": loss_ref, "rank_losses": [x["loss"] for x in c]}
+
+    # (d)
+    with open(f"{FIXTURE}/golden_stats.json") as f:
+        golden = json.load(f)["stats"]
+    micro_pth(torch, os.path.join(DIST_DIR, "micro.pth"),
+              cli.parser().parse_args(["--eval", "--coco_path", FIXTURE, *MICRO_FLAGS]))
+    outs = dist_launch("--dist-eval", free_port())
+    evals = []
+    for r in range(DIST_WORLD):
+        with open(os.path.join(DIST_DIR, f"eval_rank{r}.json")) as f:
+            evals.append(json.load(f))
+        launches[f"dist_eval_cli_rank{r}"] = evals[r]["launches"]
+        if (evals[r]["launches"] != DIST_EVAL_LAUNCHES or not evals[r]["device"].startswith("cuda")
+                or evals[r]["backend"] != "gloo"):
+            raise AssertionError(f"dist (d) rank {r}: {evals[r]}")
+    printed = [[ln for ln in out.splitlines() if ln.startswith("{")] for out in outs]
+    stats = json.loads(printed[0][-1]) if printed[0] else {}
+    off = {k: abs(stats.get(k, float("nan")) - v) for k, v in golden.items()}
+    with open(os.path.join(DIST_DIR, "eval", "log.txt")) as f:
+        records = f.read().splitlines()
+    log(f"dist (d) eval CLI, 2 processes x 10 images: the 12 stats minus the golden, largest "
+        f"{max(off.values()):.3g}; rank 1 printed {len(printed[1])} lines of stats; log.txt "
+        f"{len(records)} record(s)")
+    if (not all(d <= GOLDEN_ATOL for d in off.values()) or printed[1] or len(records) != 1
+            or any(evals[r]["stats"][k] != stats[k] for r in range(DIST_WORLD) for k in golden)):
+        raise AssertionError(f"dist (d): stats {stats} vs golden {golden}; rank 1 printed "
+                             f"{printed[1]}; {len(records)} log records")
+    res["d_eval_cli"] = {"stats": {k: stats[k] for k in golden}, "max_abs_minus_golden":
+                         max(off.values())}
+    res["wall_s"] = time.perf_counter() - t0
+    # context only: two processes share one card through gloo, which no user runs
+    res["context_wall_ms_a_step"] = {
+        key: {"one_process": ref[key]["wall_ms_a_step"],
+              "two_processes": [r[key]["wall_ms_a_step"] for r in ranks]} for key in ("a", "c")}
+    print(f"dist phase: 2 processes on one card over gloo, (a)-(d) held, {res['wall_s']:.1f} s; "
+          f"first-step wall ms, context only (processes sharing a card measure nothing a user "
+          f"runs): {json.dumps(res['context_wall_ms_a_step'])} ({card})")
+    return launches, res
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device is available")
+        return 1
+    import torch.nn.functional as F
+
+    from lwdetr_tpu_torch import bench
+    from lwdetr_tpu_torch.ops import deform_attn as da
+    from lwdetr_tpu_torch.ops import flash_attention as fa
+    from lwdetr_tpu_torch.utils.device import card_line
+    from lwdetr_tpu_torch.utils.timing import measure_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 stays f32, so that the
+    torch.backends.cudnn.allow_tf32 = False  # projector convs hide no kernel error
+    kernels = port_kernels()
 
     build_kernels()
     res = kernel_phase(torch, F, fa, da, measure_ms)
@@ -3878,6 +4445,10 @@ def main() -> int:
                                        card_line(), res)
     launches.update(by_path)
     by_path, deploy = deploy_phase(torch, fa, da, list(kernels.values()), card_line())
+    launches.update(by_path)
+    by_path, startup_bench = startup_bench_phase(torch, list(kernels.values()), card_line())
+    launches.update(by_path)
+    by_path, dist = dist_phase(torch, list(kernels.values()), card_line())
     launches.update(by_path)
     for preset in EXPECTED_LAUNCHES:
         thr[preset] = bench.run(preset, batch=32)
@@ -3963,7 +4534,7 @@ def main() -> int:
     print(json.dumps({"forward_f32": fwd, "throughput": thr, "train_f32": train,
                       "release_train": release, "eval_pipeline": eval_pipeline,
                       "train_cli": train_cli, "padded": padded, "variants": variants,
-                      "deploy": deploy}))
+                      "deploy": deploy, "startup_bench": startup_bench, "dist": dist}))
     print(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3973,4 +4544,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # `dist_phase` runs this script as its processes: --dist-child DIR, --dist-eval DIR
+    CHILDREN = {"--dist-child": dist_child, "--dist-eval": dist_eval_child}
+    if len(sys.argv) == 3 and sys.argv[1] in CHILDREN:
+        sys.exit(CHILDREN[sys.argv[1]](sys.argv[2]))
     sys.exit(main())

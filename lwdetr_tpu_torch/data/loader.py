@@ -9,7 +9,10 @@ DataLoader + DistributedSampler + NestedTensor collate in the same design:
   needed (`per_image_scales` draws a size per image and pads, as the
   reference does);
 * per-process sharding: each process iterates its `process_index`-strided
-  subset (the DistributedSampler equivalent);
+  subset (the DistributedSampler equivalent), and every process as many
+  images as the others (train drops the remainder, eval repeats a process's
+  own last image, which `evaluate` skips as a duplicate), so that no
+  collective of a step waits on a process that has run out;
 * a background thread prepares and collates the next batches while the
   device computes; an error there is raised to the caller at that batch.
 
@@ -141,7 +144,11 @@ class DetectionLoader:
             order = rng.permutation(n)
         else:
             order = np.arange(n)
-        return order[self.process_index::self.process_count]
+        idx = order[self.process_index::self.process_count]
+        if self.process_count > 1:
+            per = n // self.process_count if self.train else -(-n // self.process_count)
+            idx = np.concatenate([idx, np.repeat(idx[-1:], max(per - len(idx), 0))])[:per]
+        return idx
 
     def __len__(self):
         n = len(self._indices())

@@ -29,7 +29,12 @@ defaults to `cuda` and raises when there is no card; `--device cpu` runs the
 plain versions. `export_model` writes the deploy artifact: the eval forward
 and `post_process` through `torch.export`, in bf16 with float32 weights
 (`deploy/export.py`; `--dry-run` prints what it would do). f32 keeps TF32
-off, so f32 means f32.
+off, so f32 means f32. A multi-process launch (torchrun's or SLURM's variables,
+or COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID) runs one process a card
+(`parallel/`): `--batch_size` per process, DDP, the statistics and `num_boxes`
+of the global batch, `--shard_opt_state` as ZeRO-1, the detections merged for
+the eval, and rank 0 alone printing and writing. Rank 0 runs the startup
+self-benchmark (`utils/benchmark.py`) unless `--dont_bench`.
 """
 from __future__ import annotations
 
@@ -51,7 +56,9 @@ def get_args_parser():
     # optimization (reference main.py:41-66)
     p.add_argument("--lr", default=1e-4, type=float)
     p.add_argument("--lr_encoder", default=1.5e-4, type=float)
-    p.add_argument("--batch_size", default=2, type=int, help="batch of the loader")
+    p.add_argument("--batch_size", default=2, type=int,
+                   help="batch of the loader, per process (the global batch is this x the "
+                        "number of processes)")
     p.add_argument("--weight_decay", default=1e-4, type=float)
     p.add_argument("--epochs", default=12, type=int)
     p.add_argument("--lr_drop", default=11, type=int)
@@ -76,8 +83,8 @@ def get_args_parser():
     p.add_argument("--grad_checkpointing", action="store_true",
                    help="recompute encoder blocks in the backward")
     p.add_argument("--shard_opt_state", action="store_true",
-                   help="accepted for the JAX CLI's flag set; sharded optimizer state is "
-                        "ROADMAP.md § 1, 'Multi-process training and eval'")
+                   help="ZeRO-1 with more than one process: the AdamW moments and the EMA of "
+                        "each large leaf are kept as one slice a process")
     p.add_argument("--out_feature_indexes", default=[-1], type=int, nargs="+")
     # transformer
     p.add_argument("--dec_layers", default=3, type=int)
@@ -127,22 +134,27 @@ def get_args_parser():
                    help="half-precision eval: bfloat16 compute, float32 parameters (the "
                         "reference's engine.py:96-97 runs model.half())")
     p.add_argument("--sync_bn", action="store_true",
-                   help="accepted for the JAX CLI's flag set; SyncBN is ROADMAP.md § 1, "
-                        "'Multi-process training and eval'")
+                   help="accepted for the JAX CLI's flag set (reference main.py:207-208): the "
+                        "projector's train-mode BatchNorm statistics always span the global "
+                        "batch, so this is always on")
     p.add_argument("--use_ema", action="store_true")
     p.add_argument("--ema_decay", default=0.9997, type=float)
     p.add_argument("--num_workers", default=2, type=int)
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     p.add_argument("--max_gt", default=100, type=int)
     p.add_argument("--dont_bench", action="store_true",
-                   help="accepted for the JAX CLI's flag set; the port runs no startup "
-                        "benchmark (python -m lwdetr_tpu_torch.bench measures throughput)")
+                   help="skip the startup self-benchmark (parameters, GFLOPs by class and "
+                        "stage, latency at 640 and batch 1; utils/benchmark.py), which rank 0 "
+                        "runs by default")
     p.add_argument("--device", default="cuda", type=str,
                    help="cuda (the default; raises without a card) or cpu")
     p.add_argument("--world_size", default=1, type=int,
-                   help="accepted for the JAX CLI's flag set; one process")
+                   help="accepted for the JAX CLI's flag set: the process count comes from the "
+                        "launch's environment (WORLD_SIZE / SLURM_NTASKS / NUM_PROCESSES)")
     p.add_argument("--dist_url", default="env://", type=str,
-                   help="accepted for the JAX CLI's flag set; one process")
+                   help="accepted for the JAX CLI's flag set: the rendezvous comes from the "
+                        "launch's environment (MASTER_ADDR / MASTER_PORT or "
+                        "COORDINATOR_ADDRESS)")
     # subcommands
     sub = p.add_subparsers(title="sub-commands", dest="subcommand")
     pe = sub.add_parser("export_model", help="export the bf16 eval forward + post_process "
@@ -238,6 +250,7 @@ def main(args) -> dict:
     from lwdetr_tpu_torch.data.loader import DetectionLoader
     from lwdetr_tpu_torch.models.criterion import SetCriterion
     from lwdetr_tpu_torch.models.lwdetr import resolve_device
+    from lwdetr_tpu_torch.parallel import dist as pdist
 
     # f32 stays f32: no TF32 in the GEMMs or the projector's convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -245,6 +258,14 @@ def main(args) -> dict:
     if args.subcommand == "export_model":
         return export_model(args)
 
+    # a multi-process launch from the environment (root main.py:265-269); one
+    # process starts no group
+    rank, world = pdist.init_distributed(args.device)
+    pdist.setup_print_for_distributed()
+    device = resolve_device(pdist.local_device(args.device) if world > 1 else args.device)
+    if world > 1:
+        print(f"distributed: process {rank}/{world}, backend {pdist.backend()}, "
+              f"device {device}")
     cfg = config_from_args(args)
     mcfg, tcfg, dcfg = cfg.model, cfg.train, cfg.data
     print(f"config: {mcfg}")
@@ -254,8 +275,10 @@ def main(args) -> dict:
                        ("--resume", args.resume)):
         if path and not os.path.exists(path):
             raise FileNotFoundError(f"{flag}: no such file: {path}")
+    if tcfg.batch_size < 1:
+        raise ValueError(f"--batch_size {tcfg.batch_size}: each process needs a batch of at "
+                         "least 1")
 
-    device = resolve_device(args.device)
     torch.manual_seed(tcfg.seed)
     np.random.seed(tcfg.seed)
     # --fp16_eval: half-precision eval compute; bfloat16, with f32 parameters
@@ -266,9 +289,10 @@ def main(args) -> dict:
     # in the loader's thread, and halves the bytes moved to the card
     ds_val = build_dataset("val", dcfg)
     val_loader = DetectionLoader(
-        ds_val, batch_size=max(tcfg.batch_size, 1), train=False, max_gt=tcfg.max_gt,
+        ds_val, batch_size=tcfg.batch_size, train=False, max_gt=tcfg.max_gt,
         square_div_64=dcfg.square_resize_div_64, eval_size=dcfg.eval_square_size,
-        num_workers=dcfg.num_workers, image_dtype=torch.bfloat16 if half else None)
+        num_workers=dcfg.num_workers, image_dtype=torch.bfloat16 if half else None,
+        process_index=rank, process_count=world)
     eval_dtype = torch.bfloat16 if half else torch.float32
     if args.eval:
         return _evaluate_only(args, mcfg, tcfg, device, eval_dtype, criterion, ds_val, val_loader)
@@ -305,6 +329,16 @@ def _load_weights(args, model, use_ema: bool):
     return None
 
 
+def _startup_bench(args, model):
+    """The startup self-benchmark on rank 0 unless `--dont_bench` (root
+    `main.py:372-374`): the model in its compute dtype, 640 x 640, batch 1."""
+    from lwdetr_tpu_torch.parallel.dist import is_main_process
+    from lwdetr_tpu_torch.utils.benchmark import benchmark_model
+
+    if is_main_process() and not args.dont_bench:
+        benchmark_model(model, image_size=640, batch=1)
+
+
 def _run_eval(model, mcfg, criterion, ds_val, val_loader, device):
     """`evaluate` of `model` over the val loader; (stats, the evaluator)."""
     from lwdetr_tpu_torch.data.coco_eval import CocoEvaluator
@@ -334,6 +368,7 @@ def _evaluate_only(args, mcfg, tcfg, device, dtype, criterion, ds_val, val_loade
         ema, start_epoch = ckpt.resume_pth(model, args.resume, use_ema=tcfg.use_ema, ckpt=raw)
         print(f"resumed model weights from {args.resume}"
               + (f" (epoch {start_epoch - 1})" if start_epoch else ""))
+    _startup_bench(args, model)
 
     stats, _ = _run_eval(model, mcfg, criterion, ds_val, val_loader, device)
     stats_ema = None
@@ -351,7 +386,8 @@ def _evaluate_only(args, mcfg, tcfg, device, dtype, criterion, ds_val, val_loade
 
 
 def _train(args, cfg, device, eval_dtype, criterion, ds_val, val_loader) -> dict:
-    """The root `main.py:310-320`, `:343-356` and `:402-497`, without the mesh."""
+    """The root `main.py:310-320`, `:343-356` and `:402-497`; one process a card
+    (`parallel/`), checkpoints and logs written by rank 0."""
     import datetime
     import signal
     import time
@@ -361,6 +397,7 @@ def _train(args, cfg, device, eval_dtype, criterion, ds_val, val_loader) -> dict
     from lwdetr_tpu_torch.models.lwdetr import build_model
     from lwdetr_tpu_torch.train import checkpoint as ckpt
     from lwdetr_tpu_torch.train import optim
+    from lwdetr_tpu_torch.parallel import dist as pdist
     from lwdetr_tpu_torch.train.engine import (build_train_step, create_train_state,
                                                train_one_epoch)
     from lwdetr_tpu_torch.utils.logging import (BestMetricHolder, is_main_process,
@@ -371,13 +408,19 @@ def _train(args, cfg, device, eval_dtype, criterion, ds_val, val_loader) -> dict
     train_loader = DetectionLoader(
         ds_train, batch_size=tcfg.batch_size, train=True, max_gt=tcfg.max_gt, seed=tcfg.seed,
         square_div_64=dcfg.square_resize_div_64, per_image_scales=dcfg.per_image_scales,
-        num_workers=dcfg.num_workers)
+        num_workers=dcfg.num_workers, process_index=pdist.rank(),
+        process_count=pdist.world_size())
     niter_per_ep = len(train_loader)
+    if niter_per_ep == 0:
+        raise ValueError(f"--batch_size {tcfg.batch_size} per process leaves no whole batch of "
+                         f"the {len(ds_train)} train images over {pdist.world_size()} "
+                         "processes")
     train_dtype = torch.bfloat16 if args.bf16 else torch.float32
-    state = create_train_state(mcfg, tcfg, niter_per_ep, device=device, dtype=train_dtype)
+    state = create_train_state(mcfg, tcfg, niter_per_ep, device=device, dtype=train_dtype,
+                               shard_opt_state=args.shard_opt_state)
     ema = _load_weights(args, state.model, tcfg.use_ema)
     if ema is not None:  # reference main.py:257-259: EMA re-seeded from the loaded weights
-        state.ema = ema
+        state.ema = optim.ema_shard(ema, state.shards)
     start_epoch = args.start_epoch
     if args.resume:
         raw = ckpt.read_checkpoint(args.resume)
@@ -390,11 +433,13 @@ def _train(args, cfg, device, eval_dtype, criterion, ds_val, val_loader) -> dict
             # and schedule start afresh, as in the JAX CLI
             ema, epoch = ckpt.resume_pth(state.model, args.resume, use_ema=tcfg.use_ema, ckpt=raw)
             if ema is not None:
-                state.ema = ema
+                state.ema = optim.ema_shard(ema, state.shards)
             if epoch is not None:
                 start_epoch = epoch
             print(f"resumed model weights from {args.resume}")
         del raw
+
+    _startup_bench(args, state.model)
 
     # schedules (reference main.py:296-309)
     dp_sched = optim.drop_scheduler(mcfg.drop_path, tcfg.epochs, niter_per_ep, tcfg.cutoff_epoch,
@@ -409,14 +454,16 @@ def _train(args, cfg, device, eval_dtype, criterion, ds_val, val_loader) -> dict
     eval_model = (state.model if eval_dtype == train_dtype
                   else build_model(mcfg, device=device, dtype=eval_dtype,
                                    state_dict=state.model.state_dict()))
-    ema_model = (build_model(mcfg, device=device, dtype=eval_dtype, state_dict=state.ema)
+    ema_model = (build_model(mcfg, device=device, dtype=eval_dtype,
+                             state_dict=optim.ema_full(state.ema, state.shards))
                  if tcfg.use_ema else None)
     put = lambda b: to_device(b, device)  # noqa: E731
     out_dir = args.output_dir if is_main_process() else ""
 
     def save(sub: str, key: int, epoch: int):
-        if out_dir:
-            ckpt.save_checkpoint(os.path.join(out_dir, sub), key, state, epoch, args,
+        # a ZeRO-1 state is gathered by every process; rank 0 writes
+        if args.output_dir and (out_dir or state.shards):
+            ckpt.save_checkpoint(os.path.join(args.output_dir, sub), key, state, epoch, args,
                                  keep=ckpt.KEEP[sub])
 
     # preemption: finish the step in flight, save, exit; resume is step-granular
@@ -425,6 +472,10 @@ def _train(args, cfg, device, eval_dtype, criterion, ds_val, val_loader) -> dict
     def on_term(signum, frame):
         preempt["sig"] = signum
         print(f"signal {signum}: draining the current step, will save and exit", flush=True)
+
+    def should_stop() -> bool:
+        """A signal on any process stops every process after the same step."""
+        return pdist.any_process(preempt["sig"] is not None)
 
     previous = signal.signal(signal.SIGTERM, on_term)
     best = BestMetricHolder(use_ema=tcfg.use_ema)
@@ -436,9 +487,8 @@ def _train(args, cfg, device, eval_dtype, criterion, ds_val, val_loader) -> dict
             train_loader.set_epoch(epoch)
             train_meters = train_one_epoch(
                 train_step, state, train_loader, epoch, niter_per_ep, put_fn=put,
-                should_stop=lambda: preempt["sig"] is not None,
-                drop_path_sched=dp_sched, dropout_sched=do_sched)
-            if preempt["sig"] is not None:
+                should_stop=should_stop, drop_path_sched=dp_sched, dropout_sched=do_sched)
+            if should_stop():
                 save("ckpt", state.step, epoch)
                 print(f"preempted (signal {preempt['sig']}): saved at step {state.step}, exiting")
                 break
@@ -462,7 +512,7 @@ def _train(args, cfg, device, eval_dtype, criterion, ds_val, val_loader) -> dict
             if best.update(stats["AP"], epoch):
                 save("ckpt_best_regular", epoch, epoch)
             if tcfg.use_ema:
-                ema_model.load_state_dict(state.ema, strict=True)
+                ema_model.load_state_dict(optim.ema_full(state.ema, state.shards), strict=True)
                 stats_ema, _ = _run_eval(ema_model, mcfg, criterion, ds_val, val_loader, device)
                 record.update({f"ema_test_{k}": v for k, v in stats_ema.items()})
                 if best.update(stats_ema["AP"], epoch, is_ema=True):
@@ -502,4 +552,7 @@ def parser() -> argparse.ArgumentParser:
 
 
 if __name__ == "__main__":
+    from lwdetr_tpu_torch.parallel.dist import shutdown
+
     main(parser().parse_args())
+    shutdown()

@@ -15,7 +15,8 @@ reduce to sum(weighted BCE) / num_boxes:
 * position-supervised
 
 All in f32. `num_boxes` is the batch's count of valid boxes (times the number
-of query groups unless `sum_group_losses`).
+of query groups unless `sum_group_losses`); with more than one process, the
+global batch's count over the number of processes.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 from lwdetr_tpu_torch.config import ModelConfig, TrainConfig
 from lwdetr_tpu_torch.models.matcher import hungarian_match
 from lwdetr_tpu_torch.ops import box_ops
+from lwdetr_tpu_torch.parallel.dist import all_reduce_sum, world_size
 
 
 class Targets(NamedTuple):
@@ -192,7 +194,11 @@ class SetCriterion:
         group_detr = self.mcfg.group_detr if train else 1
         n_valid = targets.valid.float().sum()
         num_boxes = n_valid if self.tcfg.sum_group_losses else n_valid * group_detr
-        num_boxes = num_boxes.clamp(min=1.0)
+        # the global count (the JAX package's), over the world size: DDP
+        # averages the processes' gradients, so each divides its share of the
+        # global sums by count / world (the reference's lwdetr.py:416-423), and
+        # the mean of their losses is the global loss
+        num_boxes = all_reduce_sum(num_boxes).clamp(min=1.0) / world_size()
 
         sets = [(outputs, "", True)]
         sets += [(aux, f"_{i}", False) for i, aux in enumerate(outputs.get("aux_outputs", []))]

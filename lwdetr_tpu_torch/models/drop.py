@@ -13,8 +13,9 @@ masks from an explicit `torch.Generator` on the model's device, seeded per
 train step (the JAX package folds the step into its key,
 `lwdetr_tpu/train/engine.py:189`; the idea here is the same, the bits are
 not). `Fed` hands out given masks in order, so that a test can feed the
-same masks to the port and to the JAX package. The sites draw in the JAX
-modules' order: per ViT block the attention's then the MLP's; per decoder
+same masks to the port and to the JAX package. With more than one process,
+`RankRows` hands each process its rows of a draw at the global batch's
+shape. The sites draw in the JAX modules' order: per ViT block the attention's then the MLP's; per decoder
 layer the self-attention weights (a rate > 0 only), then the outputs of the
 self-attention, the cross-attention, `linear1` (after the ReLU) and `linear2`.
 """
@@ -49,6 +50,23 @@ def step_generator(device, seed: int, step: int) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed((int(seed) * 1_000_003 + int(step)) % (2 ** 63))
     return gen
+
+
+class RankRows:
+    """A source for one of `world` processes: each mask is drawn by `source`
+    at the global batch's shape (the leading axis `world` times the site's,
+    which is batch-major at every site) and this process's rows are handed
+    out, so that the processes' masks are the rows of one global draw, as the
+    JAX step draws them for its global batch from one key. Each process
+    draws the whole mask from the same stream."""
+
+    def __init__(self, source: MaskSource, rank: int, world: int):
+        self.source, self.rank, self.world = source, rank, world
+
+    def __call__(self, keep, shape, like: torch.Tensor) -> torch.Tensor:
+        n = shape[0]
+        full = self.source(keep, (n * self.world,) + tuple(shape[1:]), like)
+        return full[self.rank * n:(self.rank + 1) * n]
 
 
 class Fed:

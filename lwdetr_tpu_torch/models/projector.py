@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lwdetr_tpu_torch.models.cast import Conv2d, ConvTranspose2d
+from lwdetr_tpu_torch.parallel.dist import all_reduce_sum, world_size
 
 LEVEL2SCALE = {"P3": 2.0, "P4": 1.0, "P5": 0.5, "P6": 0.25}
 
@@ -28,18 +29,78 @@ class BatchNorm2d(nn.BatchNorm2d):
     statistics: it normalizes with the batch mean and the biased batch
     variance, as stock PyTorch does, but also stores the *biased* variance in
     `running_var` (flax's `nn.BatchNorm`), where stock PyTorch stores the
-    unbiased one (x N / (N - 1)). momentum 0.1 here is flax's 0.9."""
+    unbiased one (x N / (N - 1)). momentum 0.1 here is flax's 0.9.
+
+    With more than one process the batch is the global batch, as the JAX
+    package's statistics always span it (root `main.py:114-117`): each
+    process's (count, sum x, sum x^2) is all-reduced in float64
+    (`global_moments`), and `_GlobalBatchNorm`'s backward all-reduces the two
+    per-channel sums its input gradient needs, as `SyncBatchNorm` does. One
+    process runs `F.batch_norm` on its own batch."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        global_batch = world_size() > 1
         with torch.no_grad():
-            xf = x.detach().float()
-            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+            if global_batch:
+                mean, var, count = global_moments(x)
+            else:
+                var, mean = torch.var_mean(x.detach().float(), dim=(0, 2, 3), correction=0)
             self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
             self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
             self.num_batches_tracked += 1
+        if global_batch:
+            return _GlobalBatchNorm.apply(x, self.weight, self.bias, mean, var, count, self.eps)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+def global_moments(x: torch.Tensor):
+    """(mean, biased variance) per channel over every process's (B, C, H, W)
+    batch, float32, and the global element count a channel (float64): each
+    process's moments in float32, then (n, n mean, n (var + mean^2)) summed
+    over the processes in float64."""
+    n = x.numel() // x.shape[1]
+    var, mean = torch.var_mean(x.detach().float(), dim=(0, 2, 3), correction=0)
+    m, v = mean.double(), var.double()
+    sums = torch.cat([m.new_full((1,), float(n)), n * m, n * (v + m * m)])
+    all_reduce_sum(sums)
+    C = x.shape[1]
+    count = sums[:1]
+    gmean = sums[1:C + 1] / count
+    gvar = (sums[C + 1:] / count - gmean * gmean).clamp(min=0.0)
+    return gmean.float(), gvar.float(), count
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """y = (x - mean) / sqrt(var + eps) x weight + bias on the global batch's
+    statistics, in float32, y in x's dtype. The backward: d(x) = weight /
+    sqrt(var + eps) x (dy - mean(dy) - x_hat mean(dy x_hat)), the means over
+    the global batch (its two sums all-reduced); d(weight) and d(bias) are this
+    process's sums, which DDP averages with the other processes' like any
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, var, count, eps):
+        invstd = torch.rsqrt(var + eps)
+        xhat = (x.float() - mean[:, None, None]) * invstd[:, None, None]
+        ctx.save_for_backward(x, weight, mean, invstd, count)
+        return (xhat * weight.float()[:, None, None] + bias.float()[:, None, None]).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        g = dy.float()
+        xhat = (x.float() - mean[:, None, None]) * invstd[:, None, None]
+        sum_g = g.sum(dim=(0, 2, 3))
+        sum_gx = (g * xhat).sum(dim=(0, 2, 3))
+        sums = all_reduce_sum(torch.cat([sum_g, sum_gx]).double())
+        C = x.shape[1]
+        mg = (sums[:C] / count).float()[:, None, None]
+        mgx = (sums[C:] / count).float()[:, None, None]
+        dx = (weight.float() * invstd)[:, None, None] * (g - mg - xhat * mgx)
+        return (dx.to(x.dtype), sum_gx.to(weight.dtype), sum_g.to(weight.dtype),
+                None, None, None, None)
 
 
 class ConvX(nn.Module):

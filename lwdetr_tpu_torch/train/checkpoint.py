@@ -15,6 +15,9 @@ the JAX package's `.pth` readers read its `model`. The directories keep the
 JAX CLI's layout and retention (`KEEP`), one file a key (`<key>.pth`: the
 global step in `ckpt/`, the epoch in the others). A file is written under a
 temporary name and renamed, so a run killed mid-write leaves no torn file.
+With more than one process rank 0 writes; a ZeRO-1 state's optimizer moments
+and EMA are gathered into the unsharded layout first (every process takes
+part), and a restore gives each process its slices.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from lwdetr_tpu_torch.parallel.dist import is_main_process
+from lwdetr_tpu_torch.train.optim import ema_full
 from lwdetr_tpu_torch.utils.obj365_remap import remap_torch_state_dict
 
 ENCODER_PREFIX = "backbone.0.encoder."
@@ -162,25 +167,30 @@ def checkpoint_file(path: str) -> str:
 
 
 def _payload(state, epoch: int, args=None) -> dict:
-    """The train state as the reference's `.pth` dict, on the CPU."""
+    """The train state as the reference's `.pth` dict, on the CPU (a ZeRO-1
+    state gathered: every process calls this)."""
     payload = {"model": _to_cpu(state.model.state_dict()),
                "optimizer": _to_cpu(state.optimizer.state_dict()),
                "lr_scheduler": state.scheduler.state_dict(),
                "epoch": int(epoch), "step": int(state.step),
                "args": dict(vars(args)) if args is not None else None}
     if state.ema is not None:
-        payload["ema_model"] = _to_cpu(state.ema)
+        payload["ema_model"] = _to_cpu(ema_full(state.ema, state.shards))
     return payload
 
 
 def save_checkpoint(ckpt_dir: str, key: int, state, epoch: int, args=None,
                     keep: Optional[int] = 3) -> str:
     """Writes `ckpt_dir/<key>.pth` (temporary name, then rename) and removes
-    the oldest files past `keep` (None keeps all); returns the path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    the oldest files past `keep` (None keeps all); returns the path. Every
+    process of a ZeRO-1 state calls it; only rank 0 writes."""
     path = os.path.join(ckpt_dir, f"{int(key)}.pth")
+    payload = _payload(state, epoch, args)
+    if not is_main_process():
+        return path
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(_payload(state, epoch, args), tmp)
+    torch.save(payload, tmp)
     os.replace(tmp, path)
     if keep is not None:
         for old in checkpoint_keys(ckpt_dir)[:-keep]:
@@ -198,7 +208,8 @@ def restore_checkpoint(path: str, state, ckpt: Optional[dict] = None) -> int:
     """Restores `state` in place from a train-state file, or a directory's
     latest (`ckpt`: that file already loaded): model (strictly, BatchNorm
     statistics included), optimizer moments, the schedule, EMA (the model's
-    weights when the file has none) and `state.step`. Returns the step."""
+    weights when the file has none) and `state.step`; a ZeRO-1 state takes its
+    slices of the moments and the EMA. Returns the step."""
     if ckpt is None:
         ckpt = read_checkpoint(path)
     if not is_train_state(ckpt):
@@ -209,6 +220,10 @@ def restore_checkpoint(path: str, state, ckpt: Optional[dict] = None) -> int:
     if state.ema is not None:
         src = ckpt.get("ema_model") or state.model.state_dict()
         for k, v in state.ema.items():
-            v.copy_(src[k])
+            full = src[k]
+            if state.shards and k in state.shards:
+                start, stop, _ = state.shards[k]
+                full = full.reshape(-1)[start:stop]
+            v.copy_(full)
     state.step = int(ckpt["step"])
     return state.step

@@ -8,7 +8,11 @@ schedule -> EMA. The drop masks come from a generator on the model's device
 seeded from (seed, step); a rate whose whole schedule is zero draws none.
 Metrics stay on the device as 0-dim tensors and are fetched one step late,
 so the host does not wait on the device for them. `evaluate` runs an eval
-step over a loader into the COCO evaluator (`data/coco_eval.py`).
+step over a loader into the COCO evaluator (`data/coco_eval.py`). With more
+than one process (`parallel/`) the forward runs under DDP, the drop masks
+are this process's rows of a draw at the global batch's shape, ZeRO-1 shards
+the optimizer and the EMA when the state was built so, and `evaluate` merges
+the processes' detections before it summarizes.
 """
 from __future__ import annotations
 
@@ -23,8 +27,10 @@ from lwdetr_tpu_torch.config import ModelConfig, TrainConfig
 from lwdetr_tpu_torch.models import drop
 from lwdetr_tpu_torch.models.criterion import SetCriterion, Targets
 from lwdetr_tpu_torch.models.lwdetr import LWDETR, build_model, post_process
+from lwdetr_tpu_torch.parallel import mesh
+from lwdetr_tpu_torch.parallel.dist import merge_evaluators, rank, world_size
 from lwdetr_tpu_torch.train import optim
-from lwdetr_tpu_torch.utils.logging import MetricLogger, world_size
+from lwdetr_tpu_torch.utils.logging import MetricLogger
 
 
 @dataclass
@@ -34,21 +40,27 @@ class TrainState:
     scheduler: torch.optim.lr_scheduler.LRScheduler
     ema: Optional[Dict[str, torch.Tensor]]  # EMA of parameters and buffers, or None
     step: int = 0
+    shards: Optional[optim.Shards] = None  # this process's ZeRO-1 slices, or None
+    ddp: Optional[torch.nn.Module] = None  # the model under DDP (more than one process)
 
 
 def create_train_state(mcfg: ModelConfig, tcfg: TrainConfig, niter_per_ep: int, device=None,
                        state_dict: Optional[dict] = None,
-                       dtype: torch.dtype = torch.float32) -> TrainState:
+                       dtype: torch.dtype = torch.float32,
+                       shard_opt_state: bool = False) -> TrainState:
     """A train-mode model computing in `dtype` (float32 or bfloat16; the
     parameters are float32 either way) on `device` (CUDA unless given; raises
     when there is no card), its optimizer and schedule, and the EMA copy if
     configured. Without `state_dict` the weights are the JAX package's
-    initialisation drawn from `tcfg.seed`."""
+    initialisation drawn from `tcfg.seed`. `shard_opt_state` with more than
+    one process: ZeRO-1 (`optim.ShardedAdamW`, a sharded EMA)."""
     model = build_model(mcfg, device=device, dtype=dtype, state_dict=state_dict, train=True,
                         generator=torch.Generator().manual_seed(tcfg.seed))
-    optimizer, scheduler = optim.build_optimizer(model, mcfg, tcfg, niter_per_ep)
-    ema = optim.ema_init(model) if tcfg.use_ema else None
-    return TrainState(model, optimizer, scheduler, ema)
+    shards = (optim.zero1_shards(model, mcfg, world_size(), rank())
+              if shard_opt_state and world_size() > 1 else None)
+    optimizer, scheduler = optim.build_optimizer(model, mcfg, tcfg, niter_per_ep, shards)
+    ema = optim.ema_init(model, shards) if tcfg.use_ema else None
+    return TrainState(model, optimizer, scheduler, ema, shards=shards)
 
 
 def _targets(batch) -> Targets:
@@ -69,12 +81,19 @@ def build_train_step(state: TrainState, criterion: SetCriterion, tcfg: TrainConf
     `static_zero_drop_path` / `static_zero_dropout`: the whole schedule is zero, so
     no mask of that kind is drawn at all (the JAX package's flags of the same
     names). The step updates `state` in place; the metrics (every loss component,
-    `loss`, and `grad_norm` before clipping) are 0-dim tensors on the device."""
+    `loss`, and `grad_norm` before clipping) are 0-dim tensors on the device.
+    With more than one process the forward runs on `state.ddp` (made here if
+    the state has none) and each process draws its rows of the global masks
+    (`drop.RankRows`); a given `mask_source` is used as it is."""
     model = state.model
     params = [p for p in model.parameters() if p.requires_grad]
     depth = model.cfg.vit_encoder_num_layers
     seed = tcfg.seed if seed is None else seed
     device = next(model.parameters()).device
+    world = world_size()
+    if world > 1 and state.ddp is None:
+        state.ddp = mesh.wrap_ddp(model, device)
+    net = model if state.ddp is None else state.ddp
 
     def train_step(batch, drop_path_rate=0.0, dropout_rate=0.0,
                    mask_source: Optional[drop.MaskSource] = None) -> Dict[str, torch.Tensor]:
@@ -84,9 +103,10 @@ def build_train_step(state: TrainState, criterion: SetCriterion, tcfg: TrainConf
         do_rate = 0.0 if static_zero_dropout else dropout_rate
         drawn = (dp_rates is not None and float(drop_path_rate) != 0.0) or float(do_rate) != 0.0
         if mask_source is None and drawn:
-            mask_source = drop.Bernoulli(drop.step_generator(device, seed, state.step))
+            mask_source = drop.RankRows(
+                drop.Bernoulli(drop.step_generator(device, seed, state.step)), rank(), world)
         state.optimizer.zero_grad(set_to_none=True)
-        out = model(batch["images"], batch.get("pad_mask"), dp_rates, do_rate, mask_source)
+        out = net(batch["images"], batch.get("pad_mask"), dp_rates, do_rate, mask_source)
         total, losses = criterion(out, _targets(batch), train=True)
         total.backward()
         optim.zero_missing_grads(params)  # a parameter the forward does not read still decays
@@ -95,7 +115,7 @@ def build_train_step(state: TrainState, criterion: SetCriterion, tcfg: TrainConf
         state.optimizer.step()
         state.scheduler.step()
         if state.ema is not None:
-            optim.ema_update(state.ema, model, tcfg.ema_decay)
+            optim.ema_update(state.ema, model, tcfg.ema_decay, state.shards)
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
@@ -182,17 +202,6 @@ def _fetch(tensors):
     return [h.float().numpy() if h.dtype == torch.bfloat16 else h.numpy() for h in host]
 
 
-def merge_evaluators(evaluator):
-    """The evaluator of one process is the whole result; the merge across
-    processes (the JAX package's `parallel/dist.py:130 merge_evaluators`) is
-    not ported (ROADMAP.md § 1, "Multi-process training and eval"), so more than one
-    process raises."""
-    if world_size() > 1:
-        raise NotImplementedError("evaluate across processes is not ported: the merge of their "
-                                  'evaluators is ROADMAP.md § 1, "Multi-process training and eval"')
-    return evaluator
-
-
 def evaluate(eval_step, loader, evaluator, put_fn=None, logger=print):
     """Eval loop: forward + `post_process` on the device, COCO accumulation on
     the host (the reference's engine.py:93-164; `lwdetr_tpu/train/engine.py:207`).
@@ -201,7 +210,10 @@ def evaluate(eval_step, loader, evaluator, put_fn=None, logger=print):
     (`data.loader.to_device`). Each batch's detections and losses are fetched
     in one wait; the padded duplicates of the last batch are skipped by image
     id. When the step was built with a criterion, the loss components are
-    metered and returned alongside the 12 AP/AR stats."""
+    metered and returned alongside the 12 AP/AR stats. With more than one
+    process each evaluates its loader's share, and the detections are merged
+    (`parallel/dist.py::merge_evaluators`) and the meters averaged over all
+    of them before every process summarizes."""
     t0 = time.time()
     seen = set()
     mlog = MetricLogger()

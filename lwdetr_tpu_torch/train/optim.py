@@ -20,16 +20,32 @@ optimizer updates every leaf, so a parameter the forward does not read (the
 learned position embedding) decays by (1 - s lr wd) a step; AdamW skips a
 parameter without a gradient, so the train step gives those zero gradients
 (`zero_missing_grads`).
+
+ZeRO-1 (`--shard_opt_state` with more than one process): for each leaf of
+`parallel/mesh.py::zero1_plan` each process keeps and updates only its slice
+of the AdamW moments (`ShardedAdamW`) and of the EMA (`ema_shard`), and the
+updated parameter slices are all-gathered. The gradients arrive all-reduced
+by DDP (the clip reads their global norm), and each process reads its slice
+of them: all-reduce plus a slice on every backend, not a reduce-scatter
+(gloo has none, and the clip would need the norm's partial sums gathered).
+The per-group lr / wd and the step-indexed schedule are untouched; the
+sharded state reads and writes the unsharded layout (`state_dict`).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from lwdetr_tpu_torch.config import ModelConfig, TrainConfig
+from lwdetr_tpu_torch.parallel import mesh
+from lwdetr_tpu_torch.parallel.dist import all_gather_into
+
+# {reference key: (start, stop, full shape)}: this process's slice of each
+# planned leaf's flattened elements under ZeRO-1
+Shards = Dict[str, Tuple[int, int, Tuple[int, ...]]]
 
 ENCODER = "backbone.0.encoder."
 DECODER = "transformer.decoder."
@@ -84,18 +100,112 @@ def step_lr_lambda(lr_drop_epochs: int, niter_per_ep: int, gamma: float = 0.1):
     return sched
 
 
-def build_optimizer(model: nn.Module, mcfg: ModelConfig, tcfg: TrainConfig, niter_per_ep: int):
-    """(AdamW over the parameters that require grad, its step-indexed LambdaLR)."""
+def zero1_shards(model: nn.Module, mcfg: ModelConfig, world: int, rank: int) -> Shards:
+    """This process's slices of the ZeRO-1 plan over the model's parameters
+    and buffers (what the optimizer and the EMA hold)."""
+    named = model.state_dict()
+    plan = mesh.zero1_plan(named, world, mesh.jax_dim0(mcfg))
+    return {k: (*mesh.shard_range(n, world, rank), tuple(named[k].shape))
+            for k, n in plan.items()}
+
+
+class ShardedAdamW(torch.optim.AdamW):
+    """AdamW that keeps, for each leaf of `shards`, the state of this
+    process's slice only: it optimizes a view of that slice of the parameter
+    (the same elementwise update as the unsharded AdamW), then all-gathers
+    the updated slices into the whole parameter. `state_dict` gathers the
+    sliced moments into the unsharded layout and `load_state_dict` takes this
+    process's slices of it, so checkpoints move between the two."""
+
+    def __init__(self, groups, shards: Shards, **kwargs):
+        self._sharded: List[Tuple[torch.Tensor, torch.Tensor, int]] = []  # (p, slice, start)
+        self._all: List[torch.Tensor] = []
+        param_groups = []
+        for (lr, wd), named in groups.items():
+            tensors = []
+            for name, p in named:
+                self._all.append(p)
+                if name in shards:
+                    start, stop, _ = shards[name]
+                    view = p.detach().view(-1)[start:stop]
+                    self._sharded.append((p, view, start))
+                    tensors.append(view)
+                else:
+                    tensors.append(p)
+            param_groups.append({"params": tensors, "lr": lr, "weight_decay": wd})
+        super().__init__(param_groups, **kwargs)
+
+    def _index(self) -> Dict[int, int]:
+        flat = [t for g in self.param_groups for t in g["params"]]
+        return {id(t): i for i, t in enumerate(flat)}
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for p, view, start in self._sharded:
+            view.grad = (None if p.grad is None
+                         else p.grad.reshape(-1)[start:start + view.numel()])
+        loss = super().step(closure)
+        for p, view, _ in self._sharded:
+            all_gather_into(p.detach().view(-1), view)
+        return loss
+
+    def zero_grad(self, set_to_none: bool = True):
+        super().zero_grad(set_to_none)
+        for p in self._all:
+            if set_to_none:
+                p.grad = None
+            elif p.grad is not None:
+                p.grad.zero_()
+
+    def state_dict(self):
+        sd = super().state_dict()
+        index, state = self._index(), dict(sd["state"])
+        for p, view, _ in self._sharded:
+            i = index[id(view)]
+            if i in state:
+                entry = dict(state[i])
+                for k in ("exp_avg", "exp_avg_sq"):
+                    full = entry[k].new_empty(p.numel())
+                    all_gather_into(full, entry[k])
+                    entry[k] = full.view(p.shape)
+                state[i] = entry
+        return {"state": state, "param_groups": sd["param_groups"]}
+
+    def load_state_dict(self, state_dict):
+        index, state = self._index(), dict(state_dict["state"])
+        for _, view, start in self._sharded:
+            i = index[id(view)]
+            if i in state:
+                entry = dict(state[i])
+                for k in ("exp_avg", "exp_avg_sq"):
+                    entry[k] = entry[k].reshape(-1)[start:start + view.numel()].clone()
+                state[i] = entry
+        super().load_state_dict({"state": state, "param_groups": state_dict["param_groups"]})
+
+
+def build_optimizer(model: nn.Module, mcfg: ModelConfig, tcfg: TrainConfig, niter_per_ep: int,
+                    shards: Optional[Shards] = None):
+    """(AdamW over the parameters that require grad, its step-indexed
+    LambdaLR); with `shards`, the ZeRO-1 `ShardedAdamW`."""
     groups: Dict[Tuple[float, float], list] = {}
     for name, p in model.named_parameters():
         if p.requires_grad:
-            groups.setdefault(param_lr_wd(name, mcfg, tcfg), []).append(p)
-    optimizer = torch.optim.AdamW(
-        [{"params": ps, "lr": lr, "weight_decay": wd} for (lr, wd), ps in groups.items()],
-        betas=(0.9, 0.999), eps=1e-8)
+            groups.setdefault(param_lr_wd(name, mcfg, tcfg), []).append((name, p))
+    if shards:
+        optimizer = ShardedAdamW(groups, shards, betas=(0.9, 0.999), eps=1e-8)
+    else:
+        optimizer = torch.optim.AdamW(
+            [{"params": [p for _, p in ps], "lr": lr, "weight_decay": wd}
+             for (lr, wd), ps in groups.items()], betas=(0.9, 0.999), eps=1e-8)
     scheduler = torch.optim.lr_scheduler.LambdaLR(
         optimizer, step_lr_lambda(tcfg.lr_drop, niter_per_ep))
     return optimizer, scheduler
+
+
+def state_bytes(optimizer: torch.optim.Optimizer) -> int:
+    """Bytes of the optimizer state this process holds."""
+    return sum(v.numel() * v.element_size() for st in optimizer.state.values()
+               for v in st.values() if isinstance(v, torch.Tensor))
 
 
 def ema_tensors(model: nn.Module):
@@ -104,15 +214,45 @@ def ema_tensors(model: nn.Module):
     return dict(model.state_dict(keep_vars=True))
 
 
-def ema_init(model: nn.Module) -> Dict[str, torch.Tensor]:
-    return {k: v.detach().clone() for k, v in ema_tensors(model).items()}
+def _slice(t: torch.Tensor, shard) -> torch.Tensor:
+    start, stop, _ = shard
+    return t.detach().reshape(-1)[start:stop]
+
+
+def ema_shard(ema: Optional[Dict[str, torch.Tensor]], shards: Optional[Shards]):
+    """An EMA state_dict with each planned leaf cut to this process's slice
+    (the EMA itself without `shards`)."""
+    if ema is None or not shards:
+        return ema
+    return {k: _slice(v, shards[k]).clone() if k in shards else v for k, v in ema.items()}
+
+
+def ema_full(ema: Dict[str, torch.Tensor], shards: Optional[Shards]) -> Dict[str, torch.Tensor]:
+    """The whole EMA state_dict: each planned leaf's slices all-gathered (every
+    process takes part)."""
+    if not shards:
+        return ema
+    out = dict(ema)
+    for k, (_, _, shape) in shards.items():
+        full = ema[k].new_empty(int(np.prod(shape)))
+        all_gather_into(full, ema[k])
+        out[k] = full.view(shape)
+    return out
+
+
+def ema_init(model: nn.Module, shards: Optional[Shards] = None) -> Dict[str, torch.Tensor]:
+    return ema_shard({k: v.detach().clone() for k, v in ema_tensors(model).items()}, shards)
 
 
 @torch.no_grad()
-def ema_update(ema: Dict[str, torch.Tensor], model: nn.Module, decay: float) -> None:
+def ema_update(ema: Dict[str, torch.Tensor], model: nn.Module, decay: float,
+               shards: Optional[Shards] = None) -> None:
     """ema <- decay x ema + (1 - decay) x model, in place; integer buffers
-    (BatchNorm's step counter) are copied."""
+    (BatchNorm's step counter) are copied. With `shards`, a planned leaf's
+    EMA is this process's slice, updated from the model's same slice."""
     new = ema_tensors(model)
+    if shards:
+        new = {k: _slice(v, shards[k]) if k in shards else v for k, v in new.items()}
     floats = [k for k, v in ema.items() if v.is_floating_point()]
     torch._foreach_lerp_([ema[k] for k in floats], [new[k].detach() for k in floats], 1.0 - decay)
     for k, v in ema.items():

@@ -4,7 +4,8 @@ The port's own copy of `lwdetr_tpu/utils/logging.py`: the reference's
 `util/misc.py:37-256` (SmoothedValue, MetricLogger) and its per-epoch JSON
 log (`main.py:361-400`). Cross-process metric synchronization (the
 reference's all_reduce of [count, total]) is `sync()` over
-`torch.distributed` when a process group of more than one is up.
+`torch.distributed` when a process group of more than one is up, on the
+device the backend reduces on (`parallel/dist.py::collective_device`).
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import os
 import time
 from collections import defaultdict, deque
 from typing import Dict, Optional
+
+from lwdetr_tpu_torch.parallel.dist import collective_device, is_main_process, world_size
 
 
 class SmoothedValue:
@@ -37,7 +40,8 @@ class SmoothedValue:
         import torch
         import torch.distributed as dist
 
-        t = torch.tensor([self.count, self.total], dtype=torch.float64)
+        t = torch.tensor([self.count, self.total], dtype=torch.float64,
+                         device=collective_device())
         dist.all_reduce(t)
         self.count = int(t[0].item())
         self.total = float(t[1].item())
@@ -111,19 +115,6 @@ class MetricLogger:
             end = time.time()
         total_time = time.time() - start
         logger(f"{header} Total time: {datetime.timedelta(seconds=int(total_time))}")
-
-
-def world_size() -> int:
-    """Processes in the `torch.distributed` group, 1 when none is up."""
-    import torch.distributed as dist
-
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-
-
-def is_main_process() -> bool:
-    import torch.distributed as dist
-
-    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 def write_log_line(output_dir: str, record: dict):

@@ -46,7 +46,7 @@ def _train_args(coco, out, *extra):
     return cli.parser().parse_args(
         ["--device", "cpu", "--coco_path", coco, *MICRO_FLAGS, "--batch_size", "4",
          "--epochs", "2", "--use_ema", "--checkpoint_interval", "1", "--output_dir", out,
-         *extra])
+         "--dont_bench", *extra])
 
 
 @pytest.fixture(scope="module")
@@ -154,7 +154,7 @@ def test_eval_resumes_from_the_ports_checkpoint_directory(runs, coco):
     args = cli.parser().parse_args(["--eval", "--device", "cpu", "--coco_path", coco,
                                     *MICRO_FLAGS, "--batch_size", "4", "--use_ema",
                                     "--resume", os.path.join(runs["out"], "ckpt"),
-                                    "--output_dir", ""])
+                                    "--output_dir", "", "--dont_bench"])
     out = cli.main(args)
     assert out["stats"] == runs["straight"]["stats"]
     assert out["ema_stats"] == runs["straight"]["ema_stats"]

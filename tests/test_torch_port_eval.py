@@ -53,7 +53,7 @@ with open(os.path.join(FIXDIR, "golden_stats.json")) as _f:
 
 def _micro_args(*extra):
     return cli.parser().parse_args(["--eval", "--device", "cpu", "--coco_path", FIXDIR,
-                                    *MICRO_FLAGS, "--batch_size", "4", *extra])
+                                    *MICRO_FLAGS, "--batch_size", "4", "--dont_bench", *extra])
 
 
 @pytest.fixture(scope="module")
@@ -213,12 +213,21 @@ def micro_pth(micro, tmp_path_factory):
 
 @pytest.mark.parametrize("use_ema", [False, True], ids=["model", "use_ema"])
 def test_the_cli_eval_gives_the_golden_stats(use_ema, micro_pth, tmp_path):
+    """The model's run also runs the startup self-benchmark, as the CLI does by
+    default (its report before the stats); the EMA's passes `--dont_bench`."""
     cmd = [sys.executable, "-m", "lwdetr_tpu_torch.main", "--eval", "--device", "cpu",
            "--coco_path", FIXDIR, *MICRO_FLAGS, "--batch_size", "4", "--resume", micro_pth,
-           "--output_dir", str(tmp_path), *(["--use_ema"] if use_ema else [])]
-    env = dict(os.environ, PYTHONPATH=ROOT)
+           "--output_dir", str(tmp_path), *(["--use_ema", "--dont_bench"] if use_ema else [])]
+    # two threads: the suite's workers share the machine's cores, and PyTorch's
+    # default of one thread a core makes the bench's many small operations contend
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
+    bench = [ln for ln in proc.stdout.splitlines() if ln.startswith("benchmark: ")]
+    assert len(bench) == (0 if use_ema else 1), bench
+    if not use_ema:
+        assert "M params" in bench[0] and "GFLOPs/img" in bench[0] and "img/s" in bench[0]
+        assert "gemm" in proc.stdout and "backbone/encoder" in proc.stdout
     stats = json.loads(proc.stdout.strip().splitlines()[-1])
     assert_golden(stats)
     assert "loss" in stats and np.isfinite(stats["loss"])  # the eval losses, metered
@@ -304,16 +313,20 @@ def test_pretrained_encoder_loads_only_the_encoder(micro, tmp_path):
     assert torch.equal(now["class_embed.weight"], sd["class_embed.weight"])
 
 
-@pytest.mark.parametrize("entry", ["evaluate", "merge_evaluators"])
-def test_evaluate_refuses_more_than_one_process(monkeypatch, entry):
-    """Above one process the loop raises before it would summarize one
-    process's share of the images as the whole."""
-    monkeypatch.setattr(engine, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Multi-process training and eval"):
-        if entry == "evaluate":
-            engine.evaluate(None, [], object(), logger=lambda msg: None)
-        else:
-            engine.merge_evaluators(object())
+def test_one_process_merge_leaves_the_evaluator_as_it_is(pipeline):
+    """With one process `merge_evaluators` gathers nothing: the evaluator, its
+    detections and its stats are those it had (the merge across processes is
+    `test_torch_port_dist.py`'s two-process eval CLI)."""
+    stats, dets = pipeline
+    ds = CocoDetection(os.path.join(FIXDIR, "val2017"),
+                       os.path.join(FIXDIR, "annotations", "instances_val2017.json"))
+    evaluator = peval.CocoEvaluator(ds.coco)
+    evaluator.update(dets)
+    before = evaluator.export()
+    assert engine.merge_evaluators(evaluator) is evaluator
+    assert evaluator.export() == before
+    merged = evaluator.summarize(verbose=False)
+    assert {k: merged[k] for k in GOLDEN} == {k: stats[k] for k in GOLDEN}
 
 
 # -- (f) per-image detections against the JAX pipeline ------------------------------------------

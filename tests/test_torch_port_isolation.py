@@ -83,6 +83,12 @@ def test_the_deploy_modules_are_in_the_walk():
     assert {"deploy/__init__.py", "deploy/export.py", "deploy/benchmark.py"} <= names
 
 
+def test_the_parallel_and_bench_modules_are_in_the_walk():
+    names = {str(p.relative_to(ROOT / "lwdetr_tpu_torch")) for p in PORT_FILES[:-1]}
+    assert {"parallel/__init__.py", "parallel/dist.py", "parallel/mesh.py",
+            "utils/benchmark.py"} <= names
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_names_nothing_under_native(path):
     """No string of the port names the JAX package's `native/` directory or

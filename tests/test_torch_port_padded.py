@@ -278,7 +278,7 @@ def test_the_legacy_recipe_eval_cli_gives_the_jax_stats(tmp_path):
     torch.save({"model": sd}, pth)
     cmd = [sys.executable, "-m", "lwdetr_tpu_torch.main", "--eval", "--device", "cpu",
            "--coco_path", PADDED_FIXDIR, *golden["flags"], "--resume", str(pth),
-           "--output_dir", str(tmp_path), "--num_workers", "2"]
+           "--output_dir", str(tmp_path), "--num_workers", "2", "--dont_bench"]
     assert "--square_resize_div_64" not in cmd
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)

@@ -431,7 +431,8 @@ def test_the_variant_eval_cli_gives_the_jax_stats(tmp_path):
     torch.save({"model": state_dict_from_jax(params, tree.get("batch_stats"), cfg)}, pth)
     cmd = [sys.executable, "-m", "lwdetr_tpu_torch.main", "--eval", "--device", "cpu",
            "--coco_path", coco, *golden["flags"],
-           "--resume", str(pth), "--output_dir", str(tmp_path), "--num_workers", "2"]
+           "--resume", str(pth), "--output_dir", str(tmp_path), "--num_workers", "2",
+           "--dont_bench"]
     proc = subprocess.run(cmd, cwd=root, env=dict(os.environ, PYTHONPATH=root),
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
