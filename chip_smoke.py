@@ -184,6 +184,24 @@ Run from the root of a checkout, with one card:
    fixture: the merged stats within 1e-7 of `golden_stats.json`, printed and
    written by rank 0 only. A process that fails, outlives its time limit or
    runs on the CPU fails the script.
+14. The JAX CLI's orbax train state (`orbax_phase`), read by
+   `lwdetr_tpu_torch/train/orbax_read.py` (no JAX, orbax or tensorstore; its
+   zstd decoder `csrc/zstd_decode.cpp` built with g++): (a) the fixture
+   `tests/fixtures/micro_orbax/ckpt/5/` read, every leaf's dtype, shape and
+   sha256 against `orbax_digests.json`, the bytes decoded, seconds and MB/s
+   of the card machine's host; (b) `lwdetr_tpu_torch.main --eval --resume`
+   of it with `--use_ema`, f32: both blocks within 1e-7 of
+   `golden_stats_orbax.json`, K1 1 / K2 1 / K9 2 / K3 2 a batch, and the
+   detections against the same pipeline on the plain versions (the picks
+   replayed); (c) one train epoch through the CLI resumed from it: the
+   restored weights, EMA and AdamW moments equal to (a)'s leaves through the
+   weights' mapping before the first step, start epoch 1 and the first
+   step's lr as the JAX schedule gives them at step 5, the decoder's kernels
+   first held to their plain versions at every size the epoch draws
+   (ORBAX_CLI_DRAWN_SEP, the VARIANT_CLI_DRAWN_ATTENTION shapes), finite
+   losses and the launch invariants; (d) the demo with `--checkpoint <dir>
+   --ema`, its detections equal to the demo's on a `.pth` of the same EMA
+   weights.
 
 Any failure exits non-zero. Without a CUDA card, or outside a checkout, it
 exits non-zero and prints no result. The line before the last holds one JSON
@@ -3530,6 +3548,244 @@ def variants_phase(torch, F, fa, da, kernels, measure_ms, card, res):
     return launches, out
 
 
+# ---- the JAX CLI's orbax train state (ROADMAP.md § 1 item 4) ---------------------------------
+
+ORBAX_FIXTURE = "tests/fixtures/micro_orbax"
+ORBAX_STEP = 5  # the fixture's step: one epoch of 5 steps, so the resumed run starts at epoch 1
+ORBAX_EVAL_LAUNCHES = launch_counts(K1=10, K2=10, K9=20, K3=20, M1=10)  # 2 blocks x 5 batches
+ORBAX_DEMO_LAUNCHES = launch_counts(K1=1, K2=1, K9=2, K3=2)
+# The resumed train CLI's loader draws its epoch-1 sizes at the CLI's default
+# seed 42 (tests/test_torch_port_isolation.py ties the table to the loader):
+# the micro model's ViT at those sizes runs the kernel phase's CLI shapes; its
+# decoder runs VARIANT_CLI_DRAWN_ATTENTION's K9 / K7nb and K4 / K5 on each
+# size's map. The script fails on a drawn size outside the table.
+ORBAX_CLI_SIZES = (448, 512, 704, 896)
+ORBAX_CLI_DRAWN_SEP = tuple((f"orbax_cli{size}", (MICRO_BATCH, 8, 8, 2, 24,
+                                                  [(size // 16, size // 16)]))
+                            for size in ORBAX_CLI_SIZES)
+
+
+def orbax_cli_checks(torch, F, fa, da, measure_ms, res):
+    """The resumed train CLI's decoder kernels at every size it draws against
+    their plain versions, f32 and bf16, the check alone (no times). Into `res`."""
+    for dtype in ("float32", "bfloat16"):
+        for key, name, B, C, N, heads, scale, bias in VARIANT_CLI_DRAWN_ATTENTION:
+            res[(key.replace("variant_cli", "orbax_cli"), dtype)] = compare_attention(
+                torch, F, fa, measure_ms, name, B, C, N, heads, scale, bias, dtype, timed=False)
+        for key, name, B, C, N, heads, scale, bias, iters in VARIANT_CLI_DRAWN_ATTENTION_BWD:
+            res[(key.replace("variant_cli", "orbax_cli"), dtype)] = compare_attention_bwd(
+                torch, F, fa, measure_ms, name, B, C, N, heads, scale, bias, dtype, iters,
+                timed=False)
+        for key, shape in ORBAX_CLI_DRAWN_SEP:
+            res[(f"K4@{key}", dtype)] = compare_deform_sep(torch, da, measure_ms, dtype, shape,
+                                                           timed=False)
+            res[(f"K5@{key}", dtype)] = compare_deform_sep_bwd(torch, da, measure_ms, dtype,
+                                                               shape, timed=False)
+
+
+def orbax_phase(torch, F, fa, da, kernels, measure_ms, card, res):
+    """(a)-(d) of item 14 of the docstring. Returns (launches, numbers)."""
+    import hashlib
+    import os
+    import shutil
+    import time
+
+    import numpy as np
+
+    from lwdetr_tpu_torch import demo
+    from lwdetr_tpu_torch import main as cli
+    from lwdetr_tpu_torch.models import transformer as tr
+    from lwdetr_tpu_torch.train import checkpoint as ckpt
+    from lwdetr_tpu_torch.train import engine, orbax_read
+    from lwdetr_tpu_torch.weights import param_tensors_from_jax, state_dict_from_jax
+
+    t_phase = time.perf_counter()
+    work = os.path.abspath("build/chip_smoke/orbax")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ckpt_dir = os.path.join(ORBAX_FIXTURE, "ckpt")
+    with open(os.path.join(ORBAX_FIXTURE, "orbax_digests.json")) as f:
+        digests = json.load(f)
+    with open(os.path.join(ORBAX_FIXTURE, "golden_stats_orbax.json")) as f:
+        golden = json.load(f)
+    out, launches = {}, {}
+
+    # (a) the reader, on the card machine's host
+    orbax_read.restore(ckpt_dir)  # builds the decoder; the timed read below is the second
+    tree = orbax_read.restore(ckpt_dir)
+
+    def leaves(node, path=()):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                yield from leaves(node[k], path + (str(k),))
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                yield from leaves(v, path + (str(i),))
+        elif node is not None:
+            yield path, node
+
+    got = [{"path": list(p), "dtype": a.dtype.str, "shape": list(a.shape),
+            "sha256": hashlib.sha256(a.tobytes()).hexdigest()} for p, a in leaves(tree)]
+    if got != digests["leaves"] or tree.step != digests["step"] != ORBAX_STEP:
+        bad = next((g["path"] for g, d in zip(got, digests["leaves"]) if g != d), None)
+        raise AssertionError(f"orbax (a): {len(got)} leaves vs {len(digests['leaves'])} in "
+                             f"orbax_digests.json, the first that differs {bad}; step {tree.step}")
+    rate = tree.bytes_decoded / tree.seconds / 1e6
+    out["a_read"] = {"leaves": len(got), "bytes_decoded": tree.bytes_decoded,
+                     "bytes_read": tree.bytes_read, "seconds": tree.seconds,
+                     "mb_per_s": rate, "warm": True}
+    print(f"orbax (a): {len(got)} leaves equal to orbax's digests; {tree.bytes_decoded} bytes "
+          f"decoded from {tree.bytes_read} in {tree.seconds:.4f} s, {rate:.1f} MB/s on the "
+          f"host, files warm in the page cache ({card})")
+
+    # (b) the eval CLI, both blocks, then the same on the plain versions
+    def eval_args():
+        return cli.parser().parse_args(
+            ["--eval", "--coco_path", FIXTURE, *MICRO_FLAGS, "--batch_size", str(MICRO_BATCH),
+             "--resume", ckpt_dir, "--use_ema", "--output_dir", os.path.join(work, "eval"),
+             "--dont_bench", "--num_workers", "2"])
+
+    rec = Recorder(torch, tr, engine)
+    t0 = time.perf_counter()
+    result, launches["orbax_eval_cli"] = counted(torch, kernels, lambda: run_patched(
+        lambda: cli.main(eval_args()), rec.patches()))
+    wall = time.perf_counter() - t0
+    blocks = {"stats": result["stats"], "ema_stats": result["ema_stats"]}
+    off = {key: {k: blocks[key][k] - v for k, v in golden[key].items()} for key in blocks}
+    worst = max(abs(v) for d in off.values() for v in d.values())
+    print(f"orbax (b): eval CLI --resume {ckpt_dir} --use_ema, f32: the stats "
+          f"{json.dumps({k: blocks['stats'][k] for k in golden['stats']})}, EMA "
+          f"{json.dumps({k: blocks['ema_stats'][k] for k in golden['ema_stats']})}; minus "
+          f"golden_stats_orbax.json, both blocks: max |d| {worst:.3g}; {wall:.1f} s ({card})")
+    if launches["orbax_eval_cli"] != ORBAX_EVAL_LAUNCHES or worst > GOLDEN_ATOL:
+        raise AssertionError(f"orbax (b): launches {launches['orbax_eval_cli']}, stats off the "
+                             f"golden: {off}")
+    plain = Recorder(torch, tr, engine, replay_from=rec)
+    _, n = counted(torch, kernels, lambda: run_patched(
+        lambda: cli.main(eval_args()), plain_patches(fa, da) + plain.patches()))
+    if any(n.values()):
+        raise AssertionError(f"orbax (b): the plain pipeline launched kernels: {n}")
+    out["b_eval_cli"] = {"stats": {k: blocks["stats"][k] for k in golden["stats"]},
+                         "ema_stats": {k: blocks["ema_stats"][k] for k in golden["ema_stats"]},
+                         "max_abs_minus_golden": worst, "wall_s": wall,
+                         "kernels_vs_plain": compare_detections(torch, "orbax_eval_cli", rec,
+                                                                plain, 10, bf16=False)}
+
+    # (c) one epoch through the train CLI, resumed from the fixture
+    orbax_cli_checks(torch, F, fa, da, measure_ms, res)
+    coco = os.path.join(work, "coco")
+    os.makedirs(os.path.join(coco, "annotations"))
+    for split in ("train2017", "val2017"):
+        os.symlink(os.path.abspath(f"{FIXTURE}/val2017"), os.path.join(coco, split))
+        shutil.copy(f"{FIXTURE}/annotations/instances_val2017.json",
+                    os.path.join(coco, "annotations", f"instances_{split}.json"))
+    argv = ["--coco_path", coco, *MICRO_FLAGS, "--batch_size", str(MICRO_BATCH), "--epochs",
+            "2", "--use_ema", "--resume", ckpt_dir, "--output_dir", os.path.join(work, "train"),
+            "--dont_bench", "--num_workers", "2"]
+    args = cli.parser().parse_args(argv)
+    cfg = cli.config_from_args(args)
+    mcfg, tcfg = cfg.model, cfg.train
+    restore, checks = ckpt.restore_orbax_train_state, {}
+
+    def checked_restore(path, state, model_cfg, loaded=None):
+        step = restore(path, state, model_cfg, loaded)
+        adam, sched = tree["opt_state"][1], tree["opt_state"][2]
+        want = state_dict_from_jax(tree["params"], tree["batch_stats"], mcfg)
+        ema = state_dict_from_jax(tree["ema"]["params"], tree["ema"]["batch_stats"], mcfg)
+        mu, nu = param_tensors_from_jax(adam["mu"], mcfg), param_tensors_from_jax(adam["nu"], mcfg)
+        named = dict(state.model.named_parameters())
+        opt = [state.optimizer.state[p] for p in named.values()]
+        checks.update({
+            "model": all(torch.equal(v.cpu(), want[k])
+                         for k, v in state.model.state_dict().items()),
+            "ema": all(torch.equal(v.cpu(), ema[k]) for k, v in state.ema.items()),
+            "exp_avg": all(torch.equal(st["exp_avg"].cpu(), mu[k])
+                           for k, st in zip(named, opt)),
+            "exp_avg_sq": all(torch.equal(st["exp_avg_sq"].cpu(), nu[k])
+                              for k, st in zip(named, opt)),
+            "adam_step": all(float(st["step"]) == int(adam["count"]) == ORBAX_STEP
+                             for st in opt),
+            "schedule": state.scheduler.last_epoch == int(sched["count"]) == ORBAX_STEP,
+            "step": step == int(tree["step"]) == ORBAX_STEP})
+        return step
+
+    one_epoch, first = engine.train_one_epoch, {}
+
+    def recording_epoch(train_step, state, loader, epoch, *a, **kw):
+        first.setdefault("epoch", epoch)
+        first.setdefault("lr", [g["lr"] for g in state.optimizer.param_groups])
+        first.setdefault("initial_lr", [g["initial_lr"] for g in state.optimizer.param_groups])
+        return one_epoch(train_step, state, loader, epoch, *a, **kw)
+
+    build, sizes, losses = engine.build_train_step, [], []
+
+    def recording_build(state, *a, **kw):
+        step = build(state, *a, **kw)
+
+        def recording(*sa, **skw):
+            sizes.append(int(sa[0]["images"].shape[1]))
+            metrics = step(*sa, **skw)
+            losses.append(float(metrics["loss"]))
+            return metrics
+
+        return recording
+
+    t0 = time.perf_counter()
+    trained, launches["orbax_train_cli"] = counted(torch, kernels, lambda: run_patched(
+        lambda: cli.main(args),
+        (mock.patch.object(ckpt, "restore_orbax_train_state", checked_restore),
+         mock.patch.object(engine, "train_one_epoch", recording_epoch),
+         mock.patch.object(engine, "build_train_step", recording_build))))
+    wall_c = time.perf_counter() - t0
+    niter = CLI_STEPS
+    # the JAX schedule (lwdetr_tpu/train/optim.py:105-110) at the restored count
+    mult = 0.1 ** ((ORBAX_STEP // niter) // tcfg.lr_drop)
+    lr_ok = all(abs(lr - base * mult) <= 1e-12 * base
+                for lr, base in zip(first.get("lr", []), first.get("initial_lr", [])))
+    inv = variant_cli_launch_invariants(launches["orbax_train_cli"], CLI_STEPS,
+                                        CLI_EVAL_BATCHES)
+    bad = {k: v for k, v in inv.items() if v[0] != v[1]}
+    log(f"orbax (c): restored equal {checks}; start epoch {first.get('epoch')}, first lr "
+        f"{first.get('lr', [None])[:3]} (multiplier {mult}); train sizes {sizes}, losses "
+        f"{losses}; launches {launches['orbax_train_cli']}")
+    if (not checks or not all(checks.values()) or first.get("epoch") != ORBAX_STEP // niter
+            or not lr_ok or bad or trained["epochs"] != [1] or len(losses) != CLI_STEPS
+            or not all(np.isfinite(losses))):
+        raise AssertionError(f"orbax (c): restored {checks}, epoch {first.get('epoch')}, lr ok "
+                             f"{lr_ok}, launch checks {bad}, epochs {trained['epochs']}, losses "
+                             f"{losses}")
+    if not set(sizes) <= set(ORBAX_CLI_SIZES):
+        raise AssertionError(f"orbax (c): train sizes {sizes} outside the kernel checks' "
+                             f"{ORBAX_CLI_SIZES}")
+    out["c_train_cli"] = {"restored_equal": checks, "start_epoch": first["epoch"],
+                          "first_lr": first["lr"], "losses": losses, "train_sizes": sizes,
+                          "wall_s": wall_c}
+
+    # (d) the demo: the orbax directory's EMA against a .pth of the same weights
+    image = os.path.join(FIXTURE, "val2017", sorted(os.listdir(f"{FIXTURE}/val2017"))[1])
+    pth = os.path.join(work, "ema.pth")
+    torch.save({"model": ckpt.load_orbax_variables(ckpt_dir, mcfg, use_ema=True, tree=tree)},
+               pth)
+
+    def run_demo(path, *extra):
+        return counted(torch, kernels, lambda: run_patched(
+            lambda: demo.main(["--image", image, "--checkpoint", path, "--output",
+                               os.path.join(work, "demo.jpg"), "--threshold", "0.05", *extra]),
+            (mock.patch("lwdetr_tpu_torch.config.get_config", lambda preset: mcfg),)))
+
+    (dets, launches["orbax_demo"]), (ref, n) = run_demo(ckpt_dir, "--ema"), run_demo(pth)
+    same = all(np.array_equal(dets[k], ref[k]) for k in ("scores", "labels", "boxes"))
+    if not same or launches["orbax_demo"] != ORBAX_DEMO_LAUNCHES or n != ORBAX_DEMO_LAUNCHES:
+        raise AssertionError(f"orbax (d): detections equal the .pth demo's {same}; launches "
+                             f"{launches['orbax_demo']}, {n}")
+    out["d_demo"] = {"kept": dets["kept"], "equal_to_pth_demo": same}
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"orbax phase: (a)-(d) held in {out['wall_s']:.1f} s; train epoch from step "
+          f"{ORBAX_STEP} {wall_c:.1f} s, losses {losses}; demo {dets['kept']} detections, equal "
+          f"to the .pth demo's ({card})")
+    return launches, out
+
+
 # ---- the deploy path (ROADMAP.md § 1, "Deploy: export and its benchmark") ------------------
 
 # the startup self-benchmark (`startup_bench_phase`): small's parameters, which
@@ -4444,6 +4700,9 @@ def main() -> int:
     by_path, variants = variants_phase(torch, F, fa, da, list(kernels.values()), measure_ms,
                                        card_line(), res)
     launches.update(by_path)
+    by_path, orbax = orbax_phase(torch, F, fa, da, list(kernels.values()), measure_ms,
+                                 card_line(), res)
+    launches.update(by_path)
     by_path, deploy = deploy_phase(torch, fa, da, list(kernels.values()), card_line())
     launches.update(by_path)
     by_path, startup_bench = startup_bench_phase(torch, list(kernels.values()), card_line())
@@ -4521,10 +4780,16 @@ def main() -> int:
         checked = {key.split("@")[1]: both(key) for key, kname, *_ in (
             PADDED_DRAWN_ATTENTION + PADDED_DRAWN_ATTENTION_BWD + VARIANT_CLI_DRAWN_ATTENTION
             + VARIANT_CLI_DRAWN_ATTENTION_BWD) if kname == name}
+        checked.update({key.split("@")[1].replace("variant_cli", "orbax_cli"):
+                        both(key.replace("variant_cli", "orbax_cli"))
+                        for key, kname, *_ in (VARIANT_CLI_DRAWN_ATTENTION
+                                               + VARIANT_CLI_DRAWN_ATTENTION_BWD)
+                        if kname == name})
         checked.update({key.split("@")[1]: both(key) for key, _ in (
             PADDED_DRAWN_SEP + PADDED_DRAWN_SEP_BWD) if key.split("@")[0] == name})
         if name in ("K4", "K5"):
-            checked.update({key: both(f"{name}@{key}") for key, _ in VARIANT_CLI_DRAWN_SEP})
+            checked.update({key: both(f"{name}@{key}")
+                            for key, _ in VARIANT_CLI_DRAWN_SEP + ORBAX_CLI_DRAWN_SEP})
         if checked:  # the padded and variant CLI paths' drawn sizes, checked untimed
             entry["checked_shapes"] = checked
         entries.append(entry)
@@ -4534,7 +4799,8 @@ def main() -> int:
     print(json.dumps({"forward_f32": fwd, "throughput": thr, "train_f32": train,
                       "release_train": release, "eval_pipeline": eval_pipeline,
                       "train_cli": train_cli, "padded": padded, "variants": variants,
-                      "deploy": deploy, "startup_bench": startup_bench, "dist": dist}))
+                      "deploy": deploy, "startup_bench": startup_bench, "dist": dist,
+                      "orbax": orbax}))
     print(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

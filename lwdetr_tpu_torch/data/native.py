@@ -15,9 +15,6 @@ raises: nothing switches to PIL's resize but the caller's `use_native=False`.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional, Tuple
@@ -26,7 +23,7 @@ import numpy as np
 from PIL import Image
 
 from lwdetr_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
-from lwdetr_tpu_torch.ops._build import BUILD_DIR, CSRC
+from lwdetr_tpu_torch.ops._build import BUILD_DIR, CSRC, build_host, host_library_path
 
 SOURCE = "preproc.cpp"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
@@ -39,23 +36,12 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update((CSRC / SOURCE).read_bytes())
-    return BUILD_DIR / f"{Path(SOURCE).stem}-{h.hexdigest()[:16]}.so"
+    return host_library_path(SOURCE, CXX_FLAGS, CSRC, BUILD_DIR)
 
 
 def build() -> Path:
     """Compile the library if it is missing; raises if g++ fails."""
-    out = library_path()
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(CSRC / SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed for {SOURCE}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
-    return out
+    return build_host(SOURCE, CXX_FLAGS, CSRC, BUILD_DIR)
 
 
 def _load() -> ctypes.CDLL:

@@ -3,12 +3,15 @@
     python -m lwdetr_tpu_torch.demo --preset tiny --image path.jpg --checkpoint ckpt.pth \\
         --output out.jpg --threshold 0.3 [--device cpu]
     python -m lwdetr_tpu_torch.demo --image path.jpg --checkpoint out/ckpt --ema
+    python -m lwdetr_tpu_torch.demo --preset small --image path.jpg --checkpoint jax_out/ckpt --ema
 
 Counterpart of the root `demo.py`, with the same flags and `--device`
 (`cuda` by default; raises without a card). `--checkpoint` is a reference or
-port `.pth`, or a port checkpoint directory (its latest file); `--ema` takes
-its EMA weights. A port checkpoint carries the run's flags, and its model is
-built from them (else from `--preset`). The image goes through
+port `.pth`, a port checkpoint directory (its latest file), or the JAX CLI's
+orbax directory (`<output_dir>/ckpt/` or one `<step>/` of it: its latest step,
+read without JAX); `--ema` takes its EMA weights. A port checkpoint carries the
+run's flags, and its model is built from them (else from `--preset`, as for an
+orbax directory). The image goes through
 `val_transform_square` -> forward -> `post_process` on the device; the boxes
 above `--threshold` are drawn and counted. Without a checkpoint it warns and
 uses seeded weights (`weights.init_state_dict(seed=0)`).
@@ -48,12 +51,13 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--preset", default="tiny")
     p.add_argument("--image", required=True)
     p.add_argument("--checkpoint", default=None,
-                   help="a reference or port .pth, or a port checkpoint directory")
+                   help="a reference or port .pth, a port checkpoint directory, or the JAX "
+                        "CLI's orbax checkpoint directory")
     p.add_argument("--output", default="demo_out.jpg")
     p.add_argument("--threshold", type=float, default=0.3)
     p.add_argument("--size", type=int, default=640)
     p.add_argument("--ema", action="store_true",
-                   help="use the EMA weights of a port checkpoint")
+                   help="use the EMA weights of a port or orbax checkpoint")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     return p
 
@@ -71,6 +75,11 @@ def load_demo_model(args, device):
         print("WARNING: random weights (no checkpoint given)")
         return build_model(cfg, device=device, state_dict=init_state_dict(cfg, seed=0)), cfg
     raw = ckpt.read_checkpoint(args.checkpoint)
+    if ckpt.is_orbax_tree(raw):  # the JAX CLI's orbax directory (root demo.py:66-69)
+        if args.ema and not raw.get("ema"):
+            print("WARNING: the checkpoint holds no EMA weights; using its model")
+        sd = ckpt.load_orbax_variables(args.checkpoint, cfg, use_ema=args.ema, tree=raw)
+        return build_model(cfg, device=device, state_dict=sd), cfg
     if isinstance(raw, dict) and isinstance(raw.get("args"), dict):
         run = argparse.Namespace(**dict(vars(cli.parser().parse_args([])), **raw["args"]))
         cfg = cli.config_from_args(run).model

@@ -4,6 +4,8 @@
         --output_dir out [--epochs N] [--bf16] [--resume out/ckpt]
     python -m lwdetr_tpu_torch.main --eval --preset small --coco_path /data/coco \\
         --resume LWDETR_small_coco.pth [--bf16] [--use_ema]
+    python -m lwdetr_tpu_torch.main --eval --preset small --coco_path /data/coco \\
+        --resume jax_out/ckpt --use_ema        (the JAX CLI's orbax directory)
     python -m lwdetr_tpu_torch.main --device cpu --coco_path DIR ... (model flags)
     python -m lwdetr_tpu_torch.main --preset small export_model [--shape 640 640] \
         [--infer_dir IMAGE] [--resume X.pth]
@@ -21,7 +23,10 @@ dumped to `eval/latest.npz`, the best regular and EMA states saved
 JAX CLI's keys appended to `log.txt`. SIGTERM finishes the step in flight,
 saves and exits. `--resume` takes a reference `.pth` (weights, EMA, epoch) or
 the port's own checkpoint file or directory (the whole train state; the start
-epoch is step // steps an epoch). `--eval` runs `evaluate` -> `CocoEvaluator`
+epoch is step // steps an epoch), or the JAX CLI's orbax directory
+(`<output_dir>/ckpt/` or one `<step>/` of it; read by `train/orbax_read.py`
+without JAX: for `--eval` its weights and, with `--use_ema`, its EMA's; for
+training its whole train state, AdamW's moments and the schedule included). `--eval` runs `evaluate` -> `CocoEvaluator`
 and prints the 12 AP/AR stats (and the eval losses) as one JSON line. With a
 `--preset`, the train flags given on the command line (`--epochs`,
 `--batch_size`, `--use_ema`, ...) override the preset's recipe. `--device`
@@ -127,7 +132,8 @@ def get_args_parser():
     p.add_argument("--checkpoint_interval", default=10, type=int)
     p.add_argument("--seed", default=42, type=int)
     p.add_argument("--resume", default="", type=str,
-                   help="a reference .pth, or the port's checkpoint file or directory")
+                   help="a reference .pth, the port's checkpoint file or directory, or the JAX "
+                        "CLI's orbax checkpoint directory (<output_dir>/ckpt or one step of it)")
     p.add_argument("--start_epoch", default=0, type=int)
     p.add_argument("--eval", action="store_true")
     p.add_argument("--fp16_eval", action="store_true",
@@ -359,11 +365,22 @@ def _evaluate_only(args, mcfg, tcfg, device, dtype, criterion, ds_val, val_loade
     # weights: encoder, then pretrain, then resume (reference main.py:240-286);
     # a fresh model's initialisation is drawn only when no resume replaces it
     raw = ckpt.read_checkpoint(args.resume) if args.resume else None
-    model = build_model(mcfg, device=device, dtype=dtype,
-                        state_dict=None if raw is None else ckpt.state_dict_of(raw, "model"),
+    orbax = ckpt.is_orbax_tree(raw)
+    if orbax:
+        sd = ckpt.orbax_state_dict(raw, mcfg, where=args.resume)
+    else:
+        sd = None if raw is None else ckpt.state_dict_of(raw, "model")
+    model = build_model(mcfg, device=device, dtype=dtype, state_dict=sd,
                         generator=torch.Generator().manual_seed(tcfg.seed))
     ema = _load_weights(args, model, tcfg.use_ema)
-    if args.resume:
+    if orbax:
+        # the JAX CLI's orbax train state (root main.py:343-357, :394-399): the
+        # model's weights (loaded above), and with --use_ema the EMA's (the
+        # model's when it has none)
+        ema = (ckpt.orbax_state_dict(raw, mcfg, use_ema=True, where=args.resume)
+               if tcfg.use_ema else None)
+        print(f"resumed from {args.resume} at step {raw.step}")
+    elif args.resume:
         # with --use_ema the EMA weights are the checkpoint's (else None, as before)
         ema, start_epoch = ckpt.resume_pth(model, args.resume, use_ema=tcfg.use_ema, ckpt=raw)
         print(f"resumed model weights from {args.resume}"
@@ -424,7 +441,12 @@ def _train(args, cfg, device, eval_dtype, criterion, ds_val, val_loader) -> dict
     start_epoch = args.start_epoch
     if args.resume:
         raw = ckpt.read_checkpoint(args.resume)
-        if ckpt.is_train_state(raw):
+        if ckpt.is_orbax_tree(raw):
+            # the JAX CLI's train state: training goes on from its step
+            step = ckpt.restore_orbax_train_state(args.resume, state, mcfg, raw)
+            start_epoch = step // max(niter_per_ep, 1)
+            print(f"resumed from {args.resume} at step {step}")
+        elif ckpt.is_train_state(raw):
             step = ckpt.restore_checkpoint(args.resume, state, raw)
             start_epoch = step // max(niter_per_ep, 1)
             print(f"resumed from {args.resume} at step {step}")

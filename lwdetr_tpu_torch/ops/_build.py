@@ -32,6 +32,9 @@ HEADERS = ("attention_bwd.cuh", "attention_wide.cuh", "common.cuh", "deform_cm.c
            "deform_layout.cuh", "mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the host libraries, each built with g++ by its own binding
+# (`data/native.py`, `utils/zstd.py`) through `build_host`
+HOST_SOURCES = ("preproc.cpp", "zstd_decode.cpp")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -83,6 +86,28 @@ def build(sources: Iterable[str] = SOURCES) -> Dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
+
+
+def host_library_path(source: str, flags: Sequence[str], csrc: Path = CSRC,
+                      build_dir: Path = BUILD_DIR) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update((csrc / source).read_bytes())
+    return build_dir / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_host(source: str, flags: Sequence[str], csrc: Path = CSRC,
+               build_dir: Path = BUILD_DIR) -> Path:
+    """Compile a host C++ library with g++ if it is missing; raises if g++ fails."""
+    out = host_library_path(source, flags, csrc, build_dir)
+    if not out.exists():
+        build_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(["g++", *flags, "-o", str(tmp), str(csrc / source)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for {source}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
+    return out
 
 
 def load(source: str) -> ctypes.CDLL:

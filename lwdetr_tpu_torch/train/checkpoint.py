@@ -18,6 +18,15 @@ temporary name and renamed, so a run killed mid-write leaves no torn file.
 With more than one process rank 0 writes; a ZeRO-1 state's optimizer moments
 and EMA are gathered into the unsharded layout first (every process takes
 part), and a restore gives each process its slices.
+
+The JAX CLI's own train states, orbax directories (`<output_dir>/ckpt/` or one
+`<step>/` of it), are read too, by `train/orbax_read.py` (no JAX, orbax or
+tensorstore): `read_checkpoint` returns their tree, `load_orbax_variables` the
+model's (or the EMA's) state_dict (the JAX `load_orbax_variables :293`), and
+`restore_orbax_train_state` the whole train state (the JAX CLI's
+`restore_checkpoint` on `--resume`): weights, BatchNorm statistics, EMA, the
+AdamW moments and step from optax's Adam state, the schedule's position and
+the step. The port writes no orbax directory.
 """
 from __future__ import annotations
 
@@ -26,9 +35,13 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from lwdetr_tpu_torch.config import ModelConfig
 from lwdetr_tpu_torch.parallel.dist import is_main_process
-from lwdetr_tpu_torch.train.optim import ema_full
+from lwdetr_tpu_torch.train import orbax_read
+from lwdetr_tpu_torch.train.optim import ema_full, optimizer_param_names
 from lwdetr_tpu_torch.utils.obj365_remap import remap_torch_state_dict
+from lwdetr_tpu_torch.weights import (jax_tree_mismatch, param_tensors_from_jax,
+                                      state_dict_from_jax)
 
 ENCODER_PREFIX = "backbone.0.encoder."
 
@@ -52,8 +65,17 @@ def _read(path: str):
 
 
 def read_checkpoint(path: str):
-    """A checkpoint file, or a directory's latest, loaded on the CPU."""
+    """A checkpoint file, or a directory's latest, loaded on the CPU; for a JAX
+    CLI orbax directory (a `<step>/` holding `_CHECKPOINT_METADATA`, or a
+    directory of them) the tree of its latest step (`orbax_read.Restored`)."""
+    if orbax_read.is_orbax_checkpoint(path):
+        return orbax_read.restore(path)
     return _read(checkpoint_file(path))
+
+
+def is_orbax_tree(ckpt) -> bool:
+    """Whether a loaded checkpoint is a JAX CLI orbax train state."""
+    return isinstance(ckpt, orbax_read.Restored)
 
 
 def state_dict_of(ckpt, key: str = "model") -> Dict[str, torch.Tensor]:
@@ -157,9 +179,12 @@ def checkpoint_keys(ckpt_dir: str) -> List[int]:
 
 
 def checkpoint_file(path: str) -> str:
-    """A checkpoint file as given, or a directory's latest (highest key)."""
+    """A checkpoint file as given, a directory's latest (highest key), or the
+    latest step directory of a JAX CLI orbax directory."""
     if not os.path.isdir(path):
         return path
+    if orbax_read.is_orbax_checkpoint(path):
+        return orbax_read.step_directory(path)[0]
     keys = checkpoint_keys(path)
     if not keys:
         raise FileNotFoundError(f"no checkpoint under {path}")
@@ -218,12 +243,103 @@ def restore_checkpoint(path: str, state, ckpt: Optional[dict] = None) -> int:
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.scheduler.load_state_dict(ckpt["lr_scheduler"])
     if state.ema is not None:
-        src = ckpt.get("ema_model") or state.model.state_dict()
-        for k, v in state.ema.items():
-            full = src[k]
-            if state.shards and k in state.shards:
-                start, stop, _ = state.shards[k]
-                full = full.reshape(-1)[start:stop]
-            v.copy_(full)
+        _load_ema(state, ckpt.get("ema_model") or state.model.state_dict())
     state.step = int(ckpt["step"])
+    return state.step
+
+
+def _load_ema(state, src: Dict[str, torch.Tensor]) -> None:
+    """The whole EMA state_dict `src` into `state.ema`, a ZeRO-1 state's slices."""
+    for k, v in state.ema.items():
+        full = src[k]
+        if state.shards and k in state.shards:
+            start, stop, _ = state.shards[k]
+            full = full.reshape(-1)[start:stop]
+        v.copy_(full)
+
+
+# ---- the JAX CLI's orbax train states ----------------------------------------------------------
+
+
+def _tree_check(tree: dict, cfg: ModelConfig, where: str) -> None:
+    """Raises unless `tree` ({"params", "batch_stats"}) is `cfg`'s model's."""
+    for coll in ("params", "batch_stats"):
+        bad = jax_tree_mismatch(tree.get(coll) or {}, cfg, coll)
+        if bad:
+            raise ValueError(f"{where}: the tree does not match the model the flags build: {bad}")
+
+
+def orbax_state_dict(tree: dict, cfg: ModelConfig, use_ema: bool = False,
+                     where: str = "orbax checkpoint") -> Dict[str, torch.Tensor]:
+    """The model's state_dict from a restored orbax train state: its `params`
+    and `batch_stats`, or with `use_ema` its EMA's when it has one."""
+    src = tree["ema"] if use_ema and tree.get("ema") else tree
+    _tree_check(src, cfg, where + (" (EMA)" if src is not tree else ""))
+    return state_dict_from_jax(src["params"], src.get("batch_stats") or {}, cfg)
+
+
+def load_orbax_variables(path: str, cfg: ModelConfig, use_ema: bool = False,
+                         tree: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """The inference weights of a JAX CLI orbax directory's latest step, as a
+    state_dict the model loads strictly: the model's, or with `use_ema` the
+    EMA's when the state has one (`lwdetr_tpu/train/checkpoint.py:293`).
+    `tree`: that step already restored."""
+    tree = orbax_read.restore(path) if tree is None else tree
+    return orbax_state_dict(tree, cfg, use_ema, where=path)
+
+
+def _optax_states(opt_state, where: str):
+    """The Adam state ({count, mu, nu}) and the schedule's ({count}) of the
+    JAX optimizer's chain (`lwdetr_tpu/train/optim.py:117-121`: clip, then
+    `scale_by_adam`, then `scale_by_param_lr_wd`)."""
+    chain = opt_state if isinstance(opt_state, list) else [opt_state]
+    adam = [s for s in chain if isinstance(s, dict) and set(s) == {"count", "mu", "nu"}]
+    sched = [s for s in chain if isinstance(s, dict) and set(s) == {"count"}]
+    if len(adam) != 1 or len(sched) != 1:
+        shape = [sorted(s) if isinstance(s, dict) else s for s in chain]
+        raise ValueError(f"{where}: opt_state {shape} is not the JAX optimizer's chain (an Adam "
+                         "state {count, mu, nu} and a schedule state {count})")
+    return adam[0], sched[0]
+
+
+@torch.no_grad()
+def restore_orbax_train_state(path: str, state, cfg: ModelConfig,
+                              tree: Optional[dict] = None) -> int:
+    """Restores `state` in place from a JAX CLI orbax directory's latest step
+    (`tree`: already restored), as the JAX CLI's `--resume` restores its
+    `TrainState` (`main.py:343-357`): the model strictly, BatchNorm statistics
+    included; the EMA (the model's weights when the state has none); AdamW's
+    `exp_avg` / `exp_avg_sq` from Adam's `mu` / `nu` through the weights'
+    layout changes and its `step` from Adam's `count`; the schedule's position
+    from the last transform's `count`; and `state.step`. A ZeRO-1 state takes
+    its slices. Returns the step."""
+    tree = orbax_read.restore(path) if tree is None else tree
+    for key in ("params", "opt_state", "step"):
+        if key not in tree:
+            raise ValueError(f"{path}: no {key!r} in the tree: not a JAX CLI train state")
+    state.model.load_state_dict(orbax_state_dict(tree, cfg, where=path), strict=True)
+    if state.ema is not None:
+        _load_ema(state, orbax_state_dict(tree, cfg, use_ema=True, where=path))
+    adam, sched = _optax_states(tree["opt_state"], path)
+    for name in ("mu", "nu"):
+        bad = jax_tree_mismatch(adam[name], cfg, "params")
+        if bad:
+            raise ValueError(f"{path}: Adam's {name} does not match the model: {bad}")
+    mu, nu = param_tensors_from_jax(adam["mu"], cfg), param_tensors_from_jax(adam["nu"], cfg)
+    count = int(adam["count"])
+    groups = torch.optim.Optimizer.state_dict(state.optimizer)["param_groups"]
+    names = optimizer_param_names(state.optimizer, state.model)
+    state.optimizer.load_state_dict({
+        "state": {i: {"step": torch.tensor(float(count)), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                  for i, n in enumerate(names)},
+        "param_groups": groups})
+    position = int(sched["count"])
+    sd = state.scheduler.state_dict()
+    lrs = [base * fn(position) for base, fn in zip(state.scheduler.base_lrs,
+                                                    state.scheduler.lr_lambdas)]
+    sd.update(last_epoch=position, _step_count=position + 1, _last_lr=lrs)
+    state.scheduler.load_state_dict(sd)
+    for g, lr in zip(state.optimizer.param_groups, lrs):
+        g["lr"] = lr
+    state.step = int(tree["step"])
     return state.step

@@ -202,6 +202,15 @@ def build_optimizer(model: nn.Module, mcfg: ModelConfig, tcfg: TrainConfig, nite
     return optimizer, scheduler
 
 
+def optimizer_param_names(optimizer: torch.optim.Optimizer, model: nn.Module) -> List[str]:
+    """The parameter name of each index of `optimizer.state_dict()["state"]`
+    (the order of its groups), a ZeRO-1 slice named as its parameter."""
+    owner = {id(p): name for name, p in model.named_parameters()}
+    for p, view, _ in getattr(optimizer, "_sharded", ()):
+        owner[id(view)] = owner[id(p)]
+    return [owner[id(t)] for g in optimizer.param_groups for t in g["params"]]
+
+
 def state_bytes(optimizer: torch.optim.Optimizer) -> int:
     """Bytes of the optimizer state this process holds."""
     return sum(v.numel() * v.element_size() for st in optimizer.state.values()

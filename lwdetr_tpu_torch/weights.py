@@ -20,7 +20,10 @@ loads when it is given no state_dict. `init_state_dict` draws every weight
 non-trivially from a seed, for tests and benchmarks whose every path must
 depend on its inputs. `read_jax_npz` reads a JAX
 variable tree saved as `{keystr: array}` (the mAP fixture's `weights.npz`)
-into nested dicts, with no JAX.
+into nested dicts, with no JAX. `param_tensors_from_jax` carries any tree
+shaped as `params` (the Adam moments of an orbax train state too), and
+`jax_tree_mismatch` names the first leaf of a JAX tree that `cfg`'s model
+lacks or has at another shape.
 """
 from __future__ import annotations
 
@@ -273,14 +276,66 @@ def state_dict_from_jax(params: dict, batch_stats: dict, cfg: ModelConfig) -> Di
     return tensors_from_jax(build_mapping(cfg), params, batch_stats)
 
 
-def grads_from_jax(grads: dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """A JAX gradient tree over `params` -> {parameter name: gradient} in the
-    port's layouts (the transposes and the ConvTranspose flip of the weights),
-    to hold `p.grad` against, key by key."""
+# the layout changes of `_f2t`: each only moves elements, so a tree shaped as
+# `params` (a gradient, an Adam moment) goes through it as the weights do
+REARRANGEMENTS = ("raw", "dense_w", "conv_w", "convT_w")
+
+
+def param_tensors_from_jax(tree: dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """A JAX tree shaped as `params` (gradients, Adam's moments) -> {parameter
+    name: tensor} in the port's layouts, each entry's layout change applied as
+    to its weight (the transposes and the ConvTranspose flip). An entry whose
+    change is no pure rearrangement of the elements cannot carry such a tree:
+    it is refused, with the others like it."""
     mapping = [e for e in build_mapping(cfg) if e[1] == "params"]
-    return {tk: torch.from_numpy(np.ascontiguousarray(_f2t(np.asarray(_get_path(grads, fp)),
+    bad = [tk for tk, _, _, kind in mapping if kind not in REARRANGEMENTS]
+    if bad:
+        raise ValueError(f"{len(bad)} weights change layout by more than a rearrangement, so "
+                         f"a tree over the parameters cannot follow them: {bad}")
+    return {tk: torch.from_numpy(np.ascontiguousarray(_f2t(np.asarray(_get_path(tree, fp)),
                                                            kind)).astype(np.float32))
             for tk, _, fp, kind in mapping}
+
+
+def grads_from_jax(grads: dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree over `params` -> {parameter name: gradient} in the
+    port's layouts, to hold `p.grad` against, key by key."""
+    return param_tensors_from_jax(grads, cfg)
+
+
+def model_shapes(cfg: ModelConfig) -> Dict[str, torch.Size]:
+    """The shape of each state_dict entry of `cfg`'s model (built on the meta device)."""
+    from lwdetr_tpu_torch.models.lwdetr import LWDETR
+
+    with torch.device("meta"):
+        return {k: v.shape for k, v in LWDETR(cfg).state_dict().items()}
+
+
+def jax_tree_mismatch(tree: dict, cfg: ModelConfig, collection: str) -> str:
+    """The first leaf of the JAX tree `tree` of `collection` ("params" or
+    "batch_stats") that `cfg`'s model lacks, misses or has at another shape,
+    named by its path; an empty string when the tree is the model's."""
+    shapes = model_shapes(cfg)
+    want = {"/".join(fp): _flax_shape(shapes[tk], kind)
+            for tk, coll, fp, kind in build_mapping(cfg) if coll == collection}
+    have = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (str(k),))
+        else:
+            have["/".join(path)] = tuple(np.shape(node))
+
+    walk(tree or {}, ())
+    for path in sorted(want):
+        if path not in have:
+            return f"missing leaf {collection}/{path}"
+        if have[path] != tuple(want[path]):
+            return (f"leaf {collection}/{path} has shape {have[path]}, the model's is "
+                    f"{tuple(want[path])}")
+    extra = sorted(set(have) - set(want))
+    return f"extra leaf {collection}/{extra[0]}" if extra else ""
 
 
 _SQRT2 = math.sqrt(2.0)
@@ -387,10 +442,7 @@ def jax_init_state_dict(cfg: ModelConfig, generator: torch.Generator) -> Dict[st
     exactly (zeros, ones, the layer scales 0.1, the focal prior of the class
     heads, the sampling offsets' grid), every random tensor follows JAX's
     distribution (JAX's own bits come from its PRNG, not these). float32."""
-    from lwdetr_tpu_torch.models.lwdetr import LWDETR
-
-    with torch.device("meta"):
-        shapes = {k: v.shape for k, v in LWDETR(cfg).state_dict().items()}
+    shapes = model_shapes(cfg)
     sd = {}
     for tk, _, fp, kind in build_mapping(cfg):
         shape = _flax_shape(shapes[tk], kind)
@@ -425,8 +477,6 @@ def init_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
     Every weight is non-trivial (no zero-initialized heads or offsets), so
     every path of the forward depends on its inputs; scales keep the
     activations in the range a trained model's take."""
-    from lwdetr_tpu_torch.models.lwdetr import LWDETR
-
     g = torch.Generator().manual_seed(seed)
 
     def normal(shape, std):
@@ -437,9 +487,7 @@ def init_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
 
     prior = PRIOR_BIAS
     sd = {}
-    with torch.device("meta"):
-        shapes = {k: v.shape for k, v in LWDETR(cfg).state_dict().items()}
-    for k, shape in shapes.items():
+    for k, shape in model_shapes(cfg).items():
         if k.endswith("num_batches_tracked"):
             sd[k] = torch.tensor(0, dtype=torch.long)
         elif k.endswith("running_mean"):

@@ -30,7 +30,7 @@ TINY = ModelConfig(vit_encoder_num_layers=1, out_feature_indexes=(0,), hidden_di
                    bbox_reparam=True, lite_refpoint_refine=True)
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "lwdetr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "lwdetr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "lwdetr_tpu", "orbax", "tensorstore", "zstandard")
 
 
 def _imported_modules(path: Path):
@@ -81,6 +81,24 @@ def test_the_eval_slice_modules_are_in_the_walk():
 def test_the_deploy_modules_are_in_the_walk():
     names = {str(p.relative_to(ROOT / "lwdetr_tpu_torch")) for p in PORT_FILES[:-1]}
     assert {"deploy/__init__.py", "deploy/export.py", "deploy/benchmark.py"} <= names
+
+
+def test_the_orbax_reader_modules_are_in_the_walk():
+    names = {str(p.relative_to(ROOT / "lwdetr_tpu_torch")) for p in PORT_FILES[:-1]}
+    assert {"train/orbax_read.py", "utils/zstd.py", "train/checkpoint.py", "weights.py"} <= names
+
+
+def test_every_host_source_is_registered():
+    """The host C++ libraries (built with g++ by their bindings): the
+    preprocessing and the zstd decoder of the orbax reader."""
+    from lwdetr_tpu_torch.data import native
+    from lwdetr_tpu_torch.utils import zstd
+
+    assert set(_build.HOST_SOURCES) == {p.name for p in _build.CSRC.glob("*.cpp")}
+    assert {native.SOURCE, zstd.SOURCE} == set(_build.HOST_SOURCES)
+    for src, flags in ((native.SOURCE, native.CXX_FLAGS), (zstd.SOURCE, zstd.CXX_FLAGS)):
+        assert "-shared" in flags and "-fPIC" in flags
+        assert _build.host_library_path(src, flags).parent == ROOT / "build" / "lwdetr_tpu_torch"
 
 
 def test_the_parallel_and_bench_modules_are_in_the_walk():
@@ -267,7 +285,7 @@ def test_chip_smoke_checks_the_kernels_at_each_train_cli_size():
         assert [tuple(m.shape) for m in maps] == [(1, *hw, H * D) for hw in shapes], size
 
 
-def _loader_sizes(folder, train, seed=0, batches=None, square=False):
+def _loader_sizes(folder, train, seed=0, batches=None, square=False, epoch=0):
     from lwdetr_tpu_torch.data.coco import CocoDetection
     from lwdetr_tpu_torch.data.loader import DetectionLoader
 
@@ -275,7 +293,7 @@ def _loader_sizes(folder, train, seed=0, batches=None, square=False):
                        str(ROOT / folder / "annotations" / "instances_val2017.json"))
     loader = DetectionLoader(ds, batch_size=4, train=train, max_gt=100, seed=seed,
                              square_div_64=square, num_workers=0)
-    loader.set_epoch(0)
+    loader.set_epoch(epoch)
     sizes = []
     for batch in loader:
         sizes.append(tuple(batch["images"].shape[1:3]))
@@ -418,6 +436,63 @@ def test_chip_smoke_checks_the_kernels_at_each_variant_cli_size():
     assert seen == {"dec": dec, "dec_bwd": dec_bwd, "sep": sep}
     assert calls == shape_set([e for e in cs.ATTENTION_SHAPES if "@micro" in e[0]]), calls
     assert samples == {("K3", (*cs.SEP_MICRO[:5], tuple(cs.SEP_MICRO[5])))}
+
+
+def test_chip_smoke_checks_the_kernels_at_each_orbax_cli_size():
+    """The resumed train CLI's size table (`orbax_phase` (c)) is what the
+    square recipe draws from the fixture at batch 4 and the CLI's default
+    seed in epoch 1, where a resume from the orbax fixture's step 5 starts. At
+    each size the micro model (chip_smoke.MICRO_FLAGS) in train mode calls
+    attention at shapes of the kernel phase's tables (its ViT) or of
+    VARIANT_CLI_DRAWN_ATTENTION (its decoder), with their backwards in the
+    backward tables, and the sampler at the size's ORBAX_CLI_DRAWN_SEP entry;
+    every entry of ORBAX_CLI_DRAWN_SEP is drawn."""
+    import chip_smoke as cs
+    from lwdetr_tpu_torch import main as cli
+
+    seed = cli.parser().parse_args([]).seed
+    sizes = _loader_sizes("tests/fixtures/micro_map", True, seed, square=True,
+                          epoch=cs.ORBAX_STEP // cs.CLI_STEPS)
+    assert len(sizes) == cs.CLI_STEPS and all(h == w for h, w in sizes)
+    assert sorted({h for h, _ in sizes}) == sorted(cs.ORBAX_CLI_SIZES)
+    cfg = cli.config_from_args(cli.parser().parse_args(["--coco_path", "x",
+                                                        *cs.MICRO_FLAGS])).model
+    model = port_model.build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    calls, samples = set(), set()
+
+    def record(qkv_t, num_heads, scale=None, bias=None):  # no attention computed: zeros
+        B, ZC, N = qkv_t.shape
+        kernel = ("K1" if bias is not None else "K9") if N <= tfa._WINDOW_MAX_N else "K2"
+        calls.add((kernel, B * cs.MICRO_BATCH, ZC // 3, N, num_heads))
+        return qkv_t.new_zeros(B, ZC // 3, N)
+
+    def panels(vals, shapes, loc, weights):
+        B, Q, H, _, P = loc.shape[:5]
+        C = vals[0].shape[1] * vals[0].shape[-1] // shapes[0][1]
+        samples.add((B * cs.MICRO_BATCH, H, C // H, P, Q, tuple(map(tuple, shapes))))
+        return loc.new_zeros(*loc.shape[:2], C)
+
+    def shape_set(table):
+        return {tuple(e[1:6]) for e in table}
+
+    fwd = shape_set(cs.ATTENTION_SHAPES + cs.CLI_ATTENTION_SHAPES + cs.VARIANT_CLI_DRAWN_ATTENTION)
+    bwd = shape_set(cs.ATTENTION_BWD_SHAPES + cs.CLI_ATTENTION_BWD_SHAPES
+                    + cs.VARIANT_CLI_DRAWN_ATTENTION_BWD)
+    sep = {(B, H, D, P, Q, tuple(map(tuple, shapes)))
+           for _, (B, H, D, P, Q, shapes) in cs.ORBAX_CLI_DRAWN_SEP}
+    backward = {"K1": "K7", "K2": "K6", "K9": "K7nb"}
+    seen = set()
+    with mock.patch.object(tfa, "attention_cm", record), \
+            mock.patch.object(tda, "ms_deform_attn_sep_panels", panels), torch.no_grad():
+        for size in cs.ORBAX_CLI_SIZES:
+            calls.clear()
+            samples.clear()
+            model.train()(torch.zeros(1, size, size, 3))
+            assert calls <= fwd, (size, calls - fwd)
+            assert {(backward[k], *rest) for k, *rest in calls} <= bwd, size
+            assert samples <= sep and len(samples) == 1, (size, samples)
+            seen |= samples
+    assert seen == sep
 
 
 def _run_smoke(cwd: Path):
