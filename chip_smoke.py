@@ -122,12 +122,17 @@ Run from the root of a checkout, with one card:
    probability near the prior 0.01), then `--eval` of its checkpoint, whose
    stats equal the training run's eval.
 10. The decoder and encoder variants (`variants_phase`), F7 first: K2 / K9
-   forwards and K6 / K7nb backwards at head_dim 512, 1024 and 2048 (the
-   chunked wide case) at the decoder's eval (batch 8, 300 / 100 queries) and
-   train shapes (13 groups of batch 4), f32 and bf16, against their plain
-   versions, timed beside SDPA, no spilled byte; 384 through the zero padding
-   to 512; one decoder layer at --hidden_dim 512 --sa_nheads 1 in train mode
-   (K2 1, K4 1, K6 1, K5 1) against the plain versions; then at 640 x 640 with
+   forwards and K6 / K7nb backwards at head_dim 128, 192, 256, 384, 512, 1024,
+   2048 and 2112 (the wide case, on the tensor cores) at the decoder's eval
+   (batch 8, 300 / 100 queries, and K2 at 150) and train shapes (13 groups of
+   batch 4), f32 and bf16, against their plain versions, timed beside SDPA
+   and their bound, with their registers and no spilled byte; untimed, odd
+   token counts (301 / 99: plain loads in bf16) in the resident kernels and
+   in FlashAttention-2's shape, and a head of 2112 over 3201 / 1501 tokens
+   (the streaming kernels, in both dtypes); 300 and 2100
+   through the zero padding to 320 and 2112; one decoder layer at
+   --hidden_dim 512 --sa_nheads 1 in train mode (K2 1, K4 1, K6 1, K5 1)
+   against the plain versions; then at 640 x 640 with
    seeded weights: (a) res50vd under small's decoder, (b) small's ViT with the
    Deformable-DETR-style decoder (one-stage, box logits, the iterative
    refinement, the learned embedding): the bf16 eval forward at batch 8
@@ -220,6 +225,11 @@ from unittest import mock
 # memory rate and its operations over the rate for their type
 HBM_BYTES_PER_S = 3.35e12
 FLOPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores; bf16 tensor cores
+# f32 products as 3xTF32 on the tensor cores (three TF32 products for one, 495
+# TFLOP/s dense TF32): the f32 rate of the kernels that take that route, the
+# attention backwards (K6, K7, K7nb) and the wide case's forwards (K2, K9 above
+# head_dim 64)
+F32_3XTF32_FLOPS_PER_S = 495e12 / 3
 # exp2 on the special-function units: 16 per clock per SM (CUDA C++ Programming
 # Guide, throughput table, compute capability 9.0) x 132 SMs x 1.98 GHz boost
 EXP_PER_S = 16 * 132 * 1.98e9
@@ -419,8 +429,11 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def bound_ms(nbytes: float, flops: float, exps: float, dtype: str):
-    t = {"bytes": nbytes / HBM_BYTES_PER_S, "flops": flops / FLOPS_PER_S[dtype],
+def bound_ms(nbytes: float, flops: float, exps: float, dtype: str, tf32x3: bool = False):
+    """The least time (ms) for the work, what bounds it, and each part (s);
+    `tf32x3`: the kernel's f32 products run as 3xTF32 on the tensor cores."""
+    rate = F32_3XTF32_FLOPS_PER_S if tf32x3 and dtype == "float32" else FLOPS_PER_S[dtype]
+    t = {"bytes": nbytes / HBM_BYTES_PER_S, "flops": flops / rate,
          "exps": exps / EXP_PER_S}
     by = max(t, key=t.get)
     return t[by] * 1e3, ("bytes" if by == "bytes" else "operations"), t
@@ -552,7 +565,7 @@ def compare_attention(torch, F, fa, measure_ms, name, B, C, N, heads, scale, bia
     nbytes = B * 4 * C * N * isz + (3 * C * 4 if bias else 0)
     flops = 4 * B * heads * N * N * D
     exps = B * heads * N * N
-    bms, by, parts = bound_ms(nbytes, flops, exps, dtype)
+    bms, by, parts = bound_ms(nbytes, flops, exps, dtype, tf32x3=fa.is_wide_head_dim(D))
     log(f"{tag}: err {err:.3g} (vs f32 plain {err32:.3g}; sdpa vs f32 plain {lib_err:.3g}"
         + (f"; lse {lse_err:.3g}" if lse_err is not None else "") + f") ms {ms:.4f} plain "
         f"{plain_ms:.4f} sdpa {library_ms:.4f} (x{ms / library_ms:.2f}); device (graph) {device_ms:.4f}"
@@ -1009,7 +1022,7 @@ def compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N, heads, scale,
         nbytes += B * heads * N * 4
     flops = 10 * B * heads * N * N * D  # five (N, N, D) products: s, dp, dq, dk, dv
     exps = B * heads * N * N
-    bms, by, parts = bound_ms(nbytes, flops, exps, dtype)
+    bms, by, parts = bound_ms(nbytes, flops, exps, dtype, tf32x3=True)
     log(f"{tag}: err {err:.3g} (vs f32 plain {err32:.3g}) of max |plain| "
         f"{ref.abs().max().item():.3g} (sdpa bwd vs f32 plain {lib_err:.3g}) ms {ms:.4f} plain "
         f"{plain_ms:.4f} sdpa bwd {library_ms:.4f}; device (graph) {device_ms:.4f} sdpa "
@@ -3057,18 +3070,30 @@ def m1_entry(res, launches):
 
 # ---- the decoder and encoder variants (ROADMAP.md § 1 item 6) and F7 ------------
 
-# F7: the wide attention case at head dims above 256 (chunked from 512): K2 /
-# K9 forwards at the decoder's eval shapes (batch 8, 300 / 100 queries), K6 /
-# K7nb backwards at its train shapes (13 groups of batch 4 folded), one head:
-# (key, kernel, B, C, N, heads, scale, bias[, calls a sample])
-F7_HEAD_DIMS = (512, 1024, 2048)
-F7_PADDED_HEAD_DIM = 384  # zero-padded to 512 by attention_cm
+# F7: the wide attention case (`csrc/attention_wide.cuh`: every multiple of
+# 64 from 128 up; 2112 is wider than the widest head it once took): K2 / K9
+# forwards at the decoder's eval shapes (batch 8, 300 / 100 queries) and K2 at
+# a ragged 150, K6 / K7nb backwards at its train shapes (13 groups of batch 4
+# folded), one head: (key, kernel, B, C, N, heads, scale, bias[, calls a
+# sample]). F7_UNTIMED, checked untimed: odd token counts (bf16 rows of odd
+# length staged by plain loads, f32 by 4-byte copies) in the resident kernels,
+# in clusters, and in FlashAttention-2's shape (bf16 heads of 128 at a batch
+# that fills the card); and rows too long for the resident kernels in either
+# dtype (the streaming ones take them), at odd lengths too.
+F7_HEAD_DIMS = (128, 192, 256, 384, 512, 1024, 2048, 2112)
+F7_PADDED_HEAD_DIMS = (300, 2100)  # zero-padded to 320 and 2112 by attention_cm
 F7_ATTENTION_SHAPES = tuple(
-    (f"{name}@f7_{D}", name, BATCH, D, N, 1, D ** -0.5, False)
-    for D in F7_HEAD_DIMS for name, N in (("K2", 300), ("K9", 100)))
+    (f"{name}@f7_{D}" + ("" if N != 150 else "_n150"), name, BATCH, D, N, 1, D ** -0.5, False)
+    for D in F7_HEAD_DIMS for name, N in (("K2", 300), ("K9", 100), ("K2", 150)))
 F7_ATTENTION_BWD_SHAPES = tuple(
     (f"{name}@f7_{D}", name, TRAIN_BATCH * 13, D, N, 1, D ** -0.5, False, 2)
     for D in F7_HEAD_DIMS for name, N in (("K6", 300), ("K7nb", 100)))
+F7_UNTIMED = (("K2@f7_128_n301", "K2", TRAIN_BATCH * 13, 256, 301, 2, 128 ** -0.5, False),
+              ("K9@f7_2112_n99", "K9", BATCH, 2112, 99, 1, 2112 ** -0.5, False),
+              ("K2@f7_tail", "K2", 2, 2112, 3201, 1, 2112 ** -0.5, False),
+              ("K6@f7_128_n301", "K6", TRAIN_BATCH * 13, 256, 301, 2, 128 ** -0.5, False, 2),
+              ("K7nb@f7_192_n99", "K7nb", TRAIN_BATCH * 13, 192, 99, 1, 192 ** -0.5, False, 2),
+              ("K6@f7_tail", "K6", 2, 2112, 1501, 1, 2112 ** -0.5, False, 2))
 # (path, overrides of small's flag set): (a) PResNet-50 under small's decoder;
 # (b) small's ViT with the Deformable-DETR-style decoder (one-stage, boxes as
 # logits, the iterative refinement, the learned embedding); (c) eval only:
@@ -3128,10 +3153,11 @@ def variant_cli_launch_invariants(n, steps, eval_batches):
 
 
 def f7_checks(torch, F, fa, measure_ms, res):
-    """F7 on the card: K2 / K9 forwards and K6 / K7nb backwards at head_dim
-    512, 1024 and 2048 (the chunked wide case) against their plain versions,
-    f32 and bf16, timed beside SDPA, with no local bytes; 384 through
-    `attention_cm`'s zero padding to 512. Into `res`."""
+    """F7 on the card: K2 / K9 forwards and K6 / K7nb backwards at every head
+    dim of F7_HEAD_DIMS (the wide case) against their plain versions, f32 and
+    bf16, timed beside SDPA and their bound, with their registers and no local
+    bytes; F7_UNTIMED's odd and long rows untimed; 300 and 2100 through
+    `attention_cm`'s zero padding to 320 and 2112. Into `res`."""
     out = {}
     for dtype in ("float32", "bfloat16"):
         for key, name, B, C, N, heads, scale, bias in F7_ATTENTION_SHAPES:
@@ -3140,10 +3166,20 @@ def f7_checks(torch, F, fa, measure_ms, res):
         for key, name, B, C, N, heads, scale, bias, iters in F7_ATTENTION_BWD_SHAPES:
             res[(key, dtype)] = compare_attention_bwd(torch, F, fa, measure_ms, name, B, C, N,
                                                       heads, scale, bias, dtype, iters)
-        for name, N in (("K2", 300), ("K9", 100)):
-            out[f"{name}_{F7_PADDED_HEAD_DIM}_{dtype}"] = compare_padded_attention(
-                torch, fa, measure_ms, dtype, name, N, F7_PADDED_HEAD_DIM)
-    spilled = {k: v["spill_bytes"] for k, v in res.items() if "@f7_" in k[0] and v["spill_bytes"]}
+        for key, name, B, C, N, heads, scale, bias, *iters in F7_UNTIMED:
+            if name in BACKWARD_KERNELS:
+                res[(key, dtype)] = compare_attention_bwd(torch, F, fa, measure_ms, name, B, C,
+                                                          N, heads, scale, bias, dtype, *iters,
+                                                          timed=False)
+            else:
+                res[(key, dtype)] = compare_attention(torch, F, fa, measure_ms, name, B, C, N,
+                                                      heads, scale, bias, dtype, timed=False)
+        for D in F7_PADDED_HEAD_DIMS:
+            for name, N in (("K2", 300), ("K9", 100)):
+                out[f"{name}_{D}_{dtype}"] = compare_padded_attention(torch, fa, measure_ms,
+                                                                       dtype, name, N, D)
+    spilled = {k: v["spill_bytes"] for k, v in res.items()
+               if "@f7_" in k[0] and v.get("spill_bytes")}
     if spilled:
         raise AssertionError(f"F7: the wide case spilled: {spilled}")
     return out
@@ -4779,7 +4815,7 @@ def main() -> int:
             entry["other_shapes"] = others
         checked = {key.split("@")[1]: both(key) for key, kname, *_ in (
             PADDED_DRAWN_ATTENTION + PADDED_DRAWN_ATTENTION_BWD + VARIANT_CLI_DRAWN_ATTENTION
-            + VARIANT_CLI_DRAWN_ATTENTION_BWD) if kname == name}
+            + VARIANT_CLI_DRAWN_ATTENTION_BWD + F7_UNTIMED) if kname == name}
         checked.update({key.split("@")[1].replace("variant_cli", "orbax_cli"):
                         both(key.replace("variant_cli", "orbax_cli"))
                         for key, kname, *_ in (VARIANT_CLI_DRAWN_ATTENTION

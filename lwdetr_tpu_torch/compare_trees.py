@@ -10,7 +10,10 @@ kernels first (its own `build/`, one nvcc per source), then for each preset
 runs `python -m lwdetr_tpu_torch.<tool> --preset P --batch B` from the other
 checkout and from this one in the order other, this, this, other (each a
 fresh process): `bench` (eval img/s, B 32), `bench_train` (the f32 train
-step, B 4), `bench_attention` (device ms of the attention kernels, B 8) or
+step, B 4), `bench_attention` (device ms of the attention kernels, B 8;
+`--presets wide`: the wide case's forwards and backwards at the decoder's
+head dims above 64, copy `lwdetr_tpu_torch/bench_attention.py` into a parent
+that lacks the mode) or
 `bench_deform` (device ms of the samplers, train step B 4; both trees must
 have `bench_deform.py`; `--value_step` is passed to it: the step whose
 sampler launches are `value`). `--batch` replaces the tool's batch (for

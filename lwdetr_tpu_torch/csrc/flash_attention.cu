@@ -51,8 +51,8 @@
 // from it instead of taking the row max and sum again. `lse` is null in eval,
 // which then pays nothing for it. Both cases write it.
 //
-// Head dims 128 to 2048 (the decoder's wider heads) take the wide case,
-// attention_wide.cuh: CUDA cores in both dtypes.
+// Head dims that are multiples of 64 from 128 up (the decoder's wider heads)
+// take the wide case, attention_wide.cuh: tensor cores in both dtypes.
 #include "attention_wide.cuh"
 #include "common.cuh"
 #include "mma.cuh"

@@ -62,8 +62,8 @@
 // Ragged tails: a key past N gets p = 0 (only the last key tile is masked);
 // a query past N has lse = +inf, so p = 0 and it adds nothing to dk or dv.
 //
-// Head dims 128 to 2048 (the decoder's wider heads) take the wide case,
-// attention_wide.cuh: the same two passes on the CUDA cores.
+// Head dims that are multiples of 64 from 128 up (the decoder's wider heads)
+// take the wide case, attention_wide.cuh: its own passes, on the tensor cores.
 #include "attention_wide.cuh"
 #include "common.cuh"
 #include "attention_bwd.cuh"

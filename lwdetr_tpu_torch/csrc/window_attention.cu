@@ -46,8 +46,8 @@
 // shared-memory broadcasts; QK^T computed twice (the row max, then the
 // weights); bound by the f32 FMA rate.
 //
-// Without a bias, head dims 128 to 2048 (the decoder's wider heads) take the
-// wide case, attention_wide.cuh; K1 (the ViT's, whose heads never exceed 64
+// Without a bias, head dims that are multiples of 64 from 128 up (the
+// decoder's wider heads) take the wide case, attention_wide.cuh; K1 (the ViT's, whose heads never exceed 64
 // channels) takes none of them.
 #include "attention_wide.cuh"
 #include "common.cuh"

@@ -289,7 +289,7 @@ int dispatch(const void* qkv, const void* bias, const void* dout, void* dqkv, fl
 
 template <typename T, bool kBias>
 int attributes_t(int D, int* attrs) {
-  if (lw_wide::takes(D)) {  // two passes: the larger registers, the summed spills
+  if (lw_wide::takes(D)) {  // its passes: the larger registers, the summed spills
     int both[6];
     if (int err = lw_wide::backward_attributes<T>(D, both)) return err;
     attrs[0] = both[0] > both[3] ? both[0] : both[3];

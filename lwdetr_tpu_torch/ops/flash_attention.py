@@ -25,14 +25,13 @@ plain versions, `attention_cm_plain` and `attention_cm_bwd_plain`, which are
 also what the kernels are held against on the card.
 
 Head dims: the kernels have cases for 16, 32 and 64 (the ViT's, on the
-tensor cores in bf16) and a wide case for 128, 256, 512, 1024 and 2048
-(`csrc/attention_wide.cuh`, CUDA cores: the decoder's heads when
-`--hidden_dim` / `--sa_nheads` make them wider, e.g. 256 / 2 or 512 / 1),
-which K2, K9, K6 and K7nb take; `attention_cm` zero-pads any other head dim
-up to 2048 to the next case (`attention_cm_padded`); a CUDA tensor with
-wider heads is refused, naming the widest case. K1 / K7 with the ViT's qkv
-bias keep 64 as their largest (every ViT has 12 heads of at most 64
-channels).
+tensor cores in bf16) and a wide case for every multiple of 64 from 128 up
+(`csrc/attention_wide.cuh`, tensor cores in both dtypes: the decoder's heads
+when `--hidden_dim` / `--sa_nheads` make them wider, e.g. 256 / 2 or
+512 / 1), which K2, K9, K6 and K7nb take; `attention_cm` zero-pads any other
+head dim to the next case (`attention_cm_padded`, `padded_head_dim`), with no
+upper limit. K1 / K7 with the ViT's qkv bias keep 64 as their largest (every
+ViT has 12 heads of at most 64 channels).
 
 In bf16 the forward kernels (K1, K2, K9) run on the tensor cores and round
 what the JAX kernels round: the softmax weights p = exp(s - max) to bf16
@@ -55,10 +54,11 @@ from lwdetr_tpu_torch.ops._build import CudaKernel, load
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head dims of the kernels' cases: 16, 32, 64 (tensor cores in bf16), and
-# the wide case (`csrc/attention_wide.cuh`, CUDA cores) at 128 to 2048, which
-# K2 / K6 / K9 / K7nb take for the decoder's wider heads
+# the wide case (`csrc/attention_wide.cuh`) at every multiple of _WIDE_STEP
+# from _WIDE_MIN up, which K2 / K6 / K9 / K7nb take for the decoder's wider heads
 _HEAD_DIMS = (16, 32, 64)
-_WIDE_HEAD_DIMS = (128, 256, 512, 1024, 2048)
+_WIDE_MIN = 128
+_WIDE_STEP = 64
 _WINDOW_MAX_N = 128
 _BIAS_MAX_HEAD_DIM = 64
 _BIAS_REFUSAL = ("K1 / K7 (the ViT's window attention with its qkv bias) take head_dim up to "
@@ -286,6 +286,17 @@ def bf16_bwd_error_bound(qkv_t: torch.Tensor, dout: torch.Tensor, num_heads: int
     return 2e-5 * max(1.0, plain.abs().max().item()) + ulp + 2.0 ** -8 * terms
 
 
+def is_wide_head_dim(head_dim: int) -> bool:
+    """Whether the wide case (`csrc/attention_wide.cuh`) takes this head_dim:
+    a multiple of 64, from 128 up (`lw_wide::takes`)."""
+    return head_dim >= _WIDE_MIN and head_dim % _WIDE_STEP == 0
+
+
+def has_kernel_case(head_dim: int) -> bool:
+    """Whether a kernel case takes this head_dim unpadded."""
+    return head_dim in _HEAD_DIMS or is_wide_head_dim(head_dim)
+
+
 def _check_cuda(qkv_t: torch.Tensor, num_heads: int) -> None:
     if qkv_t.dtype not in _DTYPES:
         raise TypeError(f"attention_cm kernels take float32 or bfloat16, got {qkv_t.dtype}")
@@ -293,9 +304,10 @@ def _check_cuda(qkv_t: torch.Tensor, num_heads: int) -> None:
         raise ValueError(f"qkv_t must be (B, 3C, N) with C divisible by {num_heads} heads, "
                          f"got {tuple(qkv_t.shape)}")
     D = qkv_t.shape[1] // 3 // num_heads
-    if D not in _HEAD_DIMS + _WIDE_HEAD_DIMS:
-        raise ValueError(f"attention_cm kernels take head_dim in {_HEAD_DIMS + _WIDE_HEAD_DIMS}, "
-                         f"got {D} (attention_cm zero-pads a head_dim to the next of them)")
+    if not has_kernel_case(D):
+        raise ValueError(f"attention_cm kernels take head_dim in {_HEAD_DIMS} or a multiple of "
+                         f"{_WIDE_STEP} from {_WIDE_MIN} up, got {D} (attention_cm zero-pads a "
+                         f"head_dim to the next of them)")
 
 
 def _check_window(qkv_t: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
@@ -499,7 +511,7 @@ def window_attention_bias_bwd(qkv_t: torch.Tensor, bias: Optional[torch.Tensor],
     if bias is None:
         # the wide case takes each row's log-sum-exp and row term into this scratch
         stats = (torch.empty((2, B, num_heads, N), device=qkv_t.device, dtype=torch.float32)
-                 if ZC // 3 // num_heads in _WIDE_HEAD_DIMS else None)
+                 if is_wide_head_dim(ZC // 3 // num_heads) else None)
         window_attention_bwd_kernel(qkv_t.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
                                     None if stats is None else stats.data_ptr(), *tail[2:])
     else:
@@ -535,15 +547,13 @@ def flash_attention_cm_bwd(qkv_t: torch.Tensor, lse: Optional[torch.Tensor], dou
 
 def padded_head_dim(head_dim: int) -> int:
     """The head_dim of the kernel case a head_dim takes: the next of 16, 32,
-    64, 128, 256, 512, 1024, 2048. A wider head raises: the chunked wide case
-    keeps a block's four rows in shared memory, and 2048 is the widest whose
-    rows fit beside its tiles."""
-    for d in _HEAD_DIMS + _WIDE_HEAD_DIMS:
+    64, and above 64 the next multiple of 64 (80 -> 128, 129 -> 192, 2112 ->
+    2112). No head is too wide: the wide case keeps nothing that grows with
+    the head_dim."""
+    for d in _HEAD_DIMS:
         if head_dim <= d:
             return d
-    raise ValueError(f"attention_cm kernels take head_dim up to {_WIDE_HEAD_DIMS[-1]} (the wide "
-                     f"case's widest), got {head_dim}: a decoder head of more channels "
-                     f"(--hidden_dim / --sa_nheads) has no kernel")
+    return max(_WIDE_MIN, -(-head_dim // _WIDE_STEP) * _WIDE_STEP)
 
 
 def _pad_heads(t: torch.Tensor, num_heads: int, head_dim: int, padded: int) -> torch.Tensor:
@@ -580,14 +590,14 @@ def attention_cm(qkv_t: torch.Tensor, num_heads: int, scale: Optional[float] = N
     """Attention over channel-major packed qkv (B, 3C, N) -> (B, C, N), with
     an optional (3C,) qkv bias. Differentiable in qkv_t and bias. On a CUDA
     tensor a head_dim that no kernel case takes is zero-padded to one
-    (`attention_cm_padded`), which refuses a head wider than the widest case."""
+    (`attention_cm_padded`)."""
     B, ZC, N = qkv_t.shape
     if ZC % (3 * num_heads):
         raise ValueError(f"3C = {ZC} is not divisible by 3 x {num_heads} heads")
     D = ZC // 3 // num_heads
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    if qkv_t.is_cuda and D not in _HEAD_DIMS + _WIDE_HEAD_DIMS:
+    if qkv_t.is_cuda and not has_kernel_case(D):
         return attention_cm_padded(qkv_t, num_heads, scale, bias)
     if N <= _WINDOW_MAX_N:
         if bias is not None:

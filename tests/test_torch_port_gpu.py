@@ -873,23 +873,29 @@ def test_staged_rows_fit_the_shared_memory_budget(cuda):
     assert rows < 100 <= rows + 30
 
 
-@pytest.mark.parametrize("D", [8, 24, 48])
+@pytest.mark.parametrize("D", [8, 24, 48, 150, 300, 2100])
 @pytest.mark.parametrize("N,with_bias,kernel", [(100, True, "K1"), (100, False, "K9"),
                                                 (300, False, "K2")])
 def test_attention_at_padded_head_dims_matches_the_plain_version(cuda, D, N, with_bias, kernel):
     """F4: head_dim 8, 24, 48 reach K1 / K9 / K2 (and K7 / K7nb / K6)
-    zero-padded to 16, 32, 64, forward and d(qkv) within ATOL (x max(1, max
-    |plain|)) of the plain version; d(bias) sums B x N such terms, so within
-    B x N times that."""
+    zero-padded to 16, 32, 64, and 150, 300, 2100 reach K9 / K2 (K7nb / K6)
+    zero-padded to the wide case's 192, 320, 2112, forward and d(qkv) within
+    ATOL (x max(1, max |plain|)) of the plain version; d(bias) sums B x N such
+    terms, so within B x N times that. K1 with its qkv bias refuses a head
+    above 64, naming the ViT's 12 heads."""
     kern = {"K1": fa.window_attention_bias_kernel, "K9": fa.window_attention_kernel,
             "K2": fa.flash_attention_cm_kernel}[kernel]
     bwd = {"K1": fa.window_attention_bias_bwd_kernel, "K9": fa.window_attention_bwd_kernel,
            "K2": fa.flash_attention_cm_bwd_kernel}[kernel]
-    heads, B = 4, 2
+    heads, B = (4, 2) if D <= 64 else (1, 2)
     qkv = _qkv(cuda, B, heads * D, N, torch.float32).requires_grad_()
     bias = (0.1 * torch.randn(3 * heads * D, generator=cuda, device="cuda")).requires_grad_() \
         if with_bias else None
     dout = torch.randn((B, heads * D, N), generator=cuda, device="cuda")
+    if with_bias and D > 64:
+        with pytest.raises(ValueError, match="12 heads"):
+            fa.attention_cm(qkv, heads, bias=bias)
+        return
     n0, b0 = kern.launches, bwd.launches
     out = fa.attention_cm(qkv, heads, bias=bias)
     grads = torch.autograd.grad(out, [qkv] + ([bias] if with_bias else []), dout)
@@ -907,17 +913,39 @@ def test_attention_at_padded_head_dims_matches_the_plain_version(cuda, D, N, wit
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [80, 128, 256, 384, 512, 1024, 2048])
+@pytest.mark.parametrize("D", [80, 128, 150, 192, 256, 300, 320, 384, 512, 1024, 2048, 2100,
+                               2112])
 @pytest.mark.parametrize("N,kernel", [(300, "K2"), (100, "K9")])
 def test_wide_head_dims_match_the_plain_version(cuda, dtype, D, N, kernel):
     """F4 / F7: the decoder's head dims above 64 reach the wide case of K2 /
-    K9 and of their backwards K6 / K7nb (`csrc/attention_wide.cuh`; chunked
-    from 512 up), zero-padded from 80 to 128 and from 384 to 512: forward and
-    d(qkv) against the plain version on the unpadded inputs, in f32 within
-    ATOL (x max(1, max |plain|)) and in bf16 within `bf16_error_bound` /
-    `bf16_bwd_error_bound` at the kernel's head dim (for 80 and 384: of the
-    padded inputs, checked at the padded head dim); no case spills."""
-    heads, B = (2 if D < 256 else 1), 3
+    K9 and of their backwards K6 / K7nb (`csrc/attention_wide.cuh`: every
+    multiple of 64 from 128 up, 2112 wider than the widest head it once took),
+    the others zero-padded to the next multiple of 64 (80 to 128, 150 to 192,
+    300 to 320, 2100 to 2112): forward and d(qkv) against the plain version on
+    the unpadded inputs, in f32 within ATOL (x max(1, max |plain|)) and in
+    bf16 within `bf16_error_bound` / `bf16_bwd_error_bound` at the kernel's
+    head dim (for a padded head: of the padded inputs, checked at the padded
+    head dim); no case spills."""
+    _check_wide_case(cuda, dtype, 3, 2 if D < 256 else 1, D, N, kernel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,heads,D,N,kernel", [
+    (52, 2, 128, 300, "K2"),   # bf16: FlashAttention-2's shape (64-row blocks fill the card)
+    (52, 2, 128, 301, "K2"),   # the same at an odd N
+    (3, 2, 192, 301, "K2"),    # odd N: bf16 rows staged by plain loads, f32 by 4-byte copies
+    (3, 1, 2112, 99, "K9"),    # odd N in clusters of blocks
+    (1, 1, 128, 3201, "K2"),   # rows too long for the resident kernels: the streaming ones
+])
+def test_wide_case_at_full_batches_and_odd_token_counts(cuda, dtype, B, heads, D, N, kernel):
+    """The wide case's other kernels: FlashAttention-2's shape at a batch that
+    fills the card, odd token counts in each kernel family, and the streaming
+    kernels over 3201 tokens, forward and backward, held to the plain version
+    as in test_wide_head_dims_match_the_plain_version."""
+    _check_wide_case(cuda, dtype, B, heads, D, N, kernel)
+
+
+def _check_wide_case(cuda, dtype, B, heads, D, N, kernel):
     kern = {"K2": fa.flash_attention_cm_kernel, "K9": fa.window_attention_kernel}[kernel]
     bwd = {"K2": fa.flash_attention_cm_bwd_kernel, "K9": fa.window_attention_bwd_kernel}[kernel]
     qkv = _qkv(cuda, B, heads * D, N, dtype).requires_grad_()

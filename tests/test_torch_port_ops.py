@@ -146,14 +146,15 @@ def test_zero_padded_attention_equals_the_plain_version(D, N, with_bias):
 @pytest.mark.parametrize("N", [100, 200], ids=["short", "long"])
 def test_attention_above_head_dim_64_runs_zero_padded_to_the_wide_case(D, N):
     """F4: the decoder's head dims above 64 reach the kernels' wide case
-    (128 and up), zero-padded: on the same padded inputs the plain version
-    gives the unpadded output and d(qkv) sliced back, and JAX's attention."""
+    (every multiple of 64 from 128 up), zero-padded to the next multiple of
+    64: on the same padded inputs the plain version gives the unpadded output
+    and d(qkv) sliced back, and JAX's attention."""
     rng = np.random.default_rng(D + N)
     B, heads = 2, 2
     qkv = rng.standard_normal((B, 3 * heads * D, N)).astype(np.float32)
     dout = rng.standard_normal((B, heads * D, N)).astype(np.float32)
     scale = D ** -0.5
-    assert tfa.padded_head_dim(D) == 128 and tfa.padded_head_dim(129) == 256
+    assert tfa.padded_head_dim(D) == 128 and tfa.padded_head_dim(129) == 192
 
     def run(fn):
         q = torch.from_numpy(qkv).requires_grad_()
@@ -170,15 +171,22 @@ def test_attention_above_head_dim_64_runs_zero_padded_to_the_wide_case(D, N):
 
 @pytest.mark.parametrize("D", [257, 512, 1024])
 def test_attention_refuses_head_dims_above_the_widest_case(D):
-    """F7: the wide case takes 512, 1024 and 2048 (chunked), so these decoder
-    heads now run, 257 zero-padded to 512; the widest case is 2048, and above
-    it the padding route refuses, naming the limit, rather than pad."""
+    """F7, repaired: the wide case has no widest head. A head_dim above 64
+    pads to the next multiple of 64 (257 to 320; 512 and 1024 are cases of
+    their own), and a head above 2048, which the wide case once refused, is
+    taken: padded to the next multiple of 64, it gives the unpadded plain
+    output, as the JAX package computes such heads (through its Pallas kernels
+    or, wider still, `_xla_sdpa`)."""
     assert tfa.padded_head_dim(256) == 256
-    assert tfa.padded_head_dim(D) == {257: 512, 512: 512, 1024: 1024}[D]
-    assert tfa.padded_head_dim(D + 1) == {257: 512, 512: 1024, 1024: 2048}[D]
-    assert tfa.padded_head_dim(2048) == 2048
-    with pytest.raises(ValueError, match="up to 2048"):
-        tfa.padded_head_dim(2048 + D)
+    assert tfa.padded_head_dim(D) == {257: 320, 512: 512, 1024: 1024}[D]
+    assert tfa.padded_head_dim(D + 1) == {257: 320, 512: 576, 1024: 1088}[D]
+    assert tfa.padded_head_dim(2048) == 2048 and tfa.padded_head_dim(2112) == 2112
+    wide = 2048 + D
+    assert tfa.padded_head_dim(wide) == -(-wide // 64) * 64
+    rng = np.random.default_rng(D)
+    qkv = torch.from_numpy(rng.standard_normal((1, 3 * wide, 6)).astype(np.float32))
+    out = tfa.attention_cm_padded(qkv, 1, wide ** -0.5)
+    np.testing.assert_allclose(out.numpy(), tfa.attention_cm(qkv, 1).numpy(), atol=ATOL)
 
 
 def test_the_window_kernel_with_a_bias_refuses_head_dims_above_64():
@@ -363,10 +371,11 @@ def test_pad_and_split_route_equals_the_unsplit_plain_version(layout, D):
 # ---- F7: attention at every decoder head dim --------------------------------
 
 
-@pytest.mark.parametrize("D,N", [(512, 40), (1024, 24), (512, 150)])
+@pytest.mark.parametrize("D,N", [(512, 40), (1024, 24), (512, 150), (320, 150), (2112, 40)])
 def test_wide_plain_attention_matches_the_jax_kernel_in_interpret_mode(D, N):
-    """The plain version the chunked wide case is held to on the card, at
-    head_dim 512 / 1024 (one head), against the JAX `attention_cm` through
+    """The plain version the wide case is held to on the card, at head_dim
+    512 / 1024, 320 and 2112 (one head; 2112 is wider than the widest head
+    the wide case once took), against the JAX `attention_cm` through
     its Pallas kernels in interpret mode: the all-heads kernel (K9's) at N <=
     128, `_attn_cm_kernel` (K2's) above; forward and the backward through
     `jax.vjp`, in f32."""

@@ -369,3 +369,16 @@ def test_compare_trees_passes_the_dtype_and_takes_breakdowns_in_turns():
     with mock.patch("sys.argv", ["compare_trees", "--other", ".", "--tool", "bench",
                                  "--dtype", "bfloat16"]), pytest.raises(SystemExit):
         compare_trees.main()
+
+
+def test_bench_attention_takes_the_wide_shapes():
+    """`--preset wide` times the wide attention case at the decoder's head dims
+    above 64: each a head dim the wide case takes unpadded, the ones summed
+    into `value` among them."""
+    from lwdetr_tpu_torch.ops import flash_attention as fa
+
+    assert bench_attention.parser().parse_args(["--preset", "wide"]).preset == "wide"
+    assert set(bench_attention.WIDE_COMMON_DIMS) <= set(bench_attention.WIDE_HEAD_DIMS)
+    assert all(fa.is_wide_head_dim(D) for D in bench_attention.WIDE_HEAD_DIMS)
+    assert fa.padded_head_dim(2112) == 2112 and 2112 in bench_attention.WIDE_HEAD_DIMS
+    assert bench_attention.wide_case_takes(2112) and not bench_attention.wide_case_takes(2100)
