@@ -207,6 +207,27 @@ Run from the root of a checkout, with one card:
    losses and the launch invariants; (d) the demo with `--checkpoint <dir>
    --ema`, its detections equal to the demo's on a `.pth` of the same EMA
    weights.
+15. The train step and the batch-1 forward as CUDA graphs (`chain_phase`):
+   `train/engine.py::build_train_chain` for small f32 at batch 4, large bf16
+   at batch 2 (drop_path 0.1: masks drawn) and tiny f32 at batch 4 in the
+   "cm" and "gather" branches, 2 steps an epoch with lr_drop 1: 4 replays
+   against 4 eager steps (`build_train_step`, the usual AdamW and LambdaLR)
+   on a second state built alike, the eager steps replaying each replay's
+   proposal picks and matching: the first loss bit-equal, the lrs equal to the eager
+   schedule's in float32 across the drop, the masks equal and new at each
+   replay, the first grad_norm, the later losses and what the steps changed
+   in the parameters, AdamW moments and EMA (relative L2 by kind) within 1e-3
+   / 5e-2 or twice a second eager run's difference from the first, the
+   kernels' launches of a replay (profiler) equal to an
+   eager step's, and building the chain (2 warm-up steps and the capture)
+   launching 3 x TRAIN_LAUNCHES; small's and large's eager and chain step ms
+   in turns (the host's share of the step); each preset's bf16 batch-1
+   forward + `post_process` as a guarded graph (`utils/graphs.py`), bit-equal
+   to the eager call, its `bs1_device_ms` beside `bs1_ms` and the
+   reference's T4 TensorRT figure, small's graph refusing a replay after a
+   weight was written; `train_flop_report` for small at batch 4 at the
+   chain's step ms; one `breakdown --trace` of small's eval at batch 4 whose
+   file parses and whose stages sum to the busy time.
 
 Any failure exits non-zero. Without a CUDA card, or outside a checkout, it
 exits non-zero and prints no result. The line before the last holds one JSON
@@ -4688,6 +4709,386 @@ def dist_phase(torch, kernels, card):
     return launches, res
 
 
+# the train step and the batch-1 eval forward as CUDA graphs (`chain_phase`):
+# (path, preset, dtype, batch, force_branch). Large's release drop_path (0.1)
+# draws masks; the others draw none. Every path's state takes CHAIN_NITER steps
+# an epoch with lr_drop 1, so the lr drops (x 0.1) before the third step.
+CHAIN_PATHS = (("chain_small_f32", "small", "float32", 4, None),
+               ("chain_large_bf16", "large", "bfloat16", LARGE_TRAIN_BATCH, None),
+               ("chain_tiny_cm", "tiny", "float32", 4, "cm"),
+               ("chain_tiny_gather", "tiny", "float32", 4, "gather"))
+CHAIN_LAUNCHES = {"chain_small_f32": TRAIN_LAUNCHES["small"],
+                  "chain_large_bf16": TRAIN_LAUNCHES["large"],
+                  "chain_tiny_cm": TRAIN_LAUNCHES["tiny/cm"],
+                  "chain_tiny_gather": TRAIN_LAUNCHES["tiny/gather"]}
+CHAIN_STEPS = 4
+CHAIN_NITER = 2
+CHAIN_SEED = 7  # the mask generator's
+# after the first step the chain and the eager steps part as two runs of one
+# eager step do: K5, K8 and K10b sum d(value) in run-dependent order, so the
+# parameters differ by rounding after one step; that moves sampling points
+# across grid lines and flips ReLU units (trap (c)), each flip moving a gradient
+# tensor by up to 1e-2 of its largest element, and in bf16 it flips the
+# forward's roundings. So the later losses, the first grad_norm and what the
+# steps changed in the parameters, AdamW moments and EMA (relative L2 by kind,
+# not tensor by tensor: Adam divides each gradient element by its own scale)
+# are held to their floor (the train CLI's resumed-run loss bound; the train
+# phase's whole-step gradient bound TRAIN_GRAD_L2) or CHAIN_NOISE_FACTOR times
+# a second eager run's difference from the first, whichever is larger. In bf16
+# both runs' updates part by ~0.19 of their L2 (two eager runs as much), and a
+# loss formed from bf16 outputs on such parameters moved 3.7e-4 to 8.3e-3 in
+# three runs on an NVIDIA H100 80GB HBM3 at 700 W: its floor is four bf16 ulps, 2^-6
+CHAIN_LOSS_RTOL = {"float32": 1e-3, "bfloat16": 2.0 ** -6}
+CHAIN_STATE_L2 = TRAIN_GRAD_L2
+CHAIN_NOISE_FACTOR = 2.0
+CHAIN_TIMED = ("chain_small_f32", "chain_large_bf16")
+CHAIN_TIMING = dict(steps=5, turns=2)
+EVAL_GRAPH_PRESETS = ("tiny", "small", "medium", "large", "xlarge")
+
+
+class RecordedMasks:
+    """A `drop.Bernoulli` that keeps every mask it hands out (in a graph, the
+    tensors each replay rewrites)."""
+
+    def __init__(self, torch, drop, seed):
+        self.generator = torch.Generator(device="cuda").manual_seed(seed)
+        self.source, self.masks = drop.Bernoulli(self.generator), []
+
+    def __call__(self, keep, shape, like):
+        self.masks.append(self.source(keep, shape, like))
+        return self.masks[-1]
+
+
+def profiled_launches(torch, fn):
+    """(fn(), {kernel group: launches}) of the port's kernels (K*, M1) as
+    `torch.profiler` reads them off the device, grouped by `breakdown.GROUPS`,
+    in the second of two calls: a profiler's first cycle can miss the launches
+    at its start (seen on the card: one K1 of a step's six), so the first call
+    is its warm-up."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from lwdetr_tpu_torch import breakdown
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()  # the warm-up cycle ends: only the next call is recorded
+        out = fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for evt in prof.key_averages():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)
+                and not evt.key.startswith(breakdown.ANNOTATIONS)):
+            group = breakdown._group(evt.key)
+            if group.startswith(("K", "M1")):
+                counts[group] = counts.get(group, 0) + evt.count
+    return out, counts
+
+
+def chain_state(torch, state):
+    """{kind:name: tensor} of a train state: parameters, AdamW moments, EMA."""
+    out = {f"param:{n}": p.detach() for n, p in state.model.named_parameters()}
+    for n, p in state.model.named_parameters():
+        for k in ("exp_avg", "exp_avg_sq"):
+            if k in state.optimizer.state.get(p, {}):
+                out[f"{k}:{n}"] = state.optimizer.state[p][k]
+    out.update({f"ema:{k}": v for k, v in (state.ema or {}).items() if v.is_floating_point()})
+    return out
+
+
+class Recorded:
+    """A function whose every result is kept (in a graph, the tensors each
+    replay rewrites)."""
+
+    def __init__(self, fn):
+        self.fn, self.out = fn, []
+
+    def __call__(self, *args, **kwargs):
+        self.out.append(self.fn(*args, **kwargs))
+        return self.out[-1]
+
+
+def chain_train_path(torch, kernels, card, path, preset, dtype, batch, branch):
+    """`chain_check` of `preset`'s release step at 640x640 (`bench_train`'s
+    recipe) in `dtype`, `batch`, `branch`, with CHAIN_NITER steps an epoch
+    and lr_drop 1; checks the launches of building the chain (the warm-up
+    steps and the capture) against CHAIN_LAUNCHES. Returns (launches, numbers)."""
+    from lwdetr_tpu_torch import bench_train
+
+    dt = getattr(torch, dtype)
+
+    def setup():
+        return bench_train.make_train_setup(preset, batch, seed=0, dtype=dt, force_branch=branch,
+                                            niter_per_ep=CHAIN_NITER, lr_drop=1)
+
+    launches, res = chain_check(torch, kernels, card, path, setup, path in CHAIN_TIMED)
+    if path == "chain_large_bf16" and res["masks_per_step"] == 0:
+        raise AssertionError(f"{path}: drop_path 0.1 drew no mask")
+    warm = bench_train.CHAIN_WARMUP + 1  # the warm-up steps and the capture
+    expect = {k: warm * n for k, n in CHAIN_LAUNCHES[path].items()}
+    if launches != expect:
+        raise AssertionError(f"{path}: launches while building the chain {launches} != {expect}")
+    return launches, dict(res, batch=batch, dtype=dtype, force_branch=branch)
+
+
+def chain_state_l2(torch, a, b, start):
+    """{kind: relative L2 error} of what the steps changed, state `a` against
+    state `b` (both `chain_state`s), over all tensors of a kind; `start` is
+    the state before the steps (the moments start at 0)."""
+    l2 = {}
+    for k, v in b.items():
+        kind = k.split(":")[0]
+        moved = v.double() - start[k].double() if k in start else v.double()
+        num, den = l2.get(kind, (0.0, 0.0))
+        l2[kind] = (num + (a[k].double() - v.double()).square().sum().item(),
+                    den + moved.square().sum().item())
+    return {kind: (num / den) ** 0.5 for kind, (num, den) in l2.items()}
+
+
+def chain_check(torch, kernels, card, path, setup, timed=False):
+    """A train step's CUDA graph against eager steps: CHAIN_STEPS replays of
+    `build_train_chain` on one `setup()` (`bench_train.make_train_setup`'s
+    namespace) against CHAIN_STEPS eager steps (`build_train_step`, the
+    usual AdamW and LambdaLR) on a second `setup()`, and those against a
+    third, eager again (the noise reference: two runs of one eager step part
+    where K5, K8 and K10b sum in run-dependent order); masks from generators
+    seeded alike; the eager steps replay each replay's proposal picks and
+    matching (trap (d): a near tie flips under another rounding and reseeds
+    whole queries). The first step's loss bit-equal; its grad_norm, later
+    losses and what the steps changed in the state (`chain_state_l2`) within
+    their floor (CHAIN_LOSS_RTOL, CHAIN_STATE_L2) or CHAIN_NOISE_FACTOR times
+    the eager pair's difference, whichever is larger; every lr equal to the
+    eager schedule's in float32 (across the drop, which `setup` must put
+    before the third step); the masks equal step by step and new at each
+    replay; the port's kernels' launches of one replay equal to an eager
+    step's (profiler); with `timed`, eager and chain step times in turns.
+    Returns (launches while building the chain, numbers)."""
+    from lwdetr_tpu_torch import bench_train
+    from lwdetr_tpu_torch.models import criterion as cm
+    from lwdetr_tpu_torch.models import drop
+    from lwdetr_tpu_torch.models import transformer as tr
+    from lwdetr_tpu_torch.train.engine import build_train_step
+
+    torch.cuda.empty_cache()
+    chained = setup()
+    start = {k: v.clone() for k, v in chain_state(torch, chained.state).items()}
+    rates = bench_train.rates_at(chained, 0)
+    warm = bench_train.CHAIN_WARMUP + 1  # the warm-up steps and the capture
+    src_c = RecordedMasks(torch, drop, CHAIN_SEED)
+    picks, match = Recorded(tr.select_proposals), Recorded(cm.hungarian_match)
+    with mock.patch.object(tr, "select_proposals", picks), \
+            mock.patch.object(cm, "hungarian_match", match):
+        chain, launches = counted(torch, kernels, lambda: bench_train.make_train_chain(
+            chained, mask_source=src_c))
+    per = {k: len(v) // warm for k, v in (("masks", src_c.masks), ("picks", picks.out),
+                                         ("match", match.out))}
+    captured = {k: v[len(v) - per[k]:] for k, v in (("masks", src_c.masks), ("picks", picks.out),
+                                                    ("match", match.out))}
+    runs = {"chain": []}
+    fed = []
+    for i in range(CHAIN_STEPS):
+        lrs = chained.state.scheduler.lrs.cpu()
+        m = chain(1)
+        runs["chain"].append((m["loss"].item(), m["grad_norm"].item(), lrs,
+                              [x.clone() for x in captured["masks"]]))
+        fed.append({k: [x.clone() for x in captured[k]] for k in ("picks", "match")})
+
+    def eager_run(name):
+        """CHAIN_STEPS eager steps on a fresh `setup()`, replaying `fed`; (state, step)."""
+        st = setup()
+        src = RecordedMasks(torch, drop, CHAIN_SEED)
+        train_step = build_train_step(st.state, st.criterion, st.tcfg, **st.static)
+        runs[name] = []
+        for i in range(CHAIN_STEPS):
+            lrs = torch.tensor([float(g["lr"]) for g in st.state.optimizer.param_groups],
+                               dtype=torch.float32)
+            n0 = len(src.masks)
+            given = {k: iter(v) for k, v in fed[i].items()}
+            with mock.patch.object(tr, "select_proposals", lambda s, k: next(given["picks"])), \
+                    mock.patch.object(cm, "hungarian_match",
+                                      lambda *a, **kw: next(given["match"])):
+                m = train_step(st.data, *rates, mask_source=src)
+            runs[name].append((m["loss"].item(), m["grad_norm"].item(), lrs,
+                               [x.clone() for x in src.masks[n0:]]))
+        return st, lambda: train_step(st.data, *rates, mask_source=src)
+
+    eager, eager_step = eager_run("eager")
+    se, sc = chain_state(torch, eager.state), chain_state(torch, chained.state)
+    again, _ = eager_run("again")
+    sa = chain_state(torch, again.state)
+    del again
+    if set(se) != set(sc) or set(se) != set(sa):
+        raise AssertionError(f"{path}: chain and eager states hold different tensors")
+
+    def diffs(other):
+        """(first grad_norm, later losses) relative to the eager run's."""
+        pairs = list(zip(runs["eager"], runs[other]))
+        return (abs(pairs[0][1][1] - pairs[0][0][1]) / pairs[0][0][1],
+                [abs(o[0] - e[0]) / abs(e[0]) for e, o in pairs[1:]])
+
+    (norm_rel, rel_losses), (norm_noise, loss_noise) = diffs("chain"), diffs("again")
+    loss_c, loss_e = runs["chain"][0][0], runs["eager"][0][0]
+    lr_equal = all(torch.equal(e[2], c[2]) for e, c in zip(runs["eager"], runs["chain"]))
+    lr_dropped = bool((runs["eager"][2][2] < runs["eager"][0][2]).all())
+    n_masks = per["masks"]
+    masks_equal = all(len(e[3]) == len(c[3]) == n_masks
+                      and all(torch.equal(a, b) for a, b in zip(e[3], c[3]))
+                      for e, c in zip(runs["eager"], runs["chain"]))
+    masks_new = n_masks == 0 or all(
+        any(not torch.equal(a, b) for a, b in zip(runs["chain"][i][3], runs["chain"][i + 1][3]))
+        for i in range(CHAIN_STEPS - 1))
+    l2, l2_noise = chain_state_l2(torch, sc, se, start), chain_state_l2(torch, sa, se, start)
+    # the port's kernels' launches of one more replay and one more eager step (profiler)
+    _, launches_c = profiled_launches(torch, lambda: chain(1))
+    _, launches_e = profiled_launches(torch, eager_step)
+    dtype = str(chained.state.model.compute_dtype).replace("torch.", "")
+    loss_bound = max(CHAIN_LOSS_RTOL[dtype], CHAIN_NOISE_FACTOR * max([norm_noise] + loss_noise))
+    l2_bound = {k: max(CHAIN_STATE_L2, CHAIN_NOISE_FACTOR * v) for k, v in l2_noise.items()}
+    log(f"{path}: first step loss {loss_c!r} vs eager {loss_e!r}; chain / second eager run "
+        f"against eager: first grad_norm rel {norm_rel:.3g} / {norm_noise:.3g}, later losses rel "
+        f"{rel_losses} / {loss_noise} (bound {loss_bound:.3g}); lrs equal {lr_equal} (dropped "
+        f"{lr_dropped}); a step: {n_masks} masks (equal {masks_equal}, new each replay "
+        f"{masks_new}), {per['picks']} picks, {per['match']} matchings replayed; launches a "
+        f"step: eager {launches_e}, replay {launches_c}; after {CHAIN_STEPS} steps, the changes' "
+        f"relative L2 error by kind {l2} / {l2_noise}")
+    if (loss_c != loss_e or max([norm_rel] + rel_losses) > loss_bound or not lr_equal
+            or not lr_dropped or not masks_equal or not masks_new or launches_c != launches_e
+            or not launches_e or any(l2[k] > l2_bound[k] for k in l2) or per["match"] != 1):
+        raise AssertionError(f"{path}: the chain disagrees with the eager steps")
+    res = {"launches": launches,
+           "launches_per_replay_profiled": launches_c, "launches_per_eager_step_profiled":
+           launches_e, "first_loss": loss_c, "first_grad_norm_rel_err": norm_rel,
+           "later_loss_rel_err": rel_losses, "eager_pair_loss_rel_err": loss_noise,
+           "masks_per_step": n_masks, "state_change_rel_l2_by_kind": l2,
+           "eager_pair_state_change_rel_l2_by_kind": l2_noise, "card": card}
+    if timed:
+        ms = {"eager": [], "chain": []}
+        for _ in range(CHAIN_TIMING["turns"]):
+            ms["eager"] += measure_eager(torch, eager_step, CHAIN_TIMING["steps"])
+            ms["chain"] += bench_train.chain_ms(chain, CHAIN_TIMING["steps"], 1)
+        med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+        res.update(eager_step_ms=med["eager"], chain_step_ms=med["chain"],
+                   eager_step_ms_samples=ms["eager"], chain_step_ms_samples=ms["chain"],
+                   host_share=1.0 - med["chain"] / med["eager"])
+        print(f"{path}: eager {med['eager']:.3f} ms a step, chain {med['chain']:.3f} ms a step, "
+              f"host share {res['host_share']:.3f} ({card})")
+    del eager, chained, chain
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def measure_eager(torch, step, steps):
+    """One window of `steps` eager steps between CUDA events: [ms a step]."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        step()
+    end.record()
+    end.synchronize()
+    return [start.elapsed_time(end) / steps]
+
+
+def chain_eval_graphs(torch, card):
+    """Each preset's bf16 batch-1 forward + `post_process` as a guarded CUDA
+    graph: scores, labels and boxes bit-equal to the eager forward's,
+    `bs1_device_ms` beside `bs1_ms` and the reference's T4 TensorRT latency;
+    small's graph refuses a replay after a weight changed in place."""
+    from lwdetr_tpu_torch import bench_all
+
+    out = {}
+    for preset in EVAL_GRAPH_PRESETS:
+        torch.cuda.empty_cache()
+        model, forward = bench_all.make_forward(preset, torch.bfloat16)
+        img1 = bench_all.synthetic_images(1, torch.bfloat16, "cuda")
+        with torch.no_grad():
+            ref = [t.clone() for t in forward(img1)]
+            t_bs1 = bench_all.measure_ms(forward, img1, iters=10, warmup=3, repeats=5)
+        graph = bench_all.batch1_graph(model, forward, img1)
+        got = graph.replay()
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+        samples = sorted(bench_all.graph_ms(graph))
+        dev = samples[len(samples) // 2]
+        refused = None
+        if preset == "small":
+            with torch.no_grad():
+                model.class_embed.weight.mul_(1.0)  # a write in place: _version moves
+            try:
+                graph.replay()
+                refused = False
+            except RuntimeError:
+                refused = True
+        out[preset] = {"bitequal": equal, "bs1_ms": t_bs1["ms"], "bs1_device_ms": dev,
+                       "bs1_device_ms_spread": [samples[0], samples[-1]],
+                       "bs1_dispatch_overhead_ms": t_bs1["ms"] - dev,
+                       "ref_trt_fp16_ms_bs1": bench_all.BASELINE_TRT_MS[preset],
+                       "guard_refused": refused}
+        print(f"{preset}@640 bf16 batch 1: graph bit-equal {equal}; bs1_ms {t_bs1['ms']:.3f}, "
+              f"bs1_device_ms {dev:.3f} (T4 TensorRT fp16 in the reference's README: "
+              f"{bench_all.BASELINE_TRT_MS[preset]}; {card})")
+        if not equal or refused is False:
+            raise AssertionError(f"{preset}: batch-1 graph: bit-equal {equal}, guard {refused}")
+        del model, forward, graph
+    return out
+
+
+TRACE_PATH = "build/chip_smoke/breakdown_trace.json"
+# the stages (unattributed included) against the busy time: two readings of one
+# trace, the kernels by the CPU operation that launched them and the device's
+# own events; they have parted by 0.18% (small's eval at batch 32, 5 steps on an
+# NVIDIA H100 80GB HBM3), a few kernels counted twice or in neither (not found)
+STAGE_SUM_RTOL = 1e-2
+
+
+def chain_tools(torch, card, small_chain_ms):
+    """`train_flop_report` of small at batch 4 with the chain's step ms, and
+    one `breakdown --trace` of small's eval at batch 4: the trace file parses
+    and the stages sum to the busy time."""
+    import os
+
+    from lwdetr_tpu_torch import breakdown, train_flop_report
+
+    torch.cuda.empty_cache()
+    flops = train_flop_report.report("small", 4, step_ms=small_chain_ms)
+    log(f"small@640 train step, batch 4: {flops['total'] / 1e9:.3f} GFLOP "
+        f"({ {k: v / 1e9 for k, v in flops['flops_by_class'].items()} }), forward "
+        f"{flops['forward_total'] / 1e9:.3f}; at the chain's {small_chain_ms:.3f} ms a step "
+        f"{flops['tflops_per_s']:.2f} TFLOP/s ({card})")
+    stage_sum = sum(sum(v.values()) for v in flops["flops_by_stage"].values())
+    if stage_sum != flops["total"] or not flops["flops_by_class"].get("attention"):
+        raise AssertionError(f"train FLOPs: stages {stage_sum} != total {flops['total']}")
+    os.makedirs(os.path.dirname(TRACE_PATH), exist_ok=True)
+    torch.cuda.empty_cache()
+    bd = breakdown.run("small", batch=4, dtype=torch.bfloat16, steps=2, trace=TRACE_PATH)
+    with open(TRACE_PATH) as f:
+        events = len(json.load(f)["traceEvents"])
+    busy, staged = bd["device_busy_ms_per_step"], bd["stages_sum_ms_per_step"]
+    log(f"breakdown --trace: {events} trace events in {os.path.getsize(TRACE_PATH)} bytes; stages "
+        f"{bd['stages_ms_per_step']} sum {staged:.4f} ms against busy {busy:.4f} ms")
+    if abs(staged - busy) > STAGE_SUM_RTOL * busy or events == 0:
+        raise AssertionError(f"breakdown stages sum to {staged} ms, busy {busy} ms")
+    os.remove(TRACE_PATH)
+    return {"train_flops": {k: flops[k] for k in ("total", "forward_total", "flops_by_class",
+                                                  "flops_by_stage", "tflops_per_s", "step_ms")},
+            "breakdown_stages_ms": bd["stages_ms_per_step"], "breakdown_busy_ms": busy,
+            "trace_events": events}
+
+
+def chain_phase(torch, kernels, card):
+    """The train chains of CHAIN_PATHS against eager steps, the five batch-1
+    eval graphs, the train FLOP report and a breakdown trace. Returns
+    ({path: launches}, numbers)."""
+    launches, res = {}, {}
+    for path, preset, dtype, batch, branch in CHAIN_PATHS:
+        launches[path], res[path] = chain_train_path(torch, kernels, card, path, preset, dtype,
+                                                     batch, branch)
+    res["eval_graphs"] = chain_eval_graphs(torch, card)
+    res["tools"] = chain_tools(torch, card, res["chain_small_f32"]["chain_step_ms"])
+    return launches, res
+
+
 def main() -> int:
     import torch
 
@@ -4744,6 +5145,8 @@ def main() -> int:
     by_path, startup_bench = startup_bench_phase(torch, list(kernels.values()), card_line())
     launches.update(by_path)
     by_path, dist = dist_phase(torch, list(kernels.values()), card_line())
+    launches.update(by_path)
+    by_path, chain = chain_phase(torch, list(kernels.values()), card_line())
     launches.update(by_path)
     for preset in EXPECTED_LAUNCHES:
         thr[preset] = bench.run(preset, batch=32)
@@ -4836,7 +5239,7 @@ def main() -> int:
                       "release_train": release, "eval_pipeline": eval_pipeline,
                       "train_cli": train_cli, "padded": padded, "variants": variants,
                       "deploy": deploy, "startup_bench": startup_bench, "dist": dist,
-                      "orbax": orbax}))
+                      "orbax": orbax, "chain": chain}))
     print(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

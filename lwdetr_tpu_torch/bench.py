@@ -10,7 +10,9 @@ compute, images already on the device. The weights are drawn from a seed
 line carries the card's name and power limit. Timing is `utils.timing`
 (CUDA events) over 5 windows of 10 steps: the value is batch x 50 steps /
 the summed time of the windows, so a stall in any step counts; the slowest
-and fastest window stand beside it as the spread.
+and fastest window stand beside it as the spread. `value_f32_host` (and its
+spread) is the same forward fed f32 images, which the model casts to bf16
+(the JAX tool's field of that name).
 """
 from __future__ import annotations
 
@@ -28,36 +30,55 @@ from lwdetr_tpu_torch.utils.timing import measure_ms
 from lwdetr_tpu_torch.weights import init_state_dict
 
 
-def make_step(preset: str, batch: int, dtype: torch.dtype, seed: int = 0,
-              force_branch: Optional[str] = None):
-    """The timed step: forward + `post_process` of `batch` 640x640 images
-    already on the card, with weights drawn from `seed`; `force_branch` sets
-    the cross-attention's value layout (None: the default rule)."""
-    device = resolve_device(None)
+def make_forward(preset: str, dtype: torch.dtype, seed: int = 0,
+                 force_branch: Optional[str] = None, device=None):
+    """(model, forward): forward(images) is the timed step, forward +
+    `post_process` of 640x640 images already on the card, with weights drawn
+    from `seed`; `force_branch` sets the cross-attention's value layout
+    (None: the default rule)."""
+    device = resolve_device(device)
     cfg = get_config(preset)
     model = build_model(cfg, device, dtype, state_dict=init_state_dict(cfg, seed))
     set_force_branch(model, force_branch)
-    g = torch.Generator(device=device).manual_seed(seed)
-    images = torch.randn((batch, 640, 640, 3), generator=g, device=device).to(dtype)
-    sizes = torch.full((batch, 2), 640.0, device=device)
 
-    def step():
+    def forward(images):
         out = model(images)
+        sizes = torch.full((images.shape[0], 2), 640.0, device=images.device)
         return post_process(out["pred_logits"], out["pred_boxes"], sizes, cfg.num_select)
 
-    return step
+    return model, forward
+
+
+def synthetic_images(batch: int, dtype: torch.dtype, device, seed: int = 0) -> torch.Tensor:
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((batch, 640, 640, 3), generator=g, device=device).to(dtype)
+
+
+def make_step(preset: str, batch: int, dtype: torch.dtype, seed: int = 0,
+              force_branch: Optional[str] = None, host_dtype: Optional[torch.dtype] = None):
+    """step(): `make_forward`'s forward on `batch` seeded images in `host_dtype`
+    (default: the compute dtype)."""
+    model, forward = make_forward(preset, dtype, seed, force_branch)
+    images = synthetic_images(batch, host_dtype or dtype, next(model.parameters()).device, seed)
+    return lambda: forward(images)
 
 
 def run(preset: str = "small", batch: int = 32, force_branch: Optional[str] = None) -> dict:
-    step = make_step(preset, batch, torch.bfloat16, force_branch=force_branch)
-    with torch.no_grad():
-        t = measure_ms(step, iters=10, warmup=3, repeats=5)
+    model, forward = make_forward(preset, torch.bfloat16, force_branch=force_branch)
     per_s = lambda ms: batch / (ms / 1000.0)  # noqa: E731
+    t = {}
+    for host in (torch.bfloat16, torch.float32):
+        images = synthetic_images(batch, host, next(model.parameters()).device)
+        with torch.no_grad():
+            t[host] = measure_ms(forward, images, iters=10, warmup=3, repeats=5)
+    f32h, t = t[torch.float32], t[torch.bfloat16]
     return {
         "metric": f"lwdetr_{preset}_640_bf16_infer_throughput_exact",
         "value": per_s(t["ms_mean"]),
         "unit": "img/s/chip",
         "value_spread": [per_s(t["ms_max"]), per_s(t["ms_min"])],
+        "value_f32_host": per_s(f32h["ms_mean"]),
+        "value_f32_host_spread": [per_s(f32h["ms_max"]), per_s(f32h["ms_min"])],
         "ms_per_batch": t["ms_mean"],
         "timed_steps": 10 * 5,
         "batch": batch,

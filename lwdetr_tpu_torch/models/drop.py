@@ -15,8 +15,13 @@ train step (the JAX package folds the step into its key,
 not). `Fed` hands out given masks in order, so that a test can feed the
 same masks to the port and to the JAX package. With more than one process,
 `RankRows` hands each process its rows of a draw at the global batch's
-shape. The sites draw in the JAX modules' order: per ViT block the attention's then the MLP's; per decoder
-layer the self-attention weights (a rate > 0 only), then the outputs of the
+shape. A CUDA graph of the step (`train.engine.build_train_chain`) draws a
+whole chain of steps with one `Bernoulli` whose generator it registers: each
+replay draws the masks that the next eager step on that generator would.
+Nothing here reads a value back to the host or copies one to the card, so a
+graph can capture every draw. The sites draw in the JAX modules' order: per
+ViT block the attention's then the MLP's; per decoder layer the
+self-attention weights (a rate > 0 only), then the outputs of the
 self-attention, the cross-attention, `linear1` (after the ReLU) and `linear2`.
 """
 from __future__ import annotations
@@ -96,8 +101,9 @@ def draw(source: Optional[MaskSource], rate, shape, like: torch.Tensor):
         return None
     keep = keep_of(rate)
     mask = source(keep, shape, like)
-    return mask, torch.tensor(max(float(keep), 1e-8), dtype=torch.float32,
-                              device=like.device).to(like.dtype)
+    # filled on the device: a host scalar copied over would stop a graph capture
+    return mask, torch.full((), max(float(keep), 1e-8), dtype=torch.float32,
+                            device=like.device).to(like.dtype)
 
 
 def apply(x: torch.Tensor, drawn) -> torch.Tensor:

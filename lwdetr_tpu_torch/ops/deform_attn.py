@@ -765,14 +765,16 @@ def ms_deform_attn_sep_panels_split(vals: Sequence[torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# operators: the forward kernels K3, K4 and K10 as operators of the `lwdetr`
-# namespace (torch.library), so that `torch.export` traces each as one opaque
-# node (its fake version gives the output's shape and dtype) and an exported
-# graph runs the kernel. Eager calls take the same operators. `spatial_shapes` goes in as
-# one flat list (h0, w0, h1, w1, ...). Each operator's implementation calls
-# the module's `*_fwd` function, looked up when it runs: on CUDA tensors it
-# launches the kernel or raises, on the CPU it runs the plain version. Each
-# backward calls the module's `*_bwd` function likewise (K8, K5, K10b).
+# operators: the kernels K3, K4 and K10 and their backwards K8, K5 and K10b as
+# operators of the `lwdetr` namespace (torch.library), so that `torch.export`
+# traces each forward as one opaque node (its fake version gives the output's
+# shape and dtype) and an exported graph runs the kernel, and so that
+# `torch.utils.flop_counter` sees the backward launches too. Eager calls take
+# the same operators. `spatial_shapes` goes in as one flat list (h0, w0, h1,
+# w1, ...). Each operator's implementation calls the module's `*_fwd` or
+# `*_bwd` function, looked up when it runs: on CUDA tensors it launches the
+# kernel or raises, on the CPU it runs the plain version. Each autograd
+# formula calls the backward operator.
 # ---------------------------------------------------------------------------
 
 
@@ -821,6 +823,48 @@ def _(value, spatial_shapes, loc, weights):
     return value.new_empty((B, loc.shape[1], H * D))
 
 
+@torch.library.custom_op("lwdetr::ms_deform_attn_cm_bwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _ms_deform_attn_cm_bwd_op(value_t: torch.Tensor, spatial_shapes: List[int],
+                              loc: torch.Tensor, weights: torch.Tensor, dout: torch.Tensor,
+                              n_heads: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return ms_deform_attn_cm_bwd(value_t, _pairs(spatial_shapes), loc, weights, dout, n_heads)
+
+
+@torch.library.custom_op("lwdetr::ms_deform_attn_sep_panels_bwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _ms_deform_attn_sep_panels_bwd_op(vals: List[torch.Tensor], spatial_shapes: List[int],
+                                      loc: torch.Tensor, weights: torch.Tensor,
+                                      dout: torch.Tensor) -> List[torch.Tensor]:
+    """[d(panel_l)..., d(loc), d(weights)] (one flat list)."""
+    dvals, dloc, dw = ms_deform_attn_sep_panels_bwd(vals, _pairs(spatial_shapes), loc, weights,
+                                                    dout)
+    return [*dvals, dloc, dw]
+
+
+@torch.library.custom_op("lwdetr::ms_deform_attn_bwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _ms_deform_attn_bwd_op(value: torch.Tensor, spatial_shapes: List[int], loc: torch.Tensor,
+                           weights: torch.Tensor, dout: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return ms_deform_attn_bwd(value, _pairs(spatial_shapes), loc, weights, dout)
+
+
+@_ms_deform_attn_cm_bwd_op.register_fake
+def _(value_t, spatial_shapes, loc, weights, dout, n_heads):
+    return torch.empty_like(value_t), torch.empty_like(loc), torch.empty_like(weights)
+
+
+@_ms_deform_attn_sep_panels_bwd_op.register_fake
+def _(vals, spatial_shapes, loc, weights, dout):
+    return [torch.empty_like(v) for v in vals] + [torch.empty_like(loc), torch.empty_like(weights)]
+
+
+@_ms_deform_attn_bwd_op.register_fake
+def _(value, spatial_shapes, loc, weights, dout):
+    return torch.empty_like(value), torch.empty_like(loc), torch.empty_like(weights)
+
+
 def _save_sampler(ctx, inputs, output):
     """The tensors (a panel list flattened after loc and weights), and the rest."""
     value, shapes, loc, weights, *rest = inputs
@@ -831,22 +875,24 @@ def _save_sampler(ctx, inputs, output):
 def _deform_attn_cm_backward(ctx, dout):
     """K8."""
     loc, weights, value_t = ctx.saved_tensors
-    dvalue_t, dloc, dw = ms_deform_attn_cm_bwd(value_t, ctx.spatial_shapes, loc, weights, dout,
-                                               *ctx.rest)
+    dvalue_t, dloc, dw = torch.ops.lwdetr.ms_deform_attn_cm_bwd(
+        value_t, _flat_shapes(ctx.spatial_shapes), loc, weights, dout, *ctx.rest)
     return dvalue_t, None, dloc, dw, None
 
 
 def _deform_attn_sep_panels_backward(ctx, dout):
     """K5."""
     loc, weights, *vals = ctx.saved_tensors
-    dvals, dloc, dw = ms_deform_attn_sep_panels_bwd(vals, ctx.spatial_shapes, loc, weights, dout)
+    *dvals, dloc, dw = torch.ops.lwdetr.ms_deform_attn_sep_panels_bwd(
+        vals, _flat_shapes(ctx.spatial_shapes), loc, weights, dout)
     return list(dvals), None, dloc, dw
 
 
 def _deform_attn_backward(ctx, dout):
     """K10's backward."""
     loc, weights, value = ctx.saved_tensors
-    dvalue, dloc, dw = ms_deform_attn_bwd(value, ctx.spatial_shapes, loc, weights, dout)
+    dvalue, dloc, dw = torch.ops.lwdetr.ms_deform_attn_bwd(
+        value, _flat_shapes(ctx.spatial_shapes), loc, weights, dout)
     return dvalue, None, dloc, dw
 
 

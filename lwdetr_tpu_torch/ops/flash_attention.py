@@ -377,13 +377,16 @@ def flash_attention_cm_fwd(qkv_t: torch.Tensor, num_heads: int, scale: float,
     return out, lse
 
 
-# The forward kernels as operators of the `lwdetr` namespace (torch.library),
-# so that `torch.export` traces each as one opaque node (its fake version gives
-# the output's shape and dtype) and an exported graph runs the kernel. Eager
-# calls take the same operators. Each operator's implementation calls the
-# module's `*_fwd` function, looked up when it runs, which launches the kernel
-# on a CUDA tensor or raises, and runs the plain version on a CPU tensor; each
-# backward calls the module's `*_bwd` function likewise (K7, K7nb, K6).
+# The kernels as operators of the `lwdetr` namespace (torch.library), so that
+# `torch.export` traces each forward as one opaque node (its fake version gives
+# the output's shape and dtype) and an exported graph runs the kernel, and so
+# that `torch.utils.flop_counter` sees every launch, the backward ones too
+# (`utils/benchmark.py`). Eager calls take the same operators. Each forward
+# operator's implementation calls the module's `*_fwd` function, looked up
+# when it runs, which launches the kernel on a CUDA tensor or raises, and runs
+# the plain version on a CPU tensor; each autograd formula calls a backward
+# operator (`*_bwd`: K7, K7nb, K6), whose implementation calls the module's
+# `*_bwd` function likewise.
 
 
 @torch.library.custom_op("lwdetr::window_attention_bias", mutates_args=(),
@@ -429,6 +432,43 @@ def _(qkv_t, num_heads, scale, with_lse):
     return _attention_out_fake(qkv_t), lse
 
 
+@torch.library.custom_op("lwdetr::window_attention_bias_bwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _window_attention_bias_bwd_op(qkv_t: torch.Tensor, bias: torch.Tensor, dout: torch.Tensor,
+                                  num_heads: int, scale: float) -> torch.Tensor:
+    return window_attention_bias_bwd(qkv_t, bias, dout, num_heads, scale)
+
+
+@torch.library.custom_op("lwdetr::window_attention_bwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _window_attention_bwd_op(qkv_t: torch.Tensor, dout: torch.Tensor, num_heads: int,
+                             scale: float) -> torch.Tensor:
+    return window_attention_bias_bwd(qkv_t, None, dout, num_heads, scale)
+
+
+@torch.library.custom_op("lwdetr::flash_attention_cm_bwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _flash_attention_cm_bwd_op(qkv_t: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                               num_heads: int, scale: float) -> torch.Tensor:
+    # the CPU's plain backward reads no log-sum-exp
+    return flash_attention_cm_bwd(qkv_t, lse if qkv_t.is_cuda else None, dout, num_heads, scale)
+
+
+@_window_attention_bias_bwd_op.register_fake
+def _(qkv_t, bias, dout, num_heads, scale):
+    return torch.empty_like(qkv_t)
+
+
+@_window_attention_bwd_op.register_fake
+def _(qkv_t, dout, num_heads, scale):
+    return torch.empty_like(qkv_t)
+
+
+@_flash_attention_cm_bwd_op.register_fake
+def _(qkv_t, lse, dout, num_heads, scale):
+    return torch.empty_like(qkv_t)
+
+
 def _save_attention(ctx, inputs, output):
     """K1 / K9: the inputs and (num_heads, scale) for the backward."""
     ctx.save_for_backward(*(t for t in inputs if isinstance(t, torch.Tensor)))
@@ -438,7 +478,7 @@ def _save_attention(ctx, inputs, output):
 def _window_attention_bias_backward(ctx, dout):
     """K7: d(qkv_t) and, summed in f32 outside the kernel as the JAX VJP does, d(bias)."""
     qkv_t, bias = ctx.saved_tensors
-    dqkv = window_attention_bias_bwd(qkv_t, bias, dout, ctx.num_heads, ctx.scale)
+    dqkv = torch.ops.lwdetr.window_attention_bias_bwd(qkv_t, bias, dout, ctx.num_heads, ctx.scale)
     dbias = None
     if ctx.needs_input_grad[1]:
         dbias = dqkv.to(plain_dtype(dqkv)).sum(dim=(0, 2)).to(bias.dtype)
@@ -448,7 +488,7 @@ def _window_attention_bias_backward(ctx, dout):
 def _window_attention_backward(ctx, dout):
     """K7nb, the no-bias case of K7."""
     (qkv_t,) = ctx.saved_tensors
-    return window_attention_bias_bwd(qkv_t, None, dout, ctx.num_heads, ctx.scale), None, None
+    return torch.ops.lwdetr.window_attention_bwd(qkv_t, dout, ctx.num_heads, ctx.scale), None, None
 
 
 def _save_flash_attention(ctx, inputs, output):
@@ -461,8 +501,8 @@ def _save_flash_attention(ctx, inputs, output):
 def _flash_attention_backward(ctx, dout, _dlse):
     """K6, from the row log-sum-exp K2 wrote (the CPU's plain backward reads none)."""
     qkv_t, lse = ctx.saved_tensors
-    return (flash_attention_cm_bwd(qkv_t, lse if qkv_t.is_cuda else None, dout, ctx.num_heads,
-                                   ctx.scale), None, None, None)
+    return (torch.ops.lwdetr.flash_attention_cm_bwd(qkv_t, lse, dout, ctx.num_heads, ctx.scale),
+            None, None, None)
 
 
 _window_attention_bias_op.register_autograd(_window_attention_bias_backward,

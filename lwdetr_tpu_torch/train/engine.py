@@ -12,7 +12,9 @@ step over a loader into the COCO evaluator (`data/coco_eval.py`). With more
 than one process (`parallel/`) the forward runs under DDP, the drop masks
 are this process's rows of a draw at the global batch's shape, ZeRO-1 shards
 the optimizer and the EMA when the state was built so, and `evaluate` merges
-the processes' detections before it summarizes.
+the processes' detections before it summarizes. `build_train_chain` captures
+the same step body once as a CUDA graph and replays it (one process, on the
+card).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from lwdetr_tpu_torch.models.lwdetr import LWDETR, build_model, post_process
 from lwdetr_tpu_torch.parallel import mesh
 from lwdetr_tpu_torch.parallel.dist import merge_evaluators, rank, world_size
 from lwdetr_tpu_torch.train import optim
+from lwdetr_tpu_torch.utils import graphs
 from lwdetr_tpu_torch.utils.logging import MetricLogger
 
 
@@ -67,6 +70,44 @@ def _targets(batch) -> Targets:
     return Targets(batch["labels"], batch["boxes"], batch["valid"])
 
 
+def _rates(drop_path_rate, dropout_rate, depth: int, static_zero_drop_path: bool,
+           static_zero_dropout: bool):
+    """(per-block drop-path rates or None, dropout rate, whether a mask is drawn)."""
+    dp_rates = None if static_zero_drop_path else optim.drop_path_rates_for(drop_path_rate, depth)
+    do_rate = 0.0 if static_zero_dropout else dropout_rate
+    drawn = (dp_rates is not None and float(drop_path_rate) != 0.0) or float(do_rate) != 0.0
+    return dp_rates, do_rate, drawn
+
+
+def _step_body(state: TrainState, net: torch.nn.Module, criterion: SetCriterion,
+               tcfg: TrainConfig):
+    """body(batch, dp_rates, do_rate, mask_source) -> metrics: one train step on
+    the device, the one function that the eager step runs and that a CUDA
+    graph captures (`build_train_chain`). It reads nothing back to the host."""
+    model = state.model
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def body(batch, dp_rates, do_rate, mask_source) -> Dict[str, torch.Tensor]:
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        out = net(batch["images"], batch.get("pad_mask"), dp_rates, do_rate, mask_source)
+        total, losses = criterion(out, _targets(batch), train=True)
+        total.backward()
+        optim.zero_missing_grads(params)  # a parameter the forward does not read still decays
+        # clips in place; returns the global norm before clipping
+        grad_norm = torch.nn.utils.clip_grad_norm_(params, tcfg.clip_max_norm)
+        state.optimizer.step()
+        state.scheduler.step()
+        if state.ema is not None:
+            optim.ema_update(state.ema, model, tcfg.ema_decay, state.shards)
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["loss"] = total.detach()
+        metrics["grad_norm"] = grad_norm
+        return metrics
+
+    return body
+
+
 def build_train_step(state: TrainState, criterion: SetCriterion, tcfg: TrainConfig,
                      static_zero_drop_path: bool = False, static_zero_dropout: bool = False,
                      seed: Optional[int] = None) -> Callable[..., Dict[str, torch.Tensor]]:
@@ -86,43 +127,125 @@ def build_train_step(state: TrainState, criterion: SetCriterion, tcfg: TrainConf
     the state has none) and each process draws its rows of the global masks
     (`drop.RankRows`); a given `mask_source` is used as it is."""
     model = state.model
-    params = [p for p in model.parameters() if p.requires_grad]
     depth = model.cfg.vit_encoder_num_layers
     seed = tcfg.seed if seed is None else seed
     device = next(model.parameters()).device
     world = world_size()
     if world > 1 and state.ddp is None:
         state.ddp = mesh.wrap_ddp(model, device)
-    net = model if state.ddp is None else state.ddp
+    body = _step_body(state, model if state.ddp is None else state.ddp, criterion, tcfg)
 
     def train_step(batch, drop_path_rate=0.0, dropout_rate=0.0,
                    mask_source: Optional[drop.MaskSource] = None) -> Dict[str, torch.Tensor]:
-        model.train()
-        dp_rates = None if static_zero_drop_path else optim.drop_path_rates_for(
-            drop_path_rate, depth)
-        do_rate = 0.0 if static_zero_dropout else dropout_rate
-        drawn = (dp_rates is not None and float(drop_path_rate) != 0.0) or float(do_rate) != 0.0
+        dp_rates, do_rate, drawn = _rates(drop_path_rate, dropout_rate, depth,
+                                          static_zero_drop_path, static_zero_dropout)
         if mask_source is None and drawn:
             mask_source = drop.RankRows(
                 drop.Bernoulli(drop.step_generator(device, seed, state.step)), rank(), world)
-        state.optimizer.zero_grad(set_to_none=True)
-        out = net(batch["images"], batch.get("pad_mask"), dp_rates, do_rate, mask_source)
-        total, losses = criterion(out, _targets(batch), train=True)
-        total.backward()
-        optim.zero_missing_grads(params)  # a parameter the forward does not read still decays
-        # clips in place; returns the global norm before clipping
-        grad_norm = torch.nn.utils.clip_grad_norm_(params, tcfg.clip_max_norm)
-        state.optimizer.step()
-        state.scheduler.step()
-        if state.ema is not None:
-            optim.ema_update(state.ema, model, tcfg.ema_decay, state.shards)
+        metrics = body(batch, dp_rates, do_rate, mask_source)
         state.step += 1
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["loss"] = total.detach()
-        metrics["grad_norm"] = grad_norm
         return metrics
 
     return train_step
+
+
+def make_capturable(state: TrainState, tcfg: TrainConfig, niter_per_ep: int) -> None:
+    """The state's AdamW as `optim.capturable_adamw` and its LambdaLR as
+    `optim.DeviceStepLR`, in place (nothing if they already are): what a graph
+    of the step replays, and what eager steps on the state run from then on."""
+    if not isinstance(state.scheduler, optim.DeviceStepLR):
+        state.optimizer = optim.capturable_adamw(state.optimizer)
+        state.scheduler = optim.DeviceStepLR.of(state.scheduler, state.optimizer, tcfg.lr_drop,
+                                                niter_per_ep)
+
+
+def _restorer(state: TrainState, generators=()):
+    """restore() -> None: puts back, in place, the parameters, buffers, AdamW
+    moments and step counts, EMA, device step count and `generators` as they
+    are now; optimizer state made after this call is zeroed (a fresh AdamW's)."""
+    tensors = list(state.model.state_dict(keep_vars=True).values())
+    tensors += list((state.ema or {}).values())
+    tensors += [v for st in state.optimizer.state.values() for v in st.values()]
+    tensors += [state.scheduler.step_count]
+    saved = [t.detach().clone() for t in tensors]
+    known = {id(t) for t in tensors}
+    gen_states = [(g, g.get_state()) for g in generators]
+
+    @torch.no_grad()
+    def restore():
+        for t, s in zip(tensors, saved):
+            t.copy_(s)
+        for st in state.optimizer.state.values():
+            for v in st.values():
+                if id(v) not in known:
+                    v.zero_()
+        state.scheduler.rewrite()
+        for g, s in gen_states:
+            g.set_state(s)
+
+    return restore
+
+
+class TrainChain:
+    """`build_train_chain`'s result: `run(k)` replays the captured step k times
+    back to back on the current stream, with no host work between replays, and
+    advances `state.step` by k on the host; it returns `metrics`, the tensors
+    the graph writes at each replay (those of the last one)."""
+
+    def __init__(self, state: TrainState, graph, metrics: Dict[str, torch.Tensor]):
+        self.state, self.graph, self.metrics = state, graph, metrics
+
+    def __call__(self, k: int = 1) -> Dict[str, torch.Tensor]:
+        for _ in range(k):
+            self.graph.replay()
+        self.state.step += k
+        return self.metrics
+
+
+def build_train_chain(state: TrainState, criterion: SetCriterion, tcfg: TrainConfig, batch,
+                      niter_per_ep: int, drop_path_rate=0.0, dropout_rate=0.0,
+                      static_zero_drop_path: bool = False, static_zero_dropout: bool = False,
+                      mask_source: Optional[drop.Bernoulli] = None,
+                      warmup: int = 2) -> TrainChain:
+    """The train step on `batch` captured once as a CUDA graph (the JAX
+    package's `bench_train.py --chain`: steps with no dispatch between them).
+
+    The state is made capturable first (`make_capturable`, at `niter_per_ep`
+    steps an epoch). The step body is `build_train_step`'s (`_step_body`), at fixed rates
+    (`drop_path_rate`, `dropout_rate`, and the static-zero flags as there);
+    its masks come from `mask_source`, a `drop.Bernoulli` on a CUDA generator
+    that the graph registers (default: one seeded from `tcfg.seed`), so that
+    each replay draws from the generator's next offsets, as the next eager
+    step on that generator would. `warmup` eager steps of that body run first,
+    on the capture's stream (they build the kernels, make the optimizer's state
+    and the cuBLAS workspaces), and are undone before the capture: the
+    parameters, buffers, moments, EMA, schedule and generator are put back, so
+    the first replay is the state's next step. `batch` stays the
+    graph's input: write a new batch into its tensors in place. The chain
+    needs the card and one process: a CPU model, DDP and ZeRO-1 are refused,
+    and a failed capture raises."""
+    model = state.model
+    if world_size() > 1 or state.ddp is not None or state.shards:
+        raise ValueError(f"a train chain runs in one process ({world_size()} processes, "
+                         f"DDP {state.ddp is not None}, ZeRO-1 {bool(state.shards)}): the "
+                         "chain over several processes is not taken")
+    device = next(model.parameters()).device
+    if device.type != "cuda":
+        raise ValueError(f"a train chain is a CUDA graph and needs the card: the model is on "
+                         f"{device}")
+    make_capturable(state, tcfg, niter_per_ep)
+    dp_rates, do_rate, drawn = _rates(drop_path_rate, dropout_rate,
+                                      model.cfg.vit_encoder_num_layers, static_zero_drop_path,
+                                      static_zero_dropout)
+    if drawn and mask_source is None:
+        mask_source = drop.Bernoulli(
+            torch.Generator(device=device).manual_seed(int(tcfg.seed)))
+    source = mask_source if drawn else None
+    body = _step_body(state, model, criterion, tcfg)
+    generators = () if source is None else (source.generator,)
+    graph, metrics = graphs.capture(lambda: body(batch, dp_rates, do_rate, source), warmup,
+                                    generators, reset=_restorer(state, generators))
+    return TrainChain(state, graph, metrics)
 
 
 def build_eval_step(model: LWDETR, num_select: int, criterion: Optional[SetCriterion] = None):

@@ -30,6 +30,11 @@ of them: all-reduce plus a slice on every backend, not a reduce-scatter
 (gloo has none, and the clip would need the norm's partial sums gathered).
 The per-group lr / wd and the step-indexed schedule are untouched; the
 sharded state reads and writes the unsharded layout (`state_dict`).
+
+A CUDA graph of the train step (`train.engine.build_train_chain`) replays
+what it captured, so nothing it reads may live on the host: `capturable_adamw`
+gives the same AdamW with `capturable=True`, its step counts and lrs on the
+device, and `DeviceStepLR` writes those lrs from a device step count.
 """
 from __future__ import annotations
 
@@ -98,6 +103,74 @@ def step_lr_lambda(lr_drop_epochs: int, niter_per_ep: int, gamma: float = 0.1):
         return gamma ** ((step // max(niter_per_ep, 1)) // lr_drop_epochs)
 
     return sched
+
+
+# the drops `DeviceStepLR` tabulates: gamma^k of any lr in float64 is 0 long before
+MAX_LR_DROPS = 1024
+
+
+def capturable_adamw(optimizer: torch.optim.Optimizer) -> torch.optim.AdamW:
+    """`build_optimizer`'s AdamW in the form a CUDA graph can replay: the same
+    groups, betas, eps, weight decays and moments, with `capturable=True`, the
+    multi-tensor path, each group's lr a float32 tensor on the parameters'
+    device (`DeviceStepLR` writes it) and each step count a float32 tensor
+    there. It forms Adam's bias corrections on the device in float32 where the
+    eager AdamW forms them on the host in float64, so the two round apart in
+    the last bits. ZeRO-1's `ShardedAdamW` is refused."""
+    if type(optimizer) is not torch.optim.AdamW:
+        raise ValueError(f"capturable_adamw takes build_optimizer's torch.optim.AdamW, got "
+                         f"{type(optimizer).__name__} (ZeRO-1 shards are not captured)")
+    device = optimizer.param_groups[0]["params"][0].device
+    groups = [{"params": g["params"], "weight_decay": g["weight_decay"],
+               "lr": torch.tensor(float(g["lr"]), dtype=torch.float32, device=device)}
+              for g in optimizer.param_groups]
+    new = torch.optim.AdamW(groups, betas=optimizer.defaults["betas"],
+                            eps=optimizer.defaults["eps"], capturable=True, foreach=True)
+    for p, st in optimizer.state.items():
+        new.state[p] = {"step": st["step"].to(device=p.device, dtype=torch.float32),
+                        "exp_avg": st["exp_avg"], "exp_avg_sq": st["exp_avg_sq"]}
+    return new
+
+
+class DeviceStepLR:
+    """The LambdaLR of `build_optimizer` (`step_lr_lambda`: x gamma every
+    `lr_drop` epochs) on the device, for an optimizer whose lrs are tensors
+    (`capturable_adamw`). The step count is a device tensor; `step()`
+    advances it and writes every group's lr from a table of base_lr x
+    lambda(step) at each drop, formed on the host as LambdaLR forms it and
+    read at the step's drop on the device (an index, no host value). A
+    captured `step()` therefore gives the eager schedule's lr, rounded to
+    float32, at every replay, across drops too. Steps past `MAX_LR_DROPS`
+    drops keep the last entry."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, base_lrs, lr_drop: int,
+                 niter_per_ep: int, step: int, gamma: float = 0.1):
+        lam = step_lr_lambda(lr_drop, niter_per_ep, gamma)
+        self.period = max(niter_per_ep, 1) * lr_drop
+        rows = [[base * lam(k * self.period) for k in range(MAX_LR_DROPS)] for base in base_lrs]
+        device = optimizer.param_groups[0]["params"][0].device
+        self.table = torch.tensor(rows, dtype=torch.float32, device=device)  # (groups, drops)
+        self.step_count = torch.full((), int(step), dtype=torch.long, device=device)
+        self.lrs = torch.empty(len(base_lrs), dtype=torch.float32, device=device)
+        for g, group in enumerate(optimizer.param_groups):
+            group["lr"] = self.lrs[g]  # a view: one write sets every group
+        self.rewrite()
+
+    @classmethod
+    def of(cls, scheduler: torch.optim.lr_scheduler.LambdaLR, optimizer, lr_drop: int,
+           niter_per_ep: int):
+        """`scheduler`'s schedule at its step, on `optimizer`'s lrs."""
+        return cls(optimizer, scheduler.base_lrs, lr_drop, niter_per_ep, scheduler.last_epoch)
+
+    def rewrite(self) -> None:
+        """Writes the lrs of the current step count."""
+        drop = torch.div(self.step_count, self.period, rounding_mode="floor")
+        drop = drop.clamp(max=self.table.shape[1] - 1).reshape(1)
+        self.lrs.copy_(self.table.index_select(1, drop).reshape(-1))
+
+    def step(self) -> None:
+        self.step_count.add_(1)
+        self.rewrite()
 
 
 def zero1_shards(model: nn.Module, mcfg: ModelConfig, world: int, rank: int) -> Shards:

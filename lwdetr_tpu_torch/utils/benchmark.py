@@ -1,26 +1,40 @@
-"""Startup self-benchmark: parameters, FLOPs by class and by stage, latency.
+"""Startup self-benchmark and the train step's FLOPs: parameters, FLOPs by
+class and by stage, latency.
 
 Counterpart of `lwdetr_tpu/utils/benchmark.py::benchmark_model` (`:57`) and
 `utils/hlo_report.py` (`detailed_flops :201`, `format_report :226`), which
 read the FLOPs off the compiled XLA program. Here
-`torch.utils.flop_counter.FlopCounterMode` counts them over one eval forward
-at the operators that run: PyTorch's own rules for the GEMMs (`mm`, `addmm`,
-`bmm`, ...) and the convolutions, and the rules below for the port's kernels,
-registered on their `torch.ops.lwdetr.*` operators:
+`torch.utils.flop_counter.FlopCounterMode` counts them at the operators that
+run, over one eval forward (`benchmark_model`) or one whole train step
+(`train_step_flops`): PyTorch's own rules for the GEMMs (`mm`, `addmm`,
+`bmm`, ...) and the convolutions (and their backward), and the rules below
+for the port's kernels, registered on their `torch.ops.lwdetr.*` operators:
 
 * attention (K1 / K9 `window_attention[_bias]`, K2 `flash_attention_cm`):
   QK^T and PV, 2 x B x N x N x C each, 4 B N^2 C in all (C the output's
-  channels: heads x head_dim);
+  channels: heads x head_dim); their backwards (K7 / K7nb
+  `window_attention[_bias]_bwd`, K6 `flash_attention_cm_bwd`): dQ, dK, dV
+  and dP, 8 B N^2 C, twice the forward;
 * deformable sampling (K3 `ms_deform_attn_cm`, K4 `ms_deform_attn_sep_panels`,
   K10 `ms_deform_attn`): 4 bilinear corners a sampling point, one
   multiply-add each with the attention weight folded into the corner
-  weight, so 8 FLOPs an output element a (level, point).
+  weight, so 8 FLOPs an output element a (level, point); their backwards
+  (K8, K5, K10b: `*_bwd`), an output element a (level, point): d(value) 8
+  (the d(out) times each corner's weight, added), d(weights) 10 (the sample
+  again, 8, then its product with d(out), summed, 2), d(loc) 20 (each axis:
+  the corners weighted by the other axis's weights and the signs of the
+  derivative, 8, then the product with d(out), summed, 2), 38 in all.
 
 Each is reported as its own class beside GEMM and convolution, and every
 class by stage, the first two named levels of the module path (the JAX
-report's `flops_by_stage`). Latency: 5 warm-up calls and 20 timed ones,
-each between two CUDA events on the card (the host clock on the CPU); the
-median, mean and p95 ms and the images a second at the median.
+report's `flops_by_stage`); what runs outside the model (the criterion, the
+matcher's costs, clipping, the optimizer, the EMA) is the stage
+`(outside the model)`. A train step's stages are the forward's
+(`forward/...`: the train-mode forward and the criterion, counted alone) and
+`backward`, the rest of the step by class (`train_step_flops`). Latency: 5
+warm-up calls and 20 timed ones, each between two CUDA events on the card (the
+host clock on the CPU); the median, mean and p95 ms and the images a second at
+the median.
 """
 from __future__ import annotations
 
@@ -36,10 +50,14 @@ from torch.utils.flop_counter import FlopCounterMode, register_flop_formula
 from lwdetr_tpu_torch.ops import deform_attn as _deform_attn  # noqa: F401  (defines the operators)
 from lwdetr_tpu_torch.ops import flash_attention as _flash_attention  # noqa: F401
 
-ATTENTION_OPS = ("window_attention_bias", "window_attention", "flash_attention_cm")
-SAMPLER_OPS = ("ms_deform_attn_cm", "ms_deform_attn_sep_panels", "ms_deform_attn")
+ATTENTION_OPS = ("window_attention_bias", "window_attention", "flash_attention_cm",
+                 "window_attention_bias_bwd", "window_attention_bwd", "flash_attention_cm_bwd")
+SAMPLER_OPS = ("ms_deform_attn_cm", "ms_deform_attn_sep_panels", "ms_deform_attn",
+               "ms_deform_attn_cm_bwd", "ms_deform_attn_sep_panels_bwd", "ms_deform_attn_bwd")
 GEMM_OPS = ("mm", "addmm", "bmm", "baddbmm")
-CONV_OPS = ("convolution", "_convolution")
+CONV_OPS = ("convolution", "_convolution", "convolution_backward")
+OUTSIDE = "(outside the model)"
+SAMPLER_BWD_FLOPS = 8 + 10 + 20  # d(value), d(weights), d(loc): an output element a point
 
 
 def attention_flops(qkv_shape) -> int:
@@ -53,6 +71,11 @@ def sampler_flops(out_shape, loc_shape) -> int:
     return 8 * prod(out_shape) * loc_shape[3] * loc_shape[4]
 
 
+def sampler_bwd_flops(dout_shape, loc_shape) -> int:
+    """SAMPLER_BWD_FLOPS an output element a sampling point."""
+    return SAMPLER_BWD_FLOPS * prod(dout_shape) * loc_shape[3] * loc_shape[4]
+
+
 @register_flop_formula([torch.ops.lwdetr.window_attention_bias, torch.ops.lwdetr.window_attention,
                         torch.ops.lwdetr.flash_attention_cm])
 def _attention_formula(qkv_shape, *args, out_shape=None, **kwargs) -> int:
@@ -64,6 +87,21 @@ def _attention_formula(qkv_shape, *args, out_shape=None, **kwargs) -> int:
 def _sampler_formula(value_shape, spatial_shapes, loc_shape, *args, out_shape=None,
                      **kwargs) -> int:
     return sampler_flops(out_shape, loc_shape)
+
+
+@register_flop_formula([torch.ops.lwdetr.window_attention_bias_bwd,
+                        torch.ops.lwdetr.window_attention_bwd,
+                        torch.ops.lwdetr.flash_attention_cm_bwd])
+def _attention_bwd_formula(qkv_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * attention_flops(qkv_shape)
+
+
+@register_flop_formula([torch.ops.lwdetr.ms_deform_attn_cm_bwd,
+                        torch.ops.lwdetr.ms_deform_attn_sep_panels_bwd,
+                        torch.ops.lwdetr.ms_deform_attn_bwd])
+def _sampler_bwd_formula(value_shape, spatial_shapes, loc_shape, weights_shape, dout_shape,
+                         *args, out_shape=None, **kwargs) -> int:
+    return sampler_bwd_flops(dout_shape, loc_shape)
 
 
 def op_class(name: str) -> str:
@@ -98,7 +136,8 @@ def detailed_flops(fn: Callable[[], object], root: str) -> Dict[str, object]:
     module paths. The stages sum to the total; a module called from outside
     its parent (the per-group class heads, which the model calls on the
     two-stage proposals) counts in its own stage, and its parent's and
-    caller's own rows carry the difference (one negative, one positive)."""
+    caller's own rows carry the difference (one negative, one positive). What
+    ran outside the model is the stage OUTSIDE."""
     mode = FlopCounterMode(display=False)
     with mode:
         fn()
@@ -114,6 +153,10 @@ def detailed_flops(fn: Callable[[], object], root: str) -> Dict[str, object]:
     parent = {p: max((q for q in paths if p.startswith(q + ".")), key=len, default=None)
               for p in paths}
     by_stage: Dict[str, Dict[str, int]] = defaultdict(lambda: defaultdict(int))
+    for op, n in counts.get("Global", {}).items():  # what ran outside the model's forward
+        outside = int(n) - int(counts.get(root, {}).get(op, 0))
+        if outside:
+            by_stage[OUTSIDE][op_class(str(op).split(".")[-1])] += outside
     for path in paths:
         children = [q for q in paths if parent[q] == path]
         for op, n in counts[path].items():
@@ -123,6 +166,27 @@ def detailed_flops(fn: Callable[[], object], root: str) -> Dict[str, object]:
     return {"flops_by_op": by_op, "flops_by_class": dict(by_class),
             "flops_by_stage": {k: dict(v) for k, v in by_stage.items()},
             "total": int(sum(by_op.values()))}
+
+
+def train_step_flops(step: Callable[[], object], forward: Callable[[], object],
+                     root: str = "LWDETR") -> Dict[str, object]:
+    """FLOPs of one whole train step, `step()` (train-mode forward of every
+    query group, criterion and matcher, backward, clipping, optimizer, EMA),
+    by operator and class as `detailed_flops` gives them. Stages: the forward's,
+    `forward/<stage>`, from `forward()` (the same step's forward and criterion,
+    with no backward) counted alone, and `backward`, the rest of the step by
+    class (the backward; clipping, the optimizer and the EMA run no counted
+    operator). FlopCounterMode's module tracking does not hold in a backward
+    (a module some of whose inputs need no gradient is never left, and every
+    later backward operator is counted in it too), so the backward is not
+    split by module. The stages sum to the total."""
+    fwd = detailed_flops(forward, root)
+    full = detailed_flops(step, root)
+    stages = {f"forward/{k}": dict(v) for k, v in fwd["flops_by_stage"].items()}
+    classes = set(full["flops_by_class"]) | set(fwd["flops_by_class"])
+    stages["backward"] = {c: full["flops_by_class"].get(c, 0) - fwd["flops_by_class"].get(c, 0)
+                          for c in classes}
+    return dict(full, flops_by_stage=stages, forward_total=fwd["total"])
 
 
 def measure_latency(fn: Callable[[], object], device: torch.device, warmup: int = 5,

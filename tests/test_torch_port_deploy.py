@@ -104,6 +104,42 @@ def test_each_kernel_is_an_operator_with_fake_and_autograd(name, dtype):
     assert set(result.values()) == {"SUCCESS"}, result
 
 
+BACKWARD_OPERATORS = {"window_attention_bias_bwd": "K7", "window_attention_bwd": "K7nb",
+                      "flash_attention_cm_bwd": "K6", "ms_deform_attn_cm_bwd": "K8",
+                      "ms_deform_attn_sep_panels_bwd": "K5", "ms_deform_attn_bwd": "K10b"}
+
+
+def _backward_inputs(name, dtype):
+    """Small CPU inputs of backward operator `name`: its forward's and a d(out)."""
+    g = torch.Generator().manual_seed(4)
+
+    def t(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g)).to(dtype)
+
+    loc, weights = torch.rand(1, 5, 2, 2, 2, 2, generator=g), torch.rand(1, 5, 2, 2, 2, generator=g)
+    shapes = [3, 4, 2, 2]
+    return {"window_attention_bias_bwd": (t(2, 96, 20, scale=0.5), t(96, scale=0.1),
+                                          t(2, 32, 20), 2, 0.25),
+            "window_attention_bwd": (t(2, 96, 20, scale=0.5), t(2, 32, 20), 2, 0.25),
+            "flash_attention_cm_bwd": (t(1, 96, 150, scale=0.5),
+                                       torch.zeros(1, 2, 150), t(1, 32, 150), 2, 0.25),
+            "ms_deform_attn_cm_bwd": (t(1, 32, 16), shapes, loc, weights, t(1, 32, 5), 2),
+            "ms_deform_attn_sep_panels_bwd": ([t(1, 2, 3, 4 * 16), t(1, 2, 2, 2 * 16)], shapes,
+                                              loc, weights, t(1, 5, 32)),
+            "ms_deform_attn_bwd": (t(1, 16, 2, 16), shapes, loc, weights, t(1, 5, 32))}[name]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(BACKWARD_OPERATORS))
+def test_each_backward_kernel_is_an_operator_with_a_fake(name, dtype):
+    """K5-K8 and K10b as the operators their forwards' autograd formulas call
+    (what `FlopCounterMode` counts): schema and fake version."""
+    op = getattr(torch.ops.lwdetr, name)
+    result = torch.library.opcheck(op, _backward_inputs(name, getattr(torch, dtype)),
+                                   test_utils=("test_schema", "test_faketensor"))
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
 def test_k2_writes_its_log_sum_exp_only_when_asked():
     qkv = 0.5 * torch.randn(1, 96, 150, generator=torch.Generator().manual_seed(0))
     out, lse = torch.ops.lwdetr.flash_attention_cm(qkv, 2, 0.25, False)

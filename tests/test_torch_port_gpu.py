@@ -1060,3 +1060,86 @@ def test_padded_train_step_enqueues_without_a_host_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(metrics["loss"]).item()
 
+
+
+def _micro_chain_setup(cuda_batch):
+    """A `bench_train.make_train_setup`-shaped namespace for the reduced model
+    at 128 x 128, batch 2, drop_path 0.1 and dropout 0.1, 2 steps an epoch with
+    lr_drop 1 (the lr drops before the third step)."""
+    from types import SimpleNamespace
+
+    from lwdetr_tpu_torch.config import ModelConfig, TrainConfig
+    from lwdetr_tpu_torch.models.criterion import SetCriterion
+    from lwdetr_tpu_torch.train import engine
+    from lwdetr_tpu_torch.weights import init_state_dict
+
+    cfg = ModelConfig(encoder="vit_tiny", vit_encoder_num_layers=2, window_block_indexes=(0,),
+                      out_feature_indexes=(0, 1), projector_scale=("P4",), hidden_dim=64,
+                      dim_feedforward=128, sa_nheads=4, ca_nheads=8, dec_n_points=2,
+                      dec_layers=2, group_detr=2, num_queries=12, num_classes=7,
+                      two_stage=True, bbox_reparam=True, lite_refpoint_refine=True)
+    tcfg = TrainConfig(ia_bce_loss=True, use_ema=True, max_gt=6, lr_drop=1)
+
+    def setup():
+        state = engine.create_train_state(cfg, tcfg, niter_per_ep=2, device="cuda",
+                                          state_dict=init_state_dict(cfg, seed=0))
+        return SimpleNamespace(state=state, criterion=SetCriterion(cfg, tcfg), tcfg=tcfg,
+                               data=cuda_batch, scheds=[[0.1], [0.1]], seed=0, niter_per_ep=2,
+                               static=dict(static_zero_drop_path=False,
+                                           static_zero_dropout=False))
+
+    return setup
+
+
+def test_micro_train_chain_matches_eager_steps(cuda):
+    """The reduced model's train step captured as a CUDA graph
+    (`build_train_chain`) against eager steps: `chip_smoke.chain_check`'s
+    checks (the first loss bit-equal, later ones within 1e-3, lrs across the
+    drop, masks equal and new each replay, the state within 1e-3, the
+    kernels' launches a replay equal to an eager step's)."""
+    import chip_smoke
+
+    batch = {"images": torch.randn((2, 128, 128, 3), generator=cuda, device="cuda"),
+             "labels": torch.randint(0, 7, (2, 6), generator=cuda, device="cuda"),
+             "boxes": torch.rand((2, 6, 4), generator=cuda, device="cuda") * 0.3 + 0.2,
+             "valid": torch.arange(6, device="cuda")[None].expand(2, 6) < 4}
+    kernels = list(chip_smoke.port_kernels().values())
+    launches, res = chip_smoke.chain_check(torch, kernels, "", "micro", _micro_chain_setup(batch))
+    assert res["masks_per_step"] > 0
+    assert launches["K1"] == 3 * res["launches_per_replay_profiled"]["K1 window_attention_bias"]
+
+
+def test_batch1_eval_graph_is_bit_equal_and_refuses_a_changed_weight(cuda):
+    """The reduced model's bf16 forward + `post_process` as a guarded graph
+    (`bench_all.batch1_graph`): its detections equal the eager call's bit for
+    bit; after a weight is written in place the replay refuses (the cached
+    bf16 cast would be stale)."""
+    from lwdetr_tpu_torch import bench_all
+    from lwdetr_tpu_torch.config import ModelConfig
+    from lwdetr_tpu_torch.models.lwdetr import build_model, post_process
+    from lwdetr_tpu_torch.weights import init_state_dict
+
+    cfg = ModelConfig(encoder="vit_tiny", vit_encoder_num_layers=2, window_block_indexes=(0,),
+                      out_feature_indexes=(0, 1), projector_scale=("P4",), hidden_dim=64,
+                      dim_feedforward=128, sa_nheads=4, ca_nheads=8, dec_n_points=2,
+                      dec_layers=2, group_detr=2, num_queries=12, num_select=10, num_classes=7,
+                      two_stage=True, bbox_reparam=True, lite_refpoint_refine=True)
+    model = build_model(cfg, "cuda", torch.bfloat16, state_dict=init_state_dict(cfg, seed=0))
+    image = torch.randn((1, 128, 128, 3), generator=cuda, device="cuda").to(torch.bfloat16)
+
+    def forward(x):
+        out = model(x)
+        return post_process(out["pred_logits"], out["pred_boxes"],
+                            torch.full((1, 2), 128.0, device="cuda"), 10)
+
+    with torch.no_grad():
+        ref = [t.clone() for t in forward(image)]
+    graph = bench_all.batch1_graph(model, forward, image)
+    for _ in range(2):
+        got = graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    with torch.no_grad():
+        model.class_embed.weight.mul_(1.0)
+    with pytest.raises(RuntimeError, match="capture it again"):
+        graph.replay()

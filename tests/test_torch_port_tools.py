@@ -382,3 +382,173 @@ def test_bench_attention_takes_the_wide_shapes():
     assert all(fa.is_wide_head_dim(D) for D in bench_attention.WIDE_HEAD_DIMS)
     assert fa.padded_head_dim(2112) == 2112 and 2112 in bench_attention.WIDE_HEAD_DIMS
     assert bench_attention.wide_case_takes(2112) and not bench_attention.wide_case_takes(2100)
+
+
+# -- the one-program tools: bench_all, bench's f32-host value, breakdown's stages and trace --
+
+
+def _fake_timing(ms_by_call):
+    """A `measure_ms` stand-in returning the next ms of `ms_by_call` (the CPU has no events)."""
+    calls = iter(ms_by_call)
+
+    def measure(fn, *args, **kwargs):
+        ms = next(calls)
+        return {"ms": ms, "ms_mean": ms, "ms_min": ms - 1, "ms_max": ms + 1, "samples": [ms]}
+
+    return measure
+
+
+def test_bench_all_prints_the_jax_tools_fields():
+    from unittest import mock
+
+    import torch
+
+    from lwdetr_tpu_torch import bench_all
+
+    args = bench_all.parser().parse_args([])
+    assert args.sizes == ["tiny", "small", "medium", "large", "xlarge"] and args.batch == 32
+    assert bench_all.parser().parse_args(["--sizes", "small", "tiny"]).sizes == ["small", "tiny"]
+    with pytest.raises(SystemExit):
+        bench_all.parser().parse_args(["--sizes", "huge"])
+    model = torch.nn.Linear(1, 1)
+    with mock.patch.object(bench_all, "make_forward", return_value=(model, lambda x: None)), \
+            mock.patch.object(bench_all, "synthetic_images", return_value=torch.zeros(1)), \
+            mock.patch.object(bench_all, "measure_ms", _fake_timing([40.0, 20.0])), \
+            mock.patch.object(bench_all, "batch1_graph"), \
+            mock.patch.object(bench_all, "graph_ms", return_value=[2.5, 2.0, 3.0, 2.2, 2.4]), \
+            mock.patch.object(bench_all, "card_line", return_value="card, 700.00 W"), \
+            mock.patch.object(bench_all.torch.cuda, "get_device_name", return_value="card"):
+        line = bench_all.bench_size("small", 32)
+    assert line["metric"] == "lwdetr_small_640_bf16_infer_throughput"
+    assert line["value"] == 32 / 0.04 and line["batch_ms"] == 40.0
+    assert line["batch_ms_spread"] == [39.0, 41.0] and line["bs1_ms_spread"] == [19.0, 21.0]
+    assert line["bs1_ms"] == 20.0 and line["bs1_device_ms"] == 2.4
+    assert line["bs1_device_ms_spread"] == [2.0, 3.0]
+    assert line["bs1_dispatch_overhead_ms"] == pytest.approx(20.0 - 2.4)
+    assert line["ref_trt_fp16_ms_bs1"] == 2.9 and line["card"] == "card, 700.00 W"
+    assert bench_all.BASELINE_TRT_MS == {"tiny": 2.0, "small": 2.9, "medium": 5.6, "large": 8.8,
+                                         "xlarge": 19.1}
+
+
+def test_the_batch1_graph_refuses_a_replay_after_a_weight_changed():
+    """`GuardedGraph`'s guard, without a capture: a write in place moves the
+    parameter's `_version`, and the replay refuses before it launches."""
+    from unittest import mock
+
+    import torch
+
+    from lwdetr_tpu_torch.utils.graphs import GuardedGraph
+
+    p = torch.nn.Parameter(torch.ones(3))
+    graph = GuardedGraph.__new__(GuardedGraph)
+    graph.guarded, graph.graph, graph.out = [p], mock.Mock(), "outputs"
+    graph.stamp = graph._stamp()
+    assert graph.replay() == "outputs" and graph.graph.replay.call_count == 1
+    with torch.no_grad():
+        p.mul_(1.0)
+    with pytest.raises(RuntimeError, match="capture it again"):
+        graph.replay()
+    assert graph.graph.replay.call_count == 1
+
+
+def test_bench_prints_value_f32_host():
+    from unittest import mock
+
+    import torch
+
+    model = torch.nn.Linear(1, 1)
+    made = []
+    with mock.patch.object(bench, "make_forward", return_value=(model, lambda x: None)), \
+            mock.patch.object(bench, "synthetic_images",
+                              side_effect=lambda b, dtype, device: made.append(dtype)), \
+            mock.patch.object(bench, "measure_ms", _fake_timing([10.0, 16.0])), \
+            mock.patch.object(bench, "card_line", return_value="card, 700.00 W"), \
+            mock.patch.object(bench.torch.cuda, "get_device_name", return_value="card"):
+        line = bench.run("small", 32)
+    assert made == [torch.bfloat16, torch.float32]
+    assert line["value"] == 3200.0 and line["value_spread"] == [32 / 0.011, 32 / 0.009]
+    assert line["value_f32_host"] == 2000.0
+    assert line["value_f32_host_spread"] == [32 / 0.017, 32 / 0.015]
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_breakdown_writes_a_trace_with_its_stage_ranges(train, tmp_path):
+    """`breakdown --trace` on a reduced model on the CPU (its timing and
+    memory calls stubbed: they read the card): the Chrome trace parses and
+    holds a range of every stage the step runs; the stages of the CPU's
+    (kernel-free) steps sum to the busy time, 0."""
+    import json
+    from types import SimpleNamespace
+    from unittest import mock
+
+    import torch
+
+    from lwdetr_tpu_torch.config import ModelConfig, TrainConfig
+    from lwdetr_tpu_torch.models.criterion import SetCriterion
+    from lwdetr_tpu_torch.models.lwdetr import build_model
+    from lwdetr_tpu_torch.train import engine
+    from lwdetr_tpu_torch.weights import init_state_dict
+
+    cfg = ModelConfig(encoder="vit_tiny", vit_encoder_num_layers=2, window_block_indexes=(0,),
+                      out_feature_indexes=(0, 1), projector_scale=("P4",), hidden_dim=64,
+                      dim_feedforward=128, sa_nheads=4, ca_nheads=8, dec_n_points=2,
+                      dec_layers=2, group_detr=2, num_queries=12, num_classes=7,
+                      two_stage=True, bbox_reparam=True, lite_refpoint_refine=True)
+    tcfg = TrainConfig(ia_bce_loss=True, use_ema=True, max_gt=4)
+    images = torch.randn(1, 128, 128, 3, generator=torch.Generator().manual_seed(0))
+    model = build_model(cfg, device="cpu", state_dict=init_state_dict(cfg, 0))
+
+    def forward(x):
+        out = model(x)
+        return bench.post_process(out["pred_logits"], out["pred_boxes"],
+                                  torch.full((1, 2), 128.0), 10)
+
+    state = engine.create_train_state(cfg, tcfg, niter_per_ep=10, device="cpu",
+                                      state_dict=init_state_dict(cfg, 0))
+    setup = SimpleNamespace(
+        state=state, criterion=SetCriterion(cfg, tcfg), tcfg=tcfg, seed=0, scheds=[[0.0], [0.0]],
+        static=dict(static_zero_drop_path=True, static_zero_dropout=True),
+        data={"images": images, "labels": torch.zeros(1, 4, dtype=torch.long),
+              "boxes": torch.full((1, 4, 4), 0.3),
+              "valid": torch.tensor([[True] * 2 + [False] * 2])})
+    path = tmp_path / "trace.json"
+    with mock.patch.object(bench, "make_forward", return_value=(model, forward)), \
+            mock.patch.object(bench, "synthetic_images", return_value=images), \
+            mock.patch.object(bench_train, "make_train_setup", return_value=setup), \
+            mock.patch.object(breakdown, "measure_ms", _fake_timing([5.0])), \
+            mock.patch.object(breakdown, "card_line", return_value="card, 700.00 W"), \
+            mock.patch.object(torch.cuda, "synchronize"), \
+            mock.patch.object(torch.cuda, "reset_peak_memory_stats"), \
+            mock.patch.object(torch.cuda, "max_memory_allocated", return_value=0), \
+            mock.patch.object(torch.cuda, "get_device_name", return_value="card"):
+        line = breakdown.run("small", 1, torch.float32, steps=1, train=train, trace=str(path))
+    names = {e.get("name") for e in json.loads(path.read_text())["traceEvents"]}
+    stages = {name for name, _ in breakdown.STAGES}
+    expect = stages | ({breakdown.CRITERION, breakdown.BACKWARD, breakdown.OPTIMIZER} if train
+                       else {breakdown.POST_PROCESS})
+    assert expect <= names, expect - names
+    assert line["trace"] == str(path)
+    assert line["stages_sum_ms_per_step"] == pytest.approx(line["device_busy_ms_per_step"])
+    assert not any(hasattr(m, "_forward_hooks") and m._forward_hooks for m in model.modules())
+    args = breakdown.parser().parse_args(["--trace", "out.json"])
+    assert args.trace == "out.json" and breakdown.parser().parse_args([]).trace is None
+
+
+def test_train_flop_report_prints_classes_stages_and_tflops(capsys):
+    from unittest import mock
+
+    from lwdetr_tpu_torch import train_flop_report
+
+    args = train_flop_report.parser().parse_args([])
+    assert (args.preset, args.batch, args.step_ms, args.device) == ("small", None, None, None)
+    fake = {"total": 4e12, "flops_by_class": {"gemm": 3e12, "attention": 1e12},
+            "flops_by_stage": {"forward/backbone/encoder": {"gemm": 1e12},
+                               "backward": {"gemm": 2e12, "attention": 1e12}},
+            "forward_total": 1e12}
+    with mock.patch.object(train_flop_report, "report",
+                           side_effect=lambda p, b, g, ms, d: dict(fake, batch=4,
+                                                                   tflops_per_s=4e12 / ms / 1e9)), \
+            mock.patch("sys.argv", ["train_flop_report", "--step_ms", "40"]):
+        train_flop_report.main()
+    out = capsys.readouterr().out
+    assert "4000.000 GFLOP" in out and "backward" in out and "100.00 TFLOP/s" in out
