@@ -1571,6 +1571,7 @@ def train_phase(torch, fa, da, kernels, measure_ms, card, preset):
     from lwdetr_tpu_torch import bench_train
     from lwdetr_tpu_torch.models import criterion as cm
     from lwdetr_tpu_torch.models import transformer as tr
+    from lwdetr_tpu_torch.utils import trace as spans
 
     state, step = bench_train.make_train_step(preset, TRAIN_BATCH, seed=0)
     model = state.model
@@ -1709,9 +1710,8 @@ def train_phase(torch, fa, da, kernels, measure_ms, card, preset):
                              f"step {state.step}, max |ema - parameters| {moved}")
 
     # (d) step time after those warm-up steps, in every branch, and the matcher's host time
-    timer = bench_train.HostTimer(cm.hungarian_match)
     step_ms = {}
-    with mock.patch.object(cm, "hungarian_match", timer):
+    with spans.recording():  # the program's span "matcher" times the matcher
         for branch in TRAIN_BRANCHES[preset]:
             tr.set_force_branch(model, branch)
             path = preset if branch is None else f"{preset}/{branch}"
@@ -1729,7 +1729,7 @@ def train_phase(torch, fa, da, kernels, measure_ms, card, preset):
            "ema_max_abs_distance": moved, "step_ms": t["ms"], "step_ms_samples": t["samples"],
            "step_ms_by_branch": {p: v["ms"] for p, v in step_ms.items()},
            "img_per_s": TRAIN_BATCH / (t["ms"] / 1e3),
-           "matcher_host_ms_per_step": timer.seconds * 1e3 / timer.calls,
+           "matcher_host_ms_per_step": spans.mean_ms(spans.snapshot(), "matcher"),
            "matcher_device_ms_per_step": m1_ms,
            "peak_memory_mb": peak, "card": card}
     print(f"{preset}@640 f32 train step, batch {TRAIN_BATCH}: {t['ms']:.3f} ms "

@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 from types import SimpleNamespace
 from typing import Optional
 from unittest import mock
@@ -47,7 +46,6 @@ from unittest import mock
 import torch
 
 from lwdetr_tpu_torch.config import PRESETS, TRAIN_PRESETS, get_config, get_train_config
-from lwdetr_tpu_torch.models import criterion as criterion_mod
 from lwdetr_tpu_torch.models import matcher as matcher_mod
 from lwdetr_tpu_torch.models.criterion import SetCriterion
 from lwdetr_tpu_torch.models.lwdetr import resolve_device
@@ -55,6 +53,7 @@ from lwdetr_tpu_torch.models.transformer import BRANCHES, set_force_branch
 from lwdetr_tpu_torch.train.engine import (build_train_chain, build_train_step,
                                            create_train_state)
 from lwdetr_tpu_torch.train.optim import drop_scheduler
+from lwdetr_tpu_torch.utils import trace
 from lwdetr_tpu_torch.utils.device import card_line
 from lwdetr_tpu_torch.utils.timing import measure_graph_ms, measure_ms
 from lwdetr_tpu_torch.weights import init_state_dict
@@ -165,21 +164,6 @@ def chain_ms(chain, steps: int, repeats: int):
     return samples
 
 
-class HostTimer:
-    """Wraps a function and sums the host time spent inside it."""
-
-    def __init__(self, fn):
-        self.fn, self.seconds, self.calls = fn, 0.0, 0
-
-    def __call__(self, *args, **kwargs):
-        t0 = time.perf_counter()
-        try:
-            return self.fn(*args, **kwargs)
-        finally:
-            self.seconds += time.perf_counter() - t0
-            self.calls += 1
-
-
 def matcher_device_ms(step) -> Optional[float]:
     """M1's device time a launch on the costs of one call of `step`: its
     launches replayed from a CUDA graph; None when the step launched none."""
@@ -213,11 +197,11 @@ def run(preset: str = "small", batch: int = 4, steps: int = 10, repeats: int = 5
         samples = chain_ms(graph, chain, repeats)
         loss = float(graph(1)["loss"])
     else:
-        # the matcher's host time: building the costs and enqueuing M1, no wait
-        timer = HostTimer(criterion_mod.hungarian_match)
-        with mock.patch.object(criterion_mod, "hungarian_match", timer):
+        # the matcher's host time (the program's span "matcher"): building the
+        # costs and enqueuing M1, no wait
+        with trace.recording():
             samples = measure_ms(step, iters=steps, warmup=3, repeats=repeats)["samples"]
-        matcher_host_ms = timer.seconds * 1e3 / timer.calls
+        matcher_host_ms = trace.mean_ms(trace.snapshot(), "matcher")
         loss = float(step()["loss"])
     m1_ms = matcher_device_ms(step)
     ordered = sorted(samples)

@@ -14,10 +14,10 @@ given) under `torch.profiler` for a few steps after warm-up, and prints
 one JSON line: device time per step by kernel group (the port's kernels
 K1-K10 and M1, GEMMs, convolutions, the optimizer's and EMA's fused passes, the
 rest), the top kernels by device time, the device time of the decoder's
-head-major value copies (`value_panels`, the panel branch; profiler range
-`VALUE_COPY_RANGE`), the host time the matcher takes per train step
-(building the costs and enqueuing M1; its device time is the "M1 assignment"
-group), and
+head-major value copies (the panel branch; the program's span
+"value_panels"), the host time the matcher takes per train step
+(building the costs and enqueuing M1, the span "matcher"; its device time is
+the "M1 assignment" group), and
 the device's idle share of a step (1 - busy / step time, where busy is the
 sum of kernel times under the profiler, kernels on one stream do not
 overlap, and the step time is the mean over 15 steps timed without the
@@ -26,19 +26,19 @@ device memory (`torch.cuda.max_memory_allocated`) over the run. The card's
 name and power limit are in the line.
 
 `stages_ms_per_step` (the JAX package's `analyze_op_stats.py` /
-`profile_stages.py`): device time a step by model stage. The tool installs
-forward hooks (no model module changes) that push a `record_function` range
-around each stage's modules (STAGES: patch embed, the encoder's window and
-global blocks, projector, two-stage proposals, the decoder's self- and
-cross-attention, FFN and norms, heads), wraps `post_process` in one and, with
-`--train`, the criterion and matcher, the backward (from the criterion's
-return to the clipping) and the clipping, optimizer and EMA. Each kernel
-counts in the innermost range open on any thread when its launch began (the
-backward launches from autograd's own thread); the kernels in no range are the
-`unattributed` row, so the stages sum to the busy time (two readings of one
-trace, `stages_sum_ms_per_step` against `device_busy_ms_per_step`, which have
-parted by 0.2%). `--trace PATH` writes the profiler's Chrome trace
-(chrome://tracing, Perfetto) of the profiled steps to PATH, the ranges
+`profile_stages.py`): device time a step by model stage, read from the
+program's own spans (`utils/trace.py`), recorded while the tool runs: the
+stages (`trace.STAGES`: patch embed, the encoder's window and global blocks,
+projector, two-stage proposals, the decoder's self- and cross-attention, FFN
+and norms, heads), `post_process` and, with `--train`, the step's phases
+(the forward outside the stages, the criterion and matcher, the backward,
+the clipping, optimizer and EMA). Each kernel counts in the innermost span
+open on any thread when its launch began (the backward launches from
+autograd's own thread); the kernels in no span are the `unattributed` row,
+so the stages sum to the busy time (two readings of one trace,
+`stages_sum_ms_per_step` against `device_busy_ms_per_step`, which have parted
+by 0.2%). `--trace PATH` writes the profiler's Chrome trace (chrome://tracing,
+Perfetto) of the profiled steps to PATH, the spans' "lwdetr:" ranges
 included.
 """
 from __future__ import annotations
@@ -48,16 +48,15 @@ import json
 import re
 import time
 from collections import defaultdict
-from contextlib import ExitStack
 from typing import Optional
-from unittest import mock
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from lwdetr_tpu_torch import bench, bench_train
 from lwdetr_tpu_torch.config import PRESETS, TRAIN_PRESETS
-from lwdetr_tpu_torch.models.transformer import BRANCHES, VALUE_COPY_RANGE
+from lwdetr_tpu_torch.models.transformer import BRANCHES
+from lwdetr_tpu_torch.utils import trace as spans
 from lwdetr_tpu_torch.utils.device import card_line
 from lwdetr_tpu_torch.utils.timing import measure_ms
 
@@ -98,77 +97,21 @@ ANNOTATIONS = ("Optimizer.", "ProfilerStep", "## ")
 DTYPES = dict(bench_train.DTYPES, f32=torch.float32, bf16=torch.bfloat16)
 
 
-# (stage, module-name pattern): a module whose name `re.fullmatch`es a pattern
-# opens its stage's range; {window} is the encoder's window-block indexes
-STAGES = (
-    ("patch embed", r"backbone\.0\.encoder\.patch_embed"),
-    ("encoder window blocks", r"backbone\.0\.encoder\.blocks\.({window})"),
-    ("encoder global blocks", r"backbone\.0\.encoder\.blocks\.\d+"),
-    ("projector", r"backbone\.0\.projector"),
-    ("two-stage proposals", r"transformer\.enc_(output|output_norm|out_class_embed|"
-                            r"out_bbox_embed)\.\d+"),
-    ("decoder self-attention", r"transformer\.decoder\.layers\.\d+\.self_attn"),
-    ("decoder cross-attention", r"transformer\.decoder\.layers\.\d+\.cross_attn"),
-    ("decoder FFN", r"transformer\.decoder\.layers\.\d+\.linear[12]"),
-    ("decoder norms, reference points", r"transformer\.decoder\.(layers\.\d+\.norm\d|norm|"
-                                        r"ref_point_head)"),
-    ("heads", r"(class_embed|bbox_embed)"),
-)
-POST_PROCESS, CRITERION, BACKWARD, OPTIMIZER = ("post_process", "criterion + matcher",
-                                                "backward", "clip + optimizer + EMA")
+# the spans whose device time `stages_ms_per_step` reports: the model's
+# stages, `post_process` (eval) and the step's phases (train)
+EVAL_SPANS = spans.STAGES + ("post_process",)
+TRAIN_SPANS = spans.STAGES + spans.PHASES
 UNATTRIBUTED = "unattributed"
 
 
-class StageRanges:
-    """Forward hooks pushing a `record_function` range around each stage's
-    modules, and `open(name)` / `close()` for the ranges the step's other
-    parts take; all of them only while `enabled` (the profiled steps: the
-    unprofiled step time is taken without them). Remove the hooks with
-    `remove()`."""
-
-    def __init__(self, model):
-        window = "|".join(str(i) for i in model.cfg.window_block_indexes) or "x"
-        rules = [(name, re.compile(pat.format(window=window))) for name, pat in STAGES]
-        self.handles, self.active, self.enabled = [], [], False
-        for mname, module in model.named_modules():
-            stage = next((name for name, rule in rules if rule.fullmatch(mname)), None)
-            if stage is not None:
-                self.handles.append(module.register_forward_pre_hook(
-                    lambda m, a, stage=stage: self.open(stage)))
-                self.handles.append(module.register_forward_hook(lambda m, a, o: self.close()))
-
-    def open(self, name: str) -> None:
-        if self.enabled:
-            rf = torch.autograd.profiler.record_function(name)
-            rf.__enter__()
-            self.active.append(rf)
-
-    def close(self) -> None:
-        if self.enabled:
-            self.active.pop().__exit__(None, None, None)
-
-    def ranged(self, name: str, fn):
-        """fn within a range of its own."""
-        def call(*args, **kwargs):
-            self.open(name)
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                self.close()
-        return call
-
-    def remove(self) -> None:
-        for h in self.handles:
-            h.remove()
-
-
 def stage_times(events, names) -> dict:
-    """{stage: device ms} over the profiler's `events` (`prof.events()`): each
-    kernel counts in the innermost range of `names` (by wall time, on any
-    thread) open when the CPU op that launched it began; the rest is
+    """{span: device ms} over the profiler's `events` (`prof.events()`): each
+    kernel counts in the innermost range of the spans `names` (by wall time,
+    on any thread) open when the CPU op that launched it began; the rest is
     UNATTRIBUTED."""
-    ranges = sorted(((e.time_range.start, e.time_range.end, e.key) for e in events
-                     if e.key in names and e.device_type == torch.autograd.DeviceType.CPU),
+    keys = {spans.PREFIX + n: n for n in names}
+    ranges = sorted(((e.time_range.start, e.time_range.end, keys[e.key]) for e in events
+                     if e.key in keys and e.device_type == torch.autograd.DeviceType.CPU),
                     key=lambda r: r[0])
     out = defaultdict(float)
     for e in events:
@@ -190,77 +133,39 @@ def _group(name: str) -> str:
     return "other elementwise/copy"
 
 
-def _staged_train_step(preset, batch, force_branch, dtype, grad_checkpointing):
-    """(model, step, patches): `bench_train`'s train step with its criterion,
-    backward and clip + optimizer + EMA in ranges (`StageRanges.open`)."""
-    setup = bench_train.make_train_setup(preset, batch, force_branch=force_branch, dtype=dtype,
-                                         grad_checkpointing=grad_checkpointing)
-    state = setup.state
-    ranges = StageRanges(state.model)
-
-    def criterion(*args, **kwargs):
-        out = ranges.ranged(CRITERION, setup.criterion)(*args, **kwargs)
-        ranges.open(BACKWARD)  # closed where the step clips the gradients
-        return out
-
-    clip = torch.nn.utils.clip_grad_norm_
-
-    def clip_opening_optimizer(*args, **kwargs):
-        ranges.close()
-        ranges.open(OPTIMIZER)  # closed when the step returns
-        return clip(*args, **kwargs)
-
-    train_step = bench_train.build_train_step(state, criterion, setup.tcfg, seed=setup.seed,
-                                              **setup.static)
-
-    def step():
-        out = train_step(setup.data, *bench_train.rates_at(setup, state.step))
-        ranges.close()
-        return out
-
-    return ranges, step, (mock.patch.object(torch.nn.utils, "clip_grad_norm_",
-                                            clip_opening_optimizer),)
-
-
 def run(preset: str = "small", batch: int = 32, dtype: torch.dtype = torch.bfloat16,
         steps: int = 5, train: bool = False, force_branch: Optional[str] = None,
         grad_checkpointing: bool = False, trace: Optional[str] = None) -> dict:
     torch.cuda.reset_peak_memory_stats()
     if train:
-        ranges, step, patches = _staged_train_step(preset, batch, force_branch, dtype,
-                                                   grad_checkpointing)
-        names = (CRITERION, BACKWARD, OPTIMIZER)
+        setup = bench_train.make_train_setup(preset, batch, force_branch=force_branch, dtype=dtype,
+                                             grad_checkpointing=grad_checkpointing)
+        step = bench_train.eager_step(setup)
+        names = TRAIN_SPANS
     else:
         model, forward = bench.make_forward(preset, dtype, force_branch=force_branch)
         images = bench.synthetic_images(batch, dtype, next(model.parameters()).device)
-        ranges = StageRanges(model)
         step = lambda: forward(images)  # noqa: E731
-        patches = (mock.patch.object(bench, "post_process",
-                                     ranges.ranged(POST_PROCESS, bench.post_process)),)
-        names = (POST_PROCESS,)
-    names = {name for name, _ in STAGES} | set(names)
-    matcher = bench_train.HostTimer(bench_train.criterion_mod.hungarian_match)
-    with torch.set_grad_enabled(train), ExitStack() as stack, \
-            mock.patch.object(bench_train.criterion_mod, "hungarian_match", matcher):
-        for p in patches:
-            stack.enter_context(p)
-        step_ms = measure_ms(step, iters=steps, warmup=3, repeats=3)["ms_mean"]
-        matcher_ms = matcher.seconds * 1e3 / max(matcher.calls, 1)
-        ranges.enabled = True
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        names = EVAL_SPANS
+    with torch.set_grad_enabled(train):
+        with spans.recording():
+            step_ms = measure_ms(step, iters=steps, warmup=3, repeats=3)["ms_mean"]
+        matcher_ms = spans.mean_ms(spans.snapshot(), "matcher")
+        with spans.recording(), \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
                 step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    ranges.remove()
     if trace:
         prof.export_chrome_trace(trace)
     stages = stage_times(prof.events(), names)
     kernels = defaultdict(float)
     value_copy_ms = 0.0
     for evt in prof.key_averages():
-        if evt.key == VALUE_COPY_RANGE and evt.device_type == torch.autograd.DeviceType.CPU:
+        if evt.key == spans.PREFIX + "value_panels" \
+                and evt.device_type == torch.autograd.DeviceType.CPU:
             value_copy_ms += evt.device_time_total / 1e3  # the kernels launched inside the range
         # device events only, and no annotation mirrored onto the device's
         # timeline (`Optimizer.step#AdamW.step` spans the kernels it encloses)
@@ -277,7 +182,7 @@ def run(preset: str = "small", batch: int = 32, dtype: torch.dtype = torch.bfloa
         "preset": preset, "batch": batch, "dtype": str(dtype).replace("torch.", ""),
         "mode": "train" if train else "eval", "force_branch": force_branch,
         "steps": steps,
-        "matcher_host_ms_per_step": matcher_ms if train else None,
+        "matcher_host_ms_per_step": matcher_ms,
         "step_ms": step_ms,
         "profiled_wall_ms_per_step": wall_ms / steps,
         "device_busy_ms_per_step": busy / steps,

@@ -37,6 +37,7 @@ from PIL import Image
 from lwdetr_tpu_torch.data import native
 from lwdetr_tpu_torch.data import transforms as T
 from lwdetr_tpu_torch.data.coco import convert_coco_target
+from lwdetr_tpu_torch.utils import trace
 
 
 def pad_targets(target: dict, max_gt: int) -> Dict[str, np.ndarray]:
@@ -70,11 +71,12 @@ def collate(samples, max_gt: int) -> Dict[str, np.ndarray]:
     return out
 
 
+@trace.spanned("to_device")
 def to_device(batch: dict, device) -> Dict[str, torch.Tensor]:
     """A host batch -> torch tensors on `device`. For a CUDA device each
     array is pinned and copied with `non_blocking=True`, so the copy runs
     on the current stream behind the work already queued; `image_id` stays
-    a host array (the evaluator reads it on the host)."""
+    a host array (the evaluator reads it on the host). The span "to_device"."""
     device = torch.device(device)
     out = {}
     for k, v in batch.items():

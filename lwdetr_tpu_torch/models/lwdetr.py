@@ -37,6 +37,7 @@ from lwdetr_tpu_torch.models.transformer import MLPHead, Transformer, box_repara
 from lwdetr_tpu_torch.models.vit import ViT
 from lwdetr_tpu_torch.ops import box_ops
 from lwdetr_tpu_torch.ops.resize import resize_table
+from lwdetr_tpu_torch.utils import trace
 
 
 def encoder_channels(cfg: ModelConfig) -> List[int]:
@@ -72,7 +73,8 @@ class Backbone(nn.Module):
                                              [LEVEL2SCALE[lvl] for lvl in cfg.projector_scale])
 
     def forward(self, images: torch.Tensor, drop_path_rates=None, mask_source=None):
-        return self.projector(self.encoder(images, drop_path_rates, mask_source))
+        return trace.call("projector", self.projector,
+                          self.encoder(images, drop_path_rates, mask_source))
 
 
 class LearnedPositionEncoding(nn.Module):
@@ -138,10 +140,10 @@ class LWDETR(nn.Module):
         hs, ref, hs_enc, ref_enc = self.transformer(
             feats, feat_masks, self.refpoint_embed.weight[:nq], query_feat, dropout_rate,
             mask_source, bbox_embed=None if cfg.lite_refpoint_refine else self.bbox_embed)
-        delta = self.bbox_embed(hs).float()
+        delta = trace.call("heads", self.bbox_embed, hs).float()
         outputs_coord = (box_reparam_combine(ref, delta) if cfg.bbox_reparam
                          else (delta + ref).sigmoid())
-        outputs_class = self.class_embed(hs)
+        outputs_class = trace.call("heads", self.class_embed, hs)
         out = {"pred_logits": outputs_class[-1], "pred_boxes": outputs_coord[-1]}
         if cfg.aux_loss:
             out["aux_outputs"] = [
@@ -150,7 +152,8 @@ class LWDETR(nn.Module):
         if cfg.two_stage:
             # each group's own class head on its slice of the picked proposals
             heads = self.transformer.enc_out_class_embed
-            cls_enc = [heads[g](hs_enc[:, g * cfg.num_queries:(g + 1) * cfg.num_queries])
+            cls_enc = [trace.call("proposals", heads[g],
+                                  hs_enc[:, g * cfg.num_queries:(g + 1) * cfg.num_queries])
                        for g in range(groups)]
             out["enc_outputs"] = {"pred_logits": torch.cat(cls_enc, dim=1),
                                   "pred_boxes": ref_enc}
@@ -167,6 +170,7 @@ def interpolate_mask(masks: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
     return masks.index_select(1, hi).index_select(2, wi)
 
 
+@trace.spanned("post_process")
 def post_process(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
                  target_sizes: torch.Tensor, num_select: int = 300):
     """NMS-free top-k decode.

@@ -27,6 +27,7 @@ import torch
 
 from lwdetr_tpu_torch.ops import box_ops
 from lwdetr_tpu_torch.ops._build import CudaKernel, load
+from lwdetr_tpu_torch.utils import trace
 
 INF = 1e15  # the JAX solver's `_INF` (lwdetr_tpu/models/matcher.py:26): finite
 
@@ -204,6 +205,7 @@ def shared_layout(T: int, Qg: int) -> dict:
     return {"shared_bytes": out[0], "staged_rows": out[1], "budget_bytes": out[2]}
 
 
+@trace.spanned("matcher")
 @torch.no_grad()
 def hungarian_match(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
                     tgt_labels: torch.Tensor, tgt_boxes: torch.Tensor, tgt_valid: torch.Tensor,

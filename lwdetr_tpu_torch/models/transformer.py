@@ -42,6 +42,7 @@ from lwdetr_tpu_torch.models.vit import DenseCM, dense_to_cm
 from lwdetr_tpu_torch.ops import deform_attn as da
 from lwdetr_tpu_torch.ops import flash_attention as fa
 from lwdetr_tpu_torch.ops.embeddings import query_sine_embed
+from lwdetr_tpu_torch.utils import trace
 
 
 # In eval, memories at least this long are sampled from head-major panels (K4),
@@ -52,8 +53,6 @@ from lwdetr_tpu_torch.ops.embeddings import query_sine_embed
 # CPU each branch runs with its sampler's plain version.
 SEP_MIN_LEN_IN = 4096
 BRANCHES = ("sep", "cm", "gather")
-# the profiler range around `value_panels`' head-major copy (`breakdown.py` reads it)
-VALUE_COPY_RANGE = "value_panels head-major copy"
 
 
 class MLPHead(nn.Module):
@@ -135,7 +134,8 @@ class MSDeformAttnModule(nn.Module):
         (B, H, H_l, W_l * D) is a view. The GEMM writes (B, N, H, D); the move
         to head-major is one copy of the values per level. With a
         `padding_mask` (B, Len_in) the level's padded positions are zeroed
-        first (`lwdetr_tpu/models/transformer.py:293-296`)."""
+        first (`lwdetr_tpu/models/transformer.py:293-296`). The copy is the
+        span "value_panels"."""
         H = self.n_heads
         panels = []
         start = 0
@@ -146,8 +146,7 @@ class MSDeformAttnModule(nn.Module):
                 v = v.masked_fill(padding_mask[:, start:start + n, None, None], 0.0)
             start += n
             v = v.permute(0, 2, 1, 3)
-            with torch.profiler.record_function(VALUE_COPY_RANGE):
-                v = v.contiguous()
+            v = trace.call("value_panels", v.contiguous)
             panels.append(v.reshape(B, H, hl, wl * (C // H)))
         return panels
 
@@ -224,13 +223,17 @@ class DecoderLayer(nn.Module):
             # already ordered groups-within-image
             qk = qk.reshape(B * self.group_detr, Q // self.group_detr, C)
             v = v.reshape(B * self.group_detr, Q // self.group_detr, C)
-        tgt2 = self.self_attn(qk, v, dropout_rate, mask_source).reshape(B, Q, C)
-        tgt = self.norm1(tgt + drop.dropout(tgt2, dropout_rate, mask_source))
-        tgt2 = self.cross_attn(tgt + query_pos, reference_points, memory, spatial_shapes,
-                               memory_levels, padding_mask)
-        tgt = self.norm2(tgt + drop.dropout(tgt2, dropout_rate, mask_source))
-        h = drop.dropout(F.relu(self.linear1(tgt)), dropout_rate, mask_source)
-        return self.norm3(tgt + drop.dropout(self.linear2(h), dropout_rate, mask_source))
+        # each module in its stage's span; what runs between them in none
+        norms, ffn = "decoder norms", "decoder FFN"
+        tgt2 = trace.call("decoder self-attention", self.self_attn, qk, v, dropout_rate,
+                          mask_source).reshape(B, Q, C)
+        tgt = trace.call(norms, self.norm1, tgt + drop.dropout(tgt2, dropout_rate, mask_source))
+        tgt2 = trace.call("decoder cross-attention", self.cross_attn, tgt + query_pos,
+                          reference_points, memory, spatial_shapes, memory_levels, padding_mask)
+        tgt = trace.call(norms, self.norm2, tgt + drop.dropout(tgt2, dropout_rate, mask_source))
+        h = drop.dropout(F.relu(trace.call(ffn, self.linear1, tgt)), dropout_rate, mask_source)
+        h = drop.dropout(trace.call(ffn, self.linear2, h), dropout_rate, mask_source)
+        return trace.call(norms, self.norm3, tgt + h)
 
 
 def set_force_branch(model: nn.Module, branch: Optional[str]) -> nn.Module:
@@ -380,9 +383,11 @@ class Transformer(nn.Module):
             memory, spatial_shapes, mask_flat, unsigmoid=not self.bbox_reparam)
         mem_ts, box_ts = [], []
         for g in range(groups):
-            mem_g = self.enc_output_norm[g](self.enc_output[g](output_memory))
-            cls_g = self.enc_out_class_embed[g](mem_g)  # (B, S, K)
-            delta_g = self.enc_out_bbox_embed[g](mem_g).float()
+            with trace.span("proposals"):
+                mem_g = self.enc_output_norm[g](self.enc_output[g](output_memory))
+                cls_g = self.enc_out_class_embed[g](mem_g)  # (B, S, K)
+                delta_g = self.enc_out_bbox_embed[g](mem_g)
+            delta_g = delta_g.float()
             coords_g = (box_reparam_combine(output_proposals, delta_g) if self.bbox_reparam
                         else delta_g + output_proposals)
             topk_idx = select_proposals(cls_g.max(dim=-1).values, self.num_queries)  # (B, Qg)
@@ -400,8 +405,9 @@ class Transformer(nn.Module):
             refpoints_input = base[:, :, None].expand(-1, -1, self.num_feature_levels, -1)
         else:
             refpoints_input = base[:, :, None] * valid_ratios.repeat(1, 1, 2)[:, None]
-        qse = query_sine_embed(refpoints_input[:, :, 0], dim=self.d_model // 2)
-        return refpoints_input.to(dtype), self.decoder.ref_point_head(qse.to(dtype))
+        qse = query_sine_embed(refpoints_input[:, :, 0], dim=self.d_model // 2).to(dtype)
+        return (refpoints_input.to(dtype),
+                trace.call("decoder norms", self.decoder.ref_point_head, qse))
 
     def forward(self, srcs, masks: Optional[Sequence[torch.Tensor]], refpoint_embed: torch.Tensor,
                 query_feat: torch.Tensor, dropout_rate=0.0,
@@ -455,13 +461,13 @@ class Transformer(nn.Module):
             output = layer(output, memory, query_pos, refpoints_input, spatial_shapes,
                            memory_levels, mask_flat, dropout_rate, mask_source)
             if not lite:
-                delta = bbox_embed(output).float()  # the un-normed output
+                delta = trace.call("heads", bbox_embed, output).float()  # the un-normed output
                 new_ref = (box_reparam_combine(refpoints, delta) if self.bbox_reparam
                            else refpoints + delta)
                 if i != len(layers) - 1:
                     ref_list.append(new_ref)
                 refpoints = new_ref.detach()
-            intermediates.append(self.decoder.norm(output))
+            intermediates.append(trace.call("decoder norms", self.decoder.norm, output))
         references = refpoints[None] if lite else torch.stack(ref_list)
         if self.two_stage and not self.bbox_reparam:
             boxes_ts = boxes_ts.sigmoid()

@@ -42,6 +42,7 @@ from lwdetr_tpu_torch.models import drop
 from lwdetr_tpu_torch.models.cast import LayerNorm, Linear, cast_params, weight_and_bias
 from lwdetr_tpu_torch.ops import flash_attention as fa
 from lwdetr_tpu_torch.ops.resize import bicubic_resize_2d
+from lwdetr_tpu_torch.utils import trace
 
 NUM_WINDOWS_SIDE = 4  # fixed 4x4 = 16 windows
 
@@ -144,14 +145,16 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, drop_attn=None, drop_mlp=None) -> torch.Tensor:
         """x: (B*16, hw, C) window-major token buffer; drop_attn / drop_mlp:
         the `drop.draw` results of the block's two stochastic-depth sites, or
-        None."""
-        Bw, HW, C = x.shape
-        h = self.norm1(x)
-        if not self.window:
-            h = h.reshape(Bw // 16, 16 * HW, C)
-        h = self.attn(h, out_scale=self.gamma_1)
-        x = x + drop.apply(h.reshape(Bw, HW, C), drop_attn)
-        return x + drop.apply(self.mlp(self.norm2(x), out_scale=self.gamma_2), drop_mlp)
+        None. In the span "window blocks" or "global blocks", a remat's
+        recompute in the backward included."""
+        with trace.span("window blocks" if self.window else "global blocks"):
+            Bw, HW, C = x.shape
+            h = self.norm1(x)
+            if not self.window:
+                h = h.reshape(Bw // 16, 16 * HW, C)
+            h = self.attn(h, out_scale=self.gamma_1)
+            x = x + drop.apply(h.reshape(Bw, HW, C), drop_attn)
+            return x + drop.apply(self.mlp(self.norm2(x), out_scale=self.gamma_2), drop_mlp)
 
 
 class PatchEmbedGEMM(nn.Module):
@@ -203,7 +206,7 @@ class ViT(nn.Module):
         """x (B, H_img, W_img, 3) -> list[(B, H, W, C)], H = H_img // patch.
         drop_path_rates: one rate a block (None: no stochastic depth), whose
         masks `mask_source` draws (None: none drawn, as in eval)."""
-        x = self.patch_embed(x)
+        x = trace.call("patch embed", self.patch_embed, x)
         B, H, W, C = x.shape
         # resized in float32, cast once
         (pos,) = cast_params(self, ("pos_embed", H, W), x.dtype, (self.pos_embed,), lambda: (

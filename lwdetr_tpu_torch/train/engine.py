@@ -32,7 +32,7 @@ from lwdetr_tpu_torch.models.lwdetr import LWDETR, build_model, post_process
 from lwdetr_tpu_torch.parallel import mesh
 from lwdetr_tpu_torch.parallel.dist import merge_evaluators, rank, world_size
 from lwdetr_tpu_torch.train import optim
-from lwdetr_tpu_torch.utils import graphs
+from lwdetr_tpu_torch.utils import graphs, trace
 from lwdetr_tpu_torch.utils.logging import MetricLogger
 
 
@@ -83,23 +83,29 @@ def _step_body(state: TrainState, net: torch.nn.Module, criterion: SetCriterion,
                tcfg: TrainConfig):
     """body(batch, dp_rates, do_rate, mask_source) -> metrics: one train step on
     the device, the one function that the eager step runs and that a CUDA
-    graph captures (`build_train_chain`). It reads nothing back to the host."""
+    graph captures (`build_train_chain`). It reads nothing back to the host.
+    Its phases are the spans "forward" (zero_grad and the model), "criterion",
+    "backward" and "optimizer" (clipping, AdamW, the schedule and the EMA)."""
     model = state.model
     params = [p for p in model.parameters() if p.requires_grad]
 
     def body(batch, dp_rates, do_rate, mask_source) -> Dict[str, torch.Tensor]:
         model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        out = net(batch["images"], batch.get("pad_mask"), dp_rates, do_rate, mask_source)
-        total, losses = criterion(out, _targets(batch), train=True)
-        total.backward()
-        optim.zero_missing_grads(params)  # a parameter the forward does not read still decays
-        # clips in place; returns the global norm before clipping
-        grad_norm = torch.nn.utils.clip_grad_norm_(params, tcfg.clip_max_norm)
-        state.optimizer.step()
-        state.scheduler.step()
-        if state.ema is not None:
-            optim.ema_update(state.ema, model, tcfg.ema_decay, state.shards)
+        with trace.span("forward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            out = net(batch["images"], batch.get("pad_mask"), dp_rates, do_rate, mask_source)
+        with trace.span("criterion"):
+            total, losses = criterion(out, _targets(batch), train=True)
+        with trace.span("backward"):
+            total.backward()
+            optim.zero_missing_grads(params)  # a parameter the forward does not read still decays
+        with trace.span("optimizer"):
+            # clips in place; returns the global norm before clipping
+            grad_norm = torch.nn.utils.clip_grad_norm_(params, tcfg.clip_max_norm)
+            state.optimizer.step()
+            state.scheduler.step()
+            if state.ema is not None:
+                optim.ema_update(state.ema, model, tcfg.ema_decay, state.shards)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
         metrics["grad_norm"] = grad_norm
@@ -280,7 +286,9 @@ def train_one_epoch(train_step, state: TrainState, loader, epoch: int, niter_per
     host does not stall the device for them, and a NaN aborts one step late,
     naming the step it arose in. `should_stop()` is polled once per step: the
     loop finishes the step in flight and returns, so the caller can
-    checkpoint. Returns the meters' global averages and `epoch_time`."""
+    checkpoint. Returns the meters' global averages and `epoch_time`. The
+    spans (`utils/trace.py`): "loader" (each wait for a batch), "step" (the
+    step's dispatch) and "metric fetch" (a step's metrics fetched)."""
     t0 = time.time()
     mlog = MetricLogger()
     pending = None  # (iteration, metrics still on the device)
@@ -297,24 +305,40 @@ def train_one_epoch(train_step, state: TrainState, loader, epoch: int, niter_per
                    f"grad_norm {metrics['grad_norm']:.2f} "
                    f"({(time.time() - t0) / max(it + 1, 1):.2f}s/it)")
 
-    for it, batch in enumerate(loader):
+    for it, batch in enumerate(_waited(loader)):
         gstep = epoch * niter_per_ep + it
         if put_fn is not None:
             batch = put_fn(batch)
-        metrics = train_step(batch, optim.scheduled(drop_path_sched, gstep),
-                             optim.scheduled(dropout_sched, gstep))
+        with trace.span("step"):
+            metrics = train_step(batch, optim.scheduled(drop_path_sched, gstep),
+                                 optim.scheduled(dropout_sched, gstep))
         if pending is not None:
-            consume(*pending)
+            trace.call("metric fetch", consume, *pending)
         pending = (it, metrics)
         if should_stop is not None and should_stop():
             logger(f"stop requested at epoch {epoch} it {it}: draining")
             break
     if pending is not None:
-        consume(*pending)
+        trace.call("metric fetch", consume, *pending)
     mlog.synchronize_between_processes()
     meters = {k: m.global_avg for k, m in mlog.meters.items()}
     meters["epoch_time"] = time.time() - t0
     return meters
+
+
+_END = object()
+
+
+def _waited(loader):
+    """The items of `loader`, each wait for the next one in the span "loader"
+    (the last wait finds the loader run out)."""
+    items = iter(loader)
+    while True:
+        with trace.span("loader"):
+            item = next(items, _END)
+        if item is _END:
+            return
+        yield item
 
 
 def _fetch(tensors):
@@ -336,25 +360,30 @@ def evaluate(eval_step, loader, evaluator, put_fn=None, logger=print):
     metered and returned alongside the 12 AP/AR stats. With more than one
     process each evaluates its loader's share, and the detections are merged
     (`parallel/dist.py::merge_evaluators`) and the meters averaged over all
-    of them before every process summarizes."""
+    of them before every process summarizes. The spans (`utils/trace.py`):
+    "loader" (each wait for a batch), "step" (the step's dispatch), "fetch"
+    (the wait for a batch's detections) and "evaluator" (their accumulation)."""
     t0 = time.time()
     seen = set()
     mlog = MetricLogger()
-    for batch in loader:
+    for batch in _waited(loader):
         dev_batch = put_fn(batch) if put_fn is not None else batch
-        (scores, labels, boxes), losses = eval_step(dev_batch)
+        with trace.span("step"):
+            (scores, labels, boxes), losses = eval_step(dev_batch)
         names = list(losses)
-        scores, labels, boxes, *values = _fetch([scores, labels, boxes]
-                                                + [losses[k] for k in names])
-        if names:
-            mlog.update(**{k: float(v) for k, v in zip(names, values)})
-        results = {}
-        for i, img_id in enumerate(batch["image_id"].tolist()):
-            if img_id in seen:
-                continue  # padded duplicate in the final batch
-            seen.add(img_id)
-            results[img_id] = {"scores": scores[i], "labels": labels[i], "boxes": boxes[i]}
-        evaluator.update(results)
+        with trace.span("fetch"):
+            scores, labels, boxes, *values = _fetch([scores, labels, boxes]
+                                                    + [losses[k] for k in names])
+        with trace.span("evaluator"):
+            if names:
+                mlog.update(**{k: float(v) for k, v in zip(names, values)})
+            results = {}
+            for i, img_id in enumerate(batch["image_id"].tolist()):
+                if img_id in seen:
+                    continue  # padded duplicate in the final batch
+                seen.add(img_id)
+                results[img_id] = {"scores": scores[i], "labels": labels[i], "boxes": boxes[i]}
+            evaluator.update(results)
     logger(f"eval forward done in {time.time() - t0:.1f}s ({len(seen)} images)")
     evaluator = merge_evaluators(evaluator)
     mlog.synchronize_between_processes()

@@ -475,8 +475,10 @@ def test_bench_prints_value_f32_host():
 def test_breakdown_writes_a_trace_with_its_stage_ranges(train, tmp_path):
     """`breakdown --trace` on a reduced model on the CPU (its timing and
     memory calls stubbed: they read the card): the Chrome trace parses and
-    holds a range of every stage the step runs; the stages of the CPU's
-    (kernel-free) steps sum to the busy time, 0."""
+    holds the program's span of every stage the step runs (and, training,
+    of each phase of the step and the matcher);
+    the stages of the CPU's (kernel-free) steps sum to the busy time, 0; the
+    tool hangs no hook on the model and leaves recording off."""
     import json
     from types import SimpleNamespace
     from unittest import mock
@@ -487,6 +489,7 @@ def test_breakdown_writes_a_trace_with_its_stage_ranges(train, tmp_path):
     from lwdetr_tpu_torch.models.criterion import SetCriterion
     from lwdetr_tpu_torch.models.lwdetr import build_model
     from lwdetr_tpu_torch.train import engine
+    from lwdetr_tpu_torch.utils import trace as spans
     from lwdetr_tpu_torch.weights import init_state_dict
 
     cfg = ModelConfig(encoder="vit_tiny", vit_encoder_num_layers=2, window_block_indexes=(0,),
@@ -523,10 +526,10 @@ def test_breakdown_writes_a_trace_with_its_stage_ranges(train, tmp_path):
             mock.patch.object(torch.cuda, "get_device_name", return_value="card"):
         line = breakdown.run("small", 1, torch.float32, steps=1, train=train, trace=str(path))
     names = {e.get("name") for e in json.loads(path.read_text())["traceEvents"]}
-    stages = {name for name, _ in breakdown.STAGES}
-    expect = stages | ({breakdown.CRITERION, breakdown.BACKWARD, breakdown.OPTIMIZER} if train
-                       else {breakdown.POST_PROCESS})
+    expect = {spans.PREFIX + n for n in spans.STAGES + (spans.PHASES + ("matcher",) if train
+                                                          else ("post_process",))}
     assert expect <= names, expect - names
+    assert not spans.enabled()
     assert line["trace"] == str(path)
     assert line["stages_sum_ms_per_step"] == pytest.approx(line["device_busy_ms_per_step"])
     assert not any(hasattr(m, "_forward_hooks") and m._forward_hooks for m in model.modules())
